@@ -1,0 +1,326 @@
+#!/usr/bin/env python3
+"""Chip smoke of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py          # from the root of a checkout
+
+Phases (any failure exits non-zero; nothing is caught):
+
+1. device  — require CUDA; print the card's name and power limit; turn TF32 off.
+2. build   — build the kernel library from ``src/repro_torch/kernels/csrc``.
+3. kernels — each CUDA kernel against its plain PyTorch version on the card at
+   the serving slice's shapes (bf16, relative error <= 2e-2), its median time
+   over CUDA-event-timed runs, its bound, the plain version's time, and one
+   PyTorch library call of the same function as a yardstick (``library_ms``).
+4. serve   — full-width Mixtral-8x22B cut to 4 layers, random weights from a
+   seed, bf16: 6 requests through the paged engine; every launch counter is
+   set to 0 just before and read just after, and must have risen.
+5. check   — the reduced (smoke-width) slice on the card against the same
+   weights through the plain versions on the CPU.
+
+Then it prints the kernels' JSON line, the card's ``nvidia-smi`` name and
+power limit, and last ``{"ok": true, "device": {...}}``. Full results also
+go to ``results/chip_smoke.json``. Imports nothing of JAX or ``repro``.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+REL_TOL = 2e-2          # kernel vs plain version, bf16 inputs and outputs
+TIMED_RUNS = 25
+
+
+def _say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def _smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def _median_ms(torch, fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
+    """Median device time of ``fn`` over ``runs`` CUDA-event-timed calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(runs):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        events.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def _bound(nbytes: float, flops: float):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _err(torch, got, ref):
+    got, ref = got.float(), ref.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError("kernel output has non-finite values")
+    max_abs = (got - ref).abs().max().item()
+    return max_abs, max_abs / max(ref.abs().max().item(), 1e-30)
+
+
+def phase_device(torch) -> None:
+    _say(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {_smi()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _say("[device] TF32 off for matmul and cuDNN: fp32 references run in full fp32")
+
+
+def phase_build() -> dict:
+    from repro_torch.kernels import _build
+    path = _build.library_path()
+    cached = path.exists()
+    t0 = time.perf_counter()
+    _build.load_library()
+    secs = time.perf_counter() - t0
+    _say(f"[build] {path.relative_to(ROOT)}: {'cached' if cached else 'built'} "
+         f"in {secs:.2f} s")
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            _say(f"[build]   {line.strip()}")
+    return {"seconds": secs, "cached": cached}
+
+
+def _gmm_cases(torch) -> list:
+    from repro_torch.kernels.gmm.gmm import gmm
+    from repro_torch.kernels.gmm.ref import gmm_ref
+    g = torch.Generator(device="cuda").manual_seed(1)
+    E, bm, M = 8, 128, 1024          # decode, 4 slots: M = E * cap_pad = 8 * 128
+    # Several experts, two of them (2 and 6) with no row block at all.
+    be = torch.tensor([0, 1, 1, 3, 4, 5, 7, 7], dtype=torch.int32, device="cuda")
+    cases = []
+    for label, K, N in (("gate/up, decode", 6144, 16384), ("down, decode", 16384, 6144)):
+        x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((E, K, N), generator=g, device="cuda") * K ** -0.5).to(torch.bfloat16)
+        y = gmm(x, w, be, bm=bm)
+        ref = gmm_ref(x, w, be, bm=bm)
+        torch.cuda.synchronize()
+        max_abs, rel = _err(torch, y, ref)
+        ms = _median_ms(torch, lambda: gmm(x, w, be, bm=bm))
+        plain_ms = _median_ms(torch, lambda: gmm_ref(x, w, be, bm=bm))
+        xe, wl = x.view(E, M // E, K), w
+        library_ms = _median_ms(torch, lambda: torch.bmm(xe, wl))
+        n_used = len(set(be.tolist()))
+        nbytes = 2 * (M * K + M * N + n_used * K * N)
+        bound_ms, bound_by = _bound(nbytes, 2.0 * M * K * N)
+        cases.append(dict(case=label, shape=f"x({M},{K}) w({E},{K},{N}) bm={bm}",
+                          max_abs_err=max_abs, rel_err=rel, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+        del x, w, y, ref
+    return cases
+
+
+def _flash_cases(torch) -> list:
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash.flash import flash_attention
+    from repro_torch.kernels.flash.ref import flash_ref
+    g = torch.Generator(device="cuda").manual_seed(2)
+    H, Hkv, hd, L = 48, 8, 128, 512
+    cases = []
+    for label, offsets, Sq in (("prefill chunk", [312], 200), ("decode", [0, 37, 300, 511], 1)):
+        B = len(offsets)
+        q = torch.randn((B, H, Sq, hd), generator=g, device="cuda").to(torch.bfloat16)
+        k = torch.randn((B, Hkv, L, hd), generator=g, device="cuda").to(torch.bfloat16)
+        v = torch.randn((B, Hkv, L, hd), generator=g, device="cuda").to(torch.bfloat16)
+        q_off = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+        q_pos = q_off[:, None].long() + torch.arange(Sq, device="cuda")          # (B, Sq)
+        vis = torch.arange(L, device="cuda")[None, None, :] <= q_pos[:, :, None]
+        n_vis = vis.sum().item()                         # visible (row, key) pairs per head
+        n_keys = sum(min(L, o + Sq) for o in offsets)    # KV rows the rows can see
+        kx, vx = k.repeat_interleave(H // Hkv, 1), v.repeat_interleave(H // Hkv, 1)
+        library_ms = _median_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, kx, vx, attn_mask=vis[:, None]))
+        for partial in (False, True):
+            got = flash_attention(q, k, v, q_off, causal=True, return_partial=partial)
+            ref = flash_ref(q, k, v, q_off, causal=True, return_partial=partial)
+            torch.cuda.synchronize()
+            pairs = list(zip(got, ref)) if partial else [(got, ref)]
+            errs = [_err(torch, a, b) for a, b in pairs]
+            max_abs, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+            ms = _median_ms(torch, lambda: flash_attention(q, k, v, q_off, causal=True,
+                                                           return_partial=partial))
+            plain_ms = _median_ms(torch, lambda: flash_ref(q, k, v, q_off, causal=True,
+                                                           return_partial=partial))
+            out_bytes = B * H * Sq * (hd * 4 + 8) if partial else B * H * Sq * hd * 2
+            nbytes = 2 * B * H * Sq * hd + 2 * 2 * Hkv * hd * n_keys + out_bytes
+            bound_ms, bound_by = _bound(nbytes, 4.0 * hd * H * n_vis)
+            cases.append(dict(case=f"{label}, {'partial' if partial else 'normalized'}",
+                              shape=f"q({B},{H},{Sq},{hd}) kv({B},{Hkv},{L},{hd}) "
+                                    f"q_offset={offsets}",
+                              max_abs_err=max_abs, rel_err=rel, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=library_ms))
+    return cases
+
+
+def phase_kernels(torch) -> dict:
+    out = {"gmm": _gmm_cases(torch), "flash_attention": _flash_cases(torch)}
+    for name, cases in out.items():
+        for c in cases:
+            _say(f"[kernels] {name} {c['case']} {c['shape']}: max_abs_err "
+                 f"{c['max_abs_err']:.3e} rel_err {c['rel_err']:.3e}; kernel "
+                 f"{c['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}), "
+                 f"plain {c['plain_ms']:.4f} ms, library_ms {c['library_ms']:.4f}")
+            if not c["rel_err"] <= REL_TOL:
+                raise AssertionError(f"{name} {c['case']}: relative error "
+                                     f"{c['rel_err']:.3e} > {REL_TOL}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve(torch) -> dict:
+    import numpy as np
+    from repro_torch.kernels.flash.flash import flash_attention
+    from repro_torch.kernels.gmm.gmm import gmm
+    from repro_torch.launch.serve import PROMPT_LENS, run_requests, slice_config
+    from repro_torch.models.transformer import init_lm
+
+    cfg = slice_config("mixtral-8x22b", layers=4)
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    new_tokens = 16
+    torch.cuda.reset_peak_memory_stats()
+
+    gmm.launches = 0
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    eng, rids, res = run_requests(cfg, params, PROMPT_LENS, new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"gmm": gmm.launches, "flash_attention": flash_attention.launches}
+
+    n_fwd = sum(1 for s in eng.stats if s.prefill_tokens) + \
+        sum(1 for s in eng.stats if s.decode_tokens)
+    expect = {"gmm": 3 * cfg.n_layers * n_fwd, "flash_attention": cfg.n_layers * n_fwd}
+    if launches != expect or min(launches.values()) == 0:
+        raise AssertionError(f"launch counts {launches} != expected {expect} "
+                             f"({n_fwd} forwards x {cfg.n_layers} layers)")
+    for rid in rids:
+        r = res[rid]
+        toks = r.tokens
+        if not (r.finished and len(toks) == new_tokens):
+            raise AssertionError(f"request {rid} did not finish: {r}")
+        if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"request {rid}: token out of vocabulary")
+        if r.last_prefill_logits.shape != (cfg.vocab_size,) or \
+                not np.isfinite(r.last_prefill_logits).all():
+            raise AssertionError(f"request {rid}: bad prefill logits")
+    pre_tok = sum(s.prefill_tokens for s in eng.stats)
+    dec_tok = sum(s.decode_tokens for s in eng.stats)
+    pre_s = sum(t[0] for t in eng.timings)
+    dec_times = [t[1] for t in eng.timings if t[1] > 0]
+    out = dict(
+        model=f"{cfg.name} x{cfg.n_layers} layers (full width), bf16, {n_params / 1e9:.2f} B params",
+        init_s=init_s, requests=len(rids), steps=len(eng.stats), forwards=n_fwd,
+        launches=launches, wall_s=wall, prefill_tokens=pre_tok, decode_tokens=dec_tok,
+        prefill_tok_per_s=pre_tok / pre_s, decode_tok_per_s=dec_tok / sum(dec_times),
+        decode_step_ms_median=statistics.median(dec_times) * 1e3,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    _say(f"[serve] {out['model']}: {len(rids)} requests, {out['steps']} steps, "
+         f"{n_fwd} forwards, wall {wall:.3f} s, launches {launches}")
+    _say(f"[serve] prefill {pre_tok} tokens at {out['prefill_tok_per_s']:.1f} tok/s; "
+         f"decode {dec_tok} tokens at {out['decode_tok_per_s']:.1f} tok/s, median step "
+         f"{out['decode_step_ms_median']:.3f} ms; max_memory_allocated "
+         f"{out['max_memory_allocated_gb']:.2f} GB")
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_check(torch) -> dict:
+    """Reduced slice: kernels on the card vs plain versions on the CPU, same weights."""
+    import copy
+
+    import numpy as np
+    from repro_torch.launch.serve import run_requests, slice_config
+    from repro_torch.models.transformer import init_lm
+
+    cfg = slice_config("mixtral-8x22b", reduce=True)
+    cpu = init_lm(cfg, seed=3, dtype=torch.bfloat16, device="cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    lens = (5, 40, 19, 130)
+    _, rids, res_g = run_requests(cfg, gpu, lens, 8)
+    _, _, res_c = run_requests(cfg, cpu, lens, 8)
+    worst, same = 0.0, 0
+    for rid in rids:
+        a, b = res_g[rid].last_prefill_logits, res_c[rid].last_prefill_logits
+        if not np.isfinite(a).all():
+            raise AssertionError(f"request {rid}: non-finite logits on the card")
+        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+        same += int(np.array_equal(res_g[rid].tokens, res_c[rid].tokens))
+    _say(f"[check] reduced slice, card vs CPU plain versions: prefill logits rel err "
+         f"{worst:.3e} (limit 5e-2), {same}/{len(rids)} requests with equal greedy tokens")
+    if not worst <= 5e-2:
+        raise AssertionError(f"reduced slice: card vs CPU logits rel err {worst:.3e}")
+    return {"prefill_logits_rel_err": worst, "equal_token_requests": same,
+            "requests": len(rids)}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found: run from a checkout",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    t_start = time.perf_counter()
+    phase_device(torch)
+    build = phase_build()
+    kernels = phase_kernels(torch)
+    serve = phase_serve(torch)
+    check = phase_check(torch)
+
+    sources = {"gmm": ("src/repro_torch/kernels/csrc/gmm.cu", "src/repro/kernels/gmm/gmm.py:73"),
+               "flash_attention": ("src/repro_torch/kernels/csrc/flash.cu",
+                                   "src/repro/kernels/flash/flash.py:150")}
+    line = []
+    for name, cases in kernels.items():
+        c = cases[0] if name == "gmm" else cases[2]      # the decode step's main shape
+        line.append(dict(name=name, route="cuda", source=sources[name][0],
+                         replaces=sources[name][1], launches=serve["launches"][name],
+                         max_abs_err=max(x["max_abs_err"] for x in cases), ms=c["ms"],
+                         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+                         bound_by=c["bound_by"], library_ms=c["library_ms"]))
+    smi = _smi()
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    out_dir = ROOT / "results"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
+        nvidia_smi=smi, device=device, build=build, kernels=kernels, serve=serve,
+        check=check, seconds=time.perf_counter() - t_start), indent=1))
+    print(json.dumps({"kernels": line}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

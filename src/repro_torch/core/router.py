@@ -1,0 +1,148 @@
+"""Top-K MoE router with token-dropping (capacity factor) and dropless modes.
+
+Port of ``repro.core.router`` at one rank: capacity and drop decisions use
+only the tokens given (sub-sequence dropping, paper §3.3).
+
+Discrete decisions match the JAX package exactly: top-k order is
+``lax.top_k``'s (largest first, ties to the lower expert index) through a
+stable descending sort, because ``torch.topk`` promises no tie order; drops
+follow the arrival rank ``cumsum(onehot) - onehot``; the expert sort is a
+stable argsort.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import MoEConfig
+
+
+@dataclasses.dataclass
+class RouterOutput:
+    expert_idx: torch.Tensor     # (t, K) int64 — selected expert per assignment
+    combine_w: torch.Tensor      # (t, K) f32 — gating weights
+    pos_in_expert: torch.Tensor  # (t, K) int64 — arrival rank within each expert
+    keep: torch.Tensor           # (t, K) bool — survives capacity
+    aux_loss: torch.Tensor       # scalar f32 — load-balancing loss
+    z_loss: torch.Tensor         # scalar f32 — router z-loss
+    probs: torch.Tensor          # (t, E) f32 — full softmax
+
+
+def capacity_per_expert(n_tokens: int, cfg: MoEConfig) -> int:
+    """Paper eq. (4): CF * L / E, counting routed assignments (L = t*K)."""
+    if cfg.dropless:
+        # One rank can send at most t tokens to one expert.
+        return max(1, n_tokens)
+    return max(1, int(cfg.capacity_factor * n_tokens * cfg.top_k / cfg.n_experts))
+
+
+def resolved_capacity(n_tokens: int, cfg: MoEConfig) -> int:
+    """The capacity the dispatcher runs with at one rank:
+    :func:`capacity_per_expert` (the JAX package's multi-rank
+    ``capacity_hint`` is not ported)."""
+    return capacity_per_expert(n_tokens, cfg)
+
+
+def _top_k(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(values, indices)`` of the k largest entries of the last dim in
+    ``lax.top_k`` order: largest first, equal values by lower index."""
+    idx = torch.sort(values, dim=-1, descending=True, stable=True).indices[..., :k]
+    return torch.gather(values, -1, idx), idx
+
+
+def deterministic_top_k(logits: torch.Tensor, k: int, quantum: float) -> torch.Tensor:
+    """Top-k on logits snapped to multiples of ``quantum``, exact ties on the
+    grid broken toward the lower expert index. Returns (t, k) indices, best
+    first. See ``repro.core.router.deterministic_top_k`` for the guarantee."""
+    e = logits.shape[-1]
+    # int32 lexicographic key (snapped logit, -expert index); the snap budget
+    # is clamped so key = q*e + (e-1-idx) cannot overflow int32.
+    lim = (2 ** 30) // max(e, 1)
+    q = torch.clamp(torch.round(logits / quantum), -lim, lim).to(torch.int32)
+    idx = torch.arange(e, dtype=torch.int32, device=logits.device)
+    key = q * e + (e - 1 - idx)[None, :]
+    return _top_k(key, k)[1]
+
+
+def route(x: torch.Tensor, w_gate: torch.Tensor, cfg: MoEConfig, *, capacity: int,
+          token_mask: Optional[torch.Tensor] = None) -> RouterOutput:
+    """Route a chunk of tokens. ``x``: (t, D); ``w_gate``: (D, E).
+
+    ``token_mask``: (t,) — False entries (padding) are never dispatched.
+    """
+    t = x.shape[0]
+    E, K = cfg.n_experts, cfg.top_k
+    logits = x.float() @ w_gate.float()                             # (t, E)
+    probs = torch.softmax(logits, dim=-1)
+    if cfg.deterministic_router:
+        top_i = deterministic_top_k(logits, K, cfg.router_quantum)
+        top_p = torch.gather(probs, 1, top_i)
+    else:
+        top_p, top_i = _top_k(probs, K)                             # (t, K)
+
+    # Load-balancing auxiliary loss (Switch Transformer form):
+    #   E * sum_e f_e * P_e, f_e = fraction of assignments to e, P_e = mean prob.
+    assign_onehot = F.one_hot(top_i, E).float()                     # (t, K, E)
+    if token_mask is not None:
+        m = token_mask.float()
+        assign_onehot = assign_onehot * m[:, None, None]
+        probs_for_aux = probs * m[:, None]
+        denom = torch.clamp(m.sum(), min=1.0)
+    else:
+        probs_for_aux = probs
+        denom = float(t)
+    f_e = assign_onehot.sum(dim=(0, 1)) / (denom * K)
+    p_e = probs_for_aux.sum(dim=0) / denom
+    aux_loss = E * torch.sum(f_e * p_e)
+    z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+
+    # Position of each assignment within its expert queue (token-order
+    # priority, matching Megatron's drop policy).
+    flat_e = top_i.reshape(-1)                                      # (t*K,)
+    onehot = F.one_hot(flat_e, E)
+    if token_mask is not None:
+        onehot = onehot * token_mask.repeat_interleave(K).long()[:, None]
+    pos_flat = torch.cumsum(onehot, dim=0) - onehot                 # arrivals before me
+    pos = torch.gather(pos_flat, 1, flat_e[:, None])[:, 0].reshape(t, K)
+
+    keep = pos < capacity
+    if token_mask is not None:
+        keep = keep & token_mask.bool()[:, None]
+
+    return RouterOutput(expert_idx=top_i, combine_w=top_p.float(),
+                        pos_in_expert=pos, keep=keep, aux_loss=aux_loss,
+                        z_loss=z_loss, probs=probs)
+
+
+@dataclasses.dataclass
+class SortedDispatch:
+    """Expert-sorted view of the routed assignments (``L = t * top_k`` ids).
+
+    Dropped assignments sort after every expert group (key ``n_experts``),
+    so the first ``sum(group_sizes)`` entries of ``perm`` are the kept
+    assignments in (expert-major, token-order) order.
+    """
+
+    perm: torch.Tensor           # (L,) int64 — assignment ids in expert-sorted order
+    inv_perm: torch.Tensor       # (L,) int64 — position of each assignment in ``perm``
+    group_sizes: torch.Tensor    # (E,) int64 — kept assignments per expert
+    group_offsets: torch.Tensor  # (E,) int64 — exclusive cumsum of group_sizes
+
+
+def sorted_dispatch(expert_idx: torch.Tensor, keep: torch.Tensor,
+                    n_experts: int) -> SortedDispatch:
+    """Stable argsort of assignments by expert id, drops last."""
+    flat_e = expert_idx.reshape(-1).long()                          # (L,)
+    kept = keep.reshape(-1)
+    key = torch.where(kept, flat_e, n_experts)
+    perm = torch.argsort(key, stable=True)
+    inv_perm = torch.empty_like(perm).scatter_(
+        0, perm, torch.arange(perm.numel(), device=perm.device))
+    group_sizes = torch.zeros(n_experts, dtype=torch.long,
+                              device=flat_e.device).index_add_(0, flat_e, kept.long())
+    group_offsets = torch.cumsum(group_sizes, 0) - group_sizes
+    return SortedDispatch(perm=perm, inv_perm=inv_perm, group_sizes=group_sizes,
+                          group_offsets=group_offsets)

@@ -1,0 +1,66 @@
+"""Shared building blocks: RMSNorm, RoPE, activations, initializers.
+
+Port of ``repro.models.common`` (the parts the serving slice runs).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int, *,
+               scale: Optional[float] = None, dtype=torch.float32,
+               device=None) -> torch.Tensor:
+    """Normal(0, scale²) ``(d_in, d_out)`` matrix, default scale 1/√d_in.
+
+    Drawn in fp32 from ``generator`` (on the generator's device) and cast
+    to ``dtype``; torch's normal stream differs from ``jax.random``'s, so
+    weights shared with the JAX package go through ``repro_torch.convert``.
+    """
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=generator, dtype=torch.float32,
+                    device=device)
+    return w.mul_(scale).to(dtype)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with the scale stored as ``scale - 1`` (applied as ``1 + w``),
+    computed in fp32 and cast back to ``x.dtype``."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + w.float())).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S).
+
+    Rotates the split halves ``[x1, x2]`` of the head dim (not interleaved
+    pairs), in fp32.
+    """
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)            # (hd/2,)
+    ang = positions[..., None].float() * freqs                 # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def activation(kind: str, gate: torch.Tensor,
+               up: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if kind == "swiglu":
+        return F.silu(gate) * up
+    if kind == "geglu":
+        return F.gelu(gate, approximate="tanh") * up
+    if kind == "gelu":
+        return F.gelu(gate, approximate="tanh")
+    raise ValueError(kind)

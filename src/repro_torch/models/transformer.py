@@ -1,0 +1,150 @@
+"""Model assembly for serving: per-layer modules and the paged decode block.
+
+Port of the parts of ``repro.models.transformer`` the serving slice runs.
+Where JAX stacks layer parameters for one ``lax.scan``, the port keeps one
+module per layer (``LMParams.layers``) and runs a Python loop.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.moe_layer import MoEParams, init_moe, moe_block
+from repro_torch.core.router import _top_k, deterministic_top_k
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.attention import (AttentionParams, attention_decode_paged,
+                                          init_attention)
+from repro_torch.models.common import rmsnorm
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class MoEBlockParams(nn.Module):
+    """One ``moe`` layer: RMSNorm → attention → RMSNorm → MoE FFN.
+    Norm weights store ``scale - 1``."""
+
+    def __init__(self, norm1: torch.Tensor, attn: AttentionParams,
+                 norm2: torch.Tensor, moe: MoEParams):
+        super().__init__()
+        self.norm1 = _param(norm1)
+        self.attn = attn
+        self.norm2 = _param(norm2)
+        self.moe = moe
+
+
+class LMParams(nn.Module):
+    """Embedding ``(V, D)``, layers, final norm ``(D,)`` and LM head
+    ``(D, V)`` (``None`` when embeddings are tied)."""
+
+    def __init__(self, embed: torch.Tensor, layers, final_norm: torch.Tensor,
+                 lm_head: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.embed = _param(embed)
+        self.layers = nn.ModuleList(layers)
+        self.final_norm = _param(final_norm)
+        self.lm_head = _param(lm_head) if lm_head is not None else None
+
+
+def _cycle_of(blocks: Tuple[str, ...]) -> Tuple[str, ...]:
+    """Minimal repeating unit of the per-layer block-kind sequence."""
+    n = len(blocks)
+    for p in range(1, n + 1):
+        if n % p == 0 and blocks == blocks[:p] * (n // p):
+            return blocks[:p]
+    return blocks
+
+
+def model_cycle(cfg: ModelConfig) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """(blocks, cycle): per-layer block kinds and their repeating unit, as in
+    the JAX package (its parameter tree is stacked per cycle position)."""
+    blocks = cfg.blocks()
+    if cfg.is_encoder_decoder:
+        blocks = tuple("dense_x" for _ in blocks)
+    cycle = _cycle_of(blocks)
+    if cfg.shared_attention_every:
+        k = cfg.shared_attention_every
+        if len(blocks) % k:
+            raise ValueError(f"n_layers {len(blocks)} % shared_every {k} != 0")
+        if len(cycle) < k:
+            cycle = blocks[:k]
+    return blocks, cycle
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for architectures outside the ported slice."""
+    blocks, _ = model_cycle(cfg)
+    kinds = set(blocks)
+    if kinds != {"moe"} or cfg.shared_attention_every or cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: block kinds {sorted(kinds)} — only 'moe' decoder "
+            "blocks are ported so far (ROADMAP.md queue 1, 'Remaining block kinds')")
+    if cfg.norm != "rmsnorm" or cfg.rope_kind != "rope" or cfg.n_vision_tokens:
+        raise NotImplementedError(
+            f"{cfg.name}: norm={cfg.norm!r}, rope_kind={cfg.rope_kind!r} — only "
+            "RMSNorm + RoPE text decoders are ported so far")
+
+
+def init_lm(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
+            device: DeviceLike = None) -> LMParams:
+    """Random parameters from a seeded ``torch.Generator`` on ``device``.
+
+    Like the JAX ``init_lm``: embedding and LM head are N(0, 0.02²) fp32,
+    norms zero (RMSNorm stores ``scale - 1``), block matrices in ``dtype``.
+    The numbers differ from JAX's (another generator); to load the JAX
+    package's weights use :func:`repro_torch.convert.params_from_jax`.
+    """
+    check_supported(cfg)
+    device = resolve_device(device)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    D, V = cfg.d_model, cfg.vocab_size
+
+    def normal(shape):
+        return torch.randn(shape, generator=g, device=device).mul_(0.02)
+
+    embed = normal((V, D))
+    lm_head = None if cfg.tie_embeddings else normal((D, V))
+    layers = []
+    for _ in range(cfg.n_layers):
+        zeros = torch.zeros(D, device=device)
+        layers.append(MoEBlockParams(
+            zeros, init_attention(cfg, generator=g, dtype=dtype, device=device),
+            zeros.clone(), init_moe(cfg, generator=g, dtype=dtype, device=device)))
+    return LMParams(embed, layers, torch.zeros(D, device=device), lm_head)
+
+
+def _expert_token_counts(h: torch.Tensor, w_gate: torch.Tensor, cfg: ModelConfig,
+                         token_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Routed-assignment histogram (E,) mirroring ``router.route``'s top-k,
+    without the capacity machinery: the serve engine's per-step expert load."""
+    mcfg = cfg.moe
+    B, C, D = h.shape
+    logits = h.reshape(B * C, D).float() @ w_gate.float()
+    if mcfg.deterministic_router:
+        top_i = deterministic_top_k(logits, mcfg.top_k, mcfg.router_quantum)
+    else:
+        top_i = _top_k(torch.softmax(logits, dim=-1), mcfg.top_k)[1]
+    one = torch.nn.functional.one_hot(top_i, mcfg.n_experts).float().sum(dim=1)
+    if token_mask is not None:
+        rows = token_mask.float()[:, None].expand(B, C).reshape(-1)
+        one = one * rows[:, None]
+    return one.sum(dim=0)
+
+
+def _decode_moe_paged(p: MoEBlockParams, x: torch.Tensor, state: Dict[str, torch.Tensor],
+                      step: torch.Tensor, cfg: ModelConfig, ctx: Dict
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor]:
+    """One ``moe`` layer over the paged cache → (x, state, expert counts)."""
+    h = rmsnorm(x, p.norm1)
+    y, state["k"], state["v"] = attention_decode_paged(
+        p.attn, h, state["k"], state["v"], ctx["block_tables"], step, cfg)
+    x = x + y
+    h = rmsnorm(x, p.norm2)
+    y, _ = moe_block(p.moe, h, cfg)
+    counts = _expert_token_counts(h, p.moe.router, cfg, ctx.get("token_mask"))
+    return x + y, state, counts

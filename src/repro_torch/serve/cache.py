@@ -1,0 +1,96 @@
+"""Paged (block) KV cache: fixed-size pages + per-request block tables.
+
+Port of ``repro.serve.cache``. Every KV-bearing layer owns a pool of
+``n_pages`` fixed-size pages ``(n_pages, Hkv, page_size, hd)`` — one tensor
+per layer, where JAX stacks the layers. A request's host-side block table
+maps logical to physical pages; its cache view is the gather
+``pool[block_table]`` laid out as a contiguous ``(Hkv, L, hd)`` run.
+**Page 0 is the scratch page**: never allocated; the block-table rows of
+inactive batch slots point every entry there.
+
+>>> a = BlockAllocator(4)           # pages 1..3 allocatable, 0 is scratch
+>>> a.alloc(), a.alloc()
+(1, 2)
+>>> a.free([1]); a.alloc(), a.alloc()
+(3, 1)
+>>> a.alloc() is None, a.n_free, a.in_use
+(True, 0, 3)
+"""
+from __future__ import annotations
+
+import math
+from collections import deque
+from typing import Dict, Iterable, List, Optional
+
+import torch
+
+SCRATCH_PAGE = 0
+
+
+class BlockAllocator:
+    """Free-list allocator over ``n_pages`` physical pages.
+
+    Page ``SCRATCH_PAGE`` (0) is reserved; pages are handed out and reused
+    in FIFO order, so allocation is deterministic given the request
+    arrival/free order.
+    """
+
+    def __init__(self, n_pages: int):
+        if n_pages < 2:
+            raise ValueError(f"n_pages must be >= 2 (one scratch + one real), got {n_pages}")
+        self.n_pages = n_pages
+        self._free = deque(range(1, n_pages))
+
+    def alloc(self) -> Optional[int]:
+        """One physical page id, or None when the pool is exhausted."""
+        return self._free.popleft() if self._free else None
+
+    def free(self, pages: Iterable[int]) -> None:
+        for p in pages:
+            if not 0 < p < self.n_pages:
+                raise ValueError(f"bad page id {p}")
+            self._free.append(p)
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def in_use(self) -> int:
+        return (self.n_pages - 1) - self.n_free
+
+
+def n_kv_layers(cfg) -> int:
+    """KV-bearing layers (full depth)."""
+    return sum(1 for b in cfg.blocks() if b in ("dense", "moe"))
+
+
+def kv_bytes_dense(cfg, batch: int, cache_len: int, *,
+                   dtype_bytes: int = 2) -> int:
+    """Bytes a dense decode cache reserves: every slot holds ``cache_len``."""
+    hd = cfg.resolved_head_dim
+    return n_kv_layers(cfg) * 2 * cfg.n_kv_heads * hd * dtype_bytes \
+        * batch * cache_len
+
+
+def kv_bytes_paged(cfg, n_pages: int, page_size: int, *,
+                   dtype_bytes: int = 2) -> int:
+    """Bytes the paged pools reserve (scratch page included)."""
+    hd = cfg.resolved_head_dim
+    return n_kv_layers(cfg) * 2 * cfg.n_kv_heads * hd * dtype_bytes \
+        * n_pages * page_size
+
+
+def init_paged_state(cfg, *, n_pages: int, page_size: int,
+                     dtype=torch.bfloat16, device=None) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer zeroed pools ``{"k", "v"}`` of shape
+    ``(n_pages, Hkv, page_size, hd)``."""
+    shape = (n_pages, cfg.n_kv_heads, page_size, cfg.resolved_head_dim)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for _ in range(n_kv_layers(cfg))]
+
+
+def pages_for(total_len: int, cache_len: int, page_size: int) -> int:
+    """Physical pages one request needs over its whole lifetime."""
+    return math.ceil(min(total_len, cache_len) / page_size)

@@ -1,0 +1,160 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+On the CPU the port's wrappers run their plain PyTorch versions; they are
+held against the Pallas kernels in interpret mode (and the jnp blockwise
+core) on the same numpy inputs. The CUDA kernels themselves are held
+against the plain versions in ``test_torch_kernels_cuda.py`` on the card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash.flash import flash_attention as jax_flash
+from repro.kernels.gmm.gmm import gmm as jax_gmm
+from repro.kernels.gmm.ops import expert_ffn_gmm as jax_expert_ffn_gmm
+from repro.models.attn_core import blockwise_attention
+from repro.models.attn_core import naive_attention as jax_naive_attention
+from repro_torch.kernels.flash.flash import flash_attention
+from repro_torch.kernels.flash.ops import flash
+from repro_torch.kernels.gmm.gmm import gmm
+from repro_torch.kernels.gmm.ops import expert_ffn_gmm
+from repro_torch.models.attn_core import _merge_partials, naive_attention
+
+torch.set_num_threads(1)
+
+# A subset of tests/test_kernels.py::GMM_SHAPES (M, K, N, E, bm).
+GMM_SHAPES = [(256, 128, 128, 4, 128), (512, 256, 384, 8, 64)]
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+GMM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # tests/test_kernels.py's own
+
+
+def _t(a, dtype="float32"):
+    return torch.from_numpy(np.asarray(a)).to(TORCH_DT[dtype])
+
+
+def _gmm_inputs(M, K, N, E, bm, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = (rng.standard_normal((E, K, N)) * 0.1).astype(np.float32)
+    be = rng.integers(0, E, M // bm).astype(np.int32)
+    return x, w, be
+
+
+@pytest.mark.parametrize("M,K,N,E,bm", GMM_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gmm_plain_matches_jax_kernel(M, K, N, E, bm, dtype):
+    x, w, be = _gmm_inputs(M, K, N, E, bm)
+    yj = jax_gmm(jnp.asarray(x, JAX_DT[dtype]), jnp.asarray(w, JAX_DT[dtype]),
+                 jnp.asarray(be), bm=bm, interpret=True)
+    yt = gmm(_t(x, dtype), _t(w, dtype), torch.from_numpy(be), bm=bm)
+    assert yt.dtype == TORCH_DT[dtype]
+    np.testing.assert_allclose(yt.float().numpy(), np.asarray(yj, np.float32),
+                               atol=GMM_TOL[dtype], rtol=GMM_TOL[dtype])
+
+
+def test_expert_ffn_gmm_matches_jax():
+    rng = np.random.default_rng(1)
+    E, N, D, F = 4, 128, 128, 256
+    xe = rng.standard_normal((E, N, D)).astype(np.float32)
+    w1, w3 = ((rng.standard_normal((E, D, F)) * 0.05).astype(np.float32) for _ in range(2))
+    w2 = (rng.standard_normal((E, F, D)) * 0.05).astype(np.float32)
+    yj = jax_expert_ffn_gmm(*(jnp.asarray(a) for a in (xe, w1, w2, w3)), "swiglu",
+                            interpret=True)
+    yt = expert_ffn_gmm(*(_t(a) for a in (xe, w1, w2, w3)), "swiglu")
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=1e-5, rtol=1e-5)
+
+
+FLASH_CASES = [
+    dict(B=2, H=4, Hkv=2, Sq=128, Skv=256, hd=64, q_off=128, kv_off=0, causal=True, window=0),
+    dict(B=1, H=4, Hkv=2, Sq=128, Skv=256, hd=64, q_off=200, kv_off=64, causal=True, window=0),
+    dict(B=2, H=4, Hkv=2, Sq=128, Skv=256, hd=64, q_off=128, kv_off=0, causal=True, window=96),
+    dict(B=1, H=2, Hkv=2, Sq=128, Skv=128, hd=64, q_off=0, kv_off=0, causal=False, window=0),
+]
+
+
+def _qkv(B, H, Hkv, Sq, Skv, hd, seed=0, **_):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, H, Sq, hd)).astype(np.float32),
+            rng.standard_normal((B, Hkv, Skv, hd)).astype(np.float32),
+            rng.standard_normal((B, Hkv, Skv, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("c", FLASH_CASES)
+@pytest.mark.parametrize("partial", [False, True])
+def test_flash_plain_matches_jax_kernel(c, partial):
+    q, k, v = _qkv(**c)
+    yj = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_offset=c["q_off"],
+                   kv_offset=c["kv_off"], causal=c["causal"], window=c["window"],
+                   interpret=True, return_partial=partial)
+    yt = flash(_t(q), _t(k), _t(v), q_offset=c["q_off"], kv_offset=c["kv_off"],
+               causal=c["causal"], window=c["window"], return_partial=partial)
+    pairs = zip(yt, yj) if partial else [(yt, yj)]
+    for a, b in pairs:
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("partial", [False, True])
+def test_flash_per_row_offsets_match_blockwise(partial):
+    """Per-row q_offset (the batched decode step) against the jnp blockwise
+    core with per-row position arrays."""
+    B, H, Hkv, Sq, Skv, hd = 3, 4, 2, 6, 96, 64
+    q, k, v = _qkv(B, H, Hkv, Sq, Skv, hd, seed=2)
+    offs = np.array([0, 37, 90], np.int32)
+    q_pos = offs[:, None] + np.arange(Sq, dtype=np.int32)[None]
+    kv_pos = np.broadcast_to(np.arange(Skv, dtype=np.int32), (B, Skv))
+    yj = blockwise_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             jnp.asarray(q_pos), jnp.asarray(kv_pos), causal=True,
+                             return_partial=partial)
+    yt = flash_attention(_t(q), _t(k), _t(v), torch.from_numpy(offs), causal=True,
+                         return_partial=partial)
+    pairs = zip(yt, yj) if partial else [(yt, yj)]
+    for a, b in pairs:
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, rtol=1e-5)
+
+
+def test_partials_over_kv_halves_merge_to_full_attention():
+    """Flash-decode contract: partials over two KV shards (the second at a
+    kv_offset), merged online, equal attention over the whole cache — and
+    the port's naive oracle equals the JAX package's."""
+    B, H, Hkv, Sq, Skv, hd = 2, 4, 2, 8, 64, 64
+    q, k, v = _qkv(B, H, Hkv, Sq, Skv, hd, seed=3)
+    offs = torch.tensor([20, 56])
+    h = Skv // 2
+    a = flash_attention(_t(q), _t(k[:, :, :h]), _t(v[:, :, :h]), offs, return_partial=True)
+    b = flash_attention(_t(q), _t(k[:, :, h:]), _t(v[:, :, h:]), offs, kv_offset=h,
+                        return_partial=True)
+    m, l, acc = _merge_partials(a[1], a[2], a[0], b[1], b[2], b[0])
+    merged = acc / torch.clamp(l, min=1e-30)[..., None]
+    q_pos = offs[:, None] + torch.arange(Sq)
+    kv_pos = torch.arange(Skv).expand(B, Skv)
+    ref = naive_attention(_t(q), _t(k), _t(v), q_pos, kv_pos)
+    np.testing.assert_allclose(merged.numpy(), ref.numpy(), atol=1e-5, rtol=1e-5)
+    refj = jax_naive_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               jnp.asarray(q_pos.numpy()), jnp.asarray(kv_pos.numpy()))
+    np.testing.assert_allclose(ref.numpy(), np.asarray(refj), atol=1e-5, rtol=1e-5)
+
+
+def test_cpu_tensors_leave_launch_counters_at_zero():
+    g0, f0 = gmm.launches, flash_attention.launches
+    x, w, be = _gmm_inputs(*GMM_SHAPES[0])
+    gmm(_t(x), _t(w), torch.from_numpy(be))
+    q, k, v = _qkv(**FLASH_CASES[0])
+    flash(_t(q), _t(k), _t(v), q_offset=128)
+    assert (gmm.launches, flash_attention.launches) == (g0, f0) == (0, 0)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import params_from_jax
+    from repro_torch.device import resolve_device
+    from repro_torch.models.transformer import init_lm
+    cfg = reduced(get_config("mixtral-8x22b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_lm(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax({}, cfg)
+    assert resolve_device("cpu").type == "cpu"

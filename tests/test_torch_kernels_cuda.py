@@ -1,0 +1,102 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device (marker ``cuda``) and skips without
+one. The file imports nothing of JAX, so it also runs where JAX is not
+installed:
+
+    PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash.flash import flash_attention
+from repro_torch.kernels.flash.ops import flash
+from repro_torch.kernels.flash.ref import flash_ref
+from repro_torch.kernels.gmm.gmm import gmm
+from repro_torch.kernels.gmm.ref import gmm_ref
+
+pytestmark = pytest.mark.cuda
+REL_TOL = 2e-2     # bf16 inputs and outputs; both sides accumulate in fp32
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _bf16(rng, shape, scale=1.0, device="cuda"):
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)) \
+        .to(device=device, dtype=torch.bfloat16)
+
+
+def _rel_err(got, ref):
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.parametrize("M,K,N,E,bm", [(1024, 256, 384, 4, 128), (512, 512, 256, 8, 256),
+                                        (128, 32, 128, 1, 128)])
+def test_gmm_kernel_matches_plain(cuda, M, K, N, E, bm):
+    rng = np.random.default_rng(3)
+    x, w = _bf16(rng, (M, K)), _bf16(rng, (E, K, N), K ** -0.5)
+    be = torch.from_numpy(rng.integers(0, E, M // bm).astype(np.int32)).to(cuda)
+    n0 = gmm.launches
+    y = gmm(x, w, be, bm=bm)
+    assert gmm.launches == n0 + 1
+    assert _rel_err(y, gmm_ref(x, w, be, bm=bm)) <= REL_TOL
+
+
+FLASH_CASES = [
+    dict(B=2, H=4, Hkv=2, Sq=128, Skv=256, hd=64, q_off=128, kv_off=0, causal=True, window=0),
+    dict(B=1, H=4, Hkv=2, Sq=128, Skv=256, hd=64, q_off=200, kv_off=64, causal=True, window=0),
+    dict(B=2, H=4, Hkv=2, Sq=128, Skv=256, hd=64, q_off=128, kv_off=0, causal=True, window=96),
+    dict(B=1, H=2, Hkv=2, Sq=128, Skv=128, hd=64, q_off=0, kv_off=0, causal=False, window=0),
+    dict(B=3, H=8, Hkv=2, Sq=70, Skv=200, hd=128, q_off=5, kv_off=0, causal=True, window=0),
+    dict(B=2, H=6, Hkv=3, Sq=1, Skv=77, hd=128, q_off=76, kv_off=0, causal=True, window=30),
+]
+
+
+@pytest.mark.parametrize("c", FLASH_CASES)
+@pytest.mark.parametrize("partial", [False, True])
+def test_flash_kernel_matches_plain(cuda, c, partial):
+    rng = np.random.default_rng(4)
+    q = _bf16(rng, (c["B"], c["H"], c["Sq"], c["hd"]))
+    k, v = (_bf16(rng, (c["B"], c["Hkv"], c["Skv"], c["hd"])) for _ in range(2))
+    offs = torch.arange(c["B"], dtype=torch.int32, device=cuda) * 3 + c["q_off"]
+    kw = dict(kv_offset=c["kv_off"], causal=c["causal"], window=c["window"],
+              return_partial=partial)
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, offs, **kw)
+    assert flash_attention.launches == n0 + 1
+    ref = flash_ref(q, k, v, offs, **kw)
+    for a, b in (zip(got, ref) if partial else [(got, ref)]):
+        assert _rel_err(a, b) <= REL_TOL
+
+
+def test_flash_kernel_rows_that_see_nothing(cuda):
+    """Rows whose window hides every key: output 0, m = -1e30, l = 0, as the
+    TPU kernel gives."""
+    rng = np.random.default_rng(5)
+    q, k = _bf16(rng, (1, 2, 4, 64)), _bf16(rng, (1, 2, 8, 64))
+    offs = torch.tensor([100], dtype=torch.int32, device=cuda)
+    out = flash_attention(q, k, k, offs, window=4)
+    acc, m, l = flash_attention(q, k, k, offs, window=4, return_partial=True)
+    torch.cuda.synchronize()
+    assert out.abs().max().item() == 0.0 and acc.abs().max().item() == 0.0
+    assert (m == -1e30).all() and (l == 0).all()
+
+
+def test_kernels_reject_shapes_they_do_not_take(cuda):
+    x = torch.zeros((200, 128), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((2, 128, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="bm"):
+        gmm(x, w, torch.zeros(2, dtype=torch.int32, device=cuda), bm=100)
+    with pytest.raises(TypeError, match="bf16"):
+        gmm(x[:128].float(), w, torch.zeros(1, dtype=torch.int32, device=cuda))
+    q = torch.zeros((1, 2, 4, 96), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash(q, q, q)

@@ -1,0 +1,142 @@
+"""The port's router, dispatcher and MoE layer against the JAX package.
+
+Discrete decisions (chosen experts, kept assignments, arrival ranks, sort
+order, group sizes) must be exactly equal; values agree at fp32 1e-5.
+"""
+import dataclasses
+from functools import lru_cache
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import MoEConfig as JMoEConfig
+from repro.configs.base import ParallelConfig, ParallelMappingSpec as PM
+from repro.core.dispatcher import moe_ffn as jax_moe_ffn
+from repro.core.dispatcher import moe_ffn_reference
+from repro.core.folding import build_folded_mesh
+from repro.core.router import route as jax_route
+from repro.core.router import sorted_dispatch as jax_sorted_dispatch
+from repro_torch.configs import get_config, reduced
+from repro_torch.configs.base import MoEConfig
+from repro_torch.core.moe_layer import MoEParams, moe_block
+from repro_torch.core.router import route, sorted_dispatch
+
+torch.set_num_threads(1)
+
+
+@lru_cache
+def fm1():
+    return build_folded_mesh(ParallelConfig(attn=PM(1, 1, 1), moe=PM(1, 1, 1)))
+
+
+def _both(**kw):
+    """The same MoE config in both packages."""
+    return JMoEConfig(**kw), MoEConfig(**kw)
+
+
+ROUTER_CASES = [
+    dict(n_experts=8, top_k=2, d_expert=64, capacity_factor=1.0),
+    dict(n_experts=8, top_k=2, d_expert=64, capacity_factor=0.5, tie=True),
+    dict(n_experts=4, top_k=1, d_expert=64, dropless=True, masked=True),
+    dict(n_experts=8, top_k=2, d_expert=64, capacity_factor=1.0,
+         deterministic_router=True, router_quantum=2.0 ** -4),
+]
+
+
+@pytest.mark.parametrize("case", ROUTER_CASES)
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_route_and_sorted_dispatch_match_jax(case, seed):
+    case = dict(case)
+    tie, masked = case.pop("tie", False), case.pop("masked", False)
+    jcfg, tcfg = _both(**case)
+    t, D, E = 64, 32, case["n_experts"]
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((t, D)).astype(np.float32)
+    wg = (rng.standard_normal((D, E)) * 0.5).astype(np.float32)
+    if tie:              # two experts with identical logits: tie order matters
+        wg[:, 5] = wg[:, 3]
+    mask = (rng.random(t) > 0.2) if masked else None
+    cap = max(1, int(case.get("capacity_factor", 1.0) * t * case["top_k"] / E))
+    if case.get("dropless"):
+        cap = t
+    rj = jax_route(jnp.asarray(x), jnp.asarray(wg), jcfg, capacity=cap,
+                   token_mask=None if mask is None else jnp.asarray(mask))
+    rt = route(torch.from_numpy(x), torch.from_numpy(wg), tcfg, capacity=cap,
+               token_mask=None if mask is None else torch.from_numpy(mask))
+    for name in ("expert_idx", "keep", "pos_in_expert"):
+        np.testing.assert_array_equal(getattr(rt, name).numpy(),
+                                      np.asarray(getattr(rj, name)), err_msg=name)
+    for name in ("combine_w", "aux_loss", "z_loss", "probs"):
+        np.testing.assert_allclose(getattr(rt, name).numpy(), np.asarray(getattr(rj, name)),
+                                   atol=1e-5, rtol=1e-5, err_msg=name)
+    sj = jax_sorted_dispatch(rj.expert_idx, rj.keep, E)
+    st = sorted_dispatch(rt.expert_idx, rt.keep, E)
+    for name in ("perm", "inv_perm", "group_sizes", "group_offsets"):
+        np.testing.assert_array_equal(getattr(st, name).numpy(),
+                                      np.asarray(getattr(sj, name)), err_msg=name)
+
+
+def _moe_weights(D, F, E, seed):
+    rng = np.random.default_rng(seed)
+    return dict(
+        x=rng.standard_normal((2, 32, D)).astype(np.float32),
+        wg=(rng.standard_normal((D, E)) * 0.3).astype(np.float32),
+        w1=(rng.standard_normal((E, D, F)) * D ** -0.5).astype(np.float32),
+        w3=(rng.standard_normal((E, D, F)) * D ** -0.5).astype(np.float32),
+        w2=(rng.standard_normal((E, F, D)) * F ** -0.5).astype(np.float32))
+
+
+@pytest.mark.parametrize("dropless,cf", [(True, 1.0), (False, 1.0), (False, 0.5)])
+def test_moe_block_matches_jax_moe_ffn(dropless, cf):
+    """Sort layout with 128-row spans, so JAX's Pallas GMM path engages."""
+    E, D, F = 4, 128, 256
+    jcfg, tcfg = _both(n_experts=E, top_k=2, d_expert=F, dropless=dropless,
+                       capacity_factor=cf, permute_mode="sort")
+    w = _moe_weights(D, F, E, seed=int(dropless) + int(cf * 10))
+    xt = w["x"].reshape(-1, D)
+    yj, auxj = jax.jit(lambda *a: jax_moe_ffn(*a, jcfg, fm1()))(
+        *(jnp.asarray(a) for a in (xt, w["wg"], w["w1"], w["w2"], w["w3"])))
+    p = MoEParams(*(torch.from_numpy(w[k]) for k in ("wg", "w1", "w2", "w3")))
+    mcfg = dataclasses.replace(reduced(get_config("mixtral-8x22b")), d_model=D, moe=tcfg)
+    yt, auxt = moe_block(p, torch.from_numpy(w["x"]), mcfg)
+    np.testing.assert_allclose(yt.reshape(-1, D).numpy(), np.asarray(yj), atol=1e-5, rtol=1e-5)
+    for k in ("moe_aux_loss", "moe_z_loss", "moe_drop_fraction"):
+        np.testing.assert_allclose(float(auxt[k]), float(auxj[k]), atol=1e-6, err_msg=k)
+    if dropless:
+        assert float(auxt["moe_drop_fraction"]) == 0.0
+    else:
+        assert float(auxt["moe_drop_fraction"]) > 0.0   # the capacity really drops
+
+    # The JAX package's pure-jnp oracle (one rank = one chunk).
+    yr, _ = moe_ffn_reference(jnp.asarray(xt[None]), *(jnp.asarray(w[k]) for k in
+                                                       ("wg", "w1", "w2", "w3")), jcfg)
+    np.testing.assert_allclose(yt.reshape(-1, D).numpy(), np.asarray(yr[0]),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_unported_dispatch_layouts_raise():
+    tcfg = MoEConfig(n_experts=4, top_k=2, d_expert=128)      # permute_mode="scatter"
+    mcfg = dataclasses.replace(reduced(get_config("mixtral-8x22b")), d_model=128, moe=tcfg)
+    w = _moe_weights(128, 128, 4, seed=0)
+    p = MoEParams(*(torch.from_numpy(w[k]) for k in ("wg", "w1", "w2", "w3")))
+    with pytest.raises(NotImplementedError, match="scatter"):
+        moe_block(p, torch.from_numpy(w["x"]), mcfg)
+    with pytest.raises(NotImplementedError, match="ragged"):
+        moe_block(p, torch.from_numpy(w["x"]), dataclasses.replace(
+            mcfg, moe=dataclasses.replace(tcfg, permute_mode="sort", ragged_a2a=True)))
+
+
+@pytest.mark.parametrize("D,F,bm", [(96, 128, 128), (128, 192, 128), (128, 128, 4)])
+def test_untileable_expert_shapes_raise(D, F, bm):
+    """The sort layout has no second expert path: shapes the GMM kernel
+    does not tile are refused, on the CPU as on the card."""
+    tcfg = MoEConfig(n_experts=4, top_k=2, d_expert=F, permute_mode="sort",
+                     gmm_block_m=bm)
+    mcfg = dataclasses.replace(reduced(get_config("mixtral-8x22b")), d_model=D, moe=tcfg)
+    w = _moe_weights(D, F, 4, seed=0)
+    p = MoEParams(*(torch.from_numpy(w[k]) for k in ("wg", "w1", "w2", "w3")))
+    with pytest.raises(ValueError, match="do not tile"):
+        moe_block(p, torch.from_numpy(w["x"]), mcfg)
