@@ -11,6 +11,9 @@ Phases (any failure exits non-zero; nothing is caught):
    the serving slice's shapes (bf16, relative error <= 2e-2), its median time
    over CUDA-event-timed runs, its bound, the plain version's time, and one
    PyTorch library call of the same function as a yardstick (``library_ms``).
+   The GMM's headline cases are the decode step's gate/up and down launches
+   with all 8 experts owning a block, as serving reads them; 6-of-8, bm=64
+   and a compute-bound M=8192 case follow.
 4. serve   — full-width Mixtral-8x22B cut to 4 layers, random weights from a
    seed, bf16: 6 requests through the paged engine; every launch counter is
    set to 0 just before and read just after, and must have risen.
@@ -103,31 +106,44 @@ def phase_build() -> dict:
 
 
 def _gmm_cases(torch) -> list:
+    """GMM cases, the serving decode step's two launches first: 8 experts,
+    each owning one 128-row block (``block_expert = arange(8)``), as serving
+    reads them. Then correctness and coverage cases: 6 of 8 experts with two
+    owning no block, 64-row blocks, and a compute-bound launch with 1024
+    rows per expert."""
     from repro_torch.kernels.gmm.gmm import gmm
     from repro_torch.kernels.gmm.ref import gmm_ref
     g = torch.Generator(device="cuda").manual_seed(1)
-    E, bm, M = 8, 128, 1024          # decode, 4 slots: M = E * cap_pad = 8 * 128
-    # Several experts, two of them (2 and 6) with no row block at all.
-    be = torch.tensor([0, 1, 1, 3, 4, 5, 7, 7], dtype=torch.int32, device="cuda")
+    E = 8
+    serving = list(range(E))
     cases = []
-    for label, K, N in (("gate/up, decode", 6144, 16384), ("down, decode", 16384, 6144)):
+    for label, M, K, N, bm, blocks in (
+            ("gate/up, decode (serving)", 1024, 6144, 16384, 128, serving),
+            ("down, decode (serving)", 1024, 16384, 6144, 128, serving),
+            ("gate/up, 6 of 8 experts", 1024, 6144, 16384, 128, [0, 1, 1, 3, 4, 5, 7, 7]),
+            ("gate/up, bm=64", 1024, 6144, 16384, 64, [e for e in serving for _ in (0, 1)]),
+            ("gate/up, M=8192", 8192, 6144, 16384, 128, [e for e in serving for _ in range(8)])):
+        be = torch.tensor(blocks, dtype=torch.int32, device="cuda")
         x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
         w = (torch.randn((E, K, N), generator=g, device="cuda") * K ** -0.5).to(torch.bfloat16)
         y = gmm(x, w, be, bm=bm)
         ref = gmm_ref(x, w, be, bm=bm)
         torch.cuda.synchronize()
         max_abs, rel = _err(torch, y, ref)
+        del y, ref
         ms = _median_ms(torch, lambda: gmm(x, w, be, bm=bm))
         plain_ms = _median_ms(torch, lambda: gmm_ref(x, w, be, bm=bm))
-        xe, wl = x.view(E, M // E, K), w
-        library_ms = _median_ms(torch, lambda: torch.bmm(xe, wl))
-        n_used = len(set(be.tolist()))
+        # The same bytes through one batched matmul: x as (E, M/E, K).
+        xe = x.view(E, M // E, K)
+        library_ms = _median_ms(torch, lambda: torch.bmm(xe, w))
+        n_used = len(set(blocks))
         nbytes = 2 * (M * K + M * N + n_used * K * N)
         bound_ms, bound_by = _bound(nbytes, 2.0 * M * K * N)
         cases.append(dict(case=label, shape=f"x({M},{K}) w({E},{K},{N}) bm={bm}",
                           max_abs_err=max_abs, rel_err=rel, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
-        del x, w, y, ref
+        del x, w, xe
+        torch.cuda.empty_cache()
     return cases
 
 

@@ -1,5 +1,5 @@
 // Grouped matmul (GMM) for the MoE expert FFN, bf16 in, fp32 accumulation,
-// bf16 out, for sm_90a.
+// bf16 out, for sm_90a (Hopper: TMA, mbarrier, wgmma).
 //
 // Replaces the Pallas TPU kernel `gmm` / `_gmm_kernel` in
 // src/repro/kernels/gmm/gmm.py:
@@ -7,171 +7,457 @@
 // x (M, K) rows grouped by expert, w (E, K, N), block_expert (M/bm,) int32,
 // y (M, N). All row-major and contiguous.
 //
-// What bounds it on an H100: at decode the row count is tiny (M = E * 128
-// padded rows, of which only a handful are real tokens), so each launch
-// streams every used expert's K x N weight matrix from device memory once
-// and does ~0.6 flop per weight byte: it is bound by memory bandwidth
-// (3.35 TB/s), not by the tensor cores (989 TFLOP/s bf16).
+// What bounds it on an H100: at decode every expert owns one 128-row block
+// of which a handful of rows are real tokens, so a launch streams all E
+// K x N weight matrices from device memory once at ~0.6 flop per weight
+// byte: it is bound by memory bandwidth (3.35 TB/s). At prefill or
+// training sizes (1024 rows per expert) it is bound by the tensor cores
+// (989 TFLOP/s bf16).
 //
-// Design. One thread block per 128 x 128 output tile. The TPU kernel's
-// scalar prefetch of block_expert becomes one load by the block itself, and
-// the TPU grid's sequential K axis becomes a loop inside the block, since
-// Hopper blocks carry nothing from one to the next. The K loop streams
-// 128 x 32 tiles of x and 32 x 128 tiles of w through a 3-stage cp.async
-// ring in shared memory, so two tiles are in flight while the tensor cores
-// (mma.sync through nvcuda::wmma, 16 x 16 x 16 bf16) work on the third;
-// that keeps enough bytes outstanding per SM to stream the weights. Each of
-// the 8 warps owns a 32 x 64 sub-tile in fp32 accumulator fragments. The
-// epilogue stages each 16 x 16 fragment through shared memory and writes
-// 16 bytes per lane. wgmma/TMA are left for a later change.
+// Design. The TPU grid's sequential K axis becomes a loop inside the block
+// and its scalar prefetch of block_expert one load per tile.
+// - Persistent grid: min(#SMs, #tiles) blocks, each walking BM x BN output
+//   tiles with a stride. Tiles are ordered in groups of the row tiles that
+//   one expert owns when the experts own equal spans (ceil(M/bm / E) blocks
+//   of bm rows), row tile fastest: at 1024 rows per expert the blocks
+//   running together share that expert's weight columns in L2; at decode
+//   (one block per expert) a group is one row tile, so they share its x rows
+//   and read one expert's weight rows side by side.
+// - Loads through TMA with 128-byte swizzle: an x tile (BM x 64, K
+//   innermost) and BN/64 w tiles (64 x 64, N innermost, from the 2-D view
+//   (E*K, N)) per stage into a STAGES-deep ring, each stage guarded by a
+//   "full" mbarrier (TMA transaction bytes) and an "empty" one (one arrival
+//   per consumer warp). There is no __syncthreads in the K loop.
+// - Warp specialisation: one producer thread issues the loads (its
+//   warpgroup drops to 40 registers); two consumer warpgroups issue
+//   wgmma.mma_async m64nWNk16 from shared memory with fp32 accumulators in
+//   registers. x is K-major A; the w tile is MN-major B (N contiguous,
+//   transpose bit set, LBO = stride between 64-column swizzle atoms, SBO =
+//   stride between 8-row groups), so the weights keep their (E, K, N)
+//   layout. One wgmma group stays in flight while the next stage is
+//   awaited; the stage before it is released.
+// - Epilogue: each consumer warp converts its 16 rows to bf16 in a private
+//   strip of shared memory and writes 16 bytes per lane, while the producer
+//   already loads the next tile.
+// - Tiles: BM = 128 (each consumer warpgroup owns 64 rows) when
+//   bm % 128 == 0, else BM = 64 (the warpgroups split the columns); BN = 256
+//   when N % 256 == 0, unless 128-column tiles fill the SMs' waves over a
+//   tenth better. The host (kernels/gmm/gmm.py::tile_shape) chooses; both
+//   can be forced for measurement.
+// - L2 hints: weights evict_first (at decode each is read once), x
+//   evict_last (every column tile of its row block reads it again).
 //
-// Requires bm % 128 == 0, M % bm == 0, K % 32 == 0, N % 128 == 0 and
-// 16-byte aligned pointers; the wrapper (kernels/gmm/gmm.py) checks them.
+// Measured on an H100 80GB HBM3 at 700 W (launch/bench_gmm.py; PERF.md):
+// 128 x 256 is the fastest tile at M = 8192 by 12-40% and within
+// 1% of the fastest for the decode gate/up launch, but for the decode down
+// launch (192 wide tiles: two waves on 132 SMs, 73% full) 128 x 128 is 3%
+// faster, hence the choice by wave fill. The hints gain ~5% at decode and
+// ~9% at M = 8192 over none. At decode, groups of one row tile gain ~2%
+// over groups of 8, but at M = 8192 they cost 1.8x: there a group must be
+// one expert's span, hence the group size from M, bm and E. A 2-block
+// cluster sharing the x tile by TMA multicast was slower (0.82 ms instead
+// of 0.57 at decode) and was dropped; so was releasing each stage only
+// after its own wgmma finished.
+//
+// Requires bm % BM == 0, M % bm == 0, K % 64 == 0, N % BN == 0 and 16-byte
+// aligned pointers; the wrapper checks them and this entry point again.
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int STAGES = 3;
-constexpr int THREADS = 256;                 // 8 warps: 4 (rows) x 2 (cols)
-constexpr int A_LD = BK + 8;                 // padded smem rows (bf16 elements)
-constexpr int B_LD = BN + 8;
-constexpr int A_TILE = BM * A_LD;
-constexpr int B_TILE = BK * B_LD;
-constexpr int SMEM_BYTES = STAGES * (A_TILE + B_TILE) * 2;
+constexpr int BK = 64;                    // 64 bf16 = 128 B, the swizzle span
+constexpr int CONSUMER_WARPS = 8;         // two warpgroups
+constexpr int THREADS = 32 * CONSUMER_WARPS + 128;   // + the producer warpgroup
+constexpr int SMEM_LIMIT = 232448;        // opt-in shared memory per block
+constexpr int W_BOX_BYTES = BK * 64 * 2;  // one 64 x 64 w box: 8 KB
+constexpr int EPI_LD = 72;                // epilogue strip row: 64 bf16 + pad
+constexpr int EPI_BYTES = CONSUMER_WARPS * 16 * EPI_LD * 2;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+template <int BM, int BN>
+struct Cfg {
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int B_BYTES = BK * BN * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - EPI_BYTES - 256) / STAGE_BYTES;
+  static constexpr int STAGES = FIT > 8 ? 8 : FIT;
+  static constexpr int WN = BM == 128 ? BN : BN / 2;   // columns per consumer warpgroup
+  // 1024 B of slack to align the ring to the swizzle atom, then the ring,
+  // the epilogue strips, and 2 mbarriers per stage.
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + EPI_BYTES + 16 * STAGES;
+  static_assert(SMEM <= SMEM_LIMIT, "tile does not fit shared memory");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+               ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// An L2 eviction policy: evict_first for data read once, evict_last for
+// data that later tiles read again.
+template <bool FIRST>
+__device__ __forceinline__ uint64_t l2_policy() {
+  uint64_t p;
+  if (FIRST)
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  else
+    asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+        "l"(policy)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout B128.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// Pin the accumulators' order against the wgmma fence/wait instructions.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma.mma_async m64nNk16, bf16 x bf16 -> fp32: A K-major, B MN-major
+// (imm-trans-b = 1); the accumulators are overwritten when scale_d == 0.
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  __device__ static __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  __device__ static __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  __device__ static __forceinline__ void mma(float (&d)[128], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+
+// Output tile t of the persistent walk -> (row block, column tile): groups
+// of `group` row blocks, row block fastest within a group.
+__device__ __forceinline__ void tile_coords(int t, int n_mb, int n_nb, int group, int& mb,
+                                            int& nb) {
+  const int per_group = group * n_nb;
+  const int g = t / per_group;
+  const int first = g * group;
+  const int gm = min(group, n_mb - first);
+  const int local = t - g * per_group;
+  mb = first + local % gm;
+  nb = local / gm;
 }
 
-__global__ void __launch_bounds__(THREADS)
-gmm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                const __nv_bfloat16* __restrict__ w,
-                const int* __restrict__ block_expert,
-                __nv_bfloat16* __restrict__ y, int K, int N, int bm, int E) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Bs = As + STAGES * A_TILE;
+template <int BM, int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+gmm_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
+                const __grid_constant__ CUtensorMap w_map,
+                const int* __restrict__ block_expert, __nv_bfloat16* __restrict__ y,
+                int M, int K, int N, int bm, int E, int group) {
+  using C = Cfg<BM, BN>;
+  constexpr int STAGES = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t a_ring = base;                          // STAGES x (BM x 64)
+  const uint32_t b_ring = base + STAGES * C::A_BYTES;    // STAGES x BN/64 x (64 x 64)
+  __nv_bfloat16* epi = reinterpret_cast<__nv_bfloat16*>(
+      smem_raw + (base - raw) + STAGES * C::STAGE_BYTES);
+  const uint32_t full = base + STAGES * C::STAGE_BYTES + EPI_BYTES;
+  const uint32_t empty = full + 8 * STAGES;
 
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-  const int e = block_expert[row0 / bm];
-  if (e < 0 || e >= E) __trap();              // never read another expert's rows
-  const __nv_bfloat16* xa = x + static_cast<size_t>(row0) * K;
-  const __nv_bfloat16* wb = w + static_cast<size_t>(e) * K * N + col0;
+  const int n_mb = M / BM, n_nb = N / BN, n_tiles = n_mb * n_nb, KT = K / BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2;                    // warp rows [wm*32, wm*32+32)
-  const int wn = warp % 2;                    // warp cols [wn*64, wn*64+64)
-
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * BK;
-    __nv_bfloat16* a = As + stage * A_TILE;
-    __nv_bfloat16* b = Bs + stage * B_TILE;
-    for (int c = tid; c < BM * (BK / 8); c += THREADS) {
-      const int r = c / (BK / 8), cc = (c % (BK / 8)) * 8;
-      cp_async16(a + r * A_LD + cc, xa + static_cast<size_t>(r) * K + k0 + cc);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
     }
-    for (int c = tid; c < BK * (BN / 8); c += THREADS) {
-      const int r = c / (BN / 8), cc = (c % (BN / 8)) * 8;
-      cp_async16(b + r * B_LD + cc, wb + static_cast<size_t>(k0 + r) * N + cc);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int KT = K / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();                          // tile kt landed; tile kt-1 consumed
-    const int nk = kt + STAGES - 1;
-    if (nk < KT) load_stage(nk % STAGES, nk);
-    cp_async_commit();
+  if (warp >= CONSUMER_WARPS) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == CONSUMER_WARPS && lane == 0) {
+      const uint64_t keep = l2_policy<false>(), stream = l2_policy<true>();
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        int mb, nb;
+        tile_coords(t, n_mb, n_nb, group, mb, nb);
+        const int row0 = mb * BM;
+        const int e = block_expert[row0 / bm];
+        if (e < 0 || e >= E) __trap();          // never read another expert's rows
+        for (int kt = 0; kt < KT; ++kt) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          const uint32_t bar = full + 8 * stage;
+          mbar_expect_tx(bar, C::STAGE_BYTES);
+          tma_load(a_ring + stage * C::A_BYTES, &x_map, bar, kt * BK, row0, keep);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load(b_ring + stage * C::B_BYTES + j * W_BOX_BYTES, &w_map, bar,
+                     nb * BN + j * 64, e * K + kt * BK, stream);
+          if (++stage == STAGES) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    constexpr int WN = C::WN;
+    const int wg = warp / 4;
+    const int m_off = BM == 128 ? wg * 64 : 0;         // this warpgroup's rows
+    const int n_off = BM == 128 ? 0 : wg * WN;         // and columns in the tile
+    __nv_bfloat16* strip = epi + warp * 16 * EPI_LD;
+    float acc[WN / 2];
+#pragma unroll
+    for (int i = 0; i < WN / 2; ++i) acc[i] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      int mb, nb;
+      tile_coords(t, n_mb, n_nb, group, mb, nb);
+      int prev = -1;
+      for (int kt = 0; kt < KT; ++kt) {
+        mbar_wait(full + 8 * stage, phase);
+        const uint32_t a = a_ring + stage * C::A_BYTES + m_off * 128;
+        const uint32_t b = b_ring + stage * C::B_BYTES + (n_off / 64) * W_BOX_BYTES;
+        fence_acc(acc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          Wgmma<WN>::mma(acc, sw128_desc(a + kk * 32, 16, 1024),
+                         sw128_desc(b + kk * 16 * 128, W_BOX_BYTES, 1024), kt | kk);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        fence_acc(acc);
+        if (prev >= 0 && lane == 0) mbar_arrive(empty + 8 * prev);   // its wgmma are done
+        prev = stage;
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(acc);
+      if (lane == 0) mbar_arrive(empty + 8 * prev);
 
-    const __nv_bfloat16* a = As + (kt % STAGES) * A_TILE;
-    const __nv_bfloat16* b = Bs + (kt % STAGES) * B_TILE;
+      // Epilogue: this warp's 16 rows, 64 columns at a time, through its strip.
+      const int row = mb * BM + m_off + (warp % 4) * 16;
+      const int col = nb * BN + n_off;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[4];
+      for (int c = 0; c < WN / 64; ++c) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], a + (wm * 32 + i * 16) * A_LD + kk, A_LD);
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = c * 8 + jj;
+          __nv_bfloat16* p = strip + (lane / 4) * EPI_LD + jj * 8 + 2 * (lane % 4);
+          *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(p + 8 * EPI_LD) =
+              __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+        }
+        __syncwarp();
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], b + kk * B_LD + wn * 64 + j * 16, B_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+        for (int i = 0; i < 4; ++i) {
+          const int r = (i * 32 + lane) / 8, cc = (lane % 8) * 8;
+          *reinterpret_cast<uint4*>(y + static_cast<size_t>(row + r) * N + col + c * 64 + cc) =
+              *reinterpret_cast<const uint4*>(strip + r * EPI_LD + cc);
+        }
+        __syncwarp();
+      }
     }
   }
-  cp_async_wait<0>();
-  __syncthreads();                            // ring no longer read: reuse it
+}
 
-  float* stage = reinterpret_cast<float*>(smem_raw) + warp * 256;
-  const int lane = tid % 32;
-  const int r = lane / 2, c = (lane % 2) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      __align__(16) __nv_bfloat16 out[8];
-#pragma unroll
-      for (int t = 0; t < 8; ++t) out[t] = __float2bfloat16(stage[r * 16 + c + t]);
-      const size_t row = static_cast<size_t>(row0 + wm * 32 + i * 16 + r);
-      *reinterpret_cast<uint4*>(y + row * N + col0 + wn * 64 + j * 16 + c) =
-          *reinterpret_cast<const uint4*>(out);
-      __syncwarp();
-    }
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// Row-major (outer, inner) bf16 matrix, boxes of (box_outer, 64), 128 B swizzle.
+bool encode(CUtensorMap* map, const void* ptr, uint64_t outer, uint64_t inner,
+            uint32_t box_outer) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {inner * 2};
+  const cuuint32_t box[2] = {64, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int MAX_DEVICES = 64;
+
+template <int BM, int BN>
+int launch(const void* x, const void* w, const int* be, __nv_bfloat16* y, int M, int K,
+           int N, int bm, int E, cudaStream_t stream) {
+  using C = Cfg<BM, BN>;
+  static bool attr_set[MAX_DEVICES];     // per device, per tile shape: set once
+  static int n_sms[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!attr_set[dev]) {
+    err = cudaFuncSetAttribute(gmm_bf16_kernel<BM, BN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&n_sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set[dev] = true;
   }
+  CUtensorMap x_map, w_map;
+  if (!encode(&x_map, x, M, K, BM) ||
+      !encode(&w_map, w, static_cast<uint64_t>(E) * K, N, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tiles = (M / BM) * (N / BN);
+  const int grid = n_tiles < n_sms[dev] ? n_tiles : n_sms[dev];
+  // Walk together the row tiles that share one expert's weights when the
+  // experts own equal spans: ceil(row blocks / E) blocks of bm rows.
+  const int blocks = M / bm;
+  const int group = (blocks + E - 1) / E * (bm / BM);
+  gmm_bf16_kernel<BM, BN><<<grid, THREADS, C::SMEM, stream>>>(x_map, w_map, be, y, M, K, N,
+                                                              bm, E, group);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int repro_gmm_bf16(const void* x, const void* w, const void* block_expert,
-                              void* y, int M, int K, int N, int bm, int E,
-                              void* stream) {
-  if (M <= 0 || bm <= 0 || bm % BM || M % bm || K % BK || N % BN || E <= 0)
+                              void* y, int M, int K, int N, int bm, int E, int block_m,
+                              int block_n, void* stream) {
+  if (M <= 0 || E <= 0 || bm <= 0 || (block_m != 64 && block_m != 128) ||
+      (block_n != 128 && block_n != 256) || bm % block_m || M % bm || K <= 0 || K % BK ||
+      N % block_n || static_cast<int64_t>(E) * K > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  // Per device, so set on every call (it costs far less than the launch).
-  const cudaError_t err = cudaFuncSetAttribute(
-      gmm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(N / BN, M / BM);
-  gmm_bf16_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const int*>(block_expert), static_cast<__nv_bfloat16*>(y), K, N, bm, E);
-  return static_cast<int>(cudaGetLastError());
+  const int* be = static_cast<const int*>(block_expert);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (block_m == 128)
+    return block_n == 256 ? launch<128, 256>(x, w, be, out, M, K, N, bm, E, s)
+                          : launch<128, 128>(x, w, be, out, M, K, N, bm, E, s);
+  return block_n == 256 ? launch<64, 256>(x, w, be, out, M, K, N, bm, E, s)
+                        : launch<64, 128>(x, w, be, out, M, K, N, bm, E, s);
 }

@@ -7,18 +7,46 @@ raises; only a CPU tensor takes the plain version (``ref.gmm_ref``).
 """
 from __future__ import annotations
 
+import functools
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels._build import check, load_library
 from repro_torch.kernels.gmm.ref import gmm_ref
 
-BLOCK_M = 128      # the kernel's row tile: bm must be a multiple of it
-BLOCK_K = 32
-BLOCK_N = 128
+BLOCK_K = 64                # the kernel's K step (128 B of bf16, the swizzle span)
+BLOCKS_M = (128, 64)        # row tiles; bm must be a multiple of one of them
+BLOCKS_N = (256, 128)       # column tiles; N must be a multiple of 128
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(index: Optional[int]) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _wave_fill(tiles: int, n_sms: int) -> float:
+    """Share of the persistent grid's tile slots (waves x SMs) that hold a tile."""
+    return tiles / (-(-tiles // n_sms) * n_sms)
+
+
+def tile_shape(M: int, N: int, bm: int, n_sms: int) -> tuple:
+    """The kernel's (BM, BN) for this launch: 128-row tiles when ``bm``
+    allows them, else 64; 256 columns when ``N`` allows them, unless
+    128-column tiles fill the ``n_sms`` SMs' waves over a tenth better. A
+    wide tile reads x half as often and reuses each operand twice as much,
+    which outweighs a few points of fill; a last wave three quarters empty
+    it does not (the decode step's down launch: 192 wide tiles on 132 SMs
+    measured 3% slower than 384 narrow ones, launch/bench_gmm.py)."""
+    block_m = 128 if bm % 128 == 0 else 64
+    rows = M // block_m
+    if N % 256 or _wave_fill(rows * (N // 128), n_sms) > 1.1 * _wave_fill(rows * (N // 256), n_sms):
+        return block_m, 128
+    return block_m, 256
 
 
 def _validate(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
-              bm: int) -> None:
+              bm: int, block_m: int, block_n: int) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"gmm kernel needs CUDA tensors, got {x.device}")
     if w.device != x.device or block_expert.device != x.device:
@@ -32,11 +60,16 @@ def _validate(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
         raise ValueError(f"gmm: x {tuple(x.shape)} and w {tuple(w.shape)} "
                          "must be (M, K) and (E, K, N)")
     M, K = x.shape
-    N = w.shape[2]
-    if bm % BLOCK_M or M % bm or K % BLOCK_K or N % BLOCK_N:
-        raise ValueError(f"gmm kernel needs bm % {BLOCK_M} == 0, M % bm == 0, "
-                         f"K % {BLOCK_K} == 0, N % {BLOCK_N} == 0; got M={M}, "
+    E, _, N = w.shape
+    if (M == 0 or bm <= 0 or bm % min(BLOCKS_M) or M % bm or K == 0 or K % BLOCK_K
+            or N % min(BLOCKS_N)):
+        raise ValueError(f"gmm kernel needs bm % {min(BLOCKS_M)} == 0, M % bm == 0, "
+                         f"K % {BLOCK_K} == 0, N % {min(BLOCKS_N)} == 0; got M={M}, "
                          f"K={K}, N={N}, bm={bm}")
+    if block_m not in BLOCKS_M or bm % block_m or block_n not in BLOCKS_N or N % block_n:
+        raise ValueError(f"gmm: tile ({block_m}, {block_n}) does not tile bm={bm}, N={N}")
+    if E * K >= 2 ** 31:
+        raise ValueError(f"gmm: E * K = {E * K} rows of w exceed int32 coordinates")
     if tuple(block_expert.shape) != (M // bm,):
         raise ValueError(f"block_expert shape {tuple(block_expert.shape)} != "
                          f"({M // bm},)")
@@ -48,20 +81,26 @@ def _validate(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor, *,
-        bm: int = 128) -> torch.Tensor:
+        bm: int = 128, block_m: Optional[int] = None,
+        block_n: Optional[int] = None) -> torch.Tensor:
     """x: (M, K) rows grouped by expert; w: (E, K, N); block_expert:
     (M // bm,) int32 expert id per row block. Returns (M, N) in ``x.dtype``
-    with fp32 accumulation."""
+    with fp32 accumulation. ``block_m``/``block_n`` force the kernel's tile
+    (for measurement); by default ``tile_shape`` picks it."""
     if x.device.type == "cpu":
         return gmm_ref(x, w, block_expert, bm=bm)
-    _validate(x, w, block_expert, bm)
-    M, K = x.shape
-    E, _, N = w.shape
+    M, N = x.shape[0], w.shape[-1]
+    if (block_m is None or block_n is None) and x.device.type == "cuda":
+        auto_m, auto_n = tile_shape(M, N, bm, _n_sms(x.device.index))
+        block_m, block_n = block_m or auto_m, block_n or auto_n
+    _validate(x, w, block_expert, bm, block_m, block_n)
+    K, E = x.shape[1], w.shape[0]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = load_library().repro_gmm_bf16(
             x.data_ptr(), w.data_ptr(), block_expert.data_ptr(), y.data_ptr(),
-            M, K, N, bm, E, torch.cuda.current_stream(x.device).cuda_stream)
+            M, K, N, bm, E, block_m, block_n,
+            torch.cuda.current_stream(x.device).cuda_stream)
     check(rc, "gmm")
     gmm.launches += 1
     return y

@@ -13,14 +13,19 @@ activities):
   then only batched decode steps.
 
 For each phase it prints the host wall time, the device time by kernel
-class (the GMM and flash kernels, cuBLAS GEMMs, the rest), and the
-device's busy share of the unprofiled wall time, and writes them all to
+class (the GMM and flash kernels, cuBLAS GEMMs, the rest), the device's
+busy share of the unprofiled wall time, the median of the engine's own
+per-step forward time (``Engine.timings``), and the host ops with the most
+self time under the profiler (which inflates them; a sync shows as the op
+that waits). Last it times the host's cost per launch of a tiny kernel
+with the device idle and busy. It writes all of it to
 ``results/profile_serve.json``. Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -59,8 +64,12 @@ def _device_breakdown(prof) -> dict:
         by_name[e.key] += t / 1e3
         counts[e.key] += e.count
     top = sorted(by_name, key=by_name.get, reverse=True)[:12]
+    host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
     return {"by_class_ms": dict(sorted(by_cls.items(), key=lambda kv: -kv[1])),
             "top_kernels": [{"name": k[:90], "ms": by_name[k], "calls": counts[k]} for k in top],
+            "top_host_ops": [{"name": e.key[:90], "self_ms": e.self_cpu_time_total / 1e3,
+                              "calls": e.count} for e in host],
             "device_ms": sum(by_cls.values())}
 
 
@@ -71,12 +80,16 @@ def _measure(torch, setup) -> dict:
     busy share divides the profiled device time by the plain wall time,
     since the profiler itself slows the host."""
     from torch.profiler import ProfilerActivity, profile
-    _, go = setup()
+    eng, go = setup()
+    n0 = len(eng.timings)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     go()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # The engine's own clock: from assembling a step's batch to its logits on
+    # the host, without the scheduling, sampling and bookkeeping around it.
+    forward_ms = statistics.median(sum(t) for t in eng.timings[n0:]) * 1e3
     eng, go = setup()
     n0 = len(eng.stats)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -86,11 +99,31 @@ def _measure(torch, setup) -> dict:
         pwall = time.perf_counter() - t0
     out = _device_breakdown(prof)
     steps = eng.stats[n0:]
-    out.update(wall_ms=wall * 1e3, profiled_wall_ms=pwall * 1e3,
+    out.update(wall_ms=wall * 1e3, forward_ms_median=forward_ms, profiled_wall_ms=pwall * 1e3,
                device_busy_share=out["device_ms"] / (wall * 1e3), steps=len(steps),
                prefill_tokens=sum(s.prefill_tokens for s in steps),
                decode_tokens=sum(s.decode_tokens for s in steps))
     return out
+
+
+def _launch_cost(torch, device, n: int = 2000) -> dict:
+    """Host time per launch of a tiny kernel, with the device idle and with
+    it still busy on a long matmul issued just before: does the host pay
+    more per launch when the device has caught up with it?"""
+    t = torch.zeros(1024, device=device)
+    a = torch.randn((8192, 8192), device=device, dtype=torch.bfloat16)
+    out = {}
+    for state in ("idle", "busy", "idle", "busy"):
+        torch.cuda.synchronize()
+        if state == "busy":
+            for _ in range(20):
+                a @ a                                  # ~20 ms of queued device work
+        t0 = time.perf_counter()
+        for _ in range(n):
+            t.add_(1.0)
+        out.setdefault(state, []).append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return {f"{k}_us_per_launch": min(v) for k, v in out.items()}
 
 
 def main() -> None:
@@ -135,17 +168,24 @@ def main() -> None:
 
     result["prefill"] = _measure(torch, prefill_run)
     result["decode"] = _measure(torch, decode_run)
+    result["launch_cost"] = _launch_cost(torch, device)
+    print("[launch] host time per tiny launch: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in result["launch_cost"].items()))
     for phase in ("prefill", "decode"):
         r = result[phase]
         print(f"[{phase}] {r['steps']} steps, {r['prefill_tokens']} prefill + "
               f"{r['decode_tokens']} decode tokens: wall {r['wall_ms']:.3f} ms "
-              f"({r['wall_ms'] / r['steps']:.3f} ms/step; {r['profiled_wall_ms']:.3f} ms "
+              f"({r['wall_ms'] / r['steps']:.3f} ms/step, engine forward median "
+              f"{r['forward_ms_median']:.3f} ms; {r['profiled_wall_ms']:.3f} ms "
               f"profiled), device {r['device_ms']:.3f} ms, busy "
               f"{100 * r['device_busy_share']:.1f}%")
         for cls, ms in r["by_class_ms"].items():
             print(f"[{phase}]   {cls:24s} {ms:10.3f} ms  {100 * ms / r['wall_ms']:5.1f}% of wall")
         for k in r["top_kernels"][:6]:
             print(f"[{phase}]   top: {k['ms']:9.3f} ms x{k['calls']:5d}  {k['name']}")
+        for k in r["top_host_ops"][:8]:
+            print(f"[{phase}]   host: {k['self_ms']:9.3f} ms x{k['calls']:5d}  {k['name']} "
+                  "(self time, profiled)")
     print(smi)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -17,14 +17,19 @@ from repro.models.attn_core import blockwise_attention
 from repro.models.attn_core import naive_attention as jax_naive_attention
 from repro_torch.kernels.flash.flash import flash_attention
 from repro_torch.kernels.flash.ops import flash
-from repro_torch.kernels.gmm.gmm import gmm
+from repro_torch.kernels.gmm.gmm import gmm, tile_shape
 from repro_torch.kernels.gmm.ops import expert_ffn_gmm
 from repro_torch.models.attn_core import _merge_partials, naive_attention
 
 torch.set_num_threads(1)
 
-# A subset of tests/test_kernels.py::GMM_SHAPES (M, K, N, E, bm).
-GMM_SHAPES = [(256, 128, 128, 4, 128), (512, 256, 384, 8, 64)]
+# (M, K, N, E, bm, layout): a subset of tests/test_kernels.py::GMM_SHAPES with
+# random block_expert, and the serving layout (one row block per expert,
+# block_expert = arange(E)) that the decode step hands the kernel.
+GMM_SHAPES = [(256, 128, 128, 4, 128, "random"), (512, 256, 384, 8, 64, "random"),
+              (512, 128, 256, 4, 128, "serving")]
+GMM_IDS = ["-".join(map(str, s[:5])) + ("" if s[5] == "random" else f"-{s[5]}")
+           for s in GMM_SHAPES]
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 GMM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # tests/test_kernels.py's own
@@ -34,24 +39,42 @@ def _t(a, dtype="float32"):
     return torch.from_numpy(np.asarray(a)).to(TORCH_DT[dtype])
 
 
-def _gmm_inputs(M, K, N, E, bm, seed=0):
+def _gmm_inputs(M, K, N, E, bm, layout="random", seed=0):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((M, K)).astype(np.float32)
     w = (rng.standard_normal((E, K, N)) * 0.1).astype(np.float32)
-    be = rng.integers(0, E, M // bm).astype(np.int32)
+    if layout == "serving":
+        assert M == E * bm
+        be = np.arange(E, dtype=np.int32)
+    else:
+        be = rng.integers(0, E, M // bm).astype(np.int32)
     return x, w, be
 
 
-@pytest.mark.parametrize("M,K,N,E,bm", GMM_SHAPES)
+@pytest.mark.parametrize("M,K,N,E,bm,layout", GMM_SHAPES, ids=GMM_IDS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_gmm_plain_matches_jax_kernel(M, K, N, E, bm, dtype):
-    x, w, be = _gmm_inputs(M, K, N, E, bm)
+def test_gmm_plain_matches_jax_kernel(M, K, N, E, bm, layout, dtype):
+    x, w, be = _gmm_inputs(M, K, N, E, bm, layout)
     yj = jax_gmm(jnp.asarray(x, JAX_DT[dtype]), jnp.asarray(w, JAX_DT[dtype]),
                  jnp.asarray(be), bm=bm, interpret=True)
     yt = gmm(_t(x, dtype), _t(w, dtype), torch.from_numpy(be), bm=bm)
     assert yt.dtype == TORCH_DT[dtype]
     np.testing.assert_allclose(yt.float().numpy(), np.asarray(yj, np.float32),
                                atol=GMM_TOL[dtype], rtol=GMM_TOL[dtype])
+
+
+@pytest.mark.parametrize("M,N,bm,tile", [
+    (1024, 16384, 128, (128, 256)),     # decode gate/up: 512 wide tiles fill 4 waves 97%
+    (1024, 6144, 128, (128, 128)),      # decode down: 192 wide tiles fill 2 waves 73%
+    (8192, 16384, 128, (128, 256)), (8192, 6144, 128, (128, 256)),
+    (1024, 16384, 64, (64, 256)),
+    (256, 6144, 128, (128, 128)),       # 48 wide tiles on 132 SMs
+    (512, 384, 64, (64, 128)), (512, 512, 256, (128, 128))])
+def test_gmm_tile_shape(M, N, bm, tile):
+    """The kernel's tile: 64-row tiles only where bm needs them, 256 columns
+    only where N allows and narrow tiles would not fill the SMs' waves
+    better by over a tenth."""
+    assert tile_shape(M, N, bm, n_sms=132) == tile
 
 
 def test_expert_ffn_gmm_matches_jax():

@@ -38,14 +38,41 @@ def _rel_err(got, ref):
     return ((got - ref).abs().max() / ref.abs().max()).item()
 
 
-@pytest.mark.parametrize("M,K,N,E,bm", [(1024, 256, 384, 4, 128), (512, 512, 256, 8, 256),
-                                        (128, 32, 128, 1, 128)])
-def test_gmm_kernel_matches_plain(cuda, M, K, N, E, bm):
+# (M, K, N, E, bm, block_expert, tile): block_expert "random" draws an expert
+# per row block, "serving" gives expert i the i-th block, a list is used as
+# given; tile None lets the wrapper choose, (BM, BN) forces the kernel's tile.
+GMM_CASES = [
+    (1024, 256, 384, 4, 128, "random", None),
+    (512, 512, 256, 8, 256, "random", None),            # two 128-row tiles per block
+    (128, 64, 128, 1, 128, "random", None),             # K = 64: one stage; N = 128
+    (512, 256, 384, 8, 64, "random", None),             # bm = 64: 64-row tiles
+    (1152, 128, 3968, 4, 128, "random", None),          # 279 tiles: a persistent tail
+    (256, 448, 256, 2, 128, "random", None),            # K = 7 x 64, no multiple of the stages
+    (256, 128, 6144, 2, 128, "random", None),           # N = 6144
+    (1024, 128, 512, 8, 128, [3, 0, 3, 5, 1, 1, 7, 0], None),   # unsorted; 2, 4, 6 own nothing
+    (1024, 1024, 1024, 8, 128, "serving", None),
+    (512, 192, 512, 4, 128, "random", (128, 256)),
+    (512, 192, 512, 4, 128, "random", (128, 128)),
+    (512, 192, 512, 4, 128, "random", (64, 256)),
+    (512, 192, 512, 4, 128, "random", (64, 128)),
+    (512, 320, 512, 8, 64, "random", (64, 256)),
+]
+
+
+@pytest.mark.parametrize("M,K,N,E,bm,layout,tile", GMM_CASES)
+def test_gmm_kernel_matches_plain(cuda, M, K, N, E, bm, layout, tile):
     rng = np.random.default_rng(3)
     x, w = _bf16(rng, (M, K)), _bf16(rng, (E, K, N), K ** -0.5)
-    be = torch.from_numpy(rng.integers(0, E, M // bm).astype(np.int32)).to(cuda)
+    if layout == "random":
+        be = rng.integers(0, E, M // bm)
+    elif layout == "serving":
+        be = np.arange(M // bm) % E
+    else:
+        be = np.asarray(layout)
+    be = torch.from_numpy(be.astype(np.int32)).to(cuda)
+    block_m, block_n = tile or (None, None)
     n0 = gmm.launches
-    y = gmm(x, w, be, bm=bm)
+    y = gmm(x, w, be, bm=bm, block_m=block_m, block_n=block_n)
     assert gmm.launches == n0 + 1
     assert _rel_err(y, gmm_ref(x, w, be, bm=bm)) <= REL_TOL
 
@@ -95,6 +122,13 @@ def test_kernels_reject_shapes_they_do_not_take(cuda):
     w = torch.zeros((2, 128, 128), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="bm"):
         gmm(x, w, torch.zeros(2, dtype=torch.int32, device=cuda), bm=100)
+    with pytest.raises(ValueError, match="bm"):
+        gmm(x[:128], w, torch.zeros(4, dtype=torch.int32, device=cuda), bm=32)
+    with pytest.raises(ValueError, match="K % 64"):
+        gmm(x[:128, :96].contiguous(), w[:, :96].contiguous(),
+            torch.zeros(1, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="tile"):
+        gmm(x[:128], w, torch.zeros(1, dtype=torch.int32, device=cuda), block_n=256)
     with pytest.raises(TypeError, match="bf16"):
         gmm(x[:128].float(), w, torch.zeros(1, dtype=torch.int32, device=cuda))
     q = torch.zeros((1, 2, 4, 96), dtype=torch.bfloat16, device=cuda)
