@@ -8,12 +8,17 @@ Phases (any failure exits non-zero; nothing is caught):
 1. device  — require CUDA; print the card's name and power limit; turn TF32 off.
 2. build   — build the kernel library from ``src/repro_torch/kernels/csrc``.
 3. kernels — each CUDA kernel against its plain PyTorch version on the card at
-   the serving slice's shapes (bf16, relative error <= 2e-2), its median time
-   over CUDA-event-timed runs, its bound, the plain version's time, and one
-   PyTorch library call of the same function as a yardstick (``library_ms``).
-   The GMM's headline cases are the decode step's gate/up and down launches
-   with all 8 experts owning a block, as serving reads them; 6-of-8, bm=64
-   and a compute-bound M=8192 case follow.
+   the serving slice's shapes (bf16, relative error <= 2e-2), its device
+   time, its bound, the plain version's device time, and one PyTorch library
+   call of the same function as a yardstick (``library_ms``). Every time is
+   device time (``repro_torch.launch.devtime``): the kernel and the library
+   call from replays of a CUDA graph of 20 calls (``graph_ms``), the plain
+   version, which synchronises, from ``torch.profiler``'s kernel times
+   (``profiled_ms``). The GMM's headline cases are the decode step's gate/up
+   and down launches with all 8 experts owning a block, as serving reads
+   them; 6-of-8, bm=64 and a compute-bound M=8192 case follow. Flash runs
+   the serving decode and prefill chunk, a long decode (32768 keys) and
+   causal self-attention at 4096 tokens, each in both output modes.
 4. serve   — full-width Mixtral-8x22B cut to 4 layers, random weights from a
    seed, bf16: 6 requests through the paged engine; every launch counter is
    set to 0 just before and read just after, and must have risen.
@@ -40,7 +45,7 @@ SRC = ROOT / "src"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 REL_TOL = 2e-2          # kernel vs plain version, bf16 inputs and outputs
-TIMED_RUNS = 25
+TIMING = {"ms": "graph_ms", "library_ms": "graph_ms", "plain_ms": "profiled_ms"}
 
 
 def _say(msg: str) -> None:
@@ -52,22 +57,6 @@ def _smi() -> str:
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout
     return out.strip().splitlines()[0]
-
-
-def _median_ms(torch, fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``runs`` CUDA-event-timed calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(runs):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        events.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
 def _bound(nbytes: float, flops: float):
@@ -113,6 +102,7 @@ def _gmm_cases(torch) -> list:
     rows per expert."""
     from repro_torch.kernels.gmm.gmm import gmm
     from repro_torch.kernels.gmm.ref import gmm_ref
+    from repro_torch.launch.devtime import graph_ms, profiled_ms
     g = torch.Generator(device="cuda").manual_seed(1)
     E = 8
     serving = list(range(E))
@@ -131,11 +121,11 @@ def _gmm_cases(torch) -> list:
         torch.cuda.synchronize()
         max_abs, rel = _err(torch, y, ref)
         del y, ref
-        ms = _median_ms(torch, lambda: gmm(x, w, be, bm=bm))
-        plain_ms = _median_ms(torch, lambda: gmm_ref(x, w, be, bm=bm))
+        ms = graph_ms(torch, lambda: gmm(x, w, be, bm=bm))
+        plain_ms = profiled_ms(torch, lambda: gmm_ref(x, w, be, bm=bm))
         # The same bytes through one batched matmul: x as (E, M/E, K).
         xe = x.view(E, M // E, K)
-        library_ms = _median_ms(torch, lambda: torch.bmm(xe, w))
+        library_ms = graph_ms(torch, lambda: torch.bmm(xe, w))
         n_used = len(set(blocks))
         nbytes = 2 * (M * K + M * N + n_used * K * N)
         bound_ms, bound_by = _bound(nbytes, 2.0 * M * K * N)
@@ -147,14 +137,29 @@ def _gmm_cases(torch) -> list:
     return cases
 
 
+FLASH_CASES = (   # (label, Sq, Skv, q_offset per batch row); 48/8 heads of 128
+    ("decode (serving)", 1, 512, [0, 37, 300, 511]),
+    ("prefill chunk", 200, 512, [312]),
+    ("long decode", 1, 32768, [32767, 30000, 16000, 8191]),
+    ("causal self-attention 4096", 4096, 4096, [0]),
+)
+HEADLINE = {"gmm": "gate/up, decode (serving)",          # the decode step's main shapes
+            "flash_attention": "decode (serving), normalized"}
+
+
 def _flash_cases(torch) -> list:
+    """Flash cases in both output modes. ``library_ms`` is the fastest of the
+    ``scaled_dot_product_attention`` forms that compute the same function on
+    the same (GQA) inputs: an explicit mask (offsets differ per row), and
+    ``is_causal`` where the queries start at key 0."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash.flash import flash_attention
     from repro_torch.kernels.flash.ref import flash_ref
+    from repro_torch.launch.devtime import graph_ms, profiled_ms
     g = torch.Generator(device="cuda").manual_seed(2)
-    H, Hkv, hd, L = 48, 8, 128, 512
+    H, Hkv, hd = 48, 8, 128
     cases = []
-    for label, offsets, Sq in (("prefill chunk", [312], 200), ("decode", [0, 37, 300, 511], 1)):
+    for label, Sq, L, offsets in FLASH_CASES:
         B = len(offsets)
         q = torch.randn((B, H, Sq, hd), generator=g, device="cuda").to(torch.bfloat16)
         k = torch.randn((B, Hkv, L, hd), generator=g, device="cuda").to(torch.bfloat16)
@@ -164,20 +169,28 @@ def _flash_cases(torch) -> list:
         vis = torch.arange(L, device="cuda")[None, None, :] <= q_pos[:, :, None]
         n_vis = vis.sum().item()                         # visible (row, key) pairs per head
         n_keys = sum(min(L, o + Sq) for o in offsets)    # KV rows the rows can see
-        kx, vx = k.repeat_interleave(H // Hkv, 1), v.repeat_interleave(H // Hkv, 1)
-        library_ms = _median_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, kx, vx, attn_mask=vis[:, None]))
+        mask = vis[:, None]
+        forms = {"SDPA attn_mask, enable_gqa": lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)}
+        if all(o == 0 for o in offsets) and Sq == L:
+            forms["SDPA is_causal, enable_gqa"] = lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+        library = {name: graph_ms(torch, fn) for name, fn in forms.items()}
+        library_form = min(library, key=library.get)
         for partial in (False, True):
-            got = flash_attention(q, k, v, q_off, causal=True, return_partial=partial)
-            ref = flash_ref(q, k, v, q_off, causal=True, return_partial=partial)
+            def run(partial=partial):
+                return flash_attention(q, k, v, q_off, causal=True, return_partial=partial)
+
+            def plain(partial=partial):
+                return flash_ref(q, k, v, q_off, causal=True, return_partial=partial)
+            got, ref = run(), plain()
             torch.cuda.synchronize()
             pairs = list(zip(got, ref)) if partial else [(got, ref)]
             errs = [_err(torch, a, b) for a, b in pairs]
             max_abs, rel = max(e[0] for e in errs), max(e[1] for e in errs)
-            ms = _median_ms(torch, lambda: flash_attention(q, k, v, q_off, causal=True,
-                                                           return_partial=partial))
-            plain_ms = _median_ms(torch, lambda: flash_ref(q, k, v, q_off, causal=True,
-                                                           return_partial=partial))
+            del got, ref, pairs
+            ms = graph_ms(torch, run)
+            plain_ms = profiled_ms(torch, plain, calls=3)
             out_bytes = B * H * Sq * (hd * 4 + 8) if partial else B * H * Sq * hd * 2
             nbytes = 2 * B * H * Sq * hd + 2 * 2 * Hkv * hd * n_keys + out_bytes
             bound_ms, bound_by = _bound(nbytes, 4.0 * hd * H * n_vis)
@@ -186,18 +199,24 @@ def _flash_cases(torch) -> list:
                                     f"q_offset={offsets}",
                               max_abs_err=max_abs, rel_err=rel, ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by,
-                              library_ms=library_ms))
+                              library_ms=library[library_form], library_form=library_form,
+                              library_all=library))
+        del q, k, v, mask, vis
+        torch.cuda.empty_cache()
     return cases
 
 
 def phase_kernels(torch) -> dict:
+    _say("[kernels] device time: kernel and library_ms by graph_ms (a CUDA graph of 20 "
+         "calls), plain_ms by profiled_ms (torch.profiler kernel times)")
     out = {"gmm": _gmm_cases(torch), "flash_attention": _flash_cases(torch)}
     for name, cases in out.items():
         for c in cases:
             _say(f"[kernels] {name} {c['case']} {c['shape']}: max_abs_err "
-                 f"{c['max_abs_err']:.3e} rel_err {c['rel_err']:.3e}; kernel "
+                 f"{c['max_abs_err']:.3e} rel_err {c['rel_err']:.3e}; device time: kernel "
                  f"{c['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}), "
-                 f"plain {c['plain_ms']:.4f} ms, library_ms {c['library_ms']:.4f}")
+                 f"plain {c['plain_ms']:.4f} ms, library_ms {c['library_ms']:.4f}"
+                 + (f" ({c['library_form']})" if "library_form" in c else ""))
             if not c["rel_err"] <= REL_TOL:
                 raise AssertionError(f"{name} {c['case']}: relative error "
                                      f"{c['rel_err']:.3e} > {REL_TOL}")
@@ -318,7 +337,7 @@ def main() -> int:
                                    "src/repro/kernels/flash/flash.py:150")}
     line = []
     for name, cases in kernels.items():
-        c = cases[0] if name == "gmm" else cases[2]      # the decode step's main shape
+        c = next(x for x in cases if x["case"] == HEADLINE[name])
         line.append(dict(name=name, route="cuda", source=sources[name][0],
                          replaces=sources[name][1], launches=serve["launches"][name],
                          max_abs_err=max(x["max_abs_err"] for x in cases), ms=c["ms"],
@@ -330,7 +349,7 @@ def main() -> int:
     out_dir = ROOT / "results"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        nvidia_smi=smi, device=device, build=build, kernels=kernels, serve=serve,
+        nvidia_smi=smi, device=device, timing=TIMING, build=build, kernels=kernels, serve=serve,
         check=check, seconds=time.perf_counter() - t_start), indent=1))
     print(json.dumps({"kernels": line}))
     print(smi)

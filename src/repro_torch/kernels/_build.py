@@ -4,8 +4,9 @@ The sources under ``kernels/csrc/`` have a plain C interface. At first use
 each is compiled by ``nvcc`` for ``sm_90a`` (one process per source, all
 started together), the objects are linked into one shared library under
 ``build/kernels/`` at the root of the checkout, and the library is loaded
-with ``ctypes``. The library's file name carries a hash of the sources, so
-an edited source is rebuilt and a stale library is never loaded.
+with ``ctypes``. The library's file name carries a hash of the sources and
+the headers they include, so an edited file is rebuilt and a stale library
+is never loaded.
 
 Nothing here runs when the module is imported: machines without a CUDA
 toolchain (the CPU tests' included) import every module.
@@ -22,6 +23,7 @@ from typing import Dict, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES: Tuple[str, ...] = ("gmm.cu", "flash.cu")
+HEADERS: Tuple[str, ...] = ("hopper.cuh",)      # included by the sources
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -33,10 +35,10 @@ _I = ctypes.c_int
 SIGNATURES: Dict[str, Tuple[tuple, type]] = {
     # x, w, block_expert, y, M, K, N, bm, E, block_m, block_n, stream
     "repro_gmm_bf16": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), _I),
-    # q, k, v, q_offset, out, acc, m, l, B, H, Hkv, Sq, Skv, hd, kv_offset,
-    # causal, window, scale, stream
-    "repro_flash_fwd_bf16": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, ctypes.c_float, _P), _I),
+    # q, k, v, q_offset, out, acc, m, l, ws, counters, B, H, Hkv, Sq, Skv, hd,
+    # kv_offset, causal, window, scale, path, splits, stream
+    "repro_flash_fwd_bf16": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P), _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -57,7 +59,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -1,265 +1,1000 @@
 // Blockwise (flash) attention forward, bf16 in, fp32 online softmax, for
-// sm_90a.
+// sm_90a (Hopper: mma.sync + cp.async on the decode path, TMA + mbarrier +
+// wgmma on the prefill path).
 //
 // Replaces the Pallas TPU kernel `flash_attention` / `_flash_kernel` in
 // src/repro/kernels/flash/flash.py, and with it the jnp scan `_fwd_scan`
 // (src/repro/models/attn_core.py) that the JAX serving path runs for its
 // cache attention. Same contract:
-//   q (B, H, Sq, hd), k/v (B, Hkv, Skv, hd), GQA head h reads KV head
-//   h / (H / Hkv); query row i of batch row b sits at position
-//   q_offset[b] + i, key j at kv_offset + j; causal and sliding-window
-//   masks as flash.py:48-57 (NEG_INF = -1e30, p zeroed where not visible);
-//   p is rounded to bf16 before the PV product (flash.py:67).
+//   q (B, H, Sq, hd), k/v (B, Hkv, Skv, hd), hd in {64, 128}; GQA head h
+//   reads KV head h / (H / Hkv); query row i of batch row b sits at
+//   position q_offset[b] + i, key j at kv_offset + j; causal and
+//   sliding-window masks as flash.py:48-57 (NEG_INF = -1e30, p zeroed where
+//   not visible); p is rounded to bf16 before the PV product (flash.py:67).
 // Outputs: normalized o = acc / max(l, 1e-30) in bf16, or the fp32 partial
-// triple (acc, m, l). q_offset is one int32 per batch row, so the batched
-// decode step, whose rows sit at different positions, uses the same kernel.
+// triple (acc, m, l) over the whole KV. q_offset is one int32 per batch
+// row, so the batched decode step, whose rows sit at different positions,
+// uses the same kernel.
 //
-// What bounds it on an H100: serving runs it with few query rows per head
-// (1 at decode, <= one prefill chunk at prefill) against the whole cache, so
-// it does ~1 flop per KV byte at decode and is bound by memory bandwidth;
-// at the slice's sizes it is short enough that launch latency matters too.
+// One C entry point, one kernel launch per call, two device paths chosen
+// on the host from the shapes (kernels/flash/flash.py::plan):
 //
-// Design. One block of 4 warps per (query tile of 64 rows, head, batch
-// row); each warp owns 16 query rows end to end, so the online softmax
-// needs only warp-level synchronisation. The block loops over 64-row KV
-// tiles in shared memory: S = Q K^T and O += P V run on the tensor cores
-// (wmma 16 x 16 x 16 bf16, fp32 accumulate); the running max and sum live in
-// registers (two lanes per row), the fp32 accumulator in shared memory.
-// The repeated GQA KV is never materialized: every head indexes its KV
-// head. KV tiles that the causal or window mask hides from every row of the
-// query tile are skipped; such a tile is an exact no-op of the online
-// softmax (corr = 1, p = 0), so results are identical. Ragged Sq and Skv
-// are zero-filled and masked. Simple first: no cp.async/TMA pipelining yet.
+// 1. Decode / short query (`flash_fwd_kernel_split`): (H/Hkv) x Sq <= 64
+//    rows per KV head, as in the serving decode step (6 rows: one query of
+//    each of the 6 heads that share a KV head). Bound by memory: ~1 flop
+//    per KV byte, and at the serving step's 512 keys by launch latency.
+//    - The rows of the whole GQA group are packed as the rows of one
+//      16-row mma.sync m16n8k16 tile, so each KV byte is read once per
+//      group, not once per query head.
+//    - One block of 4 warps works on one (row tile, KV head, batch row,
+//      KV split); the KV range that the tile's rows can see is cut into
+//      `splits` runs of 64-key tiles so that the blocks fill the SMs. A
+//      split wholly outside the visible range exits at once.
+//    - K/V tiles stream through a 2-stage cp.async ring; each warp takes
+//      16 keys of every 64-key tile with its own online softmax and its
+//      accumulator in registers; the 4 warps merge through shared memory.
+//    - The splits merge inside the same launch: each writes its fp32
+//      partial (m, l, acc) to a workspace and counts itself in on a
+//      per-group counter; the last to arrive merges them (the math of
+//      attn_core._merge_partials, exact for rows that see no key in a split:
+//      m = -1e30, l = 0) and sets the counter back to 0. The counters are
+//      allocated and zeroed once per device by the wrapper; one launch at a
+//      time may use them (one stream).
+// 2. Prefill / long query (`flash_fwd_kernel_wgmma`): bound by the tensor
+//    cores at training lengths (4096 causal: ~206 GFLOP for ~60 MB).
+//    - One block per (128 query rows, head, batch row), heads not packed;
+//      every head's last query tile is issued first, so the long causal
+//      rows start first.
+//    - Two producer threads issue TMA loads (128 B swizzle): one the Q tile
+//      and the 128-key K tiles, the other the V tiles, into a 3-stage ring
+//      (4 at hd 64) with separate full/empty mbarriers for K and V, from 3-D
+//      tensor maps over (hd, S, B x heads), so the zero fill stops at a
+//      head's ragged edge.
+//    - Two consumer warpgroups of 64 rows each run wgmma: S = Q K^T (both
+//      K-major), the online softmax on S in registers, then O += P V with P
+//      converted in registers as the A operand and V as MN-major B (the
+//      transpose bit; LBO = the stride between 64-column swizzle atoms, SBO
+//      = 8 rows, as gmm.cu's weights). O stays in registers.
+//    - Each warpgroup issues S(t) together with P(t-1) V(t-1) and runs the
+//      softmax of tile t while P V runs; the two warpgroups take turns to
+//      issue (named barriers), so one's softmax overlaps the other's
+//      products.
+//    - KV tiles the causal or window mask hides from every row of the block
+//      are skipped (exact no-ops of the online softmax); the mask is
+//      evaluated only on tiles that cross a mask edge or Skv.
+//    - The epilogue goes through per-warp strips in the warpgroup's own Q
+//      rows and writes 16 bytes per lane.
+//
+// Measured on an H100 80GB HBM3 at 700 W (launch/bench_flash.py, PERF.md):
+// the serving decode launch 0.0098 ms (SDPA 0.0140; one tiny kernel 0.0014),
+// the long decode at 79% of its byte bound (SDPA 58%), the 4096 causal case
+// at ~51% of its operation bound (SDPA ~58%). In that order the pipelining
+// of each warpgroup took the causal case from 0.58 to 0.48 ms, the
+// ping-pong to 0.44, the second producer with the epilogue in Q's rows to
+// 0.43 and the longest-first issue order to 0.41. Measured and dropped: a
+// 3-stage decode ring (2 stages leave room for 3 blocks per SM: 6% faster),
+// 8 one-tile splits at the serving step (4 of 2 tiles are 8% faster), two
+// accumulation chains for S on the decode path (no change), a 2-stage
+// prefill ring (within noise) and a persistent prefill grid (4-5% slower).
+//
+// Requires 16-byte aligned, contiguous tensors; the wrapper checks them and
+// this entry point again.
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BKV = 64;
-constexpr int THREADS = 128;
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {   // 2^x; 0 for x far below 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Visibility of key index kidx (0-based in k) to a query at absolute
+// position q_pos: in range, causal, window (flash.py:48-57).
+__device__ __forceinline__ bool visible(int q_pos, int kidx, int Skv, int kv_offset,
+                                        int causal, int window) {
+  const int d = q_pos - (kv_offset + kidx);
+  return kidx < Skv && (!causal || d >= 0) && (!window || d < window);
+}
+
+// Keys [lo, hi) that some query at positions [q_first, q_last] can see;
+// hi <= lo when none.
+__device__ __forceinline__ void visible_range(int q_first, int q_last, int Skv, int kv_offset,
+                                              int causal, int window, int& lo, int& hi) {
+  lo = window ? max(0, q_first - window + 1 - kv_offset) : 0;
+  hi = causal ? min(Skv, q_last - kv_offset + 1) : Skv;
+}
+
+// ===================================================== decode path (split)
+
+constexpr int S_ROWS = 16;                   // packed rows per tile: one m16 tile
+constexpr int S_BKV = 64;                    // keys per KV tile: 16 per warp
+constexpr int S_STAGES = 2;                  // cp.async ring depth (3 blocks per SM at hd 128)
+constexpr int S_THREADS = 128;
 
 template <int HD>
-struct Layout {
-  static constexpr int QK_LD = HD + 8;     // bf16 rows of Q, K, V tiles
-  static constexpr int S_LD = BKV + 4;     // fp32 scores
-  static constexpr int P_LD = BKV + 8;     // bf16 probabilities
-  static constexpr int O_LD = HD + 4;      // fp32 accumulator
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + size_t(BQ) * QK_LD * 2;
-  static constexpr size_t v_off = k_off + size_t(BKV) * QK_LD * 2;
-  static constexpr size_t s_off = v_off + size_t(BKV) * QK_LD * 2;
-  static constexpr size_t p_off = s_off + size_t(BQ) * S_LD * 4;
-  static constexpr size_t o_off = p_off + size_t(BQ) * P_LD * 2;
-  static constexpr size_t bytes = o_off + size_t(BQ) * O_LD * 4;
+struct SplitCfg {
+  static constexpr int LD = HD + 8;          // bf16 row pitch of Q/K/V tiles (no ldmatrix conflicts)
+  static constexpr int TILE = S_BKV * LD * 2;                 // bytes of one K or V tile
+  static constexpr int RING = S_STAGES * 2 * TILE;
+  static constexpr int Q_BYTES = S_ROWS * LD * 2;
+  static constexpr int A_LD = HD + 4;        // fp32 row pitch of the warps' accumulators
+  static constexpr int MERGE = 4 * S_ROWS * (A_LD + 2) * 4;  // reuses the ring
+  static constexpr int SMEM = Q_BYTES + RING;
+  static constexpr int PART = S_ROWS * (HD + 2);             // floats of one split's partial
+  static_assert(MERGE <= RING, "merge area must fit the ring");
 };
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const int* __restrict__ q_offset, __nv_bfloat16* __restrict__ out,
-                 float* __restrict__ acc_out, float* __restrict__ m_out,
-                 float* __restrict__ l_out, int H, int Hkv, int Sq, int Skv,
-                 int kv_offset, int causal, int window, float scale) {
-  using L = Layout<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::k_off);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + L::v_off);
-  float* Ss = reinterpret_cast<float*>(smem + L::s_off);
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem + L::p_off);
-  float* Os = reinterpret_cast<float*>(smem + L::o_off);
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(pred ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  constexpr int CH = HD / 8;                 // 16-byte chunks per row
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
 
-  const __nv_bfloat16* qb = q + (static_cast<size_t>(b) * H + h) * Sq * HD;
-  const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * Hkv + hk) * Skv * HD;
-  const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * Hkv + hk) * Skv * HD;
-  const int q_off = q_offset[b];
+// D += A B, m16n8k16, bf16 x bf16 -> fp32.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  for (int c = tid; c < BQ * CH; c += THREADS) {
-    const int r = c / CH, cc = (c % CH) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + r < Sq) val = *reinterpret_cast<const uint4*>(qb + static_cast<size_t>(q0 + r) * HD + cc);
-    *reinterpret_cast<uint4*>(Qs + r * L::QK_LD + cc) = val;
+// The split plan of one (batch row, row tile) group; kernels/flash/flash.py
+// ::split_ranges computes the same on the host. The visible keys [lo, hi)
+// of the group's rows, in 64-key tiles [t_lo, t_hi), are cut into runs of
+// `chunk` tiles; split s takes run s. n_active splits have keys (at least
+// one, which writes the empty result when no key is visible).
+struct SplitPlan {
+  int lo, hi, t_lo, t_hi, chunk, n_active;
+  __device__ __forceinline__ SplitPlan(int q_first, int q_last, int Skv, int kv_offset, int causal,
+                                       int window, int splits) {
+    visible_range(q_first, q_last, Skv, kv_offset, causal, window, lo, hi);
+    t_lo = lo / S_BKV;
+    t_hi = hi > lo ? (hi + S_BKV - 1) / S_BKV : t_lo;
+    const int n_t = t_hi - t_lo;
+    chunk = n_t > 0 ? (n_t + splits - 1) / splits : 0;
+    n_active = n_t > 0 ? (n_t + chunk - 1) / chunk : 1;
   }
-  for (int i = tid; i < BQ * L::O_LD; i += THREADS) Os[i] = 0.0f;
+};
 
-  // KV tiles some row of this query tile can see; the rest are exact no-ops.
-  const int q_last = min(q0 + BQ, Sq) - 1;
-  int kv_begin = 0, kv_end = Skv;
-  if (causal) kv_end = min(Skv, q_off + q_last - kv_offset + 1);
-  if (window) kv_begin = max(0, q_off + q0 - window + 1 - kv_offset);
-  const int t_begin = kv_begin / BKV;
-  const int t_end = kv_end > 0 ? (kv_end + BKV - 1) / BKV : 0;
-
-  const int r = warp * 16 + lane / 2;        // the row this lane pair owns
-  const int half = lane % 2;                 // which half of its columns
-  const int q_pos = q_off + q0 + r;
-  float m_run = NEG_INF, l_run = 0.0f;
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int kv0 = t * BKV;
-    __syncthreads();                         // previous K/V tile consumed
-    for (int c = tid; c < BKV * CH; c += THREADS) {
-      const int rr = c / CH, cc = (c % CH) * 8;
-      uint4 kval = make_uint4(0, 0, 0, 0), vval = make_uint4(0, 0, 0, 0);
-      if (kv0 + rr < Skv) {
-        const size_t off = static_cast<size_t>(kv0 + rr) * HD + cc;
-        kval = *reinterpret_cast<const uint4*>(kb + off);
-        vval = *reinterpret_cast<const uint4*>(vb + off);
-      }
-      *reinterpret_cast<uint4*>(Ks + rr * L::QK_LD + cc) = kval;
-      *reinterpret_cast<uint4*>(Vs + rr * L::QK_LD + cc) = vval;
-    }
-    __syncthreads();
-
-    {  // S = Q K^T for this warp's 16 rows
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf[BKV / 16];
-#pragma unroll
-      for (int j = 0; j < BKV / 16; ++j) wmma::fill_fragment(sf[j], 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < HD; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, Qs + warp * 16 * L::QK_LD + kk, L::QK_LD);
-#pragma unroll
-        for (int j = 0; j < BKV / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fb, Ks + j * 16 * L::QK_LD + kk, L::QK_LD);
-          wmma::mma_sync(sf[j], fa, fb, sf[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < BKV / 16; ++j)
-        wmma::store_matrix_sync(Ss + warp * 16 * L::S_LD + j * 16, sf[j], L::S_LD,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // Online softmax over this lane's 32 columns of row r.
-    const float* srow = Ss + r * L::S_LD + half * 32;
-    float sv[32];
-    uint32_t vis_bits = 0;
-    float m_cur = NEG_INF;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int kidx = kv0 + half * 32 + i;
-      const int kpos = kv_offset + kidx;
-      bool vis = kidx < Skv;
-      if (causal) vis = vis && (q_pos >= kpos);
-      if (window) vis = vis && (q_pos - kpos < window);
-      const float s = vis ? srow[i] * scale : NEG_INF;
-      vis_bits |= static_cast<uint32_t>(vis) << i;
-      sv[i] = s;
-      m_cur = fmaxf(m_cur, s);
-    }
-    m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, 1));
-    const float m_new = fmaxf(m_run, m_cur);
-    __nv_bfloat16* prow = Ps + r * L::P_LD + half * 32;
-    float lsum = 0.0f;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const float p = ((vis_bits >> i) & 1u) ? expf(sv[i] - m_new) : 0.0f;
-      prow[i] = __float2bfloat16(p);
-      lsum += p;
-    }
-    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-    const float corr = expf(m_run - m_new);
-    l_run = l_run * corr + lsum;
-    m_run = m_new;
-    float* orow = Os + r * L::O_LD + half * (HD / 2);
-#pragma unroll 8
-    for (int i = 0; i < HD / 2; ++i) orow[i] *= corr;
-    __syncwarp();
-
-    // O += P V for this warp's 16 rows.
-#pragma unroll
-    for (int n0 = 0; n0 < HD; n0 += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      wmma::load_matrix_sync(of, Os + warp * 16 * L::O_LD + n0, L::O_LD, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BKV; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pa, Ps + warp * 16 * L::P_LD + kk, L::P_LD);
-        wmma::load_matrix_sync(vf, Vs + kk * L::QK_LD + n0, L::QK_LD);
-        wmma::mma_sync(of, pa, vf, of);
-      }
-      wmma::store_matrix_sync(Os + warp * 16 * L::O_LD + n0, of, L::O_LD, wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-  __syncthreads();                           // zero-fill visible when no tile ran
-
-  if (q0 + r >= Sq) return;
-  const size_t row = (static_cast<size_t>(b) * H + h) * Sq + q0 + r;
-  const float* orow = Os + r * L::O_LD + half * (HD / 2);
+// Store one merged row segment: normalized bf16, or the fp32 partial.
+template <int N>
+__device__ __forceinline__ void store_row(const float (&a)[N], float m, float l, bool lead,
+                                          size_t row, int col, int HDv, __nv_bfloat16* out,
+                                          float* acc_out, float* m_out, float* l_out) {
   if (out != nullptr) {
-    const float den = fmaxf(l_run, 1e-30f);
-    __nv_bfloat16* o = out + row * HD + half * (HD / 2);
-    for (int i = 0; i < HD / 2; ++i) o[i] = __float2bfloat16(orow[i] / den);
+    const float den = fmaxf(l, 1e-30f);
+    uint32_t w[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) w[i] = pack_bf16(a[2 * i] / den, a[2 * i + 1] / den);
+    uint4* dst = reinterpret_cast<uint4*>(out + row * HDv + col);
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i) dst[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
   } else {
-    float* a = acc_out + row * HD + half * (HD / 2);
-    for (int i = 0; i < HD / 2; ++i) a[i] = orow[i];
-    if (half == 0) {
-      m_out[row] = m_run;
-      l_out[row] = l_run;
+    float4* dst = reinterpret_cast<float4*>(acc_out + row * HDv + col);
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) dst[i] = make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
+    if (lead) {
+      m_out[row] = m;
+      l_out[row] = l;
     }
   }
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, const void* q_offset,
-           void* out, void* acc, void* m, void* l, int B, int H, int Hkv, int Sq,
-           int Skv, int kv_offset, int causal, int window, float scale,
-           cudaStream_t stream) {
-  // Per device, so set on every call (it costs far less than the launch).
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Layout<HD>::bytes));
+__global__ void __launch_bounds__(S_THREADS)
+flash_fwd_kernel_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_offset,
+                       __nv_bfloat16* __restrict__ out, float* __restrict__ acc_out,
+                       float* __restrict__ m_out, float* __restrict__ l_out,
+                       float* __restrict__ ws, int* __restrict__ counters, int H, int Hkv,
+                       int Sq, int Skv, int kv_offset, int causal, int window, float scale,
+                       int splits) {
+  using C = SplitCfg<HD>;
+  constexpr int CH = HD / 8;                 // 16-byte chunks per row
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  unsigned char* ring = smem + C::Q_BYTES;
+
+  const int rt = blockIdx.x / splits, s = blockIdx.x % splits;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int rep = H / Hkv, R = rep * Sq;
+  const int n_rt = (R + S_ROWS - 1) / S_ROWS;
+  const int r0 = rt * S_ROWS;
+  const int q_off = q_offset[b];
+  const SplitPlan plan(q_off + r0 / rep, q_off + min(R - 1, r0 + S_ROWS - 1) / rep, Skv,
+                       kv_offset, causal, window, splits);
+  if (s >= plan.n_active) return;            // no key of this split is visible
+  const int ts = plan.t_lo + s * plan.chunk;
+  const int n_tiles = max(0, min(plan.t_hi, ts + plan.chunk) - ts);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const size_t kv_head = static_cast<size_t>(b) * Hkv + hk;
+  const __nv_bfloat16* kb = k + kv_head * Skv * HD;
+  const __nv_bfloat16* vb = v + kv_head * Skv * HD;
+
+  // Packed row r -> query i = r / rep of head hk * rep + r % rep.
+  auto out_row = [&](int r) -> size_t {
+    const int rr = r0 + r;
+    return (static_cast<size_t>(b) * H + hk * rep + rr % rep) * Sq + rr / rep;
+  };
+
+  auto load_tile = [&](int t, int stage) {
+    const uint32_t kd = smem_u32(ring + stage * 2 * C::TILE);
+    const uint32_t vd = kd + C::TILE;
+    const int kv0 = t * S_BKV;
+#pragma unroll
+    for (int i = 0; i < S_BKV * CH / S_THREADS; ++i) {
+      const int idx = i * S_THREADS + tid, row = idx / CH, ch = idx % CH;
+      const bool in = kv0 + row < Skv;
+      const size_t off = in ? static_cast<size_t>(kv0 + row) * HD + ch * 8 : 0;
+      const uint32_t so = (row * C::LD + ch * 8) * 2;
+      cp_async16(kd + so, kb + off, in);
+      cp_async16(vd + so, vb + off, in);
+    }
+  };
+
+  // Start the ring, then stage the packed Q rows (zero past R).
+#pragma unroll
+  for (int p = 0; p < S_STAGES - 1; ++p) {
+    if (p < n_tiles) load_tile(ts + p, p);
+    cp_async_commit();
+  }
+  for (int idx = tid; idx < S_ROWS * CH; idx += S_THREADS) {
+    const int r = idx / CH, ch = idx % CH;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r0 + r < R) val = *reinterpret_cast<const uint4*>(q + out_row(r) * HD + ch * 8);
+    *reinterpret_cast<uint4*>(Qs + r * C::LD + ch * 8) = val;
+  }
+  __syncthreads();
+  uint32_t qf[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    ldsm_x4(qf[kk], smem_u32(Qs + (lane % 16) * C::LD + kk * 16 + (lane / 16) * 8));
+
+  // This thread's two rows (g, g + 8) and their positions.
+  bool row_ok[2];
+  int q_pos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = r0 + g + 8 * h;
+    row_ok[h] = rr < R;
+    q_pos[h] = q_off + rr / rep;
+  }
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<S_STAGES - 2>();
+    __syncthreads();                         // tile it landed; tile it-1's stage is free
+    if (it + S_STAGES - 1 < n_tiles) load_tile(ts + it + S_STAGES - 1, (it + S_STAGES - 1) % S_STAGES);
+    cp_async_commit();
+
+    const int key0 = (ts + it) * S_BKV + warp * 16;   // this warp's 16 keys
+    if (key0 >= plan.hi || key0 + 16 <= plan.lo) continue;   // hidden from every row
+    const unsigned char* st = ring + (it % S_STAGES) * 2 * C::TILE;
+    const uint32_t ks = smem_u32(st) + warp * 16 * C::LD * 2;
+    const uint32_t vs = ks + C::TILE;
+
+    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t kf[4];
+      ldsm_x4(kf, ks + (((lane / 16) * 8 + lane % 8) * C::LD + kk * 16 + ((lane / 8) & 1) * 8) * 2);
+      mma16816(sc[0], qf[kk], kf[0], kf[1]);
+      mma16816(sc[1], qf[kk], kf[2], kf[3]);
+    }
+    // Online softmax over these 16 keys; rows g (e < 2) and g + 8 (e >= 2).
+    uint32_t vis = 0;
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2;
+        const bool ok = row_ok[h] &&
+                        visible(q_pos[h], key0 + j * 8 + 2 * c + (e & 1), Skv, kv_offset, causal, window);
+        vis |= static_cast<uint32_t>(ok) << (j * 4 + e);
+        sc[j][e] = ok ? sc[j][e] * scale : NEG_INF;
+        mx[h] = fmaxf(mx[h], sc[j][e]);
+      }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m_run[h], quad_max(mx[h]));
+      corr[h] = exp2f((m_run[h] - m_new) * LOG2E);
+      m_run[h] = m_new;
+      l_run[h] *= corr[h];
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ((vis >> (j * 4 + e)) & 1u) ? exp2f((sc[j][e] - m_run[e / 2]) * LOG2E) : 0.f;
+        sc[j][e] = p;
+        l_run[e / 2] += p;
+      }
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      acc[j][0] *= corr[0]; acc[j][1] *= corr[0];
+      acc[j][2] *= corr[1]; acc[j][3] *= corr[1];
+    }
+    const uint32_t pa[4] = {pack_bf16(sc[0][0], sc[0][1]), pack_bf16(sc[0][2], sc[0][3]),
+                            pack_bf16(sc[1][0], sc[1][1]), pack_bf16(sc[1][2], sc[1][3])};
+#pragma unroll
+    for (int n = 0; n < HD / 16; ++n) {
+      uint32_t vf[4];
+      ldsm_x4_t(vf, vs + ((((lane / 8) & 1) * 8 + lane % 8) * C::LD + n * 16 + (lane / 16) * 8) * 2);
+      mma16816(acc[2 * n], pa, vf[0], vf[1]);
+      mma16816(acc[2 * n + 1], pa, vf[2], vf[3]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                           // the ring is free for the merge
+
+  // Merge the 4 warps' partials through shared memory.
+  float* Mw = reinterpret_cast<float*>(ring);                // [4][16]
+  float* Lw = Mw + 4 * S_ROWS;                               // [4][16]
+  float* Aw = Lw + 4 * S_ROWS;                               // [4][16][A_LD]
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float l = quad_sum(l_run[h]);
+    if (c == 0) {
+      Mw[warp * S_ROWS + g + 8 * h] = m_run[h];
+      Lw[warp * S_ROWS + g + 8 * h] = l;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    float* a0 = Aw + (warp * S_ROWS + g) * C::A_LD + j * 8 + 2 * c;
+    *reinterpret_cast<float2*>(a0) = make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(a0 + 8 * C::A_LD) = make_float2(acc[j][2], acc[j][3]);
+  }
+  __syncthreads();
+
+  constexpr int SEG = HD / 8;                // columns per thread: 8 threads per row
+  const int row = tid / 8, col = (tid % 8) * SEG;
+  const bool lead = tid % 8 == 0;
+  float m = NEG_INF;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) m = fmaxf(m, Mw[w * S_ROWS + row]);
+  float l = 0.f, a[SEG];
+#pragma unroll
+  for (int i = 0; i < SEG; ++i) a[i] = 0.f;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const float f = exp2f((Mw[w * S_ROWS + row] - m) * LOG2E);
+    l += f * Lw[w * S_ROWS + row];
+    const float* src = Aw + (w * S_ROWS + row) * C::A_LD + col;
+#pragma unroll
+    for (int i = 0; i < SEG; ++i) a[i] += f * src[i];
+  }
+  const bool row_valid = r0 + row < R;
+
+  if (plan.n_active == 1) {                  // the only split: write the result
+    if (row_valid) store_row(a, m, l, lead, out_row(row), col, HD, out, acc_out, m_out, l_out);
+    return;
+  }
+
+  // Several splits: publish this split's partial, count in; the last merges.
+  const int grp = (b * Hkv + hk) * n_rt + rt;
+  float* part = ws + (static_cast<size_t>(grp) * splits + s) * C::PART;
+  if (lead) {
+    part[row] = m;
+    part[S_ROWS + row] = l;
+  }
+  float4* pa4 = reinterpret_cast<float4*>(part + 2 * S_ROWS + row * HD + col);
+#pragma unroll
+  for (int i = 0; i < SEG / 4; ++i) pa4[i] = make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
+  __threadfence();
+  __syncthreads();
+  __shared__ int is_last;
+  if (tid == 0) is_last = atomicAdd(counters + grp, 1) == plan.n_active - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  const float* parts = ws + static_cast<size_t>(grp) * splits * C::PART;
+  m = NEG_INF;
+  for (int p = 0; p < plan.n_active; ++p) m = fmaxf(m, __ldcg(parts + p * C::PART + row));
+  l = 0.f;
+#pragma unroll
+  for (int i = 0; i < SEG; ++i) a[i] = 0.f;
+  for (int p = 0; p < plan.n_active; ++p) {
+    const float* src = parts + p * C::PART;
+    const float f = exp2f((__ldcg(src + row) - m) * LOG2E);
+    l += f * __ldcg(src + S_ROWS + row);
+    const float4* s4 = reinterpret_cast<const float4*>(src + 2 * S_ROWS + row * HD + col);
+#pragma unroll
+    for (int i = 0; i < SEG / 4; ++i) {
+      const float4 x = __ldcg(s4 + i);
+      a[4 * i] += f * x.x; a[4 * i + 1] += f * x.y; a[4 * i + 2] += f * x.z; a[4 * i + 3] += f * x.w;
+    }
+  }
+  if (row_valid) store_row(a, m, l, lead, out_row(row), col, HD, out, acc_out, m_out, l_out);
+  if (tid == 0) counters[grp] = 0;           // ready for the next launch
+}
+
+// ================================================== prefill path (wgmma)
+
+constexpr int W_BM = 128;                    // query rows per block: 64 per consumer warpgroup
+constexpr int W_BN = 128;                    // keys per K/V tile
+constexpr int W_CONSUMER_WARPS = 8;
+constexpr int W_THREADS = 32 * W_CONSUMER_WARPS + 128;   // + the producer warpgroup
+constexpr int W_EPI_COLS = 32;               // fp32 epilogue strip: 16 rows x 32 columns per warp
+
+template <int HD>
+struct WgCfg {
+  static constexpr int ATOMS = HD / 64;      // 64-column (128 B) swizzle atoms per row
+  static constexpr int Q_BYTES = W_BM * HD * 2;
+  static constexpr int KV_BYTES = W_BN * HD * 2;            // one K or V tile
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - Q_BYTES - 256) / (2 * KV_BYTES);
+  static constexpr int STAGES = FIT > 4 ? 4 : FIT;
+  // 1024 B of slack to align Q to the swizzle atom, Q, the ring, then the
+  // mbarriers: Q full, K full/empty and V full/empty per stage.
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (1 + 4 * STAGES);
+  static_assert(STAGES >= 2 && SMEM <= SMEM_LIMIT, "tiles do not fit shared memory");
+};
+
+// One (64 columns, rows, 1) box of a 3-D (hd, S, B x heads) tensor map.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// hopper.cuh's fence_regs for the registers an asynchronous wgmma reads
+// (its A operand): keeps them live, unchanged, until after the wait.
+template <int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// Named barriers (ids 1..15; 0 is __syncthreads) over `count` threads.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// wgmma.mma_async m64nNk16, bf16 x bf16 -> fp32. SS: A and B K-major in
+// shared memory (S = Q K^T); RS: A in registers, B MN-major (imm-trans-b =
+// 1; O += P V). The accumulators are overwritten when scale_d == 0.
+template <int N>
+struct WgmmaSS;
+template <int N>
+struct WgmmaRS;
+
+template <>
+struct WgmmaSS<128> {
+  __device__ static __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRS<128> {
+  __device__ static __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRS<64> {
+  __device__ static __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+
+template <int HD>
+__global__ void __launch_bounds__(W_THREADS, 1)
+flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const int* __restrict__ q_offset, __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ acc_out, float* __restrict__ m_out,
+                       float* __restrict__ l_out, int H, int Hkv, int Sq, int Skv,
+                       int kv_offset, int causal, int window, float scale) {
+  using C = WgCfg<HD>;
+  constexpr int STAGES = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t q_s = base;                                   // [ATOMS][BM][64]
+  const uint32_t ring = base + C::Q_BYTES;                     // STAGES x (K, V) [ATOMS][BN][64]
+  const uint32_t bars = base + C::Q_BYTES + STAGES * 2 * C::KV_BYTES;
+  const uint32_t q_full = bars;
+  const uint32_t k_full = bars + 8, v_full = k_full + 8 * STAGES;
+  const uint32_t k_empty = v_full + 8 * STAGES, v_empty = k_empty + 8 * STAGES;
+
+  // Blocks are issued x fastest: every head's last query tile (the longest
+  // causal rows) first, the first tiles last.
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / (H / Hkv);
+  const int q0 = qt * W_BM;
+  const int q_off = q_offset[b];
+  int lo, hi;
+  visible_range(q_off + q0, q_off + min(q0 + W_BM, Sq) - 1, Skv, kv_offset, causal, window, lo, hi);
+  const int t_begin = lo / W_BN;
+  const int t_end = hi > lo ? (hi + W_BN - 1) / W_BN : t_begin;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, W_CONSUMER_WARPS);
+      mbar_init(v_empty + 8 * s, W_CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= W_CONSUMER_WARPS) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    // Warp 8 loads Q and the K tiles, warp 9 the V tiles: a V stage that is
+    // still being read does not hold back the next K tile.
+    const bool k_thread = warp == W_CONSUMER_WARPS && lane == 0;
+    const bool v_thread = warp == W_CONSUMER_WARPS + 1 && lane == 0;
+    if (k_thread) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+#pragma unroll
+      for (int j = 0; j < C::ATOMS; ++j)
+        tma_load_3d(q_s + j * W_BM * 128, &q_map, q_full, j * 64, q0, b * H + h);
+    }
+    if (k_thread || v_thread) {
+      const CUtensorMap* map = k_thread ? &k_map : &v_map;
+      const uint32_t full = k_thread ? k_full : v_full, empty = k_thread ? k_empty : v_empty;
+      const uint32_t off = k_thread ? 0 : C::KV_BYTES;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = t_begin; t < t_end; ++t) {
+        const uint32_t dst = ring + stage * 2 * C::KV_BYTES + off;
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        mbar_expect_tx(full + 8 * stage, C::KV_BYTES);
+#pragma unroll
+        for (int j = 0; j < C::ATOMS; ++j)
+          tma_load_3d(dst + j * W_BN * 128, map, full + 8 * stage, j * 64, t * W_BN, b * Hkv + hk);
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = warp / 4, wq = warp % 4;    // warpgroup, warp within it
+  const int g = lane / 4, c = lane % 4;
+  const int row0 = q0 + wg * 64 + wq * 16 + g;               // this thread's rows: row0, row0 + 8
+  const int q_pos[2] = {q_off + row0, q_off + row0 + 8};
+  const int wq_first = q0 + wg * 64, wq_last = min(q0 + wg * 64 + 63, Sq - 1);
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+  const uint32_t q_wg = q_s + wg * 64 * 128;
+  int stage = 0;
+  uint32_t phase = 0;
+  auto advance = [&] {
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
+  };
+  // S = Q K^T of the stage's K tile into s, one commit group.
+  auto mma_s = [&](float (&s)[W_BN / 2], int st) {
+    const uint32_t ks = ring + st * 2 * C::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      WgmmaSS<W_BN>::mma(s, sw128_desc(q_wg + (kk / 4) * W_BM * 128 + (kk % 4) * 32, 16, 1024),
+                         sw128_desc(ks + (kk / 4) * W_BN * 128 + (kk % 4) * 32, 16, 1024), kk);
+    wgmma_commit();
+  };
+  // O += P V of the stage's V tile, one commit group.
+  auto mma_pv = [&](const uint32_t (&pa)[W_BN / 16][4], int st) {
+    const uint32_t vs = ring + st * 2 * C::KV_BYTES + C::KV_BYTES;
+#pragma unroll
+    for (int kc = 0; kc < W_BN / 16; ++kc)
+      WgmmaRS<HD>::mma(o, pa[kc], sw128_desc(vs + kc * 16 * 128, W_BN * 128, 1024), 1);
+    wgmma_commit();
+  };
+  // Online softmax of tile t's scores, in place: s[4j + e] (row row0 +
+  // 8 (e / 2), key t*BN + 8j + 2c + (e & 1)) becomes p. Returns the rescale
+  // factors of the rows' earlier sums in corr.
+  auto softmax = [&](float (&s)[W_BN / 2], int t, float (&corr)[2]) {
+    const int k0 = t * W_BN;
+    const bool edge = k0 + W_BN > Skv ||
+                      (causal && kv_offset + k0 + W_BN - 1 > q_off + wq_first) ||
+                      (window && q_off + wq_last - (kv_offset + k0) >= window);
+    // Off the mask edges with a positive scale, s stays unscaled (the max
+    // commutes with the scale) and the scale goes into the exponent's FFMA.
+    const bool raw = !edge && scale > 0.f;
+    float mx[2] = {NEG_INF, NEG_INF};
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < W_BN / 2; ++i) {
+        const int e = i % 4;
+        const bool ok = visible(q_pos[e / 2], k0 + (i / 4) * 8 + 2 * c + (e & 1), Skv, kv_offset,
+                                causal, window);
+        s[i] = ok ? s[i] * scale : NEG_INF;
+        mx[e / 2] = fmaxf(mx[e / 2], s[i]);
+      }
+    } else if (raw) {
+#pragma unroll
+      for (int i = 0; i < W_BN / 2; ++i) mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
+      mx[0] *= scale;
+      mx[1] *= scale;
+    } else {
+#pragma unroll
+      for (int i = 0; i < W_BN / 2; ++i) {
+        s[i] *= scale;
+        mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
+      }
+    }
+    const float mul = raw ? scale * LOG2E : LOG2E;
+    float mb[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+      corr[r] = fast_exp2((m_run[r] - m_new) * LOG2E);
+      m_run[r] = m_new;
+      mb[r] = m_new * LOG2E;
+      l_run[r] *= corr[r];
+    }
+#pragma unroll
+    for (int i = 0; i < W_BN / 2; ++i) {
+      const int r = (i % 4) / 2;
+      float p = fast_exp2(fmaf(s[i], mul, -mb[r]));
+      if (edge && s[i] == NEG_INF) p = 0.f;  // hidden key: 0 even when m is NEG_INF
+      l_run[r] += p;
+      s[i] = p;
+    }
+  };
+  // p (fp32) -> the bf16 A operand of P V: pa[kc] holds keys 16kc..16kc+15.
+  auto to_a = [&](const float (&s)[W_BN / 2], uint32_t (&pa)[W_BN / 16][4]) {
+#pragma unroll
+    for (int i = 0; i < W_BN / 2; i += 2) pa[i / 8][(i % 8) / 2] = pack_bf16(s[i], s[i + 1]);
+  };
+
+  // Ping-pong: the two warpgroups take turns to issue their wgmma (named
+  // barriers 1 and 2, each met by one warpgroup's sync and the other's
+  // arrive), so one runs its softmax while the other's products run. Both
+  // walk the block's tiles [t_begin, t_end): a tile hidden from all of a
+  // warpgroup's rows is an exact no-op (p = 0, corr = 1). Each issues
+  // n + 1 times (S of the first tile, S(t) with P V(t-1), P V of the last);
+  // warpgroup 1 opens the first turn and skips its last hand-over.
+  const int n_t = t_end - t_begin;
+  const int my_bar = 1 + wg, other_bar = 2 - wg;
+  int turn = 0;
+  auto my_turn = [&] { named_bar_sync(my_bar, 256); };
+  auto hand_over = [&] {
+    if (wg == 0 || ++turn < n_t + 1) named_bar_arrive(other_bar, 256);
+  };
+
+  mbar_wait(q_full, 0);
+  if (n_t > 0) {
+    // Software pipeline: S(t) = Q K(t)^T is issued with O += P(t-1) V(t-1)
+    // behind it, so the tensor cores run P V while this warpgroup runs the
+    // softmax of tile t. Every register a wgmma reads or accumulates into
+    // is pinned (fence_regs) before the one wgmma.fence of its issue, and p
+    // becomes the A operand only after P(t-1) V(t-1) retired, so no other
+    // instruction writes them while the wgmma are in flight (ptxas would
+    // serialize the wgmma).
+    if (wg == 1) named_bar_arrive(other_bar, 256);
+    float s[W_BN / 2], corr[2];
+    uint32_t pa[W_BN / 16][4];
+    mbar_wait(k_full + 8 * stage, phase);
+    my_turn();
+    fence_regs(s);
+    wgmma_fence();
+    mma_s(s, stage);
+    hand_over();
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (lane == 0) mbar_arrive(k_empty + 8 * stage);
+    softmax(s, t_begin, corr);
+    to_a(s, pa);
+    int pv_stage = stage;                    // the stage of the tile whose P V is pending
+    uint32_t pv_phase = phase;
+    advance();
+    for (int t = t_begin + 1; t < t_end; ++t) {
+      mbar_wait(k_full + 8 * stage, phase);
+      mbar_wait(v_full + 8 * pv_stage, pv_phase);
+      my_turn();
+      fence_regs(s);
+      fence_regs(o);
+      fence_regs(pa);
+      wgmma_fence();
+      mma_s(s, stage);
+      mma_pv(pa, pv_stage);
+      hand_over();
+      wgmma_wait<1>();                       // S(t) done; P(t-1) V(t-1) may still run
+      fence_regs(s);
+      if (lane == 0) mbar_arrive(k_empty + 8 * stage);
+      softmax(s, t, corr);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);                        // P(t-1) was read until here
+      if (lane == 0) mbar_arrive(v_empty + 8 * pv_stage);
+      to_a(s, pa);
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i % 4) / 2];
+      pv_stage = stage;
+      pv_phase = phase;
+      advance();
+    }
+    mbar_wait(v_full + 8 * pv_stage, pv_phase);
+    my_turn();
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+    mma_pv(pa, pv_stage);
+    hand_over();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    if (lane == 0) mbar_arrive(v_empty + 8 * pv_stage);
+  }
+
+  // Epilogue: this warp's 16 rows, 32 columns at a time, through a strip in
+  // its warpgroup's own Q rows (read for the last time by its last wgmma).
+  // Strip row r keeps its 8-column chunks XOR-swizzled by r & 3.
+  float l[2], den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l_run[r]);
+    den[r] = out != nullptr ? fmaxf(l[r], 1e-30f) : 1.f;
+  }
+  float* strip = reinterpret_cast<float*>(smem_raw + (base - raw) + wg * 64 * 128 +
+                                          wq * 16 * W_EPI_COLS * 4);
+  auto at = [&](int r, int col) {            // strip address of (row, column)
+    return strip + r * W_EPI_COLS + (((col / 8) ^ (r & 3)) * 8) + col % 8;
+  };
+  const int wrow0 = q0 + wg * 64 + wq * 16;                  // the strip's first row
+  const size_t head_row = (static_cast<size_t>(b) * H + h) * Sq;
+#pragma unroll
+  for (int cc = 0; cc < HD / W_EPI_COLS; ++cc) {
+#pragma unroll
+    for (int jj = 0; jj < W_EPI_COLS / 8; ++jj) {
+      const int j = cc * (W_EPI_COLS / 8) + jj;
+      *reinterpret_cast<float2*>(at(g, jj * 8 + 2 * c)) =
+          make_float2(o[4 * j] / den[0], o[4 * j + 1] / den[0]);
+      *reinterpret_cast<float2*>(at(g + 8, jj * 8 + 2 * c)) =
+          make_float2(o[4 * j + 2] / den[1], o[4 * j + 3] / den[1]);
+    }
+    __syncwarp();
+    if (out != nullptr) {                    // 16 rows x 64 B: 2 x 16 B per lane
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = (i * 32 + lane) / 4, ch = lane % 4;
+        if (wrow0 + r < Sq) {
+          const float4 x = *reinterpret_cast<const float4*>(at(r, ch * 8));
+          const float4 y = *reinterpret_cast<const float4*>(at(r, ch * 8) + 4);
+          *reinterpret_cast<uint4*>(out + (head_row + wrow0 + r) * HD + cc * W_EPI_COLS + ch * 8) =
+              make_uint4(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w), pack_bf16(y.x, y.y),
+                         pack_bf16(y.z, y.w));
+        }
+      }
+    } else {                                 // 16 rows x 128 B: 4 x 16 B per lane
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = (i * 32 + lane) / 8, q4 = lane % 8;
+        if (wrow0 + r < Sq)
+          *reinterpret_cast<float4*>(acc_out + (head_row + wrow0 + r) * HD + cc * W_EPI_COLS + q4 * 4) =
+              *reinterpret_cast<const float4*>(at(r, q4 * 4));
+      }
+    }
+    __syncwarp();
+  }
+  if (out == nullptr && c == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row0 + 8 * r < Sq) {
+        m_out[head_row + row0 + 8 * r] = m_run[r];
+        l_out[head_row + row0 + 8 * r] = l[r];
+      }
+    }
+  }
+}
+
+// ================================================================== host
+
+// A (hd, S, heads) bf16 tensor, row-major (hd innermost); boxes of
+// (64, rows, 1) with 128 B swizzle. Rows past S of a head are zero-filled.
+bool encode_3d(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 2,
+                                 static_cast<cuuint64_t>(S) * hd * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Opt a kernel into its dynamic shared memory once per device.
+template <typename K>
+cudaError_t set_smem_once(K kernel, int bytes, bool (&done)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+struct Args {
+  const void *q, *k, *v;
+  const int* q_offset;
+  __nv_bfloat16* out;
+  float *acc, *m, *l, *ws;
+  int* counters;
+  int B, H, Hkv, Sq, Skv, kv_offset, causal, window, splits;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int HD>
+int launch_split(const Args& a) {
+  static bool done[MAX_DEVICES];
+  const cudaError_t err = set_smem_once(flash_fwd_kernel_split<HD>, SplitCfg<HD>::SMEM, done);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<HD><<<grid, THREADS, Layout<HD>::bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(q_offset),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(acc),
-      static_cast<float*>(m), static_cast<float*>(l), H, Hkv, Sq, Skv, kv_offset,
-      causal, window, scale);
+  const int rows = (a.H / a.Hkv) * a.Sq;
+  const int n_rt = (rows + S_ROWS - 1) / S_ROWS;
+  const dim3 grid(n_rt * a.splits, a.Hkv, a.B);
+  flash_fwd_kernel_split<HD><<<grid, S_THREADS, SplitCfg<HD>::SMEM, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), a.q_offset, a.out, a.acc, a.m, a.l, a.ws,
+      a.counters, a.H, a.Hkv, a.Sq, a.Skv, a.kv_offset, a.causal, a.window, a.scale, a.splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_wgmma(const Args& a) {
+  static bool done[MAX_DEVICES];
+  const cudaError_t err = set_smem_once(flash_fwd_kernel_wgmma<HD>, WgCfg<HD>::SMEM, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_3d(&q_map, a.q, HD, a.Sq, a.B * a.H, W_BM) ||
+      !encode_3d(&k_map, a.k, HD, a.Skv, a.B * a.Hkv, W_BN) ||
+      !encode_3d(&v_map, a.v, HD, a.Skv, a.B * a.Hkv, W_BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(a.H, a.B, (a.Sq + W_BM - 1) / W_BM);
+  flash_fwd_kernel_wgmma<HD><<<grid, W_THREADS, WgCfg<HD>::SMEM, a.stream>>>(
+      q_map, k_map, v_map, a.q_offset, a.out, a.acc, a.m, a.l, a.H, a.Hkv, a.Sq, a.Skv,
+      a.kv_offset, a.causal, a.window, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// out != nullptr: normalized bf16 output. Otherwise acc/m/l receive the fp32
-// partial triple.
+// path 0: the decode (split) path over `splits` KV splits; with splits > 1
+// `ws` holds their partials and `counters` one zeroed int per (batch row,
+// KV head, 16-row tile). path 1: the prefill (wgmma) path. out != nullptr:
+// normalized bf16 output; otherwise acc/m/l receive the fp32 partial
+// triple. One kernel launch per call.
 extern "C" int repro_flash_fwd_bf16(const void* q, const void* k, const void* v,
-                                    const void* q_offset, void* out, void* acc,
-                                    void* m, void* l, int B, int H, int Hkv, int Sq,
-                                    int Skv, int hd, int kv_offset, int causal,
-                                    int window, float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv)
+                                    const void* q_offset, void* out, void* acc, void* m,
+                                    void* l, void* ws, void* counters, int B, int H, int Hkv,
+                                    int Sq, int Skv, int hd, int kv_offset, int causal,
+                                    int window, float scale, int path, int splits,
+                                    void* stream) {
+  if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv ||
+      (hd != 64 && hd != 128) || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (out == nullptr && (acc == nullptr || m == nullptr || l == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 128)
-    return launch<128>(q, k, v, q_offset, out, acc, m, l, B, H, Hkv, Sq, Skv,
-                       kv_offset, causal, window, scale, s);
-  if (hd == 64)
-    return launch<64>(q, k, v, q_offset, out, acc, m, l, B, H, Hkv, Sq, Skv,
-                      kv_offset, causal, window, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if ((path != 0 && path != 1) || (path == 1 && (Sq + W_BM - 1) / W_BM > 65535))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (path == 0 && (splits < 1 || (splits > 1 && (ws == nullptr || counters == nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, static_cast<const int*>(q_offset), static_cast<__nv_bfloat16*>(out),
+               static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
+               static_cast<float*>(ws), static_cast<int*>(counters), B, H, Hkv, Sq, Skv,
+               kv_offset, causal, window, splits, scale, static_cast<cudaStream_t>(stream)};
+  if (path == 0) return hd == 128 ? launch_split<128>(a) : launch_split<64>(a);
+  return hd == 128 ? launch_wgmma<128>(a) : launch_wgmma<64>(a);
 }

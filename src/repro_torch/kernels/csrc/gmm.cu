@@ -67,12 +67,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int BK = 64;                    // 64 bf16 = 128 B, the swizzle span
 constexpr int CONSUMER_WARPS = 8;         // two warpgroups
 constexpr int THREADS = 32 * CONSUMER_WARPS + 128;   // + the producer warpgroup
-constexpr int SMEM_LIMIT = 232448;        // opt-in shared memory per block
 constexpr int W_BOX_BYTES = BK * 64 * 2;  // one 64 x 64 w box: 8 KB
 constexpr int EPI_LD = 72;                // epilogue strip row: 64 bf16 + pad
 constexpr int EPI_BYTES = CONSUMER_WARPS * 16 * EPI_LD * 2;
@@ -90,31 +91,6 @@ struct Cfg {
   static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + EPI_BYTES + 16 * STAGES;
   static_assert(SMEM <= SMEM_LIMIT, "tile does not fit shared memory");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar), "r"(parity) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
-               ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
 
 // An L2 eviction policy: evict_first for data read once, evict_last for
 // data that later tiles read again.
@@ -136,21 +112,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
         "l"(policy)
       : "memory");
-}
-
-// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// Pin the accumulators' order against the wgmma fence/wait instructions.
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // wgmma.mma_async m64nNk16, bf16 x bf16 -> fp32: A K-major, B MN-major
@@ -327,7 +288,7 @@ gmm_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
         mbar_wait(full + 8 * stage, phase);
         const uint32_t a = a_ring + stage * C::A_BYTES + m_off * 128;
         const uint32_t b = b_ring + stage * C::B_BYTES + (n_off / 64) * W_BOX_BYTES;
-        fence_acc(acc);
+        fence_regs(acc);
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
@@ -335,13 +296,13 @@ gmm_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
                          sw128_desc(b + kk * 16 * 128, W_BOX_BYTES, 1024), kt | kk);
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
         asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-        fence_acc(acc);
+        fence_regs(acc);
         if (prev >= 0 && lane == 0) mbar_arrive(empty + 8 * prev);   // its wgmma are done
         prev = stage;
         if (++stage == STAGES) { stage = 0; phase ^= 1; }
       }
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-      fence_acc(acc);
+      fence_regs(acc);
       if (lane == 0) mbar_arrive(empty + 8 * prev);
 
       // Epilogue: this warp's 16 rows, 64 columns at a time, through its strip.
@@ -370,30 +331,6 @@ gmm_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                    cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
 // Row-major (outer, inner) bf16 matrix, boxes of (box_outer, 64), 128 B swizzle.
 bool encode(CUtensorMap* map, const void* ptr, uint64_t outer, uint64_t inner,
             uint32_t box_outer) {
@@ -407,8 +344,6 @@ bool encode(CUtensorMap* map, const void* ptr, uint64_t outer, uint64_t inner,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
-
-constexpr int MAX_DEVICES = 64;
 
 template <int BM, int BN>
 int launch(const void* x, const void* w, const int* be, __nv_bfloat16* y, int M, int K,

@@ -6,8 +6,17 @@ The contract of the JAX package's Pallas kernel
 (a uniform vector is exactly the TPU kernel's scalar), so the batched
 decode step can use it. For a CUDA tensor it launches the kernel or raises;
 only a CPU tensor takes the plain version (``ref.flash_ref``).
+
+One launch per call, on one of two device paths that ``plan`` picks from
+the shapes: the **decode** path packs the ``H / Hkv`` query heads that
+share a KV head (times ``Sq``) as the rows of 16-row tiles and splits the
+keys across blocks (``split_ranges``: which keys each split covers); the
+**prefill** path runs 128-row query tiles per head on wgmma.
 """
 from __future__ import annotations
+
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -15,6 +24,80 @@ from repro_torch.kernels._build import check, load_library
 from repro_torch.kernels.flash.ref import flash_ref
 
 HEAD_DIMS = (64, 128)   # head sizes the kernel is instantiated for
+PATHS = ("decode", "prefill")
+DECODE_MAX_ROWS = 64    # (H / Hkv) * Sq at or below this take the decode path
+ROW_TILE = 16           # packed rows per decode block (one mma.sync m16 tile)
+KV_TILE = 64            # keys per decode KV tile; splits cut the keys in whole tiles
+BLOCKS_PER_SM = 4       # the decode path aims at this many blocks per SM
+MIN_SPLIT_TILES = 2     # and gives each split at least this many KV tiles
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(index: Optional[int]) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan(B: int, H: int, Hkv: int, Sq: int, Skv: int, n_sms: int, *,
+         path: Optional[str] = None, splits: Optional[int] = None) -> Tuple[str, int]:
+    """The device path and the number of KV splits of one launch.
+
+    The decode path takes ``(H / Hkv) * Sq <= DECODE_MAX_ROWS`` packed rows
+    per KV head; it splits the keys into as many splits as give
+    ``BLOCKS_PER_SM`` blocks per SM over all (batch row, KV head, row tile)
+    groups, but no more than leave ``MIN_SPLIT_TILES`` 64-key tiles to each
+    (launch/bench_flash.py: 4 splits of 2 tiles beat 8 of 1 at the serving
+    step's 512 keys; 16-17 splits are best at 32768). The prefill path does
+    not split. ``path`` and ``splits`` force either (for measurement and
+    tests)."""
+    rows = (H // Hkv) * Sq
+    path = path or ("decode" if rows <= DECODE_MAX_ROWS else "prefill")
+    if path not in PATHS:
+        raise ValueError(f"flash: path must be one of {PATHS}, got {path!r}")
+    if path == "prefill":
+        if splits not in (None, 1):
+            raise ValueError("flash: the prefill path does not split the keys")
+        return path, 1
+    if splits is None:
+        groups = B * Hkv * -(-rows // ROW_TILE)
+        splits = max(1, min(-(-Skv // (KV_TILE * MIN_SPLIT_TILES)),
+                            -(-BLOCKS_PER_SM * n_sms // groups)))
+    if splits < 1:
+        raise ValueError(f"flash: splits must be >= 1, got {splits}")
+    return path, splits
+
+
+def split_ranges(q_first: int, q_last: int, Skv: int, *, kv_offset: int = 0,
+                 causal: bool = True, window: int = 0,
+                 splits: int = 1) -> List[Tuple[int, int]]:
+    """Keys ``[start, end)`` of each split of one decode group (one batch row
+    and row tile, whose queries sit at positions ``q_first..q_last``) that
+    has any: the keys the group can see, cut into runs of whole 64-key
+    tiles, clipped to the visible range. A group that sees no key keeps one
+    empty split (it writes m = -1e30, l = 0). The kernel's ``SplitPlan``
+    computes the same from ``q_offset`` on the device."""
+    lo = max(0, q_first - window + 1 - kv_offset) if window else 0
+    hi = min(Skv, q_last - kv_offset + 1) if causal else Skv
+    t_lo = lo // KV_TILE
+    t_hi = -(-hi // KV_TILE) if hi > lo else t_lo
+    n_t = t_hi - t_lo
+    if n_t == 0:
+        return [(lo, lo)]
+    chunk = -(-n_t // splits)
+    return [(max(lo, t * KV_TILE), min(hi, min(t_hi, t + chunk) * KV_TILE))
+            for t in range(t_lo, t_hi, chunk)]
+
+
+_counters: dict = {}    # per device: the decode path's split counters
+
+
+def _split_counters(device: torch.device, n: int) -> torch.Tensor:
+    """One int32 counter per decode group, zeroed when allocated; the kernel
+    sets each back to 0 after its merge, so calls do not clear them."""
+    buf = _counters.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _counters[device.index] = buf
+    return buf
 
 
 def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -40,6 +123,8 @@ def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash kernel supports head_dim in {HEAD_DIMS}, got {hd}")
     if min(Sq, Skv) < 1:
         raise ValueError("flash: empty query or key sequence")
+    if max(B, H) > 65535:
+        raise ValueError(f"flash: B = {B} and H = {H} must be <= 65535 (grid limits)")
     if q_offset.dtype != torch.int32 or tuple(q_offset.shape) != (B,):
         raise ValueError(f"flash: q_offset must be ({B},) int32, got "
                          f"{tuple(q_offset.shape)} {q_offset.dtype}")
@@ -53,20 +138,25 @@ def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: torch.Tensor, *, kv_offset: int = 0,
                     causal: bool = True, window: int = 0,
-                    sm_scale: float | None = None, return_partial: bool = False):
+                    sm_scale: float | None = None, return_partial: bool = False,
+                    path: Optional[str] = None, splits: Optional[int] = None):
     """q: (B, H, Sq, hd); k/v: (B, Hkv, Skv, hd); q_offset: (B,) int32.
 
     Returns the normalized output in ``q.dtype`` (``l`` floored at 1e-30),
     or with ``return_partial`` the fp32 ``(acc, m, l)`` triple, acc
-    (B, H, Sq, hd) and m, l (B, H, Sq).
+    (B, H, Sq, hd) and m, l (B, H, Sq). ``path``/``splits`` force the
+    kernel's plan (see ``plan``; for measurement and tests).
     """
     if q.device.type == "cpu":
         return flash_ref(q, k, v, q_offset, kv_offset=kv_offset, causal=causal,
                          window=window, sm_scale=sm_scale,
                          return_partial=return_partial)
     _validate(q, k, v, q_offset)
+    if window < 0:
+        raise ValueError(f"flash: window must be >= 0, got {window}")
     B, H, Sq, hd = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
+    path, splits = plan(B, H, Hkv, Sq, Skv, _n_sms(q.device.index), path=path, splits=splits)
     scale = sm_scale if sm_scale is not None else hd ** -0.5
     if return_partial:
         acc = torch.empty((B, H, Sq, hd), dtype=torch.float32, device=q.device)
@@ -76,11 +166,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         out = torch.empty_like(q)
         out_ptr, ptrs, result = out.data_ptr(), (None, None, None), out
+    ws_ptr = cnt_ptr = None
+    if splits > 1:
+        groups = B * Hkv * -(-((H // Hkv) * Sq) // ROW_TILE)
+        ws = torch.empty(groups * splits * ROW_TILE * (hd + 2), dtype=torch.float32,
+                         device=q.device)
+        ws_ptr, cnt_ptr = ws.data_ptr(), _split_counters(q.device, groups).data_ptr()
     with torch.cuda.device(q.device):
         rc = load_library().repro_flash_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offset.data_ptr(), out_ptr,
-            *ptrs, B, H, Hkv, Sq, Skv, hd, int(kv_offset), int(bool(causal)),
-            int(window), float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+            *ptrs, ws_ptr, cnt_ptr, B, H, Hkv, Sq, Skv, hd, int(kv_offset),
+            int(bool(causal)), int(window), float(scale), PATHS.index(path), splits,
+            torch.cuda.current_stream(q.device).cuda_stream)
     check(rc, "flash_attention")
     flash_attention.launches += 1
     return result

@@ -6,7 +6,8 @@ Shapes: the serving decode step's gate/up and down launches (8 experts,
 one 128-row block each) and a compute-bound gate/up launch with 1024 rows
 per expert (M = 8192). Each shape is timed for every (BM, BN) tile the
 kernel has and for ``torch.bmm`` on the same bytes, in turns over
-``--rounds`` rounds (median of ``--runs`` CUDA-event-timed calls each), and
+``--rounds`` rounds (device time: ``devtime.graph_ms``, a CUDA graph of
+``--runs`` calls replayed 5 times), and
 held against ``torch.bmm`` (relative error <= 2e-2). Prints one line per
 shape and variant with its share of the bound, and writes
 ``results/bench_gmm.json``. Needs a CUDA card.
@@ -29,20 +30,6 @@ SHAPES = (                      # (label, rows per expert, K, N); 8 experts
 )
 
 
-def _median_ms(torch, fn, runs: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(runs):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        events.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--runs", type=int, default=20)
@@ -54,6 +41,7 @@ def main() -> None:
 
     from repro_torch.device import resolve_device
     from repro_torch.kernels.gmm.gmm import gmm, tile_shape
+    from repro_torch.launch.devtime import graph_ms
 
     device = resolve_device()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -86,7 +74,7 @@ def main() -> None:
         order = list(fns)
         for r in range(args.rounds):
             for k in (order if r % 2 == 0 else order[::-1]):
-                times[k].append(_median_ms(torch, fns[k], args.runs))
+                times[k].append(graph_ms(torch, fns[k], calls=args.runs))
         auto = "gmm {}x{}".format(*tile_shape(M, N, 128, n_sms))
         for k, ts in times.items():
             ms = statistics.median(ts)

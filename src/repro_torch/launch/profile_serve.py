@@ -32,6 +32,8 @@ from pathlib import Path
 
 CLASSES = (                       # (class, substrings of the kernel name)
     ("gmm kernel", ("gmm_bf16_kernel",)),
+    # both device paths, flash_fwd_kernel_split and flash_fwd_kernel_wgmma,
+    # as the single kernel flash_fwd_kernel before them
     ("flash kernel", ("flash_fwd_kernel",)),
     ("cuBLAS GEMM", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("copies", ("memcpy", "memset", "copy")),

@@ -15,8 +15,9 @@ from repro.kernels.gmm.gmm import gmm as jax_gmm
 from repro.kernels.gmm.ops import expert_ffn_gmm as jax_expert_ffn_gmm
 from repro.models.attn_core import blockwise_attention
 from repro.models.attn_core import naive_attention as jax_naive_attention
-from repro_torch.kernels.flash.flash import flash_attention
+from repro_torch.kernels.flash.flash import KV_TILE, flash_attention, plan, split_ranges
 from repro_torch.kernels.flash.ops import flash
+from repro_torch.kernels.flash.ref import flash_ref
 from repro_torch.kernels.gmm.gmm import gmm, tile_shape
 from repro_torch.kernels.gmm.ops import expert_ffn_gmm
 from repro_torch.models.attn_core import _merge_partials, naive_attention
@@ -157,6 +158,122 @@ def test_partials_over_kv_halves_merge_to_full_attention():
     refj = jax_naive_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                jnp.asarray(q_pos.numpy()), jnp.asarray(kv_pos.numpy()))
     np.testing.assert_allclose(ref.numpy(), np.asarray(refj), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape,path,splits", [
+    ((4, 48, 8, 1, 512), "decode", 4),          # serving decode: 32 groups, 2 tiles a split
+    ((4, 48, 8, 1, 32768), "decode", 17),       # long decode: 17 x 32 blocks on 132 SMs
+    ((1, 48, 8, 200, 512), "prefill", 1),       # serving prefill chunk: 1200 packed rows
+    ((1, 48, 8, 4096, 4096), "prefill", 1),
+    ((2, 48, 8, 10, 512), "decode", 4),         # 60 packed rows: 4 row tiles
+    ((2, 48, 8, 11, 512), "prefill", 1),        # 66 packed rows
+    ((1, 4, 1, 1, 40), "decode", 1),            # one tile: one split
+])
+def test_flash_plan(shape, path, splits):
+    """The host's choice of device path and KV split count (132 SMs)."""
+    assert plan(*shape, n_sms=132) == (path, splits)
+
+
+def test_flash_plan_forced_and_rejected():
+    assert plan(4, 48, 8, 1, 512, 132, path="prefill") == ("prefill", 1)
+    assert plan(1, 48, 8, 200, 512, 132, path="decode", splits=3) == ("decode", 3)
+    with pytest.raises(ValueError, match="does not split"):
+        plan(1, 48, 8, 200, 512, 132, path="prefill", splits=2)
+    with pytest.raises(ValueError, match="path"):
+        plan(1, 48, 8, 200, 512, 132, path="ring")
+    with pytest.raises(ValueError, match="splits"):
+        plan(1, 48, 8, 1, 512, 132, splits=0)
+
+
+@pytest.mark.parametrize("q_first,q_last,Skv,kw,ranges", [
+    (511, 511, 512, dict(splits=4), [(0, 128), (128, 256), (256, 384), (384, 512)]),
+    (300, 300, 512, dict(splits=4), [(0, 128), (128, 256), (256, 301)]),   # 5 tiles: 3 runs of 2
+    (0, 0, 512, dict(splits=4), [(0, 1)]),
+    (60, 75, 256, dict(splits=2), [(0, 64), (64, 76)]),                   # row 60 sees no key of split 2
+    (300, 301, 256, dict(splits=3, kv_offset=100), [(0, 128), (128, 202)]),
+    (250, 253, 256, dict(splits=3, window=50), [(201, 254)]),             # one tile
+    (250, 253, 1024, dict(splits=8, window=100), [(151, 192), (192, 254)]),
+    (10, 10, 256, dict(splits=2, window=5, kv_offset=200), [(0, 0)]),     # sees nothing: one empty split
+    (0, 2, 100, dict(splits=2, causal=False), [(0, 64), (64, 100)]),
+])
+def test_flash_split_ranges(q_first, q_last, Skv, kw, ranges):
+    """Which keys each KV split of a decode group covers: runs of whole
+    64-key tiles over the keys the group can see, clipped to them."""
+    got = split_ranges(q_first, q_last, Skv, **kw)
+    assert got == ranges
+    assert all(a % KV_TILE == 0 for a, _ in got[1:])
+
+
+def _split_merge(q, k, v, offs, *, kv_offset, causal, window, splits):
+    """The decode path's arithmetic on the CPU: the (H / Hkv) x Sq rows of a
+    GQA group packed into 16-row tiles, each tile's visible keys cut by
+    ``split_ranges``, one ``flash_ref`` partial per split (m = -1e30, l = 0
+    where it has no key), merged with ``_merge_partials``."""
+    B, H, Sq, hd = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    rep, R = H // Hkv, (H // Hkv) * Sq
+    acc = torch.zeros((B, H, Sq, hd))
+    m = torch.full((B, H, Sq), -1e30)
+    l = torch.zeros((B, H, Sq))
+    for b in range(B):
+        for hk in range(Hkv):
+            heads = slice(hk * rep, (hk + 1) * rep)
+            for r0 in range(0, R, 16):
+                rows = range(r0, min(R, r0 + 16))
+                ranges = split_ranges(offs[b] + r0 // rep, offs[b] + rows[-1] // rep, Skv,
+                                      kv_offset=kv_offset, causal=causal, window=window,
+                                      splits=splits)
+                assert 1 <= len(ranges) <= splits
+                for start, end in ranges:
+                    if start == end:
+                        continue                 # an empty split's partial is the identity
+                    pa, pm, pl = flash_ref(
+                        q[b:b + 1, heads], k[b:b + 1, hk:hk + 1, start:end],
+                        v[b:b + 1, hk:hk + 1, start:end], torch.tensor([offs[b]]),
+                        kv_offset=kv_offset + start, causal=causal, window=window,
+                        return_partial=True)
+                    for r in rows:
+                        h, i = hk * rep + r % rep, r // rep
+                        mm, ll, aa = _merge_partials(m[b, h, i], l[b, h, i], acc[b, h, i],
+                                                     pm[0, r % rep, i], pl[0, r % rep, i],
+                                                     pa[0, r % rep, i])
+                        m[b, h, i], l[b, h, i], acc[b, h, i] = mm, ll, aa
+    return acc, m, l
+
+
+# (B, H, Hkv, Sq, Skv, hd, q_offset per batch row, kv_offset, causal, window, splits)
+SPLIT_CASES = [
+    (3, 12, 2, 1, 256, 64, [0, 77, 255], 0, True, 0, 4),     # GQA packing, per-row offsets
+    (1, 2, 2, 16, 256, 64, [60], 0, True, 0, 2),              # row 60 sees no key of split 2
+    (2, 8, 2, 2, 256, 64, [300, 140], 100, True, 0, 3),       # kv_offset
+    (2, 4, 1, 4, 256, 64, [250, 90], 0, True, 50, 3),         # window
+    (1, 8, 1, 5, 96, 128, [91], 0, True, 0, 2),               # hd 128, 3 row tiles
+    (1, 4, 2, 3, 128, 64, [0], 0, False, 0, 2),               # not causal
+    (2, 2, 1, 2, 256, 64, [1000, 20], 0, True, 30, 2),        # row 0 sees nothing
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,hd,offs,kv_off,causal,window,splits", SPLIT_CASES)
+@pytest.mark.parametrize("partial", [False, True])
+def test_flash_split_merge_matches_jax_kernel(B, H, Hkv, Sq, Skv, hd, offs, kv_off, causal,
+                                              window, splits, partial):
+    """The decode path's plan (packed GQA rows, KV splits, merge) computes
+    the JAX kernel's function: each batch row through the Pallas kernel in
+    interpret mode at its own offset."""
+    q, k, v = _qkv(B, H, Hkv, Sq, Skv, hd, seed=5)
+    acc, m, l = _split_merge(_t(q), _t(k), _t(v), offs, kv_offset=kv_off, causal=causal,
+                             window=window, splits=splits)
+    rows = [jax_flash(jnp.asarray(q[b:b + 1]), jnp.asarray(k[b:b + 1]), jnp.asarray(v[b:b + 1]),
+                      q_offset=offs[b], kv_offset=kv_off, causal=causal, window=window,
+                      interpret=True, return_partial=partial) for b in range(B)]
+    if partial:
+        want = [np.concatenate([np.asarray(r[j]) for r in rows]) for j in range(3)]
+        got = [acc, m, l]
+    else:
+        want = [np.concatenate([np.asarray(r) for r in rows])]
+        got = [acc / torch.clamp(l, min=1e-30)[..., None]]
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b, atol=1e-5, rtol=1e-5)
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():

@@ -117,6 +117,64 @@ def test_flash_kernel_rows_that_see_nothing(cuda):
     assert (m == -1e30).all() and (l == 0).all()
 
 
+# Both device paths, forced and chosen: (B, H, Hkv, Sq, Skv, hd, q_offset per
+# batch row, kv_offset, causal, window, path, splits). Skv is no multiple of
+# the 64- or 128-key tiles unless noted; the decode rows are (H / Hkv) * Sq
+# packed rows per KV head.
+PATH_CASES = [
+    (4, 48, 8, 1, 512, 128, [0, 37, 300, 511], 0, True, 0, None, None),   # serving decode
+    (3, 12, 4, 2, 333, 64, [5, 100, 331], 0, True, 0, "decode", None),
+    (2, 32, 2, 3, 1000, 128, [997, 400], 0, True, 100, "decode", 7),       # 3 row tiles, window
+    (16, 8, 8, 1, 2048, 64, list(range(5, 2048, 128)), 0, True, 0, "decode", None),  # many waves
+    (2, 6, 1, 1, 777, 128, [900, 700], 120, True, 0, "decode", 64),        # kv_offset; empty splits
+    (1, 4, 1, 40, 257, 64, [217], 0, True, 0, "decode", 3),                # 10 row tiles
+    (2, 12, 2, 1, 300, 128, [299, 10], 0, True, 0, "prefill", None),
+    (1, 4, 2, 200, 333, 128, [133], 0, True, 0, None, None),               # prefill chunk
+    (2, 8, 2, 300, 300, 64, [0, 0], 0, True, 0, "prefill", None),
+    (4, 32, 8, 512, 512, 128, [0, 0, 0, 0], 0, True, 0, "prefill", None),  # 512 blocks
+    (1, 6, 6, 130, 700, 128, [570], 0, True, 200, None, None),             # window
+    (1, 2, 1, 129, 255, 64, [0], 0, False, 0, "prefill", None),            # not causal
+    (2, 4, 2, 70, 190, 128, [120, 5], 64, True, 0, "prefill", None),       # kv_offset
+]
+PATH_IDS = ["-".join(str(x) for x in (c[10] or "auto", c[5], c[3], c[4], f"w{c[9]}", f"s{c[11]}"))
+            for c in PATH_CASES]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,hd,offs,kv_off,causal,window,path,splits",
+                         PATH_CASES, ids=PATH_IDS)
+@pytest.mark.parametrize("partial", [False, True])
+def test_flash_paths_match_plain(cuda, B, H, Hkv, Sq, Skv, hd, offs, kv_off, causal, window,
+                                 path, splits, partial):
+    rng = np.random.default_rng(6)
+    q = _bf16(rng, (B, H, Sq, hd))
+    k, v = (_bf16(rng, (B, Hkv, Skv, hd)) for _ in range(2))
+    q_off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    kw = dict(kv_offset=kv_off, causal=causal, window=window, return_partial=partial)
+    n0 = flash_attention.launches
+    for _ in range(2):                  # the split counters must be back at 0 for the 2nd call
+        got = flash_attention(q, k, v, q_off, path=path, splits=splits, **kw)
+    assert flash_attention.launches == n0 + 2
+    ref = flash_ref(q, k, v, q_off, **kw)
+    for a, b in (zip(got, ref) if partial else [(got, ref)]):
+        assert _rel_err(a, b) <= REL_TOL
+
+
+@pytest.mark.parametrize("path", ["decode", "prefill"])
+def test_flash_paths_rows_that_see_nothing(cuda, path):
+    """Rows whose window hides every key, on each path: output 0,
+    m = -1e30, l = 0; the other rows as the plain version."""
+    rng = np.random.default_rng(7)
+    q, k = _bf16(rng, (2, 4, 3, 128)), _bf16(rng, (2, 2, 300, 128))
+    offs = torch.tensor([1000, 150], dtype=torch.int32, device=cuda)
+    kw = dict(window=40, path=path, splits=None if path == "prefill" else 4)
+    out = flash_attention(q, k, k, offs, **kw)
+    acc, m, l = flash_attention(q, k, k, offs, return_partial=True, **kw)
+    torch.cuda.synchronize()
+    assert out[0].abs().max().item() == 0.0 and acc[0].abs().max().item() == 0.0
+    assert (m[0] == -1e30).all() and (l[0] == 0).all()
+    assert _rel_err(out[1], flash_ref(q, k, k, offs, window=40)[1]) <= REL_TOL
+
+
 def test_kernels_reject_shapes_they_do_not_take(cuda):
     x = torch.zeros((200, 128), dtype=torch.bfloat16, device=cuda)
     w = torch.zeros((2, 128, 128), dtype=torch.bfloat16, device=cuda)
@@ -134,3 +192,9 @@ def test_kernels_reject_shapes_they_do_not_take(cuda):
     q = torch.zeros((1, 2, 4, 96), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash(q, q, q)
+    q = torch.zeros((1, 2, 4, 64), dtype=torch.bfloat16, device=cuda)
+    offs = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="does not split"):
+        flash_attention(q, q, q, offs, path="prefill", splits=2)
+    with pytest.raises(ValueError, match="path"):
+        flash_attention(q, q, q, offs, path="ring")
