@@ -16,16 +16,27 @@ Phases (any failure exits non-zero; nothing is caught):
    version, which synchronises, from ``torch.profiler``'s kernel times
    (``profiled_ms``). The GMM's headline cases are the decode step's gate/up
    and down launches with all 8 experts owning a block, as serving reads
-   them; 6-of-8, bm=64 and a compute-bound M=8192 case follow. Flash runs
-   the serving decode and prefill chunk, a long decode (32768 keys) and
+   them; 6-of-8, bm=64 and the training step's compute-bound M=8192
+   gate/up and down cases follow, then the ``trans_w`` mode (the training
+   step's dgrad) at its two M=8192 shapes. Flash
+   runs the serving decode and prefill chunk, a long decode (32768 keys) and
    causal self-attention at 4096 tokens, each in both output modes.
 4. serve   — full-width Mixtral-8x22B cut to 4 layers, random weights from a
    seed, bf16: 6 requests through the paged engine; every launch counter is
    set to 0 just before and read just after, and must have risen.
-5. check   — the reduced (smoke-width) slice on the card against the same
-   weights through the plain versions on the CPU.
+5. train   — the serving model freed, full-width Mixtral-8x22B cut to 1
+   layer: 4 training steps of 4096 tokens (fp32 masters and AdamW state,
+   bf16 compute, full remat, token-dropping MoE); the counters are set to 0
+   just before and read just after; loss finite and ``step_ok`` every step;
+   step wall time, tokens/s, MFU and peak memory beside the step's compute
+   and optimizer bounds.
+6. check   — the reduced (smoke-width) slices on the card against the same
+   weights through the plain versions on the CPU: serving's prefill logits,
+   the first training step's gradients leaf by leaf, and two training
+   steps' loss and gradient norm (bf16 both sides).
 
-Then it prints the kernels' JSON line, the card's ``nvidia-smi`` name and
+Then it prints the kernels' JSON line (one entry per kernel per main path,
+its ``launches`` from that path's own run), the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``. Full results also
 go to ``results/chip_smoke.json``. Imports nothing of JAX or ``repro``.
 """
@@ -98,8 +109,12 @@ def _gmm_cases(torch) -> list:
     """GMM cases, the serving decode step's two launches first: 8 experts,
     each owning one 128-row block (``block_expert = arange(8)``), as serving
     reads them. Then correctness and coverage cases: 6 of 8 experts with two
-    owning no block, 64-row blocks, and a compute-bound launch with 1024
-    rows per expert."""
+    owning no block, 64-row blocks, and the training step's compute-bound
+    gate/up and down launches with 1024 rows per expert. Last the
+    ``trans_w`` mode at the training step's two dgrad shapes: dy (8192,
+    16384) @ w1[e]^T, w1 (8, 6144, 16384) → (8192, 6144), and dy (8192,
+    6144) @ w2[e]^T, w2 (8, 16384, 6144) → (8192, 16384), against
+    ``torch.bmm`` on the same transposed operands (no copies)."""
     from repro_torch.kernels.gmm.gmm import gmm
     from repro_torch.kernels.gmm.ref import gmm_ref
     from repro_torch.launch.devtime import graph_ms, profiled_ms
@@ -107,32 +122,39 @@ def _gmm_cases(torch) -> list:
     E = 8
     serving = list(range(E))
     cases = []
-    for label, M, K, N, bm, blocks in (
-            ("gate/up, decode (serving)", 1024, 6144, 16384, 128, serving),
-            ("down, decode (serving)", 1024, 16384, 6144, 128, serving),
-            ("gate/up, 6 of 8 experts", 1024, 6144, 16384, 128, [0, 1, 1, 3, 4, 5, 7, 7]),
-            ("gate/up, bm=64", 1024, 6144, 16384, 64, [e for e in serving for _ in (0, 1)]),
-            ("gate/up, M=8192", 8192, 6144, 16384, 128, [e for e in serving for _ in range(8)])):
+    training = [e for e in serving for _ in range(8)]      # 1024 rows per expert
+    for label, M, K, N, bm, blocks, trans in (
+            ("gate/up, decode (serving)", 1024, 6144, 16384, 128, serving, False),
+            ("down, decode (serving)", 1024, 16384, 6144, 128, serving, False),
+            ("gate/up, 6 of 8 experts", 1024, 6144, 16384, 128, [0, 1, 1, 3, 4, 5, 7, 7], False),
+            ("gate/up, bm=64", 1024, 6144, 16384, 64, [e for e in serving for _ in (0, 1)], False),
+            ("gate/up, M=8192", 8192, 6144, 16384, 128, training, False),
+            ("down, M=8192", 8192, 16384, 6144, 128, training, False),
+            (TRANS_CASE, 8192, 16384, 6144, 128, training, True),
+            ("dgrad trans_w down, M=8192", 8192, 6144, 16384, 128, training, True)):
         be = torch.tensor(blocks, dtype=torch.int32, device="cuda")
         x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
-        w = (torch.randn((E, K, N), generator=g, device="cuda") * K ** -0.5).to(torch.bfloat16)
-        y = gmm(x, w, be, bm=bm)
-        ref = gmm_ref(x, w, be, bm=bm)
+        w_shape = (E, N, K) if trans else (E, K, N)
+        w = (torch.randn(w_shape, generator=g, device="cuda") * K ** -0.5).to(torch.bfloat16)
+        y = gmm(x, w, be, bm=bm, trans_w=trans)
+        ref = gmm_ref(x, w, be, bm=bm, trans_w=trans)
         torch.cuda.synchronize()
         max_abs, rel = _err(torch, y, ref)
         del y, ref
-        ms = graph_ms(torch, lambda: gmm(x, w, be, bm=bm))
-        plain_ms = profiled_ms(torch, lambda: gmm_ref(x, w, be, bm=bm))
+        ms = graph_ms(torch, lambda: gmm(x, w, be, bm=bm, trans_w=trans))
+        plain_ms = profiled_ms(torch, lambda: gmm_ref(x, w, be, bm=bm, trans_w=trans))
         # The same bytes through one batched matmul: x as (E, M/E, K).
-        xe = x.view(E, M // E, K)
-        library_ms = graph_ms(torch, lambda: torch.bmm(xe, w))
+        xe, wk = x.view(E, M // E, K), (w.transpose(1, 2) if trans else w)
+        library_ms = graph_ms(torch, lambda: torch.bmm(xe, wk))
         n_used = len(set(blocks))
         nbytes = 2 * (M * K + M * N + n_used * K * N)
         bound_ms, bound_by = _bound(nbytes, 2.0 * M * K * N)
-        cases.append(dict(case=label, shape=f"x({M},{K}) w({E},{K},{N}) bm={bm}",
-                          max_abs_err=max_abs, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
-        del x, w, xe
+        cases.append(dict(case=label, shape=f"x({M},{K}) w{w_shape} bm={bm}"
+                                            + (" trans_w" if trans else ""),
+                          trans_w=trans, max_abs_err=max_abs, rel_err=rel, ms=ms,
+                          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms))
+        del x, w, xe, wk
         torch.cuda.empty_cache()
     return cases
 
@@ -143,8 +165,14 @@ FLASH_CASES = (   # (label, Sq, Skv, q_offset per batch row); 48/8 heads of 128
     ("long decode", 1, 32768, [32767, 30000, 16000, 8191]),
     ("causal self-attention 4096", 4096, 4096, [0]),
 )
-HEADLINE = {"gmm": "gate/up, decode (serving)",          # the decode step's main shapes
-            "flash_attention": "decode (serving), normalized"}
+TRANS_CASE = "dgrad trans_w, M=8192"
+# The kernels line: one entry per kernel per main path that launches it,
+# timed at that path's main shape and counted in that path's own run.
+HEADLINE = {("gmm", "serve"): "gate/up, decode (serving)",
+            ("flash_attention", "serve"): "decode (serving), normalized",
+            ("gmm", "train"): "gate/up, M=8192",
+            ("gmm_trans_w", "train"): TRANS_CASE,
+            ("flash_attention", "train"): "causal self-attention 4096, partial"}
 
 
 def _flash_cases(torch) -> list:
@@ -209,7 +237,10 @@ def _flash_cases(torch) -> list:
 def phase_kernels(torch) -> dict:
     _say("[kernels] device time: kernel and library_ms by graph_ms (a CUDA graph of 20 "
          "calls), plain_ms by profiled_ms (torch.profiler kernel times)")
-    out = {"gmm": _gmm_cases(torch), "flash_attention": _flash_cases(torch)}
+    gmm_cases = _gmm_cases(torch)
+    out = {"gmm": [c for c in gmm_cases if not c["trans_w"]],
+           "gmm_trans_w": [c for c in gmm_cases if c["trans_w"]],
+           "flash_attention": _flash_cases(torch)}
     for name, cases in out.items():
         for c in cases:
             _say(f"[kernels] {name} {c['case']} {c['shape']}: max_abs_err "
@@ -224,10 +255,22 @@ def phase_kernels(torch) -> dict:
     return out
 
 
-def phase_serve(torch) -> dict:
-    import numpy as np
+def _zero_counters() -> None:
     from repro_torch.kernels.flash.flash import flash_attention
     from repro_torch.kernels.gmm.gmm import gmm
+    gmm.launches = gmm.trans_w_launches = flash_attention.launches = 0
+
+
+def _read_counters() -> dict:
+    """Launches by kernel mode: the GMM forward mode, its trans_w mode, flash."""
+    from repro_torch.kernels.flash.flash import flash_attention
+    from repro_torch.kernels.gmm.gmm import gmm
+    return {"gmm": gmm.launches - gmm.trans_w_launches, "gmm_trans_w": gmm.trans_w_launches,
+            "flash_attention": flash_attention.launches}
+
+
+def phase_serve(torch) -> dict:
+    import numpy as np
     from repro_torch.launch.serve import PROMPT_LENS, run_requests, slice_config
     from repro_torch.models.transformer import init_lm
 
@@ -240,18 +283,18 @@ def phase_serve(torch) -> dict:
     new_tokens = 16
     torch.cuda.reset_peak_memory_stats()
 
-    gmm.launches = 0
-    flash_attention.launches = 0
+    _zero_counters()
     t0 = time.perf_counter()
     eng, rids, res = run_requests(cfg, params, PROMPT_LENS, new_tokens)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"gmm": gmm.launches, "flash_attention": flash_attention.launches}
+    launches = _read_counters()
 
     n_fwd = sum(1 for s in eng.stats if s.prefill_tokens) + \
         sum(1 for s in eng.stats if s.decode_tokens)
-    expect = {"gmm": 3 * cfg.n_layers * n_fwd, "flash_attention": cfg.n_layers * n_fwd}
-    if launches != expect or min(launches.values()) == 0:
+    expect = {"gmm": 3 * cfg.n_layers * n_fwd, "gmm_trans_w": 0,
+              "flash_attention": cfg.n_layers * n_fwd}
+    if launches != expect or min(launches["gmm"], launches["flash_attention"]) == 0:
         raise AssertionError(f"launch counts {launches} != expected {expect} "
                              f"({n_fwd} forwards x {cfg.n_layers} layers)")
     for rid in rids:
@@ -286,6 +329,92 @@ def phase_serve(torch) -> dict:
     return out
 
 
+TRAIN_STEPS, TRAIN_SEQ = 4, 4096
+
+
+def phase_train(torch) -> dict:
+    """Full-width Mixtral-8x22B cut to 1 layer: TRAIN_STEPS steps of one
+    TRAIN_SEQ-token sequence through ``make_train_step`` (the port's entry
+    point), launch counters set to 0 just before and read just after."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import PEAK_BF16_FLOPS, step_flops, train_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.loop import init_train_state, leaf_rank, make_train_step
+
+    cfg = train_config("mixtral-8x22b", layers=1)
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device="cuda")
+    opt = init_train_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = make_train_step(cfg, guard=True)
+    data = SyntheticTokens(DataConfig(seq_len=TRAIN_SEQ, global_batch=1,
+                                      vocab_size=cfg.vocab_size))
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in next(data).items()}
+               for _ in range(TRAIN_STEPS)]
+    named = dict(params.named_parameters())
+    n_params = sum(p.numel() for p in named.values())
+    flops = step_flops(cfg, TRAIN_SEQ, 1)
+    # AdamW reads each fp32 master, moment pair and (bf16 or fp32) gradient
+    # once and writes the master and moments once.
+    opt_bytes = sum(p.numel() * (24 + (2 if leaf_rank(n, p) >= 2 else 4))
+                    for n, p in named.items())
+    compute_bound_ms, _ = _bound(0, flops)
+    opt_bound_ms, _ = _bound(opt_bytes, 0)
+    del named
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _zero_counters()
+    rows = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        row = {k: float(v) for k, v in m.items()}
+        row.update(step_ok=bool(m["step_ok"]), step_ms=dt * 1e3, tok_per_s=TRAIN_SEQ / dt,
+                   mfu=flops / dt / PEAK_BF16_FLOPS)
+        rows.append(row)
+    launches = _read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    expect = {"gmm": 6 * cfg.n_layers * TRAIN_STEPS,            # forward + remat
+              "gmm_trans_w": 3 * cfg.n_layers * TRAIN_STEPS,    # dgrad
+              "flash_attention": 2 * cfg.n_layers * TRAIN_STEPS}
+    if launches != expect:
+        raise AssertionError(f"train launch counts {launches} != expected {expect}")
+    for i, r in enumerate(rows):
+        _say(f"[train] step {i}: loss {r['loss']:.4f} (ce {r['ce_loss']:.4f}, aux "
+             f"{r['moe_aux_loss']:.4f}, z {r['moe_z_loss']:.4f}, drop "
+             f"{r['moe_drop_fraction']:.4f}), grad_norm {r['grad_norm']:.4f}, step_ok "
+             f"{r['step_ok']}; wall {r['step_ms']:.3f} ms, {r['tok_per_s']:.1f} tok/s, "
+             f"MFU {100 * r['mfu']:.2f}%")
+        if not (r["step_ok"] and all(x == x and abs(x) != float("inf")
+                                     for x in (r["loss"], r["grad_norm"]))):
+            raise AssertionError(f"train step {i}: non-finite loss or step_ok false: {r}")
+    warm = [r["step_ms"] for r in rows[1:]]
+    out = dict(model=f"{cfg.name} x{cfg.n_layers} layer (full width), {n_params / 1e9:.3f} B "
+                     "params, fp32 masters + AdamW, bf16 compute, remat full",
+               tokens_per_step=TRAIN_SEQ, init_s=init_s, steps=rows, launches=launches,
+               step_ms_warm_median=statistics.median(warm),
+               tok_per_s_warm=TRAIN_SEQ / statistics.median(warm) * 1e3,
+               mfu_warm=flops / (statistics.median(warm) / 1e3) / PEAK_BF16_FLOPS,
+               model_tflop_per_step=flops / 1e12, compute_bound_ms=compute_bound_ms,
+               optimizer_bytes=opt_bytes, optimizer_bound_ms=opt_bound_ms,
+               max_memory_allocated_gb=peak_gb)
+    _say(f"[train] {out['model']}: launches {launches}; warm step (median of steps 1-"
+         f"{TRAIN_STEPS - 1}) {out['step_ms_warm_median']:.3f} ms, {out['tok_per_s_warm']:.1f} "
+         f"tok/s, MFU {100 * out['mfu_warm']:.2f}%; max_memory_allocated {peak_gb:.2f} GB")
+    _say(f"[train] bounds: compute {compute_bound_ms:.3f} ms ({flops / 1e12:.3f} model TFLOP "
+         f"at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s), optimizer {opt_bound_ms:.3f} ms "
+         f"({opt_bytes / 1e9:.2f} GB at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
+    del params, opt, step, batches
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_check(torch) -> dict:
     """Reduced slice: kernels on the card vs plain versions on the CPU, same weights."""
     import copy
@@ -315,6 +444,65 @@ def phase_check(torch) -> dict:
             "requests": len(rids)}
 
 
+def phase_train_check(torch) -> dict:
+    """Reduced training slice, bf16, the kernels on the card vs the plain
+    versions on the CPU, same weights and batches: step 1's gradients leaf
+    by leaf (relative L2), then two steps' loss and gradient norm. The
+    learning rate warms up in 2 steps, so step 2 sees step 1's update."""
+    import copy
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import train_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import cast_params, init_train_state, loss_fn, make_train_step
+
+    cfg = dataclasses.replace(train_config("mixtral-8x22b", reduce=True), dtype="bfloat16")
+    cpu = init_lm(cfg, seed=3, device="cpu")
+    runs = {"card": ("cuda", copy.deepcopy(cpu).to("cuda")), "cpu": ("cpu", cpu)}
+    data = SyntheticTokens(DataConfig(seq_len=256, global_batch=2, vocab_size=cfg.vocab_size,
+                                      seed=3))
+    batches = [next(data) for _ in range(2)]
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=100)
+    out, grads = {}, {}
+    for run, (dev, params) in runs.items():
+        cparams = cast_params(params, cfg)
+        loss, _ = loss_fn(cparams, {k: torch.from_numpy(v).to(dev)
+                                    for k, v in batches[0].items()}, cfg)
+        loss.backward()
+        grads[run] = {n: p.grad.float().cpu() for n, p in cparams.named_parameters()}
+        del cparams, loss
+        opt = init_train_state(params, opt_cfg)
+        step = make_train_step(cfg, opt_cfg, guard=True)
+        out[run] = []
+        for b in batches:
+            params, opt, m = step(params, opt, {k: torch.from_numpy(v).to(dev)
+                                                for k, v in b.items()})
+            out[run].append({k: float(m[k]) for k in ("loss", "grad_norm", "step_ok")})
+    leaf_err = {n: float((grads["card"][n] - c).norm() / c.norm().clamp_min(1e-30))
+                for n, c in grads["cpu"].items()}
+    worst_leaf = max(leaf_err, key=leaf_err.get)
+    _say(f"[check] reduced training, step 1 gradients, card vs CPU plain versions: "
+         f"{len(leaf_err)} leaves, worst relative L2 {leaf_err[worst_leaf]:.3e} "
+         f"({worst_leaf}; limit 5e-2)")
+    if not leaf_err[worst_leaf] <= 5e-2:
+        raise AssertionError(f"reduced training: gradient of {worst_leaf} card vs CPU "
+                             f"rel L2 {leaf_err[worst_leaf]:.3e}")
+    worst = 0.0
+    for g, c in zip(out["card"], out["cpu"]):
+        if not (g["step_ok"] and c["step_ok"]):
+            raise AssertionError(f"reduced training step not ok: card {g}, CPU {c}")
+        for k in ("loss", "grad_norm"):
+            worst = max(worst, abs(g[k] - c[k]) / abs(c[k]))
+    _say(f"[check] reduced training, 2 steps, card vs CPU plain versions: loss and "
+         f"grad_norm rel err {worst:.3e} (limit 5e-2); card {out['card']}, CPU {out['cpu']}")
+    if not worst <= 5e-2:
+        raise AssertionError(f"reduced training: card vs CPU rel err {worst:.3e}")
+    return {"rel_err": worst, "card": out["card"], "cpu": out["cpu"],
+            "grad_rel_l2": leaf_err}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -330,19 +518,24 @@ def main() -> int:
     build = phase_build()
     kernels = phase_kernels(torch)
     serve = phase_serve(torch)
+    train = phase_train(torch)
     check = phase_check(torch)
+    check_train = phase_train_check(torch)
 
-    sources = {"gmm": ("src/repro_torch/kernels/csrc/gmm.cu", "src/repro/kernels/gmm/gmm.py:73"),
+    gmm_src = ("src/repro_torch/kernels/csrc/gmm.cu", "src/repro/kernels/gmm/gmm.py:73")
+    sources = {"gmm": gmm_src, "gmm_trans_w": gmm_src,
                "flash_attention": ("src/repro_torch/kernels/csrc/flash.cu",
                                    "src/repro/kernels/flash/flash.py:150")}
+    paths = {"serve": serve, "train": train}
     line = []
-    for name, cases in kernels.items():
-        c = next(x for x in cases if x["case"] == HEADLINE[name])
-        line.append(dict(name=name, route="cuda", source=sources[name][0],
-                         replaces=sources[name][1], launches=serve["launches"][name],
-                         max_abs_err=max(x["max_abs_err"] for x in cases), ms=c["ms"],
-                         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-                         bound_by=c["bound_by"], library_ms=c["library_ms"]))
+    for (name, path), label in HEADLINE.items():
+        c = next(x for x in kernels[name] if x["case"] == label)
+        line.append(dict(name=name, path=path, case=label, route="cuda",
+                         source=sources[name][0], replaces=sources[name][1],
+                         launches=paths[path]["launches"][name],
+                         max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
+                         bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                         library_ms=c["library_ms"]))
     smi = _smi()
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -350,7 +543,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         nvidia_smi=smi, device=device, timing=TIMING, build=build, kernels=kernels, serve=serve,
-        check=check, seconds=time.perf_counter() - t_start), indent=1))
+        train=train, check=check, check_train=check_train,
+        seconds=time.perf_counter() - t_start), indent=1))
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -1,10 +1,12 @@
-"""Carry the JAX package's parameters over to the port's modules.
+"""Carry the JAX package's parameters, gradients and AdamW state over to the port.
 
 ``repro.models.transformer.init_lm`` returns a tree with ``embed``,
 ``lm_head``, ``final_norm`` and ``cycle/b{i}/...`` leaves stacked on a
-leading layer-repeat axis. The caller turns its leaves into numpy arrays
-(``jax.tree.map(np.asarray, params)``); this module takes only numpy, so it
-never imports JAX.
+leading layer-repeat axis; its gradients and AdamW moments have the same
+tree. The caller turns the leaves into numpy arrays
+(``jax.tree.map(np.asarray, tree)``); this module takes only numpy, so it
+never imports JAX. The port names each leaf as ``LMParams.named_parameters``
+does (``layers.3.moe.w1``).
 """
 from __future__ import annotations
 
@@ -19,33 +21,66 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import AttentionParams
 from repro_torch.models.transformer import (LMParams, MoEBlockParams,
                                             check_supported, model_cycle)
+from repro_torch.optim.adamw import AdamWState
+
+
+def named_from_jax(tree: Dict, cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """The leaves of a JAX ``init_lm``-shaped tree (parameters, gradients or
+    moments) under the port's parameter names. Layer ``l`` is cycle position
+    ``l % len(cycle)``, repeat ``l // len(cycle)``."""
+    check_supported(cfg)
+    _, cycle = model_cycle(cfg)
+    out = {"embed": tree["embed"]}
+    for layer in range(cfg.n_layers):
+        b = tree["cycle"][f"b{layer % len(cycle)}"]
+        i = layer // len(cycle)
+        pre = f"layers.{layer}."
+        out[pre + "norm1"] = b["norm1"]["w"][i]
+        out.update({f"{pre}attn.{k}": v[i] for k, v in b["attn"].items()})
+        out[pre + "norm2"] = b["norm2"]["w"][i]
+        out[pre + "moe.router"] = b["moe"]["router"][i]
+        out.update({f"{pre}moe.{k}": b["moe"]["experts"][k][i] for k in ("w1", "w2", "w3")})
+    out["final_norm"] = tree["final_norm"]["w"]
+    if tree.get("lm_head") is not None:
+        out["lm_head"] = tree["lm_head"]
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.array(a)                  # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":   # ml_dtypes' bf16: carry the bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def tensors_from_jax(tree: Dict, cfg: ModelConfig, *,
+                     device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """:func:`named_from_jax` as tensors on ``device``; values and dtypes kept."""
+    device = resolve_device(device)
+    return {k: _tensor(v, device) for k, v in named_from_jax(tree, cfg).items()}
 
 
 def params_from_jax(tree: Dict, cfg: ModelConfig, *,
                     device: DeviceLike = None) -> LMParams:
     """Build :class:`LMParams` on ``device`` from the numpy leaves of a JAX
-    ``init_lm`` tree. Layer ``l`` is cycle position ``l % len(cycle)``,
-    repeat ``l // len(cycle)``. Values and dtypes are kept."""
-    check_supported(cfg)
-    device = resolve_device(device)
-    _, cycle = model_cycle(cfg)
-
-    def t(a) -> torch.Tensor:
-        a = np.array(a)                  # a writable, contiguous copy
-        if a.dtype.name == "bfloat16":   # ml_dtypes' bf16: carry the bits
-            return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
-        return torch.from_numpy(a).to(device)
-
+    ``init_lm`` tree."""
+    t = tensors_from_jax(tree, cfg, device=device)
     layers = []
     for layer in range(cfg.n_layers):
-        b = tree["cycle"][f"b{layer % len(cycle)}"]
-        i = layer // len(cycle)
-        attn = AttentionParams(**{k: t(v[i]) for k, v in b["attn"].items()})
-        ex = b["moe"]["experts"]
-        moe = MoEParams(t(b["moe"]["router"][i]), t(ex["w1"][i]), t(ex["w2"][i]),
-                        t(ex["w3"][i]))
-        layers.append(MoEBlockParams(t(b["norm1"]["w"][i]), attn,
-                                     t(b["norm2"]["w"][i]), moe))
-    lm_head = tree.get("lm_head")
-    return LMParams(t(tree["embed"]), layers, t(tree["final_norm"]["w"]),
-                    t(lm_head) if lm_head is not None else None)
+        pre = f"layers.{layer}."
+        attn = AttentionParams(**{k[len(pre) + 5:]: v for k, v in t.items()
+                                  if k.startswith(pre + "attn.")})
+        moe = MoEParams(*(t[f"{pre}moe.{k}"] for k in ("router", "w1", "w2", "w3")))
+        layers.append(MoEBlockParams(t[pre + "norm1"], attn, t[pre + "norm2"], moe))
+    return LMParams(t["embed"], layers, t["final_norm"], t.get("lm_head"))
+
+
+def opt_state_from_jax(state, cfg: ModelConfig, *, device: DeviceLike = None) -> AdamWState:
+    """A JAX ``AdamWState`` (numpy leaves) → the port's, moments by name."""
+    if state.master is not None:
+        raise NotImplementedError("AdamW master_weights are not ported")
+    device = resolve_device(device)
+    return AdamWState(step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                                        device=device),
+                      mu=tensors_from_jax(state.mu, cfg, device=device),
+                      nu=tensors_from_jax(state.nu, cfg, device=device))

@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core.router import resolved_capacity, route, sorted_dispatch
-from repro_torch.kernels.gmm.ops import expert_ffn_gmm, uniform_block_expert
+from repro_torch.kernels.gmm.ops import expert_ffn_gmm
 
 
 def _round_up(n: int, m: int) -> int:
@@ -87,9 +87,7 @@ def moe_ffn(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor, w2: torch.Tenso
     idx_flat = torch.where(keep_flat, idx_flat, E * cap_pad)            # OOB = drop
 
     # ------------------------------------------------ 4. expert compute
-    xe = buf.reshape(E, cap_pad, D)
-    be = uniform_block_expert(E, cap_pad, bm, device=x.device)
-    ye = expert_ffn_gmm(xe, w1, w2, w3, activation, bm=bm, block_expert=be)
+    ye = expert_ffn_gmm(buf.reshape(E, cap_pad, D), w1, w2, w3, activation, bm=bm)
 
     # ------------------------------------------------ 7. un-permute + combine
     gath = ye.reshape(E * cap_pad, D)[torch.clamp(idx_flat, max=E * cap_pad - 1)]

@@ -17,7 +17,7 @@ from repro_torch.models.common import dense_init
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 class MoEParams(nn.Module):

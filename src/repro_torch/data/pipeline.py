@@ -1,0 +1,67 @@
+"""Deterministic synthetic LM data: the port's copy of
+``repro.data.pipeline`` (``DataConfig``, ``SyntheticTokens``).
+
+Structured pseudo-text (a Zipf unigram mixture with short-range copies), so
+the LM loss falls as the model learns; the batches are built on the host
+with numpy and are bit-equal to the JAX package's for the same config. The
+caller moves them to its device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class DataConfig:
+    seq_len: int
+    global_batch: int
+    vocab_size: int
+    seed: int = 0
+    repeat_p: float = 0.35        # P(copy a recent token) — learnable structure
+    window: int = 32
+
+
+class SyntheticTokens:
+    """Infinite deterministic token stream: ``next(it) -> {"tokens", "labels"}``,
+    each ``(global_batch, seq_len)`` int32."""
+
+    def __init__(self, cfg: DataConfig):
+        self.cfg = cfg
+        self._step = 0
+        # Zipf-like unigram distribution over a capped effective vocab.
+        v_eff = min(cfg.vocab_size, 32768)
+        ranks = np.arange(1, v_eff + 1, dtype=np.float64)
+        p = 1.0 / ranks
+        self._p = (p / p.sum()).astype(np.float64)
+        self._v_eff = v_eff
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        return self
+
+    @property
+    def position(self) -> int:
+        """Number of batches produced so far."""
+        return self._step
+
+    def seek(self, step: int) -> "SyntheticTokens":
+        """Jump to batch index ``step``: each batch has its own seed."""
+        self._step = int(step)
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        rng = np.random.default_rng(cfg.seed * 1_000_003 + self._step)
+        self._step += 1
+        B, S = cfg.global_batch, cfg.seq_len
+        base = rng.choice(self._v_eff, size=(B, S + 1), p=self._p)
+        # Short-range repetition: with prob repeat_p, copy a token from the
+        # recent window.
+        rep = rng.random((B, S + 1)) < cfg.repeat_p
+        off = rng.integers(1, cfg.window, size=(B, S + 1))
+        idx = np.maximum(np.arange(S + 1)[None, :] - off, 0)
+        copied = np.take_along_axis(base, idx, axis=1)
+        seq = np.where(rep, copied, base).astype(np.int32)
+        return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}

@@ -915,9 +915,8 @@ bool encode_3d(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int 
 template <typename K>
 cudaError_t set_smem_once(K kernel, int bytes, bool (&done)[MAX_DEVICES]) {
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = current_device(&dev);
   if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (!done[dev]) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;

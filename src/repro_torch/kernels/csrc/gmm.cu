@@ -59,6 +59,13 @@
 // of 0.57 at decode) and was dropped; so was releasing each stage only
 // after its own wgmma finished.
 //
+// Transposed weights (trans_w, the dgrad dx = dy @ w[e]^T of training;
+// the TPU package has no backward kernel, its einsum gradients run in XLA):
+// y (M, N) = x (M, K) @ w[e]^T for w (E, N, K). The same kernel with the w
+// tile K-major, like A: TMA boxes of 64 rows of w[e] (output columns) x 64
+// of its columns (K) from the 2-D view (E*N, K), the same 128 B swizzle,
+// SBO = 1024 B, imm-trans-b = 0. No copy of w is made.
+//
 // Requires bm % BM == 0, M % bm == 0, K % 64 == 0, N % BN == 0 and 16-byte
 // aligned pointers; the wrapper checks them and this entry point again.
 #include <cstdint>
@@ -114,13 +121,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// wgmma.mma_async m64nNk16, bf16 x bf16 -> fp32: A K-major, B MN-major
-// (imm-trans-b = 1); the accumulators are overwritten when scale_d == 0.
+// wgmma.mma_async m64nNk16, bf16 x bf16 -> fp32: A K-major; B MN-major
+// (TB = imm-trans-b = 1) or K-major (TB = 0); the accumulators are
+// overwritten when scale_d == 0.
 template <int N>
 struct Wgmma;
 
 template <>
 struct Wgmma<64> {
+  template <int TB>
   __device__ static __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b,
                                              int scale_d) {
     asm volatile(
@@ -128,17 +137,18 @@ struct Wgmma<64> {
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
   }
 };
 
 template <>
 struct Wgmma<128> {
+  template <int TB>
   __device__ static __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b,
                                              int scale_d) {
     asm volatile(
@@ -148,7 +158,7 @@ struct Wgmma<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -157,12 +167,13 @@ struct Wgmma<128> {
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
   }
 };
 
 template <>
 struct Wgmma<256> {
+  template <int TB>
   __device__ static __forceinline__ void mma(float (&d)[128], uint64_t a, uint64_t b,
                                              int scale_d) {
     asm volatile(
@@ -176,7 +187,7 @@ struct Wgmma<256> {
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+        "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -193,7 +204,7 @@ struct Wgmma<256> {
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
   }
 };
 
@@ -211,7 +222,7 @@ __device__ __forceinline__ void tile_coords(int t, int n_mb, int n_nb, int group
   nb = local / gm;
 }
 
-template <int BM, int BN>
+template <int BM, int BN, bool TRANS_W>
 __global__ void __launch_bounds__(THREADS, 1)
 gmm_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
                 const __grid_constant__ CUtensorMap w_map,
@@ -260,9 +271,13 @@ gmm_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
           mbar_expect_tx(bar, C::STAGE_BYTES);
           tma_load(a_ring + stage * C::A_BYTES, &x_map, bar, kt * BK, row0, keep);
 #pragma unroll
-          for (int j = 0; j < BN / 64; ++j)
-            tma_load(b_ring + stage * C::B_BYTES + j * W_BOX_BYTES, &w_map, bar,
-                     nb * BN + j * 64, e * K + kt * BK, stream);
+          for (int j = 0; j < BN / 64; ++j) {
+            const uint32_t dst = b_ring + stage * C::B_BYTES + j * W_BOX_BYTES;
+            if (TRANS_W)   // 64 rows of w[e] (output columns) x 64 of its columns (K)
+              tma_load(dst, &w_map, bar, kt * BK, e * N + nb * BN + j * 64, stream);
+            else           // 64 rows of w[e] (K) x 64 of its columns (output columns)
+              tma_load(dst, &w_map, bar, nb * BN + j * 64, e * K + kt * BK, stream);
+          }
           if (++stage == STAGES) { stage = 0; phase ^= 1; }
         }
       }
@@ -291,9 +306,15 @@ gmm_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
         fence_regs(acc);
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
-          Wgmma<WN>::mma(acc, sw128_desc(a + kk * 32, 16, 1024),
-                         sw128_desc(b + kk * 16 * 128, W_BOX_BYTES, 1024), kt | kk);
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          if (TRANS_W)   // K-major B: like A, 16 K values = 32 B along each 128 B row
+            Wgmma<WN>::template mma<0>(acc, sw128_desc(a + kk * 32, 16, 1024),
+                                       sw128_desc(b + kk * 32, 16, 1024), kt | kk);
+          else           // MN-major B: 16 K rows of 128 B, 64-column atoms W_BOX_BYTES apart
+            Wgmma<WN>::template mma<1>(acc, sw128_desc(a + kk * 32, 16, 1024),
+                                       sw128_desc(b + kk * 16 * 128, W_BOX_BYTES, 1024),
+                                       kt | kk);
+        }
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
         asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
         fence_regs(acc);
@@ -345,18 +366,17 @@ bool encode(CUtensorMap* map, const void* ptr, uint64_t outer, uint64_t inner,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BM, int BN>
+template <int BM, int BN, bool TRANS_W>
 int launch(const void* x, const void* w, const int* be, __nv_bfloat16* y, int M, int K,
            int N, int bm, int E, cudaStream_t stream) {
   using C = Cfg<BM, BN>;
   static bool attr_set[MAX_DEVICES];     // per device, per tile shape: set once
   static int n_sms[MAX_DEVICES];
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = current_device(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
   if (!attr_set[dev]) {
-    err = cudaFuncSetAttribute(gmm_bf16_kernel<BM, BN>,
+    err = cudaFuncSetAttribute(gmm_bf16_kernel<BM, BN, TRANS_W>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaDeviceGetAttribute(&n_sms[dev], cudaDevAttrMultiProcessorCount, dev);
@@ -364,8 +384,9 @@ int launch(const void* x, const void* w, const int* be, __nv_bfloat16* y, int M,
     attr_set[dev] = true;
   }
   CUtensorMap x_map, w_map;
+  // w as a row-major 2-D matrix: (E*K, N), or (E*N, K) when transposed.
   if (!encode(&x_map, x, M, K, BM) ||
-      !encode(&w_map, w, static_cast<uint64_t>(E) * K, N, 64))
+      !encode(&w_map, w, static_cast<uint64_t>(E) * (TRANS_W ? N : K), TRANS_W ? K : N, 64))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_tiles = (M / BM) * (N / BN);
   const int grid = n_tiles < n_sms[dev] ? n_tiles : n_sms[dev];
@@ -373,26 +394,35 @@ int launch(const void* x, const void* w, const int* be, __nv_bfloat16* y, int M,
   // experts own equal spans: ceil(row blocks / E) blocks of bm rows.
   const int blocks = M / bm;
   const int group = (blocks + E - 1) / E * (bm / BM);
-  gmm_bf16_kernel<BM, BN><<<grid, THREADS, C::SMEM, stream>>>(x_map, w_map, be, y, M, K, N,
-                                                              bm, E, group);
+  gmm_bf16_kernel<BM, BN, TRANS_W><<<grid, THREADS, C::SMEM, stream>>>(x_map, w_map, be, y, M,
+                                                                       K, N, bm, E, group);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool TRANS_W>
+int dispatch(const void* x, const void* w, const int* be, __nv_bfloat16* y, int M, int K,
+             int N, int bm, int E, int block_m, int block_n, cudaStream_t s) {
+  if (block_m == 128)
+    return block_n == 256 ? launch<128, 256, TRANS_W>(x, w, be, y, M, K, N, bm, E, s)
+                          : launch<128, 128, TRANS_W>(x, w, be, y, M, K, N, bm, E, s);
+  return block_n == 256 ? launch<64, 256, TRANS_W>(x, w, be, y, M, K, N, bm, E, s)
+                        : launch<64, 128, TRANS_W>(x, w, be, y, M, K, N, bm, E, s);
 }
 
 }  // namespace
 
+// y (M, N) = x (M, K) @ w[e], w (E, K, N); with trans_w, y = x @ w[e]^T for
+// w (E, N, K) (the dgrad of the forward product).
 extern "C" int repro_gmm_bf16(const void* x, const void* w, const void* block_expert,
                               void* y, int M, int K, int N, int bm, int E, int block_m,
-                              int block_n, void* stream) {
+                              int block_n, int trans_w, void* stream) {
   if (M <= 0 || E <= 0 || bm <= 0 || (block_m != 64 && block_m != 128) ||
       (block_n != 128 && block_n != 256) || bm % block_m || M % bm || K <= 0 || K % BK ||
-      N % block_n || static_cast<int64_t>(E) * K > INT32_MAX)
+      N % block_n || static_cast<int64_t>(E) * (trans_w ? N : K) > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const int* be = static_cast<const int*>(block_expert);
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (block_m == 128)
-    return block_n == 256 ? launch<128, 256>(x, w, be, out, M, K, N, bm, E, s)
-                          : launch<128, 128>(x, w, be, out, M, K, N, bm, E, s);
-  return block_n == 256 ? launch<64, 256>(x, w, be, out, M, K, N, bm, E, s)
-                        : launch<64, 128>(x, w, be, out, M, K, N, bm, E, s);
+  return trans_w ? dispatch<true>(x, w, be, out, M, K, N, bm, E, block_m, block_n, s)
+                 : dispatch<false>(x, w, be, out, M, K, N, bm, E, block_m, block_n, s);
 }

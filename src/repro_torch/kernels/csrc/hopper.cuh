@@ -1,7 +1,7 @@
 // Building blocks shared by the port's Hopper kernels (gmm.cu, flash.cu):
 // shared-memory addresses, mbarriers, the wgmma operand descriptor and
-// register fences on the device, and the TMA descriptor encoder on the
-// host. Everything has internal linkage: each source that includes this
+// register fences on the device; the calling thread's device and the TMA
+// descriptor encoder on the host. Everything has internal linkage: each source that includes this
 // keeps its own copy.
 #pragma once
 
@@ -53,6 +53,17 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The calling thread's device, with its primary context made current on
+// the thread. The autograd engine runs backward passes (and remat's
+// recompute) on threads of its own; launching from a thread on which
+// nothing had made a context current failed with cudaErrorInvalidValue.
+inline cudaError_t current_device(int* dev) {
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  if (*dev < 0 || *dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  return cudaSetDevice(*dev);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -2,8 +2,10 @@
 
 ``gmm(x, w, block_expert)`` computes ``y[i*bm:(i+1)*bm] = x[i*bm:(i+1)*bm]
 @ w[block_expert[i]]`` — the contract of the JAX package's Pallas kernel
-``repro.kernels.gmm.gmm.gmm``. For a CUDA tensor it launches the kernel or
-raises; only a CPU tensor takes the plain version (``ref.gmm_ref``).
+``repro.kernels.gmm.gmm.gmm``. With ``trans_w=True`` it computes ``x @
+w[e]^T`` instead, the data gradient of that product, from the same weights
+(no transposed copy). For a CUDA tensor it launches the kernel or raises;
+only a CPU tensor takes the plain version (``ref.gmm_ref``).
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ def tile_shape(M: int, N: int, bm: int, n_sms: int) -> tuple:
 
 
 def _validate(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
-              bm: int, block_m: int, block_n: int) -> None:
+              bm: int, block_m: int, block_n: int, trans_w: bool) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"gmm kernel needs CUDA tensors, got {x.device}")
     if w.device != x.device or block_expert.device != x.device:
@@ -56,11 +58,12 @@ def _validate(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
         raise TypeError(f"gmm kernel takes bf16 x and w, got {x.dtype}, {w.dtype}")
     if block_expert.dtype != torch.int32:
         raise TypeError(f"block_expert must be int32, got {block_expert.dtype}")
-    if x.dim() != 2 or w.dim() != 3 or x.shape[1] != w.shape[1]:
-        raise ValueError(f"gmm: x {tuple(x.shape)} and w {tuple(w.shape)} "
-                         "must be (M, K) and (E, K, N)")
+    k_dim = 2 if trans_w else 1
+    if x.dim() != 2 or w.dim() != 3 or x.shape[1] != w.shape[k_dim]:
+        raise ValueError(f"gmm: x {tuple(x.shape)} and w {tuple(w.shape)} must be "
+                         f"(M, K) and {'(E, N, K)' if trans_w else '(E, K, N)'}")
     M, K = x.shape
-    E, _, N = w.shape
+    E, N = w.shape[0], w.shape[3 - k_dim]
     if (M == 0 or bm <= 0 or bm % min(BLOCKS_M) or M % bm or K == 0 or K % BLOCK_K
             or N % min(BLOCKS_N)):
         raise ValueError(f"gmm kernel needs bm % {min(BLOCKS_M)} == 0, M % bm == 0, "
@@ -68,8 +71,8 @@ def _validate(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
                          f"K={K}, N={N}, bm={bm}")
     if block_m not in BLOCKS_M or bm % block_m or block_n not in BLOCKS_N or N % block_n:
         raise ValueError(f"gmm: tile ({block_m}, {block_n}) does not tile bm={bm}, N={N}")
-    if E * K >= 2 ** 31:
-        raise ValueError(f"gmm: E * K = {E * K} rows of w exceed int32 coordinates")
+    if E * w.shape[1] >= 2 ** 31:
+        raise ValueError(f"gmm: {E * w.shape[1]} rows of w exceed int32 coordinates")
     if tuple(block_expert.shape) != (M // bm,):
         raise ValueError(f"block_expert shape {tuple(block_expert.shape)} != "
                          f"({M // bm},)")
@@ -81,29 +84,32 @@ def _validate(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor, *,
-        bm: int = 128, block_m: Optional[int] = None,
+        bm: int = 128, trans_w: bool = False, block_m: Optional[int] = None,
         block_n: Optional[int] = None) -> torch.Tensor:
-    """x: (M, K) rows grouped by expert; w: (E, K, N); block_expert:
-    (M // bm,) int32 expert id per row block. Returns (M, N) in ``x.dtype``
-    with fp32 accumulation. ``block_m``/``block_n`` force the kernel's tile
-    (for measurement); by default ``tile_shape`` picks it."""
+    """x: (M, K) rows grouped by expert; w: (E, K, N), or (E, N, K) with
+    ``trans_w``; block_expert: (M // bm,) int32 expert id per row block.
+    Returns (M, N) in ``x.dtype`` with fp32 accumulation. ``block_m``/
+    ``block_n`` force the kernel's tile (for measurement); by default
+    ``tile_shape`` picks it."""
     if x.device.type == "cpu":
-        return gmm_ref(x, w, block_expert, bm=bm)
-    M, N = x.shape[0], w.shape[-1]
+        return gmm_ref(x, w, block_expert, bm=bm, trans_w=trans_w)
+    M, N = x.shape[0], w.shape[1 if trans_w else 2]
     if (block_m is None or block_n is None) and x.device.type == "cuda":
         auto_m, auto_n = tile_shape(M, N, bm, _n_sms(x.device.index))
         block_m, block_n = block_m or auto_m, block_n or auto_n
-    _validate(x, w, block_expert, bm, block_m, block_n)
+    _validate(x, w, block_expert, bm, block_m, block_n, trans_w)
     K, E = x.shape[1], w.shape[0]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = load_library().repro_gmm_bf16(
             x.data_ptr(), w.data_ptr(), block_expert.data_ptr(), y.data_ptr(),
-            M, K, N, bm, E, block_m, block_n,
+            M, K, N, bm, E, block_m, block_n, int(trans_w),
             torch.cuda.current_stream(x.device).cuda_stream)
     check(rc, "gmm")
     gmm.launches += 1
+    gmm.trans_w_launches += int(trans_w)
     return y
 
 
-gmm.launches = 0   # kernel launches since the count was last set to 0
+gmm.launches = 0            # kernel launches since the count was last set to 0
+gmm.trans_w_launches = 0    # of which in the trans_w mode

@@ -26,15 +26,51 @@ def uniform_block_expert(e_local: int, span: int, bm: int, device=None) -> torch
                         device=device).repeat_interleave(span // bm)
 
 
-def expert_ffn_gmm(xe: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-                   w3: torch.Tensor, activation: str, *, bm: Optional[int] = None,
-                   block_expert: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Expert FFN through three GMM launches (gate, up, down).
+class GroupedMatmul(torch.autograd.Function):
+    """``y = gmm(x, w, block_expert)`` with its gradients, for experts that
+    own equal contiguous spans of rows (``block_expert`` from
+    :func:`uniform_block_expert`).
 
-    xe: (E, N, D) tokens grouped by expert; w1/w3: (E, D, F); w2: (E, F, D).
-    Each expert owns N contiguous rows unless ``block_expert`` (expert id
-    per ``bm``-row block) says otherwise. Shapes must tile: ``N % bm == 0``,
+    * dgrad ``dx = dy @ w[e]^T``: the GMM kernel in its ``trans_w`` mode.
+    * wgrad ``dw[e] = x_e^T @ dy_e``: one ``torch.bmm`` over the
+      ``(E, span, .)`` views, as the JAX package leaves the einsum
+      gradients of its expert FFN to XLA (``repro.core.dispatcher``).
+
+    On CPU tensors ``gmm`` is its plain version, so is the backward.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, block_expert, bm):
+        ctx.save_for_backward(x, w, block_expert)
+        ctx.bm = bm
+        return gmm(x, w, block_expert, bm=bm)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, block_expert = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = gmm(dy, w, block_expert, bm=ctx.bm, trans_w=True)
+        if ctx.needs_input_grad[1]:
+            E = w.shape[0]
+            with torch.profiler.record_function("gmm wgrad"):
+                dw = torch.bmm(x.view(E, -1, x.shape[1]).transpose(1, 2),
+                               dy.view(E, -1, dy.shape[1]))
+        return dx, dw, None, None
+
+
+def expert_ffn_gmm(xe: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                   w3: torch.Tensor, activation: str, *,
+                   bm: Optional[int] = None) -> torch.Tensor:
+    """Expert FFN through three GMM launches (gate, up, down), differentiable.
+
+    xe: (E, N, D) tokens grouped by expert, each expert owning its N rows;
+    w1/w3: (E, D, F); w2: (E, F, D). Shapes must tile: ``N % bm == 0``,
     ``D % 128 == 0`` and ``F % 128 == 0``; other shapes raise ``ValueError``.
+    The backward launches the kernel three more times (``trans_w``) and
+    runs three ``torch.bmm`` weight gradients; the activation's gradient is
+    autograd's of the plain ``activation``.
     """
     E, N, D = xe.shape
     F = w1.shape[-1]
@@ -43,11 +79,9 @@ def expert_ffn_gmm(xe: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
         raise ValueError(f"expert_ffn_gmm: shapes do not tile (N={N}, D={D}, "
                          f"F={F}, bm={bm})")
     x2 = xe.reshape(E * N, D)
-    be = block_expert
-    if be is None:
-        be = uniform_block_expert(E, N, bm, device=xe.device)
-    gate = gmm(x2, w1, be, bm=bm)
-    up = gmm(x2, w3, be, bm=bm)
+    be = uniform_block_expert(E, N, bm, device=xe.device)
+    gate = GroupedMatmul.apply(x2, w1, be, bm)
+    up = GroupedMatmul.apply(x2, w3, be, bm)
     h = act_fn(activation, gate.reshape(E, N, F), up.reshape(E, N, F))
-    y = gmm(h.reshape(E * N, F), w2, be, bm=bm)
+    y = GroupedMatmul.apply(h.reshape(E * N, F), w2, be, bm)
     return y.reshape(E, N, D)

@@ -1,0 +1,104 @@
+"""Training launcher of the port: one device, a few steps on synthetic tokens.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x22b --layers 1 --seq 4096 --batch 1 --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x22b --reduced --device cpu
+
+The first trains the full-width model cut to one layer on the CUDA card
+(the port's training slice: bf16 compute, fp32 masters and AdamW state,
+full remat, the config's token-dropping MoE in the sorted layout); the
+second the smoke-sized model on the CPU in fp32. Weights come from
+``--seed``, tokens from ``SyntheticTokens``. Each step prints its loss
+terms, ``step_ok``, wall time, tokens/s and, on a card, MFU against the
+data-sheet bf16 peak (989 TFLOP/s) and the peak memory.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Optional
+
+from repro_torch.configs import ModelConfig, get_config, reduced
+
+PEAK_BF16_FLOPS = 989e12      # H100 SXM data sheet, dense bf16
+
+
+def train_config(arch: str, *, layers: Optional[int] = None,
+                 reduce: bool = False) -> ModelConfig:
+    """The training slice's configuration: the published widths (or the
+    ``reduced`` smoke size), depth cut to ``layers``, the config's own
+    token-dropping MoE in the sorted layout (the GMM kernel's), and fp32
+    compute for the smoke size."""
+    cfg = get_config(arch)
+    if reduce:
+        cfg = dataclasses.replace(reduced(cfg), dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, permute_mode="sort"))
+
+
+def step_flops(cfg: ModelConfig, seq: int, batch: int) -> float:
+    """Model FLOPs of one step: 6 per active parameter per token, plus the
+    causal attention (``ModelConfig.model_flops_per_token``), less the input
+    embedding, which is a gather and no product (unless it is tied to the
+    LM head). Remat's recompute is not counted."""
+    embed = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
+    return (cfg.model_flops_per_token(seq) - 6.0 * embed) * seq * batch
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="mixtral-8x22b")
+    ap.add_argument("--layers", type=int, default=None, help="cut depth to N layers")
+    ap.add_argument("--reduced", action="store_true", help="smoke-sized widths, fp32")
+    ap.add_argument("--device", default=None, help="default: cuda")
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.device import resolve_device
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import init_train_state, make_train_step
+
+    device = resolve_device(args.device)
+    cfg = train_config(args.arch, layers=args.layers, reduce=args.reduced)
+    params = init_lm(cfg, seed=args.seed, device=device)
+    opt_cfg = AdamWConfig(lr=args.lr)
+    opt = init_train_state(params, opt_cfg)
+    step = make_train_step(cfg, opt_cfg, guard=True)
+    data = SyntheticTokens(DataConfig(seq_len=args.seq, global_batch=args.batch,
+                                      vocab_size=cfg.vocab_size, seed=args.seed))
+    flops = step_flops(cfg, args.seq, args.batch)
+    cuda = device.type == "cuda"
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{cfg.name} x{cfg.n_layers} layers, {n_params / 1e9:.3f} B params, "
+          f"{cfg.dtype} compute on {device}: {args.batch} x {args.seq} tokens a step, "
+          f"{flops / 1e12:.2f} model TFLOP a step")
+    for i, nb in zip(range(args.steps), data):
+        batch = {k: torch.from_numpy(v).to(device) for k, v in nb.items()}
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        loss = float(m["loss"])
+        dt = time.perf_counter() - t0
+        line = (f"step {i}: loss {loss:.4f} ce {float(m['ce_loss']):.4f} "
+                f"aux {float(m['moe_aux_loss']):.4f} z {float(m['moe_z_loss']):.4f} "
+                f"drop {float(m['moe_drop_fraction']):.4f} grad_norm "
+                f"{float(m['grad_norm']):.4f} step_ok {bool(m['step_ok'])} "
+                f"{dt * 1e3:.1f} ms {args.batch * args.seq / dt:.1f} tok/s")
+        if cuda:
+            line += (f" MFU {flops / dt / PEAK_BF16_FLOPS:.4f} peak memory "
+                     f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        print(line, flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,12 @@
-"""GQA attention for serving: decode steps and prefill chunks against a paged
-KV pool.
+"""GQA attention: the train/prefill forward, and serving's decode steps and
+prefill chunks against a paged KV pool.
 
-Port of the one-rank decode path of ``repro.models.attention``
-(``attention_decode_paged`` → ``_cache_attend``). The page scatter and the
-page gather into a contiguous ``(B, Hkv, L, hd)`` view are plain torch
-indexing, as in JAX; the attention itself is the flash kernel, one launch
-per call, with one query base position per batch row.
+Port of the one-rank paths of ``repro.models.attention``: ``attention``
+(training, no context parallelism) and ``attention_decode_paged`` →
+``_cache_attend``. The page scatter and the page gather into a contiguous
+``(B, Hkv, L, hd)`` view are plain torch indexing, as in JAX; the attention
+itself is the flash kernel, one launch per call (with its backward in
+``attn_core.blockwise_attention``).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash.ops import flash
+from repro_torch.models.attn_core import blockwise_attention
 from repro_torch.models.common import apply_rope, dense_init
 
 
@@ -28,7 +30,7 @@ class AttentionParams(nn.Module):
         for name, t in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo),
                         ("bq", bq), ("bk", bk), ("bv", bv)):
             if t is not None:
-                setattr(self, name, nn.Parameter(t, requires_grad=False))
+                setattr(self, name, nn.Parameter(t))
 
 
 def init_attention(cfg: ModelConfig, *, generator: torch.Generator,
@@ -68,6 +70,21 @@ def _project_qkv(p: AttentionParams, x: torch.Tensor, x_kv: torch.Tensor,
         raise NotImplementedError(f"rope_kind={cfg.rope_kind!r} is not ported yet "
                                   "(ROADMAP.md queue 1, 'Remaining block kinds')")
     return q, k, v
+
+
+def attention(p: AttentionParams, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
+              *, causal: bool = True, window: int = 0, block_kv: int = 1024) -> torch.Tensor:
+    """Self-attention over a whole sequence: x (B, S, D) → (B, S, D).
+
+    ``pos`` (B, S) are the tokens' RoPE positions and must be the default
+    ``arange(S)`` on every row (``transformer.lm_positions``): the mask is
+    the flash kernel's at offset 0 (``attn_core.blockwise_attention``).
+    """
+    q, k, v = _project_qkv(p, x, x, pos, pos, cfg)
+    out = blockwise_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              causal=causal,
+                              window=window or cfg.sliding_window, block_kv=block_kv)
+    return _attn_output(out, p, cfg)
 
 
 def _positions_for(step: Union[int, torch.Tensor], B: int, C: int,

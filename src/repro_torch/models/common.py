@@ -1,11 +1,13 @@
-"""Shared building blocks: RMSNorm, RoPE, activations, initializers.
+"""Shared building blocks: RMSNorm, RoPE, activations, initializers, and
+the cross-entropy loss.
 
-Port of ``repro.models.common`` (the parts the serving slice runs).
+Port of ``repro.models.common`` (the parts the serving and training slices
+run).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -64,3 +66,21 @@ def activation(kind: str, gate: torch.Tensor,
     if kind == "gelu":
         return F.gelu(gate, approximate="tanh")
     raise ValueError(kind)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean token cross-entropy over the ``mask``ed tokens → ``(loss, n_tok)``.
+
+    ``logits`` (..., V) in any dtype, computed in fp32; the denominator is
+    the mask's sum floored at 1. Port of ``repro.models.common``'s.
+    """
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    total = torch.sum(nll * mask)
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    return total / denom, denom

@@ -1,8 +1,11 @@
-"""Model assembly for serving: per-layer modules and the paged decode block.
+"""Model assembly: per-layer modules, the train/prefill forward and the
+paged decode block.
 
-Port of the parts of ``repro.models.transformer`` the serving slice runs.
-Where JAX stacks layer parameters for one ``lax.scan``, the port keeps one
-module per layer (``LMParams.layers``) and runs a Python loop.
+Port of the parts of ``repro.models.transformer`` the serving and training
+slices run. Where JAX stacks layer parameters for one ``lax.scan``, the
+port keeps one module per layer (``LMParams.layers``) and runs a Python
+loop; ``jax.checkpoint`` of the scan body becomes ``torch.utils.checkpoint``
+of each layer.
 """
 from __future__ import annotations
 
@@ -10,18 +13,19 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe_layer import MoEParams, init_moe, moe_block
 from repro_torch.core.router import _top_k, deterministic_top_k
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.attention import (AttentionParams, attention_decode_paged,
-                                          init_attention)
+from repro_torch.models.attention import (AttentionParams, attention,
+                                          attention_decode_paged, init_attention)
 from repro_torch.models.common import rmsnorm
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 class MoEBlockParams(nn.Module):
@@ -148,3 +152,84 @@ def _decode_moe_paged(p: MoEBlockParams, x: torch.Tensor, state: Dict[str, torch
     y, _ = moe_block(p.moe, h, cfg)
     counts = _expert_token_counts(h, p.moe.router, cfg, ctx.get("token_mask"))
     return x + y, state, counts
+
+
+# ---------------------------------------------------------------------------
+# Train/prefill forward
+# ---------------------------------------------------------------------------
+
+AuxDict = Dict[str, torch.Tensor]
+AUX_KEYS = ("moe_aux_loss", "moe_z_loss", "moe_drop_fraction")
+
+
+def _apply_moe(p: MoEBlockParams, x: torch.Tensor, pos: torch.Tensor,
+               cfg: ModelConfig) -> Tuple[torch.Tensor, AuxDict]:
+    """One ``moe`` layer over whole sequences: x (B, S, D) → (x, aux)."""
+    h = rmsnorm(x, p.norm1)
+    x = x + attention(p.attn, h, pos, cfg)
+    h = rmsnorm(x, p.norm2)
+    y, aux = moe_block(p.moe, h, cfg)
+    return x + y, aux
+
+
+def _run_stack(layers, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig, *,
+               remat: bool = True) -> Tuple[torch.Tensor, AuxDict]:
+    """All layers in order → (x, aux summed over layers). With ``remat``
+    each layer keeps only its input for the backward and runs its forward
+    again there (``jax.checkpoint`` of the JAX scan body, no policy)."""
+    aux = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in AUX_KEYS}
+    for layer in layers:
+        if remat:
+            x, a = checkpoint(_apply_moe, layer, x, pos, cfg, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = _apply_moe(layer, x, pos, cfg)
+        aux = {k: aux[k] + a[k] for k in AUX_KEYS}
+    return x, aux
+
+
+def lm_positions(batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
+    """Token positions (B, S) of a batch: the default ``arange``, the only
+    ones the train path's attention takes so far; a batch that carries its
+    own ``positions`` raises."""
+    if "positions" in batch:
+        raise NotImplementedError(
+            "apply_lm: batch['positions'] is not ported, only the default positions "
+            "arange(S) (ROADMAP.md queue 1, 'Attention, rest': explicit positions)")
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    return torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+
+
+def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def lm_embed(params: LMParams, batch: Dict[str, torch.Tensor], pos: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+    """Embedding prologue: tokens (B, S) → activations (B, S, D)."""
+    return params.embed[batch["tokens"].long()].to(_compute_dtype(cfg))
+
+
+def lm_head_logits(params: LMParams, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """LM-head epilogue: final norm, then (B, S, D) → logits (B, S, V)."""
+    x = rmsnorm(x, params.final_norm)
+    head = params.lm_head if params.lm_head is not None else params.embed.T
+    return x @ head.to(x.dtype)
+
+
+def apply_lm(params: LMParams, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+             remat: bool = True) -> Tuple[torch.Tensor, AuxDict]:
+    """Forward pass → (logits, aux), aux averaged over the MoE layers.
+
+    ``batch["tokens"]``: (B, S) integer tokens on the parameters' device.
+    """
+    check_supported(cfg)
+    pos = lm_positions(batch, cfg)
+    x = lm_embed(params, batch, pos, cfg)
+    x, aux = _run_stack(params.layers, x, pos, cfg, remat=remat)
+    logits = lm_head_logits(params, x, cfg)
+    n_moe = sum(1 for b in cfg.blocks() if b == "moe")
+    if n_moe:
+        aux = {k: v / n_moe for k, v in aux.items()}
+    return logits, aux

@@ -1,0 +1,184 @@
+"""Training step at one device: mixed precision, remat, gradient accumulation,
+MoE aux losses, the loss-scale fault port and the anomaly guard.
+
+Port of ``repro.train.loop`` at pp = 1 with every parallel size 1
+(``cast_params``, ``aux_loss_coefs``, ``assemble_loss_metrics``,
+``loss_fn``, ``make_train_step``). ``make_train_step`` returns
+
+    step(params, opt_state, batch) -> (params, opt_state, metrics)
+
+* ``params`` (:class:`LMParams`) hold the fp32 masters and are updated in
+  place by :func:`repro_torch.optim.adamw.update`;
+* the cast to the compute dtype is hoisted out of the loss: the backward
+  runs on the compute copies (the cast's derivative is 1), whose gradients
+  the optimizer reads slice by slice in fp32;
+* ``remat`` and ``microbatch`` mirror the ``ParallelConfig`` fields of the
+  same names; the folded mesh, ZeRO-1 and pipeline stages are not ported
+  (ROADMAP.md queue 1).
+
+The JAX package stacks every layer's parameters over the layer repeats, so
+a per-layer norm or router has one axis more there than here. Its cast
+("matrices", ``ndim >= 2``) and its weight decay (the same test) read that
+rank; :func:`leaf_rank` gives it, so both packages cast and decay the same
+leaves.
+"""
+from __future__ import annotations
+
+import copy
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import softmax_cross_entropy
+from repro_torch.models.transformer import LMParams, apply_lm
+from repro_torch.optim import adamw
+
+Tensors = Dict[str, torch.Tensor]
+REMAT = ("full", "none")
+
+
+def leaf_rank(name: str, p: torch.Tensor) -> int:
+    """A leaf's rank in the JAX package's tree: layer leaves are stacked."""
+    return p.dim() + (1 if name.startswith("layers.") else 0)
+
+
+def cast_params(params: LMParams, cfg: ModelConfig) -> LMParams:
+    """fp32 masters → compute copies: the same module tree with new leaf
+    parameters (``requires_grad``), matrices (rank >= 2) in the config's
+    compute dtype and the rest (the final norm) sharing the fp32 master's
+    storage. Gradients land on the copies, not on ``params``."""
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+    def leaf(name: str, p: torch.Tensor) -> nn.Parameter:
+        t = p.detach()
+        if t.dtype == torch.float32 and leaf_rank(name, t) >= 2:
+            t = t.to(dt)
+        return nn.Parameter(t)
+
+    def copy_module(m: nn.Module, prefix: str) -> nn.Module:
+        new = copy.copy(m)
+        new._parameters = {k: None if p is None else leaf(prefix + k, p)
+                           for k, p in m._parameters.items()}
+        new._modules = {k: None if c is None else copy_module(c, f"{prefix}{k}.")
+                        for k, c in m._modules.items()}
+        return new
+
+    return copy_module(params, "")
+
+
+def aux_loss_coefs(cfg: ModelConfig) -> Dict[str, float]:
+    """Coefficient of each aux output in the loss (0 for metrics-only keys)."""
+    coefs = {"moe_aux_loss": 0.0, "moe_z_loss": 0.0, "moe_drop_fraction": 0.0}
+    if cfg.moe is not None:
+        coefs["moe_aux_loss"] = cfg.moe.aux_loss_coef
+        coefs["moe_z_loss"] = cfg.moe.z_loss_coef
+    return coefs
+
+
+def assemble_loss_metrics(ce: torch.Tensor, n_tok: torch.Tensor, aux: Tensors,
+                          cfg: ModelConfig) -> Tuple[torch.Tensor, Tensors]:
+    """(ce, aux) → (total loss, metric dict); ``aux`` is already averaged
+    over the MoE layers."""
+    loss = ce
+    metrics = {"ce_loss": ce, "tokens": n_tok}
+    if cfg.moe is not None:
+        coefs = aux_loss_coefs(cfg)
+        for k, c in coefs.items():     # ((ce + aux) + z): fixed fp order
+            if c:
+                loss = loss + c * aux[k]
+        metrics.update({k: aux[k] for k in coefs})
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def loss_fn(cparams: LMParams, batch: Tensors, cfg: ModelConfig, *,
+            remat: bool = True) -> Tuple[torch.Tensor, Tensors]:
+    """The objective on the compute copies (:func:`cast_params`)."""
+    logits, aux = apply_lm(cparams, batch, cfg, remat=remat)
+    ce, n_tok = softmax_cross_entropy(logits, batch["labels"])
+    return assemble_loss_metrics(ce, n_tok, aux, cfg)
+
+
+def _grads_of(cparams: LMParams, batch: Tensors, cfg: ModelConfig, remat: bool
+              ) -> Tuple[Tensors, Tensors]:
+    loss, metrics = loss_fn(cparams, batch, cfg, remat=remat)
+    loss.backward()
+    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+             for n, p in cparams.named_parameters()}
+    return grads, {k: v.detach() for k, v in metrics.items()}
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] = None, *,
+                    remat: str = "full", microbatch: int = 0, guard: bool = False,
+                    with_loss_scale: bool = False) -> Callable:
+    """Build the train step (see the module docstring).
+
+    ``remat``: ``"full"`` recomputes each layer's forward in the backward,
+    ``"none"`` keeps its activations. ``microbatch`` > 1 splits the batch
+    into that many slices and averages their fp32 gradients.
+    ``guard=True``: ``step_ok = isfinite(loss) & isfinite(grad_norm)``, and a
+    False flag leaves params and optimizer state bit for bit as they were
+    (``metrics["step_ok"]``). ``with_loss_scale=True`` requires an fp32
+    scalar ``batch["loss_scale"]`` multiplied into the gradients and the
+    loss metric after the backward (1.0 is a bitwise no-op; NaN makes a
+    guarded skip).
+    """
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+    use_remat = remat != "none"
+    nmicro = microbatch
+
+    def step(params: LMParams, opt_state: adamw.AdamWState, batch: Tensors):
+        batch = dict(batch)
+        ls = batch.pop("loss_scale", None)
+        if with_loss_scale and ls is None:
+            raise ValueError("this step was built with_loss_scale: batch needs 'loss_scale'")
+        cparams = cast_params(params, cfg)
+        if nmicro and nmicro > 1:
+            B = batch["tokens"].shape[0]
+            if B % nmicro:
+                raise ValueError(f"batch {B} not divisible by microbatch {nmicro}")
+            mb = B // nmicro
+            grads, metrics = None, None
+            for i in range(nmicro):
+                g, m = _grads_of(cparams, {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()},
+                                 cfg, use_remat)
+                for p in cparams.parameters():
+                    p.grad = None
+                if grads is None:
+                    grads = {n: t.float() for n, t in g.items()}
+                    metrics = m
+                else:
+                    for n, t in g.items():
+                        grads[n] += t.float()
+                    metrics = {k: metrics[k] + m[k] for k in metrics}
+                del g
+            grads = {n: t / nmicro for n, t in grads.items()}
+            metrics = {k: v / nmicro for k, v in metrics.items()}
+        else:
+            grads, metrics = _grads_of(cparams, batch, cfg, use_remat)
+        del cparams
+        if ls is not None:
+            ls = torch.as_tensor(ls, dtype=torch.float32, device=metrics["loss"].device)
+            grads = {n: t.float() * ls for n, t in grads.items()}
+            metrics["loss"] = metrics["loss"] * ls
+        named = dict(params.named_parameters())
+        step_ok = torch.isfinite(metrics["loss"]) if guard else None
+        with torch.profiler.record_function("adamw update"):
+            _, opt_state, opt_m = adamw.update(
+                opt_cfg, grads, opt_state, named, step_ok=step_ok,
+                decay={n: leaf_rank(n, p) >= 2 for n, p in named.items()})
+        metrics.update(opt_m)
+        return params, opt_state, metrics
+
+    return step
+
+
+def init_train_state(params: LMParams, opt_cfg: Optional[adamw.AdamWConfig] = None
+                     ) -> adamw.AdamWState:
+    """Zero AdamW state for ``params`` (on their device)."""
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+    return adamw.init(dict(params.named_parameters()), master_weights=opt_cfg.master_weights)

@@ -34,3 +34,7 @@ def test_port_imports_no_jax_and_no_repro(path):
 def test_scan_covers_the_package():
     names = {p.name for p in FILES}
     assert {"engine.py", "dispatcher.py", "gmm.py", "flash.py", "chip_smoke.py"} <= names
+    rel = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"src/repro_torch/data/pipeline.py", "src/repro_torch/optim/adamw.py",
+            "src/repro_torch/train/loop.py", "src/repro_torch/launch/train.py",
+            "src/repro_torch/launch/profile_train.py"} <= rel

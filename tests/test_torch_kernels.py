@@ -298,3 +298,107 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_jax({}, cfg)
     assert resolve_device("cpu").type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# Gradients: the GMM and flash autograd Functions on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M,K,N,E,bm,layout", GMM_SHAPES, ids=GMM_IDS)
+def test_gmm_trans_w_plain_matches_jax_kernel(M, K, N, E, bm, layout):
+    """``trans_w``: x @ w[e]^T equals the Pallas kernel on a transposed copy."""
+    x, w, be = _gmm_inputs(M, K, N, E, bm, layout)
+    x_t = np.ascontiguousarray(x[:, :K])                          # (M, K) against w (E, N, K)
+    w_t = np.ascontiguousarray(w.transpose(0, 2, 1))
+    yj = jax_gmm(jnp.asarray(x_t), jnp.asarray(w), jnp.asarray(be), bm=bm, interpret=True)
+    yt = gmm(_t(x_t), _t(w_t), torch.from_numpy(be), bm=bm, trans_w=True)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=1e-4, rtol=1e-4)
+
+
+def test_grouped_matmul_grads_match_autograd_of_plain():
+    from repro_torch.kernels.gmm.ops import GroupedMatmul, uniform_block_expert
+    from repro_torch.kernels.gmm.ref import gmm_ref
+    rng = np.random.default_rng(4)
+    E, span, K, N, bm = 4, 128, 128, 256, 64
+    x = _t(rng.standard_normal((E * span, K))).requires_grad_()
+    w = _t(rng.standard_normal((E, K, N)) * 0.1).requires_grad_()
+    dy = _t(rng.standard_normal((E * span, N)))
+    be = uniform_block_expert(E, span, bm)
+    y = GroupedMatmul.apply(x, w, be, bm)
+    dx, dw = torch.autograd.grad(y, (x, w), dy)
+    y_ref = gmm_ref(x, w, be, bm=bm)
+    dx_ref, dw_ref = torch.autograd.grad(y_ref, (x, w), dy)
+    np.testing.assert_array_equal(y.detach().numpy(), y_ref.detach().numpy())
+    for a, b in ((dx, dx_ref), (dw, dw_ref)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=1e-5)
+
+
+def test_expert_ffn_gmm_grads_match_jax_einsum():
+    """The expert FFN's gradients (dgrad through ``trans_w``, wgrad by bmm)
+    equal ``jax.grad`` of the JAX package's einsum expert FFN."""
+    import jax
+    from repro.core.dispatcher import _expert_ffn_einsum
+    rng = np.random.default_rng(5)
+    E, N, D, F = 4, 128, 128, 256
+    xe = rng.standard_normal((E, N, D)).astype(np.float32)
+    ws = [(rng.standard_normal(s) * 0.05).astype(np.float32)
+          for s in ((E, D, F), (E, F, D), (E, D, F))]
+    dy = rng.standard_normal((E, N, D)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: _expert_ffn_einsum(*a, "swiglu"),
+                     *(jnp.asarray(a) for a in (xe, *ws)))
+    want = vjp(jnp.asarray(dy))
+    args = [_t(a).requires_grad_() for a in (xe, *ws)]
+    y = expert_ffn_gmm(*args, "swiglu")
+    got = torch.autograd.grad(y, args, _t(dy))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=1e-4)
+
+
+ATTN_GRAD_CASES = [
+    dict(B=2, H=4, Hkv=2, S=192, hd=64, causal=True, window=0, block=64),
+    dict(B=1, H=4, Hkv=1, S=128, hd=64, causal=True, window=40, block=32),
+    dict(B=1, H=2, Hkv=2, S=96, hd=64, causal=False, window=0, block=96),
+]
+
+
+@pytest.mark.parametrize("c", ATTN_GRAD_CASES)
+def test_blockwise_attention_backward_matches_jax_vjp(c):
+    """Forward (flash partials → out) and backward (``_bwd_scan``, GQA folded)
+    against the JAX package's ``blockwise_attention`` and its flash VJP."""
+    import jax
+    from repro_torch.models.attn_core import blockwise_attention as port_blockwise
+    q, k, v = _qkv(c["B"], c["H"], c["Hkv"], c["S"], c["S"], c["hd"], seed=6)
+    dout = np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)
+    pos = np.broadcast_to(np.arange(c["S"], dtype=np.int32), (c["B"], c["S"]))
+    kw = dict(causal=c["causal"], window=c["window"], block_kv=c["block"])
+    yj, vjp = jax.vjp(lambda q, k, v: blockwise_attention(q, k, v, jnp.asarray(pos),
+                                                          jnp.asarray(pos), **kw),
+                      jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    args = [_t(a).requires_grad_() for a in (q, k, v)]
+    tpos = torch.from_numpy(pos.copy())
+    yt = port_blockwise(*args, tpos, tpos, **kw)
+    got = torch.autograd.grad(yt, args, _t(dout))
+    np.testing.assert_allclose(yt.detach().numpy(), np.asarray(yj), atol=1e-5, rtol=1e-5)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=1e-4)
+
+
+def test_flash_function_grads_match_autograd_of_plain():
+    from repro_torch.models.attn_core import blockwise_attention as port_blockwise
+    B, H, Hkv, S, hd = 1, 4, 2, 160, 64
+    q, k, v = (_t(a).requires_grad_() for a in _qkv(B, H, Hkv, S, S, hd, seed=8))
+    dout = _t(np.random.default_rng(9).standard_normal((B, H, S, hd)))
+    got = torch.autograd.grad(port_blockwise(q, k, v, block_kv=64), (q, k, v), dout)
+    ref = flash_ref(q, k, v, torch.zeros(B, dtype=torch.int32))
+    want = torch.autograd.grad(ref, (q, k, v), dout)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=1e-4)
+
+
+def test_blockwise_attention_refuses_other_positions():
+    from repro_torch.models.attn_core import blockwise_attention as port_blockwise
+    q, k, v = (_t(a) for a in _qkv(1, 2, 2, 8, 8, 64))
+    pos = torch.arange(8)[None] + 3
+    with pytest.raises(NotImplementedError, match="positions"):
+        port_blockwise(q, k, v, pos, pos)

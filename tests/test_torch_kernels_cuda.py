@@ -198,3 +198,98 @@ def test_kernels_reject_shapes_they_do_not_take(cuda):
         flash_attention(q, q, q, offs, path="prefill", splits=2)
     with pytest.raises(ValueError, match="path"):
         flash_attention(q, q, q, offs, path="ring")
+
+
+# The dgrad mode at the training slice's widths: w (E, 6144, 16384) or
+# (E, 16384, 6144) read transposed, every forced tile, unsorted block_expert.
+TRANS_CASES = [(kw, nw, bm, tile)
+               for kw, nw in ((6144, 16384), (16384, 6144))
+               for bm, tiles in ((128, ((128, 256), (128, 128), (64, 256), (64, 128))),
+                                 (64, ((64, 256), (64, 128))))
+               for tile in tiles]
+
+
+@pytest.mark.parametrize("K_w,N_w,bm,tile", TRANS_CASES)
+def test_gmm_trans_w_matches_plain(cuda, K_w, N_w, bm, tile):
+    """y = x @ w[e]^T: x (M, N_w), w (E, K_w, N_w) → (M, K_w)."""
+    rng = np.random.default_rng(8)
+    E, M = 3, 512
+    x, w = _bf16(rng, (M, N_w)), _bf16(rng, (E, K_w, N_w), N_w ** -0.5)
+    be = torch.from_numpy(np.array([2, 0, 2, 1, 0, 0, 1, 2][:M // bm], np.int32)).to(cuda)
+    n0, t0 = gmm.launches, gmm.trans_w_launches
+    y = gmm(x, w, be, bm=bm, trans_w=True, block_m=tile[0], block_n=tile[1])
+    assert (gmm.launches, gmm.trans_w_launches) == (n0 + 1, t0 + 1) and y.shape == (M, K_w)
+    assert _rel_err(y, gmm_ref(x, w, be, bm=bm, trans_w=True)) <= REL_TOL
+
+
+def test_grouped_matmul_grads_match_plain_on_card(cuda):
+    """The GMM Function's dgrad (kernel, ``trans_w``) and wgrad (bmm) against
+    autograd of the plain version, bf16."""
+    from repro_torch.kernels.gmm.ops import GroupedMatmul, uniform_block_expert
+    rng = np.random.default_rng(9)
+    E, span, K, N, bm = 4, 256, 512, 768, 128
+    x = _bf16(rng, (E * span, K)).requires_grad_()
+    w = _bf16(rng, (E, K, N), K ** -0.5).requires_grad_()
+    dy = _bf16(rng, (E * span, N))
+    be = uniform_block_expert(E, span, bm, device=cuda)
+    n0, t0 = gmm.launches, gmm.trans_w_launches
+    y = GroupedMatmul.apply(x, w, be, bm)
+    dx, dw = torch.autograd.grad(y, (x, w), dy)
+    assert (gmm.launches, gmm.trans_w_launches) == (n0 + 2, t0 + 1)   # forward + dgrad
+    y_ref = gmm_ref(x, w, be, bm=bm)
+    dx_ref, dw_ref = torch.autograd.grad(y_ref, (x, w), dy)
+    for a, b in ((y, y_ref), (dx, dx_ref), (dw, dw_ref)):
+        assert _rel_err(a, b) <= REL_TOL
+
+
+@pytest.mark.parametrize("S,window", [(1024, 0), (700, 0), (512, 100)])
+def test_flash_function_grads_match_plain_on_card(cuda, S, window):
+    """``blockwise_attention`` (flash kernel forward, ``_bwd_scan`` backward)
+    against autograd of ``flash_ref``, bf16, 48/8 heads of 128."""
+    from repro_torch.models.attn_core import blockwise_attention
+    rng = np.random.default_rng(10)
+    B, H, Hkv, hd = 1, 48, 8, 128
+    q = _bf16(rng, (B, H, S, hd)).requires_grad_()
+    k, v = (_bf16(rng, (B, Hkv, S, hd)).requires_grad_() for _ in range(2))
+    dout = _bf16(rng, (B, H, S, hd))
+    n0 = flash_attention.launches
+    out = blockwise_attention(q, k, v, window=window, block_kv=256)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert flash_attention.launches == n0 + 1
+    ref = flash_ref(q, k, v, torch.zeros(B, dtype=torch.int32, device=cuda), window=window)
+    want = torch.autograd.grad(ref, (q, k, v), dout)
+    assert _rel_err(out, ref) <= REL_TOL
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= REL_TOL
+
+
+def test_kernels_launch_from_a_fresh_thread(cuda):
+    """The autograd engine runs backward passes on threads of its own: each
+    kernel launches from a thread that has made no CUDA call yet, after its
+    tile was set up on the main thread."""
+    import threading
+    rng = np.random.default_rng(11)
+    x, w = _bf16(rng, (256, 128)), _bf16(rng, (2, 128, 256), 128 ** -0.5)
+    be = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
+    q, k = _bf16(rng, (1, 4, 200, 64)), _bf16(rng, (1, 2, 200, 64))
+    offs = torch.zeros(1, dtype=torch.int32, device=cuda)
+    calls = {"gmm": lambda: gmm(x, w, be), "gmm_trans_w": lambda: gmm(x, w.transpose(1, 2)
+                                                                      .contiguous(), be,
+                                                                      trans_w=True),
+             "flash": lambda: flash_attention(q, k, k, offs)}
+    want = {name: fn() for name, fn in calls.items()}        # main thread first
+    got, errors = {}, []
+
+    def worker():
+        try:
+            got.update({name: fn() for name, fn in calls.items()})
+        except RuntimeError as e:
+            errors.append(e)
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive() and not errors, errors
+    torch.cuda.synchronize()
+    for name in calls:
+        assert torch.equal(got[name], want[name]), name

@@ -102,7 +102,7 @@ def test_moe_block_matches_jax_moe_ffn(dropless, cf):
     p = MoEParams(*(torch.from_numpy(w[k]) for k in ("wg", "w1", "w2", "w3")))
     mcfg = dataclasses.replace(reduced(get_config("mixtral-8x22b")), d_model=D, moe=tcfg)
     yt, auxt = moe_block(p, torch.from_numpy(w["x"]), mcfg)
-    np.testing.assert_allclose(yt.reshape(-1, D).numpy(), np.asarray(yj), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(yt.detach().reshape(-1, D).numpy(), np.asarray(yj), atol=1e-5, rtol=1e-5)
     for k in ("moe_aux_loss", "moe_z_loss", "moe_drop_fraction"):
         np.testing.assert_allclose(float(auxt[k]), float(auxj[k]), atol=1e-6, err_msg=k)
     if dropless:
@@ -113,7 +113,7 @@ def test_moe_block_matches_jax_moe_ffn(dropless, cf):
     # The JAX package's pure-jnp oracle (one rank = one chunk).
     yr, _ = moe_ffn_reference(jnp.asarray(xt[None]), *(jnp.asarray(w[k]) for k in
                                                        ("wg", "w1", "w2", "w3")), jcfg)
-    np.testing.assert_allclose(yt.reshape(-1, D).numpy(), np.asarray(yr[0]),
+    np.testing.assert_allclose(yt.detach().reshape(-1, D).numpy(), np.asarray(yr[0]),
                                atol=1e-5, rtol=1e-5)
 
 

@@ -154,5 +154,5 @@ def test_params_from_jax_carries_bf16_bits():
     w1 = np.asarray(jparams["cycle"]["b0"]["moe"]["experts"]["w1"][1])
     t1 = tparams.layers[1].moe.w1
     assert t1.dtype == torch.bfloat16
-    np.testing.assert_array_equal(t1.view(torch.int16).numpy(), w1.view(np.int16))
-    np.testing.assert_array_equal(tparams.embed.numpy(), np.asarray(jparams["embed"]))
+    np.testing.assert_array_equal(t1.detach().view(torch.int16).numpy(), w1.view(np.int16))
+    np.testing.assert_array_equal(tparams.embed.detach().numpy(), np.asarray(jparams["embed"]))
