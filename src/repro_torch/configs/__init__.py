@@ -8,11 +8,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs import mixtral_8x22b
+from repro_torch.configs import mixtral_8x22b, qwen2_57b_a14b
 from repro_torch.configs.base import ModelConfig, MoEConfig
 
 REGISTRY: Dict[str, ModelConfig] = {
     "mixtral-8x22b": mixtral_8x22b.CONFIG,
+    "qwen2-57b-a14b": qwen2_57b_a14b.CONFIG,
 }
 
 

@@ -6,7 +6,8 @@ leading layer-repeat axis; its gradients and AdamW moments have the same
 tree. The caller turns the leaves into numpy arrays
 (``jax.tree.map(np.asarray, tree)``); this module takes only numpy, so it
 never imports JAX. The port names each leaf as ``LMParams.named_parameters``
-does (``layers.3.moe.w1``).
+does (``layers.3.moe.w1``; the shared experts' ``moe/shared/w1`` is
+``layers.3.moe.ws1``).
 """
 from __future__ import annotations
 
@@ -22,6 +23,10 @@ from repro_torch.models.attention import AttentionParams
 from repro_torch.models.transformer import (LMParams, MoEBlockParams,
                                             check_supported, model_cycle)
 from repro_torch.optim.adamw import AdamWState
+
+
+# The reference's ``moe/shared/*`` leaves → :class:`MoEParams` names.
+SHARED_NAMES = {"w1": "ws1", "w2": "ws2", "w3": "ws3", "gate": "gate"}
 
 
 def named_from_jax(tree: Dict, cfg: ModelConfig) -> Dict[str, np.ndarray]:
@@ -40,6 +45,8 @@ def named_from_jax(tree: Dict, cfg: ModelConfig) -> Dict[str, np.ndarray]:
         out[pre + "norm2"] = b["norm2"]["w"][i]
         out[pre + "moe.router"] = b["moe"]["router"][i]
         out.update({f"{pre}moe.{k}": b["moe"]["experts"][k][i] for k in ("w1", "w2", "w3")})
+        out.update({pre + "moe." + SHARED_NAMES[k]: v[i]
+                    for k, v in b["moe"].get("shared", {}).items()})
     out["final_norm"] = tree["final_norm"]["w"]
     if tree.get("lm_head") is not None:
         out["lm_head"] = tree["lm_head"]
@@ -70,7 +77,9 @@ def params_from_jax(tree: Dict, cfg: ModelConfig, *,
         pre = f"layers.{layer}."
         attn = AttentionParams(**{k[len(pre) + 5:]: v for k, v in t.items()
                                   if k.startswith(pre + "attn.")})
-        moe = MoEParams(*(t[f"{pre}moe.{k}"] for k in ("router", "w1", "w2", "w3")))
+        moe = MoEParams(*(t[f"{pre}moe.{k}"] for k in ("router", "w1", "w2", "w3")),
+                        **{k: t[f"{pre}moe.{k}"] for k in SHARED_NAMES.values()
+                           if f"{pre}moe.{k}" in t})
         layers.append(MoEBlockParams(t[pre + "norm1"], attn, t[pre + "norm2"], moe))
     return LMParams(t["embed"], layers, t["final_norm"], t.get("lm_head"))
 

@@ -39,11 +39,30 @@ def capacity_per_expert(n_tokens: int, cfg: MoEConfig) -> int:
     return max(1, int(cfg.capacity_factor * n_tokens * cfg.top_k / cfg.n_experts))
 
 
-def resolved_capacity(n_tokens: int, cfg: MoEConfig) -> int:
-    """The capacity the dispatcher runs with at one rank:
-    :func:`capacity_per_expert` (the JAX package's multi-rank
-    ``capacity_hint`` is not ported)."""
+def resolved_capacity(n_tokens: int, cfg: MoEConfig,
+                      capacity_hint: Optional[int] = None) -> int:
+    """The per-expert capacity the dispatcher runs with:
+    :func:`capacity_per_expert`, overridden by a clamped ``capacity_hint``
+    under dropless (the sorted layout's bucketed pre-pass)."""
+    if cfg.dropless and capacity_hint is not None:
+        return max(1, min(int(capacity_hint), n_tokens))
     return capacity_per_expert(n_tokens, cfg)
+
+
+def dropless_bucket_capacity(max_count: int, *, block: int = 128,
+                             n_tokens: Optional[int] = None) -> int:
+    """Bucket an observed per-expert max routed count into a static capacity
+    for the sorted dropless layout: ``block`` doubled until it holds
+    ``max_count`` (a few buffer sizes, each within 2x of the demand), never
+    above the provable worst case ``max(max_count, n_tokens)``."""
+    if max_count < 0:
+        raise ValueError(f"max_count must be >= 0, got {max_count}")
+    cap = max(1, block)
+    while cap < max_count:
+        cap *= 2
+    if n_tokens is not None:
+        cap = min(cap, max(max_count, n_tokens))
+    return cap
 
 
 def _top_k(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,8 +1,8 @@
 """Where the serving slice's time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--layers 4]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--arch mixtral-8x22b] [--layers 4]
 
-Full-width Mixtral-8x22B cut to ``--layers`` layers, bf16, random weights.
+The full-width ``--arch`` (Mixtral-8x22B or Qwen2-57B-A14B) cut to ``--layers`` layers, bf16, random weights.
 After a warm-up run of the smoke workload it measures two phases, each
 once by the host clock and once under ``torch.profiler`` (CPU + CUDA
 activities):
@@ -13,7 +13,8 @@ activities):
   then only batched decode steps.
 
 For each phase it prints the host wall time, the device time by kernel
-class (the GMM and flash kernels, cuBLAS GEMMs, the rest), the device's
+class (the GMM and flash kernels, cuBLAS GEMMs, the rest) and the span of
+the ``shared expert`` range (Qwen2's shared expert), the device's
 busy share of the unprofiled wall time, the median of the engine's own
 per-step forward time (``Engine.timings``), and the host ops with the most
 self time under the profiler (which inflates them; a sync shows as the op
@@ -43,6 +44,12 @@ CLASSES = (                       # (class, substrings of the kernel name)
 )
 
 
+# The port's record_function ranges on the serving path. The profiler shows
+# each as a device-side span over its kernels, which are counted in their
+# classes; the span is reported on its own (``ranges_ms``), not summed.
+RANGES = ("shared expert",)
+
+
 def _classify(name: str) -> str:
     low = name.lower()
     for cls, keys in CLASSES:
@@ -56,12 +63,16 @@ def _device_breakdown(prof) -> dict:
     profiler's CUDA-side events."""
     from torch.autograd import DeviceType
     by_cls, by_name, counts = defaultdict(float), defaultdict(float), defaultdict(int)
+    ranges = {r: 0.0 for r in RANGES}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = e.self_cuda_time_total
+        if e.key in RANGES:
+            ranges[e.key] += t / 1e3
+            continue
         by_cls[_classify(e.key)] += t / 1e3
         by_name[e.key] += t / 1e3
         counts[e.key] += e.count
@@ -69,6 +80,7 @@ def _device_breakdown(prof) -> dict:
     host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
     return {"by_class_ms": dict(sorted(by_cls.items(), key=lambda kv: -kv[1])),
+            "ranges_ms": ranges,
             "top_kernels": [{"name": k[:90], "ms": by_name[k], "calls": counts[k]} for k in top],
             "top_host_ops": [{"name": e.key[:90], "self_ms": e.self_cpu_time_total / 1e3,
                               "calls": e.count} for e in host],
@@ -130,6 +142,7 @@ def _launch_cost(torch, device, n: int = 2000) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="mixtral-8x22b")
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="results/profile_serve.json")
@@ -149,7 +162,7 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True, capture_output=True,
                          text=True).stdout.strip().splitlines()[0]
-    cfg = slice_config("mixtral-8x22b", layers=args.layers)
+    cfg = slice_config(args.arch, layers=args.layers)
     params = init_lm(cfg, seed=args.seed, dtype=torch.bfloat16, device=device)
     run_requests(cfg, params, PROMPT_LENS, 4, seed=args.seed)          # warm-up
 
@@ -183,6 +196,9 @@ def main() -> None:
               f"{100 * r['device_busy_share']:.1f}%")
         for cls, ms in r["by_class_ms"].items():
             print(f"[{phase}]   {cls:24s} {ms:10.3f} ms  {100 * ms / r['wall_ms']:5.1f}% of wall")
+        for rng, ms in r["ranges_ms"].items():
+            print(f"[{phase}]   range '{rng}': {ms:.3f} ms of device span (its kernels "
+                  "are in the classes above)")
         for k in r["top_kernels"][:6]:
             print(f"[{phase}]   top: {k['ms']:9.3f} ms x{k['calls']:5d}  {k['name']}")
         for k in r["top_host_ops"][:8]:

@@ -1,8 +1,8 @@
 """Where the training step's time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_train [--layers 1] [--seq 4096]
+    PYTHONPATH=src python -m repro_torch.launch.profile_train [--arch mixtral-8x22b] [--layers 1] [--seq 4096]
 
-Full-width Mixtral-8x22B cut to ``--layers`` layers, the training slice of
+The full-width ``--arch`` (Mixtral-8x22B or Qwen2-57B-A14B) cut to ``--layers`` layers, the training slice of
 ``launch/train.py`` (fp32 masters and AdamW state, bf16 compute, full remat,
 token-dropping MoE, ``guard=True``), one sequence of ``--seq`` tokens a
 step. After ``--warmup`` steps it times ``--steps`` steps by the host clock
@@ -14,7 +14,9 @@ step. After ``--warmup`` steps it times ``--steps`` steps by the host clock
   and recompute);
 * by the ranges the port labels with ``record_function``: ``gmm wgrad``
   (the weight gradients' ``torch.bmm``), ``attention backward``
-  (``attn_core._bwd_scan`` and the GQA fold) and ``adamw update``;
+  (``attn_core._bwd_scan`` and the GQA fold), ``shared expert`` (the
+  shared experts' forward and its remat recompute; their backward is in
+  the rest) and ``adamw update``;
 * the rest (projections and their gradients, router, dispatch, norms, loss,
   cast), as the step's device time less those.
 
@@ -30,7 +32,7 @@ import subprocess
 import time
 from pathlib import Path
 
-RANGES = ("gmm wgrad", "attention backward", "adamw update")
+RANGES = ("gmm wgrad", "attention backward", "shared expert", "adamw update")
 
 
 def _kernel_part(name: str) -> str:
@@ -77,6 +79,7 @@ def breakdown(prof) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="mixtral-8x22b")
     ap.add_argument("--layers", type=int, default=1)
     ap.add_argument("--seq", type=int, default=4096)
     ap.add_argument("--warmup", type=int, default=2)
@@ -98,7 +101,7 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True, capture_output=True,
                          text=True).stdout.strip().splitlines()[0]
-    cfg = train_config("mixtral-8x22b", layers=args.layers)
+    cfg = train_config(args.arch, layers=args.layers)
     params = init_lm(cfg, seed=args.seed, device=device)
     opt = init_train_state(params)
     step = make_train_step(cfg, guard=True)

@@ -1,10 +1,11 @@
 """Serving launcher of the port.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --layers 4
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-57b-a14b --layers 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-57b-a14b --reduced --device cpu
 
-The first serves the full-width model cut to 4 layers on the CUDA card (the
-port's serving slice); the second a smoke-sized model on the CPU. Weights
+The first two serve a full-width model cut to 4 layers on the CUDA card (the
+port's serving slice); the third a smoke-sized model on the CPU. Weights
 and prompts are random, from ``--seed``.
 """
 from __future__ import annotations

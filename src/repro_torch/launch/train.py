@@ -1,12 +1,13 @@
 """Training launcher of the port: one device, a few steps on synthetic tokens.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x22b --layers 1 --seq 4096 --batch 1 --steps 4
-    PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x22b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-57b-a14b --layers 1 --seq 4096 --batch 1 --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-57b-a14b --reduced --device cpu
 
-The first trains the full-width model cut to one layer on the CUDA card
+The first two train a full-width model cut to one layer on the CUDA card
 (the port's training slice: bf16 compute, fp32 masters and AdamW state,
 full remat, the config's token-dropping MoE in the sorted layout); the
-second the smoke-sized model on the CPU in fp32. Weights come from
+third the smoke-sized model on the CPU in fp32. Weights come from
 ``--seed``, tokens from ``SyntheticTokens``. Each step prints its loss
 terms, ``step_ok``, wall time, tokens/s and, on a card, MFU against the
 data-sheet bf16 peak (989 TFLOP/s) and the peak memory.

@@ -79,6 +79,14 @@ def model_cycle(cfg: ModelConfig) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
     return blocks, cycle
 
 
+def leaf_rank(name: str, p: torch.Tensor) -> int:
+    """A leaf's rank in the JAX package's tree, where every layer leaf is
+    stacked over the layer repeats: its casts to the compute dtype and its
+    weight decay take the leaves of rank >= 2, per-layer norms and biases
+    among them."""
+    return p.dim() + (1 if name.startswith("layers.") else 0)
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for architectures outside the ported slice."""
     blocks, _ = model_cycle(cfg)

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import rmsnorm
-from repro_torch.models.transformer import (LMParams, _decode_moe_paged,
+from repro_torch.models.transformer import (LMParams, _decode_moe_paged, leaf_rank,
                                             check_supported)
 from repro_torch.serve.cache import (init_paged_state, kv_bytes_dense,
                                      kv_bytes_paged)
@@ -80,10 +80,12 @@ def _paged_forward(params: LMParams, state: List[Dict[str, torch.Tensor]],
 
 
 def cast_params(params: LMParams, dtype: torch.dtype) -> None:
-    """Cast the fp32 matrices (ndim >= 2) to ``dtype`` in place, as the JAX
-    engine casts its parameters for bf16 compute; vectors (norms) stay fp32."""
-    for p in params.parameters():
-        if p.dtype == torch.float32 and p.dim() >= 2 and dtype != torch.float32:
+    """Cast the fp32 leaves of rank >= 2 in the JAX package's tree
+    (:func:`leaf_rank`: per-layer norms and biases count the stacked layer
+    axis) to ``dtype`` in place, as the JAX engine casts its parameters for
+    bf16 compute; the final norm stays fp32."""
+    for name, p in params.named_parameters():
+        if p.dtype == torch.float32 and leaf_rank(name, p) >= 2 and dtype != torch.float32:
             p.data = p.data.to(dtype)
 
 

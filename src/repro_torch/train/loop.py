@@ -32,16 +32,11 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import softmax_cross_entropy
-from repro_torch.models.transformer import LMParams, apply_lm
+from repro_torch.models.transformer import LMParams, apply_lm, leaf_rank
 from repro_torch.optim import adamw
 
 Tensors = Dict[str, torch.Tensor]
 REMAT = ("full", "none")
-
-
-def leaf_rank(name: str, p: torch.Tensor) -> int:
-    """A leaf's rank in the JAX package's tree: layer leaves are stacked."""
-    return p.dim() + (1 if name.startswith("layers.") else 0)
 
 
 def cast_params(params: LMParams, cfg: ModelConfig) -> LMParams:

@@ -293,3 +293,90 @@ def test_kernels_launch_from_a_fresh_thread(cuda):
     torch.cuda.synchronize()
     for name in calls:
         assert torch.equal(got[name], want[name]), name
+
+
+# Qwen2-57B-A14B's four GMM launches (64 experts, D 3584, F 2560): the
+# serving decode step (4 tokens, dropless: 128 rows per expert) and the
+# training step (CF 1.0, 4096 tokens, top-8: 512 rows per expert), gate/up
+# and down, each in the forward and the trans_w (dgrad) mode.
+QWEN2_GMM = [(rows, K, N) for rows in (128, 512) for K, N in ((3584, 2560), (2560, 3584))]
+
+
+@pytest.mark.parametrize("rows,K,N", QWEN2_GMM)
+@pytest.mark.parametrize("trans", [False, True])
+def test_gmm_at_qwen2_shapes(cuda, rows, K, N, trans):
+    """Forward: x (64 * rows, K) @ w (64, K, N). trans_w: x (64 * rows, N)
+    @ w[e]^T for the same w, the data gradient of that product."""
+    rng = np.random.default_rng(12)
+    E, bm = 64, 128
+    M = E * rows
+    w = _bf16(rng, (E, K, N), K ** -0.5)
+    x = _bf16(rng, (M, N if trans else K))
+    be = torch.arange(E, dtype=torch.int32, device=cuda).repeat_interleave(rows // bm)
+    n0, t0 = gmm.launches, gmm.trans_w_launches
+    y = gmm(x, w, be, bm=bm, trans_w=trans)
+    assert (gmm.launches, gmm.trans_w_launches) == (n0 + 1, t0 + int(trans))
+    assert y.shape == (M, K if trans else N)
+    assert _rel_err(y, gmm_ref(x, w, be, bm=bm, trans_w=trans)) <= REL_TOL
+
+
+# Qwen2's 28 query heads over 4 KV heads (a GQA group of 7) at head size
+# 128: decode-path rows (7 * Sq) that end inside a 16-row tile (Sq 1, 2),
+# split a group across two tiles (Sq 3) or fill four (Sq 9), the prefill
+# path on a prefill chunk (Sq 128) and forced on Sq 3, over a paged length
+# of 512 keys with per-row offsets; then causal self-attention at 4096.
+QWEN2_FLASH = [(4, 1, 512, [0, 37, 300, 511], None), (4, 2, 512, [7, 200, 401, 510], None),
+               (4, 3, 512, [0, 61, 250, 509], None), (2, 9, 512, [100, 503], None),
+               (2, 3, 512, [100, 509], "prefill"), (1, 128, 512, [384], None),
+               (1, 4096, 4096, [0], None)]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,offs,path", QWEN2_FLASH,
+                         ids=[f"Sq{c[1]}-{c[4] or 'auto'}" for c in QWEN2_FLASH])
+@pytest.mark.parametrize("partial", [False, True])
+def test_flash_at_qwen2_heads(cuda, B, Sq, Skv, offs, path, partial):
+    rng = np.random.default_rng(13)
+    H, Hkv, hd = 28, 4, 128
+    q = _bf16(rng, (B, H, Sq, hd))
+    k, v = (_bf16(rng, (B, Hkv, Skv, hd)) for _ in range(2))
+    q_off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, q_off, return_partial=partial, path=path)
+    assert flash_attention.launches == n0 + 1
+    ref = flash_ref(q, k, v, q_off, return_partial=partial)
+    for a, b in (zip(got, ref) if partial else [(got, ref)]):
+        assert _rel_err(a, b) <= REL_TOL
+
+
+def test_shared_expert_moe_block_matches_reference_on_card(cuda):
+    """The MoE block with a sigmoid-gated shared expert, bf16, sort layout
+    (three GMM launches), against ``moe_ffn_reference`` plus the dense
+    shared expert, both in fp32 on the same bf16 values."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.core.dispatcher import _shared_expert_ffn, moe_ffn_reference
+    from repro_torch.core.moe_layer import MoEParams, moe_block
+    rng = np.random.default_rng(14)
+    E, D, F, Fs, T = 8, 512, 256, 512, 256
+    mcfg = MoEConfig(n_experts=E, top_k=2, d_expert=F, dropless=True, permute_mode="sort",
+                     n_shared_experts=1, d_shared_expert=Fs, shared_expert_gate=True)
+    cfg = dataclasses.replace(reduced(get_config("qwen2-57b-a14b")), d_model=D, moe=mcfg)
+    x = _bf16(rng, (1, T, D))
+    wg = _bf16(rng, (D, E), 0.1).float()
+    w1, w3 = (_bf16(rng, (E, D, F), D ** -0.5) for _ in range(2))
+    w2 = _bf16(rng, (E, F, D), F ** -0.5)
+    ws1, ws3 = (_bf16(rng, (D, Fs), D ** -0.5) for _ in range(2))
+    ws2 = _bf16(rng, (Fs, D), Fs ** -0.5)
+    gate = _bf16(rng, (D, 1), 0.1)
+    p = MoEParams(wg, w1, w2, w3, ws1=ws1, ws2=ws2, ws3=ws3, gate=gate)
+    n0 = gmm.launches
+    with torch.no_grad():
+        y, aux = moe_block(p, x, cfg)
+    assert gmm.launches == n0 + 3 and y.dtype == torch.bfloat16
+    assert float(aux["moe_drop_fraction"]) == 0.0
+    f = [t.float() for t in (x[0], wg, w1, w2, w3)]
+    want, _ = moe_ffn_reference(f[0][None], *f[1:], mcfg)
+    want = want[0] + _shared_expert_ffn(f[0], [t.float() for t in (ws1, ws2, ws3, gate)],
+                                        "swiglu")
+    assert _rel_err(y[0], want) <= REL_TOL

@@ -23,7 +23,7 @@ from repro.serve import Engine as JaxEngine
 from repro.serve import EngineConfig as JaxEngineConfig
 from repro.serve import Request as JaxRequest
 from repro_torch.configs import get_config, reduced
-from repro_torch.convert import params_from_jax
+from repro_torch.convert import named_from_jax, params_from_jax
 from repro_torch.launch.serve import slice_config
 from repro_torch.models.transformer import init_lm
 from repro_torch.serve import Engine, EngineConfig, QueueFull, Request
@@ -42,7 +42,7 @@ def _jax_cfg():
 
 
 def test_config_copies_match_jax():
-    for name in ("mixtral-8x22b",):
+    for name in ("mixtral-8x22b", "qwen2-57b-a14b"):
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(jax_get_config(name))
         assert dataclasses.asdict(reduced(get_config(name))) == \
@@ -156,3 +156,25 @@ def test_params_from_jax_carries_bf16_bits():
     assert t1.dtype == torch.bfloat16
     np.testing.assert_array_equal(t1.detach().view(torch.int16).numpy(), w1.view(np.int16))
     np.testing.assert_array_equal(tparams.embed.detach().numpy(), np.asarray(jparams["embed"]))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen2-57b-a14b"])
+def test_engine_casts_leaves_as_jax_engine(arch):
+    """A bf16 engine casts what the JAX engine casts: every fp32 leaf of
+    rank >= 2 in the JAX tree, where per-layer norms and qkv biases are
+    stacked over the layers (rank 2), so they are cast too; the final norm
+    stays fp32."""
+    import jax.numpy as jnp
+    jcfg = dataclasses.replace(jax_reduced(jax_get_config(arch)), moe=dataclasses.replace(
+        jax_reduced(jax_get_config(arch)).moe, permute_mode="sort", dropless=True))
+    tcfg = slice_config(arch, reduce=True)
+    jparams = jax_init_lm(jax.random.PRNGKey(2), jcfg)
+    jcast = jax.tree.map(lambda p: p.astype(jnp.bfloat16)
+                         if (p.dtype == jnp.float32 and p.ndim >= 2) else p, jparams)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    Engine(tcfg, tparams, EngineConfig(max_batch=1, s_max=32, page_size=8))
+    want = {n: a.dtype.name for n, a in named_from_jax(jax.tree.map(np.asarray, jcast),
+                                                       tcfg).items()}
+    got = {n: str(p.dtype).split(".")[-1] for n, p in tparams.named_parameters()}
+    assert got == want
+    assert got["layers.0.norm1"] == "bfloat16" and got["final_norm"] == "float32"
