@@ -8,7 +8,8 @@ Mixtral-8x22B (8 experts, top-2) and Qwen2-57B-A14B (64 experts, top-8, a
 sigmoid-gated shared expert, qkv biases, a GQA group of 7). Phases (any
 failure exits non-zero; nothing is caught):
 
-1. device  — require CUDA; print the card's name and power limit; turn TF32 off.
+1. device  — require CUDA; print the card's name and power limit and torch's
+   version; turn TF32 off.
 2. build   — build the kernel library from ``src/repro_torch/kernels/csrc``.
 3. kernels — each CUDA kernel against its plain PyTorch version on the card at
    the model's shapes (bf16, relative error <= 2e-2), its device time, its
@@ -43,11 +44,29 @@ failure exits non-zero; nothing is caught):
    layer with its shared expert: the dropless ``capacity_hint`` pre-pass
    (equal on both), the sort layout with that hint and the scatter layout.
 
+7. world   — the folded MoE layer across ranks (``repro_torch.launch.world``):
+   4 processes share the card over gloo, each loads the kernel library
+   phase 2 built, makes the full-width weights from the seed and keeps its
+   shard, and runs 4096 tokens of its own forward and backward (a seeded
+   cotangent) through ``moe_ffn`` with the model's own MoEConfig (bf16,
+   ``overlap_chunks=2``). Mixtral at MoE EDP1×EP4×ETP1, padded and ragged
+   exchange; Qwen2 at EDP1×EP2×ETP2 with its shared expert. Each rank holds
+   its output (relative error <= 2e-2) and its expert-shard and router
+   gradients (relative L2 <= 5e-2) against the one-rank layer on the full
+   weights (gradients summed over all ranks' tokens); Mixtral's ragged
+   output must equal its padded one; the counters, zeroed before the pass,
+   must read 3 GMM launches per chunk forward and 3 ``trans_w`` per chunk
+   backward. The wall times (median of 3 warm passes) are of gloo through
+   the host on one card. Then a world of one rank over NCCL: the folded
+   layer with every group of size 1 equal to the one-rank layer, and every
+   collective the dispatcher calls valid on NCCL. Last, the GMM at the
+   world's launch shapes, timed as in phase 3.
+
 Mixtral runs phases 3, 4, 5, 6; then every Mixtral tensor is freed and
-Qwen2 runs 4, 5, 3, 6. Then it prints the script time, the kernels' JSON
-line (one entry per kernel per main path, its ``launches`` from that path's
-own run), the card's ``nvidia-smi`` name and power limit, and last
-``{"ok": true, "device": {...}}``. Full results also go to
+Qwen2 runs 4, 5, 3, 6; then both run 7. Then it prints the script time, the
+kernels' JSON line (one entry per kernel per main path, its ``launches``
+from that path's own run), the card's ``nvidia-smi`` name and power limit,
+and last ``{"ok": true, "device": {...}}``. Full results also go to
 ``results/chip_smoke.json``. Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
@@ -70,6 +89,7 @@ REL_TOL = 2e-2          # kernel vs plain version, bf16 inputs and outputs
 CHECK_TOL = 5e-2        # reduced slices, card vs CPU plain path, bf16 both
 SERVE_LAYERS, SERVE_NEW_TOKENS = 4, 16
 TRAIN_STEPS, TRAIN_SEQ = 4, 4096
+WORLD_TOKENS, WORLD_PASSES = 4096, 3
 TIMING = {"ms": "graph_ms", "library_ms": "graph_ms", "plain_ms": "profiled_ms"}
 
 
@@ -98,7 +118,8 @@ def _err(torch, got, ref):
 
 
 def phase_device(torch) -> None:
-    _say(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {_smi()}")
+    _say(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {_smi()}; torch "
+         f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _say("[device] TF32 off for matmul and cuDNN: fp32 references run in full fp32")
@@ -154,12 +175,13 @@ def _gmm_specs(arch: str) -> tuple:
     return E, specs
 
 
-def _gmm_cases(torch, arch: str) -> list:
+def _gmm_cases(torch, E: int, specs: list) -> list:
+    """Each GMM spec of :func:`_gmm_specs`' form over ``E`` experts: error
+    against the plain version, device times and bound."""
     from repro_torch.kernels.gmm.gmm import gmm
     from repro_torch.kernels.gmm.ref import gmm_ref
     from repro_torch.launch.devtime import graph_ms, profiled_ms
     g = torch.Generator(device="cuda").manual_seed(1)
-    E, specs = _gmm_specs(arch)
     cases = []
     for label, M, K, N, bm, blocks, trans in specs:
         be = torch.tensor(blocks, dtype=torch.int32, device="cuda")
@@ -311,10 +333,18 @@ def _attention_backward(torch, arch: str) -> dict:
 def phase_kernels(torch, arch: str) -> dict:
     _say(f"[kernels] {arch}: device time: kernel and library_ms by graph_ms (a CUDA graph "
          "of 20 calls), plain_ms by profiled_ms (torch.profiler kernel times)")
-    gmm_cases = _gmm_cases(torch, arch)
+    gmm_cases = _gmm_cases(torch, *_gmm_specs(arch))
     out = {"gmm": [c for c in gmm_cases if not c["trans_w"]],
            "gmm_trans_w": [c for c in gmm_cases if c["trans_w"]],
            "flash_attention": _flash_cases(torch, arch)}
+    _check_cases(arch, out)
+    out["attention_backward"] = _attention_backward(torch, arch)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_cases(arch: str, out: dict) -> None:
+    """Print each kernel case and hold it to ``REL_TOL``."""
     for name, cases in out.items():
         for c in cases:
             _say(f"[kernels] {arch} {name} {c['case']} {c['shape']}: max_abs_err "
@@ -325,9 +355,6 @@ def phase_kernels(torch, arch: str) -> dict:
             if not c["rel_err"] <= REL_TOL:
                 raise AssertionError(f"{arch} {name} {c['case']}: relative error "
                                      f"{c['rel_err']:.3e} > {REL_TOL}")
-    out["attention_backward"] = _attention_backward(torch, arch)
-    torch.cuda.empty_cache()
-    return out
 
 
 def _zero_counters() -> None:
@@ -623,6 +650,88 @@ def phase_moe_check(torch, arch: str) -> dict:
             "rel_err": errs}
 
 
+def _world_gmm(torch, arch: str) -> dict:
+    """The GMM at the world's launch shapes (forward gate/up and the
+    ``trans_w`` dgrad of the same product), timed as in phase 3."""
+    from repro_torch.launch.world import gmm_shape
+    s = gmm_shape(arch, WORLD_TOKENS)
+    E, rows, D, F, bm = s["experts"], s["rows_per_expert"], s["d_model"], s["d_expert"], s["bm"]
+    M = E * rows
+    blocks = [e for e in range(E) for _ in range(rows // bm)]
+    cases = _gmm_cases(torch, E, [(f"world gate/up, M={M}", M, D, F, bm, blocks, False),
+                                  (f"world dgrad trans_w, M={M}", M, F, D, bm, blocks, True)])
+    out = {"gmm": cases[:1], "gmm_trans_w": cases[1:]}
+    _check_cases(arch, out)
+    return out
+
+
+def phase_world(torch) -> dict:
+    """Phase 7: see the module docstring."""
+    from repro_torch.launch.world import FOLDS, moe_world, nccl_world_of_one
+
+    out = {}
+    for arch in (MIXTRAL, QWEN2):
+        tag = "moe-world" + SHORT[arch]
+        fold, ragged = FOLDS[arch]
+        t0 = time.perf_counter()
+        ranks = moe_world(arch, device="cuda", tokens=WORLD_TOKENS, passes=WORLD_PASSES)
+        wall = time.perf_counter() - t0
+        C = ranks[0]["chunks"]
+        expect_fwd = {"gmm": 3 * C, "gmm_trans_w": 0}
+        expect_bwd = {"gmm": 0, "gmm_trans_w": 3 * C}
+        fwd_ms = [statistics.median(r["forward_s"]) * 1e3 for r in ranks]
+        both_ms = [statistics.median(r["forward_backward_s"]) * 1e3 for r in ranks]
+        for r in ranks:
+            worst = max(r["grad_rel_l2"], key=r["grad_rel_l2"].get)
+            _say(f"[{tag}] rank {r['rank']} (token shard {r['shard']}): forward rel err "
+                 f"{r['forward_rel_err']:.3e} (limit {REL_TOL}); gradients rel L2 "
+                 + ", ".join(f"{k} {v:.3e}" for k, v in r["grad_rel_l2"].items())
+                 + f" (worst {worst}, limit {CHECK_TOL}); launches forward "
+                 f"{r['launches_forward']} backward {r['launches_backward']} (expected "
+                 f"{expect_fwd} / {expect_bwd})"
+                 + (f"; ragged == padded: {r['ragged_equal']}" if ragged else ""))
+            if not r["forward_rel_err"] <= REL_TOL:
+                raise AssertionError(f"{tag} rank {r['rank']}: forward rel err "
+                                     f"{r['forward_rel_err']:.3e}")
+            if not r["grad_rel_l2"][worst] <= CHECK_TOL:
+                raise AssertionError(f"{tag} rank {r['rank']}: gradient of {worst} rel L2 "
+                                     f"{r['grad_rel_l2'][worst]:.3e}")
+            if r["launches_forward"] != expect_fwd or r["launches_backward"] != expect_bwd:
+                raise AssertionError(f"{tag} rank {r['rank']}: launches {r['launches_forward']}"
+                                     f" / {r['launches_backward']} != {expect_fwd} / {expect_bwd}")
+            if ragged and not r["ragged_equal"]:
+                raise AssertionError(f"{tag} rank {r['rank']}: ragged output != padded output")
+        pay = ranks[0]["payload"]
+        rag_ms = [statistics.median(r["ragged_forward_s"]) * 1e3 for r in ranks] if ragged \
+            else None
+        _say(f"[{tag}] MoE EDP{fold[0]}xEP{fold[1]}xETP{fold[2]} on {len(ranks)} ranks "
+             f"(gloo through the host, one card), {WORLD_TOKENS} tokens a rank, {C} chunks: "
+             f"forward {statistics.median(fwd_ms):.1f} ms, forward + backward "
+             f"{statistics.median(both_ms):.1f} ms"
+             + (f", ragged forward {statistics.median(rag_ms):.1f} ms" if ragged else "")
+             + f" (median over ranks of each rank's median of {WORLD_PASSES} warm passes); "
+             f"phase wall {wall:.1f} s")
+        _say(f"[{tag}] EP payload a rank a direction: padded {pay['padded_bytes'] / 1e6:.1f} MB"
+             f", ragged send max {pay['ragged_send_bytes_max'] / 1e6:.1f} MB / mean "
+             f"{pay['ragged_send_bytes_mean'] / 1e6:.1f} MB, recv max "
+             f"{pay['ragged_recv_bytes_max'] / 1e6:.1f} MB; capacity {pay['capacity']:.0f}")
+        out[arch] = dict(fold=fold, ranks=ranks, chunks=C, wall_s=wall,
+                         forward_ms_median=statistics.median(fwd_ms),
+                         forward_backward_ms_median=statistics.median(both_ms),
+                         ragged_forward_ms_median=rag_ms and statistics.median(rag_ms),
+                         launches=ranks[0]["launches"], payload=ranks[0]["payload"],
+                         kernels=_world_gmm(torch, arch))
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    one = nccl_world_of_one(MIXTRAL, tokens=WORLD_TOKENS)
+    _say(f"[moe-world] a world of 1 over NCCL, Mixtral, every group of size 1 "
+         f"({time.perf_counter() - t0:.1f} s): " + ", ".join(f"{k} {v}" for k, v in one.items()))
+    if not all(v for k, v in one.items() if k != "chunks"):
+        raise AssertionError(f"NCCL world of 1: {one}")
+    out["nccl_world_of_one"] = one
+    return out
+
+
 def _free(torch, label: str) -> dict:
     """Release every cached block; the reserved memory before and after."""
     before = torch.cuda.memory_reserved() / 1e9
@@ -666,6 +775,8 @@ def main() -> int:
     results = {MIXTRAL: run_model(torch, MIXTRAL)}
     memory = _free(torch, "Mixtral-8x22B freed")
     results[QWEN2] = run_model(torch, QWEN2)
+    memory_world = _free(torch, "Qwen2-57B-A14B freed")
+    world = phase_world(torch)
     seconds = time.perf_counter() - t_start
 
     gmm_src = ("src/repro_torch/kernels/csrc/gmm.cu", "src/repro/kernels/gmm/gmm.py:73")
@@ -685,6 +796,14 @@ def main() -> int:
                              max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
                              bound_ms=c["bound_ms"], bound_by=c["bound_by"],
                              library_ms=c["library_ms"]))
+        for name in ("gmm", "gmm_trans_w"):
+            c = world[arch]["kernels"][name][0]
+            line.append(dict(name=name, path="moe-world" + SHORT[arch], model=arch,
+                             case=c["case"], route="cuda", source=sources[name][0],
+                             replaces=sources[name][1], launches=world[arch]["launches"][name],
+                             max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
+                             bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                             library_ms=c["library_ms"]))
     smi = _smi()
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -692,7 +811,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         nvidia_smi=smi, device=device, timing=TIMING, build=build, models=results,
-        memory_between_models=memory, seconds=seconds), indent=1))
+        world=world, memory_between_models=memory, memory_before_world=memory_world,
+        seconds=seconds), indent=1))
     _say(f"[done] script time {seconds:.2f} s (build {build['seconds']:.2f} s)")
     print(json.dumps({"kernels": line}))
     print(smi)

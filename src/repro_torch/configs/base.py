@@ -1,9 +1,9 @@
-"""Configuration dataclasses: :class:`ModelConfig` (the architecture) and
-its :class:`MoEConfig` sub-config.
+"""Configuration dataclasses: :class:`ModelConfig` (the architecture), its
+:class:`MoEConfig` sub-config, and the folded parallelism mapping
+:class:`ParallelConfig` (two :class:`ParallelMappingSpec`, one per side).
 
 A copy of ``repro.configs.base`` so the PyTorch port imports nothing of the
-JAX package; the parallelism mapping (``ParallelConfig``) is not ported yet
-because the port runs on one device.
+JAX package.
 """
 from __future__ import annotations
 
@@ -234,3 +234,71 @@ class ModelConfig:
         eff = min(seq_len, w)
         flops += 12.0 * self.n_layers * self.resolved_head_dim * self.n_heads * eff / 2
         return flops
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelMappingSpec:
+    """One 4-D mapping (dp × cp|ep × tp, with pp shared).
+
+    For the attention side ``inner`` is CP; for the MoE side it is EP.
+    """
+
+    dp: int = 1
+    inner: int = 1       # CP (attention) or EP (MoE)
+    tp: int = 1          # TP (attention) or ETP (MoE)
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.inner * self.tp
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """Full 5-D folded parallelism config (the paper's contribution).
+
+    ``attn`` and ``moe`` map the *same* ``pp``-stage device set; only the
+    constraint ``attn.size == moe.size`` is required (paper §3.2).
+    """
+
+    attn: ParallelMappingSpec = ParallelMappingSpec()
+    moe: ParallelMappingSpec = ParallelMappingSpec()
+    pp: int = 1
+    # Interleaved virtual pipeline stages per physical stage (Megatron's
+    # ``virtual_pipeline_model_parallel_size``).
+    vpp: int = 1
+    pods: int = 1                      # outer pod axis
+    pod_role: str = "dp"               # "dp" | "cp" | "pp": what the pods extend
+    microbatch: int = 0                # 0 = no gradient accumulation
+    fsdp: bool = True                  # shard params/opt-state over DP
+    remat: str = "full"                # full | none
+    use_pallas: bool = False           # the reference's kernel switch (kept for parity)
+    # Context-parallel attention schedule: "allgather" (full K/V on every
+    # CP rank) or "ring" (zigzag layout + K/V rotation around the CP ring).
+    cp_mode: str = "allgather"
+
+    def __post_init__(self):
+        if self.attn.size != self.moe.size:
+            raise ValueError(
+                f"folded mappings must cover the same devices: "
+                f"attention {self.attn.size} != moe {self.moe.size}"
+            )
+        if self.cp_mode not in ("allgather", "ring"):
+            raise ValueError(f"unknown cp_mode {self.cp_mode!r} "
+                             "(options: 'allgather', 'ring')")
+        if self.vpp < 1:
+            raise ValueError(f"vpp must be >= 1, got {self.vpp}")
+        if self.vpp > 1 and self.pipeline_stages < 2:
+            raise ValueError(
+                f"interleaved virtual stages (vpp={self.vpp}) need a "
+                f"pipeline of >= 2 stages (pp={self.pp}, pods={self.pods}, "
+                f"pod_role={self.pod_role!r})")
+
+    @property
+    def pipeline_stages(self) -> int:
+        """Physical pipeline depth: ``pp``, extended by pods when
+        ``pod_role == "pp"`` folds the pod axis into the pipeline."""
+        return self.pp * (self.pods if self.pod_role == "pp" else 1)
+
+    @property
+    def world_size(self) -> int:
+        return self.pods * self.pp * self.attn.size

@@ -11,13 +11,14 @@ does (``layers.3.moe.w1``; the shared experts' ``moe/shared/w1`` is
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.moe_layer import MoEParams
+from repro_torch.core.folding import FoldedGroups
+from repro_torch.core.moe_layer import MoEParams, shard_moe_params
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import AttentionParams
 from repro_torch.models.transformer import (LMParams, MoEBlockParams,
@@ -82,6 +83,19 @@ def params_from_jax(tree: Dict, cfg: ModelConfig, *,
                            if f"{pre}moe.{k}" in t})
         layers.append(MoEBlockParams(t[pre + "norm1"], attn, t[pre + "norm2"], moe))
     return LMParams(t["embed"], layers, t["final_norm"], t.get("lm_head"))
+
+
+def moe_params_from_jax(tree: Dict, *, device: DeviceLike = None,
+                        groups: Optional[FoldedGroups] = None) -> MoEParams:
+    """:class:`MoEParams` from the numpy leaves of one JAX ``init_moe`` tree
+    (``router``, ``experts/{w1,w2,w3}``, ``shared/*``); with ``groups``,
+    this rank's shards of them (:func:`shard_moe_params`)."""
+    device = resolve_device(device)
+    p = MoEParams(_tensor(tree["router"], device),
+                  *(_tensor(tree["experts"][k], device) for k in ("w1", "w2", "w3")),
+                  **{SHARED_NAMES[k]: _tensor(v, device)
+                     for k, v in tree.get("shared", {}).items()})
+    return p if groups is None else shard_moe_params(p, groups)
 
 
 def opt_state_from_jax(state, cfg: ModelConfig, *, device: DeviceLike = None) -> AdamWState:

@@ -1,0 +1,339 @@
+"""MoE Parallel Folding as ``torch.distributed`` process groups.
+
+Port of ``repro.core.folding``. Megatron realises folding with two
+independent families of process groups over the same ranks (paper
+Listing 1); the JAX package builds one mesh whose axes are the *common
+refinement* of the attention factorisation ``[dp, cp, tp]`` and the MoE
+factorisation ``[edp, ep, etp]``, so that each logical axis is a tuple of
+atomic mesh axes. Here the same refinement gives each logical axis a tuple
+of dimensions of the rank grid ``(pods, pp, atom0, atom1, ...)`` (rank =
+row-major index, the tp-cp-ep-dp-pp order with pp and pods outermost), and
+:func:`build_folded_groups` makes one ``ProcessGroup`` per rank group of
+each axis.
+
+The rank groups equal the reference's ``folded_mesh_groups`` (and
+``megatron_groups``, copied here as :func:`megatron_groups`);
+``tests/test_torch_folding.py`` holds them against both.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch.distributed as dist
+
+from repro_torch.configs.base import ParallelConfig
+
+ATTN_AXES = ("dp", "cp", "tp", "pp")
+# ``tokens`` (edp + ep + etp) shards the MoE layer's tokens and carries its
+# loss reductions; ``seq`` (ep + etp) gathers the router logits under
+# ``drop_policy="full_sequence"``. Both are the reference's atom tuples
+# ``token_axes`` and ``seq_axes`` (``repro.core.dispatcher``).
+MOE_AXES = ("edp", "ep", "etp", "pp", "tokens", "seq")
+
+
+def common_refinement(fa: Sequence[int], fb: Sequence[int]
+                      ) -> Tuple[List[int], List[List[int]], List[List[int]]]:
+    """Refine two ordered factorizations of the same N into common atoms.
+
+    Returns ``(atom_sizes, a_map, b_map)`` where ``a_map[i]`` lists the atom
+    indices composing ``fa[i]`` (contiguous), likewise ``b_map``.
+
+    >>> common_refinement([4, 4], [2, 8])
+    ([2, 2, 4], [[0, 1], [2]], [[0], [1, 2]])
+    """
+    if math.prod(fa) != math.prod(fb):
+        raise ValueError(f"factorizations disagree: prod{tuple(fa)} != prod{tuple(fb)}")
+
+    def boundaries(f: Sequence[int]) -> List[int]:
+        out, acc = [], 1
+        for x in f:
+            acc *= x
+            out.append(acc)
+        return out
+
+    merged = sorted(set(boundaries(fa)) | set(boundaries(fb)))
+    atom_sizes: List[int] = []
+    prev = 1
+    for b in merged:
+        if b == prev:
+            continue  # size-1 factor: no atom
+        if b % prev:
+            raise ValueError(
+                f"unfoldable parallelism: boundary {b} not divisible by {prev} "
+                f"(attn={tuple(fa)}, moe={tuple(fb)})")
+        atom_sizes.append(b // prev)
+        prev = b
+
+    def assign(f: Sequence[int]) -> List[List[int]]:
+        out, i, acc = [], 0, 1
+        for x in f:
+            target = acc * x
+            cur: List[int] = []
+            while acc < target:
+                cur.append(i)
+                acc *= atom_sizes[i]
+                i += 1
+            assert acc == target, (f, atom_sizes)
+            out.append(cur)
+        return out
+
+    return atom_sizes, assign(fa), assign(fb)
+
+
+def folded_axes(pcfg: ParallelConfig,
+                moe_factors: Optional[Sequence[Tuple[str, int]]] = None
+                ) -> Tuple[Tuple[int, ...], Dict[str, Tuple[int, ...]],
+                           Dict[str, Tuple[int, ...]]]:
+    """The rank grid's shape ``(pods, pp, *atoms)`` and, per side, each
+    logical axis as a tuple of grid dimensions (empty for a size-1 axis).
+
+    ``moe_factors``: optional explicit MoE factorisation as ordered
+    ``(label, size)`` pairs, labels in {"edp", "ep", "etp"}, which may
+    repeat (non-contiguous logical axes), as in
+    ``repro.core.folding.build_folded_mesh``.
+    """
+    a, m = pcfg.attn, pcfg.moe
+    if moe_factors is None:
+        moe_factors = [("edp", m.dp), ("ep", m.inner), ("etp", m.tp)]
+    elif math.prod(s for _, s in moe_factors) != a.size:
+        raise ValueError(f"moe_factors {moe_factors} != attn size {a.size}")
+    atom_sizes, amap, mmap = common_refinement([a.dp, a.inner, a.tp],
+                                               [s for _, s in moe_factors])
+    shape = (pcfg.pods, pcfg.pp, *atom_sizes)
+    attn = {name: tuple(2 + i for i in atoms) if size > 1 else ()
+            for name, atoms, size in zip(("dp", "cp", "tp"), amap, (a.dp, a.inner, a.tp))}
+    moe: Dict[str, Tuple[int, ...]] = {"edp": (), "ep": (), "etp": ()}
+    for (label, size), atoms in zip(moe_factors, mmap):
+        if size > 1:
+            moe[label] = moe[label] + tuple(2 + i for i in atoms)
+    pod = (0,) if pcfg.pods > 1 else ()
+    pp = (1,) if pcfg.pp > 1 else ()
+    attn["pp"] = moe["pp"] = pp
+    if pcfg.pod_role == "dp":
+        attn["dp"] = pod + attn["dp"]
+        moe["edp"] = pod + moe["edp"]
+    elif pcfg.pod_role == "cp":
+        attn["cp"] = pod + attn["cp"]
+        moe["edp"] = pod + moe["edp"]
+    else:  # "pp": pipeline stages span pods (outermost)
+        attn["pp"] = moe["pp"] = pod + pp
+    moe["tokens"] = moe["edp"] + moe["ep"] + moe["etp"]
+    moe["seq"] = moe["ep"] + moe["etp"]
+    return shape, attn, moe
+
+
+def axis_groups(shape: Sequence[int], dims: Sequence[int]) -> List[List[int]]:
+    """Rank groups of the axis made of grid dimensions ``dims``: the ranks
+    that differ only in those coordinates, listed row-major over ``dims`` in
+    their order; the groups row-major over the other dimensions (the
+    reference's ``folded_mesh_groups``)."""
+    world = math.prod(shape)
+    if not dims:
+        return [[i] for i in range(world)]
+    ids = np.arange(world).reshape(shape)
+    moved = np.moveaxis(ids, list(dims), list(range(len(shape) - len(dims), len(shape))))
+    return moved.reshape(-1, math.prod(shape[d] for d in dims)).tolist()
+
+
+@dataclasses.dataclass
+class AxisGroups:
+    """One logical axis as seen from one rank."""
+
+    dims: Tuple[int, ...]                    # grid dimensions of the axis
+    groups: List[List[int]]                  # every rank group of the axis
+    ranks: List[int]                         # this rank's group, in axis order
+    index: int                               # this rank's position in ``ranks``
+    group: Optional[dist.ProcessGroup]       # its ProcessGroup (None at size 1)
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def require_rank_order(self, what: str) -> None:
+        """A ProcessGroup orders its members by global rank, so a gather or
+        an all-to-all over it follows the axis's order only when that is
+        ascending: raise for the (non-contiguous ``moe_factors``) axes where
+        it is not."""
+        if self.ranks != sorted(self.ranks):
+            raise NotImplementedError(
+                f"{what} over ranks {self.ranks}, which are not in ascending order")
+
+
+@dataclasses.dataclass
+class FoldedGroups:
+    """The counterpart of the reference's ``FoldedMesh``: for each side
+    (``attn``, ``moe``) and logical axis, the rank groups, this rank's
+    ``ProcessGroup``, its size and this rank's index in it."""
+
+    pcfg: ParallelConfig
+    rank: int
+    world: int
+    shape: Tuple[int, ...]
+    attn: Dict[str, AxisGroups]
+    moe: Dict[str, AxisGroups]
+
+    def axis(self, side: str, logical: str) -> AxisGroups:
+        return (self.attn if side == "attn" else self.moe)[logical]
+
+    def size(self, side: str, logical: str) -> int:
+        return self.axis(side, logical).size
+
+    @property
+    def dp(self) -> int:
+        return self.size("attn", "dp")
+
+    @property
+    def cp(self) -> int:
+        return self.size("attn", "cp")
+
+    @property
+    def tp(self) -> int:
+        return self.size("attn", "tp")
+
+    @property
+    def edp(self) -> int:
+        return self.size("moe", "edp")
+
+    @property
+    def ep(self) -> int:
+        return self.size("moe", "ep")
+
+    @property
+    def etp(self) -> int:
+        return self.size("moe", "etp")
+
+
+def build_folded_groups(pcfg: ParallelConfig, *, rank: int, world: int,
+                        moe_factors: Optional[Sequence[Tuple[str, int]]] = None
+                        ) -> FoldedGroups:
+    """Process groups of every logical axis of both sides for ``rank``.
+
+    Call it on every rank of an initialised default group of ``world``
+    ranks. ``dist.new_group`` is collective over the whole world: every
+    rank creates every group (its own or not), in one fixed order (the
+    attention axes, then the MoE axes, each axis's groups in list order), or
+    the world hangs. A member set met before reuses its group. Groups of
+    size 1 get none: collectives over them are identities.
+    """
+    if world != pcfg.world_size:
+        raise ValueError(f"world {world} != ParallelConfig world_size {pcfg.world_size}")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside world {world}")
+    shape, attn_dims, moe_dims = folded_axes(pcfg, moe_factors)
+    made: Dict[Tuple[int, ...], dist.ProcessGroup] = {}
+
+    def side(names, dims_of) -> Dict[str, AxisGroups]:
+        out = {}
+        for name in names:
+            groups = axis_groups(shape, dims_of[name])
+            mine = None
+            for g in groups:
+                key = tuple(sorted(g))
+                if len(g) > 1 and key not in made:
+                    made[key] = dist.new_group(list(key))
+                if rank in g:
+                    mine = g
+            out[name] = AxisGroups(dims=dims_of[name], groups=groups, ranks=mine,
+                                   index=mine.index(rank),
+                                   group=made.get(tuple(sorted(mine))))
+        return out
+
+    return FoldedGroups(pcfg=pcfg, rank=rank, world=world, shape=shape,
+                        attn=side(ATTN_AXES, attn_dims), moe=side(MOE_AXES, moe_dims))
+
+
+def megatron_groups(world_size: int, tp: int, cp: int, ep: int, etp: int, pp: int,
+                    pods: int = 1
+                    ) -> Tuple[Dict[str, List[List[int]]], Dict[str, List[List[int]]]]:
+    """Reference group generation following paper Listing 1 (with pp/pod
+    outermost for pipeline-group consistency).
+
+    Returns (attention_groups, moe_groups): each maps axis name → list of
+    rank groups; the port's own oracle for :func:`build_folded_groups`.
+    """
+    attn_dp = world_size // tp // cp // pp // pods
+    moe_dp = world_size // etp // ep // pp // pods
+    ranks = np.arange(world_size)
+
+    def groups(arr: np.ndarray, axis: int) -> List[List[int]]:
+        moved = np.moveaxis(arr, axis, -1)
+        return moved.reshape(-1, arr.shape[axis]).tolist()
+
+    attn_ranks = ranks.reshape(pods, pp, attn_dp, cp, tp)
+    attention_groups = {"TP": groups(attn_ranks, 4), "CP": groups(attn_ranks, 3),
+                        "DP": groups(attn_ranks, 2), "PP": groups(attn_ranks, 1),
+                        "POD": groups(attn_ranks, 0)}
+    moe_ranks = ranks.reshape(pods, pp, moe_dp, ep, etp)
+    moe_groups_ = {"ETP": groups(moe_ranks, 4), "EP": groups(moe_ranks, 3),
+                   "EDP": groups(moe_ranks, 2), "PP": groups(moe_ranks, 1),
+                   "POD": groups(moe_ranks, 0)}
+    return attention_groups, moe_groups_
+
+
+def unfolded(pcfg: ParallelConfig) -> bool:
+    """True when attention and MoE mappings coincide (no folding)."""
+    a, m = pcfg.attn, pcfg.moe
+    return (a.dp, a.inner, a.tp) == (m.dp, m.inner, m.tp)
+
+
+# ---------------------------------------------------------------------------
+# Load-balanced causal context-parallel layout (ring CP), copied for the
+# attention side's CP (the next slice).
+# ---------------------------------------------------------------------------
+
+def zigzag_chunks(cp: int) -> List[Tuple[int, int]]:
+    """Chunk-id pair owned by each CP rank under the load-balanced layout.
+
+    >>> zigzag_chunks(4)
+    [(0, 7), (1, 6), (2, 5), (3, 4)]
+    """
+    return [(i, 2 * cp - 1 - i) for i in range(cp)]
+
+
+def contiguous_chunks(cp: int) -> List[Tuple[int, int]]:
+    """Naive layout at the same 2·cp granularity.
+
+    >>> contiguous_chunks(2)
+    [(0, 1), (2, 3)]
+    """
+    return [(2 * i, 2 * i + 1) for i in range(cp)]
+
+
+def causal_chunk_work(chunks: Sequence[int], n_chunks: int) -> float:
+    """Causal attention work units for a rank owning ``chunks`` of a
+    ``n_chunks``-chunk sequence (past blocks 1.0, the diagonal 0.5).
+
+    >>> [causal_chunk_work(c, 8) for c in zigzag_chunks(4)]
+    [8.0, 8.0, 8.0, 8.0]
+    """
+    return float(sum(q + 0.5 for q in chunks if q < n_chunks))
+
+
+def zigzag_perm(seq_len: int, cp: int) -> np.ndarray:
+    """Natural→zigzag gather indices for a length-``seq_len`` sequence.
+
+    >>> zigzag_perm(8, 2).tolist()
+    [0, 1, 6, 7, 2, 3, 4, 5]
+    """
+    if seq_len % (2 * cp):
+        raise ValueError(
+            f"load-balanced CP layout needs seq_len % (2*cp) == 0, got "
+            f"seq_len={seq_len}, cp={cp}")
+    c = seq_len // (2 * cp)
+    chunk = np.arange(seq_len).reshape(2 * cp, c)
+    return np.concatenate([np.concatenate([chunk[a], chunk[b]])
+                           for a, b in zigzag_chunks(cp)])
+
+
+def zigzag_inverse_perm(seq_len: int, cp: int) -> np.ndarray:
+    """Scatter indices undoing :func:`zigzag_perm`."""
+    return np.argsort(zigzag_perm(seq_len, cp))
+
+
+def cp_ring_axes(fg: FoldedGroups) -> Tuple[int, ...]:
+    """Grid dimensions forming the CP ring (with the pod dimension when
+    ``pod_role="cp"``); the ring index is the rank's index in its CP group."""
+    return fg.attn["cp"].dims

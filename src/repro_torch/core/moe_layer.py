@@ -1,9 +1,15 @@
 """MoE FFN block: router + dispatcher + experts over a (B, S, D) activation.
 
-Port of ``repro.core.moe_layer`` at one rank. Expert weights keep the JAX
-package's layout, ``w1``/``w3`` (E, D, F) and ``w2`` (E, F, D), which is
-also the GMM kernel's ``(E, K, N)``; the shared experts' ``ws1``/``ws3``
-(D, Fs) and ``ws2`` (Fs, D) are the reference's ``shared/{w1,w3,w2}``.
+Port of ``repro.core.moe_layer``. Expert weights keep the JAX package's
+layout, ``w1``/``w3`` (E, D, F) and ``w2`` (E, F, D), which is also the GMM
+kernel's ``(E, K, N)``; the shared experts' ``ws1``/``ws3`` (D, Fs) and
+``ws2`` (Fs, D) are the reference's ``shared/{w1,w3,w2}``.
+
+Across ranks each rank holds the shards the reference's ``constrain`` calls
+give it (:func:`shard_moe_params`): experts on EP, ``F`` on ETP and ``D`` on
+EDP (the dispatcher gathers ``D`` back); the shared experts on ETP/EDP; the
+router and the shared gate replicated. Entering the layer is a reshape: the
+attention side's (DP, CP×TP) token sharding is the MoE side's EDP×EP×ETP.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dispatcher import moe_ffn
+from repro_torch.core.folding import FoldedGroups
 from repro_torch.models.common import dense_init
 
 
@@ -80,16 +87,47 @@ def init_moe(cfg: ModelConfig, *, generator: torch.Generator,
     return MoEParams(router, w1, w2, w3, **shared)
 
 
+def shard_moe_params(p: MoEParams, groups: FoldedGroups) -> MoEParams:
+    """This rank's shards of the full parameters ``p``: ``w1``/``w3``
+    ``[experts of my EP index, D of my EDP index, F of my ETP index]``,
+    ``w2`` ``[experts, F, D]`` alike, ``ws1``/``ws3`` ``[D (EDP), Fs (ETP)]``,
+    ``ws2`` ``[Fs (ETP), D (EDP)]``; the router and gate whole. Each shard
+    is a contiguous copy (the full tensors can be freed)."""
+    m = groups.moe
+
+    def cut(t: Optional[torch.Tensor], *axes: Optional[str]) -> Optional[torch.Tensor]:
+        if t is None:
+            return None
+        for dim, name in enumerate(axes):
+            if name is not None and m[name].size > 1:
+                n, i = m[name].size, m[name].index
+                if t.shape[dim] % n:
+                    raise ValueError(f"dim {dim} of size {t.shape[dim]} does not split "
+                                     f"over {name.upper()} {n}")
+                step = t.shape[dim] // n
+                t = t.narrow(dim, i * step, step)
+        return t.detach().clone().contiguous()
+
+    return MoEParams(cut(p.router), cut(p.w1, "ep", "edp", "etp"),
+                     cut(p.w2, "ep", "etp", "edp"), cut(p.w3, "ep", "edp", "etp"),
+                     ws1=cut(p.ws1, "edp", "etp"), ws2=cut(p.ws2, "etp", "edp"),
+                     ws3=cut(p.ws3, "edp", "etp"), gate=cut(p.gate))
+
+
 def moe_block(p: MoEParams, x: torch.Tensor, cfg: ModelConfig, *,
-              permute_mode: Optional[str] = None, capacity_hint: Optional[int] = None
+              permute_mode: Optional[str] = None, capacity_hint: Optional[int] = None,
+              ragged: Optional[bool] = None, overlap_chunks: Optional[int] = None,
+              groups: Optional[FoldedGroups] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, D) → same, plus the aux statistics of
-    :func:`repro_torch.core.dispatcher.moe_ffn`. ``permute_mode`` and
-    ``capacity_hint`` override the config's layout and (sort + dropless)
-    the bucketed capacity, as there."""
+    :func:`repro_torch.core.dispatcher.moe_ffn`. ``permute_mode``,
+    ``capacity_hint``, ``ragged`` and ``overlap_chunks`` override the
+    config's, as there. With ``groups``, ``x`` is this rank's token shard and
+    ``p`` this rank's shards (:func:`shard_moe_params`)."""
     assert cfg.moe is not None
     B, S, D = x.shape
     y, aux = moe_ffn(x.reshape(B * S, D), p.router, p.w1, p.w2, p.w3, cfg.moe,
                      activation=cfg.activation, permute_mode=permute_mode,
-                     capacity_hint=capacity_hint, shared_weights=p.shared_weights())
+                     capacity_hint=capacity_hint, shared_weights=p.shared_weights(),
+                     ragged=ragged, overlap_chunks=overlap_chunks, groups=groups)
     return y.reshape(B, S, D), aux

@@ -12,7 +12,7 @@ stable argsort.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -149,11 +149,29 @@ class SortedDispatch:
     inv_perm: torch.Tensor       # (L,) int64 — position of each assignment in ``perm``
     group_sizes: torch.Tensor    # (E,) int64 — kept assignments per expert
     group_offsets: torch.Tensor  # (E,) int64 — exclusive cumsum of group_sizes
+    # With ``ep``: the packed stream's rows bound for EP rank d are the
+    # contiguous slice [rank_offsets[d], rank_offsets[d] + rank_counts[d]),
+    # the send side of the ragged All-to-All-V.
+    rank_counts: Optional[torch.Tensor] = None    # (ep,) int64
+    rank_offsets: Optional[torch.Tensor] = None   # (ep,) int64
+
+
+def dest_rank_spans(group_sizes: torch.Tensor, ep: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-destination-EP-rank send counts and offsets in the packed stream.
+
+    EP rank ``d`` owns experts ``[d·E/ep, (d+1)·E/ep)`` and the packed
+    stream is expert-major, so its slice is contiguous."""
+    E = group_sizes.shape[0]
+    if E % ep:
+        raise ValueError(f"n_experts {E} not divisible by EP {ep}")
+    counts = group_sizes.reshape(ep, E // ep).sum(dim=1)
+    return counts, torch.cumsum(counts, 0) - counts
 
 
 def sorted_dispatch(expert_idx: torch.Tensor, keep: torch.Tensor,
-                    n_experts: int) -> SortedDispatch:
-    """Stable argsort of assignments by expert id, drops last."""
+                    n_experts: int, *, ep: Optional[int] = None) -> SortedDispatch:
+    """Stable argsort of assignments by expert id, drops last. With ``ep``
+    also the per-destination-rank send spans (:func:`dest_rank_spans`)."""
     flat_e = expert_idx.reshape(-1).long()                          # (L,)
     kept = keep.reshape(-1)
     key = torch.where(kept, flat_e, n_experts)
@@ -163,5 +181,53 @@ def sorted_dispatch(expert_idx: torch.Tensor, keep: torch.Tensor,
     group_sizes = torch.zeros(n_experts, dtype=torch.long,
                               device=flat_e.device).index_add_(0, flat_e, kept.long())
     group_offsets = torch.cumsum(group_sizes, 0) - group_sizes
+    spans = dest_rank_spans(group_sizes, ep) if ep is not None else (None, None)
     return SortedDispatch(perm=perm, inv_perm=inv_perm, group_sizes=group_sizes,
-                          group_offsets=group_offsets)
+                          group_offsets=group_offsets, rank_counts=spans[0],
+                          rank_offsets=spans[1])
+
+
+def chunked_sorted_dispatch(expert_idx: torch.Tensor, keep: torch.Tensor, n_experts: int,
+                            spans: Sequence[Tuple[int, int]], *, ep: Optional[int] = None
+                            ) -> Tuple[SortedDispatch, ...]:
+    """Per-chunk :func:`sorted_dispatch` over the token ``spans`` of
+    ``repro_torch.core.overlap.chunk_spans``. Routing (and so ``keep``) was
+    decided on the unchunked stream; the chunks only partition the kept
+    assignments, so their group sizes sum to the unchunked ones."""
+    return tuple(sorted_dispatch(expert_idx[o:o + s], keep[o:o + s], n_experts, ep=ep)
+                 for o, s in spans)
+
+
+def chunk_expert_offsets(expert_idx: torch.Tensor, n_experts: int,
+                         spans: Sequence[Tuple[int, int]],
+                         token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Routed arrivals per expert strictly before each chunk: (C, E).
+
+    The scatter layout places each assignment at its arrival rank over the
+    whole stream (:attr:`RouterOutput.pos_in_expert`); its position in a
+    chunk's buffer is that rank less the arrivals of earlier chunks."""
+    oh = F.one_hot(expert_idx, n_experts)                          # (t, K, E)
+    if token_mask is not None:
+        oh = oh * token_mask.long()[:, None, None]
+    cum = torch.cumsum(oh.sum(dim=1), dim=0)                       # (t, E)
+    zero = torch.zeros(n_experts, dtype=cum.dtype, device=cum.device)
+    return torch.stack([zero if o == 0 else cum[o - 1] for o, _ in spans])
+
+
+def padded_group_spans(group_sizes: torch.Tensor, bm: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each expert's row span rounded up to the GMM row block ``bm``:
+    ``(padded_sizes, padded_offsets)``, MegaBlocks' contiguous layout."""
+    padded = (group_sizes + bm - 1) // bm * bm
+    return padded, torch.cumsum(padded, 0) - padded
+
+
+def block_expert_from_group_sizes(group_sizes: torch.Tensor, bm: int,
+                                  num_blocks: int) -> torch.Tensor:
+    """The GMM's ``block_expert`` for the layout of :func:`padded_group_spans`:
+    expert id per ``bm``-row block; blocks past the last span take the last
+    expert (their rows are padding)."""
+    padded, _ = padded_group_spans(group_sizes, bm)
+    ends = torch.cumsum(padded, 0)
+    starts = torch.arange(num_blocks, device=group_sizes.device) * bm
+    be = torch.searchsorted(ends, starts, right=True)
+    return torch.clamp(be, 0, group_sizes.shape[0] - 1).to(torch.int32)

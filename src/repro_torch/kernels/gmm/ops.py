@@ -60,14 +60,26 @@ class GroupedMatmul(torch.autograd.Function):
         return dx, dw, None, None
 
 
+def expert_ffn_einsum(xe: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                      w3: torch.Tensor, activation: str) -> torch.Tensor:
+    """The reference's einsum expert FFN as three ``torch.bmm``: xe (E, N, D);
+    w1/w3 (E, D, F); w2 (E, F, D) → (E, N, D). A plain product, which the
+    JAX package also computes outside any kernel."""
+    h = act_fn(activation, torch.bmm(xe, w1), torch.bmm(xe, w3))
+    return torch.bmm(h, w2)
+
+
 def expert_ffn_gmm(xe: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                    w3: torch.Tensor, activation: str, *,
                    bm: Optional[int] = None) -> torch.Tensor:
     """Expert FFN through three GMM launches (gate, up, down), differentiable.
 
     xe: (E, N, D) tokens grouped by expert, each expert owning its N rows;
-    w1/w3: (E, D, F); w2: (E, F, D). Shapes must tile: ``N % bm == 0``,
-    ``D % 128 == 0`` and ``F % 128 == 0``; other shapes raise ``ValueError``.
+    w1/w3: (E, D, F); w2: (E, F, D). Shapes the kernel does not tile
+    (``N % bm``, ``D % 128`` or ``F % 128`` non-zero, or ``bm < 8``) take
+    :func:`expert_ffn_einsum`, as the reference's ``expert_ffn_gmm`` does
+    (``repro.kernels.gmm.ops``): under ETP the local ``F`` is a slice, and
+    Qwen2's 2560 leaves 320 columns a rank at ETP 8.
     The backward launches the kernel three more times (``trans_w``) and
     runs three ``torch.bmm`` weight gradients; the activation's gradient is
     autograd's of the plain ``activation``.
@@ -76,8 +88,7 @@ def expert_ffn_gmm(xe: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     F = w1.shape[-1]
     bm = bm if bm is not None else pick_bm(N)
     if bm < 8 or N % bm or D % 128 or F % 128:
-        raise ValueError(f"expert_ffn_gmm: shapes do not tile (N={N}, D={D}, "
-                         f"F={F}, bm={bm})")
+        return expert_ffn_einsum(xe, w1, w2, w3, activation)
     x2 = xe.reshape(E * N, D)
     be = uniform_block_expert(E, N, bm, device=xe.device)
     gate = GroupedMatmul.apply(x2, w1, be, bm)

@@ -1,0 +1,395 @@
+"""Start a world of ranks: ``init_world`` and ``spawn``.
+
+Port of ``repro.launch.mesh`` for ``torch.distributed``. Nothing here reads
+a cluster's environment: the caller names the backend, the rendezvous, the
+world size and each rank, as a later multi-card launcher will.
+
+``spawn(fn, world, backend=..., device=...)`` runs ``fn(rank, world,
+*args)`` in ``world`` fresh processes (spawn start method; ``fn`` must be
+importable by name, so a module-level function) after each has joined the
+default group through a file rendezvous. It returns every rank's result,
+which must pickle, in rank order, and raises when a rank raises, dies or
+outlives ``timeout_s``: the other ranks are then killed, so a hung
+collective is a failure and never a stuck caller.
+
+Gotchas a caller meets:
+
+* ``torch.distributed.new_group`` is collective over the whole world, so
+  every rank builds every group in one order
+  (``repro_torch.core.folding.build_folded_groups`` does).
+* Rendezvous through a file (``file://<dir>/rdzv``), not a fixed TCP port:
+  several worlds may start at once on one machine.
+* The children import ``fn``'s module and nothing else of the caller's, so
+  a test that imports JAX keeps that import inside its test functions.
+* On one card several ranks can only share it over ``gloo`` (NCCL refuses
+  two ranks on one device); gloo takes CUDA tensors for every collective
+  ``repro_torch.core.comm`` calls, staging them through the host itself.
+
+    python -m repro_torch.launch.world --device cpu --reduced    # a gloo world of 4 on the CPU
+    python -m repro_torch.launch.world                           # full width on one card
+
+runs :func:`moe_world` for Mixtral-8x22B at MoE EDP1×EP4×ETP1 (padded and
+ragged exchange) and Qwen2-57B-A14B at EDP1×EP2×ETP2 (with its shared
+expert): the folded MoE layer forward and backward on every rank, held
+against the one-rank layer on the same weights and tokens.
+"""
+from __future__ import annotations
+
+import argparse
+import datetime
+import json
+import math
+import os
+import queue
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def init_world(backend: str, rank: int, world: int, init_method: str, *,
+               timeout_s: float = 300.0) -> None:
+    """Join the default process group as ``rank`` of ``world``."""
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def _child(rank: int, world: int, backend: str, init_method: str, device: str,
+           fn: Callable, args: Sequence, timeout_s: float, results) -> None:
+    try:
+        torch.set_num_threads(1)
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev.index or 0)
+        init_world(backend, rank, world, init_method, timeout_s=timeout_s)
+        try:
+            out = fn(rank, world, *args)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:  # reported to the parent, which raises it
+        results.put((rank, False, traceback.format_exc()))
+
+
+def spawn(fn: Callable, world: int, *, backend: str, device: str,
+          args: Sequence = (), timeout_s: float = 300.0,
+          init_dir: Optional[str] = None) -> List[Any]:
+    """Run ``fn(rank, world, *args)`` on ``world`` ranks; their results in
+    rank order. ``device`` ("cpu", "cuda", "cuda:0") is made current in each
+    child before ``fn`` runs (``fn`` picks its own tensors' device); there is
+    no fallback from CUDA to the CPU. ``init_dir`` holds the rendezvous file
+    (default: a fresh temporary directory)."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("spawn(device='cuda'): no CUDA device is available")
+    init_dir = init_dir or tempfile.mkdtemp(prefix="repro-world-")
+    init_method = f"file://{os.path.join(init_dir, 'rdzv')}"
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_child, args=(r, world, backend, init_method, device, fn,
+                                              tuple(args), timeout_s, results), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got, deadline = {}, time.monotonic() + timeout_s
+    try:
+        while len(got) < world:
+            try:
+                rank, ok, out = results.get(timeout=0.5)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs) if r not in got and p.exitcode
+                        not in (None, 0)]
+                if dead:
+                    raise RuntimeError(f"spawn: rank(s) {dead} exited with codes "
+                                       f"{[procs[r].exitcode for r in dead]}") from None
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"spawn: ranks {sorted(set(range(world)) - set(got))} "
+                                       f"did not finish within {timeout_s} s") from None
+                continue
+            if not ok:
+                raise RuntimeError(f"spawn: rank {rank} failed:\n{out}")
+            got[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=10 if len(got) == world else 0.1)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        results.close()
+    return [got[r] for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# The folded MoE layer across a world, held against the one-rank layer.
+# ---------------------------------------------------------------------------
+
+# Each model's MoE fold, (EDP, EP, ETP) on 4 ranks, and whether the ragged
+# exchange runs beside the padded one.
+FOLDS = {"mixtral-8x22b": ((1, 4, 1), True), "qwen2-57b-a14b": ((1, 2, 2), False)}
+
+
+def gmm_shape(arch: str, tokens: int, *, reduce: bool = False) -> Dict[str, int]:
+    """The GMM launch of ``arch``'s fold with ``tokens`` tokens a rank: its
+    experts, rows per expert (EP×ETP sources of one chunk's padded
+    capacity), ``D``, the ETP-local ``F`` and the row block."""
+    from repro_torch.core.overlap import resolve_chunks
+    from repro_torch.core.router import capacity_per_expert
+    cfg, _ = _model(dict(arch=arch, reduce=reduce, dtype="float32"))
+    (_, ep, etp), _ = FOLDS[arch]
+    m = cfg.moe
+    C = resolve_chunks(tokens, m.overlap_chunks)
+    cap = capacity_per_expert(tokens, m)
+    if C > 1:                              # the largest chunk's capacity
+        cap = min(cap, -(-tokens // C))
+    cap_pad = -(-cap // m.gmm_block_m) * m.gmm_block_m
+    return dict(experts=m.n_experts // ep, rows_per_expert=ep * etp * cap_pad,
+                d_model=cfg.d_model, d_expert=m.d_expert // etp, bm=m.gmm_block_m, chunks=C)
+
+
+def _rel(got, ref) -> float:
+    """Relative max error of ``got`` against ``ref``."""
+    got, ref = got.float(), ref.float()
+    if not bool(torch.isfinite(got).all()):
+        return float("inf")
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def _rel_l2(got, ref) -> float:
+    got, ref = got.detach().float(), ref.detach().float()
+    return float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _counters() -> Dict[str, int]:
+    from repro_torch.kernels.gmm.gmm import gmm
+    return {"gmm": gmm.launches - gmm.trans_w_launches, "gmm_trans_w": gmm.trans_w_launches}
+
+
+def _zero_counters() -> None:
+    from repro_torch.kernels.gmm.gmm import gmm
+    gmm.launches = gmm.trans_w_launches = 0
+
+
+def _model(spec: Dict[str, Any]):
+    from repro_torch.launch.train import train_config
+    cfg = train_config(spec["arch"], reduce=spec["reduce"])
+    return cfg, getattr(torch, spec["dtype"])
+
+
+def _full_params(spec, cfg, dtype, dev):
+    from repro_torch.core.moe_layer import init_moe
+    g = torch.Generator(device=dev).manual_seed(spec["seed"])
+    return init_moe(cfg, generator=g, dtype=dtype, device=dev)
+
+
+def _tokens(spec, cfg, dtype, dev, shard: int):
+    """Shard ``shard``'s tokens and its backward cotangent, from the seed."""
+    g = torch.Generator(device=dev).manual_seed(spec["seed"] * 1000 + 1 + shard)
+    x = torch.randn((spec["tokens"], cfg.d_model), generator=g, device=dev).to(dtype)
+    ct = torch.randn((spec["tokens"], cfg.d_model), generator=g, device=dev).to(dtype)
+    return x, ct
+
+
+def _pcfg(fold):
+    from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec
+    moe = ParallelMappingSpec(*fold)
+    # Attention is pure DP over the same ranks; the MoE side folds it.
+    return ParallelConfig(attn=ParallelMappingSpec(dp=moe.size), moe=moe)
+
+
+def _layer(p, x, cfg, groups, **kw):
+    """The MoE block on one sequence of tokens ``x`` (t, D)."""
+    from repro_torch.core.moe_layer import moe_block
+    y, stats = moe_block(p, x[None], cfg, groups=groups, **kw)
+    return y[0], stats
+
+
+def _grads(p) -> Dict[str, torch.Tensor]:
+    return {n: t.grad for n, t in p.named_parameters() if t.grad is not None}
+
+
+def _moe_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, Any]:
+    """One rank of :func:`moe_world` for one model (see there)."""
+    from repro_torch.core.dispatcher import ep_dispatch_payload_bytes
+    from repro_torch.core.folding import build_folded_groups
+    from repro_torch.core.moe_layer import MoEParams, shard_moe_params
+
+    dev = torch.device(spec["device"])
+    cfg, dtype = _model(spec)
+    fold, ragged = FOLDS[spec["arch"]]
+    fg = build_folded_groups(_pcfg(fold), rank=rank, world=world)
+    shard = fg.moe["tokens"].index
+    full = _full_params(spec, cfg, dtype, dev)
+    p = shard_moe_params(full, fg).requires_grad_()
+    del full
+    x, ct = _tokens(spec, cfg, dtype, dev, shard)
+    x.requires_grad_()             # the layer's input has a gradient, as in a model
+    out: Dict[str, Any] = {"rank": rank, "shard": shard, "chunks": cfg.moe.overlap_chunks}
+
+    def run():
+        """One forward and backward: (y, forward s, forward + backward s,
+        launches after the forward, launches after both)."""
+        for t in (x, *p.parameters()):
+            t.grad = None
+        _sync(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        y, _ = _layer(p, x, cfg, fg)
+        _sync(dev)
+        t1 = time.perf_counter()
+        after_forward = _counters()
+        (y.float() * ct.float()).sum().backward()
+        _sync(dev)
+        return y.detach(), t1 - t0, time.perf_counter() - t0, after_forward, _counters()
+
+    _zero_counters()
+    y, _, _, out["launches_forward"], out["launches"] = run()
+    out["launches_backward"] = {k: out["launches"][k] - out["launches_forward"][k]
+                                for k in out["launches"]}
+    mine = {n: g.clone() for n, g in _grads(p).items()}
+    mine["x"] = x.grad.clone()
+    if ragged:
+        out["ragged_forward_s"] = []
+        for i in range(1 + spec["passes"]):       # the first pass is checked, not timed
+            _sync(dev)
+            dist.barrier()
+            t0 = time.perf_counter()
+            y_rag, _ = _layer(p, x, cfg, fg, ragged=True)
+            _sync(dev)
+            if i:
+                out["ragged_forward_s"].append(time.perf_counter() - t0)
+            else:
+                out["ragged_equal"] = bool(torch.equal(y_rag.detach(), y))
+            del y_rag
+    times = [run()[1:3] for _ in range(spec["passes"])]
+    out["forward_s"] = [t[0] for t in times]
+    out["forward_backward_s"] = [t[1] for t in times]
+    for t in p.parameters():
+        t.grad = None
+
+    # The one-rank layer on the full weights, one rank at a time: every
+    # shard's tokens forward and backward, gradients summed over shards.
+    for turn in range(world):
+        if turn == rank:
+            full = _full_params(spec, cfg, dtype, dev).requires_grad_()
+            for s in range(fg.moe["tokens"].size):
+                xs, cts = _tokens(spec, cfg, dtype, dev, s)
+                xs.requires_grad_()
+                ys, _ = _layer(full, xs, cfg, None)
+                (ys.float() * cts.float()).sum().backward()
+                if s == shard:
+                    out["forward_rel_err"] = _rel(y, ys.detach())
+                    x_grad_err = _rel_l2(mine["x"], xs.grad)
+                del xs, cts, ys
+            ref = shard_moe_params(MoEParams(**_grads(full)), fg)
+            out["grad_rel_l2"] = {"x": x_grad_err, **{n: _rel_l2(mine[n], g)
+                                                      for n, g in ref.named_parameters()}}
+            del full, ref
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    if rank == 0:
+        xs = torch.cat([_tokens(spec, cfg, dtype, dev, s)[0]
+                        for s in range(fg.moe["tokens"].size)])
+        out["payload"] = ep_dispatch_payload_bytes(xs, p.router.detach(), cfg.moe, _pcfg(fold))
+    return out
+
+
+def moe_world(arch: str, *, device: str = "cuda", reduce: bool = False, tokens: int = 4096,
+              passes: int = 3, timeout_s: float = 600.0) -> List[Dict[str, Any]]:
+    """The folded MoE layer of ``arch`` on the ranks of its fold in
+    :data:`FOLDS`, over gloo (on one card several ranks can share nothing
+    else), each rank with ``tokens`` tokens of its own: per rank, the GMM
+    launches of one forward and backward (counters zeroed before), the
+    ragged output's equality with the padded one, the forward and
+    forward + backward wall times of ``passes`` warm passes, the output's
+    relative max error and each local shard gradient's relative L2 error
+    against the one-rank layer on the full weights (gradients summed over
+    every rank's tokens), and on rank 0 the EP payload of both exchanges."""
+    spec = dict(arch=arch, reduce=reduce, tokens=tokens, passes=passes, seed=0,
+                device=device, dtype="float32" if reduce else "bfloat16")
+    world = math.prod(FOLDS[arch][0])
+    return spawn(_moe_world_rank, world, backend="gloo", device=device, args=(spec,),
+                 timeout_s=timeout_s)
+
+
+def _nccl_world_of_one(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, Any]:
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core import comm
+    from repro_torch.core.folding import build_folded_groups
+
+    dev = torch.device(spec["device"])
+    cfg, dtype = _model(spec)
+    fg = build_folded_groups(ParallelConfig(), rank=rank, world=world)
+    full = _full_params(spec, cfg, dtype, dev)
+    x, ct = _tokens(spec, cfg, dtype, dev, 0)
+    with torch.no_grad():
+        y_world, _ = _layer(full, x, cfg, fg)
+        y_one, _ = _layer(full, x, cfg, None)
+    out = {"layer_equal": bool(torch.equal(y_world, y_one)), "chunks": cfg.moe.overlap_chunks}
+    # Every collective of repro_torch.core.comm on the default group of one
+    # rank (the layer's own calls are identities at size 1), at the path's
+    # buffers: each must give back its input.
+    g = dist.group.WORLD
+    buf = torch.cat([x, ct]).contiguous()
+    pending: list = []
+    calls = {
+        "all_to_all async": lambda: comm._AllToAll.apply(buf, g, None, None, pending),
+        "all_to_all_v": lambda: comm._AllToAll.apply(buf, g, [buf.shape[0]], [buf.shape[0]],
+                                                     None),
+        "all_gather dim 1": lambda: comm._AllGather.apply(full.w1[0], g, 1),
+        "reduce_scatter fp32": lambda: comm._ReduceScatter.apply(x.float(), g, 0),
+        "mean": lambda: comm._Mean.apply(x.float().mean(), g),
+    }
+    inputs = {"all_to_all async": buf, "all_to_all_v": buf, "all_gather dim 1": full.w1[0],
+              "reduce_scatter fp32": x.float(), "mean": x.float().mean()}
+    for name, call in calls.items():
+        got = call()
+        comm.wait(pending)
+        out[name] = bool(torch.equal(got, inputs[name]))
+    xg = x.float().requires_grad_()
+    comm._GradSum.apply(xg, g).sum().backward()
+    out["grad_sum backward"] = bool(torch.equal(xg.grad, torch.ones_like(xg)))
+    _sync(dev)
+    return out
+
+
+def nccl_world_of_one(arch: str = "mixtral-8x22b", *, tokens: int = 4096,
+                      timeout_s: float = 300.0) -> Dict[str, Any]:
+    """A world of one rank over NCCL on the card: the folded layer with
+    every group of size 1 must equal the one-rank layer (``torch.equal``),
+    and every collective the dispatcher calls, run on the one-rank default
+    group at the path's buffers, must return its input."""
+    spec = dict(arch=arch, reduce=False, tokens=tokens, seed=0, device="cuda",
+                dtype="bfloat16")
+    return spawn(_nccl_world_of_one, 1, backend="nccl", device="cuda", args=(spec,),
+                 timeout_s=timeout_s)[0]
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", choices=sorted(FOLDS), action="append")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--reduced", action="store_true", help="smoke-sized widths, fp32")
+    ap.add_argument("--tokens", type=int, default=None, help="tokens per rank")
+    ap.add_argument("--passes", type=int, default=3)
+    args = ap.parse_args(argv)
+    tokens = args.tokens or (64 if args.reduced else 4096)
+    for arch in args.arch or sorted(FOLDS):
+        res = moe_world(arch, device=args.device, reduce=args.reduced, tokens=tokens,
+                        passes=args.passes)
+        for r in res:
+            r.pop("payload", None)
+            print(json.dumps({"arch": arch, "fold": FOLDS[arch][0], **r}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,179 @@
+"""The port's folded process groups against the JAX package's folded mesh.
+
+The pure parts (``common_refinement``, ``megatron_groups``, the CP layout
+helpers, ``ParallelConfig``'s checks) are held against JAX directly; one
+gloo world of 8 CPU processes builds ``FoldedGroups`` for nine folds and
+every axis's groups must equal ``folded_mesh_groups`` and
+``megatron_groups``, every ``ProcessGroup`` must hold exactly its group's
+ranks, and each rank's index on the MoE token axis must be the shard the
+reference's token sharding gives that device.
+
+JAX is imported inside the test functions only: the world's processes
+import this module to find their worker, and must not import JAX.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
+from repro_torch.core import folding
+
+# (attn (dp, cp, tp), moe (edp, ep, etp), pp): the conftest folds fm222,
+# fm_folded and fm_ep8, then the six cases of tests/test_folding.py.
+FOLDS = [((2, 2, 2), (2, 2, 2), 1), ((2, 2, 2), (1, 4, 2), 1), ((2, 2, 2), (1, 8, 1), 1),
+         ((2, 2, 2), (1, 8, 1), 1), ((2, 2, 2), (2, 2, 2), 1), ((1, 2, 2), (1, 4, 1), 2),
+         ((2, 2, 1), (1, 4, 1), 2), ((4, 1, 2), (1, 4, 2), 1), ((2, 1, 2), (2, 2, 1), 2)]
+SIDE_AXES = {"attn": ("dp", "cp", "tp", "pp"), "moe": ("edp", "ep", "etp", "pp")}
+
+
+def _pcfg(attn, moe, pp):
+    return ParallelConfig(attn=PM(*attn), moe=PM(*moe), pp=pp)
+
+
+def _jax_fm(attn, moe, pp):
+    from repro.configs.base import ParallelConfig as JPC, ParallelMappingSpec as JPM
+    from repro.core.folding import build_folded_mesh
+    return build_folded_mesh(JPC(attn=JPM(*attn), moe=JPM(*moe), pp=pp))
+
+
+@pytest.mark.parametrize("fa,fb", [([2, 2, 2], [1, 8, 1]), ([4, 4], [2, 8]), ([2, 2, 2], [2, 2, 2]),
+                                   ([4, 1, 2], [1, 4, 2]), ([16, 2, 8], [16, 8, 2]),
+                                   ([1, 1, 1], [1, 1, 1])])
+def test_common_refinement_matches_jax(fa, fb):
+    from repro.core.folding import common_refinement
+    assert folding.common_refinement(fa, fb) == common_refinement(fa, fb)
+
+
+def test_common_refinement_unfoldable_raises_as_jax():
+    from repro.core.folding import common_refinement
+    for fn in (folding.common_refinement, common_refinement):
+        with pytest.raises(ValueError, match="unfoldable"):
+            fn([3, 4], [4, 3])
+
+
+@pytest.mark.parametrize("attn,moe,pp", FOLDS[2:] + [((2, 2, 2), (2, 4, 1), 2)])
+def test_megatron_groups_match_jax(attn, moe, pp):
+    from repro.core.folding import megatron_groups
+    world = attn[0] * attn[1] * attn[2] * pp
+    kw = dict(tp=attn[2], cp=attn[1], ep=moe[1], etp=moe[2], pp=pp)
+    assert folding.megatron_groups(world, **kw) == megatron_groups(world, **kw)
+    assert (folding.megatron_groups(2 * world, **kw, pods=2)
+            == megatron_groups(2 * world, **kw, pods=2))
+
+
+@pytest.mark.parametrize("pods,role", [(2, "dp"), (2, "cp"), (2, "pp")])
+def test_pod_roles_match_jax_folded_mesh(pods, role):
+    """Pods extend EDP/DP, CP or the pipeline as in the reference (groups
+    only: no world of 16 processes is started)."""
+    import jax
+    from repro.configs.base import ParallelConfig as JPC, ParallelMappingSpec as JPM
+    from repro.core.folding import build_folded_mesh, folded_mesh_groups
+    attn, moe, pp = (1, 2, 2), (1, 4, 1), 1
+    jp = JPC(attn=JPM(*attn), moe=JPM(*moe), pods=pods, pod_role=role)
+    fm = build_folded_mesh(jp, devices=np.array(jax.devices()[:8]))
+    shape, attn_dims, moe_dims = folding.folded_axes(
+        ParallelConfig(attn=PM(*attn), moe=PM(*moe), pods=pods, pod_role=role))
+    for side, dims in (("attn", attn_dims), ("moe", moe_dims)):
+        for ax in SIDE_AXES[side]:
+            assert folding.axis_groups(shape, dims[ax]) == folded_mesh_groups(fm, side, ax), \
+                (side, ax)
+
+
+@pytest.mark.parametrize("kw", [dict(attn=PM(2, 2, 2), moe=PM(1, 4, 1)),
+                                dict(cp_mode="zigzag"), dict(vpp=0), dict(vpp=2, pp=1),
+                                dict(vpp=2, pp=1, pods=2, pod_role="dp")])
+def test_parallel_config_checks_raise_as_jax(kw):
+    from repro.configs.base import ParallelConfig as JPC, ParallelMappingSpec as JPM
+    jkw = {k: (JPM(v.dp, v.inner, v.tp) if isinstance(v, PM) else v) for k, v in kw.items()}
+    with pytest.raises(ValueError) as jerr:
+        JPC(**jkw)
+    with pytest.raises(ValueError) as terr:
+        ParallelConfig(**kw)
+    assert str(terr.value) == str(jerr.value)
+
+
+def test_parallel_config_derived_sizes_match_jax():
+    from repro.configs.base import ParallelConfig as JPC, ParallelMappingSpec as JPM
+    for kw in (dict(pp=2, pods=2, pod_role="pp", vpp=2), dict(pp=2, pods=2), dict(pods=2)):
+        t = ParallelConfig(attn=PM(2, 2, 2), moe=PM(1, 8, 1), **kw)
+        j = JPC(attn=JPM(2, 2, 2), moe=JPM(1, 8, 1), **kw)
+        assert (t.pipeline_stages, t.world_size) == (j.pipeline_stages, j.world_size)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+def test_cp_layout_helpers_match_jax():
+    from repro.core import folding as jf
+    for cp in (1, 2, 4):
+        assert folding.zigzag_chunks(cp) == jf.zigzag_chunks(cp)
+        assert folding.contiguous_chunks(cp) == jf.contiguous_chunks(cp)
+        for chunks in folding.zigzag_chunks(cp) + folding.contiguous_chunks(cp):
+            assert folding.causal_chunk_work(chunks, 2 * cp) == jf.causal_chunk_work(chunks, 2 * cp)
+        np.testing.assert_array_equal(folding.zigzag_perm(16, cp), jf.zigzag_perm(16, cp))
+        np.testing.assert_array_equal(folding.zigzag_inverse_perm(16, cp),
+                                      jf.zigzag_inverse_perm(16, cp))
+    with pytest.raises(ValueError):
+        folding.zigzag_perm(6, 2)
+    for attn, moe, pp in FOLDS[:3]:
+        assert folding.unfolded(_pcfg(attn, moe, pp)) == jf.unfolded(_jax_fm(attn, moe, pp).pcfg)
+
+
+def _folding_world(rank, world, folds):
+    """Each fold's groups as this rank built them, and the members every
+    ProcessGroup reports (one all_gather of ranks per group)."""
+    import torch.distributed as dist
+    out = []
+    for attn, moe, pp in folds:
+        fg = folding.build_folded_groups(_pcfg(attn, moe, pp), rank=rank, world=world)
+        got = {}
+        for side in ("attn", "moe"):
+            for name, ax in (fg.attn if side == "attn" else fg.moe).items():
+                members = [rank]
+                if ax.group is not None:
+                    buf = torch.empty(ax.size, dtype=torch.int64)
+                    dist.all_gather_into_tensor(buf, torch.tensor([rank]), group=ax.group)
+                    members = buf.tolist()
+                got[side, name] = dict(groups=ax.groups, ranks=ax.ranks, index=ax.index,
+                                       members=members)
+        out.append(got)
+    return out
+
+
+def test_folded_groups_in_a_world_match_jax(tmp_path):
+    """A gloo world of 8: every axis of the nine folds, against JAX."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from repro.core.folding import folded_mesh_groups, megatron_groups
+    from repro_torch.launch.world import spawn
+
+    per_rank = spawn(_folding_world, 8, backend="gloo", device="cpu", args=(FOLDS,),
+                     timeout_s=240, init_dir=str(tmp_path))
+    for i, (attn, moe, pp) in enumerate(FOLDS):
+        fm = _jax_fm(attn, moe, pp)
+        ag, mg = megatron_groups(8, tp=attn[2], cp=attn[1], ep=moe[1], etp=moe[2], pp=pp)
+        oracle = {("attn", "tp"): ag["TP"], ("attn", "cp"): ag["CP"], ("attn", "dp"): ag["DP"],
+                  ("moe", "etp"): mg["ETP"], ("moe", "ep"): mg["EP"], ("moe", "edp"): mg["EDP"],
+                  ("attn", "pp"): ag["PP"], ("moe", "pp"): mg["PP"]}
+        assert ag["PP"] == mg["PP"]
+        token_axes = fm.axis("moe", "edp") + fm.axis("moe", "ep") + fm.axis("moe", "etp")
+        combined = {"tokens": token_axes, "seq": fm.axis("moe", "ep") + fm.axis("moe", "etp")}
+        fm_all = dataclasses.replace(fm, moe_axes={**fm.moe_axes, **combined})
+        # The reference's token sharding: which shard each device holds.
+        n_shards = int(np.prod([fm.mesh.shape[a] for a in token_axes]))
+        arr = jax.device_put(np.arange(3 * n_shards),
+                             NamedSharding(fm.mesh, P(token_axes or None)))
+        shard_of = {s.device.id: int(np.asarray(s.data)[0]) // 3 for s in arr.addressable_shards}
+        for rank, got in enumerate(per_rank):
+            g = got[i]
+            for side, axes in SIDE_AXES.items():
+                for ax in axes:
+                    want = folded_mesh_groups(fm, side, ax)
+                    assert g[side, ax]["groups"] == want == oracle[side, ax], (i, side, ax)
+            for ax in ("tokens", "seq"):
+                assert g["moe", ax]["groups"] == folded_mesh_groups(fm_all, "moe", ax), (i, ax)
+            for (side, ax), v in g.items():
+                assert rank in v["ranks"] and v["ranks"] in v["groups"], (i, side, ax)
+                assert v["ranks"][v["index"]] == rank
+                assert v["members"] == sorted(v["ranks"]), (i, side, ax)
+            assert g["moe", "tokens"]["index"] == shard_of[rank], (i, rank)

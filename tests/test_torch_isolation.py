@@ -37,4 +37,6 @@ def test_scan_covers_the_package():
     rel = {str(p.relative_to(ROOT)) for p in FILES}
     assert {"src/repro_torch/data/pipeline.py", "src/repro_torch/optim/adamw.py",
             "src/repro_torch/train/loop.py", "src/repro_torch/launch/train.py",
-            "src/repro_torch/launch/profile_train.py"} <= rel
+            "src/repro_torch/launch/profile_train.py", "src/repro_torch/core/folding.py",
+            "src/repro_torch/core/comm.py", "src/repro_torch/core/overlap.py",
+            "src/repro_torch/launch/world.py"} <= rel

@@ -123,26 +123,33 @@ def test_moe_block_matches_jax_moe_ffn(dropless, cf):
 
 
 def test_unported_dispatch_layouts_raise():
-    tcfg = MoEConfig(n_experts=4, top_k=2, d_expert=128)
+    """The ragged exchange is ported: at one rank (EP 1) it is the padded
+    sort path, as in the reference, so the two outputs are equal."""
+    tcfg = MoEConfig(n_experts=4, top_k=2, d_expert=128, permute_mode="sort")
     mcfg = dataclasses.replace(reduced(get_config("mixtral-8x22b")), d_model=128, moe=tcfg)
     w = _moe_weights(128, 128, 4, seed=0)
     p = MoEParams(*(torch.from_numpy(w[k]) for k in ("wg", "w1", "w2", "w3")))
-    with pytest.raises(NotImplementedError, match="ragged"):
-        moe_block(p, torch.from_numpy(w["x"]), dataclasses.replace(
-            mcfg, moe=dataclasses.replace(tcfg, permute_mode="sort", ragged_a2a=True)))
+    y_pad, _ = moe_block(p, torch.from_numpy(w["x"]), mcfg)
+    y_rag, _ = moe_block(p, torch.from_numpy(w["x"]), dataclasses.replace(
+        mcfg, moe=dataclasses.replace(tcfg, ragged_a2a=True)))
+    np.testing.assert_array_equal(y_rag.detach().numpy(), y_pad.detach().numpy())
 
 
 @pytest.mark.parametrize("D,F,bm", [(96, 128, 128), (128, 192, 128), (128, 128, 4)])
 def test_untileable_expert_shapes_raise(D, F, bm):
-    """The sort layout has no second expert path: shapes the GMM kernel
-    does not tile are refused, on the CPU as on the card."""
-    tcfg = MoEConfig(n_experts=4, top_k=2, d_expert=F, permute_mode="sort",
-                     gmm_block_m=bm)
+    """Shapes the GMM kernel does not tile no longer raise: the sort layout
+    takes the reference's einsum there (unaligned spans), and matches JAX."""
+    jcfg, tcfg = _both(n_experts=4, top_k=2, d_expert=F, permute_mode="sort",
+                       gmm_block_m=bm)
     mcfg = dataclasses.replace(reduced(get_config("mixtral-8x22b")), d_model=D, moe=tcfg)
     w = _moe_weights(D, F, 4, seed=0)
+    xt = w["x"].reshape(-1, D)
+    yj, _ = jax.jit(lambda *a: jax_moe_ffn(*a, jcfg, fm1()))(
+        *(jnp.asarray(a) for a in (xt, w["wg"], w["w1"], w["w2"], w["w3"])))
     p = MoEParams(*(torch.from_numpy(w[k]) for k in ("wg", "w1", "w2", "w3")))
-    with pytest.raises(ValueError, match="do not tile"):
-        moe_block(p, torch.from_numpy(w["x"]), mcfg)
+    yt, _ = moe_block(p, torch.from_numpy(w["x"]), mcfg)
+    np.testing.assert_allclose(yt.detach().reshape(-1, D).numpy(), np.asarray(yj),
+                               atol=1e-5, rtol=1e-5)
 
 
 def _shared_np(D, Fs, gated, seed):
