@@ -62,8 +62,30 @@ failure exits non-zero; nothing is caught):
    collective the dispatcher calls valid on NCCL. Last, the GMM at the
    world's launch shapes, timed as in phase 3.
 
+8. train-world — the folded training step (``repro_torch.launch.world.
+   train_world``): 4 processes share the card over gloo; each builds the
+   model cut to 1 layer from the seed in turn, keeps its slices and frees
+   the rest. Mixtral at attention CP2×TP2 (Megatron SP, vocabulary-parallel
+   embedding, head and loss) with MoE EP4: ``TRAIN_STEPS`` steps of phase
+   5's batches with ``cp_mode="allgather"``, then 2 with the zigzag ring
+   from the same start; Qwen2 at CP2×TP2 with MoE EP2×ETP2: one forward and
+   backward (no AdamW state: it would not fit 4 ranks). Per rank: every
+   step's loss and global ``grad_norm`` against phase 5's one-card step at
+   the same seed and batches (step 0, on the same weights, within
+   ``FOLD_TOL``; the folded MoE caps each expert per token shard, so other
+   tokens drop, and later steps part further: ``FOLD_TOL_LATER``,
+   ``GRAD_NORM_TOL_LATER``), the ring against the all-gather run (within
+   ``RING_TOL``), each run's launches
+   against the count derived from the code, peak memory and step wall
+   time (gloo through the host on one card, not NCCL over NVLink); rank 0
+   profiles one more step (device time by part, host time in the
+   collectives' ``comm`` ranges). Then the flash kernel in partial mode
+   at the fold's shapes (all-gather CP at both chunks' offsets; the ring's
+   diagonal, wholly visible and wholly masked pairs) and the GMM at the EP
+   shard's shape, held and timed as in phase 3.
+
 Mixtral runs phases 3, 4, 5, 6; then every Mixtral tensor is freed and
-Qwen2 runs 4, 5, 3, 6; then both run 7. Then it prints the script time, the
+Qwen2 runs 4, 5, 3, 6; then both run 7 and 8. Then it prints the script time, the
 kernels' JSON line (one entry per kernel per main path, its ``launches``
 from that path's own run), the card's ``nvidia-smi`` name and power limit,
 and last ``{"ok": true, "device": {...}}``. Full results also go to
@@ -90,6 +112,18 @@ CHECK_TOL = 5e-2        # reduced slices, card vs CPU plain path, bf16 both
 SERVE_LAYERS, SERVE_NEW_TOKENS = 4, 16
 TRAIN_STEPS, TRAIN_SEQ = 4, 4096
 WORLD_TOKENS, WORLD_PASSES = 4096, 3
+# Phase 8, the folded step against the one-card step (phase 5), bf16 both.
+# Step 0 runs both on the same weights and batch: its loss and grad_norm
+# differ by bf16 sums in other orders and by the MoE capacity, which the fold
+# applies per 1024-token shard and one card per 4096-token stream, so other
+# tokens drop. Later steps start from weights that those drops moved apart:
+# the loss stays close, grad_norm parts further (measured on an H100: step 0
+# 1.6e-3 / 9.4e-3, step 3 2.3e-2 / 9.1e-2), so later steps hold the loss
+# to FOLD_TOL_LATER and grad_norm to GRAD_NORM_TOL_LATER.
+FOLD_TOL = 2e-2
+FOLD_TOL_LATER = 5e-2
+GRAD_NORM_TOL_LATER = 0.15
+RING_TOL = 5e-3         # ring CP vs all-gather CP, the same fold and routing, bf16
 TIMING = {"ms": "graph_ms", "library_ms": "graph_ms", "plain_ms": "profiled_ms"}
 
 
@@ -142,6 +176,12 @@ def phase_build() -> dict:
 
 MIXTRAL, QWEN2 = "mixtral-8x22b", "qwen2-57b-a14b"
 SHORT = {MIXTRAL: "", QWEN2: "-qwen2"}       # path-name suffix of each model
+# Phase 8: the folded train step, 4 ranks on the card. Attention (dp, cp, tp),
+# MoE (edp, ep, etp), and its runs (cp_mode, steps; 0 = one forward and
+# backward, no optimizer), each from the same start.
+TRAIN_WORLD = {MIXTRAL: dict(attn=(1, 2, 2), moe=(1, 4, 1),
+                             runs=(("allgather", TRAIN_STEPS), ("ring", 2))),
+               QWEN2: dict(attn=(1, 2, 2), moe=(1, 2, 2), runs=(("allgather", 0),))}
 
 
 def _gmm_specs(arch: str) -> tuple:
@@ -211,7 +251,7 @@ def _gmm_cases(torch, E: int, specs: list) -> list:
     return cases
 
 
-# (label, Sq, Skv, q_offset per batch row); heads of 128.
+# (label, Sq, Skv, q_offset per batch row[, kv_offset]); heads of 128.
 FLASH_HEADS = {MIXTRAL: (48, 8), QWEN2: (28, 4)}
 FLASH_CASES = {
     MIXTRAL: (("decode (serving)", 1, 512, [0, 37, 300, 511]),
@@ -232,42 +272,49 @@ HEADLINE = {("gmm", "serve"): "gate/up, decode (serving)",
             ("flash_attention", "train"): "causal self-attention 4096, partial"}
 
 
-def _flash_cases(torch, arch: str) -> list:
-    """Flash cases in both output modes. ``library_ms`` is the fastest of the
-    ``scaled_dot_product_attention`` forms that compute the same function on
-    the same (GQA) inputs: an explicit mask (offsets differ per row), and
-    ``is_causal`` where the queries start at key 0."""
+def _flash_cases(torch, arch: str, cases=None, heads=None, modes=(False, True)) -> list:
+    """Flash cases (default: the model's ``FLASH_CASES`` at its heads) in
+    the output ``modes`` (partial or not). ``library_ms`` is the fastest of
+    the ``scaled_dot_product_attention`` forms that compute the same
+    function on the same (GQA) inputs: an explicit mask (offsets differ per
+    row), and ``is_causal`` where the queries start at key 0. Keys sit at
+    ``kv_offset + j``; a query row that sees none (a ring pair wholly in its
+    future) must agree with the plain version's ``m = -1e30, l = 0, acc = 0``."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash.flash import flash_attention
     from repro_torch.kernels.flash.ref import flash_ref
     from repro_torch.launch.devtime import graph_ms, profiled_ms
     g = torch.Generator(device="cuda").manual_seed(2)
-    (H, Hkv), hd = FLASH_HEADS[arch], 128
-    cases = []
-    for label, Sq, L, offsets in FLASH_CASES[arch]:
+    (H, Hkv), hd = heads or FLASH_HEADS[arch], 128
+    out = []
+    for label, Sq, L, offsets, *kv in cases or FLASH_CASES[arch]:
+        kv_off = kv[0] if kv else 0
         B = len(offsets)
         q = torch.randn((B, H, Sq, hd), generator=g, device="cuda").to(torch.bfloat16)
         k = torch.randn((B, Hkv, L, hd), generator=g, device="cuda").to(torch.bfloat16)
         v = torch.randn((B, Hkv, L, hd), generator=g, device="cuda").to(torch.bfloat16)
         q_off = torch.tensor(offsets, dtype=torch.int32, device="cuda")
         q_pos = q_off[:, None].long() + torch.arange(Sq, device="cuda")          # (B, Sq)
-        vis = torch.arange(L, device="cuda")[None, None, :] <= q_pos[:, :, None]
+        kv_pos = kv_off + torch.arange(L, device="cuda")
+        vis = kv_pos[None, None, :] <= q_pos[:, :, None]
         n_vis = vis.sum().item()                         # visible (row, key) pairs per head
-        n_keys = sum(min(L, o + Sq) for o in offsets)    # KV rows the rows can see
+        n_keys = sum(max(0, min(L, o + Sq - kv_off)) for o in offsets)   # KV rows seen
         mask = vis[:, None]
         forms = {"SDPA attn_mask, enable_gqa": lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True)}
-        if all(o == 0 for o in offsets) and Sq == L:
+        if all(o == 0 for o in offsets) and Sq == L and kv_off == 0:
             forms["SDPA is_causal, enable_gqa"] = lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)
         library = {name: graph_ms(torch, fn) for name, fn in forms.items()}
         library_form = min(library, key=library.get)
-        for partial in (False, True):
+        for partial in modes:
             def run(partial=partial):
-                return flash_attention(q, k, v, q_off, causal=True, return_partial=partial)
+                return flash_attention(q, k, v, q_off, kv_offset=kv_off, causal=True,
+                                       return_partial=partial)
 
             def plain(partial=partial):
-                return flash_ref(q, k, v, q_off, causal=True, return_partial=partial)
+                return flash_ref(q, k, v, q_off, kv_offset=kv_off, causal=True,
+                                 return_partial=partial)
             got, ref = run(), plain()
             torch.cuda.synchronize()
             pairs = list(zip(got, ref)) if partial else [(got, ref)]
@@ -279,16 +326,16 @@ def _flash_cases(torch, arch: str) -> list:
             out_bytes = B * H * Sq * (hd * 4 + 8) if partial else B * H * Sq * hd * 2
             nbytes = 2 * B * H * Sq * hd + 2 * 2 * Hkv * hd * n_keys + out_bytes
             bound_ms, bound_by = _bound(nbytes, 4.0 * hd * H * n_vis)
-            cases.append(dict(case=f"{label}, {'partial' if partial else 'normalized'}",
-                              shape=f"q({B},{H},{Sq},{hd}) kv({B},{Hkv},{L},{hd}) "
-                                    f"q_offset={offsets}",
-                              max_abs_err=max_abs, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                              bound_ms=bound_ms, bound_by=bound_by,
-                              library_ms=library[library_form], library_form=library_form,
-                              library_all=library))
+            out.append(dict(case=f"{label}, {'partial' if partial else 'normalized'}",
+                            shape=f"q({B},{H},{Sq},{hd}) kv({B},{Hkv},{L},{hd}) "
+                                  f"q_offset={offsets} kv_offset={kv_off}",
+                            max_abs_err=max_abs, rel_err=rel, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library[library_form], library_form=library_form,
+                            library_all=library, visible_pairs=n_vis))
         del q, k, v, mask, vis
         torch.cuda.empty_cache()
-    return cases
+    return out
 
 
 def _attention_backward(torch, arch: str) -> dict:
@@ -732,6 +779,161 @@ def phase_world(torch) -> dict:
     return out
 
 
+def _train_world_kernels(torch, arch: str) -> dict:
+    """The kernels at phase 8's launch shapes, timed as in phase 3: flash in
+    partial mode at a TP rank's heads — all-gather CP (the queries of either
+    CP chunk against the whole sequence) and, for the ring, one pair of
+    each kind (diagonal, wholly visible, wholly masked) at the zigzag runs'
+    offsets — and the GMM forward and ``trans_w`` at the EP shard's shape."""
+    from repro_torch.core.folding import zigzag_runs
+    from repro_torch.launch.world import gmm_shape
+    w = TRAIN_WORLD[arch]
+    cp, tp = w["attn"][1], w["attn"][2]
+    H, Hkv = (h // tp for h in FLASH_HEADS[arch])
+    S, chunk = TRAIN_SEQ, TRAIN_SEQ // cp
+    cases = [(f"all-gather CP, queries of chunk {i}", chunk, S, [i * chunk]) for i in range(cp)]
+    if any(mode == "ring" for mode, _ in w["runs"]):
+        (a, b), _ = zigzag_runs(S, cp)[:2]
+        half = S // (2 * cp)
+        cases += [("ring pair, diagonal", half, half, [a], a),
+                  ("ring pair, keys wholly visible", half, half, [b], a),
+                  ("ring pair, keys wholly masked", half, half, [a], b)]
+    flash = _flash_cases(torch, arch, cases, heads=(H, Hkv), modes=(True,))
+    s = gmm_shape(arch, S // (cp * tp), fold=w["moe"])
+    E, rows, D, F, bm = s["experts"], s["rows_per_expert"], s["d_model"], s["d_expert"], s["bm"]
+    M = E * rows
+    blocks = [e for e in range(E) for _ in range(rows // bm)]
+    gmm_cases = _gmm_cases(torch, E, [(f"train-world gate/up, M={M}", M, D, F, bm, blocks, False),
+                                      (f"train-world dgrad trans_w, M={M}", M, F, D, bm, blocks,
+                                       True)])
+    out = {"gmm": gmm_cases[:1], "gmm_trans_w": gmm_cases[1:], "flash_attention": flash}
+    _check_cases(arch, out)
+    out["gmm_shape"] = s
+    return out
+
+
+def _expected_world_launches(arch: str, mode: str, steps: int) -> dict:
+    """Launches a rank makes in one run of phase 8, from the code: per layer
+    and forward, ``3 · chunks`` GMM (the layer's forward and remat's
+    recompute) and ``3 · chunks`` ``trans_w`` in the backward (the MoE
+    input has a gradient), and one flash launch (all-gather) or ``4 · cp``
+    (the ring: four (q half, kv half) pairs a ring step), twice with remat."""
+    from repro_torch.core.overlap import resolve_chunks
+    from repro_torch.launch.train import train_config
+    w = TRAIN_WORLD[arch]
+    cfg = train_config(arch, layers=1)
+    cp, tp = w["attn"][1], w["attn"][2]
+    C = resolve_chunks(TRAIN_SEQ // (cp * tp), cfg.moe.overlap_chunks)
+    flash = 4 * cp if mode == "ring" and cp > 1 else 1
+    n = max(steps, 1) * cfg.n_layers
+    return {"gmm": 6 * C * n, "gmm_trans_w": 3 * C * n, "flash_attention": 2 * flash * n}
+
+
+def phase_train_world(torch, one_card: dict) -> dict:
+    """Phase 8: see the module docstring. ``one_card``: each model's phase 5
+    result (the one-card steps at the same seed and batches). Every check
+    is printed before the phase fails on any of them."""
+    from repro_torch.launch.world import train_world
+
+    smi = _smi()
+    out, failures = {}, []
+    for arch in (MIXTRAL, QWEN2):
+        tag = "train-world" + SHORT[arch]
+        w = TRAIN_WORLD[arch]
+        t0 = time.perf_counter()
+        ranks = train_world(arch, attn=w["attn"], moe=w["moe"], runs=w["runs"], device="cuda",
+                            layers=1, seq=TRAIN_SEQ, batch=1, seed=0, profile=arch == MIXTRAL)
+        wall = time.perf_counter() - t0
+        ref = one_card[arch]["steps"]
+        res = dict(fold=w, wall_s=wall, ranks=ranks, errors={})
+        for r in ranks:
+            if r["sp_index"] != r["tokens_index"]:
+                failures.append(f"{tag} rank {r['rank']}: SP shard {r['sp_index']} != MoE "
+                                f"token shard {r['tokens_index']}")
+            for mode, steps in w["runs"]:
+                run = r["runs"][mode]
+                expect = _expected_world_launches(arch, mode, steps)
+                if run["launches"] != expect:
+                    failures.append(f"{tag} rank {r['rank']} {mode}: launches "
+                                    f"{run['launches']} != expected {expect}")
+                for i, m in enumerate(run["metrics"]):
+                    if not all(x == x and abs(x) != float("inf")
+                               for x in (m["loss"], m["grad_norm"])):
+                        failures.append(f"{tag} rank {r['rank']} {mode} step {i}: {m}")
+                        continue
+                    if mode == "allgather":          # against the one-card step
+                        key, base = f"step {i} vs one card", ref[i]
+                        tols = {"loss": FOLD_TOL, "grad_norm": FOLD_TOL} if i == 0 else \
+                            {"loss": FOLD_TOL_LATER, "grad_norm": GRAD_NORM_TOL_LATER}
+                    else:                            # against the all-gather run
+                        key, base = f"{mode} step {i} vs allgather", \
+                            r["runs"]["allgather"]["metrics"][i]
+                        tols = {"loss": RING_TOL, "grad_norm": RING_TOL}
+                    for k, tol in tols.items():
+                        e = abs(m[k] - base[k]) / abs(base[k])
+                        res["errors"][f"{key} {k}"] = max(res["errors"].get(f"{key} {k}", 0.0), e)
+                        if not e <= tol:
+                            failures.append(f"{tag} rank {r['rank']} {key}: {k} {m[k]:.6f} "
+                                            f"against {base[k]:.6f}, rel err {e:.3e} > {tol}")
+        r0 = ranks[0]
+        for mode, steps in w["runs"]:
+            run = r0["runs"][mode]
+            for i, m in enumerate(run["metrics"]):
+                one = ref[i]
+                _say(f"[{tag}] {mode} step {i}: loss {m['loss']:.6f} (one card "
+                     f"{one['loss']:.6f}), grad_norm {m['grad_norm']:.6f} (one card "
+                     f"{one['grad_norm']:.6f}), drop {m['moe_drop_fraction']:.4f} (one card "
+                     f"{one['moe_drop_fraction']:.4f}); wall a rank " + ", ".join(
+                         f"{x['runs'][mode]['step_s'][i] * 1e3:.1f}" for x in ranks) + " ms")
+            _say(f"[{tag}] {mode}: launches a rank {run['launches']} (expected "
+                 f"{_expected_world_launches(arch, mode, steps)}); peak memory a rank "
+                 + ", ".join(f"{x['runs'][mode]['peak_gb']:.2f}" for x in ranks) + " GB")
+        _say(f"[{tag}] {arch} x1 layer at attention (dp, cp, tp) {w['attn']}, MoE (edp, ep, "
+             f"etp) {w['moe']}: {len(ranks)} ranks over gloo through the host on one card "
+             f"({smi}); {r0['params'] / 1e6:.1f} M parameters on rank 0; weights built in "
+             f"turns in {r0['init_s']:.1f} s; phase wall {wall:.1f} s; worst rel err "
+             + ", ".join(f"{k} {v:.3e}" for k, v in res["errors"].items())
+             + f" (limits: one card step 0 {FOLD_TOL}, later loss {FOLD_TOL_LATER} and "
+             f"grad_norm {GRAD_NORM_TOL_LATER}; ring {RING_TOL})")
+        prof = r0["runs"][w["runs"][0][0]].get("profile")
+        if prof:
+            _say(f"[{tag}] profiled step on rank 0: wall {prof['wall_ms']:.1f} ms, device "
+                 f"{prof['device_ms']:.1f} ms (" + ", ".join(
+                     f"{k} {v:.1f}" for k, v in prof["parts_ms"].items()) + "); host time in "
+                 "the collectives " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                                 prof["comm_host_ms"].items()) + " ms")
+        res["kernels"] = _train_world_kernels(torch, arch)
+        out[arch] = res
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("phase 8:\n" + "\n".join(failures))
+    return out
+
+def _train_world_line(train_world: dict, sources: dict) -> list:
+    """Phase 8's entries of the kernels line: per model and run (path
+    ``train-world[-ring][-qwen2]``) each kernel with rank 0's launches in
+    that run, timed at the run's shape (all-gather: the queries of CP chunk
+    1; ring: a wholly visible pair; the GMM at the EP shard's)."""
+    line = []
+    for arch, res in train_world.items():
+        for mode, _ in TRAIN_WORLD[arch]["runs"]:
+            path = "train-world" + ("-ring" if mode == "ring" else "") + SHORT[arch]
+            launches = res["ranks"][0]["runs"][mode]["launches"]
+            for name in ("gmm", "gmm_trans_w", "flash_attention"):
+                cases = res["kernels"][name]
+                if name == "flash_attention":
+                    cases = [c for c in cases if c["case"].startswith(
+                        "ring pair, keys wholly visible" if mode == "ring" else
+                        "all-gather CP, queries of chunk 1")]
+                c = cases[0]
+                line.append(dict(name=name, path=path, model=arch, case=c["case"], route="cuda",
+                                 source=sources[name][0], replaces=sources[name][1],
+                                 launches=launches[name], max_abs_err=c["max_abs_err"],
+                                 ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+                                 bound_by=c["bound_by"], library_ms=c["library_ms"]))
+    return line
+
+
 def _free(torch, label: str) -> dict:
     """Release every cached block; the reserved memory before and after."""
     before = torch.cuda.memory_reserved() / 1e9
@@ -777,6 +979,7 @@ def main() -> int:
     results[QWEN2] = run_model(torch, QWEN2)
     memory_world = _free(torch, "Qwen2-57B-A14B freed")
     world = phase_world(torch)
+    train_world = phase_train_world(torch, {arch: res["train"] for arch, res in results.items()})
     seconds = time.perf_counter() - t_start
 
     gmm_src = ("src/repro_torch/kernels/csrc/gmm.cu", "src/repro/kernels/gmm/gmm.py:73")
@@ -804,6 +1007,7 @@ def main() -> int:
                              max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
                              bound_ms=c["bound_ms"], bound_by=c["bound_by"],
                              library_ms=c["library_ms"]))
+    line += _train_world_line(train_world, sources)
     smi = _smi()
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -811,8 +1015,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         nvidia_smi=smi, device=device, timing=TIMING, build=build, models=results,
-        world=world, memory_between_models=memory, memory_before_world=memory_world,
-        seconds=seconds), indent=1))
+        world=world, train_world=train_world, memory_between_models=memory,
+        memory_before_world=memory_world, seconds=seconds), indent=1))
     _say(f"[done] script time {seconds:.2f} s (build {build['seconds']:.2f} s)")
     print(json.dumps({"kernels": line}))
     print(smi)

@@ -7,7 +7,10 @@ tree. The caller turns the leaves into numpy arrays
 (``jax.tree.map(np.asarray, tree)``); this module takes only numpy, so it
 never imports JAX. The port names each leaf as ``LMParams.named_parameters``
 does (``layers.3.moe.w1``; the shared experts' ``moe/shared/w1`` is
-``layers.3.moe.ws1``).
+``layers.3.moe.ws1``). With ``groups`` (a folded mapping) each rank gets
+its slices of the full tree (``models.sharding``): parameters, gradients
+and moments alike, so a test holds each rank's gradients against its slices
+of JAX's.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from repro_torch.core.folding import FoldedGroups
 from repro_torch.core.moe_layer import MoEParams, shard_moe_params
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import AttentionParams
+from repro_torch.models.sharding import shard_lm_params, shard_tensor
 from repro_torch.models.transformer import (LMParams, MoEBlockParams,
                                             check_supported, model_cycle)
 from repro_torch.optim.adamw import AdamWState
@@ -61,17 +65,23 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def tensors_from_jax(tree: Dict, cfg: ModelConfig, *,
-                     device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """:func:`named_from_jax` as tensors on ``device``; values and dtypes kept."""
+def tensors_from_jax(tree: Dict, cfg: ModelConfig, *, device: DeviceLike = None,
+                     groups: Optional[FoldedGroups] = None) -> Dict[str, torch.Tensor]:
+    """:func:`named_from_jax` as tensors on ``device``; values and dtypes
+    kept; with ``groups``, this rank's slice of each."""
     device = resolve_device(device)
-    return {k: _tensor(v, device) for k, v in named_from_jax(tree, cfg).items()}
+    out = {k: _tensor(v, device) for k, v in named_from_jax(tree, cfg).items()}
+    if groups is not None:
+        out = {k: shard_tensor(k, v, groups) for k, v in out.items()}
+    return out
 
 
-def params_from_jax(tree: Dict, cfg: ModelConfig, *,
-                    device: DeviceLike = None) -> LMParams:
+def params_from_jax(tree: Dict, cfg: ModelConfig, *, device: DeviceLike = None,
+                    groups: Optional[FoldedGroups] = None) -> LMParams:
     """Build :class:`LMParams` on ``device`` from the numpy leaves of a JAX
-    ``init_lm`` tree."""
+    ``init_lm`` tree; with ``groups``, this rank's slices of them."""
+    if groups is not None:
+        return shard_lm_params(params_from_jax(tree, cfg, device=device), groups)
     t = tensors_from_jax(tree, cfg, device=device)
     layers = []
     for layer in range(cfg.n_layers):

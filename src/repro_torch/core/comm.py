@@ -13,7 +13,19 @@ collective          forward                     backward
 :func:`grad_sum`    identity (a replicated      all-reduce (sum) of the
                     input)                      gradient over the group
 :func:`mean`        all-reduce / size           gradient / size
+:func:`psum`        all-reduce (sum) for a      the gradient as is
+                    replicated consumer
+:func:`ring_shift`  to the next ring rank       to the previous ring rank
+:func:`to_zigzag`,  natural ↔ zigzag chunk      the reverse exchange
+:func:`from_zigzag` layout over CP (All-to-All-V)
 ==================  ==========================  ===========================
+
+The attention side adds Megatron's sequence parallelism (:func:`sp_gather`,
+:func:`sp_scatter`: the all-gather and reduce-scatter along the sequence)
+and the ring and zigzag exchanges of context parallelism. The last two take
+the CP axis's ``AxisGroups`` (``repro_torch.core.folding``): its axis order
+is the ring's order, and the exchange maps it to the ProcessGroup's ranks,
+which are in ascending global order.
 
 Each is an identity when the group is ``None`` or has one rank, so the
 one-rank layer runs no collective. Buffers handed to the backend are
@@ -28,7 +40,7 @@ every collective used here, as a probe on an H100 with torch 2.11 showed).
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -51,19 +63,27 @@ def _rows(splits: Optional[List[int]], n: int) -> int:
     return n if splits is None else int(sum(splits))
 
 
+# Every collective issued here runs inside a ``record_function`` range named
+# ``comm <collective>``: a profile of a step reads the host time spent in
+# the collectives (with gloo, their staging through the host) from them.
+_range = torch.profiler.record_function
+
+
 def _a2a(x: torch.Tensor, group: Group, in_splits, out_splits, async_op=False):
     x = x.contiguous()
     out = x.new_empty((_rows(out_splits, x.shape[0]),) + tuple(x.shape[1:]))
-    work = dist.all_to_all_single(out, x, output_split_sizes=out_splits,
-                                  input_split_sizes=in_splits, group=group,
-                                  async_op=async_op)
+    with _range("comm all_to_all"):
+        work = dist.all_to_all_single(out, x, output_split_sizes=out_splits,
+                                      input_split_sizes=in_splits, group=group,
+                                      async_op=async_op)
     return out, work
 
 
 def _gather0(x: torch.Tensor, group: Group) -> torch.Tensor:
     x = x.contiguous()
     out = x.new_empty((size(group) * x.shape[0],) + tuple(x.shape[1:]))
-    dist.all_gather_into_tensor(out, x, group=group)
+    with _range("comm all_gather"):
+        dist.all_gather_into_tensor(out, x, group=group)
     return out
 
 
@@ -73,7 +93,16 @@ def _scatter0(x: torch.Tensor, group: Group) -> torch.Tensor:
     if x.shape[0] % n:
         raise ValueError(f"reduce_scatter: {x.shape[0]} rows not divisible by {n} ranks")
     out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
-    dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
+    with _range("comm reduce_scatter"):
+        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def _all_reduce(x: torch.Tensor, group: Group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """A summed (or max) copy of ``x`` over the group."""
+    out = x.detach().clone().contiguous()
+    with _range("comm all_reduce"):
+        dist.all_reduce(out, op=op, group=group)
     return out
 
 
@@ -129,18 +158,14 @@ class _GradSum(Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
-        return g, None
+        return _all_reduce(g, ctx.group), None
 
 
 class _Mean(Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.n = size(group)
-        out = x.detach().clone().contiguous()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        return out / ctx.n
+        return _all_reduce(x, group) / ctx.n
 
     @staticmethod
     def backward(ctx, g):
@@ -195,6 +220,126 @@ def all_reduce(x: torch.Tensor, group: Group, op=dist.ReduceOp.SUM) -> torch.Ten
     """``lax.psum`` (or ``pmax``) of a statistic, without a gradient."""
     if size(group) == 1:
         return x
-    out = x.detach().clone().contiguous()
-    dist.all_reduce(out, op=op, group=group)
-    return out
+    return _all_reduce(x, group, op)
+
+
+class _Psum(Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def psum(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The sum over the group, for a consumer that every rank of the group
+    computes alike (Megatron's reduce in the forward): each rank
+    back-propagates its own share, so the gradient passes as is."""
+    if size(group) == 1:
+        return x
+    return _Psum.apply(x, group)
+
+
+def sp_gather(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """Sequence parallelism → the tensor-parallel region: all-gather the
+    sequence (dim 1) over TP. Backward: reduce-scatter."""
+    return all_gather(x, group, 1)
+
+
+def sp_scatter(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """TP partial sums → sequence parallelism: reduce-scatter the sequence
+    (dim 1) over TP. Backward: all-gather."""
+    return reduce_scatter(x, group, 1)
+
+
+# ---------------------------------------------------------------------------
+# Context parallelism: ring rotation and the zigzag layout exchange
+# ---------------------------------------------------------------------------
+
+def _group_rank(ax, axis_index: int) -> int:
+    """The ProcessGroup rank of the axis member at ``axis_index``."""
+    return sorted(ax.ranks).index(ax.ranks[axis_index])
+
+
+def ring_shift_(x: torch.Tensor, ax, step: int = 1) -> torch.Tensor:
+    """``x`` to the ring rank ``step`` ahead, ``x`` of the one ``step``
+    behind back (``ppermute`` along the axis's order), with no gradient:
+    an All-to-All-V in which each rank sends all its rows to one peer,
+    because gloo takes CUDA tensors in its collectives, not in send/recv."""
+    n = ax.size
+    if n == 1 or step % n == 0:
+        return x
+    rows = x.shape[0]
+    ins, outs = [0] * n, [0] * n
+    ins[_group_rank(ax, (ax.index + step) % n)] = rows
+    outs[_group_rank(ax, (ax.index - step) % n)] = rows
+    return _a2a(x, ax.group, ins, outs)[0]
+
+
+class _RingShift(Function):
+    @staticmethod
+    def forward(ctx, x, ax, step):
+        ctx.ax, ctx.step = ax, step
+        return ring_shift_(x, ax, step)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ring_shift_(g, ctx.ax, -ctx.step), None, None
+
+
+def ring_shift(x: torch.Tensor, ax, step: int = 1) -> torch.Tensor:
+    """:func:`ring_shift_` with a gradient: the rotation back."""
+    if ax.size == 1:
+        return x
+    return _RingShift.apply(x, ax, step)
+
+
+def _exchange_halves(x: torch.Tensor, ax, dim: int, have: Sequence[int],
+                     want: Sequence[int], dest, src) -> torch.Tensor:
+    """Move equal sequence chunks between the ranks of a CP axis. This rank
+    holds chunks ``have`` (in that order along ``dim``) and ends with
+    chunks ``want``; ``dest(h)`` / ``src(h)`` are the axis indices that
+    take chunk h / hold it now. One All-to-All-V (:func:`all_to_all`, so
+    the backward is the reverse exchange); each peer's rows go in
+    ProcessGroup rank order, chunks in ascending id."""
+    n = ax.size
+    x = x.movedim(dim, 0)
+    c = x.shape[0] // len(have)
+    send = sorted(range(len(have)), key=lambda k: (_group_rank(ax, dest(have[k])), have[k]))
+    ins, outs = [0] * n, [0] * n
+    for h in have:
+        ins[_group_rank(ax, dest(h))] += c
+    for h in want:
+        outs[_group_rank(ax, src(h))] += c
+    y = all_to_all(torch.cat([x[k * c:(k + 1) * c] for k in send]), ax.group,
+                   in_splits=ins, out_splits=outs)
+    recv = sorted(want, key=lambda h: (_group_rank(ax, src(h)), h))
+    y = torch.cat([y[recv.index(h) * c:(recv.index(h) + 1) * c] for h in want])
+    return y.movedim(0, dim).contiguous()
+
+
+def _zigzag_owner(h: int, cp: int) -> int:
+    """The ring rank that holds chunk h of 2·cp in the zigzag layout."""
+    return h if h < cp else 2 * cp - 1 - h
+
+
+def to_zigzag(x: torch.Tensor, ax, dim: int = 1) -> torch.Tensor:
+    """Natural → load-balanced layout over the CP axis ``ax``: rank i holds
+    the sequence chunk i of cp along ``dim`` (chunks 2i, 2i+1 of 2·cp) and
+    gets chunks i and 2·cp − 1 − i (``core.folding.zigzag_chunks``)."""
+    cp, i = ax.size, ax.index
+    if cp == 1:
+        return x
+    return _exchange_halves(x, ax, dim, (2 * i, 2 * i + 1), (i, 2 * cp - 1 - i),
+                            dest=lambda h: _zigzag_owner(h, cp), src=lambda h: h // 2)
+
+
+def from_zigzag(x: torch.Tensor, ax, dim: int = 1) -> torch.Tensor:
+    """The inverse of :func:`to_zigzag`."""
+    cp, i = ax.size, ax.index
+    if cp == 1:
+        return x
+    return _exchange_halves(x, ax, dim, (i, 2 * cp - 1 - i), (2 * i, 2 * i + 1),
+                            dest=lambda h: h // 2, src=lambda h: _zigzag_owner(h, cp))

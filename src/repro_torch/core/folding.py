@@ -26,7 +26,10 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ParallelConfig
 
-ATTN_AXES = ("dp", "cp", "tp", "pp")
+ATTN_AXES = ("dp", "cp", "tp", "pp", "dp_cp", "stage")
+# ``dp_cp`` (dp + cp, Megatron's data-parallel group with CP) sums the
+# gradients of the leaves sharded over TP; ``stage`` (dp + cp + tp) those
+# of the replicated ones (norms) and carries the global gradient norm.
 # ``tokens`` (edp + ep + etp) shards the MoE layer's tokens and carries its
 # loss reductions; ``seq`` (ep + etp) gathers the router logits under
 # ``drop_policy="full_sequence"``. Both are the reference's atom tuples
@@ -120,6 +123,8 @@ def folded_axes(pcfg: ParallelConfig,
         moe["edp"] = pod + moe["edp"]
     else:  # "pp": pipeline stages span pods (outermost)
         attn["pp"] = moe["pp"] = pod + pp
+    attn["dp_cp"] = attn["dp"] + attn["cp"]
+    attn["stage"] = attn["dp_cp"] + attn["tp"]
     moe["tokens"] = moe["edp"] + moe["ep"] + moe["etp"]
     moe["seq"] = moe["ep"] + moe["etp"]
     return shape, attn, moe
@@ -206,10 +211,35 @@ class FoldedGroups:
         return self.size("moe", "etp")
 
 
+def folded_layout(pcfg: ParallelConfig, *, rank: int, world: int,
+                  moe_factors: Optional[Sequence[Tuple[str, int]]] = None) -> FoldedGroups:
+    """Every logical axis's rank groups and ``rank``'s place in them, with
+    no process group (every ``group`` is ``None``): the layout alone, which
+    needs no world."""
+    if world != pcfg.world_size:
+        raise ValueError(f"world {world} != ParallelConfig world_size {pcfg.world_size}")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside world {world}")
+    shape, attn_dims, moe_dims = folded_axes(pcfg, moe_factors)
+
+    def side(names, dims_of) -> Dict[str, AxisGroups]:
+        out = {}
+        for name in names:
+            groups = axis_groups(shape, dims_of[name])
+            mine = next(g for g in groups if rank in g)
+            out[name] = AxisGroups(dims=dims_of[name], groups=groups, ranks=mine,
+                                   index=mine.index(rank), group=None)
+        return out
+
+    return FoldedGroups(pcfg=pcfg, rank=rank, world=world, shape=shape,
+                        attn=side(ATTN_AXES, attn_dims), moe=side(MOE_AXES, moe_dims))
+
+
 def build_folded_groups(pcfg: ParallelConfig, *, rank: int, world: int,
                         moe_factors: Optional[Sequence[Tuple[str, int]]] = None
                         ) -> FoldedGroups:
-    """Process groups of every logical axis of both sides for ``rank``.
+    """Process groups of every logical axis of both sides for ``rank``
+    (:func:`folded_layout` with each axis's ``ProcessGroup``).
 
     Call it on every rank of an initialised default group of ``world``
     ranks. ``dist.new_group`` is collective over the whole world: every
@@ -218,31 +248,50 @@ def build_folded_groups(pcfg: ParallelConfig, *, rank: int, world: int,
     the world hangs. A member set met before reuses its group. Groups of
     size 1 get none: collectives over them are identities.
     """
-    if world != pcfg.world_size:
-        raise ValueError(f"world {world} != ParallelConfig world_size {pcfg.world_size}")
-    if not 0 <= rank < world:
-        raise ValueError(f"rank {rank} outside world {world}")
-    shape, attn_dims, moe_dims = folded_axes(pcfg, moe_factors)
+    fg = folded_layout(pcfg, rank=rank, world=world, moe_factors=moe_factors)
     made: Dict[Tuple[int, ...], dist.ProcessGroup] = {}
-
-    def side(names, dims_of) -> Dict[str, AxisGroups]:
-        out = {}
-        for name in names:
-            groups = axis_groups(shape, dims_of[name])
-            mine = None
-            for g in groups:
+    for axes in (fg.attn, fg.moe):
+        for ax in axes.values():
+            for g in ax.groups:
                 key = tuple(sorted(g))
                 if len(g) > 1 and key not in made:
                     made[key] = dist.new_group(list(key))
-                if rank in g:
-                    mine = g
-            out[name] = AxisGroups(dims=dims_of[name], groups=groups, ranks=mine,
-                                   index=mine.index(rank),
-                                   group=made.get(tuple(sorted(mine))))
-        return out
+            ax.group = made.get(tuple(sorted(ax.ranks)))
+    return fg
 
-    return FoldedGroups(pcfg=pcfg, rank=rank, world=world, shape=shape,
-                        attn=side(ATTN_AXES, attn_dims), moe=side(MOE_AXES, moe_dims))
+
+def _index_of(ax: AxisGroups, rank: int) -> int:
+    return next(g.index(rank) for g in ax.groups if rank in g)
+
+
+def sp_token_index(fg: FoldedGroups, rank: Optional[int] = None) -> int:
+    """``rank``'s sequence-parallel shard: its row-major (dp, cp, tp) index
+    on the attention side (the reference shards activations ``(dp, cp×tp)``)."""
+    rank = fg.rank if rank is None else rank
+    a = fg.attn
+    return (_index_of(a["dp"], rank) * fg.cp + _index_of(a["cp"], rank)) * fg.tp + \
+        _index_of(a["tp"], rank)
+
+
+def check_sp_moe_handoff(fg: FoldedGroups) -> None:
+    """Raise ``NotImplementedError`` unless every rank's sequence-parallel
+    rows are its MoE token shard: the MoE ``tokens`` index equals the
+    attention (dp, cp, tp) index on every rank ("token atoms on the MoE side
+    == attention side", ``repro.core.moe_layer``). Entering the MoE layer is
+    then a reshape; otherwise (``pod_role="cp"``, non-contiguous
+    ``moe_factors``) the hand-off would need an exchange that is not ported.
+    Pipeline stages are not ported either. Checked for every rank, so all
+    ranks raise alike."""
+    if fg.pcfg.pipeline_stages > 1:
+        raise NotImplementedError("the folded train step at pp > 1 is not ported "
+                                  "(ROADMAP.md queue 1, item 5)")
+    bad = [r for r in range(fg.world)
+           if sp_token_index(fg, r) != _index_of(fg.moe["tokens"], r)]
+    if bad:
+        raise NotImplementedError(
+            f"ranks {bad}: the MoE token shard is not the attention (dp, cp, tp) shard "
+            f"(pod_role={fg.pcfg.pod_role!r}, or non-contiguous moe_factors); the hand-off "
+            "exchange is not ported")
 
 
 def megatron_groups(world_size: int, tp: int, cp: int, ep: int, etp: int, pp: int,
@@ -280,8 +329,7 @@ def unfolded(pcfg: ParallelConfig) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Load-balanced causal context-parallel layout (ring CP), copied for the
-# attention side's CP (the next slice).
+# Load-balanced causal context-parallel layout (ring CP).
 # ---------------------------------------------------------------------------
 
 def zigzag_chunks(cp: int) -> List[Tuple[int, int]]:
@@ -326,6 +374,18 @@ def zigzag_perm(seq_len: int, cp: int) -> np.ndarray:
     chunk = np.arange(seq_len).reshape(2 * cp, c)
     return np.concatenate([np.concatenate([chunk[a], chunk[b]])
                            for a, b in zigzag_chunks(cp)])
+
+
+def zigzag_runs(seq_len: int, cp: int) -> List[Tuple[int, int]]:
+    """Each CP rank's two position runs (their first positions) in the
+    zigzag layout, the ring's ``runs``.
+
+    >>> zigzag_runs(16, 2)
+    [(0, 12), (4, 8)]
+    """
+    zigzag_perm(seq_len, cp)                    # the same divisibility check
+    c = seq_len // (2 * cp)
+    return [(a * c, b * c) for a, b in zigzag_chunks(cp)]
 
 
 def zigzag_inverse_perm(seq_len: int, cp: int) -> np.ndarray:

@@ -1,5 +1,6 @@
 """Deterministic synthetic LM data: the port's copy of
-``repro.data.pipeline`` (``DataConfig``, ``SyntheticTokens``).
+``repro.data.pipeline`` (``DataConfig``, ``SyntheticTokens``), and each
+rank's share of a batch across the folded groups (``shard_batch``).
 
 Structured pseudo-text (a Zipf unigram mixture with short-range copies), so
 the LM loss falls as the model learns; the batches are built on the host
@@ -9,7 +10,7 @@ caller moves them to its device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Mapping
 
 import numpy as np
 
@@ -65,3 +66,32 @@ class SyntheticTokens:
         copied = np.take_along_axis(base, idx, axis=1)
         seq = np.where(rep, copied, base).astype(np.int32)
         return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+
+
+def shard_batch(batch: Mapping[str, np.ndarray], groups, *, microbatch: int = 0
+                ) -> Dict[str, np.ndarray]:
+    """This rank's share of a global batch (``tokens``, ``labels``: (B, S)).
+
+    Rows over DP, as the reference's ``batch_shardings`` put them; then the
+    rank's CP chunk of the sequence, which every TP rank of the chunk holds
+    whole (the vocabulary-parallel embedding needs all its tokens; the SP
+    cut happens after the lookup). With ``microbatch`` > 1, rows are taken
+    as the reference slices a DP-sharded batch: microbatch i is global rows
+    ``[i·B/n, (i+1)·B/n)``, cut over DP, and this rank's rows come
+    microbatch after microbatch, so the train step slices them in order.
+    """
+    a = groups.attn
+    dp, cp = a["dp"], a["cp"]
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        B, S = v.shape[:2]
+        n = max(microbatch, 1)
+        if B % (n * dp.size) or S % cp.size:
+            raise ValueError(f"batch {k} {v.shape}: rows do not split over {n} microbatches "
+                             f"x DP {dp.size}, or the sequence over CP {cp.size}")
+        rows = v.reshape(n, dp.size, B // (n * dp.size), *v.shape[1:])[:, dp.index]
+        c = S // cp.size
+        out[k] = np.ascontiguousarray(
+            rows.reshape(-1, *v.shape[1:])[:, cp.index * c:(cp.index + 1) * c])
+    return out

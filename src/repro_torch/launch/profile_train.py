@@ -52,10 +52,13 @@ def breakdown(prof) -> dict:
     total, parts = 0.0, {p: 0.0 for p in ("gmm forward", "gmm dgrad (trans_w)",
                                            "flash forward") + RANGES}
     by_name, counts = defaultdict(float), defaultdict(int)
-    for e in prof.key_averages():
-        # The labelled ranges also show on the device timeline (as spans of
-        # their kernels); count their kernels only once, below.
-        if e.device_type != DeviceType.CUDA or e.key in RANGES:
+    averages = prof.key_averages()
+    host_names = {e.key for e in averages if e.device_type == DeviceType.CPU}
+    for e in averages:
+        # Labelled ranges (ours, and the backends' such as gloo's) also show
+        # on the device timeline, as spans of what ran under them, under
+        # the name of their host range: count only kernels and copies.
+        if e.device_type != DeviceType.CUDA or e.key in host_names or e.key.startswith("gloo:"):
             continue
         t = getattr(e, "self_device_time_total", None)
         t = (e.self_cuda_time_total if t is None else t) / 1e3

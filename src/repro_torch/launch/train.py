@@ -1,8 +1,11 @@
-"""Training launcher of the port: one device, a few steps on synthetic tokens.
+"""Training launcher of the port: a few steps on synthetic tokens, on one
+device or at a folded mapping across a world of ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x22b --layers 1 --seq 4096 --batch 1 --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-57b-a14b --layers 1 --seq 4096 --batch 1 --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-57b-a14b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --attn-fold 2,2,2 --moe-fold 1,8,1 --reduced --device cpu --seq 64 --batch 2
+    PYTHONPATH=src python -m repro_torch.launch.train --attn-fold 1,2,2 --moe-fold 1,4,1 --layers 1 --seq 4096 --cp-mode ring
 
 The first two train a full-width model cut to one layer on the CUDA card
 (the port's training slice: bf16 compute, fp32 masters and AdamW state,
@@ -11,6 +14,13 @@ third the smoke-sized model on the CPU in fp32. Weights come from
 ``--seed``, tokens from ``SyntheticTokens``. Each step prints its loss
 terms, ``step_ok``, wall time, tokens/s and, on a card, MFU against the
 data-sheet bf16 peak (989 TFLOP/s) and the peak memory.
+
+With ``--attn-fold dp,cp,tp`` and ``--moe-fold edp,ep,etp`` the step runs
+folded (``launch.world.train_world``): one process a rank over gloo (the
+CPU, or ranks sharing one card), each building the weights from the seed in
+turn and keeping its slices; ``--cp-mode`` picks all-gather or ring CP. It
+prints rank 0's metrics a step and each rank's wall time, launches and
+peak memory.
 """
 from __future__ import annotations
 
@@ -58,7 +68,14 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--attn-fold", default=None, help="dp,cp,tp: train folded across ranks")
+    ap.add_argument("--moe-fold", default=None, help="edp,ep,etp (with --attn-fold)")
+    ap.add_argument("--cp-mode", default="allgather", choices=("allgather", "ring"))
     args = ap.parse_args()
+    if (args.attn_fold is None) != (args.moe_fold is None):
+        ap.error("--attn-fold and --moe-fold go together")
+    if args.attn_fold:
+        return _main_folded(args)
 
     import torch
 
@@ -99,6 +116,32 @@ def main() -> None:
             line += (f" MFU {flops / dt / PEAK_BF16_FLOPS:.4f} peak memory "
                      f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         print(line, flush=True)
+
+
+def _main_folded(args) -> None:
+    from repro_torch.launch.world import train_world
+
+    def fold(text):
+        return tuple(int(x) for x in text.split(","))
+    attn, moe = fold(args.attn_fold), fold(args.moe_fold)
+    res = train_world(args.arch, attn=attn, moe=moe, runs=[(args.cp_mode, args.steps)],
+                      device=args.device or "cuda", reduce=args.reduced, layers=args.layers,
+                      seq=args.seq, batch=args.batch, seed=args.seed, lr=args.lr)
+    run = res[0]["runs"][args.cp_mode]
+    print(f"{args.arch} at attention (dp, cp, tp) {attn}, MoE (edp, ep, etp) {moe}, "
+          f"cp_mode {args.cp_mode}: {len(res)} ranks over gloo, {args.batch} x {args.seq} "
+          f"tokens a step, {res[0]['params'] / 1e6:.1f} M parameters on rank 0")
+    for i, m in enumerate(run["metrics"]):
+        print(f"step {i}: loss {m['loss']:.4f} ce {m['ce_loss']:.4f} aux {m['moe_aux_loss']:.4f} "
+              f"z {m['moe_z_loss']:.4f} drop {m['moe_drop_fraction']:.4f} grad_norm "
+              f"{m['grad_norm']:.4f} step_ok {bool(m['step_ok'])} rank-0 wall "
+              f"{run['step_s'][i] * 1e3:.1f} ms", flush=True)
+    for r in res:
+        rr = r["runs"][args.cp_mode]
+        peak = f", peak memory {rr['peak_gb']:.2f} GB" if "peak_gb" in rr else ""
+        print(f"rank {r['rank']}: {r['params'] / 1e6:.1f} M parameters, launches "
+              f"{rr['launches']}, step wall " + ", ".join(f"{t * 1e3:.1f}" for t in rr["step_s"])
+              + f" ms{peak}")
 
 
 if __name__ == "__main__":

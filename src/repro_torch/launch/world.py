@@ -1,4 +1,5 @@
-"""Start a world of ranks: ``init_world`` and ``spawn``.
+"""Start a world of ranks (``init_world``, ``spawn``) and run the folded
+MoE layer (``moe_world``) or the folded training step (``train_world``) in it.
 
 Port of ``repro.launch.mesh`` for ``torch.distributed``. Nothing here reads
 a cluster's environment: the caller names the backend, the rendezvous, the
@@ -31,11 +32,14 @@ Gotchas a caller meets:
 runs :func:`moe_world` for Mixtral-8x22B at MoE EDP1×EP4×ETP1 (padded and
 ragged exchange) and Qwen2-57B-A14B at EDP1×EP2×ETP2 (with its shared
 expert): the folded MoE layer forward and backward on every rank, held
-against the one-rank layer on the same weights and tokens.
+against the one-rank layer on the same weights and tokens. The folded
+training step is started by ``python -m repro_torch.launch.train
+--attn-fold dp,cp,tp --moe-fold edp,ep,etp`` (:func:`train_world`).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import datetime
 import json
 import math
@@ -131,14 +135,16 @@ def spawn(fn: Callable, world: int, *, backend: str, device: str,
 FOLDS = {"mixtral-8x22b": ((1, 4, 1), True), "qwen2-57b-a14b": ((1, 2, 2), False)}
 
 
-def gmm_shape(arch: str, tokens: int, *, reduce: bool = False) -> Dict[str, int]:
-    """The GMM launch of ``arch``'s fold with ``tokens`` tokens a rank: its
-    experts, rows per expert (EP×ETP sources of one chunk's padded
-    capacity), ``D``, the ETP-local ``F`` and the row block."""
+def gmm_shape(arch: str, tokens: int, *, reduce: bool = False,
+              fold: Optional[Sequence[int]] = None) -> Dict[str, int]:
+    """The GMM launch of ``arch``'s MoE fold (default: :data:`FOLDS`') with
+    ``tokens`` tokens a rank: its experts, rows per expert (EP×ETP sources
+    of one chunk's padded capacity), ``D``, the ETP-local ``F``, the row
+    block and the chunks."""
     from repro_torch.core.overlap import resolve_chunks
     from repro_torch.core.router import capacity_per_expert
     cfg, _ = _model(dict(arch=arch, reduce=reduce, dtype="float32"))
-    (_, ep, etp), _ = FOLDS[arch]
+    _, ep, etp = fold or FOLDS[arch][0]
     m = cfg.moe
     C = resolve_chunks(tokens, m.overlap_chunks)
     cap = capacity_per_expert(tokens, m)
@@ -393,3 +399,168 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
 if __name__ == "__main__":
     raise SystemExit(main())
+
+
+# ---------------------------------------------------------------------------
+# The folded training step across a world.
+# ---------------------------------------------------------------------------
+
+def fold_config(cfg, ep: int):
+    """``cfg`` with its experts raised to a multiple of ``ep`` when they do
+    not split over EP (the reference launcher sets 8 for its EP8 fold: the
+    ``reduced`` configs cap experts at 4)."""
+    m = cfg.moe
+    if m is None or m.n_experts % ep == 0:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, n_experts=ep * -(-m.n_experts // ep)))
+
+
+def _launches() -> Dict[str, int]:
+    from repro_torch.kernels.flash.flash import flash_attention
+    return dict(_counters(), flash_attention=flash_attention.launches)
+
+
+def _zero_launches() -> None:
+    from repro_torch.kernels.flash.flash import flash_attention
+    _zero_counters()
+    flash_attention.launches = 0
+
+
+def _host_ranges(prof) -> Dict[str, float]:
+    """Host time (ms) inside each ``comm <collective>`` range of a profile."""
+    out: Dict[str, float] = {}
+    for e in prof.events():
+        if e.name.startswith("comm "):
+            out[e.name] = out.get(e.name, 0.0) + e.cpu_time_total / 1e3
+    return out
+
+
+def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, Any]:
+    """One rank of :func:`train_world` (see there)."""
+    from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
+    from repro_torch.core.folding import build_folded_groups, sp_token_index
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, shard_batch
+    from repro_torch.launch.train import train_config
+    from repro_torch.models.sharding import shard_lm_params
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import (grad_norm, init_train_state, loss_and_grads,
+                                        make_train_step)
+
+    dev = torch.device(spec["device"])
+    cfg = fold_config(train_config(spec["arch"], layers=spec["layers"], reduce=spec["reduce"]),
+                      spec["moe"][1])
+    pcfg = ParallelConfig(attn=PM(*spec["attn"]), moe=PM(*spec["moe"]))
+    fg = build_folded_groups(pcfg, rank=rank, world=world)
+    out: Dict[str, Any] = {"rank": rank, "sp_index": sp_token_index(fg),
+                           "tokens_index": fg.moe["tokens"].index, "runs": {}}
+    # The full weights from the seed, one rank at a time: each keeps its
+    # slices and frees the rest before the next rank builds them.
+    t0 = time.perf_counter()
+    for turn in range(world):
+        if turn == rank:
+            full = init_lm(cfg, seed=spec["seed"], device=dev)
+            params = shard_lm_params(full, fg)
+            del full
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = sum(p.numel() for p in params.parameters())
+    data = SyntheticTokens(DataConfig(seq_len=spec["seq"], global_batch=spec["batch"],
+                                      vocab_size=cfg.vocab_size, seed=spec["seed"]))
+    n_steps = max([n for _, n in spec["runs"]] + [1])
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in shard_batch(next(data), fg).items()}
+               for _ in range(n_steps)]
+    start = ({n: p.detach().to("cpu", copy=True) for n, p in params.named_parameters()}
+             if len(spec["runs"]) > 1 else None)
+    opt_cfg = AdamWConfig(lr=spec["lr"])
+
+    for i, (mode, steps) in enumerate(spec["runs"]):
+        fgm = dataclasses.replace(fg, pcfg=dataclasses.replace(pcfg, cp_mode=mode))
+        if i:                                      # every run from the same start
+            with torch.no_grad():
+                for n, p in params.named_parameters():
+                    p.copy_(start[n])
+        run: Dict[str, Any] = {"metrics": [], "step_s": []}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        if steps == 0:                             # one forward and backward, no optimizer
+            loss_and_grads(params, batches[0], cfg, groups=fgm)   # warm-up, not timed
+            _sync(dev)
+            dist.barrier()
+            _zero_launches()
+            t0 = time.perf_counter()
+            grads, m = loss_and_grads(params, batches[0], cfg, groups=fgm)
+            m["grad_norm"] = grad_norm(grads, fgm)
+            _sync(dev)
+            run["step_s"].append(time.perf_counter() - t0)
+            run["launches"] = _launches()
+            run["metrics"].append({k: float(v) for k, v in m.items()})
+            del grads
+        else:
+            opt = init_train_state(params, opt_cfg)
+            step = make_train_step(cfg, opt_cfg, guard=True, groups=fgm)
+            _sync(dev)
+            _zero_launches()
+            for b in batches[:steps]:
+                _sync(dev)
+                dist.barrier()
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, b)
+                _sync(dev)
+                run["step_s"].append(time.perf_counter() - t0)
+                run["metrics"].append({k: float(v) for k, v in m.items()})
+            run["launches"] = _launches()
+            if spec["profile"] and i == 0 and dev.type == "cuda":
+                run["profile"] = _profiled_step(step, params, opt, batches[0], dev,
+                                                rank == 0)
+            del opt, step
+        if dev.type == "cuda":
+            run["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["runs"][mode] = run
+    return out
+
+
+def _profiled_step(step, params, opt, batch, dev, traced: bool) -> Optional[Dict[str, Any]]:
+    """One more step, under ``torch.profiler`` on the traced rank: its wall
+    time, its device time by part (``launch.profile_train.breakdown``) and
+    the host time inside the collectives' ``comm`` ranges."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile_train import breakdown
+    _sync(dev)
+    dist.barrier()
+    if not traced:
+        step(params, opt, batch)
+        _sync(dev)
+        return None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    return {"wall_ms": wall * 1e3, **breakdown(prof), "comm_host_ms": _host_ranges(prof)}
+
+
+def train_world(arch: str, *, attn: Sequence[int], moe: Sequence[int],
+                runs: Sequence = (("allgather", 4),), device: str = "cuda",
+                reduce: bool = False, layers: Optional[int] = None, seq: int = 4096,
+                batch: int = 1, seed: int = 0, lr: float = 3e-4, profile: bool = False,
+                timeout_s: float = 900.0) -> List[Dict[str, Any]]:
+    """The folded training step of ``arch`` (cut to ``layers``) on
+    attention (dp, cp, tp) ``attn`` and MoE (edp, ep, etp) ``moe``, over
+    gloo (on one card several ranks can share nothing else), one process a
+    rank. Each rank builds the weights from ``seed`` in turn and keeps its
+    slices; the batches are ``SyntheticTokens`` of ``batch`` × ``seq``
+    (``shard_batch``). ``runs``: ``(cp_mode, steps)`` pairs, each from the
+    same start; ``steps = 0`` is one forward and backward with the global
+    gradient norm and no optimizer state (after one untimed warm-up pass). Per rank and run: each step's
+    metrics and wall time (after a barrier), the kernel launches of the
+    run, and on a card its peak memory; with ``profile``, one more step of
+    the first run profiled on rank 0."""
+    spec = dict(arch=arch, attn=tuple(attn), moe=tuple(moe), runs=[tuple(r) for r in runs],
+                device=device, reduce=reduce, layers=layers, seq=seq, batch=batch,
+                seed=seed, lr=lr, profile=profile)
+    return spawn(_train_world_rank, math.prod(attn), backend="gloo", device=device,
+                 args=(spec,), timeout_s=timeout_s)

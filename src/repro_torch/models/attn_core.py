@@ -1,15 +1,17 @@
-"""Attention core: blockwise attention with a flash backward, the partial
-merge, block choice and the naive O(S²) oracle.
+"""Attention core: blockwise attention with a flash backward, ring
+context-parallel attention, the partial merge, block choice and the naive
+O(S²) oracle.
 
-Port of the parts of ``repro.models.attn_core`` the serving and training
-slices use. The blockwise forward is the flash kernel
-(``repro_torch.kernels.flash``), whose plain version mirrors ``_fwd_scan``;
-the backward is ``_bwd_scan`` in torch ops, as the JAX package has no
-backward kernel either.
+Port of ``repro.models.attn_core``. The blockwise forward is the flash
+kernel (``repro_torch.kernels.flash``), whose plain version mirrors
+``_fwd_scan``; the backward is ``_bwd_scan`` in torch ops, as the JAX
+package has no backward kernel either. Positions are contiguous runs
+(``offset + arange``): the kernel takes scalar offsets, not position
+arrays, so a sequence is described by the offsets of its runs.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -63,15 +65,20 @@ def naive_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=0,
 
 
 def _bwd_scan(q, k, v, lse, dout, delta, *, causal: bool, window: int, block_kv: int,
-              scale: float):
-    """Flash-style backward over flat heads (``H == Hkv``), given the LSE, at
-    the default positions (query i and key j at positions i and j).
+              scale: float, q_offset: int = 0, kv_offset: int = 0):
+    """Flash-style backward over flat heads (``H == Hkv``), given the LSE.
 
+    Query row i sits at position ``q_offset + i``, key j at ``kv_offset +
+    j`` (``repro.models.attn_core._bwd_scan`` with those position arrays).
     Recomputes each KV block's probabilities from ``lse`` and accumulates
-    ``(dq, dk, dv)`` in fp32, as ``repro.models.attn_core._bwd_scan``: the
-    products of bf16 operands are taken in fp32, ``ds`` is rounded to
-    ``k.dtype`` before the ``dq`` product. The query rows that see no key
-    of a block are left out of its products (they would add exact zeros).
+    ``(dq, dk, dv)`` in fp32, as the reference does: the products of bf16
+    operands are taken in fp32, ``ds`` is rounded to ``k.dtype`` before the
+    ``dq`` product. The query rows that see no key of a block are left out
+    of its products (they would add exact zeros); which rows those are
+    follows from the positions, so a block wholly in the rows' future (or
+    past the window) costs nothing. ``lse`` and ``delta`` may come from a
+    longer key range (ring attention): ``p·(dp − delta)`` is exact for a
+    part of the keys.
     """
     B, H, Sq, hd = q.shape
     Skv = k.shape[2]
@@ -80,14 +87,15 @@ def _bwd_scan(q, k, v, lse, dout, delta, *, causal: bool, window: int, block_kv:
     dk = torch.zeros((B, H, Skv, hd), dtype=torch.float32, device=dev)
     dv = torch.zeros((B, H, Skv, hd), dtype=torch.float32, device=dev)
     qf, do = q.float(), dout.float()
+    shift = kv_offset - q_offset          # row i sees key j iff i - j >= shift (causal)
     for s0 in range(0, Skv, block_kv):
         s1 = min(s0 + block_kv, Skv)
-        r0 = min(s0, Sq) if causal else 0               # row i sees keys <= i
-        r1 = min(Sq, s1 - 1 + window) if window else Sq  # and keys > i - window
+        r0 = min(max(s0 + shift, 0), Sq) if causal else 0         # keys <= the row's position
+        r1 = min(max(s1 - 1 + shift + window, 0), Sq) if window else Sq   # > position - window
         if r0 >= r1:
             continue
-        qp = torch.arange(r0, r1, device=dev)[None]
-        kp = torch.arange(s0, s1, device=dev)[None]
+        qp = q_offset + torch.arange(r0, r1, device=dev)[None]
+        kp = kv_offset + torch.arange(s0, s1, device=dev)[None]
         kb, vb = k[:, :, s0:s1].float(), v[:, :, s0:s1].float()
         qs, dos = qf[:, :, r0:r1], do[:, :, r0:r1]
         s = (qs @ kb.transpose(-1, -2)) * scale                        # (B, H, r, t)
@@ -103,72 +111,232 @@ def _bwd_scan(q, k, v, lse, dout, delta, *, causal: bool, window: int, block_kv:
     return dq, dk, dv
 
 
-def _is_default_positions(pos: Optional[torch.Tensor], S: int) -> bool:
-    """``pos`` is ``None`` or ``arange(S)`` on every batch row."""
+def _lse(m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """Log-sum-exp of merged partials; 1e30 for rows that saw no key."""
+    return torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
+                       torch.full_like(m, 1e30))
+
+
+def _fold_heads(t: torch.Tensor, Hkv: int) -> torch.Tensor:
+    """(B, H, S, hd) gradients of repeated KV heads → (B, Hkv, S, hd)."""
+    B, H = t.shape[:2]
+    if H == Hkv:
+        return t
+    return t.reshape(B, Hkv, H // Hkv, *t.shape[2:]).sum(dim=2)
+
+
+def _repeat_heads(t: torch.Tensor, rep: int) -> torch.Tensor:
+    return t.repeat_interleave(rep, dim=1) if rep > 1 else t
+
+
+def _offset_of(pos: Optional[torch.Tensor], S: int, what: str) -> int:
+    """The offset of contiguous positions: ``pos`` is ``None`` (offset 0) or
+    ``offset + arange(S)`` with one offset on every batch row. Anything else
+    raises: the kernel takes scalar offsets, not position arrays."""
     if pos is None:
-        return True
-    return pos.shape[-1] == S and torch.equal(
-        pos, torch.arange(S, dtype=pos.dtype, device=pos.device).expand_as(pos))
+        return 0
+    off = pos[..., :1]
+    if pos.shape[-1] != S or not torch.equal(
+            pos, off + torch.arange(S, dtype=pos.dtype, device=pos.device)) or \
+            not torch.equal(off, off.flatten()[:1].expand_as(off)):
+        raise NotImplementedError(
+            f"blockwise_attention: {what} positions must be offset + arange(S), one offset "
+            "for every row; arbitrary position arrays (packed sequences) are not ported "
+            "(ROADMAP.md queue 1, item 3)")
+    return int(off.flatten()[0])
 
 
 class FlashAttention(torch.autograd.Function):
-    """Flat-head attention ``(q, k, v) -> out`` at the default positions:
-    forward through the flash kernel's partial mode, backward through
-    :func:`_bwd_scan` (``repro.models.attn_core._flash_flat``'s VJP)."""
+    """Flat-head attention ``(q, k, v) -> out`` with queries at ``q_offset +
+    i`` and keys at ``kv_offset + j``: forward through the flash kernel's
+    partial mode, backward through :func:`_bwd_scan`
+    (``repro.models.attn_core._flash_flat``'s VJP)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, block_kv, scale):
+    def forward(ctx, q, k, v, q_offset, kv_offset, causal, window, block_kv, scale):
         from repro_torch.kernels.flash.flash import flash_attention
         B = q.shape[0]
-        q_off = torch.zeros((B,), dtype=torch.int32, device=q.device)
+        q_off = torch.full((B,), q_offset, dtype=torch.int32, device=q.device)
         acc, m, l = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), q_off,
-                                    causal=causal, window=window, sm_scale=scale,
-                                    return_partial=True)
+                                    kv_offset=kv_offset, causal=causal, window=window,
+                                    sm_scale=scale, return_partial=True)
         out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
-        lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
-                          torch.full_like(m, 1e30))
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.cfg = (causal, window, block_kv, scale)
+        ctx.save_for_backward(q, k, v, out, _lse(m, l))
+        ctx.cfg = (q_offset, kv_offset, causal, window, block_kv, scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, window, block_kv, scale = ctx.cfg
-        B, H, _, _ = q.shape
+        q_offset, kv_offset, causal, window, block_kv, scale = ctx.cfg
         Hkv = k.shape[1]
-        rep = H // Hkv
+        rep = q.shape[1] // Hkv
         with torch.profiler.record_function("attention backward"):
             delta = torch.sum(dout.float() * out.float(), dim=-1)        # (B, H, Sq)
-            kr = k.repeat_interleave(rep, dim=1) if rep > 1 else k
-            vr = v.repeat_interleave(rep, dim=1) if rep > 1 else v
-            dq, dk, dv = _bwd_scan(q, kr, vr, lse, dout, delta, causal=causal,
-                                   window=window, block_kv=block_kv, scale=scale)
-            if rep > 1:       # fold the repeated heads' grads back onto their KV head
-                dk = dk.reshape(B, Hkv, rep, *dk.shape[2:]).sum(dim=2)
-                dv = dv.reshape(B, Hkv, rep, *dv.shape[2:]).sum(dim=2)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
+            dq, dk, dv = _bwd_scan(q, _repeat_heads(k, rep), _repeat_heads(v, rep), lse,
+                                   dout, delta, causal=causal, window=window,
+                                   block_kv=block_kv, scale=scale, q_offset=q_offset,
+                                   kv_offset=kv_offset)
+            dk, dv = _fold_heads(dk, Hkv), _fold_heads(dv, Hkv)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)) + (None,) * 6
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_pos: Optional[torch.Tensor] = None,
                         kv_pos: Optional[torch.Tensor] = None, *, causal: bool = True,
                         window: int = 0, block_kv: int = 1024,
-                        sm_scale: Optional[float] = None) -> torch.Tensor:
+                        sm_scale: Optional[float] = None,
+                        q_offset: Optional[int] = None,
+                        kv_offset: Optional[int] = None) -> torch.Tensor:
     """q: (B, H, Sq, hd); k/v: (B, Hkv, Skv, hd); *_pos: (B, S*) or ``None``.
 
     Differentiable attention through the flash kernel (:class:`FlashAttention`).
-    Only the default positions (``arange`` on every row, i.e. the kernel's
-    offsets 0) are ported; others raise ``NotImplementedError``. The JAX
-    function's ``return_partial`` is the kernel's own partial mode
-    (``repro_torch.kernels.flash.ops.flash``).
+    Positions must be contiguous on each row, ``offset + arange``, with one
+    offset for all rows (``None`` is offset 0); other position arrays raise
+    ``NotImplementedError``. Reading the offsets off ``*_pos`` synchronises
+    with the device; a caller that knows them passes ``q_offset`` /
+    ``kv_offset`` instead. The JAX function's ``return_partial`` is the
+    kernel's own partial mode (``repro_torch.kernels.flash.ops.flash``).
     """
     Sq, hd = q.shape[2], q.shape[3]
     Skv = k.shape[2]
-    if not (_is_default_positions(q_pos, Sq) and _is_default_positions(kv_pos, Skv)):
-        raise NotImplementedError(
-            "blockwise_attention: only the default positions arange(S) are ported "
-            "(ROADMAP.md queue 1, 'Attention, rest': explicit positions)")
+    if q_offset is None:
+        q_offset = _offset_of(q_pos, Sq, "query")
+    if kv_offset is None:
+        kv_offset = _offset_of(kv_pos, Skv, "key")
     scale = sm_scale if sm_scale is not None else hd ** -0.5
-    return FlashAttention.apply(q, k, v, bool(causal), int(window),
-                                _pick_block(Skv, block_kv), float(scale))
+    return FlashAttention.apply(q, k, v, int(q_offset), int(kv_offset), bool(causal),
+                                int(window), _pick_block(Skv, block_kv), float(scale))
+
+
+# ---------------------------------------------------------------------------
+# Ring context-parallel attention
+# ---------------------------------------------------------------------------
+
+Runs = Sequence[Tuple[int, int]]
+
+
+def _flash_partial_shard(q, k, v, q_runs: Tuple[int, int], kv_runs: Tuple[int, int], *,
+                         causal: bool, window: int, scale: float):
+    """One ring step's ``(m, l, acc)`` partial for each half of ``q``
+    (``repro.models.attn_core._flash_partial_shard``).
+
+    A zigzag shard is two contiguous position runs: the kernel is launched
+    once per (q half, kv half) pair at the runs' offsets, and each q half's
+    two partials are merged online. A kv half wholly in a q half's future
+    gives rows with ``l = 0`` and ``m = -1e30``, which the merge keeps
+    finite. Returns a list of two ``(m, l, acc)`` triples, one per q half.
+    """
+    from repro_torch.kernels.flash.flash import flash_attention
+    B, cq, ckv = q.shape[0], q.shape[2] // 2, k.shape[2] // 2
+    halves = []
+    for i, q_off in enumerate(q_runs):
+        qc = q[:, :, i * cq:(i + 1) * cq].contiguous()
+        q_off_t = torch.full((B,), q_off, dtype=torch.int32, device=q.device)
+        state = None
+        for j, kv_off in enumerate(kv_runs):
+            acc_s, m_s, l_s = flash_attention(
+                qc, k[:, :, j * ckv:(j + 1) * ckv].contiguous(),
+                v[:, :, j * ckv:(j + 1) * ckv].contiguous(), q_off_t, kv_offset=kv_off,
+                causal=causal, window=window, sm_scale=scale, return_partial=True)
+            state = (m_s, l_s, acc_s) if state is None else \
+                _merge_partials(*state, m_s, l_s, acc_s)
+        halves.append(state)
+    return halves
+
+
+class RingAttention(torch.autograd.Function):
+    """Ring context-parallel attention over the CP group
+    (``repro.models.attn_core._ring_flat``'s custom VJP).
+
+    ``q`` (B, H, Sq, hd) is this rank's query shard, ``k``/``v`` (B, Hkv,
+    Skv, hd) its *grouped* KV shard: only unrepeated KV travels the ring.
+    ``runs[r]`` are the offsets of ring rank r's two halves, the same list
+    on every rank; this rank is ``runs[index]``.
+
+    Forward: ``cp - 1`` rotations of ``(k, v)`` to the next ring rank (the
+    visiting shard of step s is ring rank ``index - s``'s), each step four
+    kernel partials (:func:`_flash_partial_shard`) merged online.
+
+    Backward: a second ring. ``dq`` accumulates locally; the fp32 ``dk``/
+    ``dv`` accumulators (folded over the repeated heads) travel with the KV
+    shards, and one more rotation after the last step brings each home.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, ring, runs, index, causal, window, block_kv, scale):
+        from repro_torch.core import comm
+        cp = len(runs)
+        kc, vc = k.contiguous(), v.contiguous()
+        state = None
+        for s in range(cp):
+            if s:
+                kc, vc = comm.ring_shift_(kc, ring), comm.ring_shift_(vc, ring)
+            part = _flash_partial_shard(q, kc, vc, runs[index], runs[(index - s) % cp],
+                                        causal=causal, window=window, scale=scale)
+            state = part if state is None else [_merge_partials(*a, *b)
+                                                for a, b in zip(state, part)]
+        m, l, acc = (torch.cat([h[i] for h in state], dim=2) for i in range(3))
+        out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+        ctx.save_for_backward(q, k, v, out, _lse(m, l))
+        ctx.cfg = (ring, runs, index, causal, window, block_kv, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.core import comm
+        q, k, v, out, lse = ctx.saved_tensors
+        ring, runs, index, causal, window, block_kv, scale = ctx.cfg
+        cp, Hkv = len(runs), k.shape[1]
+        rep = q.shape[1] // Hkv
+        cq, ckv = q.shape[2] // 2, k.shape[2] // 2
+        with torch.profiler.record_function("attention backward"):
+            delta = torch.sum(dout.float() * out.float(), dim=-1)
+            dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+            dkc = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+            dvc = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+            kc, vc = k.contiguous(), v.contiguous()
+            for s in range(cp):
+                if s:
+                    kc, vc, dkc, dvc = (comm.ring_shift_(t, ring) for t in (kc, vc, dkc, dvc))
+                kr, vr = _repeat_heads(kc, rep), _repeat_heads(vc, rep)
+                for i, q_off in enumerate(runs[index]):
+                    qs = slice(i * cq, (i + 1) * cq)
+                    for j, kv_off in enumerate(runs[(index - s) % cp]):
+                        ks = slice(j * ckv, (j + 1) * ckv)
+                        dq_s, dk_s, dv_s = _bwd_scan(
+                            q[:, :, qs], kr[:, :, ks], vr[:, :, ks], lse[:, :, qs],
+                            dout[:, :, qs], delta[:, :, qs], causal=causal, window=window,
+                            block_kv=_pick_block(ckv, block_kv), scale=scale,
+                            q_offset=q_off, kv_offset=kv_off)
+                        dq[:, :, qs] += dq_s
+                        dkc[:, :, ks] += _fold_heads(dk_s, Hkv)
+                        dvc[:, :, ks] += _fold_heads(dv_s, Hkv)
+            # The accumulators have rotated cp - 1 steps: one more lands each
+            # rank's KV gradient back on its owner.
+            dkc, dvc = comm.ring_shift_(dkc, ring), comm.ring_shift_(dvc, ring)
+        return (dq.to(q.dtype), dkc.to(k.dtype), dvc.to(v.dtype)) + (None,) * 7
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, runs: Runs, *,
+                   ring, index: int, causal: bool = True, window: int = 0,
+                   block_kv: int = 1024, sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Ring context-parallel attention over this rank's sequence shard.
+
+    ``q``: (B, H, Sq, hd) and ``k``/``v``: (B, Hkv, Skv, hd), each two
+    contiguous position runs of equal length; ``runs[r]`` = the two runs'
+    offsets on ring rank r (for the load-balanced layout,
+    ``core.folding.zigzag_runs``), ``index`` = this rank's place in the
+    ring, ``ring`` = the CP axis's ``AxisGroups`` (ring order = its axis
+    order). The reference takes position arrays and rotates them with the
+    KV; the kernel takes scalar offsets, so here every rank knows every
+    shard's offsets and nothing but K/V travels. Masks follow absolute
+    positions, so the layout only balances the work.
+    """
+    hd = q.shape[3]
+    if q.shape[2] % 2 or k.shape[2] % 2:
+        raise ValueError("ring_attention: a shard is two runs of equal length")
+    scale = sm_scale if sm_scale is not None else hd ** -0.5
+    runs = tuple(tuple(int(o) for o in r) for r in runs)
+    return RingAttention.apply(q, k, v, ring, runs, int(index), bool(causal), int(window),
+                               int(block_kv), float(scale))

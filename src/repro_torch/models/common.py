@@ -10,6 +10,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 
@@ -83,4 +84,34 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     mask = torch.ones_like(nll) if mask is None else mask.float()
     total = torch.sum(nll * mask)
     denom = torch.clamp(torch.sum(mask), min=1.0)
+    return total / denom, denom
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 mask: Optional[torch.Tensor] = None, *, vocab_start: int,
+                                 vocab_group=None, token_group=None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`softmax_cross_entropy` of logits cut on the vocabulary.
+
+    ``logits`` (..., V / tp): this rank's vocabulary slice, which starts at
+    id ``vocab_start``; ``labels``/``mask``: this rank's tokens, which the
+    ranks of ``vocab_group`` (TP) share. The max, the sum of exponentials
+    and the target logit are reduced over ``vocab_group``; the numerator
+    and the token count over ``token_group`` (dp + cp), so the TP ranks of
+    one token count it once. Every rank returns the global ``(loss,
+    n_tok)`` and back-propagates its own share (``comm.psum``).
+    """
+    from repro_torch.core import comm
+    logits = logits.float()
+    m = comm.all_reduce(logits.detach().amax(dim=-1), vocab_group, op=dist.ReduceOp.MAX)
+    sumexp = comm.psum(torch.sum(torch.exp(logits - m[..., None]), dim=-1), vocab_group)
+    lse = m + torch.log(sumexp)
+    local = labels.long() - vocab_start
+    mine = (local >= 0) & (local < logits.shape[-1])
+    ll = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])[..., 0]
+    ll = comm.psum(torch.where(mine, ll, 0.0), vocab_group)
+    nll = lse - ll
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    total = comm.psum(torch.sum(nll * mask), token_group)
+    denom = torch.clamp(comm.all_reduce(torch.sum(mask), token_group), min=1.0)
     return total / denom, denom

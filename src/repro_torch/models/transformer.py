@@ -1,11 +1,13 @@
-"""Model assembly: per-layer modules, the train/prefill forward and the
-paged decode block.
+"""Model assembly: per-layer modules, the train/prefill forward (one rank
+or across the folded groups) and the paged decode block.
 
 Port of the parts of ``repro.models.transformer`` the serving and training
 slices run. Where JAX stacks layer parameters for one ``lax.scan``, the
 port keeps one module per layer (``LMParams.layers``) and runs a Python
 loop; ``jax.checkpoint`` of the scan body becomes ``torch.utils.checkpoint``
-of each layer.
+of each layer. Across ranks (``groups``) the residual stream is in Megatron's
+sequence-parallel layout, and the embedding, LM head and loss are cut on
+the vocabulary over TP.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import comm
+from repro_torch.core.folding import FoldedGroups, check_sp_moe_handoff
 from repro_torch.core.moe_layer import MoEParams, init_moe, moe_block
 from repro_torch.core.router import _top_k, deterministic_top_k
 from repro_torch.device import DeviceLike, resolve_device
@@ -170,28 +174,34 @@ AuxDict = Dict[str, torch.Tensor]
 AUX_KEYS = ("moe_aux_loss", "moe_z_loss", "moe_drop_fraction")
 
 
-def _apply_moe(p: MoEBlockParams, x: torch.Tensor, pos: torch.Tensor,
-               cfg: ModelConfig) -> Tuple[torch.Tensor, AuxDict]:
-    """One ``moe`` layer over whole sequences: x (B, S, D) → (x, aux)."""
+def _apply_moe(p: MoEBlockParams, x: torch.Tensor, pos: Optional[torch.Tensor],
+               cfg: ModelConfig, groups: Optional[FoldedGroups] = None
+               ) -> Tuple[torch.Tensor, AuxDict]:
+    """One ``moe`` layer over whole sequences: x (B, S, D) → (x, aux). With
+    ``groups``, ``x`` is this rank's sequence-parallel rows, which are also
+    its MoE token shard (:func:`check_sp_moe_handoff`)."""
     h = rmsnorm(x, p.norm1)
-    x = x + attention(p.attn, h, pos, cfg)
+    x = x + attention(p.attn, h, pos, cfg, groups=groups)
     h = rmsnorm(x, p.norm2)
-    y, aux = moe_block(p.moe, h, cfg)
+    y, aux = moe_block(p.moe, h, cfg, groups=groups)
     return x + y, aux
 
 
-def _run_stack(layers, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig, *,
-               remat: bool = True) -> Tuple[torch.Tensor, AuxDict]:
+def _run_stack(layers, x: torch.Tensor, pos: Optional[torch.Tensor], cfg: ModelConfig, *,
+               remat: bool = True, groups: Optional[FoldedGroups] = None
+               ) -> Tuple[torch.Tensor, AuxDict]:
     """All layers in order → (x, aux summed over layers). With ``remat``
     each layer keeps only its input for the backward and runs its forward
-    again there (``jax.checkpoint`` of the JAX scan body, no policy)."""
+    again there (``jax.checkpoint`` of the JAX scan body, no policy); across
+    ranks the recompute runs the layer's collectives again, in the same
+    order on every rank, as every rank runs the same graph."""
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in AUX_KEYS}
     for layer in layers:
         if remat:
-            x, a = checkpoint(_apply_moe, layer, x, pos, cfg, use_reentrant=False,
+            x, a = checkpoint(_apply_moe, layer, x, pos, cfg, groups, use_reentrant=False,
                               preserve_rng_state=False)
         else:
-            x, a = _apply_moe(layer, x, pos, cfg)
+            x, a = _apply_moe(layer, x, pos, cfg, groups)
         aux = {k: aux[k] + a[k] for k in AUX_KEYS}
     return x, aux
 
@@ -213,30 +223,76 @@ def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def lm_embed(params: LMParams, batch: Dict[str, torch.Tensor], pos: torch.Tensor,
-             cfg: ModelConfig) -> torch.Tensor:
-    """Embedding prologue: tokens (B, S) → activations (B, S, D)."""
-    return params.embed[batch["tokens"].long()].to(_compute_dtype(cfg))
+def vocab_start(params: LMParams, groups: FoldedGroups) -> int:
+    """The first token id of this rank's vocabulary slice (TP)."""
+    return groups.attn["tp"].index * params.embed.shape[0]
 
 
-def lm_head_logits(params: LMParams, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """LM-head epilogue: final norm, then (B, S, D) → logits (B, S, V)."""
+def lm_embed(params: LMParams, batch: Dict[str, torch.Tensor], pos: Optional[torch.Tensor],
+             cfg: ModelConfig, groups: Optional[FoldedGroups] = None) -> torch.Tensor:
+    """Embedding prologue: tokens (B, S) → activations (B, S, D).
+
+    With ``groups``: ``batch["tokens"]`` is the rank's CP chunk (shared by
+    its TP ranks) and ``params.embed`` its vocabulary slice; each TP rank
+    looks up the ids it holds (zeros elsewhere) and the reduce-scatter over
+    TP sums them into the sequence-parallel rows (reference
+    ``transformer.py:360-379``: exactly one rank adds a non-zero row)."""
+    tokens = batch["tokens"].long()
+    if groups is None:
+        return params.embed[tokens].to(_compute_dtype(cfg))
+    local = tokens - vocab_start(params, groups)
+    mine = (local >= 0) & (local < params.embed.shape[0])
+    x = params.embed[torch.where(mine, local, 0)] * mine[..., None].to(params.embed.dtype)
+    return comm.sp_scatter(x.to(_compute_dtype(cfg)), groups.attn["tp"].group)
+
+
+def lm_head_logits(params: LMParams, x: torch.Tensor, cfg: ModelConfig,
+                   groups: Optional[FoldedGroups] = None) -> torch.Tensor:
+    """LM-head epilogue: final norm, then (B, S, D) → logits (B, S, V).
+    With ``groups``: the norm on the sequence-parallel rows, an all-gather
+    over TP, and logits of this rank's CP chunk on its vocabulary slice."""
     x = rmsnorm(x, params.final_norm)
+    if groups is not None:
+        x = comm.sp_gather(x, groups.attn["tp"].group)
     head = params.lm_head if params.lm_head is not None else params.embed.T
     return x @ head.to(x.dtype)
 
 
+def check_folded_batch(tokens: torch.Tensor, groups: FoldedGroups) -> None:
+    """Raise unless the folded forward can take this rank's ``tokens``:
+    the SP ↔ MoE hand-off holds (:func:`check_sp_moe_handoff`), and with
+    the sequence cut (cp·tp > 1) a rank holds one sequence, since the
+    reference's MoE shards are runs of the flattened (B·S) tokens."""
+    check_sp_moe_handoff(groups)
+    if tokens.shape[0] > 1 and groups.cp * groups.tp > 1:
+        raise NotImplementedError(
+            f"{tokens.shape[0]} sequences a DP rank with the sequence cut over cp·tp = "
+            f"{groups.cp * groups.tp}: the MoE token shards would not be the SP rows; use "
+            "one sequence a DP rank (or microbatches of one)")
+
+
 def apply_lm(params: LMParams, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-             remat: bool = True) -> Tuple[torch.Tensor, AuxDict]:
+             remat: bool = True, groups: Optional[FoldedGroups] = None
+             ) -> Tuple[torch.Tensor, AuxDict]:
     """Forward pass → (logits, aux), aux averaged over the MoE layers.
 
     ``batch["tokens"]``: (B, S) integer tokens on the parameters' device.
+    With ``groups``: ``params`` are this rank's slices
+    (``models.sharding.shard_lm_params``), ``batch`` its share
+    (``data.pipeline.shard_batch``: its DP rows and CP chunk), and the
+    logits (B, S / cp, V / tp) those of its CP chunk on its vocabulary
+    slice (``models.common.vocab_parallel_cross_entropy``); aux is global.
     """
     check_supported(cfg)
-    pos = lm_positions(batch, cfg)
-    x = lm_embed(params, batch, pos, cfg)
-    x, aux = _run_stack(params.layers, x, pos, cfg, remat=remat)
-    logits = lm_head_logits(params, x, cfg)
+    if groups is None:
+        pos = lm_positions(batch, cfg)
+    else:
+        lm_positions(batch, cfg)           # raises for explicit positions
+        check_folded_batch(batch["tokens"], groups)
+        pos = None
+    x = lm_embed(params, batch, pos, cfg, groups)
+    x, aux = _run_stack(params.layers, x, pos, cfg, remat=remat, groups=groups)
+    logits = lm_head_logits(params, x, cfg, groups)
     n_moe = sum(1 for b in cfg.blocks() if b == "moe")
     if n_moe:
         aux = {k: v / n_moe for k, v in aux.items()}

@@ -1,10 +1,12 @@
 """AdamW with global-norm clipping, warmup + cosine schedule and a skip guard.
 
-Port of ``repro.optim.adamw`` at one device (``AdamWConfig``, ``AdamWState``,
+Port of ``repro.optim.adamw`` (``AdamWConfig``, ``AdamWState``,
 ``schedule``, ``init``, ``global_norm``, ``update``), as plain torch
-functions over dicts of tensors keyed by parameter name. Not
-``torch.optim.AdamW``: the reference decays only the leaves it treats as
-matrices, clips by the global norm first, and can discard a whole step.
+functions over dicts of tensors keyed by parameter name. Across ranks each
+rank steps its own slices; the global norm sums every distinct slice once
+over the world. Not ``torch.optim.AdamW``: the reference decays only the
+leaves it treats as matrices, clips by the global norm first, and can
+discard a whole step.
 
 The update runs in place, one slice of ``CHUNK`` elements of a leaf at a
 time: the fp32 gradient exists only for the slice being stepped, so the
@@ -23,6 +25,7 @@ import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 Tensors = Dict[str, torch.Tensor]
 CHUNK = 1 << 26          # elements stepped at a time (256 MB per fp32 temporary)
@@ -79,13 +82,22 @@ def _chunks(t: torch.Tensor):
     return [flat[i:i + CHUNK] for i in range(0, flat.numel(), CHUNK)]
 
 
-def global_norm(grads: Tensors) -> torch.Tensor:
-    """sqrt of the sum of every gradient's squares, in fp32."""
-    total = None
-    for g in grads.values():
-        for c in _chunks(g):
-            s = torch.sum(torch.square(c.float()))
-            total = s if total is None else total + s
+def global_norm(grads: Tensors, *, counted: Optional[Dict[str, bool]] = None,
+                group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """sqrt of the sum of every gradient's squares, in fp32.
+
+    Across ranks, ``grads`` are this rank's slices: ``counted[name]`` says
+    whether this rank's slice counts (one replica of each distinct slice
+    does, ``models.sharding.norm_counted``), and the sum of squares is
+    summed over ``group`` (every rank that holds a slice) before the root.
+    """
+    total = torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device)
+    for name, g in grads.items():
+        if counted is None or counted[name]:
+            for c in _chunks(g):
+                total = total + torch.sum(torch.square(c.float()))
+    if group is not None:
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
     return torch.sqrt(total)
 
 
@@ -93,6 +105,8 @@ def global_norm(grads: Tensors) -> torch.Tensor:
 def update(cfg: AdamWConfig, grads: Tensors, state: AdamWState, params: Tensors, *,
            step_ok: Optional[torch.Tensor] = None,
            decay: Optional[Dict[str, bool]] = None,
+           counted: Optional[Dict[str, bool]] = None,
+           norm_group: Optional[dist.ProcessGroup] = None,
            ) -> Tuple[Tensors, AdamWState, Tensors]:
     """One AdamW step → ``(params, state, metrics)``; ``params`` and the
     state's moments are updated in place and returned.
@@ -102,10 +116,12 @@ def update(cfg: AdamWConfig, grads: Tensors, state: AdamWState, params: Tensors,
     (a bool tensor, or None to disable) is the anomaly guard: the flag is
     ``step_ok & isfinite(grad_norm)``, and where it is False every leaf,
     moment and the step counter keep their old values bit for bit. The
-    flag is returned in ``metrics["step_ok"]``.
+    flag is returned in ``metrics["step_ok"]``. ``counted`` and
+    ``norm_group`` make the clipping norm global across ranks
+    (:func:`global_norm`); every rank then reads the same flag.
     """
     _no_master(state.master is not None)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, counted=counted, group=norm_group)
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0) if cfg.grad_clip
              else torch.ones_like(gnorm))
     step = state.step + 1

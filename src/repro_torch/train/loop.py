@@ -1,9 +1,10 @@
-"""Training step at one device: mixed precision, remat, gradient accumulation,
-MoE aux losses, the loss-scale fault port and the anomaly guard.
+"""Training step, on one device or at a folded mapping: mixed precision,
+remat, gradient accumulation, MoE aux losses, the loss-scale fault port and
+the anomaly guard.
 
-Port of ``repro.train.loop`` at pp = 1 with every parallel size 1
-(``cast_params``, ``aux_loss_coefs``, ``assemble_loss_metrics``,
-``loss_fn``, ``make_train_step``). ``make_train_step`` returns
+Port of ``repro.train.loop`` at pp = 1 (``cast_params``,
+``aux_loss_coefs``, ``assemble_loss_metrics``, ``loss_fn``,
+``make_train_step``). ``make_train_step`` returns
 
     step(params, opt_state, batch) -> (params, opt_state, metrics)
 
@@ -13,7 +14,15 @@ Port of ``repro.train.loop`` at pp = 1 with every parallel size 1
   runs on the compute copies (the cast's derivative is 1), whose gradients
   the optimizer reads slice by slice in fp32;
 * ``remat`` and ``microbatch`` mirror the ``ParallelConfig`` fields of the
-  same names; the folded mesh, ZeRO-1 and pipeline stages are not ported
+  same names;
+* with ``groups`` (``core.folding.build_folded_groups``) every rank runs the
+  step on its slices (``models.sharding.shard_lm_params``) and its share of
+  the batch (``data.pipeline.shard_batch``): attention over TP and CP, the
+  MoE layer over EDP×EP×ETP, the vocabulary-parallel loss; after the
+  backward each gradient is summed over the ranks that hold the same slice
+  on other tokens (``models.sharding.leaf_plan``; the dispatcher has
+  already summed the MoE leaves), the clipping norm is global, and AdamW
+  steps each rank's slices. ZeRO-1 and pipeline stages are not ported
   (ROADMAP.md queue 1).
 
 The JAX package stacks every layer's parameters over the layer repeats, so
@@ -24,15 +33,15 @@ leaves.
 """
 from __future__ import annotations
 
-import copy
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
-from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import softmax_cross_entropy
-from repro_torch.models.transformer import LMParams, apply_lm, leaf_rank
+from repro_torch.core.folding import FoldedGroups
+from repro_torch.models import sharding
+from repro_torch.models.common import softmax_cross_entropy, vocab_parallel_cross_entropy
+from repro_torch.models.transformer import LMParams, apply_lm, leaf_rank, vocab_start
 from repro_torch.optim import adamw
 
 Tensors = Dict[str, torch.Tensor]
@@ -46,21 +55,10 @@ def cast_params(params: LMParams, cfg: ModelConfig) -> LMParams:
     storage. Gradients land on the copies, not on ``params``."""
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
-    def leaf(name: str, p: torch.Tensor) -> nn.Parameter:
-        t = p.detach()
-        if t.dtype == torch.float32 and leaf_rank(name, t) >= 2:
-            t = t.to(dt)
-        return nn.Parameter(t)
+    def leaf(name: str, t: torch.Tensor) -> torch.Tensor:
+        return t.to(dt) if t.dtype == torch.float32 and leaf_rank(name, t) >= 2 else t
 
-    def copy_module(m: nn.Module, prefix: str) -> nn.Module:
-        new = copy.copy(m)
-        new._parameters = {k: None if p is None else leaf(prefix + k, p)
-                           for k, p in m._parameters.items()}
-        new._modules = {k: None if c is None else copy_module(c, f"{prefix}{k}.")
-                        for k, c in m._modules.items()}
-        return new
-
-    return copy_module(params, "")
+    return sharding.map_params(params, leaf)
 
 
 def aux_loss_coefs(cfg: ModelConfig) -> Dict[str, float]:
@@ -89,25 +87,81 @@ def assemble_loss_metrics(ce: torch.Tensor, n_tok: torch.Tensor, aux: Tensors,
 
 
 def loss_fn(cparams: LMParams, batch: Tensors, cfg: ModelConfig, *,
-            remat: bool = True) -> Tuple[torch.Tensor, Tensors]:
-    """The objective on the compute copies (:func:`cast_params`)."""
-    logits, aux = apply_lm(cparams, batch, cfg, remat=remat)
-    ce, n_tok = softmax_cross_entropy(logits, batch["labels"])
+            remat: bool = True, groups: Optional[FoldedGroups] = None
+            ) -> Tuple[torch.Tensor, Tensors]:
+    """The objective on the compute copies (:func:`cast_params`). With
+    ``groups``, every rank returns the global loss and metrics and
+    back-propagates its own share."""
+    logits, aux = apply_lm(cparams, batch, cfg, remat=remat, groups=groups)
+    if groups is None:
+        ce, n_tok = softmax_cross_entropy(logits, batch["labels"])
+    else:
+        ce, n_tok = vocab_parallel_cross_entropy(
+            logits, batch["labels"], vocab_start=vocab_start(cparams, groups),
+            vocab_group=groups.attn["tp"].group, token_group=groups.attn["dp_cp"].group)
     return assemble_loss_metrics(ce, n_tok, aux, cfg)
 
 
-def _grads_of(cparams: LMParams, batch: Tensors, cfg: ModelConfig, remat: bool
-              ) -> Tuple[Tensors, Tensors]:
-    loss, metrics = loss_fn(cparams, batch, cfg, remat=remat)
+def _grads_of(cparams: LMParams, batch: Tensors, cfg: ModelConfig, remat: bool,
+              groups: Optional[FoldedGroups]) -> Tuple[Tensors, Tensors]:
+    loss, metrics = loss_fn(cparams, batch, cfg, remat=remat, groups=groups)
     loss.backward()
     grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
              for n, p in cparams.named_parameters()}
     return grads, {k: v.detach() for k, v in metrics.items()}
 
 
+def loss_and_grads(params: LMParams, batch: Tensors, cfg: ModelConfig, *,
+                   remat: bool = True, microbatch: int = 0,
+                   groups: Optional[FoldedGroups] = None) -> Tuple[Tensors, Tensors]:
+    """The step's forward and backward → (gradients by name, metrics).
+
+    ``microbatch`` > 1 splits the batch into that many slices and averages
+    their fp32 gradients and metrics. With ``groups`` the gradients are then
+    summed over each leaf's ``reduce`` ranks (``models.sharding``): every
+    replica of a slice holds the same gradient."""
+    cparams = cast_params(params, cfg)
+    if microbatch and microbatch > 1:
+        B = batch["tokens"].shape[0]
+        if B % microbatch:
+            raise ValueError(f"batch {B} not divisible by microbatch {microbatch}")
+        mb = B // microbatch
+        grads, metrics = None, None
+        for i in range(microbatch):
+            g, m = _grads_of(cparams, {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()},
+                             cfg, remat, groups)
+            for p in cparams.parameters():
+                p.grad = None
+            if grads is None:
+                grads = {n: t.float() for n, t in g.items()}
+                metrics = m
+            else:
+                for n, t in g.items():
+                    grads[n] += t.float()
+                metrics = {k: metrics[k] + m[k] for k in metrics}
+            del g
+        grads = {n: t / microbatch for n, t in grads.items()}
+        metrics = {k: v / microbatch for k, v in metrics.items()}
+    else:
+        grads, metrics = _grads_of(cparams, batch, cfg, remat, groups)
+    del cparams
+    if groups is not None:
+        sharding.reduce_grads(grads, groups)
+    return grads, metrics
+
+
+def grad_norm(grads: Tensors, groups: Optional[FoldedGroups] = None) -> torch.Tensor:
+    """The global gradient norm: across ranks, each distinct slice once."""
+    if groups is None:
+        return adamw.global_norm(grads)
+    return adamw.global_norm(grads, counted=sharding.norm_counted(grads, groups),
+                             group=groups.attn["stage"].group)
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] = None, *,
                     remat: str = "full", microbatch: int = 0, guard: bool = False,
-                    with_loss_scale: bool = False) -> Callable:
+                    with_loss_scale: bool = False,
+                    groups: Optional[FoldedGroups] = None) -> Callable:
     """Build the train step (see the module docstring).
 
     ``remat``: ``"full"`` recomputes each layer's forward in the backward,
@@ -118,54 +172,34 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] = Non
     (``metrics["step_ok"]``). ``with_loss_scale=True`` requires an fp32
     scalar ``batch["loss_scale"]`` multiplied into the gradients and the
     loss metric after the backward (1.0 is a bitwise no-op; NaN makes a
-    guarded skip).
+    guarded skip). ``groups``: the folded mapping; ``params`` and ``batch``
+    are then this rank's (``models.sharding.shard_lm_params``,
+    ``data.pipeline.shard_batch`` with the same ``microbatch``).
     """
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     if remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     use_remat = remat != "none"
-    nmicro = microbatch
 
     def step(params: LMParams, opt_state: adamw.AdamWState, batch: Tensors):
         batch = dict(batch)
         ls = batch.pop("loss_scale", None)
         if with_loss_scale and ls is None:
             raise ValueError("this step was built with_loss_scale: batch needs 'loss_scale'")
-        cparams = cast_params(params, cfg)
-        if nmicro and nmicro > 1:
-            B = batch["tokens"].shape[0]
-            if B % nmicro:
-                raise ValueError(f"batch {B} not divisible by microbatch {nmicro}")
-            mb = B // nmicro
-            grads, metrics = None, None
-            for i in range(nmicro):
-                g, m = _grads_of(cparams, {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()},
-                                 cfg, use_remat)
-                for p in cparams.parameters():
-                    p.grad = None
-                if grads is None:
-                    grads = {n: t.float() for n, t in g.items()}
-                    metrics = m
-                else:
-                    for n, t in g.items():
-                        grads[n] += t.float()
-                    metrics = {k: metrics[k] + m[k] for k in metrics}
-                del g
-            grads = {n: t / nmicro for n, t in grads.items()}
-            metrics = {k: v / nmicro for k, v in metrics.items()}
-        else:
-            grads, metrics = _grads_of(cparams, batch, cfg, use_remat)
-        del cparams
+        grads, metrics = loss_and_grads(params, batch, cfg, remat=use_remat,
+                                        microbatch=microbatch, groups=groups)
         if ls is not None:
             ls = torch.as_tensor(ls, dtype=torch.float32, device=metrics["loss"].device)
             grads = {n: t.float() * ls for n, t in grads.items()}
             metrics["loss"] = metrics["loss"] * ls
         named = dict(params.named_parameters())
         step_ok = torch.isfinite(metrics["loss"]) if guard else None
+        norm = {} if groups is None else dict(
+            counted=sharding.norm_counted(named, groups), norm_group=groups.attn["stage"].group)
         with torch.profiler.record_function("adamw update"):
             _, opt_state, opt_m = adamw.update(
                 opt_cfg, grads, opt_state, named, step_ok=step_ok,
-                decay={n: leaf_rank(n, p) >= 2 for n, p in named.items()})
+                decay={n: leaf_rank(n, p) >= 2 for n, p in named.items()}, **norm)
         metrics.update(opt_m)
         return params, opt_state, metrics
 

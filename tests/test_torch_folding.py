@@ -6,7 +6,11 @@ gloo world of 8 CPU processes builds ``FoldedGroups`` for nine folds and
 every axis's groups must equal ``folded_mesh_groups`` and
 ``megatron_groups``, every ``ProcessGroup`` must hold exactly its group's
 ranks, and each rank's index on the MoE token axis must be the shard the
-reference's token sharding gives that device.
+reference's token sharding gives that device. The attention side's
+combined axes (``dp_cp``, ``stage``) are held against ``folded_mesh_groups``
+of the same atoms. Without a world (``folded_layout``), each fold's
+sequence-parallel shards are its MoE token shards, and the folds where they
+are not make ``apply_lm(..., groups=)`` raise.
 
 JAX is imported inside the test functions only: the world's processes
 import this module to find their worker, and must not import JAX.
@@ -119,6 +123,54 @@ def test_cp_layout_helpers_match_jax():
         assert folding.unfolded(_pcfg(attn, moe, pp)) == jf.unfolded(_jax_fm(attn, moe, pp).pcfg)
 
 
+def _attn_combined(fm):
+    """The reference mesh's atoms of the port's combined attention axes."""
+    dp_cp = fm.axis("attn", "dp") + fm.axis("attn", "cp")
+    return {"dp_cp": dp_cp, "stage": dp_cp + fm.axis("attn", "tp")}
+
+
+@pytest.mark.parametrize("attn,moe,pp", FOLDS)
+def test_sp_shards_are_moe_token_shards(attn, moe, pp):
+    """Group-free: on every rank the attention (dp, cp, tp) index in row
+    major order is the MoE ``tokens`` index (the reference's "token atoms on
+    the MoE side == attention side"), and the ``dp_cp``/``stage`` groups are
+    the reference mesh's of the same atoms."""
+    from repro.core.folding import folded_mesh_groups
+    pcfg = _pcfg(attn, moe, pp)
+    fm = _jax_fm(attn, moe, pp)
+    fm_all = dataclasses.replace(fm, attn_axes={**fm.attn_axes, **_attn_combined(fm)})
+    for rank in range(pcfg.world_size):
+        fg = folding.folded_layout(pcfg, rank=rank, world=pcfg.world_size)
+        assert folding.sp_token_index(fg) == fg.moe["tokens"].index, rank
+        for ax in ("dp_cp", "stage"):
+            assert fg.attn[ax].groups == folded_mesh_groups(fm_all, "attn", ax), (rank, ax)
+    if pp == 1:
+        folding.check_sp_moe_handoff(fg)
+
+
+@pytest.mark.parametrize("kw", [dict(pods=2, pod_role="cp"),
+                                dict(moe_factors=[("ep", 2), ("edp", 2), ("ep", 2)]),
+                                dict(pp=2)])
+def test_folds_without_the_sp_moe_handoff_raise(kw):
+    """Where the SP rows are not the MoE token shard (``pod_role="cp"``,
+    non-contiguous ``moe_factors``), or with pipeline stages, the folded
+    forward raises before it runs a collective instead of mixing tokens."""
+    from repro_torch.launch.train import train_config
+    from repro_torch.models.transformer import apply_lm, init_lm
+    kw = dict(kw)
+    factors = kw.pop("moe_factors", None)
+    pcfg = ParallelConfig(attn=PM(2, 2, 2), moe=PM(1, 8, 1), **kw)
+    fg = folding.folded_layout(pcfg, rank=0, world=pcfg.world_size, moe_factors=factors)
+    if "pp" not in kw:
+        assert any(folding.sp_token_index(fg, r) != folding._index_of(fg.moe["tokens"], r)
+                   for r in range(pcfg.world_size))
+    cfg = train_config("mixtral-8x22b", reduce=True)
+    params = init_lm(cfg, seed=0, device="cpu")
+    batch = {"tokens": torch.zeros((1, 16), dtype=torch.int32)}
+    with pytest.raises(NotImplementedError):
+        apply_lm(params, batch, cfg, groups=fg)
+
+
 def _folding_world(rank, world, folds):
     """Each fold's groups as this rank built them, and the members every
     ProcessGroup reports (one all_gather of ranks per group)."""
@@ -158,7 +210,8 @@ def test_folded_groups_in_a_world_match_jax(tmp_path):
         assert ag["PP"] == mg["PP"]
         token_axes = fm.axis("moe", "edp") + fm.axis("moe", "ep") + fm.axis("moe", "etp")
         combined = {"tokens": token_axes, "seq": fm.axis("moe", "ep") + fm.axis("moe", "etp")}
-        fm_all = dataclasses.replace(fm, moe_axes={**fm.moe_axes, **combined})
+        fm_all = dataclasses.replace(fm, moe_axes={**fm.moe_axes, **combined},
+                                     attn_axes={**fm.attn_axes, **_attn_combined(fm)})
         # The reference's token sharding: which shard each device holds.
         n_shards = int(np.prod([fm.mesh.shape[a] for a in token_axes]))
         arr = jax.device_put(np.arange(3 * n_shards),
@@ -172,6 +225,8 @@ def test_folded_groups_in_a_world_match_jax(tmp_path):
                     assert g[side, ax]["groups"] == want == oracle[side, ax], (i, side, ax)
             for ax in ("tokens", "seq"):
                 assert g["moe", ax]["groups"] == folded_mesh_groups(fm_all, "moe", ax), (i, ax)
+            for ax in ("dp_cp", "stage"):
+                assert g["attn", ax]["groups"] == folded_mesh_groups(fm_all, "attn", ax), (i, ax)
             for (side, ax), v in g.items():
                 assert rank in v["ranks"] and v["ranks"] in v["groups"], (i, side, ax)
                 assert v["ranks"][v["index"]] == rank

@@ -397,8 +397,12 @@ def test_flash_function_grads_match_autograd_of_plain():
 
 
 def test_blockwise_attention_refuses_other_positions():
+    """Offsets are ported (``offset + arange``, tests/test_torch_attention_cp.py);
+    position arrays that are not one contiguous run on every row raise."""
     from repro_torch.models.attn_core import blockwise_attention as port_blockwise
-    q, k, v = (_t(a) for a in _qkv(1, 2, 2, 8, 8, 64))
-    pos = torch.arange(8)[None] + 3
-    with pytest.raises(NotImplementedError, match="positions"):
-        port_blockwise(q, k, v, pos, pos)
+    q, k, v = (_t(a) for a in _qkv(2, 2, 2, 8, 8, 64))
+    packed = torch.tensor([0, 1, 2, 3, 0, 1, 2, 3]).expand(2, 8)   # two packed sequences
+    rows = torch.arange(8)[None] + torch.tensor([[0], [3]])          # one offset a row
+    for pos in (packed, rows):
+        with pytest.raises(NotImplementedError, match="positions"):
+            port_blockwise(q, k, v, pos, pos)

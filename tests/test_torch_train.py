@@ -154,9 +154,9 @@ def test_step1_grads_and_expert_counts_match_jax(monkeypatch):
         jax.debug.callback(lambda c: seen_j.append(np.asarray(c)), c, ordered=True)
         return moe_block_j(p, x, cfg, fm, **kw)
 
-    def spy_t(p, x, cfg):
+    def spy_t(p, x, cfg, **kw):
         seen_t.append(transformer._expert_token_counts(x, p.router, cfg, None).numpy())
-        return moe_block_t(p, x, cfg)
+        return moe_block_t(p, x, cfg, **kw)
 
     moe_block_j, moe_block_t = jax_transformer.moe_block, transformer.moe_block
     monkeypatch.setattr(jax_transformer, "moe_block", spy_j)
