@@ -84,8 +84,30 @@ failure exits non-zero; nothing is caught):
    diagonal, wholly visible and wholly masked pairs) and the GMM at the EP
    shard's shape, held and timed as in phase 3.
 
-Mixtral runs phases 3, 4, 5, 6; then every Mixtral tensor is freed and
-Qwen2 runs 4, 5, 3, 6; then both run 7 and 8. Then it prints the script time, the
+9. train-zero — the folded step with the training state kept as the
+   reference keeps it: attention leaves stored cut over DP (FSDP), AdamW
+   moments (and the fp32 master) cut over DP by ZeRO-1. 4 processes share
+   the card over gloo at attention DP2×TP2 beside the first MoE fold of
+   ``ZERO_MOE_FOLDS`` that passes the SP ↔ MoE hand-off (EDP2×EP2), a
+   global batch of 2 × 4096 tokens (one sequence a DP rank), each run from
+   the same weights. Mixtral: (a) ``fsdp=True`` 4 steps, (b) ``fsdp=False``
+   2 steps, (c) ``fsdp=True`` with ``master_weights`` 2 steps; Qwen2 (the
+   step phase 8 could not fit): (a) and (c), 2 steps each. Per rank: every
+   step of (b) and (c) against (a)'s step of the same index in loss and
+   ``grad_norm`` within ``ZERO_TOL``, its optimizer-state bytes counted
+   from its tensors against ``zero1_state_bytes`` for that fold, launches
+   against the count from the code, parameters stored, peak memory and
+   step wall time; rank 0 profiles one more step of (a) (AdamW device
+   time, host time in each ``comm`` range). Then the flash kernel at a TP
+   rank's heads over the whole sequence and the GMM at the EP shard's
+   shape, held and timed as in phase 3.
+
+Phase 9 runs first, right after the build: its 4 ranks need about 70 GB
+of the card (Qwen2: 18.02 GB peak a rank on an H100), and what the other
+phases leave in this process (3.9 GB reserved before phase 7) left Qwen2's
+ranks out of memory when phase 9 ran last. Then Mixtral runs phases 3, 4, 5,
+6; every Mixtral tensor is freed and Qwen2 runs 4, 5, 3, 6; then both run
+7 and 8. Then it prints the script time, the
 kernels' JSON line (one entry per kernel per main path, its ``launches``
 from that path's own run), the card's ``nvidia-smi`` name and power limit,
 and last ``{"ok": true, "device": {...}}``. Full results also go to
@@ -124,6 +146,10 @@ FOLD_TOL = 2e-2
 FOLD_TOL_LATER = 5e-2
 GRAD_NORM_TOL_LATER = 0.15
 RING_TOL = 5e-3         # ring CP vs all-gather CP, the same fold and routing, bf16
+# Phase 9: a run with FSDP off or an fp32 master against the run with FSDP
+# on, the same fold, weights and batches: the same math, bf16 sums in
+# another order (the FSDP gather's reduce-scatter, ZeRO-1's reduce-scatter).
+ZERO_TOL = 5e-3
 TIMING = {"ms": "graph_ms", "library_ms": "graph_ms", "plain_ms": "profiled_ms"}
 
 
@@ -182,6 +208,19 @@ SHORT = {MIXTRAL: "", QWEN2: "-qwen2"}       # path-name suffix of each model
 TRAIN_WORLD = {MIXTRAL: dict(attn=(1, 2, 2), moe=(1, 4, 1),
                              runs=(("allgather", TRAIN_STEPS), ("ring", 2))),
                QWEN2: dict(attn=(1, 2, 2), moe=(1, 2, 2), runs=(("allgather", 0),))}
+
+
+# Phase 9: attention (dp, cp, tp), the MoE folds in order of preference (the
+# first whose SP rows are its token shards runs), one sequence a DP rank, and
+# per model its runs (cp_mode, steps, fsdp, master_weights, label).
+ZERO_ATTN = (2, 1, 2)
+ZERO_MOE_FOLDS = ((2, 2, 1), (1, 4, 1))
+ZERO_BATCH = 2
+ZERO_RUNS = {MIXTRAL: (("allgather", TRAIN_STEPS, True, False, "fsdp"),
+                       ("allgather", 2, False, False, "no-fsdp"),
+                       ("allgather", 2, True, True, "master")),
+             QWEN2: (("allgather", 2, True, False, "fsdp"),
+                     ("allgather", 2, True, True, "master"))}
 
 
 def _gmm_specs(arch: str) -> tuple:
@@ -812,17 +851,17 @@ def _train_world_kernels(torch, arch: str) -> dict:
     return out
 
 
-def _expected_world_launches(arch: str, mode: str, steps: int) -> dict:
-    """Launches a rank makes in one run of phase 8, from the code: per layer
-    and forward, ``3 · chunks`` GMM (the layer's forward and remat's
-    recompute) and ``3 · chunks`` ``trans_w`` in the backward (the MoE
-    input has a gradient), and one flash launch (all-gather) or ``4 · cp``
-    (the ring: four (q half, kv half) pairs a ring step), twice with remat."""
+def _expected_world_launches(arch: str, mode: str, steps: int, attn=None) -> dict:
+    """Launches a rank makes in one run of phase 8 (or 9, at attention fold
+    ``attn``), from the code: per layer and forward, ``3 · chunks`` GMM (the
+    layer's forward and remat's recompute) and ``3 · chunks`` ``trans_w`` in
+    the backward (the MoE input has a gradient), and one flash launch
+    (all-gather) or ``4 · cp`` (the ring: four (q half, kv half) pairs a ring
+    step), twice with remat. A rank's tokens are a sequence over cp · tp."""
     from repro_torch.core.overlap import resolve_chunks
     from repro_torch.launch.train import train_config
-    w = TRAIN_WORLD[arch]
     cfg = train_config(arch, layers=1)
-    cp, tp = w["attn"][1], w["attn"][2]
+    _, cp, tp = attn or TRAIN_WORLD[arch]["attn"]
     C = resolve_chunks(TRAIN_SEQ // (cp * tp), cfg.moe.overlap_chunks)
     flash = 4 * cp if mode == "ring" and cp > 1 else 1
     n = max(steps, 1) * cfg.n_layers
@@ -909,6 +948,153 @@ def phase_train_world(torch, one_card: dict) -> dict:
         raise AssertionError("phase 8:\n" + "\n".join(failures))
     return out
 
+def _zero_fold() -> tuple:
+    """The first of ``ZERO_MOE_FOLDS`` whose SP rows are its MoE token shards
+    beside attention ``ZERO_ATTN`` (``folding.check_sp_moe_handoff``)."""
+    from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
+    from repro_torch.core.folding import check_sp_moe_handoff, folded_layout
+    for moe in ZERO_MOE_FOLDS:
+        pcfg = ParallelConfig(attn=PM(*ZERO_ATTN), moe=PM(*moe))
+        try:
+            check_sp_moe_handoff(folded_layout(pcfg, rank=0, world=pcfg.world_size))
+        except NotImplementedError as e:
+            _say(f"[train-zero] MoE fold {moe} beside attention {ZERO_ATTN}: {e}")
+            continue
+        return moe
+    raise AssertionError(f"no MoE fold of {ZERO_MOE_FOLDS} passes the SP <-> MoE hand-off")
+
+
+def _train_zero_kernels(torch, arch: str, moe: tuple) -> dict:
+    """The kernels at phase 9's launch shapes, timed as in phase 3: flash in
+    partial mode at a TP rank's heads over the whole 4096-token sequence
+    (cp = 1, the queries at offset 0), and the GMM forward and ``trans_w`` at
+    the EP shard's shape (the experts' D gathered over EDP)."""
+    from repro_torch.launch.world import gmm_shape
+    _, cp, tp = ZERO_ATTN
+    H, Hkv = (h // tp for h in FLASH_HEADS[arch])
+    flash = _flash_cases(torch, arch, [("TP rank's heads, causal 4096", TRAIN_SEQ, TRAIN_SEQ,
+                                        [0])], heads=(H, Hkv), modes=(True,))
+    s = gmm_shape(arch, TRAIN_SEQ // (cp * tp), fold=moe)
+    E, rows, D, F, bm = s["experts"], s["rows_per_expert"], s["d_model"], s["d_expert"], s["bm"]
+    M = E * rows
+    blocks = [e for e in range(E) for _ in range(rows // bm)]
+    cases = _gmm_cases(torch, E, [(f"train-zero gate/up, M={M}", M, D, F, bm, blocks, False),
+                                  (f"train-zero dgrad trans_w, M={M}", M, F, D, bm, blocks, True)])
+    out = {"gmm": cases[:1], "gmm_trans_w": cases[1:], "flash_attention": flash}
+    _check_cases(arch, out)
+    out["gmm_shape"] = s
+    return out
+
+
+def phase_train_zero(torch) -> dict:
+    """Phase 9: see the module docstring. Every check is printed before the
+    phase fails on any of them."""
+    from repro_torch.launch.world import Run, train_world
+
+    smi = _smi()
+    moe = _zero_fold()
+    out, failures = {"moe": moe}, []
+    for arch in (MIXTRAL, QWEN2):
+        tag = "train-zero" + SHORT[arch]
+        runs = [Run(*r) for r in ZERO_RUNS[arch]]
+        base = runs[0].key
+        t0 = time.perf_counter()
+        ranks = train_world(arch, attn=ZERO_ATTN, moe=moe, runs=runs, device="cuda", layers=1,
+                            seq=TRAIN_SEQ, batch=ZERO_BATCH, seed=0, profile=arch == MIXTRAL)
+        wall = time.perf_counter() - t0
+        res = dict(attn=ZERO_ATTN, moe=moe, runs=[r._asdict() for r in runs], base=base,
+                   wall_s=wall, ranks=ranks, errors={})
+        for r in ranks:
+            if r["sp_index"] != r["tokens_index"]:
+                failures.append(f"{tag} rank {r['rank']}: SP shard {r['sp_index']} != MoE "
+                                f"token shard {r['tokens_index']}")
+            for run_spec in runs:
+                run = r["runs"][run_spec.key]
+                expect = _expected_world_launches(arch, run_spec.cp_mode, run_spec.steps,
+                                                  ZERO_ATTN)
+                if run["launches"] != expect:
+                    failures.append(f"{tag} rank {r['rank']} {run_spec.key}: launches "
+                                    f"{run['launches']} != expected {expect}")
+                if run["state_bytes"] != run["state_bytes_expected"]:
+                    failures.append(f"{tag} rank {r['rank']} {run_spec.key}: optimizer state "
+                                    f"{run['state_bytes']} B != zero1_state_bytes "
+                                    f"{run['state_bytes_expected']} B")
+                for i, m in enumerate(run["metrics"]):
+                    if not (m["step_ok"] and all(x == x and abs(x) != float("inf")
+                                                 for x in (m["loss"], m["grad_norm"]))):
+                        failures.append(f"{tag} rank {r['rank']} {run_spec.key} step {i}: {m}")
+                        continue
+                    if run_spec.key == base:
+                        continue
+                    ref = r["runs"][base]["metrics"][i]
+                    for k in ("loss", "grad_norm"):
+                        e = abs(m[k] - ref[k]) / abs(ref[k])
+                        key = f"{run_spec.key} step {i} vs {base} {k}"
+                        res["errors"][key] = max(res["errors"].get(key, 0.0), e)
+                        if not e <= ZERO_TOL:
+                            failures.append(f"{tag} rank {r['rank']} {key}: {m[k]:.6f} against "
+                                            f"{ref[k]:.6f}, rel err {e:.3e} > {ZERO_TOL}")
+        r0 = ranks[0]
+        for run_spec in runs:
+            run = r0["runs"][run_spec.key]
+            for i, m in enumerate(run["metrics"]):
+                ref = r0["runs"][base]["metrics"][i]
+                _say(f"[{tag}] {run_spec.key} step {i}: loss {m['loss']:.6f} ({base} "
+                     f"{ref['loss']:.6f}), grad_norm {m['grad_norm']:.6f} ({base} "
+                     f"{ref['grad_norm']:.6f}), drop {m['moe_drop_fraction']:.4f}; wall a rank "
+                     + ", ".join(f"{x['runs'][run_spec.key]['step_s'][i] * 1e3:.1f}"
+                                 for x in ranks) + " ms")
+            _say(f"[{tag}] {run_spec.key} (fsdp {run['fsdp']}, master_weights "
+                 f"{run['master_weights']}): parameters stored a rank " + ", ".join(
+                     f"{x['runs'][run_spec.key]['params'] / 1e6:.1f}" for x in ranks)
+                 + " M; optimizer state a rank " + ", ".join(
+                     f"{x['runs'][run_spec.key]['state_bytes'] / 1e9:.3f}" for x in ranks)
+                 + f" GB (zero1_state_bytes {run['state_bytes_expected'] / 1e9:.3f} GB); "
+                 f"launches a rank {run['launches']} (expected "
+                 f"{_expected_world_launches(arch, run_spec.cp_mode, run_spec.steps, ZERO_ATTN)});"
+                 " peak memory a rank " + ", ".join(
+                     f"{x['runs'][run_spec.key]['peak_gb']:.2f}" for x in ranks) + " GB")
+        _say(f"[{tag}] {arch} x1 layer at attention (dp, cp, tp) {ZERO_ATTN}, MoE (edp, ep, "
+             f"etp) {moe}, {ZERO_BATCH} x {TRAIN_SEQ} tokens a step: {len(ranks)} ranks over "
+             f"gloo through the host on one card ({smi}); {r0['params'] / 1e6:.1f} M "
+             f"parameters a rank to compute with; weights built in turns in "
+             f"{r0['init_s']:.1f} s; phase wall {wall:.1f} s; worst rel err "
+             + ", ".join(f"{k} {v:.3e}" for k, v in res["errors"].items())
+             + f" (limit {ZERO_TOL})")
+        prof = r0["runs"][base].get("profile")
+        if prof:
+            _say(f"[{tag}] profiled {base} step on rank 0: wall {prof['wall_ms']:.1f} ms, device "
+                 f"{prof['device_ms']:.1f} ms (" + ", ".join(
+                     f"{k} {v:.1f}" for k, v in prof["parts_ms"].items()) + "); host time in "
+                 "the collectives " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                                 prof["comm_host_ms"].items()) + " ms")
+        res["kernels"] = _train_zero_kernels(torch, arch, moe)
+        out[arch] = res
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("phase 9:\n" + "\n".join(failures))
+    return out
+
+
+def _train_zero_line(train_zero: dict, sources: dict) -> list:
+    """Phase 9's entries of the kernels line: per model (path
+    ``train-zero[-qwen2]``) each kernel with rank 0's launches in its first
+    run, timed at that run's shape."""
+    line = []
+    for arch in (MIXTRAL, QWEN2):
+        res = train_zero[arch]
+        launches = res["ranks"][0]["runs"][res["base"]]["launches"]
+        for name in ("gmm", "gmm_trans_w", "flash_attention"):
+            c = res["kernels"][name][0]
+            line.append(dict(name=name, path="train-zero" + SHORT[arch], model=arch,
+                             case=c["case"], route="cuda", source=sources[name][0],
+                             replaces=sources[name][1], launches=launches[name],
+                             max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
+                             bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                             library_ms=c["library_ms"]))
+    return line
+
+
 def _train_world_line(train_world: dict, sources: dict) -> list:
     """Phase 8's entries of the kernels line: per model and run (path
     ``train-world[-ring][-qwen2]``) each kernel with rank 0's launches in
@@ -974,6 +1160,8 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_device(torch)
     build = phase_build()
+    train_zero = phase_train_zero(torch)          # first: see the module docstring
+    memory_zero = _free(torch, "phase 9 done")
     results = {MIXTRAL: run_model(torch, MIXTRAL)}
     memory = _free(torch, "Mixtral-8x22B freed")
     results[QWEN2] = run_model(torch, QWEN2)
@@ -1008,6 +1196,7 @@ def main() -> int:
                              bound_ms=c["bound_ms"], bound_by=c["bound_by"],
                              library_ms=c["library_ms"]))
     line += _train_world_line(train_world, sources)
+    line += _train_zero_line(train_zero, sources)
     smi = _smi()
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -1015,7 +1204,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         nvidia_smi=smi, device=device, timing=TIMING, build=build, models=results,
-        world=world, train_world=train_world, memory_between_models=memory,
+        world=world, train_world=train_world, train_zero=train_zero,
+        memory_after_train_zero=memory_zero, memory_between_models=memory,
         memory_before_world=memory_world, seconds=seconds), indent=1))
     _say(f"[done] script time {seconds:.2f} s (build {build['seconds']:.2f} s)")
     print(json.dumps({"kernels": line}))

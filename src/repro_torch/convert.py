@@ -8,9 +8,9 @@ tree. The caller turns the leaves into numpy arrays
 never imports JAX. The port names each leaf as ``LMParams.named_parameters``
 does (``layers.3.moe.w1``; the shared experts' ``moe/shared/w1`` is
 ``layers.3.moe.ws1``). With ``groups`` (a folded mapping) each rank gets
-its slices of the full tree (``models.sharding``): parameters, gradients
-and moments alike, so a test holds each rank's gradients against its slices
-of JAX's.
+its slices of the full tree (``models.sharding``): parameters in the store
+layout, gradients and AdamW state in the ZeRO-1 state layout, so a test
+holds each rank's tensors against its slices of JAX's.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from repro_torch.core.folding import FoldedGroups
 from repro_torch.core.moe_layer import MoEParams, shard_moe_params
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import AttentionParams
-from repro_torch.models.sharding import shard_lm_params, shard_tensor
+from repro_torch.models.sharding import shard_tensor
 from repro_torch.models.transformer import (LMParams, MoEBlockParams,
                                             check_supported, model_cycle)
 from repro_torch.optim.adamw import AdamWState
@@ -66,23 +66,23 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 
 
 def tensors_from_jax(tree: Dict, cfg: ModelConfig, *, device: DeviceLike = None,
-                     groups: Optional[FoldedGroups] = None) -> Dict[str, torch.Tensor]:
+                     groups: Optional[FoldedGroups] = None, kind: str = "store"
+                     ) -> Dict[str, torch.Tensor]:
     """:func:`named_from_jax` as tensors on ``device``; values and dtypes
-    kept; with ``groups``, this rank's slice of each."""
+    kept; with ``groups``, this rank's ``kind`` slice of each
+    (``models.sharding.KINDS``)."""
     device = resolve_device(device)
     out = {k: _tensor(v, device) for k, v in named_from_jax(tree, cfg).items()}
     if groups is not None:
-        out = {k: shard_tensor(k, v, groups) for k, v in out.items()}
+        out = {k: shard_tensor(k, v, groups, kind) for k, v in out.items()}
     return out
 
 
 def params_from_jax(tree: Dict, cfg: ModelConfig, *, device: DeviceLike = None,
                     groups: Optional[FoldedGroups] = None) -> LMParams:
     """Build :class:`LMParams` on ``device`` from the numpy leaves of a JAX
-    ``init_lm`` tree; with ``groups``, this rank's slices of them."""
-    if groups is not None:
-        return shard_lm_params(params_from_jax(tree, cfg, device=device), groups)
-    t = tensors_from_jax(tree, cfg, device=device)
+    ``init_lm`` tree; with ``groups``, this rank's store slices of them."""
+    t = tensors_from_jax(tree, cfg, device=device, groups=groups)
     layers = []
     for layer in range(cfg.n_layers):
         pre = f"layers.{layer}."
@@ -108,12 +108,17 @@ def moe_params_from_jax(tree: Dict, *, device: DeviceLike = None,
     return p if groups is None else shard_moe_params(p, groups)
 
 
-def opt_state_from_jax(state, cfg: ModelConfig, *, device: DeviceLike = None) -> AdamWState:
-    """A JAX ``AdamWState`` (numpy leaves) → the port's, moments by name."""
-    if state.master is not None:
-        raise NotImplementedError("AdamW master_weights are not ported")
+def opt_state_from_jax(state, cfg: ModelConfig, *, device: DeviceLike = None,
+                       groups: Optional[FoldedGroups] = None) -> AdamWState:
+    """A JAX ``AdamWState`` (numpy leaves: step, mu, nu and the optional fp32
+    master) → the port's, by name; with ``groups``, this rank's ZeRO-1
+    shards of each (the state :func:`repro_torch.train.loop.init_train_state`
+    makes at that fold)."""
     device = resolve_device(device)
+
+    def tree(t):
+        return tensors_from_jax(t, cfg, device=device, groups=groups, kind="state")
     return AdamWState(step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
                                         device=device),
-                      mu=tensors_from_jax(state.mu, cfg, device=device),
-                      nu=tensors_from_jax(state.nu, cfg, device=device))
+                      mu=tree(state.mu), nu=tree(state.nu),
+                      master=None if state.master is None else tree(state.master))

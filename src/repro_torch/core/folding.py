@@ -26,10 +26,11 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ParallelConfig
 
-ATTN_AXES = ("dp", "cp", "tp", "pp", "dp_cp", "stage")
+ATTN_AXES = ("dp", "cp", "tp", "pp", "dp_cp", "cp_tp", "stage")
 # ``dp_cp`` (dp + cp, Megatron's data-parallel group with CP) sums the
 # gradients of the leaves sharded over TP; ``stage`` (dp + cp + tp) those
-# of the replicated ones (norms) and carries the global gradient norm.
+# of the replicated ones (norms) and carries the global gradient norm;
+# ``cp_tp`` is ``stage`` less DP, where ZeRO-1 reduce-scatters over DP.
 # ``tokens`` (edp + ep + etp) shards the MoE layer's tokens and carries its
 # loss reductions; ``seq`` (ep + etp) gathers the router logits under
 # ``drop_policy="full_sequence"``. Both are the reference's atom tuples
@@ -124,6 +125,7 @@ def folded_axes(pcfg: ParallelConfig,
     else:  # "pp": pipeline stages span pods (outermost)
         attn["pp"] = moe["pp"] = pod + pp
     attn["dp_cp"] = attn["dp"] + attn["cp"]
+    attn["cp_tp"] = attn["cp"] + attn["tp"]
     attn["stage"] = attn["dp_cp"] + attn["tp"]
     moe["tokens"] = moe["edp"] + moe["ep"] + moe["etp"]
     moe["seq"] = moe["ep"] + moe["etp"]
@@ -183,6 +185,31 @@ class FoldedGroups:
     def axis(self, side: str, logical: str) -> AxisGroups:
         return (self.attn if side == "attn" else self.moe)[logical]
 
+    @property
+    def atom_names(self) -> Tuple[str, ...]:
+        """The name of each grid dimension: the reference mesh's axis names
+        (``pods``, ``pp``, then ``f0``, ``f1``, ... for the atoms)."""
+        return ("pods", "pp") + tuple(f"f{i}" for i in range(len(self.shape) - 2))
+
+    def atoms(self, side: str, logical: str) -> Tuple[str, ...]:
+        """A logical axis as the names of its atoms, in axis order (the
+        reference's ``FoldedMesh.axis``)."""
+        return tuple(self.atom_names[d] for d in self.axis(side, logical).dims)
+
+    def atom_size(self, atoms: Sequence[str]) -> int:
+        """The number of ranks a tuple of atoms spans."""
+        return math.prod(self.shape[self.atom_names.index(a)] for a in atoms)
+
+    def atom_index(self, atoms: Sequence[str], rank: Optional[int] = None) -> int:
+        """``rank``'s row-major index over ``atoms`` (major first): its slice
+        of a dimension cut over them."""
+        coords = np.unravel_index(self.rank if rank is None else rank, self.shape)
+        idx = 0
+        for a in atoms:
+            d = self.atom_names.index(a)
+            idx = idx * self.shape[d] + int(coords[d])
+        return idx
+
     def size(self, side: str, logical: str) -> int:
         return self.axis(side, logical).size
 
@@ -233,6 +260,14 @@ def folded_layout(pcfg: ParallelConfig, *, rank: int, world: int,
 
     return FoldedGroups(pcfg=pcfg, rank=rank, world=world, shape=shape,
                         attn=side(ATTN_AXES, attn_dims), moe=side(MOE_AXES, moe_dims))
+
+
+def as_layout(layout) -> FoldedGroups:
+    """A :class:`FoldedGroups`, or rank 0's layout of a ``ParallelConfig``
+    (for what depends only on the fold: the atoms and their sizes)."""
+    if isinstance(layout, FoldedGroups):
+        return layout
+    return folded_layout(layout, rank=0, world=layout.world_size)
 
 
 def build_folded_groups(pcfg: ParallelConfig, *, rank: int, world: int,

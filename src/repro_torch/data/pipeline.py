@@ -1,6 +1,7 @@
 """Deterministic synthetic LM data: the port's copy of
-``repro.data.pipeline`` (``DataConfig``, ``SyntheticTokens``), and each
-rank's share of a batch across the folded groups (``shard_batch``).
+``repro.data.pipeline`` (``DataConfig``, ``SyntheticTokens``,
+``make_batch_specs``, ``materialize_batch``), and each rank's share of a
+batch across the folded groups (``shard_batch``).
 
 Structured pseudo-text (a Zipf unigram mixture with short-range copies), so
 the LM loss falls as the model learns; the batches are built on the host
@@ -13,6 +14,7 @@ import dataclasses
 from typing import Dict, Iterator, Mapping
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -66,6 +68,43 @@ class SyntheticTokens:
         copied = np.take_along_axis(base, idx, axis=1)
         seq = np.where(rep, copied, base).astype(np.int32)
         return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+
+
+def make_batch_specs(cfg, seq_len: int, global_batch: int) -> Dict[str, torch.Tensor]:
+    """``meta`` tensors standing in for every model input of a batch (the
+    reference's ``ShapeDtypeStruct`` stand-ins, for a dry run)."""
+    B, S = global_batch, seq_len
+
+    def meta(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    specs = {"tokens": meta((B, S)), "labels": meta((B, S))}
+    if cfg.rope_kind == "mrope":
+        specs["positions"] = meta((B, S, 3))
+    if cfg.n_vision_tokens:
+        specs["vision_embeds"] = meta((B, cfg.n_vision_tokens, cfg.d_model), torch.bfloat16)
+    if cfg.is_encoder_decoder:
+        specs["audio_embeds"] = meta((B, cfg.max_source_positions, cfg.d_model),
+                                     torch.bfloat16)
+    return specs
+
+
+def materialize_batch(cfg, np_batch: Mapping[str, np.ndarray], seed: int = 0
+                      ) -> Dict[str, np.ndarray]:
+    """Fill in the modality front ends' stub inputs (M-RoPE positions,
+    vision and audio embeddings) of a token batch, from ``seed``."""
+    out = dict(np_batch)
+    B, S = np_batch["tokens"].shape
+    rng = np.random.default_rng(seed)
+    if cfg.rope_kind == "mrope":
+        out["positions"] = np.broadcast_to(
+            np.arange(S, dtype=np.int32)[None, :, None], (B, S, 3)).copy()
+    if cfg.n_vision_tokens:
+        out["vision_embeds"] = rng.standard_normal(
+            (B, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        out["audio_embeds"] = rng.standard_normal(
+            (B, cfg.max_source_positions, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def shard_batch(batch: Mapping[str, np.ndarray], groups, *, microbatch: int = 0

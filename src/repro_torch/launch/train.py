@@ -6,6 +6,7 @@ device or at a folded mapping across a world of ranks.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-57b-a14b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --attn-fold 2,2,2 --moe-fold 1,8,1 --reduced --device cpu --seq 64 --batch 2
     PYTHONPATH=src python -m repro_torch.launch.train --attn-fold 1,2,2 --moe-fold 1,4,1 --layers 1 --seq 4096 --cp-mode ring
+    PYTHONPATH=src python -m repro_torch.launch.train --attn-fold 2,1,2 --moe-fold 2,2,1 --reduced --device cpu --seq 64 --batch 2 --master-weights
 
 The first two train a full-width model cut to one layer on the CUDA card
 (the port's training slice: bf16 compute, fp32 masters and AdamW state,
@@ -18,9 +19,15 @@ data-sheet bf16 peak (989 TFLOP/s) and the peak memory.
 With ``--attn-fold dp,cp,tp`` and ``--moe-fold edp,ep,etp`` the step runs
 folded (``launch.world.train_world``): one process a rank over gloo (the
 CPU, or ranks sharing one card), each building the weights from the seed in
-turn and keeping its slices; ``--cp-mode`` picks all-gather or ring CP. It
-prints rank 0's metrics a step and each rank's wall time, launches and
-peak memory.
+turn and keeping its slices; ``--cp-mode`` picks all-gather or ring CP. The
+training state is kept as the reference keeps it: attention leaves stored
+cut over DP (``--no-fsdp``: ``ParallelConfig(fsdp=False)``, replicated)
+and the AdamW state cut over DP (ZeRO-1). It prints rank 0's metrics a
+step and each rank's wall time, launches, optimizer-state bytes and peak
+memory.
+
+``--master-weights`` keeps an fp32 master copy in the AdamW state and the
+parameters in the compute dtype (``AdamWConfig(master_weights=True)``).
 """
 from __future__ import annotations
 
@@ -71,6 +78,10 @@ def main() -> None:
     ap.add_argument("--attn-fold", default=None, help="dp,cp,tp: train folded across ranks")
     ap.add_argument("--moe-fold", default=None, help="edp,ep,etp (with --attn-fold)")
     ap.add_argument("--cp-mode", default="allgather", choices=("allgather", "ring"))
+    ap.add_argument("--master-weights", action="store_true",
+                    help="fp32 master copy in the AdamW state, params in the compute dtype")
+    ap.add_argument("--no-fsdp", action="store_true",
+                    help="with --attn-fold: keep the attention leaves whole over DP at rest")
     args = ap.parse_args()
     if (args.attn_fold is None) != (args.moe_fold is None):
         ap.error("--attn-fold and --moe-fold go together")
@@ -88,8 +99,8 @@ def main() -> None:
     device = resolve_device(args.device)
     cfg = train_config(args.arch, layers=args.layers, reduce=args.reduced)
     params = init_lm(cfg, seed=args.seed, device=device)
-    opt_cfg = AdamWConfig(lr=args.lr)
-    opt = init_train_state(params, opt_cfg)
+    opt_cfg = AdamWConfig(lr=args.lr, master_weights=args.master_weights)
+    opt = init_train_state(params, opt_cfg, cfg=cfg)
     step = make_train_step(cfg, opt_cfg, guard=True)
     data = SyntheticTokens(DataConfig(seq_len=args.seq, global_batch=args.batch,
                                       vocab_size=cfg.vocab_size, seed=args.seed))
@@ -126,11 +137,13 @@ def _main_folded(args) -> None:
     attn, moe = fold(args.attn_fold), fold(args.moe_fold)
     res = train_world(args.arch, attn=attn, moe=moe, runs=[(args.cp_mode, args.steps)],
                       device=args.device or "cuda", reduce=args.reduced, layers=args.layers,
-                      seq=args.seq, batch=args.batch, seed=args.seed, lr=args.lr)
+                      seq=args.seq, batch=args.batch, seed=args.seed, lr=args.lr,
+                      fsdp=not args.no_fsdp, master_weights=args.master_weights)
     run = res[0]["runs"][args.cp_mode]
     print(f"{args.arch} at attention (dp, cp, tp) {attn}, MoE (edp, ep, etp) {moe}, "
-          f"cp_mode {args.cp_mode}: {len(res)} ranks over gloo, {args.batch} x {args.seq} "
-          f"tokens a step, {res[0]['params'] / 1e6:.1f} M parameters on rank 0")
+          f"cp_mode {args.cp_mode}, fsdp {not args.no_fsdp}, master_weights "
+          f"{args.master_weights}: {len(res)} ranks over gloo, {args.batch} x {args.seq} "
+          f"tokens a step, {run['params'] / 1e6:.1f} M parameters stored on rank 0")
     for i, m in enumerate(run["metrics"]):
         print(f"step {i}: loss {m['loss']:.4f} ce {m['ce_loss']:.4f} aux {m['moe_aux_loss']:.4f} "
               f"z {m['moe_z_loss']:.4f} drop {m['moe_drop_fraction']:.4f} grad_norm "
@@ -139,9 +152,11 @@ def _main_folded(args) -> None:
     for r in res:
         rr = r["runs"][args.cp_mode]
         peak = f", peak memory {rr['peak_gb']:.2f} GB" if "peak_gb" in rr else ""
-        print(f"rank {r['rank']}: {r['params'] / 1e6:.1f} M parameters, launches "
+        state = (f", optimizer state {rr['state_bytes'] / 1e6:.1f} MB (ZeRO-1 specs "
+                 f"{rr['state_bytes_expected'] / 1e6:.1f} MB)" if "state_bytes" in rr else "")
+        print(f"rank {r['rank']}: {rr['params'] / 1e6:.1f} M parameters stored, launches "
               f"{rr['launches']}, step wall " + ", ".join(f"{t * 1e3:.1f}" for t in rr["step_s"])
-              + f" ms{peak}")
+              + f" ms{state}{peak}")
 
 
 if __name__ == "__main__":

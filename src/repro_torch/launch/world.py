@@ -48,7 +48,7 @@ import queue
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -436,15 +436,32 @@ def _host_ranges(prof) -> Dict[str, float]:
     return out
 
 
+class Run(NamedTuple):
+    """One run of :func:`train_world`: ``steps`` optimizer steps (0: one
+    forward and backward, no optimizer) with ``cp_mode``; ``fsdp`` and
+    ``master_weights`` (``None``: :func:`train_world`'s own) and the key
+    of its results (``label``, default the ``cp_mode``)."""
+
+    cp_mode: str
+    steps: int
+    fsdp: Optional[bool] = None
+    master_weights: Optional[bool] = None
+    label: Optional[str] = None
+
+    @property
+    def key(self) -> str:
+        return self.label or self.cp_mode
+
+
 def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, Any]:
     """One rank of :func:`train_world` (see there)."""
     from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
     from repro_torch.core.folding import build_folded_groups, sp_token_index
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens, shard_batch
     from repro_torch.launch.train import train_config
-    from repro_torch.models.sharding import shard_lm_params
-    from repro_torch.models.transformer import init_lm
-    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import init_lm, param_shapes
+    from repro_torch.optim import adamw
     from repro_torch.train.loop import (grad_norm, init_train_state, loss_and_grads,
                                         make_train_step)
 
@@ -455,56 +472,67 @@ def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, 
     fg = build_folded_groups(pcfg, rank=rank, world=world)
     out: Dict[str, Any] = {"rank": rank, "sp_index": sp_token_index(fg),
                            "tokens_index": fg.moe["tokens"].index, "runs": {}}
+    runs = [Run(*r) for r in spec["runs"]]
     # The full weights from the seed, one rank at a time: each keeps its
-    # slices and frees the rest before the next rank builds them.
+    # compute slices (on the host when several runs start from them) and
+    # frees the rest before the next rank builds them.
     t0 = time.perf_counter()
     for turn in range(world):
         if turn == rank:
             full = init_lm(cfg, seed=spec["seed"], device=dev)
-            params = shard_lm_params(full, fg)
+            start = sharding.shard_lm_params(full, fg, "compute")
             del full
+            if len(runs) > 1:
+                start = sharding.map_params(start, lambda n, t: t.to("cpu"))
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
         dist.barrier()
     out["init_s"] = time.perf_counter() - t0
-    out["params"] = sum(p.numel() for p in params.parameters())
+    out["params"] = sum(p.numel() for p in start.parameters())
     data = SyntheticTokens(DataConfig(seq_len=spec["seq"], global_batch=spec["batch"],
                                       vocab_size=cfg.vocab_size, seed=spec["seed"]))
-    n_steps = max([n for _, n in spec["runs"]] + [1])
+    n_steps = max([r.steps for r in runs] + [1])
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in shard_batch(next(data), fg).items()}
                for _ in range(n_steps)]
-    start = ({n: p.detach().to("cpu", copy=True) for n, p in params.named_parameters()}
-             if len(spec["runs"]) > 1 else None)
-    opt_cfg = AdamWConfig(lr=spec["lr"])
 
-    for i, (mode, steps) in enumerate(spec["runs"]):
-        fgm = dataclasses.replace(fg, pcfg=dataclasses.replace(pcfg, cp_mode=mode))
-        if i:                                      # every run from the same start
-            with torch.no_grad():
-                for n, p in params.named_parameters():
-                    p.copy_(start[n])
-        run: Dict[str, Any] = {"metrics": [], "step_s": []}
+    for i, r in enumerate(runs):
+        fsdp = spec["fsdp"] if r.fsdp is None else r.fsdp
+        master = spec["master_weights"] if r.master_weights is None else r.master_weights
+        fgm = dataclasses.replace(fg, pcfg=dataclasses.replace(pcfg, cp_mode=r.cp_mode,
+                                                                  fsdp=fsdp))
+        # Every run from the same start, in its own store layout.
+        params = sharding.map_params(sharding.store_from_compute(start, fgm),
+                                     lambda n, t: t.to(dev))
+        if len(runs) == 1:
+            del start
+        opt_cfg = adamw.AdamWConfig(lr=spec["lr"], master_weights=master)
+        run: Dict[str, Any] = {"metrics": [], "step_s": [], "fsdp": fsdp,
+                               "master_weights": master, "cp_mode": r.cp_mode,
+                               "params": sum(p.numel() for p in params.parameters())}
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        if steps == 0:                             # one forward and backward, no optimizer
+        if r.steps == 0:                           # one forward and backward, no optimizer
             loss_and_grads(params, batches[0], cfg, groups=fgm)   # warm-up, not timed
             _sync(dev)
             dist.barrier()
             _zero_launches()
             t0 = time.perf_counter()
             grads, m = loss_and_grads(params, batches[0], cfg, groups=fgm)
-            m["grad_norm"] = grad_norm(grads, fgm)
+            m["grad_norm"] = grad_norm(grads, fgm, params)
             _sync(dev)
             run["step_s"].append(time.perf_counter() - t0)
             run["launches"] = _launches()
             run["metrics"].append({k: float(v) for k, v in m.items()})
             del grads
         else:
-            opt = init_train_state(params, opt_cfg)
+            opt = init_train_state(params, opt_cfg, cfg=cfg, groups=fgm)
+            run["state_bytes"] = adamw.state_bytes(opt)
+            run["state_bytes_expected"] = adamw.zero1_state_bytes(
+                param_shapes(cfg), fgm, master_weights=master)["per_device"]
             step = make_train_step(cfg, opt_cfg, guard=True, groups=fgm)
             _sync(dev)
             _zero_launches()
-            for b in batches[:steps]:
+            for b in batches[:r.steps]:
                 _sync(dev)
                 dist.barrier()
                 t0 = time.perf_counter()
@@ -517,9 +545,11 @@ def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, 
                 run["profile"] = _profiled_step(step, params, opt, batches[0], dev,
                                                 rank == 0)
             del opt, step
+        del params
         if dev.type == "cuda":
             run["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-        out["runs"][mode] = run
+            torch.cuda.empty_cache()
+        out["runs"][r.key] = run
     return out
 
 
@@ -546,21 +576,26 @@ def _profiled_step(step, params, opt, batch, dev, traced: bool) -> Optional[Dict
 def train_world(arch: str, *, attn: Sequence[int], moe: Sequence[int],
                 runs: Sequence = (("allgather", 4),), device: str = "cuda",
                 reduce: bool = False, layers: Optional[int] = None, seq: int = 4096,
-                batch: int = 1, seed: int = 0, lr: float = 3e-4, profile: bool = False,
+                batch: int = 1, seed: int = 0, lr: float = 3e-4, fsdp: bool = True,
+                master_weights: bool = False, profile: bool = False,
                 timeout_s: float = 900.0) -> List[Dict[str, Any]]:
     """The folded training step of ``arch`` (cut to ``layers``) on
     attention (dp, cp, tp) ``attn`` and MoE (edp, ep, etp) ``moe``, over
     gloo (on one card several ranks can share nothing else), one process a
     rank. Each rank builds the weights from ``seed`` in turn and keeps its
     slices; the batches are ``SyntheticTokens`` of ``batch`` × ``seq``
-    (``shard_batch``). ``runs``: ``(cp_mode, steps)`` pairs, each from the
-    same start; ``steps = 0`` is one forward and backward with the global
-    gradient norm and no optimizer state (after one untimed warm-up pass). Per rank and run: each step's
-    metrics and wall time (after a barrier), the kernel launches of the
-    run, and on a card its peak memory; with ``profile``, one more step of
-    the first run profiled on rank 0."""
+    (``shard_batch``). ``runs``: :class:`Run` tuples (``(cp_mode, steps)``
+    at least), each from the same start, with ``ParallelConfig.fsdp`` and
+    ``AdamWConfig.master_weights`` from the run or else ``fsdp`` and
+    ``master_weights``; ``steps = 0`` is one forward and backward with the
+    global gradient norm and no optimizer state (after one untimed warm-up
+    pass). Per rank and run (keyed by :attr:`Run.key`): each step's metrics
+    and wall time (after a barrier), the kernel launches of the run, its
+    parameters and optimizer-state bytes (counted from the tensors, and as
+    ``zero1_state_bytes`` gives them), and on a card its peak memory; with
+    ``profile``, one more step of the first run profiled on rank 0."""
     spec = dict(arch=arch, attn=tuple(attn), moe=tuple(moe), runs=[tuple(r) for r in runs],
                 device=device, reduce=reduce, layers=layers, seq=seq, batch=batch,
-                seed=seed, lr=lr, profile=profile)
+                seed=seed, lr=lr, fsdp=fsdp, master_weights=master_weights, profile=profile)
     return spawn(_train_world_rank, math.prod(attn), backend="gloo", device=device,
                  args=(spec,), timeout_s=timeout_s)

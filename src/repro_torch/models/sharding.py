@@ -2,32 +2,49 @@
 
 Port of the rules of ``repro.models.sharding`` for the leaves the port has.
 JAX resolves a rule to a ``PartitionSpec`` and lets GSPMD move the data;
-here a rule gives each rank its slice of the full tensor
-(:func:`shard_lm_params`) and a :class:`LeafPlan`: the ranks that hold the
-same slice on different tokens, whose gradients must be summed, and over
-which the slice is counted once in the global norm.
+here a rule gives a *spec* (per dimension of the full leaf, the tuple of
+atom names that cut it, ``core.folding.FoldedGroups.atom_names``), each
+rank its slice of the full tensor (:func:`shard_tensor`), and a
+:class:`LeafLayout`: which ranks sum its gradient and where its optimizer
+state is cut.
 
 Symbols (per trailing dim of a leaf): ``tp`` the attention TP axis,
-``fsdp`` the attention DP axis at rest, ``ep``/``etp`` the MoE axes,
-``efsdp`` the MoE EDP axis. ``fsdp`` only changes where a slice is stored
-(GSPMD gathers it for compute), so this slice keeps the attention-side
-leaves replicated over DP: the numbers are the same (ZeRO-1 and FSDP
-storage are ROADMAP.md queue 1 item 4). ``efsdp`` cuts the experts' ``D``
-as the dispatcher expects (``core.moe_layer.shard_moe_params``), which
-gathers it back and reduce-scatters its gradient.
+``fsdp`` the attention DP axis, ``ep``/``etp`` the MoE axes, ``efsdp`` the
+MoE EDP axis. A leaf has three layouts (``KINDS``):
+
+* ``compute`` — the slice a layer computes with: ``fsdp`` resolves to no
+  axis;
+* ``store`` — the slice a rank holds at rest: ``fsdp`` resolves to the
+  attention DP atoms when ``ParallelConfig.fsdp`` is set (the reference's
+  ``_resolve``); the layer all-gathers it over DP where it is used
+  (:func:`gather_for_compute`), and that gather's backward reduce-scatters
+  its gradient;
+* ``state`` — the slice of its optimizer state: the store spec with the
+  DP atoms of the leaf's side appended by ZeRO-1
+  (``optim.adamw.zero1_spec``).
+
+``efsdp`` cuts the experts' ``D`` over EDP in all three, whatever
+``fsdp`` says, because the dispatcher gathers them from there (reference
+``dispatcher.py:425-428``, whose ``shard_map`` cuts ``edp`` regardless of
+``fsdp``). So with ``fsdp=False`` the port stores the experts cut where the
+reference replicates them: the numbers are the same, only memory differs.
+As in the reference, a symbol whose atoms do not divide its dimension
+leaves it whole in a spec; :func:`shard_tensor` refuses such a cut.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import re
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
-from repro_torch.core.folding import AxisGroups, FoldedGroups
+from repro_torch.core import comm
+from repro_torch.core.folding import FoldedGroups, as_layout
+from repro_torch.optim.adamw import Spec, dp_axis, zero1_spec
 
 # (regex on the port's parameter name, symbols of the leaf's dims); the
 # reference's (path-regex, symbols) for the leaves the port has.
@@ -44,8 +61,9 @@ RULES: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
     (r"^lm_head$",              ("fsdp", "tp")),       # (D, V)
     (r".*",                     ()),                   # norms, the gate: replicated
 )
-_AXIS = {"tp": ("attn", "tp"), "ep": ("moe", "ep"), "etp": ("moe", "etp"),
-         "efsdp": ("moe", "edp"), "fsdp": None}
+_AXIS = {"tp": ("attn", "tp"), "fsdp": ("attn", "dp"), "ep": ("moe", "ep"),
+         "etp": ("moe", "etp"), "efsdp": ("moe", "edp")}
+KINDS = ("compute", "store", "state")
 
 
 def symbols(name: str) -> Tuple[Optional[str], ...]:
@@ -53,26 +71,68 @@ def symbols(name: str) -> Tuple[Optional[str], ...]:
     return next(sym for pat, sym in RULES if re.search(pat, name))
 
 
-def _axes_of(name: str, ndim: int, groups: FoldedGroups
-             ) -> Tuple[Optional[AxisGroups], ...]:
-    """Per dim of the leaf, the axis that cuts it (``None``: whole)."""
+def _symbols(name: str, ndim: int) -> Tuple[Optional[str], ...]:
+    """One symbol per dim: the rule's trailing symbols, padded with None."""
     sym = symbols(name)[-ndim:] if ndim else ()
-    sym = (None,) * (ndim - len(sym)) + tuple(sym)
-    return tuple(None if s is None or _AXIS[s] is None else groups.axis(*_AXIS[s])
-                 for s in sym)
+    return (None,) * (ndim - len(sym)) + tuple(sym)
 
 
-def shard_tensor(name: str, t: torch.Tensor, groups: FoldedGroups) -> torch.Tensor:
-    """This rank's slice of the full leaf ``t`` named ``name`` (a parameter,
-    its gradient or a moment), as a contiguous copy."""
-    for dim, ax in enumerate(_axes_of(name, t.dim(), groups)):
-        if ax is None or ax.size == 1:
-            continue
-        if t.shape[dim] % ax.size:
-            raise ValueError(f"{name}: dim {dim} of size {t.shape[dim]} does not split "
-                             f"over {ax.size} ranks")
-        step = t.shape[dim] // ax.size
-        t = t.narrow(dim, ax.index * step, step)
+def _resolve(sym: Optional[str], fg: FoldedGroups, kind: str) -> Tuple[str, ...]:
+    if sym is None or (sym == "fsdp" and (kind == "compute" or not fg.pcfg.fsdp)):
+        return ()
+    return fg.atoms(*_AXIS[sym])
+
+
+def leaf_spec(name: str, shape: Sequence[int], layout, kind: str = "store") -> Spec:
+    """The spec of the full leaf ``name`` of ``shape`` in layout ``kind``
+    (``KINDS``) at ``layout`` (a ``FoldedGroups`` or a ``ParallelConfig``)."""
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    fg = as_layout(layout)
+    spec = []
+    for dim, sym in zip(shape, _symbols(name, len(shape))):
+        atoms = _resolve(sym, fg, "compute" if kind == "compute" else "store")
+        spec.append(atoms if dim % fg.atom_size(atoms) == 0 else ())
+    if kind == "state":
+        return zero1_spec(name, tuple(spec), shape, fg)
+    return tuple(spec)
+
+
+def full_shape(name: str, shape: Sequence[int], layout, kind: str = "store"
+               ) -> Tuple[int, ...]:
+    """The full leaf's shape from the ``shape`` of a ``compute`` or
+    ``store`` slice (:func:`shard_tensor` cuts every symbol it resolves)."""
+    fg = as_layout(layout)
+    return tuple(d * fg.atom_size(_resolve(s, fg, kind))
+                 for d, s in zip(shape, _symbols(name, len(shape))))
+
+
+def _cut(t: torch.Tensor, dim: int, atoms: Sequence[str], fg: FoldedGroups) -> torch.Tensor:
+    """This rank's piece of ``t`` along ``dim`` cut over ``atoms``."""
+    n = fg.atom_size(atoms)
+    if n == 1:
+        return t
+    step = t.shape[dim] // n
+    return t.narrow(dim, fg.atom_index(atoms) * step, step)
+
+
+def _checked_spec(name: str, shape: Sequence[int], fg: FoldedGroups, kind: str) -> Spec:
+    """:func:`leaf_spec`, raising where a symbol's atoms do not divide."""
+    spec = leaf_spec(name, shape, fg, kind)
+    for dim, (sym, atoms) in enumerate(zip(_symbols(name, len(shape)), spec)):
+        want = _resolve(sym, fg, "compute" if kind == "compute" else "store")
+        if want and not set(want) <= set(atoms):
+            raise ValueError(f"{name}: dim {dim} of size {shape[dim]} does not split "
+                             f"over {fg.atom_size(want)} ranks")
+    return spec
+
+
+def shard_tensor(name: str, t: torch.Tensor, groups: FoldedGroups, kind: str = "compute"
+                 ) -> torch.Tensor:
+    """This rank's ``kind`` slice of the full leaf ``t`` named ``name`` (a
+    parameter, its gradient or a moment), as a contiguous copy."""
+    for dim, atoms in enumerate(_checked_spec(name, t.shape, groups, kind)):
+        t = _cut(t, dim, atoms, groups)
     return t.detach().clone().contiguous()
 
 
@@ -88,63 +148,153 @@ def map_params(module: nn.Module, fn: Callable[[str, torch.Tensor], torch.Tensor
     return new
 
 
-def shard_lm_params(params: nn.Module, groups: FoldedGroups) -> nn.Module:
-    """This rank's slices of a full parameter tree (``LMParams``)."""
-    return map_params(params, lambda n, t: shard_tensor(n, t, groups))
+def shard_lm_params(params: nn.Module, groups: FoldedGroups, kind: str = "store"
+                    ) -> nn.Module:
+    """This rank's slices of a full parameter tree (``LMParams``): by
+    default the store layout, the one the train step takes."""
+    return map_params(params, lambda n, t: shard_tensor(n, t, groups, kind))
+
+
+def store_from_compute(params: nn.Module, groups: FoldedGroups) -> nn.Module:
+    """This rank's store slices from its compute slices: the FSDP leaves cut
+    further over DP (a copy; the same tree when nothing is)."""
+    def cut(name: str, t: torch.Tensor) -> torch.Tensor:
+        full = full_shape(name, t.shape, groups, "compute")
+        comp, store = (_checked_spec(name, full, groups, k) for k in ("compute", "store"))
+        for dim, (c, s) in enumerate(zip(comp, store)):
+            t = _cut(t, dim, s[len(c):], groups)
+        return t.clone().contiguous()
+    return map_params(params, cut)
+
+
+def gather_for_compute(name: str, t: torch.Tensor, groups: Optional[FoldedGroups]
+                       ) -> torch.Tensor:
+    """The compute slice of a leaf from its store slice ``t``: an FSDP leaf
+    is all-gathered over the attention DP ranks along its ``fsdp`` dim
+    (``core.comm.all_gather``, whose backward reduce-scatters the gradient,
+    so it arrives summed over DP); any other leaf is ``t`` itself."""
+    if groups is None or not groups.pcfg.fsdp or groups.dp == 1:
+        return t
+    sym = _symbols(name, t.dim())
+    if "fsdp" not in sym:
+        return t
+    dp = groups.attn["dp"]
+    dp.require_rank_order("the FSDP gather")
+    return comm.all_gather(t, dp.group, sym.index("fsdp"))
+
+
+def reduce_axis(name: str) -> Optional[str]:
+    """The attention axis whose ranks sum the leaf's gradient after the
+    backward. Attention-side leaves (embedding, attention, norms, LM head)
+    see their rank's tokens: the ranks that hold the same slice (``dp_cp``
+    for those cut on TP, the whole ``stage`` for the replicated ones) sum
+    their gradients. ``None`` for the MoE leaves, which the dispatcher sums
+    (the router and gate over the token ranks, the shared expert over EP,
+    the experts over EDP by the gather's backward)."""
+    if re.search(r"(^|\.)moe\.", name):
+        return None
+    return "dp_cp" if "tp" in symbols(name) else "stage"
+
+
+# A reduce axis less the attention DP atoms: what is left to sum after a
+# reduce-scatter over DP (ZeRO-1) or the FSDP gather's backward.
+_WITHOUT_DP = {"dp_cp": "cp", "stage": "cp_tp"}
 
 
 @dataclasses.dataclass(frozen=True)
-class LeafPlan:
-    """``reduce``: the attention axis whose ranks sum the leaf's gradient
-    after the backward (``None`` when the backward already summed it: the
-    MoE leaves, in the dispatcher). ``replicas``: ``(side, axis)`` of the
-    ranks that hold the same slice (``None``: no other rank does)."""
+class LeafLayout:
+    """One leaf at a fold: its ``state`` spec, ``fsdp`` (stored cut over
+    the attention DP atoms, gathered for compute), ``zero_dim``, the dim on
+    which the state cuts the store slice further over the ``dp`` axis of
+    its side (``None``: the state shard is the store slice), and that axis
+    as ``(side, axis)``."""
 
-    reduce: Optional[str]
-    replicas: Optional[Tuple[str, str]]
-
-
-# MoE axes a leaf is not cut on → the combined axis of their ranks.
-_MOE_REPLICAS = {frozenset({"edp", "ep", "etp"}): "tokens", frozenset({"ep"}): "ep",
-                 frozenset(): None}
+    state: Spec
+    fsdp: bool
+    zero_dim: Optional[int]
+    dp: Tuple[str, str]
 
 
-def leaf_plan(name: str) -> LeafPlan:
-    """The reduction plan of one leaf. Attention-side leaves (embedding,
-    attention, norms, LM head) see their rank's tokens: the ranks that hold
-    the same slice (``dp_cp`` for those cut on TP, the whole ``stage`` for
-    the replicated ones) sum their gradients. The MoE leaves are summed
-    inside the dispatcher (the router and gate over the token ranks, the
-    shared expert over EP, the experts over EDP by the gather's backward)."""
-    sym = {s for s in symbols(name) if s is not None and _AXIS[s] is not None}
-    if re.search(r"(^|\.)moe\.", name):
-        unused = frozenset({"edp", "ep", "etp"} - {_AXIS[s][1] for s in sym})
-        if unused not in _MOE_REPLICAS:
-            raise ValueError(f"{name}: no reduction plan for MoE replicas {sorted(unused)}")
-        axis = _MOE_REPLICAS[unused]
-        return LeafPlan(reduce=None, replicas=axis and ("moe", axis))
-    axis = "dp_cp" if "tp" in sym else "stage"
-    return LeafPlan(reduce=axis, replicas=("attn", axis))
+def leaf_layout(name: str, shape: Sequence[int], layout) -> LeafLayout:
+    """The :class:`LeafLayout` of the full leaf ``name`` of ``shape``."""
+    fg = as_layout(layout)
+    store, state = leaf_spec(name, shape, fg, "store"), leaf_spec(name, shape, fg, "state")
+    zero_dim = next((i for i, (a, b) in enumerate(zip(store, state)) if a != b), None)
+    fsdp = any(sym == "fsdp" and atoms for sym, atoms in zip(_symbols(name, len(shape)), store))
+    return LeafLayout(state, fsdp, zero_dim, dp_axis(name))
+
+
+def layouts_of(params: Mapping[str, torch.Tensor], groups: FoldedGroups
+               ) -> Dict[str, LeafLayout]:
+    """The :class:`LeafLayout` of each leaf of this rank's store slices."""
+    return {n: leaf_layout(n, full_shape(n, p.shape, groups), groups)
+            for n, p in params.items()}
+
+
+def state_view(p: torch.Tensor, lay: LeafLayout, groups: FoldedGroups) -> torch.Tensor:
+    """This rank's state shard of its store slice ``p`` (a view where the
+    cut is contiguous; the caller writes it back with :func:`gather_state`)."""
+    if lay.zero_dim is None:
+        return p
+    return _cut(p, lay.zero_dim, groups.atoms(*lay.dp), groups).contiguous()
 
 
 @torch.no_grad()
-def reduce_grads(grads: Dict[str, torch.Tensor], groups: FoldedGroups) -> None:
-    """Sum each gradient over the ranks of its plan's ``reduce`` axis, in
-    place, in the gradient's dtype (the reference's backward reduces in the
-    compute dtype)."""
+def gather_state(params: Mapping[str, torch.Tensor], shards: Mapping[str, torch.Tensor],
+                 layouts: Mapping[str, LeafLayout], groups: FoldedGroups) -> None:
+    """Write each updated state shard back into its store slice: an
+    all-gather over the leaf's DP ranks along its ZeRO-1 dim, for the leaves
+    whose state cuts the store slice further (ZeRO-1 after the update)."""
+    for name, p in params.items():
+        lay = layouts[name]
+        if lay.zero_dim is not None:
+            ax = groups.axis(*lay.dp)
+            ax.require_rank_order("the ZeRO-1 parameter gather")
+            p.copy_(comm.all_gather(shards[name], ax.group, lay.zero_dim))
+
+
+@torch.no_grad()
+def reduce_grads(grads: Dict[str, torch.Tensor], groups: FoldedGroups,
+                 layouts: Optional[Mapping[str, LeafLayout]] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """Sum each gradient over the ranks that computed it on other tokens, in
+    the gradient's dtype (the reference's backward reduces in the compute
+    dtype).
+
+    Without ``layouts``: gradients of compute slices, each all-reduced over
+    its :func:`reduce_axis` in place. With ``layouts`` (the train step's
+    ZeRO-1): gradients of store slices, each reduced to its state shard. A
+    leaf the state cuts on ``zero_dim`` is reduce-scattered over its DP ranks
+    there, then all-reduced over the rest of its reduce axis; an FSDP leaf, summed
+    over DP by its gather's backward, only over the rest; a MoE leaf (summed
+    in the dispatcher) is only cut. Returns the reduced gradients."""
+    out = {}
     for name, g in grads.items():
-        axis = leaf_plan(name).reduce
+        axis = reduce_axis(name)
+        lay = None if layouts is None else layouts[name]
+        if lay is not None:
+            if lay.zero_dim is not None and axis is None:
+                g = _cut(g, lay.zero_dim, groups.atoms(*lay.dp), groups).contiguous()
+            elif lay.zero_dim is not None:
+                groups.attn["dp"].require_rank_order("the ZeRO-1 reduce-scatter")
+                g = comm.reduce_scatter(g, groups.attn["dp"].group, lay.zero_dim)
+            if axis is not None and (lay.zero_dim is not None or lay.fsdp):
+                axis = _WITHOUT_DP[axis]
         group = None if axis is None else groups.attn[axis].group
         if group is not None:
             with torch.profiler.record_function("comm all_reduce"):
                 dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+        out[name] = g
+    return out
 
 
-def norm_counted(names, groups: FoldedGroups) -> Dict[str, bool]:
-    """Whether this rank's slice of each leaf counts in the global norm:
-    the first of its replicas does, the others do not."""
+def norm_counted(layouts: Mapping[str, LeafLayout], groups: FoldedGroups) -> Dict[str, bool]:
+    """Whether this rank's state shard of each leaf counts in the global
+    norm: of the ranks that hold the same shard, the one whose coordinate
+    is 0 on every atom that does not cut it."""
+    coords = {a: groups.atom_index((a,)) for a in groups.atom_names}
     out = {}
-    for name in names:
-        rep = leaf_plan(name).replicas
-        out[name] = rep is None or groups.axis(*rep).index == 0
+    for name, lay in layouts.items():
+        cut = {a for e in lay.state for a in e}
+        out[name] = all(c == 0 for a, c in coords.items() if a not in cut)
     return out

@@ -11,6 +11,7 @@ the vocabulary over TP.
 """
 from __future__ import annotations
 
+import types
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -26,6 +27,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (AttentionParams, attention,
                                           attention_decode_paged, init_attention)
 from repro_torch.models.common import rmsnorm
+from repro_torch.models.sharding import gather_for_compute
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -134,6 +136,33 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
     return LMParams(embed, layers, torch.zeros(D, device=device), lm_head)
 
 
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """The full shape of every leaf :func:`init_lm` makes, by name, with no
+    tensor made."""
+    check_supported(cfg)
+    D, V, m = cfg.d_model, cfg.vocab_size, cfg.moe
+    E, F, fs = m.n_experts, m.d_expert, m.shared_expert_width
+    out = {"embed": (V, D), "final_norm": (D,)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (D, V)
+    for layer in range(cfg.n_layers):
+        pre = f"layers.{layer}."
+        out.update({pre + "norm1": (D,), pre + "norm2": (D,),
+                    pre + "attn.wq": (D, cfg.q_dim), pre + "attn.wk": (D, cfg.kv_dim),
+                    pre + "attn.wv": (D, cfg.kv_dim), pre + "attn.wo": (cfg.q_dim, D)})
+        if cfg.qkv_bias:
+            out.update({pre + "attn.bq": (cfg.q_dim,), pre + "attn.bk": (cfg.kv_dim,),
+                        pre + "attn.bv": (cfg.kv_dim,)})
+        out.update({pre + "moe.router": (D, E), pre + "moe.w1": (E, D, F),
+                    pre + "moe.w2": (E, F, D), pre + "moe.w3": (E, D, F)})
+        if fs:
+            out.update({pre + "moe.ws1": (D, fs), pre + "moe.ws2": (fs, D),
+                        pre + "moe.ws3": (D, fs)})
+            if m.shared_expert_gate:
+                out[pre + "moe.gate"] = (D, 1)
+    return out
+
+
 def _expert_token_counts(h: torch.Tensor, w_gate: torch.Tensor, cfg: ModelConfig,
                          token_mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Routed-assignment histogram (E,) mirroring ``router.route``'s top-k,
@@ -179,9 +208,15 @@ def _apply_moe(p: MoEBlockParams, x: torch.Tensor, pos: Optional[torch.Tensor],
                ) -> Tuple[torch.Tensor, AuxDict]:
     """One ``moe`` layer over whole sequences: x (B, S, D) → (x, aux). With
     ``groups``, ``x`` is this rank's sequence-parallel rows, which are also
-    its MoE token shard (:func:`check_sp_moe_handoff`)."""
+    its MoE token shard (:func:`check_sp_moe_handoff`), and ``p`` its store
+    slices: the attention leaves stored over DP (FSDP) are gathered here,
+    per layer, and again in remat's recompute."""
     h = rmsnorm(x, p.norm1)
-    x = x + attention(p.attn, h, pos, cfg, groups=groups)
+    attn = p.attn
+    if groups is not None:
+        attn = types.SimpleNamespace(**{k: gather_for_compute(f"attn.{k}", t, groups)
+                                        for k, t in p.attn.named_parameters()})
+    x = x + attention(attn, h, pos, cfg, groups=groups)
     h = rmsnorm(x, p.norm2)
     y, aux = moe_block(p.moe, h, cfg, groups=groups)
     return x + y, aux
@@ -233,16 +268,18 @@ def lm_embed(params: LMParams, batch: Dict[str, torch.Tensor], pos: Optional[tor
     """Embedding prologue: tokens (B, S) → activations (B, S, D).
 
     With ``groups``: ``batch["tokens"]`` is the rank's CP chunk (shared by
-    its TP ranks) and ``params.embed`` its vocabulary slice; each TP rank
+    its TP ranks) and ``params.embed`` its vocabulary slice (gathered over
+    DP here when stored cut there); each TP rank
     looks up the ids it holds (zeros elsewhere) and the reduce-scatter over
     TP sums them into the sequence-parallel rows (reference
     ``transformer.py:360-379``: exactly one rank adds a non-zero row)."""
     tokens = batch["tokens"].long()
     if groups is None:
         return params.embed[tokens].to(_compute_dtype(cfg))
+    embed = gather_for_compute("embed", params.embed, groups)
     local = tokens - vocab_start(params, groups)
-    mine = (local >= 0) & (local < params.embed.shape[0])
-    x = params.embed[torch.where(mine, local, 0)] * mine[..., None].to(params.embed.dtype)
+    mine = (local >= 0) & (local < embed.shape[0])
+    x = embed[torch.where(mine, local, 0)] * mine[..., None].to(embed.dtype)
     return comm.sp_scatter(x.to(_compute_dtype(cfg)), groups.attn["tp"].group)
 
 
@@ -254,7 +291,10 @@ def lm_head_logits(params: LMParams, x: torch.Tensor, cfg: ModelConfig,
     x = rmsnorm(x, params.final_norm)
     if groups is not None:
         x = comm.sp_gather(x, groups.attn["tp"].group)
-    head = params.lm_head if params.lm_head is not None else params.embed.T
+    if params.lm_head is not None:
+        head = gather_for_compute("lm_head", params.lm_head, groups)
+    else:
+        head = gather_for_compute("embed", params.embed, groups).T
     return x @ head.to(x.dtype)
 
 
@@ -277,7 +317,7 @@ def apply_lm(params: LMParams, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     """Forward pass → (logits, aux), aux averaged over the MoE layers.
 
     ``batch["tokens"]``: (B, S) integer tokens on the parameters' device.
-    With ``groups``: ``params`` are this rank's slices
+    With ``groups``: ``params`` are this rank's store slices
     (``models.sharding.shard_lm_params``), ``batch`` its share
     (``data.pipeline.shard_batch``: its DP rows and CP chunk), and the
     logits (B, S / cp, V / tp) those of its CP chunk on its vocabulary

@@ -4,26 +4,29 @@ the anomaly guard.
 
 Port of ``repro.train.loop`` at pp = 1 (``cast_params``,
 ``aux_loss_coefs``, ``assemble_loss_metrics``, ``loss_fn``,
-``make_train_step``). ``make_train_step`` returns
+``make_train_step``, ``train_state_structs``). ``make_train_step`` returns
 
     step(params, opt_state, batch) -> (params, opt_state, metrics)
 
-* ``params`` (:class:`LMParams`) hold the fp32 masters and are updated in
-  place by :func:`repro_torch.optim.adamw.update`;
+* ``params`` (:class:`LMParams`) hold the fp32 masters, or with
+  ``AdamWConfig.master_weights`` their compute-dtype casts (the masters are
+  then in the optimizer state), and are updated in place by
+  :func:`repro_torch.optim.adamw.update`;
 * the cast to the compute dtype is hoisted out of the loss: the backward
   runs on the compute copies (the cast's derivative is 1), whose gradients
   the optimizer reads slice by slice in fp32;
 * ``remat`` and ``microbatch`` mirror the ``ParallelConfig`` fields of the
   same names;
 * with ``groups`` (``core.folding.build_folded_groups``) every rank runs the
-  step on its slices (``models.sharding.shard_lm_params``) and its share of
+  step on its store slices (``models.sharding.shard_lm_params``; FSDP
+  leaves are gathered over DP where a layer uses them) and its share of
   the batch (``data.pipeline.shard_batch``): attention over TP and CP, the
-  MoE layer over EDP×EP×ETP, the vocabulary-parallel loss; after the
-  backward each gradient is summed over the ranks that hold the same slice
-  on other tokens (``models.sharding.leaf_plan``; the dispatcher has
-  already summed the MoE leaves), the clipping norm is global, and AdamW
-  steps each rank's slices. ZeRO-1 and pipeline stages are not ported
-  (ROADMAP.md queue 1).
+  MoE layer over EDP×EP×ETP, the vocabulary-parallel loss. After the
+  backward each gradient is reduced to the rank's ZeRO-1 state shard
+  (``models.sharding.reduce_grads`` with the leaves' layouts), the
+  clipping norm is global, AdamW steps each rank's state shards, and the
+  leaves whose state cuts the store slice further are all-gathered over
+  DP into it. Pipeline stages are not ported (ROADMAP.md queue 1).
 
 The JAX package stacks every layer's parameters over the layer repeats, so
 a per-layer norm or router has one axis more there than here. Its cast
@@ -41,24 +44,28 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.folding import FoldedGroups
 from repro_torch.models import sharding
 from repro_torch.models.common import softmax_cross_entropy, vocab_parallel_cross_entropy
-from repro_torch.models.transformer import LMParams, apply_lm, leaf_rank, vocab_start
+from repro_torch.models.transformer import (LMParams, apply_lm, leaf_rank, param_shapes,
+                                            vocab_start)
 from repro_torch.optim import adamw
 
 Tensors = Dict[str, torch.Tensor]
 REMAT = ("full", "none")
 
 
+def _cast(name: str, t: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The reference's cast of one fp32 leaf: matrices (``leaf_rank >= 2``)
+    to the compute dtype; other leaves, and leaves already cast, as they are."""
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    return t.to(dt) if t.dtype == torch.float32 and leaf_rank(name, t) >= 2 else t
+
+
 def cast_params(params: LMParams, cfg: ModelConfig) -> LMParams:
     """fp32 masters → compute copies: the same module tree with new leaf
     parameters (``requires_grad``), matrices (rank >= 2) in the config's
     compute dtype and the rest (the final norm) sharing the fp32 master's
-    storage. Gradients land on the copies, not on ``params``."""
-    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-
-    def leaf(name: str, t: torch.Tensor) -> torch.Tensor:
-        return t.to(dt) if t.dtype == torch.float32 and leaf_rank(name, t) >= 2 else t
-
-    return sharding.map_params(params, leaf)
+    storage. Gradients land on the copies, not on ``params``. Leaves held
+    in the compute dtype already (``master_weights``) share their storage."""
+    return sharding.map_params(params, lambda n, t: _cast(n, t, cfg))
 
 
 def aux_loss_coefs(cfg: ModelConfig) -> Dict[str, float]:
@@ -117,9 +124,10 @@ def loss_and_grads(params: LMParams, batch: Tensors, cfg: ModelConfig, *,
     """The step's forward and backward → (gradients by name, metrics).
 
     ``microbatch`` > 1 splits the batch into that many slices and averages
-    their fp32 gradients and metrics. With ``groups`` the gradients are then
-    summed over each leaf's ``reduce`` ranks (``models.sharding``): every
-    replica of a slice holds the same gradient."""
+    their fp32 gradients and metrics. With ``groups``, ``params`` are the
+    rank's store slices and the gradients are then reduced to its ZeRO-1
+    state shards (``models.sharding.reduce_grads``): every replica of a
+    shard holds the same gradient."""
     cparams = cast_params(params, cfg)
     if microbatch and microbatch > 1:
         B = batch["tokens"].shape[0]
@@ -146,15 +154,20 @@ def loss_and_grads(params: LMParams, batch: Tensors, cfg: ModelConfig, *,
         grads, metrics = _grads_of(cparams, batch, cfg, remat, groups)
     del cparams
     if groups is not None:
-        sharding.reduce_grads(grads, groups)
+        grads = sharding.reduce_grads(
+            grads, groups, sharding.layouts_of(dict(params.named_parameters()), groups))
     return grads, metrics
 
 
-def grad_norm(grads: Tensors, groups: Optional[FoldedGroups] = None) -> torch.Tensor:
-    """The global gradient norm: across ranks, each distinct slice once."""
+def grad_norm(grads: Tensors, groups: Optional[FoldedGroups] = None,
+              params: Optional[LMParams] = None) -> torch.Tensor:
+    """The global gradient norm: across ranks, each distinct state shard
+    once (``grads`` from :func:`loss_and_grads`, ``params`` the store
+    slices they belong to)."""
     if groups is None:
         return adamw.global_norm(grads)
-    return adamw.global_norm(grads, counted=sharding.norm_counted(grads, groups),
+    layouts = sharding.layouts_of(dict(params.named_parameters()), groups)
+    return adamw.global_norm(grads, counted=sharding.norm_counted(layouts, groups),
                              group=groups.attn["stage"].group)
 
 
@@ -172,9 +185,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] = Non
     (``metrics["step_ok"]``). ``with_loss_scale=True`` requires an fp32
     scalar ``batch["loss_scale"]`` multiplied into the gradients and the
     loss metric after the backward (1.0 is a bitwise no-op; NaN makes a
-    guarded skip). ``groups``: the folded mapping; ``params`` and ``batch``
-    are then this rank's (``models.sharding.shard_lm_params``,
-    ``data.pipeline.shard_batch`` with the same ``microbatch``).
+    guarded skip). ``groups``: the folded mapping; ``params`` (store
+    slices, ``models.sharding.shard_lm_params``), ``opt_state``
+    (:func:`init_train_state` with the same ``groups``) and ``batch``
+    (``data.pipeline.shard_batch`` with the same ``microbatch``) are then
+    this rank's. A skipped step skips the parameter gather on every rank
+    alike: the flag comes from the global norm.
     """
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     if remat not in REMAT:
@@ -194,20 +210,70 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] = Non
             metrics["loss"] = metrics["loss"] * ls
         named = dict(params.named_parameters())
         step_ok = torch.isfinite(metrics["loss"]) if guard else None
-        norm = {} if groups is None else dict(
-            counted=sharding.norm_counted(named, groups), norm_group=groups.attn["stage"].group)
+        decay = {n: leaf_rank(n, p) >= 2 for n, p in named.items()}
+        if groups is None:
+            shards, norm = named, {}
+        else:
+            layouts = sharding.layouts_of(named, groups)
+            shards = {n: sharding.state_view(p.data, layouts[n], groups)
+                      for n, p in named.items()}
+            norm = dict(counted=sharding.norm_counted(layouts, groups),
+                        norm_group=groups.attn["stage"].group)
         with torch.profiler.record_function("adamw update"):
-            _, opt_state, opt_m = adamw.update(
-                opt_cfg, grads, opt_state, named, step_ok=step_ok,
-                decay={n: leaf_rank(n, p) >= 2 for n, p in named.items()}, **norm)
+            _, opt_state, opt_m = adamw.update(opt_cfg, grads, opt_state, shards,
+                                               step_ok=step_ok, decay=decay, **norm)
         metrics.update(opt_m)
+        if groups is not None and (step_ok is None or bool(opt_m["step_ok"])):
+            sharding.gather_state(named, shards, layouts, groups)
         return params, opt_state, metrics
 
     return step
 
 
-def init_train_state(params: LMParams, opt_cfg: Optional[adamw.AdamWConfig] = None
-                     ) -> adamw.AdamWState:
-    """Zero AdamW state for ``params`` (on their device)."""
+def init_train_state(params: LMParams, opt_cfg: Optional[adamw.AdamWConfig] = None, *,
+                     cfg: Optional[ModelConfig] = None,
+                     groups: Optional[FoldedGroups] = None) -> adamw.AdamWState:
+    """Zero AdamW state for ``params`` (on their device); with ``groups``
+    only this rank's ZeRO-1 state shards of its store slices. With
+    ``opt_cfg.master_weights`` the state holds an fp32 master of each
+    shard, and the matrices of ``params`` (``leaf_rank >= 2``) are cast in
+    place to ``cfg``'s compute dtype, the reference's ``cast_params``."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
-    return adamw.init(dict(params.named_parameters()), master_weights=opt_cfg.master_weights)
+    named = dict(params.named_parameters())
+    if groups is not None:
+        layouts = sharding.layouts_of(named, groups)
+        named = {n: sharding.state_view(p.detach(), layouts[n], groups)
+                 for n, p in named.items()}
+    state = adamw.init(named, master_weights=opt_cfg.master_weights)
+    if opt_cfg.master_weights:
+        if cfg is None:
+            raise ValueError("init_train_state(master_weights=True) needs cfg: the params "
+                             "are cast to its compute dtype")
+        for n, p in params.named_parameters():
+            p.data = _cast(n, p.data, cfg)
+    return state
+
+
+def train_state_structs(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] = None, *,
+                        groups: Optional[FoldedGroups] = None
+                        ) -> Tuple[Dict[str, torch.Tensor], adamw.AdamWState]:
+    """``(params, opt_state)`` as held at rest, as ``meta`` tensors by name:
+    the full leaves, or with ``groups`` this rank's store slices and state
+    shards. With ``master_weights`` the params are the compute-dtype casts
+    and the state holds the fp32 masters."""
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+
+    def meta(name, shape, kind):
+        if groups is not None:
+            spec = sharding.leaf_spec(name, shape, groups, kind)
+            shape = tuple(d // groups.atom_size(a) for d, a in zip(shape, spec))
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+
+    full = param_shapes(cfg)
+    params = {n: meta(n, s, "store") for n, s in full.items()}
+    if opt_cfg.master_weights:
+        params = {n: _cast(n, t, cfg) for n, t in params.items()}
+    moments = {n: meta(n, s, "state") for n, s in full.items()}
+    return params, adamw.AdamWState(
+        step=torch.empty((), dtype=torch.int32, device="meta"), mu=moments, nu=dict(moments),
+        master=dict(moments) if opt_cfg.master_weights else None)

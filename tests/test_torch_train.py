@@ -311,5 +311,6 @@ def test_unported_training_options_raise():
         transformer.apply_lm(params, {**_tbatch(batches[0]),
                                       "positions": torch.zeros((BATCH, SEQ), dtype=torch.int32)},
                              tcfg)
-    with pytest.raises(NotImplementedError, match="master_weights"):
+    # master_weights is ported; it casts the params, so it needs the config
+    with pytest.raises(ValueError, match="needs cfg"):
         init_train_state(params, adamw.AdamWConfig(master_weights=True))

@@ -17,6 +17,18 @@ first moments after step 1, i.e. the clipped gradients, and a NaN scale's
 skip) and reduced Qwen2-57B-A14B at the same fold (qkv biases, the
 sigmoid-gated shared expert): one step each.
 
+The training state is sharded as the reference keeps it (``fsdp=True`` by
+default: the attention leaves stored over DP; ZeRO-1 state over DP), so a
+rank's parameters are its store slices and its gradients and AdamW state
+its state shards (``convert.tensors_from_jax(kind=...)`` slices JAX's the
+same way). The ZeRO cases run at attention (2, 2, 2) with MoE EDP2×EP4, so
+both sides cut their state: reduced Mixtral with ``master_weights`` (3
+steps), with ``fsdp=False`` (1 step), reduced Qwen2 with
+``master_weights`` (1 step), and Mixtral's step 2 taken from JAX's
+parameters and state after step 1 (``convert.opt_state_from_jax``). Each
+case's parameters and state are also assembled from every rank's shards
+into full tensors (replicas bit for bit equal) and held against JAX's.
+
 JAX is imported inside the test functions only: the world's processes
 import this module to find their worker.
 """
@@ -35,13 +47,25 @@ REL = 1e-4
 OPT = dict(lr=1e-3, warmup_steps=2, decay_steps=100)
 METRICS = ("loss", "ce_loss", "moe_aux_loss", "moe_z_loss", "moe_drop_fraction", "grad_norm",
            "lr", "tokens")
-# name: (arch, attn fold, moe fold, cp_mode, steps, global batch, microbatch)
+# name: (arch, attn fold, moe fold, cp_mode, steps, global batch, microbatch,
+#        ParallelConfig.fsdp, AdamWConfig.master_weights)
 CASES = {
-    "mixtral-ep8-allgather": ("mixtral-8x22b", (2, 2, 2), (1, 8, 1), "allgather", 3, 2, 0),
-    "mixtral-ep8-ring": ("mixtral-8x22b", (2, 2, 2), (1, 8, 1), "ring", 3, 2, 0),
-    "mixtral-folded-micro": ("mixtral-8x22b", (2, 2, 2), (1, 4, 2), "allgather", 1, 4, 2),
-    "qwen2-folded": ("qwen2-57b-a14b", (2, 2, 2), (1, 4, 2), "allgather", 1, 2, 0),
+    "mixtral-ep8-allgather": ("mixtral-8x22b", (2, 2, 2), (1, 8, 1), "allgather", 3, 2, 0,
+                              True, False),
+    "mixtral-ep8-ring": ("mixtral-8x22b", (2, 2, 2), (1, 8, 1), "ring", 3, 2, 0, True, False),
+    "mixtral-folded-micro": ("mixtral-8x22b", (2, 2, 2), (1, 4, 2), "allgather", 1, 4, 2,
+                             True, False),
+    "qwen2-folded": ("qwen2-57b-a14b", (2, 2, 2), (1, 4, 2), "allgather", 1, 2, 0, True, False),
+    "mixtral-zero-master": ("mixtral-8x22b", (2, 2, 2), (2, 4, 1), "allgather", 3, 2, 0,
+                            True, True),
+    "mixtral-zero-nofsdp": ("mixtral-8x22b", (2, 2, 2), (2, 4, 1), "allgather", 1, 2, 0,
+                            False, False),
+    "qwen2-zero-master": ("qwen2-57b-a14b", (2, 2, 2), (2, 4, 1), "allgather", 1, 2, 0,
+                          True, True),
 }
+# The port takes RESUMED's step 2 from JAX's parameters and state after step 1.
+RESUMED = "mixtral-zero-master"
+STATE = ("mu", "nu", "master")
 
 
 def _rel(a, b) -> float:
@@ -54,8 +78,24 @@ def _rel_l2(a, b) -> float:
 
 
 def _pcfg(case):
-    _, attn, moe, mode, _, _, micro = CASES[case]
-    return ParallelConfig(attn=PM(*attn), moe=PM(*moe), cp_mode=mode, microbatch=micro)
+    _, attn, moe, mode, _, _, micro, fsdp, _ = CASES[case]
+    return ParallelConfig(attn=PM(*attn), moe=PM(*moe), cp_mode=mode, microbatch=micro,
+                          fsdp=fsdp)
+
+
+def _opt(case):
+    from repro_torch.optim import adamw
+    return adamw.AdamWConfig(**OPT, master_weights=CASES[case][8])
+
+
+def _results(params, opt) -> dict:
+    """A rank's store slices and state shards as numpy."""
+    out = {"params": {n: p.detach().float().numpy().copy() for n, p in params.named_parameters()}}
+    for what in STATE:
+        tree = getattr(opt, what)
+        if tree is not None:
+            out[what] = {n: t.numpy().copy() for n, t in tree.items()}
+    return out
 
 
 def _port_cfg(case):
@@ -65,19 +105,18 @@ def _port_cfg(case):
     return fold_config(train_config(arch, reduce=True), moe[1])
 
 
-def _train_world(rank, world, cases):
-    from repro_torch.convert import params_from_jax
+def _train_world(rank, world, cases, resumed):
+    from repro_torch.convert import opt_state_from_jax, params_from_jax
     from repro_torch.data.pipeline import shard_batch
-    from repro_torch.optim import adamw
     from repro_torch.train.loop import init_train_state, loss_and_grads, make_train_step
     out = {}
     for case, (jparams, batches) in cases.items():
-        arch, _, _, _, steps, _, micro = CASES[case]
+        arch, _, _, _, steps, _, micro, *_ = CASES[case]
         cfg = _port_cfg(case)
         fg = folding.build_folded_groups(_pcfg(case), rank=rank, world=world)
         params = params_from_jax(jparams, cfg, device="cpu", groups=fg)
-        opt_cfg = adamw.AdamWConfig(**OPT)
-        opt = init_train_state(params, opt_cfg)
+        opt_cfg = _opt(case)
+        opt = init_train_state(params, opt_cfg, cfg=cfg, groups=fg)
         local = [{k: torch.from_numpy(v) for k, v in shard_batch(b, fg, microbatch=micro).items()}
                  for b in batches]
         res = {"metrics": []}
@@ -90,8 +129,14 @@ def _train_world(rank, world, cases):
             b = dict(local[i], loss_scale=torch.tensor(1.0)) if micro else local[i]
             params, opt, m = step(params, opt, b)
             res["metrics"].append({k: float(v) for k, v in m.items()})
-        res["params"] = {n: p.detach().numpy().copy() for n, p in params.named_parameters()}
-        res["mu"] = {n: t.numpy().copy() for n, t in opt.mu.items()}
+        res.update(_results(params, opt))
+        if case == RESUMED:       # step 2 again, from JAX's parameters and state after step 1
+            p1, o1 = resumed
+            params = params_from_jax(p1, cfg, device="cpu", groups=fg)
+            opt = opt_state_from_jax(o1, cfg, device="cpu", groups=fg)
+            params, opt, m = step(params, opt, local[1])
+            res["resumed"] = dict(metrics=[{k: float(v) for k, v in m.items()}],
+                                  **_results(params, opt))
         if micro:                                   # a NaN loss scale: a guarded skip
             params, opt, m = step(params, opt, dict(local[0], loss_scale=torch.tensor(np.nan)))
             res["skip_ok"] = bool(m["step_ok"])
@@ -115,7 +160,7 @@ def _inputs(case):
     from repro.data.pipeline import DataConfig, SyntheticTokens
     from repro.models.transformer import init_lm
     cfg = _jax_cfg(case)
-    _, _, _, _, steps, batch, _ = CASES[case]
+    _, _, _, _, steps, batch, *_ = CASES[case]
     data = SyntheticTokens(DataConfig(seq_len=SEQ, global_batch=batch,
                                       vocab_size=cfg.vocab_size, seed=3))
     params = jax.tree.map(np.asarray, init_lm(jax.random.PRNGKey(1), cfg))
@@ -129,52 +174,97 @@ def _jax_case(case, jparams, batches):
     from repro.optim import adamw
     from repro.train import loop
     cfg = _jax_cfg(case)
-    _, attn, moe, mode, _, _, micro = CASES[case]
-    fm = build_folded_mesh(JPC(attn=JPM(*attn), moe=JPM(*moe), cp_mode=mode, microbatch=micro))
-    out = {"metrics": []}
+    _, attn, moe, mode, _, _, micro, fsdp, master = CASES[case]
+    fm = build_folded_mesh(JPC(attn=JPM(*attn), moe=JPM(*moe), cp_mode=mode, microbatch=micro,
+                               fsdp=fsdp))
+    out = {"metrics": [], "states": []}
     if not micro:
         (_, _), g = jax.jit(jax.value_and_grad(lambda p: loop.loss_fn(p, batches[0], cfg, fm),
                                                has_aux=True))(jparams)
         out["grads"] = jax.tree.map(np.asarray, g)
-    step = loop.make_train_step(cfg, fm, adamw.AdamWConfig(**OPT), donate=False,
-                                guard=bool(micro), with_loss_scale=bool(micro))
-    p, o = jparams, adamw.init(jparams)
+    step = loop.make_train_step(cfg, fm, adamw.AdamWConfig(**OPT, master_weights=master),
+                                donate=False, guard=bool(micro), with_loss_scale=bool(micro))
+    p, o = jparams, adamw.init(jparams, master_weights=master)
     for b in batches:
         p, o, m = step(p, o, dict(b, loss_scale=np.float32(1.0)) if micro else b)
         out["metrics"].append({k: float(v) for k, v in m.items()})
-    out["params"], out["mu"] = jax.tree.map(np.asarray, p), jax.tree.map(np.asarray, o.mu)
+        out["states"].append(jax.tree.map(np.asarray, (p, o)))
+    p, o = out["states"][-1]
+    out.update(params=p, **{what: getattr(o, what) for what in STATE
+                            if getattr(o, what) is not None})
     return out
+
+
+def _assemble(name, shards, full, kind, case):
+    """The full leaf from every rank's ``kind`` slice; replicas must agree
+    bit for bit, and every element must be held by some rank."""
+    from repro_torch.models.sharding import leaf_spec
+    out, seen = np.zeros(full, np.float32), np.zeros(full, bool)
+    for rank, t in enumerate(shards):
+        fg = folding.folded_layout(_pcfg(case), rank=rank, world=8)
+        idx = tuple(slice(fg.atom_index(a) * (d // fg.atom_size(a)),
+                          (fg.atom_index(a) + 1) * (d // fg.atom_size(a)))
+                    for d, a in zip(full, leaf_spec(name, full, fg, kind)))
+        if seen[idx].any():
+            np.testing.assert_array_equal(out[idx], t, err_msg=f"{case} {name} rank {rank}")
+        out[idx], seen[idx] = t, True
+    assert seen.all(), (case, name, kind)
+    return out
+
+
+def _check_full(case, got_by_rank, want, cfg, skip=()):
+    """Parameters and state assembled from the ranks against JAX's full
+    tensors, within REL relative L2; the parameters (and master) of the
+    leaves ``skip`` are only assembled."""
+    from repro_torch.convert import named_from_jax
+    for what in ("params",) + STATE:
+        if what not in want:
+            assert what not in got_by_rank[0], (case, what)
+            continue
+        kind = "store" if what == "params" else "state"
+        for n, ref in named_from_jax(want[what], cfg).items():
+            full = _assemble(n, [r[what][n] for r in got_by_rank], ref.shape, kind, case)
+            if what in ("params", "master") and n.endswith(skip):
+                continue
+            err = _rel_l2(full, ref)
+            assert err <= REL, (case, what, n, err)
 
 
 def test_folded_train_step_matches_jax(tmp_path):
     from repro_torch.convert import tensors_from_jax
     from repro_torch.launch.world import spawn
+    from repro_torch.optim.adamw import AdamWState
     inputs = {case: _inputs(case) for case in CASES}
+    ref = {RESUMED: _jax_case(RESUMED, *inputs[RESUMED])}      # its step 1 seeds the resume
+    p1, o1 = ref[RESUMED]["states"][0]
+    resumed = (p1, AdamWState(o1.step, o1.mu, o1.nu, o1.master))   # no JAX type in the world
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         world = pool.submit(spawn, _train_world, 8, backend="gloo", device="cpu",
-                            args=(inputs,), timeout_s=600, init_dir=str(tmp_path))
-        ref = {case: _jax_case(case, *inputs[case]) for case in CASES}
+                            args=(inputs, resumed), timeout_s=600, init_dir=str(tmp_path))
+        ref.update({case: _jax_case(case, *inputs[case]) for case in CASES if case != RESUMED})
         per_rank = world.result()
 
     for case in CASES:
         j, cfg = ref[case], _port_cfg(case)
         assert j["metrics"][0]["grad_norm"] > 1.0, case      # the clip is active
+        # Parameters after one step are not held: where a gradient is ~0
+        # (the K bias under RoPE), Adam lifts its fp32 noise to a full step.
+        _check_full(case, [r[case] for r in per_rank], j, cfg,
+                    skip=() if len(j["metrics"]) > 1 else ("attn.bk",))
         for rank, res in enumerate(per_rank):
             got = res[case]
             fg = folding.folded_layout(_pcfg(case), rank=rank, world=8)
 
-            def slices(tree):
+            def slices(tree, kind):
                 return {n: t.numpy() for n, t in
-                        tensors_from_jax(tree, cfg, device="cpu", groups=fg).items()}
+                        tensors_from_jax(tree, cfg, device="cpu", groups=fg, kind=kind).items()}
             for i, (mt, mj) in enumerate(zip(got["metrics"], j["metrics"])):
                 for k in METRICS:
                     assert _rel(mt[k], mj[k]) <= REL, (case, rank, i, k, mt[k], mj[k])
-            # Parameters after one step are not held: where a gradient is ~0
-            # (the K bias under RoPE), Adam lifts its fp32 noise to a full step.
             for what in ("grads", "mu") + (("params",) if len(j["metrics"]) > 1 else ()):
                 if what not in j:
                     continue
-                want = slices(j[what])
+                want = slices(j[what], "store" if what == "params" else "state")
                 assert got[what].keys() == want.keys(), (case, what)
                 for n in want:
                     assert got[what][n].shape == want[n].shape, (case, what, n)
@@ -182,6 +272,14 @@ def test_folded_train_step_matches_jax(tmp_path):
                     assert err <= REL, (case, rank, what, n, err)
             if "skip_ok" in got:
                 assert not got["skip_ok"] and got["skip_equal"], (case, rank)
+            if case == RESUMED:                 # step 2 from JAX's step-1 state
+                for k in METRICS:
+                    mt, mj = got["resumed"]["metrics"][0][k], j["metrics"][1][k]
+                    assert _rel(mt, mj) <= REL, (case, "resumed", rank, k, mt, mj)
+    p2, o2 = ref[RESUMED]["states"][1]
+    _check_full(RESUMED, [r[RESUMED]["resumed"] for r in per_rank],
+                {"params": p2, "mu": o2.mu, "nu": o2.nu, "master": o2.master},
+                _port_cfg(RESUMED))
     assert ref["mixtral-ep8-allgather"]["metrics"][-1]["loss"] < \
         ref["mixtral-ep8-allgather"]["metrics"][0]["loss"]
 
