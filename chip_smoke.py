@@ -102,12 +102,35 @@ failure exits non-zero; nothing is caught):
    rank's heads over the whole sequence and the GMM at the EP shard's
    shape, held and timed as in phase 3.
 
+10. train-pipe — pipeline parallelism, the fifth dimension: 4 processes
+   share the card over gloo, each holding one pipeline stage's layers (the
+   embedding on the first stage, the final norm and head on the last),
+   running its stage's ops of the schedule and sending activations and
+   their gradients point to point (host-staged under gloo). (a) Mixtral at
+   full width cut to 2 layers at PP2 × attention TP2 / MoE EP2
+   (``PIPE_FULL``), 1F1B over 4 microbatches of one 4096-token sequence
+   (``SyntheticTokens(seed=0)``): one forward and backward and the global
+   ``grad_norm``, the parameters held as their bf16 compute casts (AdamW
+   state for 1.353 B parameters a rank does not fit 4 ranks), held against
+   the same at pp = 1 on stage 0's 2 ranks (the same weights, microbatches
+   and inner fold): loss, ``grad_norm`` and every gradient leaf (relative
+   L2) within ``PP_TOL``. Per rank: parameters, peak memory, launches
+   against the count from the code, wall; per stage
+   (its first rank profiled): the device-idle share of the wall beside the
+   closed-form bubble (pp − 1)/(m + pp − 1), host time in ``comm send`` and
+   ``comm recv``. (b) reduced width in bf16 (``PIPE_SMALL``): interleaved
+   PP2 × vpp 2 over 4 layers, ZeRO-1 over attention DP2, 3 AdamW steps
+   against pp = 1: loss and ``grad_norm`` every step and every final
+   parameter leaf within ``ZERO_TOL``. Then the flash and GMM kernels at
+   (a)'s stage shapes, held and timed as in phase 3.
+
 Phase 9 runs first, right after the build: its 4 ranks need about 70 GB
 of the card (Qwen2: 18.02 GB peak a rank on an H100), and what the other
 phases leave in this process (3.9 GB reserved before phase 7) left Qwen2's
-ranks out of memory when phase 9 ran last. Then Mixtral runs phases 3, 4, 5,
-6; every Mixtral tensor is freed and Qwen2 runs 4, 5, 3, 6; then both run
-7 and 8. Then it prints the script time, the
+ranks out of memory when phase 9 ran last. Phase 10 runs right after it,
+for the same reason, with the memory reserved before it printed. Then
+Mixtral runs phases 3, 4, 5, 6; every Mixtral tensor is freed and Qwen2
+runs 4, 5, 3, 6; then both run 7 and 8. Then it prints the script time, the
 kernels' JSON line (one entry per kernel per main path, its ``launches``
 from that path's own run), the card's ``nvidia-smi`` name and power limit,
 and last ``{"ok": true, "device": {...}}``. Full results also go to
@@ -150,6 +173,10 @@ RING_TOL = 5e-3         # ring CP vs all-gather CP, the same fold and routing, b
 # on, the same fold, weights and batches: the same math, bf16 sums in
 # another order (the FSDP gather's reduce-scatter, ZeRO-1's reduce-scatter).
 ZERO_TOL = 5e-3
+# Phase 10: a pipelined step against the same step at pp = 1 (the same inner
+# fold, weights, batches and microbatches; the stage hand-off is an exact
+# copy, so only nondeterministic device sums part them).
+PP_TOL = 5e-3
 TIMING = {"ms": "graph_ms", "library_ms": "graph_ms", "plain_ms": "profiled_ms"}
 
 
@@ -221,6 +248,16 @@ ZERO_RUNS = {MIXTRAL: (("allgather", TRAIN_STEPS, True, False, "fsdp"),
                        ("allgather", 2, True, True, "master")),
              QWEN2: (("allgather", 2, True, False, "fsdp"),
                      ("allgather", 2, True, True, "master"))}
+
+
+# Phase 10 (a): Mixtral at full width cut to 2 layers (one a stage), PP2 x
+# attention (dp, cp, tp) / MoE (edp, ep, etp) below, 1F1B over 4 microbatches
+# of one sequence; (b) reduced width in bf16, interleaved PP2 x vpp 2 over 4
+# layers, ZeRO-1 over attention DP 2, AdamW steps.
+PIPE_FULL = dict(attn=(1, 1, 2), moe=(1, 2, 1), pp=2, vpp=1, microbatch=4, layers=2,
+                 seq=TRAIN_SEQ, steps=0)
+PIPE_SMALL = dict(attn=(2, 1, 1), moe=(1, 2, 1), pp=2, vpp=2, microbatch=4, layers=4, seq=256,
+                  steps=3)
 
 
 def _gmm_specs(arch: str) -> tuple:
@@ -1053,7 +1090,10 @@ def phase_train_zero(torch) -> dict:
                  f"launches a rank {run['launches']} (expected "
                  f"{_expected_world_launches(arch, run_spec.cp_mode, run_spec.steps, ZERO_ATTN)});"
                  " peak memory a rank " + ", ".join(
-                     f"{x['runs'][run_spec.key]['peak_gb']:.2f}" for x in ranks) + " GB")
+                     f"{x['runs'][run_spec.key]['peak_gb']:.2f}" for x in ranks) + " GB (reserved "
+                 + ", ".join(f"{x['runs'][run_spec.key]['peak_reserved_gb']:.2f}" for x in ranks)
+                 + f" GB); card in use at the run's end {run['card_used_gb']:.2f} of "
+                 f"{run['card_gb']:.2f} GB")
         _say(f"[{tag}] {arch} x1 layer at attention (dp, cp, tp) {ZERO_ATTN}, MoE (edp, ep, "
              f"etp) {moe}, {ZERO_BATCH} x {TRAIN_SEQ} tokens a step: {len(ranks)} ranks over "
              f"gloo through the host on one card ({smi}); {r0['params'] / 1e6:.1f} M "
@@ -1074,6 +1114,162 @@ def phase_train_zero(torch) -> dict:
     if failures:
         raise AssertionError("phase 9:\n" + "\n".join(failures))
     return out
+
+
+def _expected_pipe_launches(cfg, w: dict, layers_on_stage: int) -> dict:
+    """Launches a rank of phase 10 makes in its run, from the code: per layer
+    it holds, microbatch and pass (one forward and backward, or a step),
+    ``3 · chunks`` GMM in the forward and as many in remat's recompute,
+    ``3 · chunks`` ``trans_w`` in the backward (every chunk's input has a
+    gradient: the embedding's output or the received activation), and
+    flash twice (forward and recompute). A rank's tokens are a sequence over
+    cp · tp."""
+    from repro_torch.core.overlap import resolve_chunks
+    _, cp, tp = w["attn"]
+    C = resolve_chunks(w["seq"] // (cp * tp), cfg.moe.overlap_chunks)
+    n = layers_on_stage * w["microbatch"] * max(w["steps"], 1)
+    return {"gmm": 6 * C * n, "gmm_trans_w": 3 * C * n, "flash_attention": 2 * n}
+
+
+def _train_pipe_kernels(torch) -> dict:
+    """The kernels at phase 10 (a)'s launch shapes, timed as in phase 3:
+    flash in partial mode at a TP rank's heads over the whole sequence, and
+    the GMM forward and ``trans_w`` at the EP shard's shape."""
+    from repro_torch.launch.world import gmm_shape
+    w = PIPE_FULL
+    _, cp, tp = w["attn"]
+    H, Hkv = (h // tp for h in FLASH_HEADS[MIXTRAL])
+    flash = _flash_cases(torch, MIXTRAL, [("stage rank's heads, causal 4096", w["seq"], w["seq"],
+                                           [0])], heads=(H, Hkv), modes=(True,))
+    s = gmm_shape(MIXTRAL, w["seq"] // (cp * tp), fold=w["moe"])
+    E, rows, D, F, bm = s["experts"], s["rows_per_expert"], s["d_model"], s["d_expert"], s["bm"]
+    M = E * rows
+    blocks = [e for e in range(E) for _ in range(rows // bm)]
+    cases = _gmm_cases(torch, E, [(f"train-pipe gate/up, M={M}", M, D, F, bm, blocks, False),
+                                  (f"train-pipe dgrad trans_w, M={M}", M, F, D, bm, blocks, True)])
+    out = {"gmm": cases[:1], "gmm_trans_w": cases[1:], "flash_attention": flash}
+    _check_cases(MIXTRAL, out)
+    out["gmm_shape"] = s
+    return out
+
+
+def _pipe_run(torch, label: str, w: dict, *, reduce: bool, failures: list, tol: float) -> dict:
+    """One pipelined run of phase 10 (``w``: PIPE_FULL or PIPE_SMALL) and
+    the same at pp = 1 on stage 0's ranks; every check is printed, each
+    failure appended to ``failures``."""
+    from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
+    from repro_torch.core.folding import folded_layout
+    from repro_torch.core.pipeline import bubble_fraction, stage_of
+    from repro_torch.launch.train import train_config
+    from repro_torch.launch.world import train_world
+    tag = "train-pipe" + label
+    t0 = time.perf_counter()
+    ranks = train_world(MIXTRAL, attn=w["attn"], moe=w["moe"], pp=w["pp"], vpp=w["vpp"],
+                        microbatch=w["microbatch"], runs=(("allgather", w["steps"]),),
+                        device="cuda", reduce=reduce, layers=w["layers"], seq=w["seq"],
+                        batch=w["microbatch"] * w["attn"][0], seed=0, profile=not reduce,
+                        master_weights=w["steps"] == 0, against_pp1=True,
+                        dtype="bfloat16" if reduce else None)
+    wall = time.perf_counter() - t0
+    cfg = train_config(MIXTRAL, layers=w["layers"], reduce=reduce)
+    pcfg = ParallelConfig(attn=PM(*w["attn"]), moe=PM(*w["moe"]), pp=w["pp"], vpp=w["vpp"],
+                          microbatch=w["microbatch"])
+    n = pcfg.attn.size
+    res = dict(fold=w, wall_s=wall, ranks=ranks, errors={},
+               bubble_formula=bubble_fraction(w["pp"], w["microbatch"], w["vpp"]))
+    for r in ranks:
+        run = r["runs"]["allgather"]
+        stage = stage_of(cfg, folded_layout(pcfg, rank=r["rank"], world=pcfg.world_size))
+        expect = _expected_pipe_launches(cfg, w, len(stage.layers))
+        ref = ranks[r["rank"] % n]["runs"]["allgather"]["pp1"]["metrics"]
+        leaves = run["pp1"]["rel_l2"]
+        worst = max(leaves, key=leaves.get)
+        res["errors"][f"rank {r['rank']} worst leaf"] = leaves[worst]
+        if run["launches"] != expect or min(run["launches"].values()) == 0:
+            failures.append(f"{tag} rank {r['rank']}: launches {run['launches']} != expected "
+                            f"{expect}")
+        if "state_bytes" in run and run["state_bytes"] != run["state_bytes_expected"]:
+            failures.append(f"{tag} rank {r['rank']}: optimizer state {run['state_bytes']} B != "
+                            f"zero1_state_bytes {run['state_bytes_expected']} B")
+        for i, (m, b) in enumerate(zip(run["metrics"], ref)):
+            if not all(x == x and abs(x) != float("inf") for x in (m["loss"], m["grad_norm"])) \
+                    or not m.get("step_ok", 1.0):
+                failures.append(f"{tag} rank {r['rank']} step {i}: {m}")
+                continue
+            for k in ("loss", "grad_norm"):
+                e = abs(m[k] - b[k]) / abs(b[k])
+                key = f"step {i} {k} vs pp=1"
+                res["errors"][key] = max(res["errors"].get(key, 0.0), e)
+                if not e <= tol:
+                    failures.append(f"{tag} rank {r['rank']} {key}: {m[k]:.6f} against "
+                                    f"{b[k]:.6f}, rel err {e:.3e} > {tol}")
+        if not leaves[worst] <= tol:
+            failures.append(f"{tag} rank {r['rank']}: {worst} rel L2 {leaves[worst]:.3e} against "
+                            f"pp=1 > {tol}")
+        _say(f"[{tag}] rank {r['rank']} (stage {r['stage']}, layers {list(stage.layers)}"
+             f"{', embedding' if stage.first else ''}{', head' if stage.last else ''}): "
+             f"{run['params'] / 1e6:.1f} M parameters, peak memory {run['peak_gb']:.2f} GB "
+             f"(reserved {run['peak_reserved_gb']:.2f} GB; card in use at the run's end "
+             f"{run['card_used_gb']:.2f} of {run['card_gb']:.2f} GB), "
+             f"launches {run['launches']} (expected {expect}), wall "
+             + ", ".join(f"{t * 1e3:.1f}" for t in run["step_s"]) + " ms; "
+             + ", ".join(f"step {i} loss {m['loss']:.6f} (pp=1 {b['loss']:.6f}) grad_norm "
+                         f"{m['grad_norm']:.6f} (pp=1 {b['grad_norm']:.6f})"
+                         for i, (m, b) in enumerate(zip(run["metrics"], ref)))
+             + f"; {len(leaves)} {'gradient' if w['steps'] == 0 else 'parameter'} leaves against "
+             f"pp=1, worst rel L2 {leaves[worst]:.3e} ({worst})")
+    for r in ranks:
+        prof = r["runs"]["allgather"].get("profile")
+        if prof:
+            comm = prof["comm_host_ms"]
+            _say(f"[{tag}] stage {r['stage']} (rank {r['rank']}) profiled pass: wall "
+                 f"{prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} ms, device idle "
+                 f"{100 * prof['device_idle_share']:.1f}% of the wall (closed-form bubble "
+                 f"{100 * res['bubble_formula']:.1f}%); host ms in comm send "
+                 f"{comm.get('comm send', 0.0):.1f}, comm recv {comm.get('comm recv', 0.0):.1f}, "
+                 "the rest " + ", ".join(f"{k} {v:.1f}" for k, v in comm.items()
+                                          if k not in ("comm send", "comm recv")))
+    what = "one forward and backward" if w["steps"] == 0 else f"{w['steps']} AdamW steps"
+    width = "reduced, bf16" if reduce else "full width"
+    _say(f"[{tag}] {cfg.name} x{cfg.n_layers} layers ({width}) at PP{w['pp']} x vpp {w['vpp']}, "
+         f"attention (dp, cp, tp) {w['attn']}, MoE (edp, ep, etp) {w['moe']}, {w['microbatch']} "
+         f"microbatches of {w['attn'][0]} x {w['seq']} tokens, {what}: {len(ranks)} ranks over "
+         f"gloo through the host on one card; weights built in turns in "
+         f"{ranks[0]['init_s']:.1f} s; phase wall {wall:.1f} s; worst rel err against pp=1 "
+         + ", ".join(f"{k} {v:.3e}" for k, v in res["errors"].items() if "step" in k)
+         + f", worst leaf {max(v for k, v in res['errors'].items() if 'leaf' in k):.3e} (limit "
+         f"{tol})")
+    return res
+
+
+def phase_train_pipe(torch) -> dict:
+    """Phase 10: see the module docstring. Every check is printed before the
+    phase fails on any of them."""
+    failures: list = []
+    out = {"full": _pipe_run(torch, "", PIPE_FULL, reduce=False, failures=failures,
+                             tol=PP_TOL)}
+    torch.cuda.empty_cache()
+    out["reduced"] = _pipe_run(torch, "-reduced", PIPE_SMALL, reduce=True, failures=failures,
+                               tol=ZERO_TOL)
+    out["kernels"] = _train_pipe_kernels(torch)
+    if failures:
+        raise AssertionError("phase 10:\n" + "\n".join(failures))
+    return out
+
+
+def _train_pipe_line(train_pipe: dict, sources: dict) -> list:
+    """Phase 10's entries of the kernels line (path ``train-pipe``): each
+    kernel with rank 0's launches in run (a), timed at its shape."""
+    launches = train_pipe["full"]["ranks"][0]["runs"]["allgather"]["launches"]
+    line = []
+    for name in ("gmm", "gmm_trans_w", "flash_attention"):
+        c = train_pipe["kernels"][name][0]
+        line.append(dict(name=name, path="train-pipe", model=MIXTRAL, case=c["case"],
+                         route="cuda", source=sources[name][0], replaces=sources[name][1],
+                         launches=launches[name], max_abs_err=c["max_abs_err"], ms=c["ms"],
+                         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                         library_ms=c["library_ms"]))
+    return line
 
 
 def _train_zero_line(train_zero: dict, sources: dict) -> list:
@@ -1161,7 +1357,9 @@ def main() -> int:
     phase_device(torch)
     build = phase_build()
     train_zero = phase_train_zero(torch)          # first: see the module docstring
-    memory_zero = _free(torch, "phase 9 done")
+    memory_zero = _free(torch, "phase 9 done, before phase 10")
+    train_pipe = phase_train_pipe(torch)
+    memory_pipe = _free(torch, "phase 10 done")
     results = {MIXTRAL: run_model(torch, MIXTRAL)}
     memory = _free(torch, "Mixtral-8x22B freed")
     results[QWEN2] = run_model(torch, QWEN2)
@@ -1197,6 +1395,7 @@ def main() -> int:
                              library_ms=c["library_ms"]))
     line += _train_world_line(train_world, sources)
     line += _train_zero_line(train_zero, sources)
+    line += _train_pipe_line(train_pipe, sources)
     smi = _smi()
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -1204,8 +1403,9 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         nvidia_smi=smi, device=device, timing=TIMING, build=build, models=results,
-        world=world, train_world=train_world, train_zero=train_zero,
-        memory_after_train_zero=memory_zero, memory_between_models=memory,
+        world=world, train_world=train_world, train_zero=train_zero, train_pipe=train_pipe,
+        memory_after_train_zero=memory_zero, memory_after_train_pipe=memory_pipe,
+        memory_between_models=memory,
         memory_before_world=memory_world, seconds=seconds), indent=1))
     _say(f"[done] script time {seconds:.2f} s (build {build['seconds']:.2f} s)")
     print(json.dumps({"kernels": line}))

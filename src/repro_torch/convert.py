@@ -10,7 +10,8 @@ does (``layers.3.moe.w1``; the shared experts' ``moe/shared/w1`` is
 ``layers.3.moe.ws1``). With ``groups`` (a folded mapping) each rank gets
 its slices of the full tree (``models.sharding``): parameters in the store
 layout, gradients and AdamW state in the ZeRO-1 state layout, so a test
-holds each rank's tensors against its slices of JAX's.
+holds each rank's tensors against its slices of JAX's; at a pipelined fold
+only those of its stage.
 """
 from __future__ import annotations
 
@@ -70,9 +71,16 @@ def tensors_from_jax(tree: Dict, cfg: ModelConfig, *, device: DeviceLike = None,
                      ) -> Dict[str, torch.Tensor]:
     """:func:`named_from_jax` as tensors on ``device``; values and dtypes
     kept; with ``groups``, this rank's ``kind`` slice of each
-    (``models.sharding.KINDS``)."""
+    (``models.sharding.KINDS``), and at a pipelined fold only the leaves of
+    its stage (``core.pipeline.Stage``: the layers of its chunks, which
+    with ``vpp > 1`` are interleaved, not the contiguous block JAX's store
+    spec puts on a stage; the embedding on the first stage, the final norm
+    and head on the last)."""
+    from repro_torch.core.pipeline import stage_of
     device = resolve_device(device)
-    out = {k: _tensor(v, device) for k, v in named_from_jax(tree, cfg).items()}
+    stage = stage_of(cfg, groups)
+    out = {k: _tensor(v, device) for k, v in named_from_jax(tree, cfg).items()
+           if stage is None or stage.holds(k)}
     if groups is not None:
         out = {k: shard_tensor(k, v, groups, kind) for k, v in out.items()}
     return out
@@ -81,18 +89,21 @@ def tensors_from_jax(tree: Dict, cfg: ModelConfig, *, device: DeviceLike = None,
 def params_from_jax(tree: Dict, cfg: ModelConfig, *, device: DeviceLike = None,
                     groups: Optional[FoldedGroups] = None) -> LMParams:
     """Build :class:`LMParams` on ``device`` from the numpy leaves of a JAX
-    ``init_lm`` tree; with ``groups``, this rank's store slices of them."""
+    ``init_lm`` tree; with ``groups``, this rank's store slices of them (of
+    its pipeline stage's leaves)."""
     t = tensors_from_jax(tree, cfg, device=device, groups=groups)
-    layers = []
+    layers = {}
     for layer in range(cfg.n_layers):
         pre = f"layers.{layer}."
+        if pre + "norm1" not in t:
+            continue
         attn = AttentionParams(**{k[len(pre) + 5:]: v for k, v in t.items()
                                   if k.startswith(pre + "attn.")})
         moe = MoEParams(*(t[f"{pre}moe.{k}"] for k in ("router", "w1", "w2", "w3")),
                         **{k: t[f"{pre}moe.{k}"] for k in SHARED_NAMES.values()
                            if f"{pre}moe.{k}" in t})
-        layers.append(MoEBlockParams(t[pre + "norm1"], attn, t[pre + "norm2"], moe))
-    return LMParams(t["embed"], layers, t["final_norm"], t.get("lm_head"))
+        layers[layer] = MoEBlockParams(t[pre + "norm1"], attn, t[pre + "norm2"], moe)
+    return LMParams(t.get("embed"), layers, t.get("final_norm"), t.get("lm_head"))
 
 
 def moe_params_from_jax(tree: Dict, *, device: DeviceLike = None,

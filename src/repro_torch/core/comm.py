@@ -20,6 +20,9 @@ collective          forward                     backward
 :func:`from_zigzag` layout over CP (All-to-All-V)
 ==================  ==========================  ===========================
 
+Between pipeline stages, :class:`StageLink` sends point to point (not a
+collective: only the two stages of a message take part).
+
 The attention side adds Megatron's sequence parallelism (:func:`sp_gather`,
 :func:`sp_scatter`: the all-gather and reduce-scatter along the sequence)
 and the ring and zigzag exchanges of context parallelism. The last two take
@@ -343,3 +346,56 @@ def from_zigzag(x: torch.Tensor, ax, dim: int = 1) -> torch.Tensor:
         return x
     return _exchange_halves(x, ax, dim, (i, 2 * cp - 1 - i), (2 * i, 2 * i + 1),
                             dest=lambda h: h // 2, src=lambda h: _zigzag_owner(h, cp))
+
+
+# ---------------------------------------------------------------------------
+# Pipeline stages: point-to-point sends
+# ---------------------------------------------------------------------------
+
+class StageLink:
+    """Point-to-point messages between the stages of a ``pp`` axis
+    (``AxisGroups``; the stage is the index on it), each with its own tag
+    (``core.pipeline.message_tag``), so that messages of several chunks
+    between the same two stages stay apart.
+
+    Not a collective over the group: two stages exchange a message when
+    their schedules reach it, and no other stage takes part. A send is
+    non-blocking (its buffer is kept until :meth:`wait_sends`); a receive
+    blocks until its message is in. The transport follows the group's
+    backend: gloo's send and recv take no CUDA tensor, so under gloo the
+    payload goes through host memory (copied to the host before the send,
+    to the device after the receive); NCCL takes the device tensor as it
+    is. The calls run in the ``comm send`` and ``comm recv`` ranges."""
+
+    def __init__(self, ax):
+        if ax.group is None:
+            raise ValueError("StageLink needs the pp axis's process group")
+        self.ax = ax
+        self.host = dist.get_backend(ax.group) == "gloo"
+        self._sends: List = []
+
+    def send(self, x: torch.Tensor, stage: int, tag: int) -> None:
+        """Post ``x`` (no gradient) to ``stage`` under ``tag``."""
+        buf = x.detach()
+        with _range("comm send"):
+            if self.host and buf.device.type != "cpu":
+                buf = buf.cpu()
+            buf = buf.contiguous()
+            work = dist.isend(buf, dst=self.ax.ranks[stage], group=self.ax.group, tag=tag)
+        self._sends.append((work, buf))
+
+    def recv(self, shape: Sequence[int], dtype: torch.dtype, device: torch.device,
+             stage: int, tag: int) -> torch.Tensor:
+        """The message of ``shape`` and ``dtype`` from ``stage`` under
+        ``tag``, on ``device``."""
+        with _range("comm recv"):
+            buf = torch.empty(tuple(shape), dtype=dtype,
+                              device="cpu" if self.host else device)
+            dist.irecv(buf, src=self.ax.ranks[stage], group=self.ax.group, tag=tag).wait()
+            return buf.to(device)
+
+    def wait_sends(self) -> None:
+        """Complete every posted send and release its buffer."""
+        with _range("comm send"):
+            while self._sends:
+                self._sends.pop(0)[0].wait()

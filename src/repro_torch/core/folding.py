@@ -237,6 +237,27 @@ class FoldedGroups:
     def etp(self) -> int:
         return self.size("moe", "etp")
 
+    @property
+    def pp_degree(self) -> int:
+        """The number of pipeline stages: the attention ``pp`` axis, which
+        with ``pod_role="pp"`` spans the pods too (the reference's
+        ``pipeline_degree``)."""
+        return self.size("attn", "pp")
+
+    @property
+    def pp_stage(self) -> int:
+        """This rank's pipeline stage: its index on the ``pp`` axis (pods
+        major, as the reference's ``pipeline_axes`` order them)."""
+        return self.attn["pp"].index
+
+    @property
+    def is_first_stage(self) -> bool:
+        return self.pp_stage == 0
+
+    @property
+    def is_last_stage(self) -> bool:
+        return self.pp_stage == self.pp_degree - 1
+
 
 def folded_layout(pcfg: ParallelConfig, *, rank: int, world: int,
                   moe_factors: Optional[Sequence[Tuple[str, int]]] = None) -> FoldedGroups:
@@ -295,6 +316,27 @@ def build_folded_groups(pcfg: ParallelConfig, *, rank: int, world: int,
     return fg
 
 
+def stage_zero_layout(fg: FoldedGroups, pcfg: ParallelConfig) -> FoldedGroups:
+    """``pcfg`` (a fold without pipeline stages) laid over the ranks of
+    ``fg``'s pipeline stage 0, which are ranks ``0 .. n-1`` of its world,
+    each axis with ``fg``'s process group of the same ranks: a pp = 1 run
+    on stage 0 beside a pipelined one, with no new group, so the other
+    stages take no part. Call it on a rank of stage 0."""
+    if fg.pp_stage != 0 or pcfg.pipeline_stages != 1:
+        raise ValueError("stage_zero_layout: a pp = 1 fold, on a rank of stage 0")
+    out = folded_layout(pcfg, rank=fg.rank, world=pcfg.world_size)
+    for side in ("attn", "moe"):
+        for name, ax in getattr(out, side).items():
+            if name == "pp":
+                continue
+            have = fg.axis(side, name)
+            if ax.ranks != have.ranks:
+                raise ValueError(f"{side} {name}: ranks {ax.ranks} at pp = 1, {have.ranks} on "
+                                 "stage 0")
+            ax.group = have.group
+    return out
+
+
 def _index_of(ax: AxisGroups, rank: int) -> int:
     return next(g.index(rank) for g in ax.groups if rank in g)
 
@@ -315,11 +357,8 @@ def check_sp_moe_handoff(fg: FoldedGroups) -> None:
     == attention side", ``repro.core.moe_layer``). Entering the MoE layer is
     then a reshape; otherwise (``pod_role="cp"``, non-contiguous
     ``moe_factors``) the hand-off would need an exchange that is not ported.
-    Pipeline stages are not ported either. Checked for every rank, so all
-    ranks raise alike."""
-    if fg.pcfg.pipeline_stages > 1:
-        raise NotImplementedError("the folded train step at pp > 1 is not ported "
-                                  "(ROADMAP.md queue 1, item 5)")
+    Checked for every rank, so all ranks raise alike; pipeline stages do
+    not enter it (the token indices are within a stage)."""
     bad = [r for r in range(fg.world)
            if sp_token_index(fg, r) != _index_of(fg.moe["tokens"], r)]
     if bad:

@@ -118,6 +118,10 @@ def shard_batch(batch: Mapping[str, np.ndarray], groups, *, microbatch: int = 0
     as the reference slices a DP-sharded batch: microbatch i is global rows
     ``[i·B/n, (i+1)·B/n)``, cut over DP, and this rank's rows come
     microbatch after microbatch, so the train step slices them in order.
+    The share does not depend on the pipeline stage: every stage gets the
+    same rows, replicated over ``pp`` as the reference's
+    ``batch_shardings`` put them (the first stage reads the tokens, the
+    last the labels).
     """
     a = groups.attn
     dp, cp = a["dp"], a["cp"]

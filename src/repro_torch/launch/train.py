@@ -7,6 +7,7 @@ device or at a folded mapping across a world of ranks.
     PYTHONPATH=src python -m repro_torch.launch.train --attn-fold 2,2,2 --moe-fold 1,8,1 --reduced --device cpu --seq 64 --batch 2
     PYTHONPATH=src python -m repro_torch.launch.train --attn-fold 1,2,2 --moe-fold 1,4,1 --layers 1 --seq 4096 --cp-mode ring
     PYTHONPATH=src python -m repro_torch.launch.train --attn-fold 2,1,2 --moe-fold 2,2,1 --reduced --device cpu --seq 64 --batch 2 --master-weights
+    PYTHONPATH=src python -m repro_torch.launch.train --attn-fold 1,1,2 --moe-fold 1,2,1 --pp 2 --vpp 2 --microbatch 4 --reduced --layers 4 --device cpu --seq 64 --batch 4
 
 The first two train a full-width model cut to one layer on the CUDA card
 (the port's training slice: bf16 compute, fp32 masters and AdamW state,
@@ -28,6 +29,11 @@ memory.
 
 ``--master-weights`` keeps an fp32 master copy in the AdamW state and the
 parameters in the compute dtype (``AdamWConfig(master_weights=True)``).
+
+``--pp`` adds pipeline stages (``--vpp`` interleaved virtual stages each)
+to the fold: ``pp × dp·cp·tp`` ranks, each holding its stage's layers (the
+embedding on the first, the head on the last), the 1F1B or interleaved
+schedule over ``--microbatch`` slices of the batch.
 """
 from __future__ import annotations
 
@@ -82,11 +88,17 @@ def main() -> None:
                     help="fp32 master copy in the AdamW state, params in the compute dtype")
     ap.add_argument("--no-fsdp", action="store_true",
                     help="with --attn-fold: keep the attention leaves whole over DP at rest")
+    ap.add_argument("--pp", type=int, default=1, help="with --attn-fold: pipeline stages")
+    ap.add_argument("--vpp", type=int, default=1, help="virtual stages a pipeline stage")
+    ap.add_argument("--microbatch", type=int, default=0,
+                    help="with --attn-fold: microbatches a step (the pipeline schedule's)")
     args = ap.parse_args()
     if (args.attn_fold is None) != (args.moe_fold is None):
         ap.error("--attn-fold and --moe-fold go together")
     if args.attn_fold:
         return _main_folded(args)
+    if args.pp > 1 or args.vpp > 1 or args.microbatch:
+        ap.error("--pp, --vpp and --microbatch go with --attn-fold/--moe-fold")
 
     import torch
 
@@ -136,11 +148,13 @@ def _main_folded(args) -> None:
         return tuple(int(x) for x in text.split(","))
     attn, moe = fold(args.attn_fold), fold(args.moe_fold)
     res = train_world(args.arch, attn=attn, moe=moe, runs=[(args.cp_mode, args.steps)],
+                      pp=args.pp, vpp=args.vpp, microbatch=args.microbatch,
                       device=args.device or "cuda", reduce=args.reduced, layers=args.layers,
                       seq=args.seq, batch=args.batch, seed=args.seed, lr=args.lr,
                       fsdp=not args.no_fsdp, master_weights=args.master_weights)
     run = res[0]["runs"][args.cp_mode]
     print(f"{args.arch} at attention (dp, cp, tp) {attn}, MoE (edp, ep, etp) {moe}, "
+          f"pp {args.pp}, vpp {args.vpp}, microbatch {args.microbatch}, "
           f"cp_mode {args.cp_mode}, fsdp {not args.no_fsdp}, master_weights "
           f"{args.master_weights}: {len(res)} ranks over gloo, {args.batch} x {args.seq} "
           f"tokens a step, {run['params'] / 1e6:.1f} M parameters stored on rank 0")
@@ -154,7 +168,8 @@ def _main_folded(args) -> None:
         peak = f", peak memory {rr['peak_gb']:.2f} GB" if "peak_gb" in rr else ""
         state = (f", optimizer state {rr['state_bytes'] / 1e6:.1f} MB (ZeRO-1 specs "
                  f"{rr['state_bytes_expected'] / 1e6:.1f} MB)" if "state_bytes" in rr else "")
-        print(f"rank {r['rank']}: {rr['params'] / 1e6:.1f} M parameters stored, launches "
+        print(f"rank {r['rank']} (stage {r['stage']}): {rr['params'] / 1e6:.1f} M parameters "
+              "stored, launches "
               f"{rr['launches']}, step wall " + ", ".join(f"{t * 1e3:.1f}" for t in rr["step_s"])
               + f" ms{state}{peak}")
 

@@ -34,7 +34,8 @@ ragged exchange) and Qwen2-57B-A14B at EDP1×EP2×ETP2 (with its shared
 expert): the folded MoE layer forward and backward on every rank, held
 against the one-rank layer on the same weights and tokens. The folded
 training step is started by ``python -m repro_torch.launch.train
---attn-fold dp,cp,tp --moe-fold edp,ep,etp`` (:func:`train_world`).
+--attn-fold dp,cp,tp --moe-fold edp,ep,etp [--pp N --vpp V --microbatch M]``
+(:func:`train_world`).
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ import queue
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -68,6 +69,10 @@ def _child(rank: int, world: int, backend: str, init_method: str, device: str,
         torch.set_num_threads(1)
         dev = torch.device(device)
         if dev.type == "cuda":
+            # Ranks that share a card cannot take each other's cached but
+            # unused blocks: growable segments keep each rank's reserve near
+            # what it has allocated (set before the allocator first reads it).
+            os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
             torch.cuda.set_device(dev.index or 0)
         init_world(backend, rank, world, init_method, timeout_s=timeout_s)
         try:
@@ -453,6 +458,156 @@ class Run(NamedTuple):
         return self.label or self.cp_mode
 
 
+def _in_turns(world: int, rank: int, make: Callable[[], Any], *, mine: bool = True) -> Any:
+    """``make()`` on this rank in its turn (one rank at a time, a barrier
+    after each turn, so a full model is built on one rank at a time); ranks
+    with ``mine`` false only join the barriers."""
+    out = None
+    for turn in range(world):
+        if turn == rank and mine:
+            out = make()
+        dist.barrier()
+    return out
+
+
+def _one_run(r: "Run", fgm, cfg, params, batches, spec, dev, *, timed: bool,
+             profile: bool, on_host: bool = True, keep: bool = True
+             ) -> Tuple[Dict[str, Any], Optional[Dict[str, torch.Tensor]]]:
+    """One run from ``params`` (store slices on ``dev``) over the ranks of
+    ``fgm``: its record and, with ``keep`` (else None), its result by leaf
+    in fp32, on the host or kept on ``dev`` (``steps = 0``: the gradients of
+    the timed pass; else the parameters after the last step). ``timed``: an
+    untimed warm-up pass first, the launches counted over the timed part."""
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import (_cast, grad_norm, init_train_state, loss_and_grads,
+                                        make_train_step)
+    micro = spec["microbatch"]
+    opt_cfg = adamw.AdamWConfig(lr=spec["lr"], master_weights=bool(r.master_weights))
+
+    def barrier():                # over the run's ranks (all of fgm's axes)
+        for g in (fgm.attn["stage"].group, fgm.attn["pp"].group):
+            if g is not None:
+                dist.barrier(group=g)
+    run: Dict[str, Any] = {"metrics": [], "step_s": [], "fsdp": fgm.pcfg.fsdp,
+                           "master_weights": opt_cfg.master_weights, "cp_mode": r.cp_mode,
+                           "params": sum(p.numel() for p in params.parameters())}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    if r.steps == 0:                           # one forward and backward, no optimizer
+        if opt_cfg.master_weights:             # the parameters as the compute casts
+            for n, p in params.named_parameters():
+                p.data = _cast(n, p.data, cfg)
+
+        def fwd_bwd():
+            grads, m = loss_and_grads(params, batches[0], cfg, groups=fgm, microbatch=micro)
+            m["grad_norm"] = grad_norm(grads, fgm, params, cfg)
+            return grads, m
+        if timed:
+            fwd_bwd()                          # warm-up, not timed
+        _sync(dev)
+        barrier()
+        _zero_launches()
+        t0 = time.perf_counter()
+        grads, m = fwd_bwd()
+        _sync(dev)
+        run["step_s"].append(time.perf_counter() - t0)
+        run["launches"] = _launches()
+        run["metrics"].append({k: float(v) for k, v in m.items()})
+        result = {n: g.detach().float() for n, g in grads.items()} if keep else None
+        del grads
+        if keep and on_host:
+            result = {n: t.cpu() for n, t in result.items()}
+        if profile and dev.type == "cuda":
+            run["profile"] = _profiled_step(lambda: fwd_bwd(), dev,
+                                            fgm.attn["stage"].index == 0)
+    else:
+        opt = init_train_state(params, opt_cfg, cfg=cfg, groups=fgm)
+        run["state_bytes"] = adamw.state_bytes(opt)
+        run["state_bytes_expected"] = adamw.zero1_state_bytes(
+            param_shapes(cfg, fgm), fgm, master_weights=opt_cfg.master_weights)["per_device"]
+        step = make_train_step(cfg, opt_cfg, microbatch=micro, guard=True, groups=fgm)
+        _sync(dev)
+        _zero_launches()
+        for b in batches[:r.steps]:
+            _sync(dev)
+            barrier()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            _sync(dev)
+            run["step_s"].append(time.perf_counter() - t0)
+            run["metrics"].append({k: float(v) for k, v in m.items()})
+        run["launches"] = _launches()
+        result = ({n: p.detach().float() for n, p in params.named_parameters()} if keep
+                  else None)
+        if keep and on_host:
+            result = {n: t.cpu() for n, t in result.items()}
+        if profile and dev.type == "cuda":
+            run["profile"] = _profiled_step(lambda: step(params, opt, batches[0]), dev,
+                                            fgm.attn["stage"].index == 0)
+        del opt, step
+    if dev.type == "cuda":
+        run["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        run["peak_reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
+        free, total = torch.cuda.mem_get_info(dev)   # every process's, caches still held
+        run["card_used_gb"], run["card_gb"] = (total - free) / 1e9, total / 1e9
+    return run, result
+
+
+def _against_pp1(rank: int, world: int, r: "Run", fgm, cfg, batches, spec, dev,
+                 mine: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The run again at pp = 1 on stage 0's ranks (the same inner fold,
+    weights, batches and microbatches; the other stages wait), and each
+    leaf of this rank's result (``mine``) against the pp = 1 rank's of the
+    same inner index: stage 0 compares its leaves in place, and sends each
+    other stage's, leaf by leaf, to that stage's rank. Returns the pp = 1
+    metrics (on stage 0) and the relative L2 error of each of this rank's
+    leaves."""
+    from repro_torch.core.folding import stage_zero_layout
+    from repro_torch.core.pipeline import stage_of
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import init_lm
+    pcfg1 = dataclasses.replace(fgm.pcfg, pp=1, vpp=1,
+                                pods=1 if fgm.pcfg.pod_role == "pp" else fgm.pcfg.pods)
+    first = fgm.pp_stage == 0
+    fg1 = stage_zero_layout(fgm, pcfg1) if first else None
+
+    def make():
+        full = init_lm(cfg, seed=spec["seed"], device=dev)
+        params = sharding.shard_lm_params(full, fg1)
+        del full
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return params
+    params = _in_turns(world, rank, make, mine=first)
+    out: Dict[str, Any] = {"rel_l2": {}}
+    if first:
+        run, theirs = _one_run(r, fg1, cfg, params, batches, spec, dev, timed=False,
+                               profile=False, on_host=False)
+        del params
+        out["metrics"] = run["metrics"]
+        owner = {n: s for s in range(fgm.pp_degree)
+                 for n in theirs if stage_of(cfg, fgm, s).holds(n)}
+        peers = fgm.attn["pp"].ranks
+        for n in sorted(theirs):
+            if owner[n] == 0:
+                out["rel_l2"][n] = _rel_l2(mine[n].to(dev), theirs[n])
+            else:
+                dist.send(theirs[n].cpu().contiguous(), dst=peers[owner[n]])
+            theirs[n] = None
+        del theirs
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    else:
+        src = fgm.attn["pp"].ranks[0]
+        for n in sorted(mine):
+            buf = torch.empty(mine[n].shape, dtype=torch.float32)
+            dist.recv(buf, src=src)
+            out["rel_l2"][n] = _rel_l2(mine[n], buf)
+    dist.barrier()
+    return out
+
+
 def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, Any]:
     """One rank of :func:`train_world` (see there)."""
     from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
@@ -460,39 +615,42 @@ def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, 
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens, shard_batch
     from repro_torch.launch.train import train_config
     from repro_torch.models import sharding
-    from repro_torch.models.transformer import init_lm, param_shapes
-    from repro_torch.optim import adamw
-    from repro_torch.train.loop import (grad_norm, init_train_state, loss_and_grads,
-                                        make_train_step)
+    from repro_torch.models.transformer import init_lm
 
     dev = torch.device(spec["device"])
     cfg = fold_config(train_config(spec["arch"], layers=spec["layers"], reduce=spec["reduce"]),
                       spec["moe"][1])
-    pcfg = ParallelConfig(attn=PM(*spec["attn"]), moe=PM(*spec["moe"]))
+    if spec["dtype"]:
+        cfg = dataclasses.replace(cfg, dtype=spec["dtype"])
+    pcfg = ParallelConfig(attn=PM(*spec["attn"]), moe=PM(*spec["moe"]), pp=spec["pp"],
+                          vpp=spec["vpp"], microbatch=spec["microbatch"])
     fg = build_folded_groups(pcfg, rank=rank, world=world)
-    out: Dict[str, Any] = {"rank": rank, "sp_index": sp_token_index(fg),
+    out: Dict[str, Any] = {"rank": rank, "stage": fg.pp_stage, "sp_index": sp_token_index(fg),
                            "tokens_index": fg.moe["tokens"].index, "runs": {}}
     runs = [Run(*r) for r in spec["runs"]]
-    # The full weights from the seed, one rank at a time: each keeps its
-    # compute slices (on the host when several runs start from them) and
-    # frees the rest before the next rank builds them.
+    on_host = len(runs) > 1 or spec["against_pp1"]
+    # The full weights from the seed, one rank at a time: each keeps the
+    # compute slices of its stage's leaves (on the host when several runs
+    # start from them) and frees the rest before the next rank builds them.
+
+    def make():
+        full = init_lm(cfg, seed=spec["seed"], device=dev, groups=fg)
+        start = sharding.shard_lm_params(full, fg, "compute")
+        del full
+        if on_host:
+            start = sharding.map_params(start, lambda n, t: t.to("cpu"))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return start
     t0 = time.perf_counter()
-    for turn in range(world):
-        if turn == rank:
-            full = init_lm(cfg, seed=spec["seed"], device=dev)
-            start = sharding.shard_lm_params(full, fg, "compute")
-            del full
-            if len(runs) > 1:
-                start = sharding.map_params(start, lambda n, t: t.to("cpu"))
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
-        dist.barrier()
+    start = _in_turns(world, rank, make)
     out["init_s"] = time.perf_counter() - t0
     out["params"] = sum(p.numel() for p in start.parameters())
     data = SyntheticTokens(DataConfig(seq_len=spec["seq"], global_batch=spec["batch"],
                                       vocab_size=cfg.vocab_size, seed=spec["seed"]))
     n_steps = max([r.steps for r in runs] + [1])
-    batches = [{k: torch.from_numpy(v).to(dev) for k, v in shard_batch(next(data), fg).items()}
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                shard_batch(next(data), fg, microbatch=spec["microbatch"]).items()}
                for _ in range(n_steps)]
 
     for i, r in enumerate(runs):
@@ -500,102 +658,84 @@ def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, 
         master = spec["master_weights"] if r.master_weights is None else r.master_weights
         fgm = dataclasses.replace(fg, pcfg=dataclasses.replace(pcfg, cp_mode=r.cp_mode,
                                                                   fsdp=fsdp))
+        r = r._replace(fsdp=fsdp, master_weights=master)
         # Every run from the same start, in its own store layout.
         params = sharding.map_params(sharding.store_from_compute(start, fgm),
                                      lambda n, t: t.to(dev))
-        if len(runs) == 1:
+        if not on_host:
             del start
-        opt_cfg = adamw.AdamWConfig(lr=spec["lr"], master_weights=master)
-        run: Dict[str, Any] = {"metrics": [], "step_s": [], "fsdp": fsdp,
-                               "master_weights": master, "cp_mode": r.cp_mode,
-                               "params": sum(p.numel() for p in params.parameters())}
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
-        if r.steps == 0:                           # one forward and backward, no optimizer
-            loss_and_grads(params, batches[0], cfg, groups=fgm)   # warm-up, not timed
-            _sync(dev)
-            dist.barrier()
-            _zero_launches()
-            t0 = time.perf_counter()
-            grads, m = loss_and_grads(params, batches[0], cfg, groups=fgm)
-            m["grad_norm"] = grad_norm(grads, fgm, params)
-            _sync(dev)
-            run["step_s"].append(time.perf_counter() - t0)
-            run["launches"] = _launches()
-            run["metrics"].append({k: float(v) for k, v in m.items()})
-            del grads
-        else:
-            opt = init_train_state(params, opt_cfg, cfg=cfg, groups=fgm)
-            run["state_bytes"] = adamw.state_bytes(opt)
-            run["state_bytes_expected"] = adamw.zero1_state_bytes(
-                param_shapes(cfg), fgm, master_weights=master)["per_device"]
-            step = make_train_step(cfg, opt_cfg, guard=True, groups=fgm)
-            _sync(dev)
-            _zero_launches()
-            for b in batches[:r.steps]:
-                _sync(dev)
-                dist.barrier()
-                t0 = time.perf_counter()
-                params, opt, m = step(params, opt, b)
-                _sync(dev)
-                run["step_s"].append(time.perf_counter() - t0)
-                run["metrics"].append({k: float(v) for k, v in m.items()})
-            run["launches"] = _launches()
-            if spec["profile"] and i == 0 and dev.type == "cuda":
-                run["profile"] = _profiled_step(step, params, opt, batches[0], dev,
-                                                rank == 0)
-            del opt, step
+        run, result = _one_run(r, fgm, cfg, params, batches, spec, dev, timed=True,
+                               profile=spec["profile"] and i == 0, keep=spec["against_pp1"])
         del params
+        if i == len(runs) - 1 and on_host:
+            del start
         if dev.type == "cuda":
-            run["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
             torch.cuda.empty_cache()
+        if spec["against_pp1"]:
+            run["pp1"] = _against_pp1(rank, world, r, fgm, cfg, batches, spec, dev, result)
+        del result
         out["runs"][r.key] = run
     return out
 
 
-def _profiled_step(step, params, opt, batch, dev, traced: bool) -> Optional[Dict[str, Any]]:
-    """One more step, under ``torch.profiler`` on the traced rank: its wall
-    time, its device time by part (``launch.profile_train.breakdown``) and
-    the host time inside the collectives' ``comm`` ranges."""
+def _profiled_step(fn: Callable[[], Any], dev, traced: bool) -> Optional[Dict[str, Any]]:
+    """``fn()`` once more (a step, or a forward and backward), under
+    ``torch.profiler`` on the traced ranks: its wall time, its device time
+    by part (``launch.profile_train.breakdown``), the share of the wall the
+    device spent on none of this rank's work, and the host time inside the
+    ``comm`` ranges (the collectives and the stage sends)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.profile_train import breakdown
     _sync(dev)
     dist.barrier()
     if not traced:
-        step(params, opt, batch)
+        fn()
         _sync(dev)
         return None
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(params, opt, batch)
+        fn()
         _sync(dev)
         wall = time.perf_counter() - t0
-    return {"wall_ms": wall * 1e3, **breakdown(prof), "comm_host_ms": _host_ranges(prof)}
+    parts = breakdown(prof)
+    return {"wall_ms": wall * 1e3, **parts,
+            "device_idle_share": 1.0 - parts["device_ms"] / (wall * 1e3),
+            "comm_host_ms": _host_ranges(prof)}
 
 
 def train_world(arch: str, *, attn: Sequence[int], moe: Sequence[int],
-                runs: Sequence = (("allgather", 4),), device: str = "cuda",
-                reduce: bool = False, layers: Optional[int] = None, seq: int = 4096,
-                batch: int = 1, seed: int = 0, lr: float = 3e-4, fsdp: bool = True,
-                master_weights: bool = False, profile: bool = False,
+                runs: Sequence = (("allgather", 4),), pp: int = 1, vpp: int = 1,
+                microbatch: int = 0, device: str = "cuda", reduce: bool = False,
+                layers: Optional[int] = None, seq: int = 4096, batch: int = 1, seed: int = 0,
+                lr: float = 3e-4, fsdp: bool = True, master_weights: bool = False,
+                profile: bool = False, against_pp1: bool = False, dtype: Optional[str] = None,
                 timeout_s: float = 900.0) -> List[Dict[str, Any]]:
     """The folded training step of ``arch`` (cut to ``layers``) on
-    attention (dp, cp, tp) ``attn`` and MoE (edp, ep, etp) ``moe``, over
-    gloo (on one card several ranks can share nothing else), one process a
-    rank. Each rank builds the weights from ``seed`` in turn and keeps its
-    slices; the batches are ``SyntheticTokens`` of ``batch`` × ``seq``
-    (``shard_batch``). ``runs``: :class:`Run` tuples (``(cp_mode, steps)``
-    at least), each from the same start, with ``ParallelConfig.fsdp`` and
-    ``AdamWConfig.master_weights`` from the run or else ``fsdp`` and
-    ``master_weights``; ``steps = 0`` is one forward and backward with the
-    global gradient norm and no optimizer state (after one untimed warm-up
-    pass). Per rank and run (keyed by :attr:`Run.key`): each step's metrics
-    and wall time (after a barrier), the kernel launches of the run, its
-    parameters and optimizer-state bytes (counted from the tensors, and as
-    ``zero1_state_bytes`` gives them), and on a card its peak memory; with
-    ``profile``, one more step of the first run profiled on rank 0."""
+    attention (dp, cp, tp) ``attn`` and MoE (edp, ep, etp) ``moe``, with
+    ``pp`` pipeline stages (``vpp`` virtual ones each) and ``microbatch``
+    slices, over gloo (on one card several ranks can share nothing else),
+    one process a rank. Each rank builds the weights from ``seed`` in turn
+    and keeps the slices of its stage's leaves; the batches are
+    ``SyntheticTokens`` of ``batch`` × ``seq`` (``shard_batch``). ``runs``:
+    :class:`Run` tuples (``(cp_mode, steps)`` at least), each from the same
+    start, with ``ParallelConfig.fsdp`` and ``AdamWConfig.master_weights``
+    from the run or else ``fsdp`` and ``master_weights``; ``steps = 0`` is
+    one forward and backward with the global gradient norm and no optimizer
+    state (after one untimed warm-up pass), the parameters held as their
+    compute casts with ``master_weights``. Per rank and run (keyed by
+    :attr:`Run.key`): each step's metrics and wall time (after a barrier),
+    the kernel launches of the run, its parameters and optimizer-state bytes
+    (counted from the tensors, and as ``zero1_state_bytes`` gives them), and
+    on a card its peak memory; with ``profile``, one more step of the first
+    run profiled on the first rank of each stage. ``against_pp1``: each run
+    again at pp = 1 on stage 0's ranks, and every rank's gradients
+    (``steps = 0``) or final parameters against it, leaf by leaf (``pp1``).
+    ``dtype``: the compute dtype (default the config's: fp32 at the
+    ``reduce`` size)."""
     spec = dict(arch=arch, attn=tuple(attn), moe=tuple(moe), runs=[tuple(r) for r in runs],
-                device=device, reduce=reduce, layers=layers, seq=seq, batch=batch,
-                seed=seed, lr=lr, fsdp=fsdp, master_weights=master_weights, profile=profile)
-    return spawn(_train_world_rank, math.prod(attn), backend="gloo", device=device,
+                pp=pp, vpp=vpp, microbatch=microbatch, device=device, reduce=reduce,
+                layers=layers, seq=seq, batch=batch, seed=seed, lr=lr, fsdp=fsdp,
+                master_weights=master_weights, profile=profile, against_pp1=against_pp1,
+                dtype=dtype)
+    return spawn(_train_world_rank, pp * math.prod(attn), backend="gloo", device=device,
                  args=(spec,), timeout_s=timeout_s)

@@ -291,10 +291,13 @@ def reduce_grads(grads: Dict[str, torch.Tensor], groups: FoldedGroups,
 def norm_counted(layouts: Mapping[str, LeafLayout], groups: FoldedGroups) -> Dict[str, bool]:
     """Whether this rank's state shard of each leaf counts in the global
     norm: of the ranks that hold the same shard, the one whose coordinate
-    is 0 on every atom that does not cut it."""
-    coords = {a: groups.atom_index((a,)) for a in groups.atom_names}
+    is 0 on every atom that does not cut it. The pipeline atoms do not
+    replicate a leaf (each stage holds its own), so they do not count."""
+    pp = set(groups.atoms("attn", "pp"))
+    coords = {a: groups.atom_index((a,)) for a in groups.atom_names if a not in pp}
     out = {}
     for name, lay in layouts.items():
         cut = {a for e in lay.state for a in e}
         out[name] = all(c == 0 for a, c in coords.items() if a not in cut)
     return out
+

@@ -12,7 +12,7 @@ the vocabulary over TP.
 from __future__ import annotations
 
 import types
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -47,16 +47,42 @@ class MoEBlockParams(nn.Module):
         self.moe = moe
 
 
+class LayerStack(nn.Module):
+    """Layers under their global indices (``layers.<index>.`` names), in
+    order: all of them, or a pipeline stage's. Iterates over the modules;
+    ``stack[i]`` is layer ``i``."""
+
+    def __init__(self, layers: Dict[int, nn.Module]):
+        super().__init__()
+        for i, layer in layers.items():
+            self.add_module(str(i), layer)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self) -> int:
+        return len(self._modules)
+
+    def __getitem__(self, i: int) -> nn.Module:
+        return self._modules[str(i)]
+
+
 class LMParams(nn.Module):
     """Embedding ``(V, D)``, layers, final norm ``(D,)`` and LM head
-    ``(D, V)`` (``None`` when embeddings are tied)."""
+    ``(D, V)`` (``None`` when embeddings are tied).
 
-    def __init__(self, embed: torch.Tensor, layers, final_norm: torch.Tensor,
-                 lm_head: Optional[torch.Tensor] = None):
+    ``layers``: global index → layer. A pipeline stage
+    (``core.pipeline.Stage``) holds its layers under their global indices,
+    the embedding only on the first stage and the final norm and head only
+    on the last (``None`` elsewhere), so its leaf names are the full
+    model's."""
+
+    def __init__(self, embed: Optional[torch.Tensor], layers,
+                 final_norm: Optional[torch.Tensor], lm_head: Optional[torch.Tensor] = None):
         super().__init__()
-        self.embed = _param(embed)
-        self.layers = nn.ModuleList(layers)
-        self.final_norm = _param(final_norm)
+        self.embed = _param(embed) if embed is not None else None
+        self.layers = LayerStack(layers)
+        self.final_norm = _param(final_norm) if final_norm is not None else None
         self.lm_head = _param(lm_head) if lm_head is not None else None
 
 
@@ -108,37 +134,56 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
-            device: DeviceLike = None) -> LMParams:
+            device: DeviceLike = None, groups: Optional[FoldedGroups] = None) -> LMParams:
     """Random parameters from a seeded ``torch.Generator`` on ``device``.
 
     Like the JAX ``init_lm``: embedding and LM head are N(0, 0.02²) fp32,
     norms zero (RMSNorm stores ``scale - 1``), block matrices in ``dtype``.
     The numbers differ from JAX's (another generator); to load the JAX
     package's weights use :func:`repro_torch.convert.params_from_jax`.
+    With ``groups`` at a pipelined fold, only this rank's stage's leaves
+    are kept (each equal to the full model's: the generator draws every
+    leaf in the same order and drops the others as it goes).
     """
     check_supported(cfg)
+    from repro_torch.core.pipeline import stage_of
+    stage = stage_of(cfg, groups)
     device = resolve_device(device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     D, V = cfg.d_model, cfg.vocab_size
 
+    def keep(name, t):
+        return t if stage is None or stage.holds(name) else None
+
     def normal(shape):
         return torch.randn(shape, generator=g, device=device).mul_(0.02)
 
-    embed = normal((V, D))
-    lm_head = None if cfg.tie_embeddings else normal((D, V))
-    layers = []
-    for _ in range(cfg.n_layers):
+    embed = keep("embed", normal((V, D)))
+    lm_head = None if cfg.tie_embeddings else keep("lm_head", normal((D, V)))
+    layers = {}
+    for i in range(cfg.n_layers):
         zeros = torch.zeros(D, device=device)
-        layers.append(MoEBlockParams(
+        layer = MoEBlockParams(
             zeros, init_attention(cfg, generator=g, dtype=dtype, device=device),
-            zeros.clone(), init_moe(cfg, generator=g, dtype=dtype, device=device)))
-    return LMParams(embed, layers, torch.zeros(D, device=device), lm_head)
+            zeros.clone(), init_moe(cfg, generator=g, dtype=dtype, device=device))
+        if stage is None or i in stage.layers:
+            layers[i] = layer
+    return LMParams(embed, layers, keep("final_norm", torch.zeros(D, device=device)), lm_head)
 
 
-def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+def param_shapes(cfg: ModelConfig, groups: Optional[FoldedGroups] = None
+                 ) -> Dict[str, Tuple[int, ...]]:
     """The full shape of every leaf :func:`init_lm` makes, by name, with no
-    tensor made."""
+    tensor made; with ``groups`` at a pipelined fold, of this rank's
+    stage's leaves."""
+    from repro_torch.core.pipeline import stage_of
+    stage = stage_of(cfg, groups)
+    out = _param_shapes(cfg)
+    return out if stage is None else {n: s for n, s in out.items() if stage.holds(n)}
+
+
+def _param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     check_supported(cfg)
     D, V, m = cfg.d_model, cfg.vocab_size, cfg.moe
     E, F, fs = m.n_experts, m.d_expert, m.shared_expert_width
@@ -223,13 +268,14 @@ def _apply_moe(p: MoEBlockParams, x: torch.Tensor, pos: Optional[torch.Tensor],
 
 
 def _run_stack(layers, x: torch.Tensor, pos: Optional[torch.Tensor], cfg: ModelConfig, *,
-               remat: bool = True, groups: Optional[FoldedGroups] = None
-               ) -> Tuple[torch.Tensor, AuxDict]:
+               remat: bool = True, groups: Optional[FoldedGroups] = None,
+               layer_aux: Optional[List[AuxDict]] = None) -> Tuple[torch.Tensor, AuxDict]:
     """All layers in order → (x, aux summed over layers). With ``remat``
     each layer keeps only its input for the backward and runs its forward
     again there (``jax.checkpoint`` of the JAX scan body, no policy); across
     ranks the recompute runs the layer's collectives again, in the same
-    order on every rank, as every rank runs the same graph."""
+    order on every rank, as every rank runs the same graph. ``layer_aux``
+    (a list) receives each layer's aux terms, detached."""
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in AUX_KEYS}
     for layer in layers:
         if remat:
@@ -237,6 +283,8 @@ def _run_stack(layers, x: torch.Tensor, pos: Optional[torch.Tensor], cfg: ModelC
                               preserve_rng_state=False)
         else:
             x, a = _apply_moe(layer, x, pos, cfg, groups)
+        if layer_aux is not None:
+            layer_aux.append({k: a[k].detach() for k in AUX_KEYS})
         aux = {k: aux[k] + a[k] for k in AUX_KEYS}
     return x, aux
 
@@ -259,8 +307,11 @@ def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def vocab_start(params: LMParams, groups: FoldedGroups) -> int:
-    """The first token id of this rank's vocabulary slice (TP)."""
-    return groups.attn["tp"].index * params.embed.shape[0]
+    """The first token id of this rank's vocabulary slice (TP), from the
+    embedding (``(V / tp, D)``) or, on a pipeline stage without it, the LM
+    head (``(D, V / tp)``)."""
+    per_rank = params.embed.shape[0] if params.embed is not None else params.lm_head.shape[1]
+    return groups.attn["tp"].index * per_rank
 
 
 def lm_embed(params: LMParams, batch: Dict[str, torch.Tensor], pos: Optional[torch.Tensor],
@@ -324,6 +375,10 @@ def apply_lm(params: LMParams, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     slice (``models.common.vocab_parallel_cross_entropy``); aux is global.
     """
     check_supported(cfg)
+    from repro_torch.core.pipeline import pipelined
+    if pipelined(groups):
+        raise ValueError("apply_lm runs the whole model: at pp > 1 a rank holds one stage, "
+                         "which core.pipeline.make_pipeline_grads runs")
     if groups is None:
         pos = lm_positions(batch, cfg)
     else:

@@ -101,20 +101,43 @@ def _chunks(t: torch.Tensor):
     return [flat[i:i + CHUNK] for i in range(0, flat.numel(), CHUNK)]
 
 
+def _square_sum(g: torch.Tensor) -> torch.Tensor:
+    total = torch.zeros((), dtype=torch.float32, device=g.device)
+    for c in _chunks(g):
+        total = total + torch.sum(torch.square(c.float()))
+    return total
+
+
 def global_norm(grads: Tensors, *, counted: Optional[Dict[str, bool]] = None,
-                group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
-    """sqrt of the sum of every gradient's squares, in fp32.
+                group: Optional[dist.ProcessGroup] = None,
+                stages: Optional[Tuple[Optional[dist.ProcessGroup], Sequence[str]]] = None
+                ) -> torch.Tensor:
+    """sqrt of the sum of every gradient's squares, in fp32: each leaf's
+    sum of squares, added leaf after leaf.
 
     Across ranks, ``grads`` are this rank's slices: ``counted[name]`` says
     whether this rank's slice counts (one replica of each distinct slice
-    does, ``models.sharding.norm_counted``), and the sum of squares is
-    summed over ``group`` (every rank that holds a slice) before the root.
+    does, ``models.sharding.norm_counted``), and the sum is summed over
+    ``group`` (the ranks of one pipeline stage) before the root. At a
+    pipelined fold ``stages`` is ``(the pp group, every leaf name of the
+    model in the order a pp = 1 rank adds them)``: each leaf lives on one
+    stage, so its sums are exchanged over ``pp`` first and added in that
+    order, and the norm is the pp = 1 step's bit for bit.
     """
-    total = torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device)
-    for name, g in grads.items():
-        if counted is None or counted[name]:
-            for c in _chunks(g):
-                total = total + torch.sum(torch.square(c.float()))
+    dev = next(iter(grads.values())).device
+    names = list(grads) if stages is None else stages[1]
+    sums = [_square_sum(grads[n]) if n in grads and (counted is None or counted[n]) else None
+            for n in names]
+    if stages is not None:
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        vec = torch.stack([zero if s is None else s for s in sums])
+        if stages[0] is not None:
+            dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=stages[0])
+        sums = list(vec)
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for s in sums:
+        if s is not None:
+            total = total + s
     if group is not None:
         dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
     return torch.sqrt(total)
@@ -126,6 +149,7 @@ def update(cfg: AdamWConfig, grads: Tensors, state: AdamWState, params: Tensors,
            decay: Optional[Dict[str, bool]] = None,
            counted: Optional[Dict[str, bool]] = None,
            norm_group: Optional[dist.ProcessGroup] = None,
+           norm_stages: Optional[Tuple[Optional[dist.ProcessGroup], Sequence[str]]] = None,
            ) -> Tuple[Tensors, AdamWState, Tensors]:
     """One AdamW step → ``(params, state, metrics)``; ``params`` and the
     state's moments (and master) are updated in place and returned.
@@ -139,11 +163,11 @@ def update(cfg: AdamWConfig, grads: Tensors, state: AdamWState, params: Tensors,
     (a bool tensor, or None to disable) is the anomaly guard: the flag is
     ``step_ok & isfinite(grad_norm)``, and where it is False every leaf,
     moment and the step counter keep their old values bit for bit. The
-    flag is returned in ``metrics["step_ok"]``. ``counted`` and
-    ``norm_group`` make the clipping norm global across ranks
-    (:func:`global_norm`); every rank then reads the same flag.
+    flag is returned in ``metrics["step_ok"]``. ``counted``,
+    ``norm_group`` and ``norm_stages`` make the clipping norm global across
+    ranks (:func:`global_norm`); every rank then reads the same flag.
     """
-    gnorm = global_norm(grads, counted=counted, group=norm_group)
+    gnorm = global_norm(grads, counted=counted, group=norm_group, stages=norm_stages)
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0) if cfg.grad_clip
              else torch.ones_like(gnorm))
     step = state.step + 1
@@ -228,10 +252,11 @@ def adamw_state_specs(params, layout, *, master_weights: bool = False) -> AdamWS
 
 
 def zero1_state_bytes(params, layout, *, master_weights: bool = True) -> Dict[str, int]:
-    """Optimizer-state bytes of the full leaves ``params`` under the ZeRO-1
-    specs: ``global`` (all of it), ``per_device`` (one rank's, every cut
-    exact) and ``replicated`` (the leaves no atom cuts, which every rank
-    holds whole)."""
+    """Optimizer-state bytes of the full leaves ``params`` (at a pipelined
+    fold, a stage's: ``models.transformer.param_shapes(cfg, groups)``)
+    under the ZeRO-1 specs: ``global`` (all of it), ``per_device`` (one
+    rank's, every cut exact) and ``replicated`` (the leaves no atom cuts,
+    which every rank holds whole)."""
     fg = as_layout(layout)
     specs = adamw_state_specs(params, fg, master_weights=master_weights)
     n_state = 3 if master_weights else 2        # mu, nu(, master): all fp32

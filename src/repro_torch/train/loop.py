@@ -26,7 +26,16 @@ Port of ``repro.train.loop`` at pp = 1 (``cast_params``,
   (``models.sharding.reduce_grads`` with the leaves' layouts), the
   clipping norm is global, AdamW steps each rank's state shards, and the
   leaves whose state cuts the store slice further are all-gathered over
-  DP into it. Pipeline stages are not ported (ROADMAP.md queue 1).
+  DP into it;
+* at a fold with pipeline stages (``pp > 1``: 1F1B; ``vpp > 1``:
+  interleaved) a rank holds only its stage's leaves
+  (``core.pipeline.Stage``) and the forward and backward are
+  ``core.pipeline.make_pipeline_grads``: its stage's ops of the schedule
+  over ``microbatch`` slices, activations and their gradients sent point
+  to point between stages. Gradients and metrics get the pp = 1 loop's
+  division by the microbatch count, the clipping norm sums over the
+  stages too, and every stage reads the same guard flag, so the step is
+  the pp = 1 step's.
 
 The JAX package stacks every layer's parameters over the layer repeats, so
 a per-layer norm or router has one axis more there than here. Its cast
@@ -127,9 +136,19 @@ def loss_and_grads(params: LMParams, batch: Tensors, cfg: ModelConfig, *,
     their fp32 gradients and metrics. With ``groups``, ``params`` are the
     rank's store slices and the gradients are then reduced to its ZeRO-1
     state shards (``models.sharding.reduce_grads``): every replica of a
-    shard holds the same gradient."""
+    shard holds the same gradient. At a pipelined fold ``params`` are its
+    stage's, and the pipeline schedule runs the ``microbatch`` slices (at
+    least one; fp32 gradients)."""
+    from repro_torch.core import pipeline as pl
     cparams = cast_params(params, cfg)
-    if microbatch and microbatch > 1:
+    if pl.pipelined(groups):
+        n_micro = max(microbatch, 1)
+        part = pl.stage_partition_for(cfg, groups.pp_degree, groups.pcfg.vpp)
+        grads, metrics = pl.make_pipeline_grads(cfg, groups, part, n_micro,
+                                                remat=remat)(cparams, batch)
+        grads = {n: t / n_micro for n, t in grads.items()}
+        metrics = {k: v / n_micro for k, v in metrics.items()}
+    elif microbatch and microbatch > 1:
         B = batch["tokens"].shape[0]
         if B % microbatch:
             raise ValueError(f"batch {B} not divisible by microbatch {microbatch}")
@@ -160,15 +179,31 @@ def loss_and_grads(params: LMParams, batch: Tensors, cfg: ModelConfig, *,
 
 
 def grad_norm(grads: Tensors, groups: Optional[FoldedGroups] = None,
-              params: Optional[LMParams] = None) -> torch.Tensor:
+              params: Optional[LMParams] = None, cfg: Optional[ModelConfig] = None
+              ) -> torch.Tensor:
     """The global gradient norm: across ranks, each distinct state shard
     once (``grads`` from :func:`loss_and_grads`, ``params`` the store
-    slices they belong to)."""
+    slices they belong to; ``cfg`` at a pipelined fold)."""
     if groups is None:
         return adamw.global_norm(grads)
     layouts = sharding.layouts_of(dict(params.named_parameters()), groups)
-    return adamw.global_norm(grads, counted=sharding.norm_counted(layouts, groups),
-                             group=groups.attn["stage"].group)
+    norm = _norm_args(layouts, groups, cfg)
+    return adamw.global_norm(grads, counted=norm["counted"], group=norm["norm_group"],
+                             stages=norm["norm_stages"])
+
+
+def _norm_args(layouts, groups: FoldedGroups, cfg: Optional[ModelConfig]) -> Dict:
+    """``adamw.update``'s arguments for the global norm at a fold: which
+    shards count, the stage's group, and at a pipelined fold the pp group
+    with every leaf name in the pp = 1 order (``param_shapes``')."""
+    from repro_torch.core.pipeline import pipelined
+    stages = None
+    if pipelined(groups):
+        if cfg is None:
+            raise ValueError("grad_norm at a pipelined fold needs cfg (the model's leaf order)")
+        stages = (groups.attn["pp"].group, tuple(param_shapes(cfg)))
+    return dict(counted=sharding.norm_counted(layouts, groups),
+                norm_group=groups.attn["stage"].group, norm_stages=stages)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] = None, *,
@@ -186,11 +221,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] = Non
     scalar ``batch["loss_scale"]`` multiplied into the gradients and the
     loss metric after the backward (1.0 is a bitwise no-op; NaN makes a
     guarded skip). ``groups``: the folded mapping; ``params`` (store
-    slices, ``models.sharding.shard_lm_params``), ``opt_state``
-    (:func:`init_train_state` with the same ``groups``) and ``batch``
-    (``data.pipeline.shard_batch`` with the same ``microbatch``) are then
-    this rank's. A skipped step skips the parameter gather on every rank
-    alike: the flag comes from the global norm.
+    slices, ``models.sharding.shard_lm_params``; of its pipeline stage at
+    pp > 1), ``opt_state`` (:func:`init_train_state` with the same
+    ``groups``) and ``batch`` (``data.pipeline.shard_batch`` with the same
+    ``microbatch``) are then this rank's. A skipped step skips the
+    parameter gather on every rank alike: the flag comes from the global
+    loss and norm.
     """
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     if remat not in REMAT:
@@ -217,8 +253,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] = Non
             layouts = sharding.layouts_of(named, groups)
             shards = {n: sharding.state_view(p.data, layouts[n], groups)
                       for n, p in named.items()}
-            norm = dict(counted=sharding.norm_counted(layouts, groups),
-                        norm_group=groups.attn["stage"].group)
+            norm = _norm_args(layouts, groups, cfg)
         with torch.profiler.record_function("adamw update"):
             _, opt_state, opt_m = adamw.update(opt_cfg, grads, opt_state, shards,
                                                step_ok=step_ok, decay=decay, **norm)
@@ -234,7 +269,8 @@ def init_train_state(params: LMParams, opt_cfg: Optional[adamw.AdamWConfig] = No
                      cfg: Optional[ModelConfig] = None,
                      groups: Optional[FoldedGroups] = None) -> adamw.AdamWState:
     """Zero AdamW state for ``params`` (on their device); with ``groups``
-    only this rank's ZeRO-1 state shards of its store slices. With
+    only this rank's ZeRO-1 state shards of its store slices (of its
+    pipeline stage's leaves, which are all ``params`` hold). With
     ``opt_cfg.master_weights`` the state holds an fp32 master of each
     shard, and the matrices of ``params`` (``leaf_rank >= 2``) are cast in
     place to ``cfg``'s compute dtype, the reference's ``cast_params``."""
@@ -259,8 +295,9 @@ def train_state_structs(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] =
                         ) -> Tuple[Dict[str, torch.Tensor], adamw.AdamWState]:
     """``(params, opt_state)`` as held at rest, as ``meta`` tensors by name:
     the full leaves, or with ``groups`` this rank's store slices and state
-    shards. With ``master_weights`` the params are the compute-dtype casts
-    and the state holds the fp32 masters."""
+    shards (of its pipeline stage's leaves at pp > 1). With
+    ``master_weights`` the params are the compute-dtype casts and the state
+    holds the fp32 masters."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
 
     def meta(name, shape, kind):
@@ -269,7 +306,7 @@ def train_state_structs(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] =
             shape = tuple(d // groups.atom_size(a) for d, a in zip(shape, spec))
         return torch.empty(shape, dtype=torch.float32, device="meta")
 
-    full = param_shapes(cfg)
+    full = param_shapes(cfg, groups)
     params = {n: meta(n, s, "store") for n, s in full.items()}
     if opt_cfg.master_weights:
         params = {n: _cast(n, t, cfg) for n, t in params.items()}

@@ -153,8 +153,10 @@ def test_sp_shards_are_moe_token_shards(attn, moe, pp):
                                 dict(pp=2)])
 def test_folds_without_the_sp_moe_handoff_raise(kw):
     """Where the SP rows are not the MoE token shard (``pod_role="cp"``,
-    non-contiguous ``moe_factors``), or with pipeline stages, the folded
-    forward raises before it runs a collective instead of mixing tokens."""
+    non-contiguous ``moe_factors``) the folded forward raises before it
+    runs a collective instead of mixing tokens. With pipeline stages the
+    whole-model forward raises too (a rank holds one stage, which
+    ``core.pipeline.make_pipeline_grads`` runs; the hand-off holds)."""
     from repro_torch.launch.train import train_config
     from repro_torch.models.transformer import apply_lm, init_lm
     kw = dict(kw)
@@ -167,7 +169,9 @@ def test_folds_without_the_sp_moe_handoff_raise(kw):
     cfg = train_config("mixtral-8x22b", reduce=True)
     params = init_lm(cfg, seed=0, device="cpu")
     batch = {"tokens": torch.zeros((1, 16), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError):
+    if "pp" in kw:
+        folding.check_sp_moe_handoff(fg)
+    with pytest.raises(ValueError if "pp" in kw else NotImplementedError):
         apply_lm(params, batch, cfg, groups=fg)
 
 
