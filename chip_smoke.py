@@ -124,12 +124,40 @@ failure exits non-zero; nothing is caught):
    parameter leaf within ``ZERO_TOL``. Then the flash and GMM kernels at
    (a)'s stage shapes, held and timed as in phase 3.
 
+11. train-resume — elastic checkpoints and supervised restart
+   (``repro_torch.launch.world.resilient_world``: ``checkpoint/store.py``
+   in the reference's ``repro-elastic-v1`` format, ``resilience.
+   run_training``). (a) Mixtral at full width cut to 1 layer at phase 9's
+   fold (DP2×TP2 / EDP2×EP2, FSDP, ZeRO-1), phase 9's seed, batches and
+   AdamWConfig, 4 ranks sharing the card over gloo, under the supervisor:
+   2 steps, a save every 2 keeping 1, a ``data_error`` fault at step 1. It
+   saves step 0, crashes, restores the verified step 0 (the re-hash split
+   over the ranks), runs steps 0 and 1 again and saves step 2, in a
+   ``tempfile.mkdtemp()`` directory in the RAM-backed ``/dev/shm`` (the
+   card's machine caps what is written to its disk at 45 GiB, less than two
+   34.88 GB steps; step 0's zero moments are stored deflated, so keep=1
+   holds ~46.5 GB while step 2 commits; the directory's free bytes and
+   file-system type and the RAM available are printed, and less room
+   fails the phase) removed at the end. Checks: each rank's restored
+   pieces hash to the saved digests; the losses and ``grad_norm`` of steps
+   0–1 equal phase 9's FSDP run's bit for bit; the launch counters, zeroed
+   at the restore, equal two steps' count from the code. It prints the
+   bytes a rank writes a save and the walls of the host copy, hash, write,
+   commit, verify and restore. (b) Reduced Mixtral in bf16, 4 layers:
+   3 steps at phase 10 (b)'s fold
+   (PP2 × vpp 2 / DP2 / EP2, ZeRO-1) saving step 2 (async) and step 3;
+   step 2 restored onto DP2×TP2 / EDP2×EP2 at pp 1 and saved there; that
+   restored back onto the first fold (each piece hashed against the first
+   save's digests) and its step 2 run: loss and ``grad_norm`` equal to the
+   uninterrupted run's third step and step 3's state equal shard by shard.
+
 Phase 9 runs first, right after the build: its 4 ranks need about 70 GB
 of the card (Qwen2: 18.02 GB peak a rank on an H100), and what the other
 phases leave in this process (3.9 GB reserved before phase 7) left Qwen2's
-ranks out of memory when phase 9 ran last. Phase 10 runs right after it,
-for the same reason, with the memory reserved before it printed. Then
-Mixtral runs phases 3, 4, 5, 6; every Mixtral tensor is freed and Qwen2
+ranks out of memory when phase 9 ran last. Phases 10 and 11 run right
+after it, for the same reason, with the memory reserved before each
+printed. Then Mixtral runs phases 3, 4, 5, 6; every Mixtral tensor is
+freed and Qwen2
 runs 4, 5, 3, 6; then both run 7 and 8. Then it prints the script time, the
 kernels' JSON line (one entry per kernel per main path, its ``launches``
 from that path's own run), the card's ``nvidia-smi`` name and power limit,
@@ -258,6 +286,21 @@ PIPE_FULL = dict(attn=(1, 1, 2), moe=(1, 2, 1), pp=2, vpp=1, microbatch=4, layer
                  seq=TRAIN_SEQ, steps=0)
 PIPE_SMALL = dict(attn=(2, 1, 1), moe=(1, 2, 1), pp=2, vpp=2, microbatch=4, layers=4, seq=256,
                   steps=3)
+
+
+# Phase 11 (a): phase 9's fold, batches, seed and AdamWConfig under the
+# supervisor: 2 steps, a save every 2 keeping 1, a data-stream fault at step
+# 1 (so: save 0, crash, restore 0, steps 0-1 again, save 2); (b) phase 10
+# (b)'s fold and the fold it is restored onto. (a)'s checkpoints go to the
+# machine's RAM-backed tmpfs: the card's machine counts every byte written
+# to its disk against a budget (45 GiB, deletes not returned) that two
+# full-width steps (2 x 34.88 GB) exceed, and holds 96 GiB of RAM. keep=1
+# holds two steps while a save commits: step 2 and step 0, whose moments
+# are zero and stored deflated (``checkpoint.store``), so about the
+# parameters' 11.6 GB.
+RESUME_STEPS, RESUME_EVERY, RESUME_FAULT = 2, 2, ("data_error", 1)
+RESUME_DIR, RESUME_RAM_MARGIN = "/dev/shm", 15e9
+RESUME_SECOND = dict(attn=(2, 1, 2), moe=(2, 2, 1), pp=1, vpp=1, microbatch=4)
 
 
 def _gmm_specs(arch: str) -> tuple:
@@ -1257,6 +1300,211 @@ def phase_train_pipe(torch) -> dict:
     return out
 
 
+def _fs_type(path: str) -> str:
+    """The type of the file system holding ``path`` (``/proc/mounts``)."""
+    import os
+    path, best = os.path.realpath(path), ("", "unknown")
+    with open("/proc/mounts") as f:
+        for line in f:
+            _, mnt, kind = line.split()[:3]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) and len(mnt) > len(best[0]):
+                best = (mnt, kind)
+    return f"{best[1]} at {best[0]}"
+
+
+def _meminfo() -> dict:
+    """``/proc/meminfo`` in bytes."""
+    with open("/proc/meminfo") as f:
+        return {line.split(":")[0]: int(line.split()[1]) * 1024 for line in f}
+
+
+def _io_line(r: dict) -> str:
+    parts = []
+    for rec in r["io"]:
+        if rec["op"] == "save":
+            parts.append(f"save {rec['step']}: {rec['bytes'] / 1e9:.3f} GB ({rec['file_bytes'] / 1e9:.3f} "
+                         f"GB in its file), host copy "
+                         f"{rec['host_copy']:.2f} s, hash {rec['hash']:.2f} s, write "
+                         f"{rec['write']:.2f} s, commit {rec['commit']:.2f} s")
+        else:
+            parts.append(f"{rec['op']} {rec['step']}: {rec['seconds']:.2f} s")
+    return "; ".join(parts)
+
+
+def _resume_full(torch, train_zero: dict, failures: list) -> dict:
+    """Phase 11 (a): see the module docstring."""
+    import math
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.launch.train import train_config
+    from repro_torch.launch.world import resilient_world
+    from repro_torch.models.transformer import param_shapes
+    tag, moe = "train-resume", train_zero["moe"]
+    cfg = train_config(MIXTRAL, layers=1)
+    n_params = sum(math.prod(s) for s in param_shapes(cfg).values())
+    step_bytes = n_params * 12                  # fp32 parameters, mu and nu
+    if not os.path.isdir(RESUME_DIR):
+        raise AssertionError(f"phase 11: no {RESUME_DIR} (RAM-backed tmpfs) for the checkpoints")
+    directory = tempfile.mkdtemp(prefix="chip-smoke-ckpt-", dir=RESUME_DIR)
+    try:
+        free, fs, mem = shutil.disk_usage(directory).free, _fs_type(directory), _meminfo()
+        need = step_bytes + n_params * 4        # step 2, and step 0's parameters
+        _say(f"[{tag}] checkpoint directory {directory} ({fs}): {free / 1e9:.2f} GB free; RAM "
+             f"{mem['MemTotal'] / 1e9:.2f} GB, {mem['MemAvailable'] / 1e9:.2f} GB available; a "
+             f"step is {step_bytes / 1e9:.2f} GB ({n_params / 1e9:.3f} B parameters x 12 B), "
+             f"{step_bytes / 4e9:.2f} GB a rank; keep=1 holds {need / 1e9:.2f} GB while a "
+             "save commits")
+        if min(free, mem["MemAvailable"] - RESUME_RAM_MARGIN) < need:
+            raise AssertionError(
+                f"phase 11: {directory} has {free / 1e9:.2f} GB free and the machine "
+                f"{mem['MemAvailable'] / 1e9:.2f} GB of RAM available, less than the "
+                f"{need / 1e9:.2f} GB that keep=1 holds while a save commits (with "
+                f"{RESUME_RAM_MARGIN / 1e9:.0f} GB of RAM for the processes)")
+        t0 = time.perf_counter()
+        ranks, = resilient_world(dict(
+            attn=ZERO_ATTN, moe=moe, arch=MIXTRAL, layers=1, seq=TRAIN_SEQ, batch=ZERO_BATCH,
+            seed=0, lr=3e-4, steps=RESUME_STEPS, ckpt_dir=directory, ckpt_every=RESUME_EVERY,
+            keep=1, supervise=True, faults=[RESUME_FAULT + ({},)], max_restarts=1))
+        wall = time.perf_counter() - t0
+        left = sorted(os.listdir(directory))
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    anchor = RESUME_FAULT[1] // RESUME_EVERY * RESUME_EVERY      # the last save before it
+    expect = _expected_world_launches(MIXTRAL, "allgather", RESUME_STEPS - anchor, ZERO_ATTN)
+    zero = train_zero[MIXTRAL]
+    for r in ranks:
+        rid = f"{tag} rank {r['rank']}"
+        ref = zero["ranks"][r["rank"]]["runs"][zero["base"]]["metrics"]
+        errs = [x for x in r["incidents"] if x["incident"] == "restart"]
+        if r["restarts"] != 1 or [x["error"] for x in errs] != ["DataStreamError"]:
+            failures.append(f"{rid}: restarts {r['restarts']}, incidents {r['incidents']}")
+        rest = r["restored"]
+        if rest is None or rest["step"] != anchor or rest["bad"] or not rest["checked"]:
+            failures.append(f"{rid}: restored {rest}")
+        if sorted(r["metrics"]) != list(range(RESUME_STEPS)):
+            failures.append(f"{rid}: steps run {sorted(r['metrics'])}")
+        for i, m in sorted(r["metrics"].items()):
+            for k in ("loss", "grad_norm"):
+                if m[k] != ref[i][k]:
+                    failures.append(f"{rid} step {i} {k}: {m[k]!r} != phase 9's {ref[i][k]!r}")
+        if r["launches"] != expect:
+            failures.append(f"{rid}: launches since the restore {r['launches']} != "
+                            f"{RESUME_STEPS - anchor} steps' {expect}")
+    if left != [f"ckpt_{RESUME_STEPS:08d}", f"ckpt_{RESUME_STEPS:08d}.done"]:
+        failures.append(f"{tag}: the directory held {left} at the end, not step "
+                        f"{RESUME_STEPS} alone (keep=1)")
+    r0 = ranks[0]
+    ref = zero["ranks"][0]["runs"][zero["base"]]["metrics"]
+    for i, m in sorted(r0["metrics"].items()):
+        _say(f"[{tag}] step {i}: loss {m['loss']!r} (phase 9 {ref[i]['loss']!r}), grad_norm "
+             f"{m['grad_norm']!r} (phase 9 {ref[i]['grad_norm']!r})")
+    for r in ranks:
+        _say(f"[{tag}] rank {r['rank']}: restarts {r['restarts']}, restored step "
+             f"{r['restored']['step'] if r['restored'] else None} with "
+             f"{r['restored']['checked'] if r['restored'] else 0} pieces hashed equal to the "
+             f"saved digests, launches since the restore {r['launches']} ({RESUME_STEPS - anchor} "
+             f"steps: {expect}), "
+             f"peak memory {r['peak_gb']:.2f} GB; {_io_line(r)}")
+    _say(f"[{tag}] {MIXTRAL} x1 layer at attention (dp, cp, tp) {ZERO_ATTN}, MoE (edp, ep, "
+         f"etp) {moe}, FSDP, ZeRO-1, {ZERO_BATCH} x {TRAIN_SEQ} tokens a step: "
+         f"{RESUME_STEPS} steps, a save every {RESUME_EVERY} (keep 1), fault "
+         f"{RESUME_FAULT[0]} at step {RESUME_FAULT[1]}; incidents "
+         + ", ".join(x["incident"] for x in r0["incidents"]) + f"; phase wall {wall:.1f} s")
+    return dict(wall_s=wall, ranks=ranks, step_bytes=step_bytes, disk_free=free, fs=fs,
+                meminfo_start=mem, meminfo_end=_meminfo())
+
+
+def _resume_reduced(torch, failures: list) -> dict:
+    """Phase 11 (b): see the module docstring."""
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.launch.world import resilient_world
+    tag = "train-resume-reduced"
+    w = PIPE_SMALL
+    first = {k: w[k] for k in ("attn", "moe", "pp", "vpp", "microbatch")}
+    common = dict(arch=MIXTRAL, reduce=True, layers=w["layers"], dtype="bfloat16",
+                  seq=w["seq"], batch=w["microbatch"] * w["attn"][0], seed=0, lr=3e-4)
+    root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-reduced-")
+    dirs = {k: os.path.join(root, k) for k in "abc"}
+    try:
+        t0 = time.perf_counter()
+        a, b, c = resilient_world(      # one world, three runs in turn
+            dict(first, **common, steps=3, ckpt_every=2, ckpt_dir=dirs["a"]),
+            dict(RESUME_SECOND, **common, steps=2, ckpt_dir=dirs["b"], resume=dirs["a"],
+                 resume_step=2),
+            dict(first, **common, steps=3, ckpt_dir=dirs["c"], resume=dirs["b"],
+                 check=(dirs["a"], 2)))
+        wall = time.perf_counter() - t0
+
+        def digests(d, step):
+            with open(os.path.join(d, f"ckpt_{step:08d}", "manifest.json")) as f:
+                leaves = _json.load(f)["leaves"]
+            return {k: [(sh["start"], sh["stop"], sh["sha256"]) for sh in v["shards"]]
+                    for k, v in leaves.items()}
+        same = digests(dirs["a"], 3) == digests(dirs["c"], 3)
+        n_shards = sum(len(v) for v in digests(dirs["a"], 3).values())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not same:
+        failures.append(f"{tag}: the state after the round trip's step differs from the "
+                        "uninterrupted run's (step 3's shard digests)")
+    for ra, rc in zip(a, c):
+        rid = f"{tag} rank {ra['rank']}"
+        rest = rc["restored"]
+        if rest is None or rest["bad"] or not rest["checked"]:
+            failures.append(f"{rid}: restored {rest}")
+        if sorted(rc["metrics"]) != [2] or rc["metrics"][2]["loss"] != ra["metrics"][2]["loss"] \
+                or rc["metrics"][2]["grad_norm"] != ra["metrics"][2]["grad_norm"]:
+            failures.append(f"{rid}: step 2 after the round trip {rc['metrics']} != the "
+                            f"uninterrupted {ra['metrics'].get(2)}")
+    for rb in b:
+        if rb["restored"] is None or rb["restored"]["step"] != 2 or rb["restored"]["bad"] \
+                or rb["metrics"]:
+            failures.append(f"{tag} second fold rank {rb['rank']}: {rb['restored']}, "
+                            f"{rb['metrics']}")
+    m_a, m_c = a[0]["metrics"][2], c[0]["metrics"][2]
+    _say(f"[{tag}] reduced {MIXTRAL} x{w['layers']} in bf16: 2 steps at PP{w['pp']} x vpp "
+         f"{w['vpp']} / attention {w['attn']} / MoE {w['moe']} saved, restored at attention "
+         f"{RESUME_SECOND['attn']} / MoE {RESUME_SECOND['moe']} (pp 1) and saved there, "
+         f"restored back ({c[0]['restored']['checked']} pieces on rank 0 hashed equal to the "
+         f"first save's digests); step 2 there: loss {m_c['loss']!r} grad_norm "
+         f"{m_c['grad_norm']!r} (uninterrupted {m_a['loss']!r} / {m_a['grad_norm']!r}); "
+         f"step 3's {n_shards} shard digests {'equal' if same else 'DIFFER'}; phase wall "
+         f"{wall:.1f} s")
+    return dict(wall_s=wall, first=a, second=b, back=c, state_equal=same)
+
+
+def phase_train_resume(torch, train_zero: dict) -> dict:
+    """Phase 11: see the module docstring. Every check is printed before
+    the phase fails on any of them."""
+    failures: list = []
+    out = {"full": _resume_full(torch, train_zero, failures)}
+    torch.cuda.empty_cache()
+    out["reduced"] = _resume_reduced(torch, failures)
+    if failures:
+        raise AssertionError("phase 11:\n" + "\n".join(failures))
+    return out
+
+
+def _train_resume_line(train_resume: dict, train_zero: dict, sources: dict) -> list:
+    """Phase 11's entries of the kernels line (path ``train-resume``): each
+    kernel with rank 0's launches since the restore, timed at phase 9's
+    Mixtral shape (the same launches)."""
+    launches = train_resume["full"]["ranks"][0]["launches"]
+    line = []
+    for name in ("gmm", "gmm_trans_w", "flash_attention"):
+        c = train_zero[MIXTRAL]["kernels"][name][0]
+        line.append(dict(name=name, path="train-resume", model=MIXTRAL, case=c["case"],
+                         route="cuda", source=sources[name][0], replaces=sources[name][1],
+                         launches=launches[name], max_abs_err=c["max_abs_err"], ms=c["ms"],
+                         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                         library_ms=c["library_ms"]))
+    return line
+
+
 def _train_pipe_line(train_pipe: dict, sources: dict) -> list:
     """Phase 10's entries of the kernels line (path ``train-pipe``): each
     kernel with rank 0's launches in run (a), timed at its shape."""
@@ -1360,6 +1608,8 @@ def main() -> int:
     memory_zero = _free(torch, "phase 9 done, before phase 10")
     train_pipe = phase_train_pipe(torch)
     memory_pipe = _free(torch, "phase 10 done")
+    train_resume = phase_train_resume(torch, train_zero)
+    memory_resume = _free(torch, "phase 11 done")
     results = {MIXTRAL: run_model(torch, MIXTRAL)}
     memory = _free(torch, "Mixtral-8x22B freed")
     results[QWEN2] = run_model(torch, QWEN2)
@@ -1396,6 +1646,7 @@ def main() -> int:
     line += _train_world_line(train_world, sources)
     line += _train_zero_line(train_zero, sources)
     line += _train_pipe_line(train_pipe, sources)
+    line += _train_resume_line(train_resume, train_zero, sources)
     smi = _smi()
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -1404,7 +1655,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         nvidia_smi=smi, device=device, timing=TIMING, build=build, models=results,
         world=world, train_world=train_world, train_zero=train_zero, train_pipe=train_pipe,
-        memory_after_train_zero=memory_zero, memory_after_train_pipe=memory_pipe,
+        train_resume=train_resume, memory_after_train_zero=memory_zero,
+        memory_after_train_pipe=memory_pipe, memory_after_train_resume=memory_resume,
         memory_between_models=memory,
         memory_before_world=memory_world, seconds=seconds), indent=1))
     _say(f"[done] script time {seconds:.2f} s (build {build['seconds']:.2f} s)")

@@ -11,11 +11,13 @@ does (``layers.3.moe.w1``; the shared experts' ``moe/shared/w1`` is
 its slices of the full tree (``models.sharding``): parameters in the store
 layout, gradients and AdamW state in the ZeRO-1 state layout, so a test
 holds each rank's tensors against its slices of JAX's; at a pipelined fold
-only those of its stage.
+only those of its stage. :func:`jax_key` is the inverse map, name → JAX
+key and layer index: the keys of the reference's checkpoints
+(``train.loop.save_train_state``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,37 +28,61 @@ from repro_torch.core.moe_layer import MoEParams, shard_moe_params
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import AttentionParams
 from repro_torch.models.sharding import shard_tensor
-from repro_torch.models.transformer import (LMParams, MoEBlockParams,
-                                            check_supported, model_cycle)
+from repro_torch.models.transformer import (LMParams, MoEBlockParams, model_cycle,
+                                            param_shapes)
 from repro_torch.optim.adamw import AdamWState
 
 
 # The reference's ``moe/shared/*`` leaves → :class:`MoEParams` names.
 SHARED_NAMES = {"w1": "ws1", "w2": "ws2", "w3": "ws3", "gate": "gate"}
+JAX_SHARED = {v: k for k, v in SHARED_NAMES.items()}
+
+
+def jax_key(name: str, cfg: ModelConfig) -> Tuple[str, Optional[int]]:
+    """The JAX ``init_lm`` tree's key (``/``-joined path) of the port's leaf
+    ``name``, and its index on the stacked layer-repeat axis (``None`` for
+    the leaves outside the layers). Layer ``l`` is cycle position
+    ``l % len(cycle)``, repeat ``l // len(cycle)``: ``layers.3.attn.wq`` is
+    ``cycle/b0/attn/wq`` at index 3 for a cycle of one block."""
+    if name in ("embed", "lm_head"):
+        return name, None
+    if name == "final_norm":
+        return "final_norm/w", None
+    _, layer, *rest = name.split(".")
+    n = len(model_cycle(cfg)[1])
+    leaf = ".".join(rest)
+    if leaf in ("norm1", "norm2"):
+        path = f"{leaf}/w"
+    elif leaf.startswith("attn."):
+        path = "attn/" + leaf[5:]
+    elif leaf in ("moe.w1", "moe.w2", "moe.w3"):
+        path = "moe/experts/" + leaf[4:]
+    elif leaf == "moe.router":
+        path = "moe/router"
+    else:
+        path = "moe/shared/" + JAX_SHARED[leaf[4:]]
+    return f"cycle/b{int(layer) % n}/{path}", int(layer) // n
+
+
+def stacked_shape(name: str, shape: Sequence[int], cfg: ModelConfig) -> Tuple[int, ...]:
+    """The shape of :func:`jax_key`'s leaf in the JAX tree from the port
+    leaf's ``shape``: a layer leaf gains the repeat axis in front."""
+    if jax_key(name, cfg)[1] is None:
+        return tuple(shape)
+    return (cfg.n_layers // len(model_cycle(cfg)[1]),) + tuple(shape)
 
 
 def named_from_jax(tree: Dict, cfg: ModelConfig) -> Dict[str, np.ndarray]:
     """The leaves of a JAX ``init_lm``-shaped tree (parameters, gradients or
-    moments) under the port's parameter names. Layer ``l`` is cycle position
-    ``l % len(cycle)``, repeat ``l // len(cycle)``."""
-    check_supported(cfg)
-    _, cycle = model_cycle(cfg)
-    out = {"embed": tree["embed"]}
-    for layer in range(cfg.n_layers):
-        b = tree["cycle"][f"b{layer % len(cycle)}"]
-        i = layer // len(cycle)
-        pre = f"layers.{layer}."
-        out[pre + "norm1"] = b["norm1"]["w"][i]
-        out.update({f"{pre}attn.{k}": v[i] for k, v in b["attn"].items()})
-        out[pre + "norm2"] = b["norm2"]["w"][i]
-        out[pre + "moe.router"] = b["moe"]["router"][i]
-        out.update({f"{pre}moe.{k}": b["moe"]["experts"][k][i] for k in ("w1", "w2", "w3")})
-        out.update({pre + "moe." + SHARED_NAMES[k]: v[i]
-                    for k, v in b["moe"].get("shared", {}).items()})
-    out["final_norm"] = tree["final_norm"]["w"]
-    if tree.get("lm_head") is not None:
-        out["lm_head"] = tree["lm_head"]
-    return {k: np.asarray(v) for k, v in out.items()}
+    moments) under the port's parameter names (:func:`jax_key`)."""
+    out = {}
+    for name in param_shapes(cfg):
+        key, i = jax_key(name, cfg)
+        v = tree
+        for part in key.split("/"):
+            v = v[part]
+        out[name] = np.asarray(v if i is None else v[i])
+    return out
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -91,7 +117,12 @@ def params_from_jax(tree: Dict, cfg: ModelConfig, *, device: DeviceLike = None,
     """Build :class:`LMParams` on ``device`` from the numpy leaves of a JAX
     ``init_lm`` tree; with ``groups``, this rank's store slices of them (of
     its pipeline stage's leaves)."""
-    t = tensors_from_jax(tree, cfg, device=device, groups=groups)
+    return lm_params(tensors_from_jax(tree, cfg, device=device, groups=groups), cfg)
+
+
+def lm_params(t: Dict[str, torch.Tensor], cfg: ModelConfig) -> LMParams:
+    """:class:`LMParams` from its leaves by name (all of them, or a
+    pipeline stage's), the tensors taken as they are."""
     layers = {}
     for layer in range(cfg.n_layers):
         pre = f"layers.{layer}."

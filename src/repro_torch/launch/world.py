@@ -1,5 +1,6 @@
 """Start a world of ranks (``init_world``, ``spawn``) and run the folded
-MoE layer (``moe_world``) or the folded training step (``train_world``) in it.
+MoE layer (``moe_world``), the folded training step (``train_world``) or a
+checkpointed / supervised training run (``resilient_world``) in it.
 
 Port of ``repro.launch.mesh`` for ``torch.distributed``. Nothing here reads
 a cluster's environment: the caller names the backend, the rendezvous, the
@@ -739,3 +740,47 @@ def train_world(arch: str, *, attn: Sequence[int], moe: Sequence[int],
                 dtype=dtype)
     return spawn(_train_world_rank, pp * math.prod(attn), backend="gloo", device=device,
                  args=(spec,), timeout_s=timeout_s)
+
+
+# ---------------------------------------------------------------------------
+# Checkpointed and supervised runs across a world.
+# ---------------------------------------------------------------------------
+
+FOLD_DEFAULTS = dict(pp=1, vpp=1, microbatch=0, cp_mode="allgather", fsdp=True)
+
+
+def _resilient_rank(rank: int, world: int, runs: Sequence[Dict[str, Any]]) -> List[Dict]:
+    """One rank of :func:`resilient_world` (see there)."""
+    from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
+    from repro_torch.core.folding import build_folded_groups
+    from repro_torch.launch.train import resilient_run
+    out = []
+    for run in runs:
+        f = {k: run.get(k, v) for k, v in FOLD_DEFAULTS.items()}
+        pcfg = ParallelConfig(attn=PM(*run["attn"]), moe=PM(*run["moe"]), **f)
+        fg = build_folded_groups(pcfg, rank=rank, world=world)
+        spec = {k: v for k, v in run.items() if k not in FOLD_DEFAULTS and k not in ("attn", "moe")}
+        out.append(dict(rank=rank, stage=fg.pp_stage,
+                        **resilient_run(dict(spec, ep=run["moe"][1]), fg)))
+    return out
+
+
+def resilient_world(*runs: Dict[str, Any], device: str = "cuda",
+                    timeout_s: float = 900.0) -> List[List[Dict[str, Any]]]:
+    """``launch.train.resilient_run`` on every rank of one world over gloo,
+    one process a rank, for each of ``runs`` in turn: a dict of the fold
+    (``attn`` (dp, cp, tp), ``moe`` (edp, ep, etp), and as
+    ``FOLD_DEFAULTS`` ``pp``, ``vpp``, ``microbatch``, ``cp_mode``,
+    ``fsdp``; every run on the same number of ranks) and the run's spec: a
+    checkpointed or supervised training run whose checkpoints any mapping,
+    world size or the JAX package reads; a later run may restore what an
+    earlier one saved, at another fold. Per run, each rank's record in rank
+    order, with its ``rank`` and ``stage``."""
+    sizes = {r.get("pp", 1) * math.prod(r["attn"]) for r in runs}
+    if len(sizes) != 1:
+        raise ValueError(f"resilient_world: the runs' folds span {sorted(sizes)} ranks, "
+                         "not one world")
+    runs = [dict(r, device=device) for r in runs]
+    ranks = spawn(_resilient_rank, sizes.pop(), backend="gloo", device=device, args=(runs,),
+                  timeout_s=timeout_s)
+    return [[r[i] for r in ranks] for i in range(len(runs))]

@@ -2,9 +2,11 @@
 remat, gradient accumulation, MoE aux losses, the loss-scale fault port and
 the anomaly guard.
 
-Port of ``repro.train.loop`` at pp = 1 (``cast_params``,
-``aux_loss_coefs``, ``assemble_loss_metrics``, ``loss_fn``,
-``make_train_step``, ``train_state_structs``). ``make_train_step`` returns
+Port of ``repro.train.loop`` (``cast_params``, ``aux_loss_coefs``,
+``assemble_loss_metrics``, ``loss_fn``, ``make_train_step``,
+``train_state_structs``, ``save_train_state``, ``restore_train_state``:
+the reference's elastic checkpoints, which either package reads at any
+fold). ``make_train_step`` returns
 
     step(params, opt_state, batch) -> (params, opt_state, metrics)
 
@@ -45,7 +47,7 @@ leaves.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -314,3 +316,125 @@ def train_state_structs(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] =
     return params, adamw.AdamWState(
         step=torch.empty((), dtype=torch.int32, device="meta"), mu=moments, nu=dict(moments),
         master=dict(moments) if opt_cfg.master_weights else None)
+
+
+# ---------------------------------------------------------------------------
+# Elastic checkpoints (checkpoint/store.py's sharded format)
+# ---------------------------------------------------------------------------
+
+def _box(name: str, shape: Tuple[int, ...], cfg: ModelConfig, groups: Optional[FoldedGroups],
+         kind: str) -> Tuple[Tuple[int, int], ...]:
+    """The box of this rank's ``kind`` slice of leaf ``name`` (full
+    ``shape``) in the JAX tree's leaf, which stacks the layers."""
+    from repro_torch.convert import jax_key
+    spec = ((),) * len(shape) if groups is None else sharding.leaf_spec(name, shape, groups, kind)
+    box = []
+    for d, atoms in zip(shape, spec):
+        n, i = groups.atom_size(atoms) if atoms else 1, groups.atom_index(atoms) if atoms else 0
+        box.append((i * (d // n), (i + 1) * (d // n)))
+    rep = jax_key(name, cfg)[1]
+    return (() if rep is None else ((rep, rep + 1),)) + tuple(box)
+
+
+def _state_leaves(cfg: ModelConfig, master_weights: bool):
+    """``(key, part, name, shape, kind, dtype)`` of every piece of the train
+    state, all stages': ``part`` is ``params`` or the AdamW field, ``key``
+    the checkpoint's (``params/<JAX key>``, ``opt/.mu/<JAX key>``)."""
+    from repro_torch.convert import jax_key
+    full = param_shapes(cfg)
+    for name, shape in full.items():
+        dt = torch.float32
+        if master_weights:
+            dt = _cast(name, torch.empty(shape, dtype=dt, device="meta"), cfg).dtype
+        yield "params/" + jax_key(name, cfg)[0], "params", name, shape, "store", dt
+    for part in ("mu", "nu") + (("master",) if master_weights else ()):
+        for name, shape in full.items():
+            yield (f"opt/.{part}/" + jax_key(name, cfg)[0], part, name, shape, "state",
+                   torch.float32)
+
+
+def train_state_tree(cfg: ModelConfig, params: Optional[LMParams] = None,
+                     opt_state: Optional[adamw.AdamWState] = None, *,
+                     master_weights: Optional[bool] = None,
+                     groups: Optional[FoldedGroups] = None) -> Dict[str, "ShardedLeaf"]:
+    """``(params, opt_state)`` as ``checkpoint.store``'s tree: every leaf of
+    the model under the reference's keys (``params/...``, ``opt/.step``,
+    ``opt/.mu/...``, ``opt/.nu/...``, with ``master_weights``
+    ``opt/.master/...``), its stacked global shape and dtype at rest, and
+    this rank's pieces: the store slice of each parameter and the state
+    shard of each moment (a box ``[l, l + 1)`` on the stack axis for layer
+    ``l``), of its stage's leaves. Without ``params`` the pieces are the
+    ``meta`` tensors of :func:`train_state_structs`: a restore target."""
+    from repro_torch.checkpoint.store import ShardedLeaf
+    from repro_torch.convert import stacked_shape
+    if params is None:
+        like_p, opt_state = train_state_structs(
+            cfg, adamw.AdamWConfig(master_weights=bool(master_weights)), groups=groups)
+    else:
+        like_p = dict(params.named_parameters())
+    master = opt_state.master is not None
+    trees = {"params": like_p, "mu": opt_state.mu, "nu": opt_state.nu,
+             "master": opt_state.master}
+    out: Dict[str, Any] = {"opt/.step": opt_state.step.detach()}
+    for key, part, name, shape, kind, dt in _state_leaves(cfg, master):
+        leaf = out.get(key) or ShardedLeaf(stacked_shape(name, shape, cfg), dt, ())
+        t = trees[part].get(name)
+        if t is not None:
+            if len(leaf.shape) > len(shape):      # a layer: one index of the stack axis
+                t = t.unsqueeze(0)
+            leaf = leaf._replace(pieces=leaf.pieces + ((_box(name, shape, cfg, groups, kind),
+                                                        t.detach()),))
+        out[key] = leaf
+    return out
+
+
+def save_train_state(directory: str, step: int, params: LMParams,
+                     opt_state: adamw.AdamWState, *, cfg: ModelConfig,
+                     groups: Optional[FoldedGroups] = None, meta=None, block: bool = True,
+                     stats: Optional[Dict[str, float]] = None):
+    """Checkpoint (params, opt_state) in the reference's elastic sharded
+    format (:func:`train_state_tree`; at a fold, every rank calls it).
+
+    ``block=False`` returns a ``store.PendingSave``: the device→host copies
+    are taken before it returns, so the step loop may update the state in
+    place at once while a background thread hashes and writes; its
+    ``wait()`` commits (every rank). ``stats`` receives this rank's save
+    timings and bytes (``store.save_sharded``).
+    """
+    from repro_torch.checkpoint import store
+    return store.save_sharded(directory, step, train_state_tree(cfg, params, opt_state,
+                                                                groups=groups),
+                              meta=meta, block=block, stats=stats)
+
+
+def restore_train_state(directory: str, step: int, cfg: ModelConfig,
+                        opt_cfg: Optional[adamw.AdamWConfig] = None, *,
+                        groups: Optional[FoldedGroups] = None, device=None,
+                        verify: bool = False) -> Tuple[LMParams, adamw.AdamWState]:
+    """Restore (params, opt_state) onto ``groups``' fold — which may be
+    another mapping or world size than the run that saved the checkpoint,
+    or the JAX package's — on ``device``.
+
+    The target is what :func:`train_state_structs` gives at that fold, with
+    its pipeline stages: each rank's store slices and state shards are
+    assembled from the source boxes (``store.restore_sharded``), with no
+    collective."""
+    from repro_torch.checkpoint import store
+    from repro_torch.convert import lm_params
+    from repro_torch.device import resolve_device
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+    like = train_state_tree(cfg, master_weights=opt_cfg.master_weights, groups=groups)
+    got = store.restore_sharded(directory, step, like, verify=verify,
+                                device=resolve_device(device))
+    trees: Dict[str, Tensors] = {"params": {}, "mu": {}, "nu": {}, "master": {}}
+    taken: Dict[str, int] = {}
+    held = param_shapes(cfg, groups)          # this rank's stage's leaves
+    for key, part, name, shape, _, _ in _state_leaves(cfg, opt_cfg.master_weights):
+        if name in held:
+            i = taken.get(key, 0)
+            t = got[key].pieces[i][1]
+            trees[part][name] = t[0] if t.dim() > len(shape) else t
+            taken[key] = i + 1
+    return lm_params(trees["params"], cfg), adamw.AdamWState(
+        step=got["opt/.step"], mu=trees["mu"], nu=trees["nu"],
+        master=trees["master"] if opt_cfg.master_weights else None)

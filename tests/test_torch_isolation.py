@@ -39,4 +39,6 @@ def test_scan_covers_the_package():
             "src/repro_torch/train/loop.py", "src/repro_torch/launch/train.py",
             "src/repro_torch/launch/profile_train.py", "src/repro_torch/core/folding.py",
             "src/repro_torch/core/comm.py", "src/repro_torch/core/overlap.py",
-            "src/repro_torch/launch/world.py", "src/repro_torch/core/pipeline.py"} <= rel
+            "src/repro_torch/launch/world.py", "src/repro_torch/core/pipeline.py",
+            "src/repro_torch/checkpoint/store.py", "src/repro_torch/resilience/driver.py",
+            "src/repro_torch/resilience/faults.py"} <= rel
