@@ -5,8 +5,12 @@
 
 Two models of the paper at full width, random weights from a seed:
 Mixtral-8x22B (8 experts, top-2) and Qwen2-57B-A14B (64 experts, top-8, a
-sigmoid-gated shared expert, qkv biases, a GQA group of 7). Phases (any
-failure exits non-zero; nothing is caught):
+sigmoid-gated shared expert, qkv biases, a GQA group of 7); and the MoE
+configs registered with the reference's mapping table: Mixtral-8x22B-G8T8
+(64 experts top-8 of 2048) and Qwen3-MoE-30B-A3B (128 experts top-8 of 768,
+32 heads of 128 over d_model 2048) trained on one card, Llama3-8x70B and
+DBRX-132B at their kernel shapes. Phases (any failure exits non-zero;
+nothing is caught):
 
 1. device  — require CUDA; print the card's name and power limit and torch's
    version; turn TF32 off.
@@ -27,7 +31,12 @@ failure exits non-zero; nothing is caught):
    Qwen2: a decode step of 3 queries, whose 21 packed rows split a GQA group
    across two row tiles). Then the attention backward at causal 4096
    (``_bwd_scan`` in torch ops) against SDPA's, each timed as a graph of
-   forward and backward less a graph of the forward.
+   forward and backward less a graph of the forward. The same rows at the
+   training step's shapes of the added configs (``phase_config_kernels``):
+   the GMM gate/up of G8T8, Qwen3-MoE, Llama3-8x70B and DBRX (down and the
+   ``trans_w`` dgrad too for the first two), flash at causal 4096 in the
+   training step's partial mode at the heads of G8T8 (48/8), Qwen3-MoE
+   (32/4) and Llama3-8x70B (64/8).
 4. serve   — the model cut to 4 layers, bf16: 6 requests through the paged
    engine; every launch counter is set to 0 just before and read just
    after, and must equal 3 GMM and 1 flash launch per layer per forward.
@@ -56,7 +65,7 @@ failure exits non-zero; nothing is caught):
    weights (gradients summed over all ranks' tokens); Mixtral's ragged
    output must equal its padded one; the counters, zeroed before the pass,
    must read 3 GMM launches per chunk forward and 3 ``trans_w`` per chunk
-   backward. The wall times (median of 3 warm passes) are of gloo through
+   backward. The wall times (median of 2 warm passes) are of gloo through
    the host on one card. Then a world of one rank over NCCL: the folded
    layer with every group of size 1 equal to the one-rank layer, and every
    collective the dispatcher calls valid on NCCL. Last, the GMM at the
@@ -90,15 +99,15 @@ failure exits non-zero; nothing is caught):
    the card over gloo at attention DP2×TP2 beside the first MoE fold of
    ``ZERO_MOE_FOLDS`` that passes the SP ↔ MoE hand-off (EDP2×EP2), a
    global batch of 2 × 4096 tokens (one sequence a DP rank), each run from
-   the same weights. Mixtral: (a) ``fsdp=True`` 4 steps, (b) ``fsdp=False``
-   2 steps, (c) ``fsdp=True`` with ``master_weights`` 2 steps; Qwen2 (the
-   step phase 8 could not fit): (a) and (c), 2 steps each. Per rank: every
+   the same weights. Mixtral: (a) ``fsdp=True`` 2 steps, (b) ``fsdp=False``
+   1 step, (c) ``fsdp=True`` with ``master_weights`` 1 step; Qwen2 (the
+   step phase 8 could not fit): (a) and (c), 1 step each. Per rank: every
    step of (b) and (c) against (a)'s step of the same index in loss and
    ``grad_norm`` within ``ZERO_TOL``, its optimizer-state bytes counted
    from its tensors against ``zero1_state_bytes`` for that fold, launches
    against the count from the code, parameters stored, peak memory and
-   step wall time; rank 0 profiles one more step of (a) (AdamW device
-   time, host time in each ``comm`` range). Then the flash kernel at a TP
+   step wall time (phase 12 profiles a step at this fold). Then the flash
+   kernel at a TP
    rank's heads over the whole sequence and the GMM at the EP shard's
    shape, held and timed as in phase 3.
 
@@ -151,14 +160,42 @@ failure exits non-zero; nothing is caught):
    save's digests) and its step 2 run: loss and ``grad_norm`` equal to the
    uninterrupted run's third step and step 3's state equal shard by shard.
 
+train-configs — phase 5's one-card training (2 steps, launches 3 + 3 + 3
+   GMM and 1 + 1 flash a step) and phase 6's reduced card-vs-CPU training
+   check for Mixtral-8x22B-G8T8 and Qwen3-MoE-30B-A3B at full width cut to
+   1 layer (2.907 B and ~1.25 B parameters); the reduced check keeps each
+   config's real expert count and top-k (64 and 128 experts, top-8) and
+   Qwen3-MoE's heads of 128 (``FANOUT``, ``HEAD_DIM``), and runs dropless
+   (see ``FANOUT``).
+
+12. train-handoff — the SP → MoE token hand-off (``comm.sp_to_moe``):
+   Qwen2 at full width cut to 1 layer, FSDP, 2 steps of 4 × 2048 tokens
+   (``SyntheticTokens(seed=0)``), 4 processes sharing the card over gloo.
+   The hand-off world runs phase 9's fold (DP2×TP2 / EDP2×EP2) with 2
+   sequences a DP rank, the sequence cut over TP, so every MoE layer
+   exchanges the SP rows for the reference's token shards (a run of the DP
+   rank's flattened tokens: here one whole sequence) and back. The oracle
+   world runs the same weights, batches and MoE fold at attention DP4, a
+   whole sequence a rank and no exchange, so its token shards are the same
+   sequences. Checks: each rank's MoE token shard holds the oracle rank's
+   token ids, id for id; loss, ``grad_norm`` and the drop fraction of each
+   step within ``FOLD_TOL`` (step 0) and ``FOLD_TOL_LATER`` (step 1) of the
+   oracle's (the attention's TP2 and TP1 sums round differently in bf16,
+   which moves near-tie top-k choices); optimizer-state bytes equal to
+   ``zero1_state_bytes``; launches equal to the count from the code. It
+   prints peak memory, step walls and rank 0's host ms in ``comm handoff``
+   beside the other ``comm`` ranges, then the flash and GMM kernels at its
+   shapes, held and timed as in phase 3.
+
 Phase 9 runs first, right after the build: its 4 ranks need about 70 GB
 of the card (Qwen2: 18.02 GB peak a rank on an H100), and what the other
 phases leave in this process (3.9 GB reserved before phase 7) left Qwen2's
-ranks out of memory when phase 9 ran last. Phases 10 and 11 run right
+ranks out of memory when phase 9 ran last. Phases 12, 10 and 11 run right
 after it, for the same reason, with the memory reserved before each
 printed. Then Mixtral runs phases 3, 4, 5, 6; every Mixtral tensor is
 freed and Qwen2
-runs 4, 5, 3, 6; then both run 7 and 8. Then it prints the script time, the
+runs 4, 5, 3, 6; then the added configs' phase 3 rows and train-configs;
+then Mixtral and Qwen2 run 7 and 8. Then it prints the script time, the
 kernels' JSON line (one entry per kernel per main path, its ``launches``
 from that path's own run), the card's ``nvidia-smi`` name and power limit,
 and last ``{"ok": true, "device": {...}}``. Full results also go to
@@ -184,7 +221,7 @@ REL_TOL = 2e-2          # kernel vs plain version, bf16 inputs and outputs
 CHECK_TOL = 5e-2        # reduced slices, card vs CPU plain path, bf16 both
 SERVE_LAYERS, SERVE_NEW_TOKENS = 4, 16
 TRAIN_STEPS, TRAIN_SEQ = 4, 4096
-WORLD_TOKENS, WORLD_PASSES = 4096, 3
+WORLD_TOKENS, WORLD_PASSES = 4096, 2
 # Phase 8, the folded step against the one-card step (phase 5), bf16 both.
 # Step 0 runs both on the same weights and batch: its loss and grad_norm
 # differ by bf16 sums in other orders and by the MoE capacity, which the fold
@@ -256,7 +293,9 @@ def phase_build() -> dict:
 
 
 MIXTRAL, QWEN2 = "mixtral-8x22b", "qwen2-57b-a14b"
-SHORT = {MIXTRAL: "", QWEN2: "-qwen2"}       # path-name suffix of each model
+G8T8, QWEN3 = "mixtral-8x22b-g8t8", "qwen3-moe-30b-a3b"     # trained on one card too
+LLAMA3, DBRX = "llama3-8x70b", "dbrx-132b"                 # kernel rows only
+SHORT = {MIXTRAL: "", QWEN2: "-qwen2", G8T8: "-g8t8", QWEN3: "-qwen3moe"}  # path-name suffixes
 # Phase 8: the folded train step, 4 ranks on the card. Attention (dp, cp, tp),
 # MoE (edp, ep, etp), and its runs (cp_mode, steps; 0 = one forward and
 # backward, no optimizer), each from the same start.
@@ -271,11 +310,11 @@ TRAIN_WORLD = {MIXTRAL: dict(attn=(1, 2, 2), moe=(1, 4, 1),
 ZERO_ATTN = (2, 1, 2)
 ZERO_MOE_FOLDS = ((2, 2, 1), (1, 4, 1))
 ZERO_BATCH = 2
-ZERO_RUNS = {MIXTRAL: (("allgather", TRAIN_STEPS, True, False, "fsdp"),
-                       ("allgather", 2, False, False, "no-fsdp"),
-                       ("allgather", 2, True, True, "master")),
-             QWEN2: (("allgather", 2, True, False, "fsdp"),
-                     ("allgather", 2, True, True, "master"))}
+ZERO_RUNS = {MIXTRAL: (("allgather", 2, True, False, "fsdp"),
+                       ("allgather", 1, False, False, "no-fsdp"),
+                       ("allgather", 1, True, True, "master")),
+             QWEN2: (("allgather", 1, True, False, "fsdp"),
+                     ("allgather", 1, True, True, "master"))}
 
 
 # Phase 10 (a): Mixtral at full width cut to 2 layers (one a stage), PP2 x
@@ -301,6 +340,18 @@ PIPE_SMALL = dict(attn=(2, 1, 1), moe=(1, 2, 1), pp=2, vpp=2, microbatch=4, laye
 RESUME_STEPS, RESUME_EVERY, RESUME_FAULT = 2, 2, ("data_error", 1)
 RESUME_DIR, RESUME_RAM_MARGIN = "/dev/shm", 15e9
 RESUME_SECOND = dict(attn=(2, 1, 2), moe=(2, 2, 1), pp=1, vpp=1, microbatch=4)
+
+
+# Phase 12: Qwen2 at full width cut to 1 layer, FSDP, 2 steps of 4 x 2048
+# tokens (``SyntheticTokens(seed=0)``). The hand-off world is phase 9's fold
+# with 2 sequences a DP rank, the sequence cut over TP; the oracle runs the
+# same MoE fold at attention DP4, one whole sequence a rank, so that no
+# exchange runs and each MoE token shard is the same sequence in both.
+HANDOFF = dict(attn=ZERO_ATTN, moe=(2, 2, 1), seq=2048, batch=4,
+               run=("allgather", 2, True, False, "fsdp"))
+HANDOFF_ORACLE = (4, 1, 1)
+# "train-configs": the new configs that fit one card train this many steps.
+CONFIG_STEPS = 2
 
 
 def _gmm_specs(arch: str) -> tuple:
@@ -598,8 +649,8 @@ def phase_serve(torch, arch: str) -> dict:
     return out
 
 
-def phase_train(torch, arch: str) -> dict:
-    """The full-width model cut to 1 layer: TRAIN_STEPS steps of one
+def phase_train(torch, arch: str, steps: int = TRAIN_STEPS, tag: str = "") -> dict:
+    """The full-width model cut to 1 layer: ``steps`` steps of one
     TRAIN_SEQ-token sequence through ``make_train_step`` (the port's entry
     point), launch counters set to 0 just before and read just after."""
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
@@ -608,7 +659,7 @@ def phase_train(torch, arch: str) -> dict:
     from repro_torch.models.transformer import leaf_rank
     from repro_torch.train.loop import init_train_state, make_train_step
 
-    tag = "train" + SHORT[arch]
+    tag = tag or "train" + SHORT[arch]
     cfg = train_config(arch, layers=1)
     t0 = time.perf_counter()
     params = init_lm(cfg, seed=0, device="cuda")
@@ -619,7 +670,7 @@ def phase_train(torch, arch: str) -> dict:
     data = SyntheticTokens(DataConfig(seq_len=TRAIN_SEQ, global_batch=1,
                                       vocab_size=cfg.vocab_size))
     batches = [{k: torch.from_numpy(v).to("cuda") for k, v in next(data).items()}
-               for _ in range(TRAIN_STEPS)]
+               for _ in range(steps)]
     named = dict(params.named_parameters())
     n_params = sum(p.numel() for p in named.values())
     flops = step_flops(cfg, TRAIN_SEQ, 1)
@@ -648,9 +699,9 @@ def phase_train(torch, arch: str) -> dict:
     launches = _read_counters()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    expect = {"gmm": 6 * cfg.n_layers * TRAIN_STEPS,            # forward + remat
-              "gmm_trans_w": 3 * cfg.n_layers * TRAIN_STEPS,    # dgrad
-              "flash_attention": 2 * cfg.n_layers * TRAIN_STEPS}
+    expect = {"gmm": 6 * cfg.n_layers * steps,            # forward + remat
+              "gmm_trans_w": 3 * cfg.n_layers * steps,    # dgrad
+              "flash_attention": 2 * cfg.n_layers * steps}
     if launches != expect:
         raise AssertionError(f"{tag} launch counts {launches} != expected {expect}")
     for i, r in enumerate(rows):
@@ -673,7 +724,7 @@ def phase_train(torch, arch: str) -> dict:
                optimizer_bytes=opt_bytes, optimizer_bound_ms=opt_bound_ms,
                max_memory_allocated_gb=peak_gb)
     _say(f"[{tag}] {out['model']}: launches {launches}; warm step (median of steps 1-"
-         f"{TRAIN_STEPS - 1}) {out['step_ms_warm_median']:.3f} ms, {out['tok_per_s_warm']:.1f} "
+         f"{steps - 1}) {out['step_ms_warm_median']:.3f} ms, {out['tok_per_s_warm']:.1f} "
          f"tok/s, MFU {100 * out['mfu_warm']:.2f}%; max_memory_allocated {peak_gb:.2f} GB")
     _say(f"[{tag}] bounds: compute {compute_bound_ms:.3f} ms ({flops / 1e12:.3f} model TFLOP "
          f"at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s), optimizer {opt_bound_ms:.3f} ms "
@@ -712,6 +763,31 @@ def phase_check(torch, arch: str) -> dict:
             "requests": len(rids)}
 
 
+# Reduced widths at the real fan-out of the configs trained in
+# "train-configs": ``reduced()`` caps experts at 4 of top-2 and heads at 64,
+# so those are set back (and qwen3-moe's 128-wide heads: q width 512 over
+# d_model 256). At 64 and 128 experts top-8 many tokens sit near their
+# top-8 boundary, so the bf16 sums of the card and of the CPU route a few
+# of them differently, and with token dropping each such token moves
+# others across the capacity line: layer 1's expert gradients came 8.1e-2
+# apart on an H100. So their card-vs-CPU training check runs dropless,
+# where a moved token changes only its own rows.
+FANOUT = {G8T8: dict(n_experts=64, top_k=8), QWEN3: dict(n_experts=128, top_k=8)}
+HEAD_DIM = {QWEN3: 128}
+
+
+def _reduced_train_config(arch: str):
+    """The reduced training config of ``arch`` (fp32), at the real expert
+    count, top-k and head size for the configs of ``FANOUT``."""
+    import dataclasses
+    from repro_torch.launch.train import train_config
+    cfg = train_config(arch, reduce=True)
+    if arch not in FANOUT:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **FANOUT[arch]),
+                               **({"head_dim": HEAD_DIM[arch]} if arch in HEAD_DIM else {}))
+
+
 def phase_train_check(torch, arch: str) -> dict:
     """Reduced training slice, bf16, the kernels on the card vs the plain
     versions on the CPU, same weights and batches: step 1's gradients leaf
@@ -721,12 +797,13 @@ def phase_train_check(torch, arch: str) -> dict:
     import dataclasses
 
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
-    from repro_torch.launch.train import train_config
     from repro_torch.models.transformer import init_lm
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.loop import cast_params, init_train_state, loss_fn, make_train_step
 
-    cfg = dataclasses.replace(train_config(arch, reduce=True), dtype="bfloat16")
+    cfg = dataclasses.replace(_reduced_train_config(arch), dtype="bfloat16")
+    if arch in FANOUT:                      # dropless: see FANOUT
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dropless=True))
     cpu = init_lm(cfg, seed=3, device="cpu")
     runs = {"card": ("cuda", copy.deepcopy(cpu).to("cuda")), "cpu": ("cpu", cpu)}
     data = SyntheticTokens(DataConfig(seq_len=256, global_batch=2, vocab_size=cfg.vocab_size,
@@ -751,7 +828,9 @@ def phase_train_check(torch, arch: str) -> dict:
     leaf_err = {n: float((grads["card"][n] - c).norm() / c.norm().clamp_min(1e-30))
                 for n, c in grads["cpu"].items()}
     worst_leaf = max(leaf_err, key=leaf_err.get)
-    _say(f"[check] {arch} reduced training, step 1 gradients, card vs CPU plain versions: "
+    _say(f"[check] {arch} reduced training ({cfg.moe.n_experts} experts top-{cfg.moe.top_k}"
+         f"{', dropless' if cfg.moe.dropless else ''}), step 1 gradients, card vs CPU plain "
+         "versions: "
          f"{len(leaf_err)} leaves, worst relative L2 {leaf_err[worst_leaf]:.3e} "
          f"({worst_leaf}; limit {CHECK_TOL})")
     if not leaf_err[worst_leaf] <= CHECK_TOL:
@@ -931,18 +1010,20 @@ def _train_world_kernels(torch, arch: str) -> dict:
     return out
 
 
-def _expected_world_launches(arch: str, mode: str, steps: int, attn=None) -> dict:
-    """Launches a rank makes in one run of phase 8 (or 9, at attention fold
-    ``attn``), from the code: per layer and forward, ``3 · chunks`` GMM (the
-    layer's forward and remat's recompute) and ``3 · chunks`` ``trans_w`` in
-    the backward (the MoE input has a gradient), and one flash launch
-    (all-gather) or ``4 · cp`` (the ring: four (q half, kv half) pairs a ring
-    step), twice with remat. A rank's tokens are a sequence over cp · tp."""
+def _expected_world_launches(arch: str, mode: str, steps: int, attn=None,
+                             tokens: int = TRAIN_SEQ) -> dict:
+    """Launches a rank makes in one run of phase 8 (or 9 and 12, at attention
+    fold ``attn``), from the code: per layer and forward, ``3 · chunks`` GMM
+    (the layer's forward and remat's recompute) and ``3 · chunks``
+    ``trans_w`` in the backward (the MoE input has a gradient), and one
+    flash launch (all-gather: the DP rank's sequences in one launch) or
+    ``4 · cp`` (the ring: four (q half, kv half) pairs a ring step), twice
+    with remat. A rank's tokens are its DP rank's ``tokens`` over cp · tp."""
     from repro_torch.core.overlap import resolve_chunks
     from repro_torch.launch.train import train_config
     cfg = train_config(arch, layers=1)
     _, cp, tp = attn or TRAIN_WORLD[arch]["attn"]
-    C = resolve_chunks(TRAIN_SEQ // (cp * tp), cfg.moe.overlap_chunks)
+    C = resolve_chunks(tokens // (cp * tp), cfg.moe.overlap_chunks)
     flash = 4 * cp if mode == "ring" and cp > 1 else 1
     n = max(steps, 1) * cfg.n_layers
     return {"gmm": 6 * C * n, "gmm_trans_w": 3 * C * n, "flash_attention": 2 * flash * n}
@@ -1029,8 +1110,10 @@ def phase_train_world(torch, one_card: dict) -> dict:
     return out
 
 def _zero_fold() -> tuple:
-    """The first of ``ZERO_MOE_FOLDS`` whose SP rows are its MoE token shards
-    beside attention ``ZERO_ATTN`` (``folding.check_sp_moe_handoff``)."""
+    """The first of ``ZERO_MOE_FOLDS`` whose MoE token atoms are the
+    attention (dp, cp, tp) atoms in order beside attention ``ZERO_ATTN``
+    (``folding.check_sp_moe_handoff``), so that the SP → MoE hand-off stays
+    within each DP rank; at one sequence a DP rank it is a reshape."""
     from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
     from repro_torch.core.folding import check_sp_moe_handoff, folded_layout
     for moe in ZERO_MOE_FOLDS:
@@ -1040,6 +1123,8 @@ def _zero_fold() -> tuple:
         except NotImplementedError as e:
             _say(f"[train-zero] MoE fold {moe} beside attention {ZERO_ATTN}: {e}")
             continue
+        _say(f"[train-zero] MoE fold {moe} beside attention {ZERO_ATTN}: the MoE token atoms "
+             "are the attention (dp, cp, tp) atoms in order")
         return moe
     raise AssertionError(f"no MoE fold of {ZERO_MOE_FOLDS} passes the SP <-> MoE hand-off")
 
@@ -1080,7 +1165,7 @@ def phase_train_zero(torch) -> dict:
         base = runs[0].key
         t0 = time.perf_counter()
         ranks = train_world(arch, attn=ZERO_ATTN, moe=moe, runs=runs, device="cuda", layers=1,
-                            seq=TRAIN_SEQ, batch=ZERO_BATCH, seed=0, profile=arch == MIXTRAL)
+                            seq=TRAIN_SEQ, batch=ZERO_BATCH, seed=0)
         wall = time.perf_counter() - t0
         res = dict(attn=ZERO_ATTN, moe=moe, runs=[r._asdict() for r in runs], base=base,
                    wall_s=wall, ranks=ranks, errors={})
@@ -1489,35 +1574,224 @@ def phase_train_resume(torch, train_zero: dict) -> dict:
     return out
 
 
+def _config_gmm_specs(arch: str) -> tuple:
+    """(experts, specs in :func:`_gmm_specs`' form) of a config's training
+    step at TRAIN_SEQ tokens, token-dropping CF 1.0: every expert owning its
+    capacity in 128-row blocks, the gate/up launch, and for the configs
+    trained in "train-configs" the down launch and the ``trans_w`` dgrad at
+    both."""
+    from repro_torch.core.router import capacity_per_expert
+    from repro_torch.launch.train import train_config
+    cfg = train_config(arch)
+    m = cfg.moe
+    E, D, F, bm = m.n_experts, cfg.d_model, m.d_expert, m.gmm_block_m
+    rows = -(-capacity_per_expert(TRAIN_SEQ, m) // bm) * bm
+    M = E * rows
+    blocks = [e for e in range(E) for _ in range(rows // bm)]
+    specs = [(f"gate/up, M={M}", M, D, F, bm, blocks, False)]
+    if arch in FANOUT:
+        specs += [(f"down, M={M}", M, F, D, bm, blocks, False),
+                  (f"dgrad trans_w, M={M}", M, F, D, bm, blocks, True),
+                  (f"dgrad trans_w down, M={M}", M, D, F, bm, blocks, True)]
+    return E, specs
+
+
+def phase_config_kernels(torch) -> dict:
+    """Phase 3's rows at the shapes of the configs added with the mapping
+    table: the GMM of each (``_config_gmm_specs``) and flash at causal 4096
+    at each one's heads (dbrx's are Mixtral's), held and timed as in phase 3."""
+    from repro_torch.launch.train import train_config
+    out = {}
+    for arch in (G8T8, QWEN3, LLAMA3, DBRX):
+        cfg = train_config(arch)
+        gmm_cases = _gmm_cases(torch, *_config_gmm_specs(arch))
+        res = {"gmm": [c for c in gmm_cases if not c["trans_w"]],
+               "gmm_trans_w": [c for c in gmm_cases if c["trans_w"]]}
+        if arch != DBRX:                    # heads of 128, as _flash_cases takes them
+            res["flash_attention"] = _flash_cases(
+                torch, arch, [("causal self-attention 4096", TRAIN_SEQ, TRAIN_SEQ, [0])],
+                heads=(cfg.n_heads, cfg.n_kv_heads), modes=(True,))
+        _check_cases(arch, res)
+        out[arch] = res
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_configs(torch) -> dict:
+    """"train-configs": phase 5's one-card training and phase 6's reduced
+    card-vs-CPU check for the new configs that fit one card at 1 layer."""
+    out = {}
+    for arch in (G8T8, QWEN3):
+        out[arch] = {"train": phase_train(torch, arch, steps=CONFIG_STEPS,
+                                          tag="train-configs" + SHORT[arch]),
+                     "check_train": phase_train_check(torch, arch)}
+        out[arch]["memory"] = _free(torch, f"{arch} trained")
+    return out
+
+
+def _handoff_kernels(torch) -> dict:
+    """The kernels at phase 12's launch shapes, timed as in phase 3: flash
+    in partial mode at a TP rank's heads over the DP rank's two 2048-token
+    sequences, and the GMM forward and ``trans_w`` at the EP shard's shape
+    (a rank's 2048 tokens)."""
+    from repro_torch.launch.world import gmm_shape
+    _, cp, tp = HANDOFF["attn"]
+    seqs, S = HANDOFF["batch"] // HANDOFF["attn"][0], HANDOFF["seq"]
+    H, Hkv = (h // tp for h in FLASH_HEADS[QWEN2])
+    flash = _flash_cases(torch, QWEN2, [(f"TP rank's heads, {seqs} sequences causal {S}", S, S,
+                                         [0] * seqs)], heads=(H, Hkv), modes=(True,))
+    s = gmm_shape(QWEN2, seqs * S // (cp * tp), fold=HANDOFF["moe"])
+    E, rows, D, F, bm = s["experts"], s["rows_per_expert"], s["d_model"], s["d_expert"], s["bm"]
+    M = E * rows
+    blocks = [e for e in range(E) for _ in range(rows // bm)]
+    cases = _gmm_cases(torch, E, [(f"train-handoff gate/up, M={M}", M, D, F, bm, blocks, False),
+                                  (f"train-handoff dgrad trans_w, M={M}", M, F, D, bm, blocks,
+                                   True)])
+    out = {"gmm": cases[:1], "gmm_trans_w": cases[1:], "flash_attention": flash}
+    _check_cases(QWEN2, out)
+    out["gmm_shape"] = s
+    return out
+
+
+def _handoff_world(name: str, attn: tuple, run, smi: str, failures: list) -> dict:
+    """One world of phase 12 (``name``: "handoff" or "oracle") at attention
+    fold ``attn``: its ranks' results, checked (the hand-off flag, launches
+    against the count from the code, optimizer-state bytes, finite steps)
+    and printed as soon as it ends."""
+    from repro_torch.launch.world import train_world
+    t0 = time.perf_counter()
+    ranks = train_world(QWEN2, attn=attn, moe=HANDOFF["moe"], runs=[run], device="cuda",
+                        layers=1, seq=HANDOFF["seq"], batch=HANDOFF["batch"], seed=0,
+                        profile=name == "handoff")
+    wall = time.perf_counter() - t0
+    runs = [r["runs"][run.key] for r in ranks]
+    for r, got in zip(ranks, runs):
+        rid = f"train-handoff {name} rank {r['rank']}"
+        expect = _expected_world_launches(QWEN2, run.cp_mode, run.steps, attn,
+                                          tokens=r["seqs"] * HANDOFF["seq"])
+        if r["handoff"] != (name == "handoff"):
+            failures.append(f"{rid}: {r['seqs']} sequences a DP rank, hand-off {r['handoff']}")
+        if got["launches"] != expect:
+            failures.append(f"{rid}: launches {got['launches']} != expected {expect}")
+        if got["state_bytes"] != got["state_bytes_expected"]:
+            failures.append(f"{rid}: optimizer state {got['state_bytes']} B != "
+                            f"zero1_state_bytes {got['state_bytes_expected']} B")
+        for i, m in enumerate(got["metrics"]):
+            if not (m["step_ok"] and all(x == x and abs(x) != float("inf")
+                                         for x in (m["loss"], m["grad_norm"]))):
+                failures.append(f"{rid} step {i}: {m}")
+    r0 = ranks[0]
+    _say(f"[train-handoff] {name}: {QWEN2} x1 layer at attention (dp, cp, tp) {attn}, MoE "
+         f"(edp, ep, etp) {HANDOFF['moe']}, {HANDOFF['batch']} x {HANDOFF['seq']} tokens a "
+         f"step, {r0['seqs']} sequences a DP rank (hand-off {r0['handoff']}): {len(runs)} ranks "
+         f"over gloo through the host on one card ({smi}); wall a step a rank " + "; ".join(
+             ", ".join(f"{t * 1e3:.1f}" for t in x["step_s"]) for x in runs)
+         + " ms; peak memory a rank " + ", ".join(f"{x['peak_gb']:.2f}" for x in runs)
+         + " GB (reserved " + ", ".join(f"{x['peak_reserved_gb']:.2f}" for x in runs)
+         + f" GB; card in use at the run's end {runs[0]['card_used_gb']:.2f} of "
+         f"{runs[0]['card_gb']:.2f} GB); optimizer state a rank " + ", ".join(
+             f"{x['state_bytes'] / 1e9:.3f}" for x in runs)
+         + f" GB (zero1_state_bytes {runs[0]['state_bytes_expected'] / 1e9:.3f} GB); launches a "
+         f"rank {runs[0]['launches']}; world wall {wall:.1f} s")
+    prof = runs[0].get("profile")
+    if prof:
+        _say(f"[train-handoff] {name}: profiled step on rank 0: wall {prof['wall_ms']:.1f} ms, "
+             f"device {prof['device_ms']:.1f} ms (" + ", ".join(
+                 f"{k} {v:.1f}" for k, v in prof["parts_ms"].items()) + "); host ms in "
+             + ", ".join(f"{k} {v:.1f}" for k, v in prof["comm_host_ms"].items()))
+    return dict(attn=attn, ranks=ranks, wall_s=wall)
+
+
+def phase_train_handoff(torch) -> dict:
+    """Phase 12: see the module docstring. Every check is printed before the
+    phase fails on any of them."""
+    from repro_torch.launch.world import Run
+
+    smi = _smi()
+    run = Run(*HANDOFF["run"])
+    failures: list = []
+    worlds = {}
+    for name, attn in (("handoff", HANDOFF["attn"]), ("oracle", HANDOFF_ORACLE)):
+        worlds[name] = _handoff_world(name, attn, run, smi, failures)
+        torch.cuda.empty_cache()
+    hand, oracle = worlds["handoff"]["ranks"], worlds["oracle"]["ranks"]
+    same_tokens = [a["moe_tokens"] == b["moe_tokens"] for a, b in zip(hand, oracle)]
+    _say(f"[train-handoff] each rank's MoE token shard equal to the oracle rank's, id for id: "
+         f"{same_tokens}")
+    if not all(same_tokens):
+        failures.append(f"train-handoff: MoE token shards equal to the oracle's by rank "
+                        f"{same_tokens}")
+    errors = {}
+    m_h, m_o = hand[0]["runs"][run.key]["metrics"], oracle[0]["runs"][run.key]["metrics"]
+    for i, (a, b) in enumerate(zip(m_h, m_o)):
+        tol = FOLD_TOL if i == 0 else FOLD_TOL_LATER
+        for k in ("loss", "grad_norm", "moe_drop_fraction"):
+            errors[f"step {i} {k}"] = e = abs(a[k] - b[k]) / abs(b[k])
+            if not e <= tol:
+                failures.append(f"train-handoff step {i} {k}: {a[k]!r} against the oracle's "
+                                f"{b[k]!r}, rel err {e:.3e} > {tol}")
+        _say(f"[train-handoff] step {i}: loss {a['loss']:.6f} (oracle {b['loss']:.6f}), "
+             f"grad_norm {a['grad_norm']:.6f} (oracle {b['grad_norm']:.6f}), drop "
+             f"{a['moe_drop_fraction']!r} (oracle {b['moe_drop_fraction']!r}, "
+             f"{'equal' if a['moe_drop_fraction'] == b['moe_drop_fraction'] else 'not equal'}); "
+             f"rel err loss {errors[f'step {i} loss']:.3e}, grad_norm "
+             f"{errors[f'step {i} grad_norm']:.3e}, drop "
+             f"{errors[f'step {i} moe_drop_fraction']:.3e} (limit {tol}; ZERO_TOL {ZERO_TOL})")
+    if failures:
+        raise AssertionError("phase 12:\n" + "\n".join(failures))
+    return dict(worlds=worlds, errors=errors, same_tokens=same_tokens,
+                kernels=_handoff_kernels(torch))
+
+
+def _entry(name: str, path: str, model: str, c: dict, launches: int, sources: dict) -> dict:
+    """One entry of the kernels line: kernel ``name`` on main path ``path``
+    with that path's ``launches``, timed and held in case ``c``."""
+    return dict(name=name, path=path, model=model, case=c["case"], route="cuda",
+                source=sources[name][0], replaces=sources[name][1], launches=launches,
+                max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
+                bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=c["library_ms"])
+
+
+def _train_configs_line(config_kernels: dict, train_configs: dict, sources: dict) -> list:
+    """"train-configs" entries of the kernels line (path
+    ``train-configs-<model>``): each kernel with that model's launches, timed
+    at its phase 3 row of the training step's shape."""
+    line = []
+    for arch, res in train_configs.items():
+        M = _config_gmm_specs(arch)[1][0][1]
+        for name, label in (("gmm", f"gate/up, M={M}"), ("gmm_trans_w", f"dgrad trans_w, M={M}"),
+                            ("flash_attention", "causal self-attention 4096, partial")):
+            c = next(x for x in config_kernels[arch][name] if x["case"] == label)
+            line.append(_entry(name, "train-configs" + SHORT[arch], arch, c,
+                               res["train"]["launches"][name], sources))
+    return line
+
+
+def _train_handoff_line(train_handoff: dict, sources: dict) -> list:
+    """Phase 12's entries of the kernels line (path ``train-handoff``): each
+    kernel with rank 0's launches in the hand-off world, timed at its shape."""
+    runs = train_handoff["worlds"]["handoff"]["ranks"][0]["runs"]
+    launches = runs[HANDOFF["run"][4]]["launches"]
+    return [_entry(name, "train-handoff", QWEN2, train_handoff["kernels"][name][0],
+                   launches[name], sources)
+            for name in ("gmm", "gmm_trans_w", "flash_attention")]
+
+
 def _train_resume_line(train_resume: dict, train_zero: dict, sources: dict) -> list:
     """Phase 11's entries of the kernels line (path ``train-resume``): each
     kernel with rank 0's launches since the restore, timed at phase 9's
     Mixtral shape (the same launches)."""
     launches = train_resume["full"]["ranks"][0]["launches"]
-    line = []
-    for name in ("gmm", "gmm_trans_w", "flash_attention"):
-        c = train_zero[MIXTRAL]["kernels"][name][0]
-        line.append(dict(name=name, path="train-resume", model=MIXTRAL, case=c["case"],
-                         route="cuda", source=sources[name][0], replaces=sources[name][1],
-                         launches=launches[name], max_abs_err=c["max_abs_err"], ms=c["ms"],
-                         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
-                         library_ms=c["library_ms"]))
-    return line
+    return [_entry(name, "train-resume", MIXTRAL, train_zero[MIXTRAL]["kernels"][name][0],
+                   launches[name], sources) for name in ("gmm", "gmm_trans_w", "flash_attention")]
 
 
 def _train_pipe_line(train_pipe: dict, sources: dict) -> list:
     """Phase 10's entries of the kernels line (path ``train-pipe``): each
     kernel with rank 0's launches in run (a), timed at its shape."""
     launches = train_pipe["full"]["ranks"][0]["runs"]["allgather"]["launches"]
-    line = []
-    for name in ("gmm", "gmm_trans_w", "flash_attention"):
-        c = train_pipe["kernels"][name][0]
-        line.append(dict(name=name, path="train-pipe", model=MIXTRAL, case=c["case"],
-                         route="cuda", source=sources[name][0], replaces=sources[name][1],
-                         launches=launches[name], max_abs_err=c["max_abs_err"], ms=c["ms"],
-                         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
-                         library_ms=c["library_ms"]))
-    return line
+    return [_entry(name, "train-pipe", MIXTRAL, train_pipe["kernels"][name][0], launches[name],
+                   sources) for name in ("gmm", "gmm_trans_w", "flash_attention")]
 
 
 def _train_zero_line(train_zero: dict, sources: dict) -> list:
@@ -1528,14 +1802,9 @@ def _train_zero_line(train_zero: dict, sources: dict) -> list:
     for arch in (MIXTRAL, QWEN2):
         res = train_zero[arch]
         launches = res["ranks"][0]["runs"][res["base"]]["launches"]
-        for name in ("gmm", "gmm_trans_w", "flash_attention"):
-            c = res["kernels"][name][0]
-            line.append(dict(name=name, path="train-zero" + SHORT[arch], model=arch,
-                             case=c["case"], route="cuda", source=sources[name][0],
-                             replaces=sources[name][1], launches=launches[name],
-                             max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
-                             bound_ms=c["bound_ms"], bound_by=c["bound_by"],
-                             library_ms=c["library_ms"]))
+        line += [_entry(name, "train-zero" + SHORT[arch], arch, res["kernels"][name][0],
+                        launches[name], sources)
+                 for name in ("gmm", "gmm_trans_w", "flash_attention")]
     return line
 
 
@@ -1555,12 +1824,7 @@ def _train_world_line(train_world: dict, sources: dict) -> list:
                     cases = [c for c in cases if c["case"].startswith(
                         "ring pair, keys wholly visible" if mode == "ring" else
                         "all-gather CP, queries of chunk 1")]
-                c = cases[0]
-                line.append(dict(name=name, path=path, model=arch, case=c["case"], route="cuda",
-                                 source=sources[name][0], replaces=sources[name][1],
-                                 launches=launches[name], max_abs_err=c["max_abs_err"],
-                                 ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-                                 bound_by=c["bound_by"], library_ms=c["library_ms"]))
+                line.append(_entry(name, path, arch, cases[0], launches[name], sources))
     return line
 
 
@@ -1605,7 +1869,9 @@ def main() -> int:
     phase_device(torch)
     build = phase_build()
     train_zero = phase_train_zero(torch)          # first: see the module docstring
-    memory_zero = _free(torch, "phase 9 done, before phase 10")
+    memory_zero = _free(torch, "phase 9 done, before phase 12")
+    train_handoff = phase_train_handoff(torch)
+    memory_handoff = _free(torch, "phase 12 done, before phase 10")
     train_pipe = phase_train_pipe(torch)
     memory_pipe = _free(torch, "phase 10 done")
     train_resume = phase_train_resume(torch, train_zero)
@@ -1613,7 +1879,10 @@ def main() -> int:
     results = {MIXTRAL: run_model(torch, MIXTRAL)}
     memory = _free(torch, "Mixtral-8x22B freed")
     results[QWEN2] = run_model(torch, QWEN2)
-    memory_world = _free(torch, "Qwen2-57B-A14B freed")
+    memory_configs = _free(torch, "Qwen2-57B-A14B freed")
+    config_kernels = phase_config_kernels(torch)
+    train_configs = phase_train_configs(torch)
+    memory_world = _free(torch, "train-configs done")
     world = phase_world(torch)
     train_world = phase_train_world(torch, {arch: res["train"] for arch, res in results.items()})
     seconds = time.perf_counter() - t_start
@@ -1628,25 +1897,17 @@ def main() -> int:
         for (name, path), label in HEADLINE.items():
             label = label.format(M=M)
             c = next(x for x in res["kernels"][name] if x["case"] == label)
-            line.append(dict(name=name, path=path + SHORT[arch], model=arch, case=label,
-                             route="cuda", source=sources[name][0],
-                             replaces=sources[name][1],
-                             launches=res[path]["launches"][name],
-                             max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
-                             bound_ms=c["bound_ms"], bound_by=c["bound_by"],
-                             library_ms=c["library_ms"]))
-        for name in ("gmm", "gmm_trans_w"):
-            c = world[arch]["kernels"][name][0]
-            line.append(dict(name=name, path="moe-world" + SHORT[arch], model=arch,
-                             case=c["case"], route="cuda", source=sources[name][0],
-                             replaces=sources[name][1], launches=world[arch]["launches"][name],
-                             max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
-                             bound_ms=c["bound_ms"], bound_by=c["bound_by"],
-                             library_ms=c["library_ms"]))
+            line.append(_entry(name, path + SHORT[arch], arch, c, res[path]["launches"][name],
+                               sources))
+        line += [_entry(name, "moe-world" + SHORT[arch], arch, world[arch]["kernels"][name][0],
+                        world[arch]["launches"][name], sources)
+                 for name in ("gmm", "gmm_trans_w")]
     line += _train_world_line(train_world, sources)
     line += _train_zero_line(train_zero, sources)
     line += _train_pipe_line(train_pipe, sources)
     line += _train_resume_line(train_resume, train_zero, sources)
+    line += _train_configs_line(config_kernels, train_configs, sources)
+    line += _train_handoff_line(train_handoff, sources)
     smi = _smi()
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -1655,9 +1916,11 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         nvidia_smi=smi, device=device, timing=TIMING, build=build, models=results,
         world=world, train_world=train_world, train_zero=train_zero, train_pipe=train_pipe,
-        train_resume=train_resume, memory_after_train_zero=memory_zero,
+        train_resume=train_resume, train_handoff=train_handoff, config_kernels=config_kernels,
+        train_configs=train_configs, memory_after_train_zero=memory_zero,
+        memory_after_train_handoff=memory_handoff,
         memory_after_train_pipe=memory_pipe, memory_after_train_resume=memory_resume,
-        memory_between_models=memory,
+        memory_between_models=memory, memory_before_train_configs=memory_configs,
         memory_before_world=memory_world, seconds=seconds), indent=1))
     _say(f"[done] script time {seconds:.2f} s (build {build['seconds']:.2f} s)")
     print(json.dumps({"kernels": line}))

@@ -1,20 +1,47 @@
-"""Config registry of the port: ``get_config("<arch-id>")`` and ``reduced``.
+"""Config registry of the port: ``get_config("<arch-id>")`` for every
+architecture of ``repro.configs`` (copied as data), the input shapes, and
+``reduced``.
 
-Only the architectures the port serves are registered; the JAX package's
-``repro.configs`` holds the rest.
+Every architecture is registered; the port trains and serves those whose
+blocks it has (``models.transformer.check_supported`` refuses the rest).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs import mixtral_8x22b, qwen2_57b_a14b
-from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.configs.base import ModelConfig, MoEConfig, ParallelConfig, ParallelMappingSpec
+from repro_torch.configs.shapes import SHAPES, InputShape, get_shape
 
-REGISTRY: Dict[str, ModelConfig] = {
-    "mixtral-8x22b": mixtral_8x22b.CONFIG,
-    "qwen2-57b-a14b": qwen2_57b_a14b.CONFIG,
+from repro_torch.configs import (  # noqa: E402
+    llama3_2_1b, xlstm_125m, codeqwen1_5_7b, zamba2_2_7b, dbrx_132b,
+    qwen3_moe_30b_a3b, whisper_small, qwen1_5_4b, gemma_7b, qwen2_vl_7b,
+    mixtral_8x22b, mixtral_8x22b_g8t8, qwen2_57b_a14b, llama3_8x70b,
+)
+
+# The 10 assigned architectures.
+ASSIGNED: Dict[str, ModelConfig] = {
+    "llama3.2-1b": llama3_2_1b.CONFIG,
+    "xlstm-125m": xlstm_125m.CONFIG,
+    "codeqwen1.5-7b": codeqwen1_5_7b.CONFIG,
+    "zamba2-2.7b": zamba2_2_7b.CONFIG,
+    "dbrx-132b": dbrx_132b.CONFIG,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b.CONFIG,
+    "whisper-small": whisper_small.CONFIG,
+    "qwen1.5-4b": qwen1_5_4b.CONFIG,
+    "gemma-7b": gemma_7b.CONFIG,
+    "qwen2-vl-7b": qwen2_vl_7b.CONFIG,
 }
+
+# The paper's own benchmark models.
+PAPER_MODELS: Dict[str, ModelConfig] = {
+    "mixtral-8x22b": mixtral_8x22b.CONFIG,
+    "mixtral-8x22b-g8t8": mixtral_8x22b_g8t8.CONFIG,
+    "qwen2-57b-a14b": qwen2_57b_a14b.CONFIG,
+    "llama3-8x70b": llama3_8x70b.CONFIG,
+}
+
+REGISTRY: Dict[str, ModelConfig] = {**ASSIGNED, **PAPER_MODELS}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -60,4 +87,8 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     return dataclasses.replace(cfg, **changes)
 
 
-__all__ = ["REGISTRY", "get_config", "reduced", "ModelConfig", "MoEConfig"]
+__all__ = [
+    "ASSIGNED", "PAPER_MODELS", "REGISTRY", "get_config", "reduced",
+    "ModelConfig", "MoEConfig", "ParallelConfig", "ParallelMappingSpec",
+    "SHAPES", "InputShape", "get_shape",
+]

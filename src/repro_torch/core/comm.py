@@ -18,6 +18,8 @@ collective          forward                     backward
 :func:`ring_shift`  to the next ring rank       to the previous ring rank
 :func:`to_zigzag`,  natural ↔ zigzag chunk      the reverse exchange
 :func:`from_zigzag` layout over CP (All-to-All-V)
+:func:`sp_to_moe`,  SP rows ↔ the MoE token     the reverse exchange
+:func:`moe_to_sp`   shard over CP×TP (A2A-V)
 ==================  ==========================  ===========================
 
 Between pipeline stages, :class:`StageLink` sends point to point (not a
@@ -43,7 +45,7 @@ every collective used here, as a probe on an H100 with torch 2.11 showed).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -72,10 +74,11 @@ def _rows(splits: Optional[List[int]], n: int) -> int:
 _range = torch.profiler.record_function
 
 
-def _a2a(x: torch.Tensor, group: Group, in_splits, out_splits, async_op=False):
+def _a2a(x: torch.Tensor, group: Group, in_splits, out_splits, async_op=False,
+         name: str = "all_to_all"):
     x = x.contiguous()
     out = x.new_empty((_rows(out_splits, x.shape[0]),) + tuple(x.shape[1:]))
-    with _range("comm all_to_all"):
+    with _range(f"comm {name}"):
         work = dist.all_to_all_single(out, x, output_split_sizes=out_splits,
                                       input_split_sizes=in_splits, group=group,
                                       async_op=async_op)
@@ -346,6 +349,93 @@ def from_zigzag(x: torch.Tensor, ax, dim: int = 1) -> torch.Tensor:
         return x
     return _exchange_halves(x, ax, dim, (i, 2 * cp - 1 - i), (2 * i, 2 * i + 1),
                             dest=lambda h: h // 2, src=lambda h: _zigzag_owner(h, cp))
+
+
+# ---------------------------------------------------------------------------
+# The SP → MoE token hand-off
+# ---------------------------------------------------------------------------
+
+def handoff_plan(n: int, j: int, seqs: int) -> Tuple[List[int], List[int], List[int]]:
+    """The hand-off's exchange for rank ``j`` of the ``n`` (cp, tp) ranks of
+    a DP rank that holds ``seqs`` sequences of ``n`` blocks each.
+
+    Number the DP rank's blocks of L = S / n consecutive positions in the
+    flattened (seqs·S) token order: block ``q = b·n + i`` is positions
+    ``[i·L, (i+1)·L)`` of sequence b. Sequence parallelism puts block
+    ``b·n + j`` of every sequence on rank j; the reference's MoE token shard
+    of rank j is the run of blocks ``[j·seqs, (j+1)·seqs)``. Returns
+    ``(sp, moe, order)``: the blocks this rank sends to each peer going to
+    the MoE side (its SP blocks, in b order, are already grouped by
+    destination), the blocks it gets from each peer, and the run's blocks
+    (offsets in the run) in the order they arrive, by source then
+    position. The way back sends ``order`` and receives ``sp``."""
+    sp = [0] * n
+    for b in range(seqs):
+        sp[(b * n + j) // seqs] += 1
+    order = sorted(range(seqs), key=lambda s: ((j * seqs + s) % n, s))
+    moe = [0] * n
+    for s in order:
+        moe[(j * seqs + s) % n] += 1
+    return sp, moe, order
+
+
+def _handoff(x: torch.Tensor, ax, seqs: int, to_moe: bool) -> torch.Tensor:
+    """The exchange of :func:`sp_to_moe` (``to_moe``) or :func:`moe_to_sp`
+    on ``x`` (seqs·L, ...) rows, without a gradient."""
+    sp, moe, order = handoff_plan(ax.size, ax.index, seqs)
+    blocks = x.reshape(seqs, x.shape[0] // seqs, *x.shape[1:])
+    rows = blocks.shape[1]
+    with _range("comm handoff"):
+        if to_moe:
+            y, _ = _a2a(x, ax.group, [c * rows for c in sp], [c * rows for c in moe],
+                        name="handoff")
+            arrived = sorted(range(seqs), key=order.__getitem__)
+            y = y.reshape(blocks.shape).index_select(0, torch.tensor(arrived, device=x.device))
+        else:
+            sent = blocks.index_select(0, torch.tensor(order, device=x.device))
+            y, _ = _a2a(sent.reshape(x.shape), ax.group, [c * rows for c in moe],
+                        [c * rows for c in sp], name="handoff")
+    return y.reshape(x.shape)
+
+
+class _Handoff(Function):
+    @staticmethod
+    def forward(ctx, x, ax, seqs, to_moe):
+        ctx.ax, ctx.seqs, ctx.to_moe = ax, seqs, to_moe
+        return _handoff(x, ax, seqs, to_moe)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _handoff(g, ctx.ax, ctx.seqs, not ctx.to_moe), None, None, None
+
+
+def sp_to_moe(x: torch.Tensor, ax, seqs: int) -> torch.Tensor:
+    """A DP rank's sequence-parallel rows → the reference's MoE token shards.
+
+    ``x``: this rank's rows (seqs · S / n, ...) of its ``seqs`` sequences,
+    sequence by sequence (the (B, S / n, D) activation flattened), over the
+    attention ``cp_tp`` axis ``ax`` (``AxisGroups``; n = cp·tp ranks in
+    (cp, tp) row-major order, ``folding.sp_token_index``). Returns the run of
+    the DP rank's flattened (seqs · S) tokens that the reference's MoE layer
+    shards to this rank (``repro.core.moe_layer``: the (B·S) tokens over
+    EDP×EP×ETP), with one All-to-All-V over ``ax`` (:func:`handoff_plan`)
+    in the ``comm handoff`` range. The two layouts coincide when a DP rank
+    holds one sequence or the sequence is not cut, and then ``x`` is
+    returned as is, with no exchange. Backward: :func:`moe_to_sp`."""
+    if ax.size == 1 or seqs == 1:
+        return x
+    ax.require_rank_order("the SP → MoE hand-off")
+    return _Handoff.apply(x, ax, seqs, True)
+
+
+def moe_to_sp(y: torch.Tensor, ax, seqs: int) -> torch.Tensor:
+    """The inverse of :func:`sp_to_moe`: the MoE layer's output on this
+    rank's token shard back to its sequence-parallel rows. Backward:
+    :func:`sp_to_moe`."""
+    if ax.size == 1 or seqs == 1:
+        return y
+    ax.require_rank_order("the MoE → SP hand-off")
+    return _Handoff.apply(y, ax, seqs, False)
 
 
 # ---------------------------------------------------------------------------

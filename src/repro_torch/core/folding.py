@@ -30,7 +30,8 @@ ATTN_AXES = ("dp", "cp", "tp", "pp", "dp_cp", "cp_tp", "stage")
 # ``dp_cp`` (dp + cp, Megatron's data-parallel group with CP) sums the
 # gradients of the leaves sharded over TP; ``stage`` (dp + cp + tp) those
 # of the replicated ones (norms) and carries the global gradient norm;
-# ``cp_tp`` is ``stage`` less DP, where ZeRO-1 reduce-scatters over DP.
+# ``cp_tp`` is ``stage`` less DP, where ZeRO-1 reduce-scatters over DP, and
+# carries the SP → MoE token hand-off (``comm.sp_to_moe``).
 # ``tokens`` (edp + ep + etp) shards the MoE layer's tokens and carries its
 # loss reductions; ``seq`` (ep + etp) gathers the router logits under
 # ``drop_policy="full_sequence"``. Both are the reference's atom tuples
@@ -351,21 +352,23 @@ def sp_token_index(fg: FoldedGroups, rank: Optional[int] = None) -> int:
 
 
 def check_sp_moe_handoff(fg: FoldedGroups) -> None:
-    """Raise ``NotImplementedError`` unless every rank's sequence-parallel
-    rows are its MoE token shard: the MoE ``tokens`` index equals the
-    attention (dp, cp, tp) index on every rank ("token atoms on the MoE side
-    == attention side", ``repro.core.moe_layer``). Entering the MoE layer is
-    then a reshape; otherwise (``pod_role="cp"``, non-contiguous
-    ``moe_factors``) the hand-off would need an exchange that is not ported.
-    Checked for every rank, so all ranks raise alike; pipeline stages do
-    not enter it (the token indices are within a stage)."""
+    """Raise ``NotImplementedError`` unless the MoE ``tokens`` index equals
+    the attention (dp, cp, tp) index on every rank ("token atoms on the MoE
+    side == attention side", ``repro.core.moe_layer``). Then a DP rank's MoE
+    token shards are runs of its own tokens, held by its cp·tp ranks, and
+    the hand-off (``comm.sp_to_moe``) is an exchange within them, or a
+    reshape at one sequence a DP rank. Otherwise (``pod_role="cp"``,
+    non-contiguous ``moe_factors``) the tokens would cross DP ranks, an
+    exchange over a wider group that is not ported. Checked for every
+    rank, so all ranks raise alike; pipeline stages do not enter it (the
+    token indices are within a stage)."""
     bad = [r for r in range(fg.world)
            if sp_token_index(fg, r) != _index_of(fg.moe["tokens"], r)]
     if bad:
         raise NotImplementedError(
             f"ranks {bad}: the MoE token shard is not the attention (dp, cp, tp) shard "
             f"(pod_role={fg.pcfg.pod_role!r}, or non-contiguous moe_factors); the hand-off "
-            "exchange is not ported")
+            "across DP ranks is not ported (ROADMAP.md queue 1, 'Serving, rest')")
 
 
 def megatron_groups(world_size: int, tp: int, cp: int, ep: int, etp: int, pp: int,

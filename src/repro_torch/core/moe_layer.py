@@ -8,8 +8,14 @@ kernel's ``(E, K, N)``; the shared experts' ``ws1``/``ws3`` (D, Fs) and
 Across ranks each rank holds the shards the reference's ``constrain`` calls
 give it (:func:`shard_moe_params`): experts on EP, ``F`` on ETP and ``D`` on
 EDP (the dispatcher gathers ``D`` back); the shared experts on ETP/EDP; the
-router and the shared gate replicated. Entering the layer is a reshape: the
-attention side's (DP, CP×TP) token sharding is the MoE side's EDP×EP×ETP.
+router and the shared gate replicated. The reference's MoE token shard is
+a run of the flattened (B·S) tokens over EDP×EP×ETP, whose atoms are the
+attention side's (DP, CP, TP) in order; the attention side leaves each rank
+its sequence-parallel rows, (B, S / (cp·tp)) of its DP rank's sequences.
+The two coincide when a DP rank holds one sequence or the sequence is not
+cut; otherwise :func:`moe_block` moves the rows between the DP rank's
+cp·tp ranks before the router and back after the combine
+(``comm.sp_to_moe`` / ``comm.moe_to_sp``).
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import comm
 from repro_torch.core.dispatcher import moe_ffn
 from repro_torch.core.folding import FoldedGroups
 from repro_torch.models.common import dense_init
@@ -122,12 +129,21 @@ def moe_block(p: MoEParams, x: torch.Tensor, cfg: ModelConfig, *,
     """x: (B, S, D) → same, plus the aux statistics of
     :func:`repro_torch.core.dispatcher.moe_ffn`. ``permute_mode``,
     ``capacity_hint``, ``ragged`` and ``overlap_chunks`` override the
-    config's, as there. With ``groups``, ``x`` is this rank's token shard and
-    ``p`` this rank's shards (:func:`shard_moe_params`)."""
+    config's, as there. With ``groups``, ``x`` is this rank's
+    sequence-parallel rows (its DP rank's B sequences, S cut over cp·tp)
+    and ``p`` this rank's shards (:func:`shard_moe_params`): the rows go to
+    the reference's MoE token shard (``comm.sp_to_moe`` over the attention
+    ``cp_tp`` axis: an exchange when B > 1 and cp·tp > 1, else a reshape),
+    through ``moe_ffn``, and back (``comm.moe_to_sp``)."""
     assert cfg.moe is not None
     B, S, D = x.shape
-    y, aux = moe_ffn(x.reshape(B * S, D), p.router, p.w1, p.w2, p.w3, cfg.moe,
+    xt = x.reshape(B * S, D)
+    if groups is not None:
+        xt = comm.sp_to_moe(xt, groups.attn["cp_tp"], B)
+    y, aux = moe_ffn(xt, p.router, p.w1, p.w2, p.w3, cfg.moe,
                      activation=cfg.activation, permute_mode=permute_mode,
                      capacity_hint=capacity_hint, shared_weights=p.shared_weights(),
                      ragged=ragged, overlap_chunks=overlap_chunks, groups=groups)
+    if groups is not None:
+        y = comm.moe_to_sp(y, groups.attn["cp_tp"], B)
     return y.reshape(B, S, D), aux

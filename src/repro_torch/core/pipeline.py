@@ -489,10 +489,11 @@ def make_pipeline_grads(cfg: ModelConfig, groups, part: StagePartition, n_micro:
     caller divides both sums by ``n_micro``.
     """
     from repro_torch.core import comm
+    from repro_torch.core.folding import check_sp_moe_handoff
     from repro_torch.models.common import vocab_parallel_cross_entropy
     from repro_torch.models.transformer import (AUX_KEYS, _compute_dtype, _run_stack,
-                                                check_folded_batch, lm_embed, lm_head_logits,
-                                                lm_positions, vocab_start)
+                                                lm_embed, lm_head_logits, lm_positions,
+                                                vocab_start)
     from repro_torch.train.loop import assemble_loss_metrics, aux_loss_coefs
 
     stage = stage_of(cfg, groups)
@@ -515,7 +516,7 @@ def make_pipeline_grads(cfg: ModelConfig, groups, part: StagePartition, n_micro:
         mbs = [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()} for i in range(n_micro)]
         for m in mbs:
             lm_positions(m, cfg)            # raises for explicit positions
-            check_folded_batch(m["tokens"], groups)
+        check_sp_moe_handoff(groups)
         named = dict(cparams.named_parameters())
         dev = next(iter(named.values())).device
         # The residual stream between chunks: sequence-parallel rows.

@@ -7,6 +7,7 @@ device or at a folded mapping across a world of ranks.
     PYTHONPATH=src python -m repro_torch.launch.train --attn-fold 2,2,2 --moe-fold 1,8,1 --reduced --device cpu --seq 64 --batch 2
     PYTHONPATH=src python -m repro_torch.launch.train --attn-fold 1,2,2 --moe-fold 1,4,1 --layers 1 --seq 4096 --cp-mode ring
     PYTHONPATH=src python -m repro_torch.launch.train --attn-fold 2,1,2 --moe-fold 2,2,1 --reduced --device cpu --seq 64 --batch 2 --master-weights
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-57b-a14b --attn-fold 2,1,2 --moe-fold 2,2,1 --reduced --device cpu --seq 64 --batch 4
     PYTHONPATH=src python -m repro_torch.launch.train --attn-fold 1,1,2 --moe-fold 1,2,1 --pp 2 --vpp 2 --microbatch 4 --reduced --layers 4 --device cpu --seq 64 --batch 4
 
 The first two train a full-width model cut to one layer on the CUDA card
@@ -25,7 +26,9 @@ training state is kept as the reference keeps it: attention leaves stored
 cut over DP (``--no-fsdp``: ``ParallelConfig(fsdp=False)``, replicated)
 and the AdamW state cut over DP (ZeRO-1). It prints rank 0's metrics a
 step and each rank's wall time, launches, optimizer-state bytes and peak
-memory.
+memory. A DP rank may hold several sequences (``--batch`` over DP) with
+the sequence cut over CP·TP: its MoE layers then move the sequence-parallel
+rows to the reference's token shards and back (``comm.sp_to_moe``).
 
 ``--master-weights`` keeps an fp32 master copy in the AdamW state and the
 parameters in the compute dtype (``AdamWConfig(master_weights=True)``).

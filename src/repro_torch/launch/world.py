@@ -609,6 +609,18 @@ def _against_pp1(rank: int, world: int, r: "Run", fgm, cfg, batches, spec, dev,
     return out
 
 
+def _moe_token_ids(tokens: torch.Tensor, fg, seqs: int) -> List[int]:
+    """The token ids of this rank's MoE token shard in its first
+    (micro)batch (``tokens``: its ``shard_batch`` share, CP chunks whole over
+    TP): its sequence-parallel rows through ``comm.sp_to_moe``, as the MoE
+    layer moves their activations."""
+    from repro_torch.core import comm
+    tp = fg.attn["tp"]
+    L = tokens.shape[1] // tp.size
+    rows = tokens[:seqs, tp.index * L:(tp.index + 1) * L].reshape(-1, 1).float()
+    return comm.sp_to_moe(rows, fg.attn["cp_tp"], seqs).long().flatten().tolist()
+
+
 def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, Any]:
     """One rank of :func:`train_world` (see there)."""
     from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
@@ -626,8 +638,10 @@ def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, 
     pcfg = ParallelConfig(attn=PM(*spec["attn"]), moe=PM(*spec["moe"]), pp=spec["pp"],
                           vpp=spec["vpp"], microbatch=spec["microbatch"])
     fg = build_folded_groups(pcfg, rank=rank, world=world)
+    seqs = spec["batch"] // (max(spec["microbatch"], 1) * fg.dp)
     out: Dict[str, Any] = {"rank": rank, "stage": fg.pp_stage, "sp_index": sp_token_index(fg),
-                           "tokens_index": fg.moe["tokens"].index, "runs": {}}
+                           "tokens_index": fg.moe["tokens"].index, "seqs": seqs,
+                           "handoff": seqs > 1 and fg.cp * fg.tp > 1, "runs": {}}
     runs = [Run(*r) for r in spec["runs"]]
     on_host = len(runs) > 1 or spec["against_pp1"]
     # The full weights from the seed, one rank at a time: each keeps the
@@ -653,6 +667,7 @@ def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, 
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in
                 shard_batch(next(data), fg, microbatch=spec["microbatch"]).items()}
                for _ in range(n_steps)]
+    out["moe_tokens"] = _moe_token_ids(batches[0]["tokens"], fg, seqs)
 
     for i, r in enumerate(runs):
         fsdp = spec["fsdp"] if r.fsdp is None else r.fsdp
@@ -723,12 +738,17 @@ def train_world(arch: str, *, attn: Sequence[int], moe: Sequence[int],
     from the run or else ``fsdp`` and ``master_weights``; ``steps = 0`` is
     one forward and backward with the global gradient norm and no optimizer
     state (after one untimed warm-up pass), the parameters held as their
-    compute casts with ``master_weights``. Per rank and run (keyed by
-    :attr:`Run.key`): each step's metrics and wall time (after a barrier),
-    the kernel launches of the run, its parameters and optimizer-state bytes
-    (counted from the tensors, and as ``zero1_state_bytes`` gives them), and
-    on a card its peak memory; with ``profile``, one more step of the first
-    run profiled on the first rank of each stage. ``against_pp1``: each run
+    compute casts with ``master_weights``. Per rank: the sequences a DP
+    rank holds a (micro)batch (``seqs``: ``batch`` over the microbatches and
+    DP), whether its MoE layers exchange the SP rows (``handoff``: more than
+    one with the sequence cut, ``comm.sp_to_moe``) and the token ids of its
+    MoE token shard in the first (micro)batch (``moe_tokens``). Per rank and
+    run (keyed by :attr:`Run.key`): each step's metrics and wall time (after
+    a barrier), the kernel launches of the run, its parameters and
+    optimizer-state bytes (counted from the tensors, and as
+    ``zero1_state_bytes`` gives them), and on a card its peak memory; with
+    ``profile``, one more step of the first run profiled on the first rank
+    of each stage. ``against_pp1``: each run
     again at pp = 1 on stage 0's ranks, and every rank's gradients
     (``steps = 0``) or final parameters against it, leaf by leaf (``pp1``).
     ``dtype``: the compute dtype (default the config's: fp32 at the

@@ -252,10 +252,12 @@ def _apply_moe(p: MoEBlockParams, x: torch.Tensor, pos: Optional[torch.Tensor],
                cfg: ModelConfig, groups: Optional[FoldedGroups] = None
                ) -> Tuple[torch.Tensor, AuxDict]:
     """One ``moe`` layer over whole sequences: x (B, S, D) → (x, aux). With
-    ``groups``, ``x`` is this rank's sequence-parallel rows, which are also
-    its MoE token shard (:func:`check_sp_moe_handoff`), and ``p`` its store
-    slices: the attention leaves stored over DP (FSDP) are gathered here,
-    per layer, and again in remat's recompute."""
+    ``groups``, ``x`` is this rank's sequence-parallel rows and ``p`` its
+    store slices: the attention leaves stored over DP (FSDP) are gathered
+    here, per layer, and again in remat's recompute; the MoE block takes the
+    rows to the reference's MoE token shard and back (``moe_block``: an
+    exchange over the DP rank's cp·tp ranks when B > 1 and the sequence is
+    cut)."""
     h = rmsnorm(x, p.norm1)
     attn = p.attn
     if groups is not None:
@@ -349,19 +351,6 @@ def lm_head_logits(params: LMParams, x: torch.Tensor, cfg: ModelConfig,
     return x @ head.to(x.dtype)
 
 
-def check_folded_batch(tokens: torch.Tensor, groups: FoldedGroups) -> None:
-    """Raise unless the folded forward can take this rank's ``tokens``:
-    the SP ↔ MoE hand-off holds (:func:`check_sp_moe_handoff`), and with
-    the sequence cut (cp·tp > 1) a rank holds one sequence, since the
-    reference's MoE shards are runs of the flattened (B·S) tokens."""
-    check_sp_moe_handoff(groups)
-    if tokens.shape[0] > 1 and groups.cp * groups.tp > 1:
-        raise NotImplementedError(
-            f"{tokens.shape[0]} sequences a DP rank with the sequence cut over cp·tp = "
-            f"{groups.cp * groups.tp}: the MoE token shards would not be the SP rows; use "
-            "one sequence a DP rank (or microbatches of one)")
-
-
 def apply_lm(params: LMParams, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
              remat: bool = True, groups: Optional[FoldedGroups] = None
              ) -> Tuple[torch.Tensor, AuxDict]:
@@ -383,7 +372,7 @@ def apply_lm(params: LMParams, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         pos = lm_positions(batch, cfg)
     else:
         lm_positions(batch, cfg)           # raises for explicit positions
-        check_folded_batch(batch["tokens"], groups)
+        check_sp_moe_handoff(groups)
         pos = None
     x = lm_embed(params, batch, pos, cfg, groups)
     x, aux = _run_stack(params.layers, x, pos, cfg, remat=remat, groups=groups)

@@ -8,9 +8,12 @@ every axis's groups must equal ``folded_mesh_groups`` and
 ranks, and each rank's index on the MoE token axis must be the shard the
 reference's token sharding gives that device. The attention side's
 combined axes (``dp_cp``, ``stage``) are held against ``folded_mesh_groups``
-of the same atoms. Without a world (``folded_layout``), each fold's
-sequence-parallel shards are its MoE token shards, and the folds where they
-are not make ``apply_lm(..., groups=)`` raise.
+of the same atoms. In the same world, the SP → MoE token hand-off
+(``comm.sp_to_moe``) at every fold and 1, 2 or 4 sequences a DP rank puts
+each rank on the reference's run of the flattened tokens, bit for bit, and
+back. Without a world (``folded_layout``), each fold's MoE token atoms are
+its attention (dp, cp, tp) atoms in order, and the folds where they are not
+make ``apply_lm(..., groups=)`` raise.
 
 JAX is imported inside the test functions only: the world's processes
 import this module to find their worker, and must not import JAX.
@@ -175,14 +178,47 @@ def test_folds_without_the_sp_moe_handoff_raise(kw):
         apply_lm(params, batch, cfg, groups=fg)
 
 
+HANDOFF_SEQS, HANDOFF_S, HANDOFF_D = (1, 2, 4), 16, 2
+
+
+def _handoff_input(seqs: int, dp: int) -> np.ndarray:
+    """A stage's (dp · seqs, S, D) activations, every element distinct."""
+    return np.arange(dp * seqs * HANDOFF_S * HANDOFF_D, dtype=np.float32).reshape(
+        dp * seqs, HANDOFF_S, HANDOFF_D)
+
+
+def _handoff(fg):
+    """The SP → MoE hand-off on this rank for each of ``HANDOFF_SEQS``
+    sequences a DP rank: its SP rows, the exchange's output, the inverse of
+    that output, and the input's gradient under a seeded cotangent beside
+    the inverse of that cotangent."""
+    from repro_torch.core import comm
+    ax, n = fg.attn["cp_tp"], fg.cp * fg.tp
+    L, out = HANDOFF_S // n, {}
+    for seqs in HANDOFF_SEQS:
+        x = _handoff_input(seqs, fg.dp)[fg.attn["dp"].index * seqs:][:seqs]
+        x = torch.from_numpy(x[:, ax.index * L:(ax.index + 1) * L].reshape(-1, HANDOFF_D).copy())
+        xg = x.clone().requires_grad_()
+        y = comm.sp_to_moe(xg, ax, seqs)
+        g = torch.from_numpy(np.random.default_rng(fg.rank).standard_normal(
+            tuple(y.shape)).astype(np.float32))
+        y.backward(g)
+        with torch.no_grad():
+            back, g_back = comm.moe_to_sp(y, ax, seqs), comm.moe_to_sp(g, ax, seqs)
+        out[seqs] = dict(sp=x.numpy(), moe=y.detach().numpy(), back=back.detach().numpy(),
+                         grad=xg.grad.numpy(), grad_want=g_back.numpy())
+    return out
+
+
 def _folding_world(rank, world, folds):
-    """Each fold's groups as this rank built them, and the members every
-    ProcessGroup reports (one all_gather of ranks per group)."""
+    """Each fold's groups as this rank built them, the members every
+    ProcessGroup reports (one all_gather of ranks per group), and the SP →
+    MoE hand-off (``_handoff``)."""
     import torch.distributed as dist
     out = []
     for attn, moe, pp in folds:
         fg = folding.build_folded_groups(_pcfg(attn, moe, pp), rank=rank, world=world)
-        got = {}
+        got = {"handoff": _handoff(fg)}
         for side in ("attn", "moe"):
             for name, ax in (fg.attn if side == "attn" else fg.moe).items():
                 members = [rank]
@@ -197,7 +233,11 @@ def _folding_world(rank, world, folds):
 
 
 def test_folded_groups_in_a_world_match_jax(tmp_path):
-    """A gloo world of 8: every axis of the nine folds, against JAX."""
+    """A gloo world of 8: every axis of the nine folds, against JAX; and at
+    each fold, for 1, 2 and 4 sequences a DP rank, the SP → MoE hand-off
+    (``comm.sp_to_moe``) puts every rank on the reference's run of the
+    flattened tokens, its inverse restores the input bit for bit, and its
+    backward is the inverse exchange."""
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
     from repro.core.folding import folded_mesh_groups, megatron_groups
@@ -221,6 +261,24 @@ def test_folded_groups_in_a_world_match_jax(tmp_path):
         arr = jax.device_put(np.arange(3 * n_shards),
                              NamedSharding(fm.mesh, P(token_axes or None)))
         shard_of = {s.device.id: int(np.asarray(s.data)[0]) // 3 for s in arr.addressable_shards}
+        # The reference's layouts: SP rows (dp, cp x tp) on (B, S) and the
+        # MoE token shards on the flattened (B·S) tokens.
+        sp_axes = (fm.axis("attn", "dp") or None,
+                   (fm.axis("attn", "cp") + fm.axis("attn", "tp")) or None)
+        for seqs in HANDOFF_SEQS:
+            x = _handoff_input(seqs, attn[0])
+            flat = x.reshape(-1, HANDOFF_D)
+            sp = {s.device.id: np.asarray(s.data).reshape(-1, HANDOFF_D) for s in jax.device_put(
+                x, NamedSharding(fm.mesh, P(*sp_axes))).addressable_shards}
+            run = flat.shape[0] // n_shards
+            for rank, got in enumerate(per_rank):
+                h = got[i]["handoff"][seqs]
+                np.testing.assert_array_equal(h["sp"], sp[rank], err_msg=f"{i} {seqs} {rank}")
+                t = shard_of[rank]
+                np.testing.assert_array_equal(h["moe"], flat[t * run:(t + 1) * run],
+                                              err_msg=f"{i} {seqs} {rank}")
+                np.testing.assert_array_equal(h["back"], h["sp"])
+                np.testing.assert_array_equal(h["grad"], h["grad_want"])
         for rank, got in enumerate(per_rank):
             g = got[i]
             for side, axes in SIDE_AXES.items():
@@ -231,7 +289,7 @@ def test_folded_groups_in_a_world_match_jax(tmp_path):
                 assert g["moe", ax]["groups"] == folded_mesh_groups(fm_all, "moe", ax), (i, ax)
             for ax in ("dp_cp", "stage"):
                 assert g["attn", ax]["groups"] == folded_mesh_groups(fm_all, "attn", ax), (i, ax)
-            for (side, ax), v in g.items():
+            for (side, ax), v in ((k, v) for k, v in g.items() if k != "handoff"):
                 assert rank in v["ranks"] and v["ranks"] in v["groups"], (i, side, ax)
                 assert v["ranks"][v["index"]] == rank
                 assert v["members"] == sorted(v["ranks"]), (i, side, ax)

@@ -16,8 +16,11 @@ JAX package's, on the CPU.
   weights, and again at pp = 1 on stage 0's ranks (the same inner fold,
   weights, batches and microbatches): reduced Mixtral-8x22B in fp32 at
   PP2 × vpp 2 over attention (1, 2, 2) / MoE (1, 4, 1) (the fold of JAX's
-  ``test_pipeline_moe_ep_cp_fold_parity``) for 3 steps, held to JAX's
-  pipelined step within 1e-4 (loss terms, ``grad_norm``, parameters); FSDP,
+  ``test_pipeline_moe_ep_cp_fold_parity``) for 3 steps, and at PP2 over
+  attention (2, 2, 1) / MoE (1, 4, 1) with 2 sequences a microbatch (the
+  reference's Mixtral row at pp 2, cut to 8 ranks: the SP → MoE hand-off
+  exchange) for 1 step, each held to JAX's pipelined step within 1e-4
+  (loss terms, ``grad_norm``, parameters; drop fractions equal); FSDP,
   ZeRO-1 and the fp32 master at PP2 × (2, 1, 2) / (2, 1, 2), then a NaN
   loss scale that every rank skips with its state bit for bit unchanged;
   ``pod_role="pp"`` (pods 2 × PP2 over (1, 2, 1), 8 layers: 4 stages); and
@@ -59,8 +62,13 @@ CASES = {
     "mixtral-zero-master": ("mixtral-8x22b", (2, 1, 2), (2, 1, 2), 2, 1, 1, 2, 4, 2, True),
     "mixtral-pods-pp": ("mixtral-8x22b", (1, 2, 1), (1, 2, 1), 2, 1, 2, 8, 4, 1, False),
     "qwen2": ("qwen2-57b-a14b", (1, 2, 2), (1, 2, 2), 2, 1, 1, 2, 2, 1, False),
+    "mixtral-pp2-handoff": ("mixtral-8x22b", (2, 2, 1), (1, 4, 1), 2, 1, 1, 2, 4, 1, False),
 }
-AGAINST_JAX = "mixtral-vpp2-ep-cp"
+AGAINST_JAX = ("mixtral-vpp2-ep-cp", "mixtral-pp2-handoff")
+# Sequences a microbatch holds on a DP rank (default 1): more than one with
+# the sequence cut over CP, as the reference's Mixtral row has at pp 2, so
+# the SP rows reach the MoE token shards through the hand-off exchange.
+SEQS = {"mixtral-pp2-handoff": 2}
 GUARDED = "mixtral-zero-master"      # then a NaN loss scale: a skip on every rank
 
 
@@ -317,7 +325,8 @@ def _inputs(case):
     from repro.models.transformer import init_lm
     cfg = _jax_cfg(case)
     _, attn, _, _, _, _, _, micro, steps, _ = CASES[case]
-    data = SyntheticTokens(DataConfig(seq_len=SEQ, global_batch=micro * attn[0],
+    data = SyntheticTokens(DataConfig(seq_len=SEQ,
+                                      global_batch=micro * attn[0] * SEQS.get(case, 1),
                                       vocab_size=cfg.vocab_size, seed=3))
     params = jax.tree.map(np.asarray, init_lm(jax.random.PRNGKey(1), cfg))
     return params, [next(data) for _ in range(steps)]
@@ -354,7 +363,7 @@ def test_pipelined_train_step_matches_pp1_and_jax(tmp_path):
     # One after the other, not at once: JAX's 8 CPU devices and the world's
     # 8 processes together oversubscribe a small host's cores, which other
     # tests share under xdist.
-    ref = _jax_pipelined(AGAINST_JAX, *inputs[AGAINST_JAX])
+    ref = {case: _jax_pipelined(case, *inputs[case]) for case in AGAINST_JAX}
     per_rank = spawn(_pp_world, 8, backend="gloo", device="cpu", args=(inputs,),
                      timeout_s=600, init_dir=str(tmp_path))
 
@@ -385,12 +394,14 @@ def test_pipelined_train_step_matches_pp1_and_jax(tmp_path):
                 assert err <= REL_PP1, (case, rank, name, err)
             if case == GUARDED:
                 assert not got["skip_ok"] and got["skip_equal"], (case, rank)
-            if case == AGAINST_JAX:
-                assert ref["metrics"][0]["grad_norm"] > 1.0        # the clip is active
-                for i, (mt, mj) in enumerate(zip(got["metrics"], ref["metrics"])):
+            if case in AGAINST_JAX:
+                j = ref[case]
+                assert j["metrics"][0]["grad_norm"] > 1.0        # the clip is active
+                for i, (mt, mj) in enumerate(zip(got["metrics"], j["metrics"])):
                     for k in METRICS:
                         assert _rel(mt[k], mj[k]) <= REL_JAX, (case, rank, i, k, mt[k], mj[k])
-                want = tensors_from_jax(ref["params"], cfg, device="cpu", groups=fg)
+                    assert mt["moe_drop_fraction"] == mj["moe_drop_fraction"], (case, rank, i)
+                want = tensors_from_jax(j["params"], cfg, device="cpu", groups=fg)
                 assert want.keys() == got["params"].keys()
                 for name, t in want.items():
                     err = _rel_l2(got["params"][name], t.numpy())

@@ -42,11 +42,23 @@ def _jax_cfg():
 
 
 def test_config_copies_match_jax():
-    for name in ("mixtral-8x22b", "qwen2-57b-a14b"):
+    """Every config of the reference's registry (``ASSIGNED`` and
+    ``PAPER_MODELS``), its ``reduced`` form and the input shapes."""
+    import repro.configs as jc
+    import repro_torch.configs as tc
+    for group in ("ASSIGNED", "PAPER_MODELS", "REGISTRY"):
+        assert list(getattr(tc, group)) == list(getattr(jc, group)), group
+    assert len(tc.REGISTRY) == 14
+    for name in jc.REGISTRY:
         assert dataclasses.asdict(get_config(name)) == \
-            dataclasses.asdict(jax_get_config(name))
+            dataclasses.asdict(jax_get_config(name)), name
         assert dataclasses.asdict(reduced(get_config(name))) == \
-            dataclasses.asdict(jax_reduced(jax_get_config(name)))
+            dataclasses.asdict(jax_reduced(jax_get_config(name))), name
+    assert {k: dataclasses.asdict(v) for k, v in tc.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jc.SHAPES.items()}
+    assert tc.get_shape("train_4k") == tc.SHAPES["train_4k"]
+    with pytest.raises(KeyError, match="unknown shape"):
+        tc.get_shape("train_8k")
     port = dataclasses.replace(slice_config("mixtral-8x22b", reduce=True), dtype="float32")
     assert dataclasses.asdict(port) == dataclasses.asdict(_jax_cfg())
 

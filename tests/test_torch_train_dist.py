@@ -28,6 +28,9 @@ steps), with ``fsdp=False`` (1 step), reduced Qwen2 with
 parameters and state after step 1 (``convert.opt_state_from_jax``). Each
 case's parameters and state are also assembled from every rank's shards
 into full tensors (replicas bit for bit equal) and held against JAX's.
+Reduced Qwen2 at the reference's own Qwen2 fold cut to 8 ranks, attention
+(4, 1, 2) / MoE EDP2×EP4, runs 3 steps with 2 sequences a DP rank: the SP
+rows go to the reference's MoE token shards through ``comm.sp_to_moe``.
 
 JAX is imported inside the test functions only: the world's processes
 import this module to find their worker.
@@ -62,9 +65,15 @@ CASES = {
                             False, False),
     "qwen2-zero-master": ("qwen2-57b-a14b", (2, 2, 2), (2, 4, 1), "allgather", 1, 2, 0,
                           True, True),
+    # The reference's Qwen2 row cut to 8 ranks: 2 sequences a DP rank with
+    # the sequence cut over TP, so the SP rows reach the MoE token shards
+    # through the hand-off exchange.
+    "qwen2-handoff": ("qwen2-57b-a14b", (4, 1, 2), (2, 4, 1), "allgather", 3, 8, 0, True,
+                      False),
 }
 # The port takes RESUMED's step 2 from JAX's parameters and state after step 1.
 RESUMED = "mixtral-zero-master"
+HANDOFF = "qwen2-handoff"
 STATE = ("mu", "nu", "master")
 
 
@@ -247,10 +256,10 @@ def test_folded_train_step_matches_jax(tmp_path):
     for case in CASES:
         j, cfg = ref[case], _port_cfg(case)
         assert j["metrics"][0]["grad_norm"] > 1.0, case      # the clip is active
-        # Parameters after one step are not held: where a gradient is ~0
-        # (the K bias under RoPE), Adam lifts its fp32 noise to a full step.
-        _check_full(case, [r[case] for r in per_rank], j, cfg,
-                    skip=() if len(j["metrics"]) > 1 else ("attn.bk",))
+        # The K bias's parameters are not held: its gradient is ~0 (under
+        # RoPE), and Adam lifts that gradient's fp32 noise to a full step.
+        skip = ("attn.bk",) if cfg.qkv_bias else ()
+        _check_full(case, [r[case] for r in per_rank], j, cfg, skip=skip)
         for rank, res in enumerate(per_rank):
             got = res[case]
             fg = folding.folded_layout(_pcfg(case), rank=rank, world=8)
@@ -261,6 +270,8 @@ def test_folded_train_step_matches_jax(tmp_path):
             for i, (mt, mj) in enumerate(zip(got["metrics"], j["metrics"])):
                 for k in METRICS:
                     assert _rel(mt[k], mj[k]) <= REL, (case, rank, i, k, mt[k], mj[k])
+                if case == HANDOFF:             # the reference's token groups drop alike
+                    assert mt["moe_drop_fraction"] == mj["moe_drop_fraction"], (rank, i)
             for what in ("grads", "mu") + (("params",) if len(j["metrics"]) > 1 else ()):
                 if what not in j:
                     continue
@@ -268,7 +279,16 @@ def test_folded_train_step_matches_jax(tmp_path):
                 assert got[what].keys() == want.keys(), (case, what)
                 for n in want:
                     assert got[what][n].shape == want[n].shape, (case, what, n)
+                    if what == "params" and n.endswith(skip):
+                        continue
                     err = _rel_l2(got[what][n], want[n])
+                    if case == HANDOFF and n.endswith(skip):
+                        # The K bias's gradient is what remains of a sum
+                        # that cancels (softmax gradients over the keys sum
+                        # to 0; RoPE leaves ~2% of the K weight's gradient):
+                        # held on the scale of the K weight's.
+                        k_w = want[n.replace("attn.bk", "attn.wk")]
+                        err *= np.linalg.norm(want[n]) / np.linalg.norm(k_w)
                     assert err <= REL, (case, rank, what, n, err)
             if "skip_ok" in got:
                 assert not got["skip_ok"] and got["skip_equal"], (case, rank)
