@@ -65,7 +65,7 @@ nothing is caught):
    weights (gradients summed over all ranks' tokens); Mixtral's ragged
    output must equal its padded one; the counters, zeroed before the pass,
    must read 3 GMM launches per chunk forward and 3 ``trans_w`` per chunk
-   backward. The wall times (median of 2 warm passes) are of gloo through
+   backward. The wall times (of 1 warm pass) are of gloo through
    the host on one card. Then a world of one rank over NCCL: the folded
    layer with every group of size 1 equal to the one-rank layer, and every
    collective the dispatcher calls valid on NCCL. Last, the GMM at the
@@ -128,7 +128,7 @@ nothing is caught):
    (its first rank profiled): the device-idle share of the wall beside the
    closed-form bubble (pp − 1)/(m + pp − 1), host time in ``comm send`` and
    ``comm recv``. (b) reduced width in bf16 (``PIPE_SMALL``): interleaved
-   PP2 × vpp 2 over 4 layers, ZeRO-1 over attention DP2, 3 AdamW steps
+   PP2 × vpp 2 over 4 layers, ZeRO-1 over attention DP2, 2 AdamW steps
    against pp = 1: loss and ``grad_norm`` every step and every final
    parameter leaf within ``ZERO_TOL``. Then the flash and GMM kernels at
    (a)'s stage shapes, held and timed as in phase 3.
@@ -169,7 +169,7 @@ train-configs — phase 5's one-card training (2 steps, launches 3 + 3 + 3
    (see ``FANOUT``).
 
 12. train-handoff — the SP → MoE token hand-off (``comm.sp_to_moe``):
-   Qwen2 at full width cut to 1 layer, FSDP, 2 steps of 4 × 2048 tokens
+   Qwen2 at full width cut to 1 layer, FSDP, 1 step of 4 × 2048 tokens
    (``SyntheticTokens(seed=0)``), 4 processes sharing the card over gloo.
    The hand-off world runs phase 9's fold (DP2×TP2 / EDP2×EP2) with 2
    sequences a DP rank, the sequence cut over TP, so every MoE layer
@@ -178,14 +178,41 @@ train-configs — phase 5's one-card training (2 steps, launches 3 + 3 + 3
    world runs the same weights, batches and MoE fold at attention DP4, a
    whole sequence a rank and no exchange, so its token shards are the same
    sequences. Checks: each rank's MoE token shard holds the oracle rank's
-   token ids, id for id; loss, ``grad_norm`` and the drop fraction of each
-   step within ``FOLD_TOL`` (step 0) and ``FOLD_TOL_LATER`` (step 1) of the
-   oracle's (the attention's TP2 and TP1 sums round differently in bf16,
+   token ids, id for id; loss, ``grad_norm`` and the drop fraction of the
+   step within ``FOLD_TOL`` of the oracle's (the attention's TP2 and TP1 sums round differently in bf16,
    which moves near-tie top-k choices); optimizer-state bytes equal to
    ``zero1_state_bytes``; launches equal to the count from the code. It
    prints peak memory, step walls and rank 0's host ms in ``comm handoff``
    beside the other ``comm`` ranges, then the flash and GMM kernels at its
    shapes, held and timed as in phase 3.
+
+13. serve-world — phase 4's serving workload (the model cut to 4 layers,
+   bf16, seed 0, ``ENGINE``, ``PROMPT_LENS``, 16 new tokens) across 4
+   processes sharing the card over gloo (``launch.world.serve_world``):
+   each rank builds the model in its turn, keeps its compute slices, and
+   every rank runs the same engine (``serve.Engine(..., groups=)``).
+   (a) Mixtral at attention CP2×TP2 / MoE EP4: the paged pools cut over
+   TP heads, the CP slices of each view LSE-merged over CP, ring-CP
+   prefill for the even chunks (the odd tail chunks take the merge path),
+   24 / 4 heads a rank, 2 experts a rank. (b) Qwen2 at DP2×TP2 / EP2×ETP2:
+   2 decode slots a DP rank whose tokens cross DP ranks to their MoE
+   shards, ETP with the gated shared expert, qkv biases under TP. Checks:
+   every request finishes with 16 tokens and every rank has rank 0's
+   tokens and prefill logits; each rank's launches equal the count from
+   the code (3 GMM a dispatcher chunk and 1 flash, or ``cp`` for a ring
+   prefill chunk, a layer a forward); each rank's KV pools equal
+   ``kv_bytes_paged / tp``; every request's prefill logits within
+   ``CHECK_TOL`` (relative) of phase 4's, and its first token equal to
+   phase 4's wherever phase 4's top-1/top-2 margin exceeds twice the max
+   |Δlogit| (the two sum bf16 in other orders). It prints, per request, the
+   tokens equal before the first divergence, and per model peak memory a
+   rank (build and serving), the build time in turns, the decode-step
+   median and prefill tok/s; for (a) rank 0's profiled decode step (device
+   time by part, host ms in the ``comm`` ranges). Both models run in one
+   world of 4 processes, one after the other. Then the flash kernel in partial
+   mode on a CP slice (a decode step, a ring-prefill hop), flash at (b)'s
+   decode (a DP rank's rows at a TP rank's heads) and the GMM at each
+   fold's decode shard, held and timed as in phase 3.
 
 Phase 9 runs first, right after the build: its 4 ranks need about 70 GB
 of the card (Qwen2: 18.02 GB peak a rank on an H100), and what the other
@@ -195,7 +222,8 @@ after it, for the same reason, with the memory reserved before each
 printed. Then Mixtral runs phases 3, 4, 5, 6; every Mixtral tensor is
 freed and Qwen2
 runs 4, 5, 3, 6; then the added configs' phase 3 rows and train-configs;
-then Mixtral and Qwen2 run 7 and 8. Then it prints the script time, the
+then Mixtral and Qwen2 run 7 and 8, then phase 13 with phase 4's requests.
+Then it prints the script time, the
 kernels' JSON line (one entry per kernel per main path, its ``launches``
 from that path's own run), the card's ``nvidia-smi`` name and power limit,
 and last ``{"ok": true, "device": {...}}``. Full results also go to
@@ -221,7 +249,7 @@ REL_TOL = 2e-2          # kernel vs plain version, bf16 inputs and outputs
 CHECK_TOL = 5e-2        # reduced slices, card vs CPU plain path, bf16 both
 SERVE_LAYERS, SERVE_NEW_TOKENS = 4, 16
 TRAIN_STEPS, TRAIN_SEQ = 4, 4096
-WORLD_TOKENS, WORLD_PASSES = 4096, 2
+WORLD_TOKENS, WORLD_PASSES = 4096, 1
 # Phase 8, the folded step against the one-card step (phase 5), bf16 both.
 # Step 0 runs both on the same weights and batch: its loss and grad_norm
 # differ by bf16 sums in other orders and by the MoE capacity, which the fold
@@ -324,7 +352,7 @@ ZERO_RUNS = {MIXTRAL: (("allgather", 2, True, False, "fsdp"),
 PIPE_FULL = dict(attn=(1, 1, 2), moe=(1, 2, 1), pp=2, vpp=1, microbatch=4, layers=2,
                  seq=TRAIN_SEQ, steps=0)
 PIPE_SMALL = dict(attn=(2, 1, 1), moe=(1, 2, 1), pp=2, vpp=2, microbatch=4, layers=4, seq=256,
-                  steps=3)
+                  steps=2)
 
 
 # Phase 11 (a): phase 9's fold, batches, seed and AdamWConfig under the
@@ -342,13 +370,13 @@ RESUME_DIR, RESUME_RAM_MARGIN = "/dev/shm", 15e9
 RESUME_SECOND = dict(attn=(2, 1, 2), moe=(2, 2, 1), pp=1, vpp=1, microbatch=4)
 
 
-# Phase 12: Qwen2 at full width cut to 1 layer, FSDP, 2 steps of 4 x 2048
+# Phase 12: Qwen2 at full width cut to 1 layer, FSDP, 1 step of 4 x 2048
 # tokens (``SyntheticTokens(seed=0)``). The hand-off world is phase 9's fold
 # with 2 sequences a DP rank, the sequence cut over TP; the oracle runs the
 # same MoE fold at attention DP4, one whole sequence a rank, so that no
 # exchange runs and each MoE token shard is the same sequence in both.
 HANDOFF = dict(attn=ZERO_ATTN, moe=(2, 2, 1), seq=2048, batch=4,
-               run=("allgather", 2, True, False, "fsdp"))
+               run=("allgather", 1, True, False, "fsdp"))
 HANDOFF_ORACLE = (4, 1, 1)
 # "train-configs": the new configs that fit one card train this many steps.
 CONFIG_STEPS = 2
@@ -637,7 +665,10 @@ def phase_serve(torch, arch: str) -> dict:
         launches=launches, wall_s=wall, prefill_tokens=pre_tok, decode_tokens=dec_tok,
         prefill_tok_per_s=pre_tok / pre_s, decode_tok_per_s=dec_tok / sum(dec_times),
         decode_step_ms_median=statistics.median(dec_times) * 1e3,
-        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        # For phase 13 only (main() takes it out before results/ is written).
+        reference=[dict(tokens=res[r].tokens.tolist(), logits=res[r].last_prefill_logits)
+                   for r in rids])
     _say(f"[{tag}] {out['model']}: {len(rids)} requests, {out['steps']} steps, "
          f"{n_fwd} forwards, wall {wall:.3f} s, launches {launches}")
     _say(f"[{tag}] prefill {pre_tok} tokens at {out['prefill_tok_per_s']:.1f} tok/s; "
@@ -1743,6 +1774,192 @@ def phase_train_handoff(torch) -> dict:
                 kernels=_handoff_kernels(torch))
 
 
+# Phase 13: phase 4's serving workload across 4 ranks sharing the card. Per
+# model the attention (dp, cp, tp) and MoE (edp, ep, etp) folds.
+SERVE_WORLD = {MIXTRAL: dict(attn=(1, 2, 2), moe=(1, 4, 1)),
+               QWEN2: dict(attn=(2, 1, 2), moe=(1, 2, 2))}
+
+
+def _expected_serve_launches(cfg, forwards, attn, moe, max_batch: int) -> dict:
+    """Launches a rank makes serving at a fold, from the code: per layer and
+    forward (a B = 1 prefill chunk of C tokens, a decode of ``max_batch``
+    rows), 3 GMM a dispatcher chunk of the rank's token shard (the global
+    B·C tokens padded over EDP·EP·ETP, ``overlap_chunks`` clamped to the
+    shard) and one flash launch, or ``cp`` for a ring-CP prefill chunk
+    (C > 1, C % cp == 0)."""
+    import math
+    from repro_torch.core.overlap import resolve_chunks
+    cp, n_tok = attn[1], math.prod(moe)
+    gmm = flash = 0
+    for pre, dec in forwards:
+        for B, C in ([(1, pre)] if pre else []) + ([(max_batch, 1)] if dec else []):
+            t_l = -(-B * C // n_tok)
+            gmm += 3 * resolve_chunks(t_l, cfg.moe.overlap_chunks) * cfg.n_layers
+            flash += (cp if cp > 1 and C > 1 and C % cp == 0 else 1) * cfg.n_layers
+    return {"gmm": gmm, "gmm_trans_w": 0, "flash_attention": flash}
+
+
+def _serve_world_kernels(torch) -> dict:
+    """The kernels at phase 13's launch shapes, timed as in phase 3: flash
+    in partial mode on Mixtral's CP slice 1 (a TP rank's 24 / 4 heads,
+    keys 256-511): a decode step of 4 rows and one ring-prefill hop (the
+    second 64-query half of a 128-token chunk at 256); flash normalized at
+    Qwen2's decode (a DP rank's 2 rows, a TP rank's 14 / 2 heads, 512
+    keys); the GMM forward at each fold's decode shard (dropless, one token
+    a shard: one 128-row block a source, EP·ETP sources an expert)."""
+    from repro_torch.launch.serve import slice_config
+    H, Hkv = (h // SERVE_WORLD[MIXTRAL]["attn"][2] for h in FLASH_HEADS[MIXTRAL])
+    flash = {MIXTRAL: _flash_cases(torch, MIXTRAL, [
+        ("serve-world decode, CP slice 1 of 2", 1, 256, [300, 511, 257, 420], 256),
+        ("serve-world ring-prefill hop, CP slice 1 of 2", 64, 256, [320], 256)],
+        heads=(H, Hkv), modes=(True,))}
+    H, Hkv = (h // SERVE_WORLD[QWEN2]["attn"][2] for h in FLASH_HEADS[QWEN2])
+    flash[QWEN2] = _flash_cases(torch, QWEN2, [
+        ("serve-world decode, a DP rank's 2 rows", 1, 512, [37, 300])], heads=(H, Hkv),
+        modes=(False,))
+    out = {"flash_attention": flash, "gmm": {}}
+    for arch in (MIXTRAL, QWEN2):
+        cfg = slice_config(arch)
+        _, ep, etp = SERVE_WORLD[arch]["moe"]
+        m, bm = cfg.moe, cfg.moe.gmm_block_m
+        E, D, F = m.n_experts // ep, cfg.d_model, m.d_expert // etp
+        M = E * ep * etp * bm
+        blocks = [e for e in range(E) for _ in range(ep * etp)]
+        out["gmm"][arch] = _gmm_cases(torch, E, [(f"serve-world gate/up, EP{ep} ETP{etp} "
+                                                  f"decode shard", M, D, F, bm, blocks, False)])
+        _check_cases(arch, {"gmm": out["gmm"][arch], "flash_attention": flash[arch]})
+    return out
+
+
+def phase_serve_world(torch, one_card: dict) -> dict:
+    """Phase 13: see the module docstring. ``one_card``: each model's phase 4
+    requests (tokens and prefill logits). Every check is printed before the
+    phase fails on any of them."""
+    import numpy as np
+    from repro_torch.launch.serve import ENGINE, slice_config
+    from repro_torch.launch.world import serve_world
+    from repro_torch.serve.cache import kv_bytes_paged
+
+    smi = _smi()
+    t_phase = time.perf_counter()
+    out, failures = {}, []
+    # Both models in one world of 4 (one start, one teardown); rank 0
+    # profiles a decode step of the first.
+    worlds = serve_world(*(dict(arch=arch, attn=SERVE_WORLD[arch]["attn"],
+                                moe=SERVE_WORLD[arch]["moe"], layers=SERVE_LAYERS,
+                                new_tokens=SERVE_NEW_TOKENS, keep_logits=True,
+                                profile=arch == MIXTRAL) for arch in (MIXTRAL, QWEN2)),
+                         device="cuda")
+    wall = time.perf_counter() - t_phase
+    for arch, ranks in zip((MIXTRAL, QWEN2), worlds):
+        tag = "serve-world" + SHORT[arch]
+        w = SERVE_WORLD[arch]
+        cfg = slice_config(arch, layers=SERVE_LAYERS)
+        r0, ref = ranks[0], one_card[arch]
+        expect = _expected_serve_launches(cfg, r0["forwards"], w["attn"], w["moe"],
+                                          ENGINE["max_batch"])
+        n_pages = ENGINE["max_batch"] * ENGINE["s_max"] // ENGINE["page_size"] + 1
+        kv_rank = kv_bytes_paged(cfg, n_pages, ENGINE["page_size"]) // w["attn"][2]
+        for r in ranks:
+            rid = f"{tag} rank {r['rank']}"
+            if r["launches"] != expect:
+                failures.append(f"{rid}: launches {r['launches']} != expected {expect}")
+            if r["cache_bytes"] != kv_rank:
+                failures.append(f"{rid}: KV pools {r['cache_bytes']} B != kv_bytes_paged / tp "
+                                f"{kv_rank} B")
+            if any(a["tokens"] != b["tokens"] for a, b in zip(r["results"], r0["results"])):
+                failures.append(f"{rid}: tokens differ from rank 0's")
+            if any(not np.array_equal(a["logits"], b["logits"])
+                   for a, b in zip(r["results"], r0["results"])):
+                failures.append(f"{rid}: prefill logits differ from rank 0's")
+        errors, agree = [], []
+        for i, (got, one) in enumerate(zip(r0["results"], ref)):
+            if not (got["finished"] and len(got["tokens"]) == SERVE_NEW_TOKENS):
+                failures.append(f"{tag} request {i}: finished {got['finished']} with "
+                                f"{len(got['tokens'])} tokens")
+            lg, base = np.asarray(got["logits"], np.float64), np.asarray(one["logits"], np.float64)
+            delta = float(np.abs(lg - base).max())
+            rel = delta / max(float(np.abs(base).max()), 1e-30)
+            top2 = np.sort(base)[-2:]
+            margin = float(top2[1] - top2[0])
+            n_agree = next((k for k, (a, b) in enumerate(zip(got["tokens"], one["tokens"]))
+                            if a != b), len(got["tokens"]))
+            errors.append(dict(max_abs=delta, rel=rel, margin=margin, agree=n_agree))
+            agree.append(n_agree)
+            if not rel <= CHECK_TOL:
+                failures.append(f"{tag} request {i}: prefill logits rel err {rel:.3e} > "
+                                f"{CHECK_TOL} against phase 4's")
+            if margin > 2 * delta and got["tokens"][0] != one["tokens"][0]:
+                failures.append(f"{tag} request {i}: first token {got['tokens'][0]} != phase "
+                                f"4's {one['tokens'][0]} with margin {margin:.4f} > 2 x "
+                                f"{delta:.4f}")
+        dec = [t[1] for t in r0["timings"] if t[1] > 0]
+        pre_tok = sum(p for p, _ in r0["forwards"])
+        pre_s = sum(t[0] for t in r0["timings"])
+        res = dict(fold=w, wall_s=wall, ranks=ranks, launches_expected=expect,
+                   kv_bytes_rank=kv_rank, errors=errors,
+                   decode_step_ms_median=statistics.median(dec) * 1e3,
+                   prefill_tok_per_s=pre_tok / pre_s)
+        for r in ranks:
+            for x in r["results"]:
+                x["logits"] = None              # 0.2-3.6 MB each: not kept in results/
+        _say(f"[{tag}] {cfg.name} x{cfg.n_layers} layers (full width, bf16) at attention "
+             f"(dp, cp, tp) {w['attn']}, MoE (edp, ep, etp) {w['moe']}: {len(ranks)} ranks over "
+             f"gloo through the host on one card ({smi}); {r0['params'] / 1e9:.3f} B parameters "
+             f"on rank 0; weights built in turns in {r0['init_s']:.1f} s; {len(r0['forwards'])} "
+             f"steps, serving wall a rank " + ", ".join(f"{r['wall_s']:.2f}" for r in ranks)
+             + f" s; world wall (both models) {wall:.1f} s: start "
+             f"{max(r['start_s'] for r in ranks):.1f} s, groups {r0['groups_s']:.1f} s, profiled "
+             f"extra request {r0.get('profile_s', 0.0):.1f} s, teardown "
+             f"{max(r['end_s'] for r in ranks):.1f} s")
+        _say(f"[{tag}] decode step median {res['decode_step_ms_median']:.1f} ms (phase 4 one "
+             f"card: see [serve{SHORT[arch]}]); prefill {pre_tok} tokens at "
+             f"{res['prefill_tok_per_s']:.1f} tok/s; peak memory a rank: build "
+             + ", ".join(f"{r['peak_init_gb']:.2f}" for r in ranks) + " GB, serving "
+             + ", ".join(f"{r['peak_gb']:.2f}" for r in ranks) + " GB (reserved "
+             + ", ".join(f"{r['peak_reserved_gb']:.2f}" for r in ranks) + " GB); KV pools a "
+             f"rank {r0['cache_bytes'] / 1e6:.2f} MB (kv_bytes_paged / tp {kv_rank / 1e6:.2f} "
+             f"MB); launches a rank {r0['launches']} (expected {expect})")
+        _say(f"[{tag}] against phase 4 (one card, same weights and requests): prefill logits "
+             f"max |d| " + ", ".join(f"{e['max_abs']:.4f}" for e in errors) + "; rel err "
+             + ", ".join(f"{e['rel']:.2e}" for e in errors) + f" (limit {CHECK_TOL}); top-1/2 "
+             "margin " + ", ".join(f"{e['margin']:.4f}" for e in errors)
+             + "; tokens equal before the first divergence " + ", ".join(map(str, agree))
+             + f" of {SERVE_NEW_TOKENS}")
+        prof = r0.get("profile")
+        if prof:
+            _say(f"[{tag}] profiled decode step on rank 0: wall {prof['wall_ms']:.1f} ms, device "
+                 f"{prof['device_ms']:.1f} ms (" + ", ".join(
+                     f"{k} {v:.1f}" for k, v in prof["parts_ms"].items()) + "); device idle "
+                 f"{prof['device_idle_share']:.1%}; host ms in " + ", ".join(
+                     f"{k} {v:.1f}" for k, v in sorted(prof["comm_host_ms"].items())))
+        out[arch] = res
+        torch.cuda.empty_cache()
+    out["kernels"] = _serve_world_kernels(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    _say(f"[serve-world] phase 13 took {out['seconds']:.1f} s")
+    if failures:
+        raise AssertionError("phase 13:\n" + "\n".join(failures))
+    return out
+
+
+def _serve_world_line(serve_world: dict, sources: dict) -> list:
+    """Phase 13's entries of the kernels line: per model (path
+    ``serve-world[-qwen2]``) the GMM with rank 0's launches, timed at the
+    fold's decode shard, and flash with rank 0's launches, timed at the
+    fold's decode launch (Mixtral: the partial on a CP slice)."""
+    line = []
+    for arch in (MIXTRAL, QWEN2):
+        launches = serve_world[arch]["ranks"][0]["launches"]
+        path = "serve-world" + SHORT[arch]
+        line.append(_entry("gmm", path, arch, serve_world["kernels"]["gmm"][arch][0],
+                           launches["gmm"], sources))
+        line.append(_entry("flash_attention", path, arch,
+                           serve_world["kernels"]["flash_attention"][arch][0],
+                           launches["flash_attention"], sources))
+    return line
+
+
 def _entry(name: str, path: str, model: str, c: dict, launches: int, sources: dict) -> dict:
     """One entry of the kernels line: kernel ``name`` on main path ``path``
     with that path's ``launches``, timed and held in case ``c``."""
@@ -1885,6 +2102,9 @@ def main() -> int:
     memory_world = _free(torch, "train-configs done")
     world = phase_world(torch)
     train_world = phase_train_world(torch, {arch: res["train"] for arch, res in results.items()})
+    memory_serve_world = _free(torch, "phase 8 done, before phase 13")
+    serve_world = phase_serve_world(torch, {arch: res["serve"].pop("reference")
+                                            for arch, res in results.items()})
     seconds = time.perf_counter() - t_start
 
     gmm_src = ("src/repro_torch/kernels/csrc/gmm.cu", "src/repro/kernels/gmm/gmm.py:73")
@@ -1908,6 +2128,7 @@ def main() -> int:
     line += _train_resume_line(train_resume, train_zero, sources)
     line += _train_configs_line(config_kernels, train_configs, sources)
     line += _train_handoff_line(train_handoff, sources)
+    line += _serve_world_line(serve_world, sources)
     smi = _smi()
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -1916,12 +2137,14 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         nvidia_smi=smi, device=device, timing=TIMING, build=build, models=results,
         world=world, train_world=train_world, train_zero=train_zero, train_pipe=train_pipe,
-        train_resume=train_resume, train_handoff=train_handoff, config_kernels=config_kernels,
+        train_resume=train_resume, train_handoff=train_handoff, serve_world=serve_world,
+        config_kernels=config_kernels,
         train_configs=train_configs, memory_after_train_zero=memory_zero,
         memory_after_train_handoff=memory_handoff,
         memory_after_train_pipe=memory_pipe, memory_after_train_resume=memory_resume,
         memory_between_models=memory, memory_before_train_configs=memory_configs,
-        memory_before_world=memory_world, seconds=seconds), indent=1))
+        memory_before_world=memory_world, memory_before_serve_world=memory_serve_world,
+        seconds=seconds), indent=1))
     _say(f"[done] script time {seconds:.2f} s (build {build['seconds']:.2f} s)")
     print(json.dumps({"kernels": line}))
     print(smi)

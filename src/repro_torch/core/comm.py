@@ -22,6 +22,12 @@ collective          forward                     backward
 :func:`moe_to_sp`   shard over CP×TP (A2A-V)
 ==================  ==========================  ===========================
 
+Serving's decode step adds collectives without a gradient: the LSE merge
+of attention partials over CP (:func:`cp_merge`), the all-gathers of the
+decode hand-off and the logits (:func:`gather_rows`), and sums over TP and
+DP through :func:`all_reduce` under their own range names (the
+vocabulary-parallel lookup, the output projection, the expert load).
+
 Between pipeline stages, :class:`StageLink` sends point to point (not a
 collective: only the two stages of a message take part).
 
@@ -85,10 +91,10 @@ def _a2a(x: torch.Tensor, group: Group, in_splits, out_splits, async_op=False,
     return out, work
 
 
-def _gather0(x: torch.Tensor, group: Group) -> torch.Tensor:
+def _gather0(x: torch.Tensor, group: Group, name: str = "all_gather") -> torch.Tensor:
     x = x.contiguous()
     out = x.new_empty((size(group) * x.shape[0],) + tuple(x.shape[1:]))
-    with _range("comm all_gather"):
+    with _range(f"comm {name}"):
         dist.all_gather_into_tensor(out, x, group=group)
     return out
 
@@ -104,10 +110,11 @@ def _scatter0(x: torch.Tensor, group: Group) -> torch.Tensor:
     return out
 
 
-def _all_reduce(x: torch.Tensor, group: Group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, group: Group, op=dist.ReduceOp.SUM,
+                name: str = "all_reduce") -> torch.Tensor:
     """A summed (or max) copy of ``x`` over the group."""
     out = x.detach().clone().contiguous()
-    with _range("comm all_reduce"):
+    with _range(f"comm {name}"):
         dist.all_reduce(out, op=op, group=group)
     return out
 
@@ -222,11 +229,13 @@ def mean(x: torch.Tensor, group: Group) -> torch.Tensor:
     return _Mean.apply(x, group)
 
 
-def all_reduce(x: torch.Tensor, group: Group, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """``lax.psum`` (or ``pmax``) of a statistic, without a gradient."""
+def all_reduce(x: torch.Tensor, group: Group, op=dist.ReduceOp.SUM,
+               name: str = "all_reduce") -> torch.Tensor:
+    """``lax.psum`` (or ``pmax``) without a gradient, in the ``comm
+    <name>`` range."""
     if size(group) == 1:
         return x
-    return _all_reduce(x, group, op)
+    return _all_reduce(x, group, op, name)
 
 
 class _Psum(Function):
@@ -281,7 +290,7 @@ def ring_shift_(x: torch.Tensor, ax, step: int = 1) -> torch.Tensor:
     ins, outs = [0] * n, [0] * n
     ins[_group_rank(ax, (ax.index + step) % n)] = rows
     outs[_group_rank(ax, (ax.index - step) % n)] = rows
-    return _a2a(x, ax.group, ins, outs)[0]
+    return _a2a(x, ax.group, ins, outs, name="ring_shift")[0]
 
 
 class _RingShift(Function):
@@ -436,6 +445,47 @@ def moe_to_sp(y: torch.Tensor, ax, seqs: int) -> torch.Tensor:
         return y
     ax.require_rank_order("the MoE → SP hand-off")
     return _Handoff.apply(y, ax, seqs, False)
+
+
+# ---------------------------------------------------------------------------
+# Serving: the decode step's collectives (no gradient)
+# ---------------------------------------------------------------------------
+
+def cp_merge(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor, ax
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The LSE merge of attention partials over the CP axis ``ax``: each
+    rank holds ``(acc, m, l)`` of the same queries against its slice of the
+    keys (``acc`` (..., hd) unnormalized, ``m``/``l`` (...) fp32). Returns
+    the merged ``(acc, l)``, the same on every rank: the reference's
+    ``pmax``/``psum`` combine (``repro.models.attention._cache_attend``).
+    One all-gather of the packed partials (``comm cp_merge``), then every
+    rank combines them in axis order. A partial that saw no key (``m`` the
+    masked value, ``l = 0``) gets exactly zero weight."""
+    if ax.size == 1:
+        return acc, l
+    packed = torch.cat([acc, m[..., None], l[..., None]], dim=-1).float()
+    parts = _gather0(packed[None], ax.group, "cp_merge")
+    order = [_group_rank(ax, i) for i in range(ax.size)]   # axis order
+    m_all = parts[..., -2]
+    m_g = m_all.amax(dim=0)
+    acc_out = l_out = None
+    for r in order:
+        m_r = m_all[r]
+        # m_r == m_g also covers a row no rank saw (an infinite m would
+        # otherwise make NaN); for finite values the exponent is 0 there.
+        scale = torch.where(m_r == m_g, torch.ones_like(m_r), torch.exp(m_r - m_g))
+        a_r, l_r = parts[r][..., :-2] * scale[..., None], parts[r][..., -1] * scale
+        acc_out = a_r if acc_out is None else acc_out + a_r
+        l_out = l_r if l_out is None else l_out + l_r
+    return acc_out, l_out
+
+
+def gather_rows(x: torch.Tensor, group: Group, name: str, dim: int = 0) -> torch.Tensor:
+    """Tiled all-gather along ``dim`` in group-rank order, in the
+    ``comm <name>`` range (the decode hand-off and the logits gather)."""
+    if size(group) == 1:
+        return x
+    return _along(lambda t, g: _gather0(t, g, name), x, group, dim)
 
 
 # ---------------------------------------------------------------------------

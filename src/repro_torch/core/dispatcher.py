@@ -236,7 +236,7 @@ def moe_ffn(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor, w2: torch.Tenso
             shared_weights: Optional[Sequence[torch.Tensor]] = None,
             ragged: Optional[bool] = None, overlap_chunks: Optional[int] = None,
             groups: Optional[FoldedGroups] = None,
-            token_mask: Optional[torch.Tensor] = None
+            token_mask: Optional[torch.Tensor] = None, stats: bool = True
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Apply the MoE FFN to this rank's tokens ``x`` (t, D).
 
@@ -256,7 +256,9 @@ def moe_ffn(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor, w2: torch.Tenso
     ``shared_weights``: optional ``(ws1, ws2, ws3[, gate])``, see
     :func:`_shared_expert_ffn`; its output is added to every token's.
     Returns ``(y, stats)`` with ``moe_aux_loss`` and ``moe_z_loss`` (means
-    over the token ranks) and ``moe_drop_fraction`` (over real tokens).
+    over the token ranks) and ``moe_drop_fraction`` (over real tokens);
+    with ``stats=False`` the statistics and their reductions over the token
+    ranks are skipped (serving reads none) and ``stats`` is empty.
     """
     mode = permute_mode if permute_mode is not None else mcfg.permute_mode
     if mode not in ("scatter", "sort"):
@@ -487,6 +489,8 @@ def moe_ffn(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor, w2: torch.Tenso
     y = y.to(x.dtype)
 
     # ------------------------------------------------ statistics
+    if not stats:
+        return y, {}
     tok_g = _group(groups, "tokens")
     aux, zl = comm.mean(r.aux_loss, tok_g), comm.mean(r.z_loss, tok_g)
     # The drop fraction counts real tokens only: padding rows are no drops.

@@ -16,6 +16,11 @@ The two coincide when a DP rank holds one sequence or the sequence is not
 cut; otherwise :func:`moe_block` moves the rows between the DP rank's
 cp·tp ranks before the router and back after the combine
 (``comm.sp_to_moe`` / ``comm.moe_to_sp``).
+
+Serving's decode rows are laid out otherwise: replicated over CP and TP,
+cut over DP only when the batch divides (:func:`moe_block_decode`), so the
+hand-off there follows the reference's token shards of the *global*
+decode batch, which cross DP ranks.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import comm
-from repro_torch.core.dispatcher import moe_ffn
+from repro_torch.core.dispatcher import moe_ffn, token_shard
 from repro_torch.core.folding import FoldedGroups
 from repro_torch.models.common import dense_init
 
@@ -147,3 +152,44 @@ def moe_block(p: MoEParams, x: torch.Tensor, cfg: ModelConfig, *,
     if groups is not None:
         y = comm.moe_to_sp(y, groups.attn["cp_tp"], B)
     return y.reshape(B, S, D), aux
+
+
+def moe_block_decode(p: MoEParams, x: torch.Tensor, cfg: ModelConfig, *,
+                     groups: Optional[FoldedGroups] = None, rows_cut: bool = False
+                     ) -> torch.Tensor:
+    """The MoE block on serving's decode rows ``x`` (b, C, D) → same.
+
+    At one rank it is :func:`moe_block`. With ``groups`` the rows are
+    replicated over the attention CP and TP ranks and, with ``rows_cut``,
+    cut over DP (this rank's b = B / dp rows of the batch; else all B).
+    The reference flattens the *global* (B·C) tokens, pads them to the
+    token shard count EDP·EP·ETP and gives shard i to the rank at index i
+    of the MoE ``tokens`` axis (``repro.core.dispatcher._token_shards``),
+    so a shard may hold another DP rank's rows. No aux statistic is
+    computed (``moe_ffn(stats=False)``). The hand-off: all-gather
+    the rows over DP (when cut), take this rank's token shard with its
+    padding mask (``dispatcher.token_shard``; capacity from the padded
+    shard, as there), ``moe_ffn(..., token_mask=)``, then all-gather the
+    outputs over the ``tokens`` axis and keep this rank's rows, each in
+    the ``comm decode_handoff`` range."""
+    assert cfg.moe is not None
+    if groups is None:
+        return moe_block(p, x, cfg)[0]
+    b, C, D = x.shape
+    xt = x.reshape(b * C, D)
+    if rows_cut:
+        dp = groups.attn["dp"]
+        dp.require_rank_order("the decode hand-off")
+        xt = comm.gather_rows(xt, dp.group, "decode_handoff")
+    tok = groups.moe["tokens"]
+    tok.require_rank_order("the decode hand-off")
+    T = xt.shape[0]
+    x_loc, mask = token_shard(xt, groups)
+    y, _ = moe_ffn(x_loc, p.router, p.w1, p.w2, p.w3, cfg.moe, activation=cfg.activation,
+                   shared_weights=p.shared_weights(), groups=groups, token_mask=mask,
+                   stats=False)
+    y = comm.gather_rows(y, tok.group, "decode_handoff")[:T]
+    if rows_cut:
+        lo = groups.attn["dp"].index * b * C
+        y = y[lo:lo + b * C]
+    return y.reshape(b, C, D)

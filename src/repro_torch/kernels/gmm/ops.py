@@ -64,7 +64,10 @@ def expert_ffn_einsum(xe: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                       w3: torch.Tensor, activation: str) -> torch.Tensor:
     """The reference's einsum expert FFN as three ``torch.bmm``: xe (E, N, D);
     w1/w3 (E, D, F); w2 (E, F, D) → (E, N, D). A plain product, which the
-    JAX package also computes outside any kernel."""
+    JAX package also computes outside any kernel. Weights of another dtype
+    than ``xe`` compute in ``xe``'s, as JAX promotes bf16 weights against
+    fp32 activations."""
+    w1, w2, w3 = (w.to(xe.dtype) for w in (w1, w2, w3))
     h = act_fn(activation, torch.bmm(xe, w1), torch.bmm(xe, w3))
     return torch.bmm(h, w2)
 
@@ -89,6 +92,7 @@ def expert_ffn_gmm(xe: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     bm = bm if bm is not None else pick_bm(N)
     if bm < 8 or N % bm or D % 128 or F % 128:
         return expert_ffn_einsum(xe, w1, w2, w3, activation)
+    w1, w2, w3 = (w.to(xe.dtype) for w in (w1, w2, w3))
     x2 = xe.reshape(E * N, D)
     be = uniform_block_expert(E, N, bm, device=xe.device)
     gate = GroupedMatmul.apply(x2, w1, be, bm)

@@ -3,10 +3,17 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --layers 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-57b-a14b --layers 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-57b-a14b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --reduced --device cpu \
+        --attn 2 2 2 --moe 1 4 2
 
 The first two serve a full-width model cut to 4 layers on the CUDA card (the
-port's serving slice); the third a smoke-sized model on the CPU. Weights
-and prompts are random, from ``--seed``.
+port's serving slice); the third a smoke-sized model on the CPU; the last
+serves across the ranks of a pp = 1 fold, attention (dp, cp, tp) and MoE
+(edp, ep, etp), one process a rank over gloo (``launch.world.serve_world``;
+the reference launcher serves at (2, 2, 2) / (2, 2, 2)). ``--reduced``
+runs the reference launcher's ``--reduced`` workload: 4 slots, 64 slots of
+context in pages of 8, prefill chunks of 8, four prompts of 8 tokens.
+Weights and prompts are random, from ``--seed``.
 """
 from __future__ import annotations
 
@@ -22,6 +29,9 @@ from repro_torch.configs import ModelConfig, get_config, reduced
 # The engine settings and prompt lengths of the slice's smoke workload.
 ENGINE = dict(max_batch=4, s_max=512, cache="paged", page_size=16, prefill_chunk=128)
 PROMPT_LENS = (100, 257, 64, 380, 33, 190)
+# The reference launcher's --reduced workload (repro/launch/serve.py).
+REDUCED_ENGINE = dict(max_batch=4, s_max=64, cache="paged", page_size=8, prefill_chunk=8)
+REDUCED_PROMPT_LENS = (8, 8, 8, 8)
 
 
 def slice_config(arch: str, *, layers: Optional[int] = None,
@@ -66,6 +76,10 @@ def main() -> None:
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--attn", type=int, nargs=3, metavar=("DP", "CP", "TP"), default=None,
+                    help="serve across the ranks of this attention fold")
+    ap.add_argument("--moe", type=int, nargs=3, metavar=("EDP", "EP", "ETP"), default=None,
+                    help="the MoE fold of the same ranks (default: the attention fold's)")
     args = ap.parse_args()
 
     import torch
@@ -74,11 +88,33 @@ def main() -> None:
     from repro_torch.models.transformer import init_lm
 
     device = resolve_device(args.device)
+    engine, lens = ((REDUCED_ENGINE, REDUCED_PROMPT_LENS) if args.reduced
+                    else (ENGINE, PROMPT_LENS))
+    if args.attn or args.moe:
+        from repro_torch.launch.world import serve_world
+        attn = tuple(args.attn or args.moe)
+        ranks = serve_world(dict(arch=args.arch, attn=attn, moe=tuple(args.moe or attn),
+                                 reduce=args.reduced, layers=args.layers, engine=engine,
+                                 prompt_lens=lens, new_tokens=args.tokens, seed=args.seed),
+                            device=str(device))[0]
+        same = all(r["results"] == ranks[0]["results"] for r in ranks)
+        for i, r in enumerate(ranks[0]["results"]):
+            print(f"request {i}: {r['tokens']}")
+        print(f"{args.arch} at attention (dp, cp, tp) {attn} / MoE (edp, ep, etp) "
+              f"{tuple(args.moe or attn)} on {len(ranks)} ranks ({device}): "
+              f"{len(ranks[0]['results'])} requests, {len(ranks[0]['forwards'])} steps, "
+              f"serving wall {max(r['wall_s'] for r in ranks):.3f} s; every rank's tokens "
+              f"equal: {same}")
+        if not same:
+            raise SystemExit("serve: the ranks' results differ")
+        return
+
     cfg = slice_config(args.arch, layers=args.layers, reduce=args.reduced)
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     params = init_lm(cfg, seed=args.seed, dtype=dtype, device=device)
     t0 = time.perf_counter()
-    eng, rids, results = run_requests(cfg, params, PROMPT_LENS, args.tokens, seed=args.seed)
+    eng, rids, results = run_requests(cfg, params, lens, args.tokens, seed=args.seed,
+                                      **engine)
     wall = time.perf_counter() - t0
     for r in rids:
         print(f"request {r}: {results[r].tokens.tolist()}")

@@ -1,6 +1,7 @@
 """Start a world of ranks (``init_world``, ``spawn``) and run the folded
-MoE layer (``moe_world``), the folded training step (``train_world``) or a
-checkpointed / supervised training run (``resilient_world``) in it.
+MoE layer (``moe_world``), the folded training step (``train_world``), a
+checkpointed / supervised training run (``resilient_world``) or the
+serving engine at a fold (``serve_world``) in it.
 
 Port of ``repro.launch.mesh`` for ``torch.distributed``. Nothing here reads
 a cluster's environment: the caller names the backend, the rendezvous, the
@@ -52,6 +53,7 @@ import time
 import traceback
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -804,3 +806,152 @@ def resilient_world(*runs: Dict[str, Any], device: str = "cuda",
     ranks = spawn(_resilient_rank, sizes.pop(), backend="gloo", device=device, args=(runs,),
                   timeout_s=timeout_s)
     return [[r[i] for r in ranks] for i in range(len(runs))]
+
+
+# ---------------------------------------------------------------------------
+# Serving across a world.
+# ---------------------------------------------------------------------------
+
+def pool_bytes(state) -> int:
+    """Bytes of an engine's KV cache on this rank (paged pools or dense)."""
+    layers = state["layers"] if isinstance(state, dict) else state
+    return sum(t.numel() * t.element_size() for st in layers for t in st.values())
+
+
+def _serve_world_rank(rank: int, world: int, runs: Sequence[Dict[str, Any]]
+                      ) -> List[Dict[str, Any]]:
+    """One rank of :func:`serve_world`: each run in turn, its engine and
+    weights freed before the next."""
+    out = []
+    for spec in runs:
+        out.append(_serve_run(rank, world, spec))
+        if spec["device"] != "cpu":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _serve_run(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, Any]:
+    """One run of :func:`serve_world` on this rank (see there)."""
+    from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
+    from repro_torch.core.folding import build_folded_groups
+    from repro_torch.launch.serve import slice_config, submit_random
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import Engine, EngineConfig, Request
+
+    t_enter = time.time()
+    dev = torch.device(spec["device"])
+    fg = build_folded_groups(ParallelConfig(attn=PM(*spec["attn"]), moe=PM(*spec["moe"])),
+                             rank=rank, world=world)
+    cfg = fold_config(slice_config(spec["arch"], layers=spec["layers"], reduce=spec["reduce"]),
+                      spec["moe"][1])
+    # The ragged exchange across EP ranks: a decode step holds a token or two
+    # a shard, and the padded exchange would ship every expert's whole
+    # 128-row span (Qwen2 at EP2: 58.7 MB a rank a layer) where the ragged
+    # one ships the kept rows, with bitwise the same result.
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ragged_a2a=True))
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    out: Dict[str, Any] = {"rank": rank, "dp": fg.attn["dp"].index, "cp": fg.attn["cp"].index,
+                           "tp": fg.attn["tp"].index, "tokens_index": fg.moe["tokens"].index,
+                           "t_enter": t_enter, "groups_s": time.time() - t_enter}
+
+    def make():
+        """The full model from the seed, cut to this rank's compute slices."""
+        full = init_lm(cfg, seed=spec["seed"], dtype=dtype, device=dev)
+        params = sharding.shard_lm_params(full, fg, "compute")
+        del full
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return params
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = _in_turns(world, rank, make)
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = sum(p.numel() for p in params.parameters())
+    if dev.type == "cuda":
+        out["peak_init_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        torch.cuda.reset_peak_memory_stats(dev)
+    eng = Engine(cfg, params, EngineConfig(**spec["engine"]), groups=fg)
+    out["cache_bytes"] = pool_bytes(eng.state)
+    rids = submit_random(eng, cfg, spec["prompt_lens"], spec["new_tokens"], seed=spec["seed"])
+    _sync(dev)
+    dist.barrier()
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = eng.drain()
+    _sync(dev)
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = _launches()
+    out["results"] = [dict(tokens=res[r].tokens.tolist(), finished=res[r].finished,
+                           preemptions=res[r].preemptions,
+                           logits=res[r].last_prefill_logits if spec["keep_logits"] else None)
+                      for r in rids]
+    out["forwards"] = [(s.prefill_tokens, s.decode_tokens) for s in eng.stats]
+    out["timings"] = list(eng.timings)
+    if dev.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["peak_reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
+    if spec["profile"]:
+        # One more request: a step of its prefill and first decode, then a
+        # decode-only step, profiled on rank 0 (every rank steps alike).
+        t0 = time.perf_counter()
+        prompt = np.random.default_rng(spec["seed"] + 1).integers(0, cfg.vocab_size, (16,))
+        eng.submit(Request(prompt=prompt.astype(np.int32), max_new_tokens=3))
+        eng.step()
+        out["profile"] = _profiled_step(eng.step, dev, rank == 0) if dev.type == "cuda" \
+            else None
+        eng.drain()
+        out["profile_s"] = time.perf_counter() - t0
+    out["t_exit"] = time.time()
+    return out
+
+
+def serve_world(*runs: Dict[str, Any], device: str = "cuda",
+                timeout_s: float = 900.0) -> List[List[Dict[str, Any]]]:
+    """The serving engine at pp = 1 folds, over gloo, one process a rank,
+    for each of ``runs`` in turn (every fold on the same number of ranks).
+    A run is a dict: ``arch`` (``launch.serve.slice_config``, with the
+    ragged exchange), ``attn`` (dp, cp, tp), ``moe`` (edp, ep, etp), and
+    optionally ``layers``, ``reduce``, ``engine`` (EngineConfig fields;
+    default the launcher's ``ENGINE``), ``prompt_lens`` (default
+    ``PROMPT_LENS``), ``new_tokens`` (16), ``seed`` (0), ``keep_logits`` and
+    ``profile``. Each rank builds the full model from ``seed`` in its turn
+    (one rank at a time), keeps its compute slices and frees the rest, then
+    every rank serves the same random prompts (``launch.serve.submit_random``)
+    to the end. Per run, each rank's record in rank order: its coordinates,
+    the build's wall time in turns (``init_s``), parameters held, KV cache
+    bytes, the serving wall, the kernel launches of the run (counters
+    zeroed just before), each request's tokens (and with ``keep_logits`` its
+    prefill logits), each step's ``(prefill_tokens, decode_tokens)``, the
+    engine's per-step timings, and on a card its peak memory during the
+    build and the run; with ``profile``, one more decode-only step profiled
+    on rank 0 (device time by part, host ms in the ``comm`` ranges).
+    ``start_s``: from the spawn (or the rank's previous run) to the run's
+    first line; ``end_s``: from the last run's last line to the world's
+    end (teardown)."""
+    from repro_torch.launch.serve import ENGINE, PROMPT_LENS
+    defaults = dict(reduce=False, layers=None, engine=ENGINE, prompt_lens=PROMPT_LENS,
+                    new_tokens=16, seed=0, keep_logits=False, profile=False)
+    specs = []
+    for r in runs:
+        spec = dict(defaults, **r, device=device)
+        spec.update(attn=tuple(spec["attn"]), moe=tuple(spec["moe"]), engine=dict(spec["engine"]),
+                    prompt_lens=tuple(spec["prompt_lens"]))
+        specs.append(spec)
+    sizes = {math.prod(s["attn"]) for s in specs}
+    if len(sizes) != 1:
+        raise ValueError(f"serve_world: the runs' folds span {sorted(sizes)} ranks, not one "
+                         "world")
+    t_spawn = time.time()
+    ranks = spawn(_serve_world_rank, sizes.pop(), backend="gloo", device=device,
+                  args=(specs,), timeout_s=timeout_s)
+    t_done = time.time()
+    for per_run in ranks:         # the world's start (process, CUDA, rendezvous) and its end
+        t_prev = t_spawn
+        for r in per_run:
+            r["start_s"] = r.pop("t_enter") - t_prev
+            t_prev = r.pop("t_exit")
+            r["end_s"] = 0.0
+        per_run[-1]["end_s"] = t_done - t_prev
+    return [[per_run[i] for per_run in ranks] for i in range(len(specs))]

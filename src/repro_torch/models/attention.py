@@ -1,11 +1,14 @@
 """GQA attention: the train/prefill forward, one rank or across TP and CP
-ranks, and serving's decode steps and prefill chunks against a paged KV pool.
+ranks, and serving's decode steps and prefill chunks against a paged or
+dense KV cache, one rank or across the TP and CP ranks of a fold.
 
 Port of ``repro.models.attention``: ``attention`` (training; with
 ``groups``, tensor parallelism over heads with Megatron sequence
 parallelism between layers, and context parallelism by all-gathered K/V or
 the load-balanced ring, ``ParallelConfig.cp_mode``) and
-``attention_decode_paged`` → ``_cache_attend``. The page scatter and the
+``attention_decode_paged`` / ``attention_decode`` → ``_cache_attend`` (at
+a fold: the rank's TP heads, its CP slice of the cache, LSE-merged partials
+or the ring-CP prefill). The page scatter and the
 page gather into a contiguous ``(B, Hkv, L, hd)`` view are plain torch
 indexing, as in JAX; the attention itself is the flash kernel (with its
 backward in ``attn_core``).
@@ -21,7 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import comm
 from repro_torch.core.folding import FoldedGroups, zigzag_runs
 from repro_torch.kernels.flash.ops import flash
-from repro_torch.models.attn_core import blockwise_attention, ring_attention
+from repro_torch.models.attn_core import _merge_partials, blockwise_attention, ring_attention
 from repro_torch.models.common import apply_rope, dense_init
 
 
@@ -169,30 +172,109 @@ def _positions_for(step: Union[int, torch.Tensor], B: int, C: int,
     return base[:, None] + torch.arange(C, dtype=torch.long, device=base.device)[None, :]
 
 
+def check_decode_heads(cfg: ModelConfig, groups: Optional[FoldedGroups]) -> None:
+    """Decode at a fold computes attention at the rank's TP heads: refuse
+    heads that do not split over TP (the reference keeps them replicated,
+    ``_decode_axes``)."""
+    tp = 1 if groups is None else groups.tp
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        raise NotImplementedError(
+            f"decode at attention TP {tp} over {cfg.n_heads} query / {cfg.n_kv_heads} KV "
+            "heads: K/V replicated over TP is not ported (ROADMAP.md queue 1 item 2, "
+            "'K/V replicated over TP when n_kv_heads % tp')")
+
+
 def _cache_attend(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
-                  pos: torch.Tensor, *, window: int) -> torch.Tensor:
-    """C query tokens against a realized (B, Hkv, L, hd) cache at one rank.
+                  pos: torch.Tensor, *, window: int, groups: Optional[FoldedGroups] = None,
+                  kv_offset: int = 0) -> torch.Tensor:
+    """C query tokens against a realized (B, Hkv, L, hd) cache view.
 
     ``q``: (B, H, C, hd); ``pos``: (B, C) contiguous query positions. A
-    full-attention cache holds position s at slot s, so keys start at
-    position 0 and the causal mask hides the slots not yet written.
+    full-attention cache holds position s at slot s, so the keys of the
+    view start at position ``kv_offset`` and the causal mask hides the
+    slots not yet written. At one rank (or CP 1) the view is the whole
+    cache: one flash launch, normalized output.
+
+    With ``groups`` at CP > 1 the view is this rank's ``L / cp`` slice of
+    the cache, at ``kv_offset = cp_index · L / cp``, as the reference cuts
+    it (``repro.models.attention._cache_attend``):
+
+    * C == 1 (decode) or C % cp != 0: every CP rank runs flash in partial
+      mode for all C queries against its slice, and the partials are
+      LSE-merged over CP (``comm.cp_merge``).
+    * C > 1 with C % cp == 0 (ring-CP prefill): the queries are cut into
+      cp contiguous chunks, rank i starting with chunk i. Each hop runs one
+      flash partial of the chunk held against the resident slice, and the
+      chunk (with its running ``(m, l, acc)``) moves one rank on around the
+      CP ring (``comm.ring_shift_``), merged online as it arrives; a last
+      rotation brings each chunk's accumulators back to its owner, and the
+      normalized chunks are all-gathered over CP along C.
     """
-    return flash(q, cache_k, cache_v, q_offset=pos[:, 0], kv_offset=0,
-                 causal=True, window=window)
+    cp_ax = None if groups is None else groups.attn["cp"]
+    if cp_ax is None or cp_ax.size == 1:
+        return flash(q, cache_k, cache_v, q_offset=pos[:, 0], kv_offset=kv_offset,
+                     causal=True, window=window)
+    cp_ax.require_rank_order("the CP decode collectives")
+    cp, C = cp_ax.size, q.shape[2]
+    if C == 1 or C % cp:
+        acc, m, l = flash(q, cache_k, cache_v, q_offset=pos[:, 0], kv_offset=kv_offset,
+                          causal=True, window=window, return_partial=True)
+        acc, l = comm.cp_merge(acc, m, l, cp_ax)
+        return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+    n, i = C // cp, cp_ax.index
+
+    def partial(qc, chunk):
+        return flash(qc, cache_k, cache_v, q_offset=pos[:, chunk * n], kv_offset=kv_offset,
+                     causal=True, window=window, return_partial=True)
+
+    def shift(*parts):
+        """One ring hop of the chunk's tensors, packed into one fp32 buffer
+        (a bf16 chunk of queries is exact in fp32)."""
+        buf = comm.ring_shift_(torch.cat([t.float() for t in parts], dim=-1), cp_ax)
+        return buf.split([t.shape[-1] for t in parts], dim=-1)
+
+    qc = q[:, :, i * n:(i + 1) * n].contiguous()
+    acc, m, l = partial(qc, i)
+    for hop in range(1, cp):
+        qc, acc, m, l = shift(qc, acc, m[..., None], l[..., None])
+        qc, m, l = qc.to(q.dtype).contiguous(), m[..., 0], l[..., 0]
+        acc_s, m_s, l_s = partial(qc, (i - hop) % cp)
+        m, l, acc = _merge_partials(m, l, acc, m_s, l_s, acc_s)
+    acc, m, l = shift(acc, m[..., None], l[..., None])
+    out = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    return comm.gather_rows(out.contiguous(), cp_ax.group, "cp_gather", dim=2)
 
 
-def _attn_output(out: torch.Tensor, p: AttentionParams, cfg: ModelConfig) -> torch.Tensor:
-    """(B, H, C, hd) attention output → (B, C, D) through the out-proj."""
+def _attn_output(out: torch.Tensor, p: AttentionParams, cfg: ModelConfig,
+                 groups: Optional[FoldedGroups] = None) -> torch.Tensor:
+    """(B, H, C, hd) attention output → (B, C, D) through the out-proj; at a
+    fold ``out`` holds the rank's TP heads and ``wo`` their rows, and the
+    partial sums are all-reduced over TP (row parallel)."""
     B, _, C, _ = out.shape
-    out = out.transpose(1, 2).reshape(B, C, cfg.q_dim)
-    return out @ p.wo.to(out.dtype)
+    out = out.transpose(1, 2).reshape(B, C, -1)
+    if groups is None or groups.tp == 1:
+        return out @ p.wo.to(out.dtype)
+    # The partial sums stay fp32 through the sum over TP and are rounded
+    # once, as one rank's product rounds its fp32 accumulation once: a bf16
+    # round of each partial would part the residual stream from one rank's
+    # by an ulp here and there, enough to flip near-tie expert choices.
+    y = out.float() @ p.wo.float()
+    return comm.all_reduce(y, groups.attn["tp"].group, name="tp_reduce").to(out.dtype)
+
+
+def _no_window(window: int) -> None:
+    if window:
+        raise NotImplementedError(
+            "sliding-window ring caches are not ported yet: their wrapped slot "
+            "positions are not contiguous (ROADMAP.md queue 1, 'Serving, rest')")
 
 
 def attention_decode_paged(p: AttentionParams, x: torch.Tensor,
                            pool_k: torch.Tensor, pool_v: torch.Tensor,
                            block_tables: torch.Tensor,
                            step: Union[int, torch.Tensor], cfg: ModelConfig, *,
-                           window: int = 0
+                           window: int = 0, groups: Optional[FoldedGroups] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode step / prefill chunk against a paged (block) KV pool.
 
@@ -201,29 +283,89 @@ def attention_decode_paged(p: AttentionParams, x: torch.Tensor,
     (page 0 is the scratch page); ``step``: scalar or (B,) base positions.
     The new K/V are written into the pools in place (the JAX version
     returns updated copies); the pools are returned for the same call shape.
+
+    With ``groups``: ``x`` is the rank's decode rows (replicated over CP
+    and TP), ``p`` its compute slice (its TP heads) and the pools hold its
+    TP heads of every page (whole over DP and CP, as the reference shards
+    them): each rank writes its rows' new tokens, reads its CP slice of
+    their view (:func:`_cache_attend`) and the output projection is
+    all-reduced over TP.
     """
     window = window or cfg.sliding_window
-    if window:
-        raise NotImplementedError(
-            "sliding-window ring caches are not ported yet: their wrapped slot "
-            "positions are not contiguous (ROADMAP.md queue 1, 'Serving, rest')")
+    _no_window(window)
+    check_decode_heads(cfg, groups)
     B, C, _ = x.shape
     page = pool_k.shape[2]
-    L = block_tables.shape[1] * page
+    n_pg = block_tables.shape[1]
+    L = n_pg * page
     pos = _positions_for(step, B, C, device=x.device)
     q, k_new, v_new = _project_qkv(p, x, x, pos, pos, cfg)
     q = q.transpose(1, 2).contiguous()                   # (B, H, C, hd)
 
     # Scatter the new tokens into their pages: logical slot → (page, offset).
+    bt = block_tables.long()
     lslot = torch.clamp(pos, max=L - 1)
-    phys = torch.gather(block_tables.long(), 1, lslot // page)   # (B, C)
+    phys = torch.gather(bt, 1, lslot // page)            # (B, C)
     off = lslot % page
     pool_k[phys, :, off, :] = k_new.to(pool_k.dtype)     # value (B, C, Hkv, hd)
     pool_v[phys, :, off, :] = v_new.to(pool_v.dtype)
 
-    def view(pool):
-        g = pool[block_tables.long()]                    # (B, n_pg, Hkv, page, hd)
-        return g.permute(0, 2, 1, 3, 4).reshape(B, pool.shape[1], L, pool.shape[-1])
+    cp = 1 if groups is None else groups.cp
+    if L % cp:
+        raise ValueError(f"a cache view of {L} slots does not split over CP {cp}")
+    lo = (0 if groups is None else groups.attn["cp"].index) * (L // cp)
+    whole_pages = n_pg % cp == 0
+    if cp > 1 and whole_pages:                           # only this slice's pages
+        bt = bt[:, lo // page:(lo + L // cp) // page]
 
-    out = _cache_attend(q, view(pool_k), view(pool_v), pos, window=window)
-    return _attn_output(out, p, cfg), pool_k, pool_v
+    def view(pool):
+        g = pool[bt]                                     # (B, n_pg, Hkv, page, hd)
+        g = g.permute(0, 2, 1, 3, 4).reshape(B, pool.shape[1], -1, pool.shape[-1])
+        return g if whole_pages else g[:, :, lo:lo + L // cp].contiguous()
+
+    out = _cache_attend(q, view(pool_k), view(pool_v), pos, window=window, groups=groups,
+                        kv_offset=lo)
+    return _attn_output(out, p, cfg, groups), pool_k, pool_v
+
+
+def attention_decode(p: AttentionParams, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, step: Union[int, torch.Tensor],
+                     cfg: ModelConfig, *, window: int = 0,
+                     groups: Optional[FoldedGroups] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode step / prefill chunk against a contiguous per-slot cache.
+
+    ``x``: (B, C, D) — C = 1 for decode, C > 1 for a chunked-prefill
+    segment; ``cache_k/v``: (B, Hkv, S_max, hd); ``step``: scalar or (B,)
+    base positions — token c of row b sits at position ``step[b] + c``, in
+    slot ``min(step[b] + c, S_max - 1)``. The new K/V are written in place;
+    returns ``(y, cache_k, cache_v)``.
+
+    With ``groups`` the cache is this rank's piece of the reference's
+    ``(dp, tp, cp)`` layout (``transformer.init_decode_state``): its rows,
+    its TP heads and its ``S_max / cp`` slots from ``cp_index · S_max / cp``.
+    A new token's K/V land only on the CP rank that owns its slot; the
+    attention is :func:`_cache_attend` over the rank's slots.
+    """
+    window = window or cfg.sliding_window
+    _no_window(window)
+    check_decode_heads(cfg, groups)
+    B, C, _ = x.shape
+    S_loc = cache_k.shape[2]
+    cp_ax = None if groups is None else groups.attn["cp"]
+    cp, idx = (1, 0) if cp_ax is None else (cp_ax.size, cp_ax.index)
+    lo = idx * S_loc
+    pos = _positions_for(step, B, C, device=x.device)
+    q, k_new, v_new = _project_qkv(p, x, x, pos, pos, cfg)
+    q = q.transpose(1, 2).contiguous()                   # (B, H, C, hd)
+
+    slots = torch.clamp(pos, max=S_loc * cp - 1)         # (B, C)
+    rows = torch.arange(B, device=x.device)[:, None].expand(B, C)
+    if cp > 1:                                           # the tokens of my slots
+        mine = (slots >= lo) & (slots < lo + S_loc)
+        rows, slots, k_new, v_new = rows[mine], slots[mine] - lo, k_new[mine], v_new[mine]
+    cache_k[rows, :, slots, :] = k_new.to(cache_k.dtype)
+    cache_v[rows, :, slots, :] = v_new.to(cache_v.dtype)
+
+    out = _cache_attend(q, cache_k, cache_v, pos, window=window, groups=groups, kv_offset=lo)
+    return _attn_output(out, p, cfg, groups), cache_k, cache_v

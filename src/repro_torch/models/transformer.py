@@ -1,5 +1,6 @@
 """Model assembly: per-layer modules, the train/prefill forward (one rank
-or across the folded groups) and the paged decode block.
+or across the folded groups) and the decode forward over the paged or
+dense cache (one rank or at a pp = 1 fold).
 
 Port of the parts of ``repro.models.transformer`` the serving and training
 slices run. Where JAX stacks layer parameters for one ``lax.scan``, the
@@ -21,11 +22,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import comm
 from repro_torch.core.folding import FoldedGroups, check_sp_moe_handoff
-from repro_torch.core.moe_layer import MoEParams, init_moe, moe_block
+from repro_torch.core.moe_layer import MoEParams, init_moe, moe_block, moe_block_decode
 from repro_torch.core.router import _top_k, deterministic_top_k
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.attention import (AttentionParams, attention,
-                                          attention_decode_paged, init_attention)
+from repro_torch.models.attention import (AttentionParams, attention, attention_decode,
+                                          attention_decode_paged, check_decode_heads,
+                                          init_attention)
 from repro_torch.models.common import rmsnorm
 from repro_torch.models.sharding import gather_for_compute
 
@@ -208,10 +210,74 @@ def _param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Decode: the paged and dense caches, one rank or at a pp = 1 fold
+# ---------------------------------------------------------------------------
+#
+# At a fold (``groups``) a rank holds the compute slices of the parameters
+# (``models.sharding.shard_lm_params(..., kind="compute")``) and decodes
+# rows laid out as the reference's ``_paged_forward`` / ``decode_step``
+# constrain them: replicated over the attention CP and TP ranks, cut over
+# DP when the batch divides (else replicated: the one-slot prefill chunk
+# at dp > 1). The embedding is vocabulary-parallel (a sum over TP), the
+# attention runs at the rank's TP heads over its CP slice of the cache
+# (``models.attention``), the MoE block hands the rows to the global token
+# shards and back (``core.moe_layer.moe_block_decode``), and the logits
+# are all-gathered over TP (vocabulary) and DP (rows), so that every rank
+# holds the whole batch's logits and samples alike.
+
+def decode_rows(B: int, groups: Optional[FoldedGroups]) -> Tuple[int, int]:
+    """``(first row, rows)`` of a B-row decode batch that this rank
+    computes: its DP rank's run when ``B % dp == 0``, else all B."""
+    if groups is None or groups.dp == 1 or B % groups.dp:
+        return 0, B
+    n = B // groups.dp
+    return groups.attn["dp"].index * n, n
+
+
+def decode_embed(params: LMParams, tokens: torch.Tensor, cfg: ModelConfig,
+                 groups: Optional[FoldedGroups] = None) -> torch.Tensor:
+    """Token ids (b, C) → activations (b, C, D) in the compute dtype. At TP
+    > 1 each rank looks up the ids of its vocabulary slice (zeros
+    elsewhere) and the rows are summed over TP: exactly one rank adds a
+    non-zero row (``comm vocab_lookup``)."""
+    tokens = tokens.long()
+    if groups is None or groups.tp == 1:
+        return params.embed[tokens].to(_compute_dtype(cfg))
+    tp = groups.attn["tp"]
+    tp.require_rank_order("the vocabulary-parallel lookup")
+    local = tokens - vocab_start(params, groups)
+    mine = (local >= 0) & (local < params.embed.shape[0])
+    x = params.embed[torch.where(mine, local, 0)] * mine[..., None].to(params.embed.dtype)
+    return comm.all_reduce(x.to(_compute_dtype(cfg)), tp.group, name="vocab_lookup")
+
+
+def decode_head(params: LMParams, x: torch.Tensor, cfg: ModelConfig,
+                groups: Optional[FoldedGroups] = None, rows_cut: bool = False) -> torch.Tensor:
+    """Final norm and LM head: (b, C, D) → logits (B, C, V) in ``x``'s
+    dtype. At a fold the rank's vocabulary slice is all-gathered over TP,
+    and with ``rows_cut`` the rows over DP (``comm logits_gather``)."""
+    x = rmsnorm(x, params.final_norm)
+    head = params.lm_head if params.lm_head is not None else params.embed.T
+    logits = x @ head.to(x.dtype)
+    if groups is not None:
+        tp = groups.attn["tp"]
+        tp.require_rank_order("the logits gather")
+        logits = comm.gather_rows(logits, tp.group, "logits_gather", dim=-1)
+        if rows_cut:
+            dp = groups.attn["dp"]
+            dp.require_rank_order("the logits gather")
+            logits = comm.gather_rows(logits, dp.group, "logits_gather", dim=0)
+    return logits
+
+
 def _expert_token_counts(h: torch.Tensor, w_gate: torch.Tensor, cfg: ModelConfig,
                          token_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Routed-assignment histogram (E,) mirroring ``router.route``'s top-k,
-    without the capacity machinery: the serve engine's per-step expert load."""
+    """Routed-assignment histogram (E,) of the rows ``h`` (b, C, D),
+    mirroring ``router.route``'s top-k without the capacity machinery: the
+    serve engine's per-step expert load. At a fold each rank counts its own
+    rows; the forward sums the counts over DP when the rows are cut there
+    (integers in fp32, so the sum is exact)."""
     mcfg = cfg.moe
     B, C, D = h.shape
     logits = h.reshape(B * C, D).float() @ w_gate.float()
@@ -227,17 +293,119 @@ def _expert_token_counts(h: torch.Tensor, w_gate: torch.Tensor, cfg: ModelConfig
 
 
 def _decode_moe_paged(p: MoEBlockParams, x: torch.Tensor, state: Dict[str, torch.Tensor],
-                      step: torch.Tensor, cfg: ModelConfig, ctx: Dict
+                      step: torch.Tensor, cfg: ModelConfig, ctx: Dict,
+                      groups: Optional[FoldedGroups] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor]:
-    """One ``moe`` layer over the paged cache → (x, state, expert counts)."""
+    """One ``moe`` layer over the paged cache → (x, state, expert counts of
+    this rank's rows). ``ctx``: ``block_tables`` and ``token_mask`` of the
+    rank's rows, and ``rows_cut`` (rows cut over DP)."""
     h = rmsnorm(x, p.norm1)
     y, state["k"], state["v"] = attention_decode_paged(
-        p.attn, h, state["k"], state["v"], ctx["block_tables"], step, cfg)
+        p.attn, h, state["k"], state["v"], ctx["block_tables"], step, cfg, groups=groups)
     x = x + y
     h = rmsnorm(x, p.norm2)
-    y, _ = moe_block(p.moe, h, cfg)
+    y = moe_block_decode(p.moe, h, cfg, groups=groups, rows_cut=ctx.get("rows_cut", False))
     counts = _expert_token_counts(h, p.moe.router, cfg, ctx.get("token_mask"))
     return x + y, state, counts
+
+
+def _decode_moe(p: MoEBlockParams, x: torch.Tensor, state: Dict[str, torch.Tensor],
+                step: torch.Tensor, cfg: ModelConfig, ctx: Dict,
+                groups: Optional[FoldedGroups] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One ``moe`` layer over the dense cache → (x, state)."""
+    h = rmsnorm(x, p.norm1)
+    y, state["k"], state["v"] = attention_decode(p.attn, h, state["k"], state["v"], step,
+                                                 cfg, groups=groups)
+    x = x + y
+    h = rmsnorm(x, p.norm2)
+    return x + moe_block_decode(p.moe, h, cfg, groups=groups,
+                                rows_cut=ctx.get("rows_cut", False)), state
+
+
+def init_decode_state(cfg: ModelConfig, B: int, s_max: int, *, dtype=torch.bfloat16,
+                      device: DeviceLike = None, groups: Optional[FoldedGroups] = None
+                      ) -> Dict:
+    """The dense decode cache: ``{"layers": [{"k", "v"} per layer], "step":
+    0}``, each ``(B, Hkv, s_max, hd)`` zeros (the reference's
+    ``init_decode_state``, layers as a list). With ``groups``, this rank's
+    piece of the reference's ``(dp, tp, cp)`` layout: its rows of B when
+    DP divides B (else all), its TP heads and its ``s_max / cp`` slots."""
+    check_supported(cfg)
+    _, b = decode_rows(B, groups)
+    tp, cp = (1, 1) if groups is None else (groups.tp, groups.cp)
+    check_decode_heads(cfg, groups)
+    if s_max % cp:
+        raise ValueError(f"s_max {s_max} does not split over CP {cp}")
+    shape = (b, cfg.n_kv_heads // tp, s_max // cp, cfg.resolved_head_dim)
+    device = resolve_device(device)
+    return {"layers": [{"k": torch.zeros(shape, dtype=dtype, device=device),
+                        "v": torch.zeros(shape, dtype=dtype, device=device)}
+                       for _ in range(cfg.n_layers)],      # every layer is "moe"
+            "step": 0}
+
+
+def _as_positions(base, B: int, device) -> torch.Tensor:
+    base = torch.as_tensor(base, dtype=torch.long, device=device)
+    return base.expand(B) if base.dim() == 0 else base
+
+
+def decode_step(params: LMParams, state: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+                positions=None, token_mask: Optional[torch.Tensor] = None,
+                groups: Optional[FoldedGroups] = None, last_only: bool = False
+                ) -> Tuple[torch.Tensor, Dict]:
+    """Decode step / prefill chunk of the whole batch over the dense cache.
+
+    ``tokens``: (B, C) — C = 1 decode, C > 1 a chunked-prefill segment (the
+    cache fills for all C positions and logits come back for each, or for
+    the last one with ``last_only``). ``positions``: optional (B,) per-row
+    base positions (continuous batching); default the carried uniform
+    ``state["step"]``. ``token_mask`` is the reference's for recurrent
+    state, which an ``moe`` decoder has none of (its K/V writes are not
+    masked in either package), so it changes nothing here. The caches are
+    written in place; returns ``(logits (B, C', V), state)`` with
+    ``state["step"]`` advanced by C. With ``groups``: ``params`` are the
+    rank's compute slices, ``state`` its piece (:func:`init_decode_state`),
+    ``tokens`` and ``positions`` the global batch; every rank gets the whole
+    batch's logits."""
+    check_supported(cfg)
+    B, C = tokens.shape
+    base = _as_positions(state["step"] if positions is None else positions, B, tokens.device)
+    lo, b = decode_rows(B, groups)
+    x = decode_embed(params, tokens[lo:lo + b], cfg, groups)
+    ctx = {"rows_cut": b != B}
+    for layer, st in zip(params.layers, state["layers"]):
+        x, _ = _decode_moe(layer, x, st, base[lo:lo + b], cfg, ctx, groups)
+    if last_only:
+        x = x[:, -1:]
+    logits = decode_head(params, x, cfg, groups, rows_cut=b != B)
+    return logits, dict(state, step=state["step"] + C)
+
+
+def paged_forward(params: LMParams, state: List[Dict[str, torch.Tensor]],
+                  tokens: torch.Tensor, positions: torch.Tensor,
+                  block_tables: torch.Tensor, token_mask: torch.Tensor, cfg: ModelConfig,
+                  groups: Optional[FoldedGroups] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward of ``tokens`` (B, C) at per-row base ``positions`` (B,) over
+    the paged pools (updated in place) → (fp32 logits of each row's last
+    token (B, V), routed-assignment counts (E,) summed over layers and
+    rows). With ``groups`` the inputs are the global batch; see
+    :func:`decode_step`."""
+    B, C = tokens.shape
+    lo, b = decode_rows(B, groups)
+    x = decode_embed(params, tokens[lo:lo + b], cfg, groups)
+    ctx = {"block_tables": block_tables[lo:lo + b], "token_mask": token_mask[lo:lo + b],
+           "rows_cut": b != B}
+    counts = torch.zeros(cfg.moe.n_experts, dtype=torch.float32, device=x.device)
+    for layer, st in zip(params.layers, state):
+        x, _, cnt = _decode_moe_paged(layer, x, st, positions[lo:lo + b], cfg, ctx, groups)
+        counts += cnt
+    # Only the last position's logits are read, so only it goes through the head.
+    logits = decode_head(params, x[:, -1:], cfg, groups, rows_cut=b != B)[:, 0].float()
+    if b != B:
+        counts = comm.all_reduce(counts, groups.attn["dp"].group, name="expert_load")
+    return logits, counts
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Paged (block) KV cache: fixed-size pages + per-request block tables.
 
-Port of ``repro.serve.cache``. Every KV-bearing layer owns a pool of
+Port of ``repro.serve.cache`` (at one rank or at a fold, whose pools are
+cut over TP heads). Every KV-bearing layer owns a pool of
 ``n_pages`` fixed-size pages ``(n_pages, Hkv, page_size, hd)`` — one tensor
 per layer, where JAX stacks the layers. A request's host-side block table
 maps logical to physical pages; its cache view is the gather
@@ -81,11 +82,19 @@ def kv_bytes_paged(cfg, n_pages: int, page_size: int, *,
         * n_pages * page_size
 
 
-def init_paged_state(cfg, *, n_pages: int, page_size: int,
-                     dtype=torch.bfloat16, device=None) -> List[Dict[str, torch.Tensor]]:
+def init_paged_state(cfg, *, n_pages: int, page_size: int, dtype=torch.bfloat16,
+                     device=None, groups=None) -> List[Dict[str, torch.Tensor]]:
     """Per-layer zeroed pools ``{"k", "v"}`` of shape
-    ``(n_pages, Hkv, page_size, hd)``."""
-    shape = (n_pages, cfg.n_kv_heads, page_size, cfg.resolved_head_dim)
+    ``(n_pages, Hkv, page_size, hd)``. With ``groups`` (a fold's
+    ``FoldedGroups``) a rank's pools hold its TP heads, ``Hkv / tp``, of
+    every page: whole over DP and CP, as the reference shards them. Each
+    rank writes the new tokens of the rows it computes, and pages of
+    different rows are disjoint, so every rank reads what the reference
+    reads."""
+    from repro_torch.models.attention import check_decode_heads
+    check_decode_heads(cfg, groups)
+    tp = 1 if groups is None else groups.tp
+    shape = (n_pages, cfg.n_kv_heads // tp, page_size, cfg.resolved_head_dim)
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
             for _ in range(n_kv_layers(cfg))]

@@ -1,31 +1,125 @@
-"""Serving engine: continuous batching over a paged KV cache.
+"""Serving engine: continuous batching over a paged or dense KV cache, at one
+device or across the ranks of a pp = 1 fold.
 
-Port of ``repro.serve.engine`` at one device, paged cache only. One
-``Engine.step()`` = admit new requests + at most one **exact-length prefill
-chunk** (a single slot) + one **batched decode** over every active slot,
-exactly the JAX engine's schedule (the host-side ``Scheduler`` is a copy).
-Each forward runs per layer the paged attention (flash kernel, one launch)
-and the MoE FFN (GMM kernel, three launches).
+Port of ``repro.serve.engine``. One ``Engine.step()`` = admit new requests
++ at most one **exact-length prefill chunk** (a single slot) + one
+**batched decode** over every active slot, exactly the JAX engine's
+schedule (the host-side ``Scheduler`` is a copy). Each forward runs per
+layer the attention (flash kernel: one launch, or one per CP rank of a
+ring-CP prefill chunk) and the MoE FFN (GMM kernel, three launches a
+dispatcher chunk).
+
+Across ranks (``groups``, a ``FoldedGroups`` at pp = 1) every rank runs the
+same engine on its compute slices of the parameters: the same scheduler,
+the same sampling from the same gathered fp32 logits, so every rank takes
+the same decisions and the collectives stay in step.
+
+Kept for the v0 surface: ``make_prefill_step``, ``make_serve_step`` and the
+deprecated ``ServeSession`` / ``build_session`` shims over :class:`Engine`.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import rmsnorm
-from repro_torch.models.transformer import (LMParams, _decode_moe_paged, leaf_rank,
-                                            check_supported)
+from repro_torch.core import comm
+from repro_torch.core.folding import FoldedGroups
+from repro_torch.models.sharding import map_params, shard_lm_params
+from repro_torch.models.transformer import (LMParams, apply_lm, check_supported, decode_rows,
+                                            decode_step, init_decode_state, init_lm, leaf_rank,
+                                            paged_forward)
 from repro_torch.serve.cache import (init_paged_state, kv_bytes_dense,
                                      kv_bytes_paged)
 from repro_torch.serve.scheduler import (QueueFull, Request, Scheduler, StepStats,
                                          _Run)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def reject_pipelined_mapping(pcfg, what: str) -> None:
+    """Serve/decode paths are pp = 1 / vpp = 1 only (``pcfg``: a
+    ``ParallelConfig``), as in the reference: they have no pipeline
+    executor, so a pipelined mapping is refused, naming pp and vpp."""
+    if pcfg.pipeline_stages > 1 or pcfg.vpp > 1:
+        raise ValueError(
+            f"{what} supports pp=1/vpp=1 mappings only, got pp={pcfg.pp}, "
+            f"vpp={pcfg.vpp}, pods={pcfg.pods} (pod_role={pcfg.pod_role!r} → "
+            f"{pcfg.pipeline_stages} pipeline stages). The serve/decode path "
+            "has no pipeline executor. Use a pp=1 mapping for serving (fold the "
+            "freed factor into DP/CP), or train-side entry points for pipelined "
+            "mappings.")
+
+
+def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
+    """KV slots needed to serve ``seq_len`` context: ``window`` ring slots
+    for sliding-window attention, the whole context otherwise."""
+    if cfg.sliding_window:
+        return min(cfg.sliding_window, seq_len)
+    return seq_len
+
+
+def _compute_cast(params: LMParams, dtype: torch.dtype) -> LMParams:
+    """A copy of ``params`` whose fp32 leaves of rank >= 2 in the JAX tree
+    (:func:`leaf_rank`) are cast to ``dtype`` — the reference step
+    builders' cast; the input is left as it was."""
+    if dtype == torch.float32:
+        return params
+    return map_params(params, lambda n, t: t.to(dtype)
+                      if t.dtype == torch.float32 and leaf_rank(n, t) >= 2 else t)
+
+
+def make_prefill_step(cfg: ModelConfig, groups: Optional[FoldedGroups] = None):
+    """Full-sequence logits-only forward: ``prefill(params, batch)`` → fp32
+    logits of every row's last token (B, V), with the parameters cast to
+    bf16 as the reference casts them. It never fills a decode cache
+    (cache-fill prefill is :func:`decode_step` with C > 1, which
+    :class:`Engine` and ``ServeSession.prefill`` run).
+
+    With ``groups``: ``params`` and ``batch`` are the rank's store slices
+    and batch share, as :func:`repro_torch.models.transformer.apply_lm`
+    takes them; the last token's logits (on the last CP rank, the rank's
+    vocabulary slice, its DP rows) are gathered so that every rank returns
+    the whole (B, V)."""
+    if groups is not None:
+        reject_pipelined_mapping(groups.pcfg, "make_prefill_step")
+
+    @torch.inference_mode()
+    def prefill(params: LMParams, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        logits, _ = apply_lm(_compute_cast(params, torch.bfloat16), batch, cfg, remat=False,
+                             groups=groups)
+        last = logits[:, -1].float()
+        if groups is not None:
+            a = groups.attn
+            for ax in ("tp", "cp", "dp"):
+                a[ax].require_rank_order("the prefill logits gather")
+            last = comm.gather_rows(last, a["tp"].group, "logits_gather", dim=1)
+            last = comm.gather_rows(last[None], a["cp"].group, "logits_gather")[-1]
+            last = comm.gather_rows(last, a["dp"].group, "logits_gather")
+        return last
+    return prefill
+
+
+def make_serve_step(cfg: ModelConfig, groups: Optional[FoldedGroups] = None):
+    """``serve(params, state, tokens)`` → (fp32 logits (B, C, V), state):
+    :func:`decode_step` over the dense cache of :func:`init_decode_state`
+    with the parameters cast to bf16 as the reference casts them. With
+    ``groups``: the rank's compute slices and cache piece; every rank gets
+    the whole batch's logits."""
+    if groups is not None:
+        reject_pipelined_mapping(groups.pcfg, "make_serve_step")
+
+    @torch.inference_mode()
+    def serve(params: LMParams, state: Dict, tokens: torch.Tensor):
+        logits, state = decode_step(_compute_cast(params, torch.bfloat16), state, tokens, cfg,
+                                    groups=groups)
+        return logits.float(), state
+    return serve
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,8 +129,8 @@ class EngineConfig:
     max_batch: int = 4            # decode slots (continuous-batching width)
     s_max: int = 256              # max context (prompt + generated) per slot
     prefill_chunk: int = 32       # tokens per prefill chunk (exact-length)
-    cache: str = "paged"          # only "paged" is ported
-    page_size: int = 16           # KV tokens per page
+    cache: str = "paged"          # "paged" | "dense"
+    page_size: int = 16           # KV tokens per page (paged mode)
     n_pages: Optional[int] = None  # pool size; default fits max_batch fully
     preempt: bool = True          # recompute-preempt on page-pool pressure
     compute_dtype: str = "bfloat16"
@@ -57,26 +151,6 @@ class GenerationResult:
     # fp32 logits after the last prompt token (first sample's input).
     last_prefill_logits: Optional[np.ndarray] = None
     status: str = "ok"            # "ok" | "timeout"
-
-
-def _paged_forward(params: LMParams, state: List[Dict[str, torch.Tensor]],
-                   tokens: torch.Tensor, positions: torch.Tensor,
-                   block_tables: torch.Tensor, token_mask: torch.Tensor,
-                   cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward of ``tokens`` (B, C) at per-row base ``positions`` (B,) over
-    the paged pools (updated in place) → (fp32 logits of each row's last
-    token (B, V), routed-assignment counts (E,) summed over layers)."""
-    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    x = params.embed[tokens].to(dt)
-    ctx = {"block_tables": block_tables, "token_mask": token_mask}
-    counts = torch.zeros(cfg.moe.n_experts, dtype=torch.float32, device=x.device)
-    for layer, st in zip(params.layers, state):
-        x, _, cnt = _decode_moe_paged(layer, x, st, positions, cfg, ctx)
-        counts += cnt
-    # Only the last position's logits are read, so only it goes through the head.
-    x = rmsnorm(x[:, -1], params.final_norm)
-    head = params.lm_head if params.lm_head is not None else params.embed.T
-    return (x @ head.to(x.dtype)).float(), counts
 
 
 def cast_params(params: LMParams, dtype: torch.dtype) -> None:
@@ -101,42 +175,62 @@ class Engine:
     >>> # results = eng.drain()            # {rid: GenerationResult}
 
     The engine casts ``params``' fp32 matrices to ``compute_dtype`` in place
-    and updates its KV pools in place. ``timings`` holds, per step, the host
+    and updates its KV cache in place. ``timings`` holds, per step, the host
     wall time of its prefill chunk and of its decode, each ending when the
     logits reach the host.
+
+    ``groups``: the rank's ``FoldedGroups`` at a pp = 1 fold (pipelined
+    mappings are refused); ``params`` are then the rank's compute slices
+    (``models.sharding.shard_lm_params(full, groups, "compute")``), the
+    paged pools hold its TP heads of every page
+    (``serve.cache.init_paged_state``) and the dense cache its
+    ``(dp, tp, cp)`` piece (``transformer.init_decode_state``). Every rank
+    of the fold runs the same requests in the same order.
     """
 
     def __init__(self, cfg: ModelConfig, params: LMParams,
-                 ecfg: Optional[EngineConfig] = None):
+                 ecfg: Optional[EngineConfig] = None,
+                 groups: Optional[FoldedGroups] = None):
         ecfg = ecfg or EngineConfig()
-        if ecfg.cache == "dense":
-            raise NotImplementedError("the dense cache is not ported yet "
-                                      "(ROADMAP.md queue 1, 'Serving, rest'); "
-                                      "use cache='paged'")
-        if ecfg.cache != "paged":
-            raise ValueError(f"EngineConfig.cache must be 'paged', got {ecfg.cache!r}")
+        if groups is not None:
+            reject_pipelined_mapping(groups.pcfg, "Engine")
+        if ecfg.cache not in ("paged", "dense"):
+            raise ValueError(f"EngineConfig.cache must be 'paged' or 'dense', "
+                             f"got {ecfg.cache!r}")
         if ecfg.compute_dtype not in _DTYPES:
             raise ValueError(f"bad compute_dtype {ecfg.compute_dtype!r}")
         check_supported(cfg)
         if cfg.sliding_window:
             raise NotImplementedError("sliding-window ring caches are not ported "
                                       "yet (ROADMAP.md queue 1, 'Serving, rest')")
+        if groups is not None:
+            want = (cfg.vocab_size // groups.tp, cfg.d_model)
+            if tuple(params.embed.shape) != want:
+                raise ValueError(f"Engine(groups=...): embed {tuple(params.embed.shape)} is "
+                                 f"not the rank's compute slice {want} "
+                                 "(models.sharding.shard_lm_params(..., kind='compute'))")
 
-        self.cfg, self.params, self.ecfg = cfg, params, ecfg
+        self.cfg, self.params, self.ecfg, self.groups = cfg, params, ecfg, groups
+        self.paged = ecfg.cache == "paged"
         self.device = params.embed.device
         dt = _DTYPES[ecfg.compute_dtype]
         cast_params(params, dt)
-        self.cache_len = ecfg.s_max
-        n_slot_pages = self.cache_len // ecfg.page_size
+        self.cache_len = cache_len_for(cfg, ecfg.s_max)
+        page_size = ecfg.page_size if self.paged else 0
+        n_slot_pages = self.cache_len // page_size if self.paged else 0
         n_pages = (ecfg.n_pages if ecfg.n_pages is not None
                    else ecfg.max_batch * n_slot_pages + 1)
         self._sched = Scheduler(
             max_batch=ecfg.max_batch, cache_len=self.cache_len,
-            prefill_chunk=ecfg.prefill_chunk, page_size=ecfg.page_size,
-            n_pages=n_pages, window=0, preempt=ecfg.preempt,
+            prefill_chunk=ecfg.prefill_chunk, page_size=page_size,
+            n_pages=n_pages if self.paged else 0, window=0, preempt=ecfg.preempt,
             max_waiting=ecfg.max_waiting)
-        self.state = init_paged_state(cfg, n_pages=n_pages, page_size=ecfg.page_size,
-                                      dtype=dt, device=self.device)
+        if self.paged:
+            self.state = init_paged_state(cfg, n_pages=n_pages, page_size=page_size,
+                                          dtype=dt, device=self.device, groups=groups)
+        else:
+            self.state = init_decode_state(cfg, ecfg.max_batch, self.cache_len, dtype=dt,
+                                           device=self.device, groups=groups)
         self._results: Dict[int, GenerationResult] = {}
         self._next_rid = 0
         self.stats: List[StepStats] = []
@@ -181,6 +275,31 @@ class Engine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _dense_prefill(self, toks: torch.Tensor, base: torch.Tensor, slot: int
+                       ) -> torch.Tensor:
+        """One slot's prefill chunk over the dense cache → fp32 last logits
+        (1, V). The slot's rows of the cache are views where this rank holds
+        every row (written through in place); where the cache is cut over DP
+        the owner's row is gathered over DP first (the reference slices the
+        slot out of the DP-sharded state) and written back on the owner."""
+        B = self.ecfg.max_batch
+        lo, b = decode_rows(B, self.groups)
+        layers = self.state["layers"]
+        if b == B:
+            rows = [{k: t[slot:slot + 1] for k, t in st.items()} for st in layers]
+        else:
+            dp = self.groups.attn["dp"]
+            owner, local = divmod(slot, b)
+            rows = [{k: comm.gather_rows(t[local:local + 1], dp.group, "slot_gather")
+                     [owner:owner + 1].clone() for k, t in st.items()} for st in layers]
+        logits, _ = decode_step(self.params, {"layers": rows, "step": 0}, toks, self.cfg,
+                                positions=base, groups=self.groups, last_only=True)
+        if b != B and self.groups.attn["dp"].index == owner:
+            for st, row in zip(layers, rows):
+                for k, t in st.items():
+                    t[local:local + 1].copy_(row[k])
+        return logits[:, 0].float()
+
     @torch.inference_mode()
     def step(self) -> StepStats:
         """One scheduler tick; returns the step's observability record."""
@@ -210,10 +329,14 @@ class Engine:
             preempted += [r.rid for r in pre]
             toks = self._tensor(np.asarray(run.tokens[run.pos:run.pos + c], np.int64)[None])
             base = self._tensor(np.asarray([run.pos], np.int64))
-            row = self._tensor(s.block_row(run)[None])
-            last, counts = _paged_forward(
-                self.params, self.state, toks, base, row,
-                torch.ones(1, dtype=torch.int32, device=self.device), self.cfg)
+            if self.paged:
+                row = self._tensor(s.block_row(run)[None])
+                last, counts = paged_forward(
+                    self.params, self.state, toks, base, row,
+                    torch.ones(1, dtype=torch.int32, device=self.device), self.cfg,
+                    self.groups)
+            else:
+                last = self._dense_prefill(toks, base, run.slot)
             lg = last[0].cpu().numpy()
             prefill_s = time.perf_counter() - t0
             run.pos += c
@@ -233,16 +356,31 @@ class Engine:
             toks = np.zeros((B, 1), np.int64)
             pos = np.zeros((B,), np.int64)
             mask = np.zeros((B,), np.int32)
+            if not self.paged:
+                # Inactive dense rows write garbage K/V at their own next
+                # position, overwritten by their next prefill chunk before the
+                # slot is ever attended to (as in the reference).
+                for r in s.slots:
+                    if r is not None:
+                        pos[r.slot] = r.pos
             rows = np.zeros((B, s.n_slot_pages), np.int32)
             for r in plan:
                 toks[r.slot, 0] = r.tokens[r.pos]
                 pos[r.slot] = r.pos
                 mask[r.slot] = 1
-                rows[r.slot] = s.block_row(r)
-            logits, cnt = _paged_forward(
-                self.params, self.state, self._tensor(toks), self._tensor(pos),
-                self._tensor(rows), self._tensor(mask), self.cfg)
-            counts = cnt if counts is None else counts + cnt
+                if self.paged:
+                    rows[r.slot] = s.block_row(r)
+            if self.paged:
+                logits, cnt = paged_forward(
+                    self.params, self.state, self._tensor(toks), self._tensor(pos),
+                    self._tensor(rows), self._tensor(mask), self.cfg, self.groups)
+                counts = cnt if counts is None else counts + cnt
+            else:
+                logits, self.state = decode_step(
+                    self.params, self.state, self._tensor(toks), self.cfg,
+                    positions=self._tensor(pos), token_mask=self._tensor(mask),
+                    groups=self.groups, last_only=True)
+                logits = logits[:, 0].float()
             lg = logits.cpu().numpy()
             decode_s = time.perf_counter() - t0
             for r in plan:
@@ -263,16 +401,21 @@ class Engine:
                 self._counters["finished"] += 1
 
         dtype_bytes = 2 if self.ecfg.compute_dtype == "bfloat16" else 4
+        dense_bytes = kv_bytes_dense(self.cfg, self.ecfg.max_batch, self.cache_len,
+                                     dtype_bytes=dtype_bytes)
+        if self.paged:
+            reserved = kv_bytes_paged(self.cfg, s.alloc.n_pages, s.page_size,
+                                      dtype_bytes=dtype_bytes)
+            pages_in_use, pages_total = s.alloc.in_use, s.alloc.n_pages - 1
+        else:
+            reserved, pages_in_use, pages_total = dense_bytes, 0, 0
         self._counters["preemptions"] += len(preempted)
         st = StepStats(
             step=s.step_count, admitted=admitted, finished=finished,
             preempted=preempted, n_running=s.n_running, n_waiting=s.n_waiting,
             prefill_tokens=prefill_tokens, decode_tokens=decode_tokens,
-            pages_in_use=s.alloc.in_use, pages_total=s.alloc.n_pages - 1,
-            kv_bytes_reserved=kv_bytes_paged(self.cfg, s.alloc.n_pages, s.page_size,
-                                             dtype_bytes=dtype_bytes),
-            kv_bytes_dense=kv_bytes_dense(self.cfg, self.ecfg.max_batch,
-                                          self.cache_len, dtype_bytes=dtype_bytes),
+            pages_in_use=pages_in_use, pages_total=pages_total,
+            kv_bytes_reserved=reserved, kv_bytes_dense=dense_bytes,
             expert_load=counts.cpu().numpy() if counts is not None else None,
             timed_out=timed_out)
         self.stats.append(st)
@@ -286,7 +429,8 @@ class Engine:
         s = self._sched
         out = dict(self._counters)
         out.update(steps=s.step_count, running=s.n_running, waiting=s.n_waiting,
-                   pages_in_use=s.alloc.in_use, pages_free=s.alloc.n_free,
+                   pages_in_use=s.alloc.in_use if s.alloc else 0,
+                   pages_free=s.alloc.n_free if s.alloc else 0,
                    results_pending=len(self._results))
         return out
 
@@ -300,3 +444,67 @@ class Engine:
                 raise RuntimeError(f"drain exceeded {max_steps} steps — "
                                    "scheduler wedged?")
         return dict(self._results)
+
+
+# ---------------------------------------------------------------------------
+# Deprecated v0 surface (thin shims over Engine)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ServeSession:
+    """Deprecated: use :class:`Engine` (``EngineConfig`` + ``Request`` +
+    ``submit()``/``step()``/``drain()``). ``prefill`` runs one cache-fill
+    :func:`decode_step` over the session's own dense cache; ``generate``
+    drives a dense-cache Engine (and so leaves ``state`` as it was).
+    ``params`` are the compute slices at ``groups`` (default one rank)."""
+
+    cfg: ModelConfig
+    params: LMParams
+    s_max: int
+    batch: int
+    state: Optional[Dict] = None
+    groups: Optional[FoldedGroups] = None
+
+    def __post_init__(self):
+        warnings.warn(
+            "ServeSession is deprecated; use repro_torch.serve.engine.Engine "
+            "(EngineConfig + submit()/step()/drain()) instead.",
+            DeprecationWarning, stacklevel=2)
+        if self.groups is not None:
+            reject_pipelined_mapping(self.groups.pcfg, "ServeSession")
+        if self.state is None:
+            self.state = init_decode_state(self.cfg, self.batch, self.s_max,
+                                           device=self.params.embed.device,
+                                           groups=self.groups)
+        self._step_fn = make_serve_step(self.cfg, self.groups)
+
+    def prefill(self, prompts: np.ndarray) -> torch.Tensor:
+        """Batched cache-fill prefill: one chunked decode step over (B, S_p);
+        the fp32 logits of the last position (B, 1, V)."""
+        toks = torch.as_tensor(np.asarray(prompts), device=self.params.embed.device)
+        logits, self.state = self._step_fn(self.params, self.state, toks)
+        return logits[:, -1:]
+
+    def generate(self, prompts: np.ndarray, n_tokens: int, *,
+                 temperature: float = 0.0, seed: int = 0) -> np.ndarray:
+        prompts = np.asarray(prompts, np.int32)
+        eng = Engine(self.cfg, self.params, EngineConfig(
+            max_batch=self.batch, s_max=self.s_max, cache="dense",
+            prefill_chunk=max(1, int(prompts.shape[1]))), groups=self.groups)
+        rids = [eng.submit(Request(prompt=prompts[b], max_new_tokens=n_tokens,
+                                   temperature=temperature, seed=seed))
+                for b in range(prompts.shape[0])]
+        res = eng.drain()
+        return np.stack([res[r].tokens for r in rids], axis=0)
+
+
+def build_session(seed: int, cfg: ModelConfig, *, batch: int, s_max: int,
+                  groups: Optional[FoldedGroups] = None, device=None) -> ServeSession:
+    """Deprecated: random parameters from ``seed`` (``transformer.init_lm``;
+    the reference takes a PRNG key, whose threefry draws torch does not
+    reproduce) wrapped in a :class:`ServeSession`; with ``groups``, this
+    rank's compute slices of them."""
+    params = init_lm(cfg, seed=seed, device=device)
+    if groups is not None:
+        params = shard_lm_params(params, groups, "compute")
+    return ServeSession(cfg=cfg, params=params, s_max=s_max, batch=batch, groups=groups)

@@ -151,8 +151,6 @@ def test_deadlines_and_bounded_queue():
 def test_unported_engine_modes_raise():
     cfg = dataclasses.replace(slice_config("mixtral-8x22b", reduce=True), dtype="float32")
     params = init_lm(cfg, seed=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense"):
-        Engine(cfg, params, EngineConfig(cache="dense"))
     with pytest.raises(NotImplementedError, match="sliding-window"):
         Engine(dataclasses.replace(cfg, sliding_window=16), params, EngineConfig())
 
