@@ -9,8 +9,10 @@ sigmoid-gated shared expert, qkv biases, a GQA group of 7); and the MoE
 configs registered with the reference's mapping table: Mixtral-8x22B-G8T8
 (64 experts top-8 of 2048) and Qwen3-MoE-30B-A3B (128 experts top-8 of 768,
 32 heads of 128 over d_model 2048) trained on one card, Llama3-8x70B and
-DBRX-132B at their kernel shapes. Phases (any failure exits non-zero;
-nothing is caught):
+DBRX-132B at their kernel shapes; and the dense Llama3.2-1B at full width
+and depth with a sliding-window ring cache, beside Qwen3-MoE-30B-A3B's
+window variant (phase 14). Phases (any failure exits non-zero; nothing is
+caught):
 
 1. device  — require CUDA; print the card's name and power limit and torch's
    version; turn TF32 off.
@@ -99,9 +101,10 @@ nothing is caught):
    the card over gloo at attention DP2×TP2 beside the first MoE fold of
    ``ZERO_MOE_FOLDS`` that passes the SP ↔ MoE hand-off (EDP2×EP2), a
    global batch of 2 × 4096 tokens (one sequence a DP rank), each run from
-   the same weights. Mixtral: (a) ``fsdp=True`` 2 steps, (b) ``fsdp=False``
-   1 step, (c) ``fsdp=True`` with ``master_weights`` 1 step; Qwen2 (the
-   step phase 8 could not fit): (a) and (c), 1 step each. Per rank: every
+   the same weights. Mixtral: (a) ``fsdp=True`` 1 step, (b) ``fsdp=False``
+   1 step, (c) ``fsdp=True`` with ``master_weights`` 1 step; Qwen2's (a)
+   and (c) (the step phase 8 could not fit) run in phase 12's hand-off
+   world, which is this fold. Per rank: every
    step of (b) and (c) against (a)'s step of the same index in loss and
    ``grad_norm`` within ``ZERO_TOL``, its optimizer-state bytes counted
    from its tensors against ``zero1_state_bytes`` for that fold, launches
@@ -139,18 +142,19 @@ nothing is caught):
    run_training``). (a) Mixtral at full width cut to 1 layer at phase 9's
    fold (DP2×TP2 / EDP2×EP2, FSDP, ZeRO-1), phase 9's seed, batches and
    AdamWConfig, 4 ranks sharing the card over gloo, under the supervisor:
-   2 steps, a save every 2 keeping 1, a ``data_error`` fault at step 1. It
-   saves step 0, crashes, restores the verified step 0 (the re-hash split
-   over the ranks), runs steps 0 and 1 again and saves step 2, in a
+   1 step, a save every step keeping 1, a ``data_error`` fault at step 0.
+   It saves step 0 (the initial state), crashes fetching step 0's batch,
+   restores the verified step 0 (the re-hash split over the ranks), runs
+   step 0 and saves step 1, in a
    ``tempfile.mkdtemp()`` directory in the RAM-backed ``/dev/shm`` (the
    card's machine caps what is written to its disk at 45 GiB, less than two
    34.88 GB steps; step 0's zero moments are stored deflated, so keep=1
-   holds ~46.5 GB while step 2 commits; the directory's free bytes and
+   holds ~46.5 GB while step 1 commits; the directory's free bytes and
    file-system type and the RAM available are printed, and less room
    fails the phase) removed at the end. Checks: each rank's restored
-   pieces hash to the saved digests; the losses and ``grad_norm`` of steps
-   0–1 equal phase 9's FSDP run's bit for bit; the launch counters, zeroed
-   at the restore, equal two steps' count from the code. It prints the
+   pieces hash to the saved digests; the loss and ``grad_norm`` of step 0
+   equal phase 9's FSDP run's bit for bit; the launch counters, zeroed at
+   the restore, equal one step's count from the code. It prints the
    bytes a rank writes a save and the walls of the host copy, hash, write,
    commit, verify and restore. (b) Reduced Mixtral in bf16, 4 layers:
    3 steps at phase 10 (b)'s fold
@@ -172,9 +176,12 @@ train-configs — phase 5's one-card training (2 steps, launches 3 + 3 + 3
    Qwen2 at full width cut to 1 layer, FSDP, 1 step of 4 × 2048 tokens
    (``SyntheticTokens(seed=0)``), 4 processes sharing the card over gloo.
    The hand-off world runs phase 9's fold (DP2×TP2 / EDP2×EP2) with 2
-   sequences a DP rank, the sequence cut over TP, so every MoE layer
-   exchanges the SP rows for the reference's token shards (a run of the DP
-   rank's flattened tokens: here one whole sequence) and back. The oracle
+   sequences a DP rank, twice from the same weights: phase 9's runs (a)
+   (FSDP) and (c) (FSDP and the fp32 master), (c) held to (a) within
+   ``ZERO_TOL`` as phase 9 holds them. The sequence is cut over TP, so
+   every MoE layer exchanges the SP rows for the reference's token shards
+   (a run of the DP rank's flattened tokens: here one whole sequence) and
+   back. The oracle
    world runs the same weights, batches and MoE fold at attention DP4, a
    whole sequence a rank and no exchange, so its token shards are the same
    sequences. Checks: each rank's MoE token shard holds the oracle rank's
@@ -214,6 +221,30 @@ train-configs — phase 5's one-card training (2 steps, launches 3 + 3 + 3
    decode (a DP rank's rows at a TP rank's heads) and the GMM at each
    fold's decode shard, held and timed as in phase 3.
 
+14. window-dense — dense decoder blocks and sliding-window ring caches, one
+   card, three parts. (a) serve-window: Llama3.2-1B as
+   ``launch.mappings.model_for`` makes it for ``long_500k`` (a window of
+   8192), full width and depth (16 layers), bf16, tied head; the same two
+   requests (prompts of 12288 and 1024 tokens from the seed, 32 new
+   tokens, prefill chunks of 512) through a paged (pages of 128) and a
+   dense engine of 2 slots. Checks: every request finishes with 32
+   tokens; paged tokens equal dense tokens; each KV store's bytes equal
+   ``kv_bytes_paged`` / ``kv_bytes_dense`` at ``cache_len`` 8192 (a ring of
+   the window, not the context); flash launches equal 16 per prefill chunk
+   and per decode step, GMM launches 0. (b) train-dense: the same model, 2
+   AdamW steps of 2 × 4096 tokens (``SyntheticTokens(seed=0)``), then the
+   same again from the same seed: losses finite, losses and ``grad_norm``
+   bitwise equal across the runs, launches from the code; step ms, MFU, peak
+   memory and, from the rerun's profiled last step, AdamW's share of the
+   step; then phase 6's reduced card-vs-CPU check on Llama3.2-1B. (c)
+   moe-window: Qwen3-MoE-30B-A3B for ``long_500k`` at full width cut to 2
+   layers, one 9000-token request of 16 new tokens, paged: 16 tokens, 3 GMM
+   and 1 flash launch a layer a forward. Then flash with key positions
+   (``kv_pos``) at (a)'s ring decode and prefill chunk and at (c)'s prefill
+   chunk against the plain version (``library_ms``: SDPA with an
+   ``attn_mask`` from the positions), flash without them at (b)'s causal
+   4096 and at phase 3's Mixtral decode again, and the GMM at (c)'s decode.
+
 Phase 9 runs first, right after the build: its 4 ranks need about 70 GB
 of the card (Qwen2: 18.02 GB peak a rank on an H100), and what the other
 phases leave in this process (3.9 GB reserved before phase 7) left Qwen2's
@@ -222,8 +253,12 @@ after it, for the same reason, with the memory reserved before each
 printed. Then Mixtral runs phases 3, 4, 5, 6; every Mixtral tensor is
 freed and Qwen2
 runs 4, 5, 3, 6; then the added configs' phase 3 rows and train-configs;
-then Mixtral and Qwen2 run 7 and 8, then phase 13 with phase 4's requests.
-Then it prints the script time, the
+then Mixtral and Qwen2 run 7 and 8, then phase 13 with phase 4's requests,
+then phase 14. Every phase across ranks runs on one set of 4 processes
+(``launch.world.pool``), started after the build: each rank pays its
+interpreter, CUDA context, kernel library and first launches once, not
+once a world; ``[time]`` lines give each phase's wall. Then it prints the
+script time, the
 kernels' JSON line (one entry per kernel per main path, its ``launches``
 from that path's own run), the card's ``nvidia-smi`` name and power limit,
 and last ``{"ok": true, "device": {...}}``. Full results also go to
@@ -338,11 +373,9 @@ TRAIN_WORLD = {MIXTRAL: dict(attn=(1, 2, 2), moe=(1, 4, 1),
 ZERO_ATTN = (2, 1, 2)
 ZERO_MOE_FOLDS = ((2, 2, 1), (1, 4, 1))
 ZERO_BATCH = 2
-ZERO_RUNS = {MIXTRAL: (("allgather", 2, True, False, "fsdp"),
+ZERO_RUNS = {MIXTRAL: (("allgather", 1, True, False, "fsdp"),
                        ("allgather", 1, False, False, "no-fsdp"),
-                       ("allgather", 1, True, True, "master")),
-             QWEN2: (("allgather", 1, True, False, "fsdp"),
-                     ("allgather", 1, True, True, "master"))}
+                       ("allgather", 1, True, True, "master"))}
 
 
 # Phase 10 (a): Mixtral at full width cut to 2 layers (one a stage), PP2 x
@@ -356,16 +389,17 @@ PIPE_SMALL = dict(attn=(2, 1, 1), moe=(1, 2, 1), pp=2, vpp=2, microbatch=4, laye
 
 
 # Phase 11 (a): phase 9's fold, batches, seed and AdamWConfig under the
-# supervisor: 2 steps, a save every 2 keeping 1, a data-stream fault at step
-# 1 (so: save 0, crash, restore 0, steps 0-1 again, save 2); (b) phase 10
+# supervisor: 1 step, a save every step keeping 1, a data-stream fault at
+# step 0 (so: save 0, crash, restore 0, step 0, save 1: one full-width step
+# run, where 2 steps with the fault at step 1 run three); (b) phase 10
 # (b)'s fold and the fold it is restored onto. (a)'s checkpoints go to the
 # machine's RAM-backed tmpfs: the card's machine counts every byte written
 # to its disk against a budget (45 GiB, deletes not returned) that two
 # full-width steps (2 x 34.88 GB) exceed, and holds 96 GiB of RAM. keep=1
-# holds two steps while a save commits: step 2 and step 0, whose moments
+# holds two steps while a save commits: step 1 and step 0, whose moments
 # are zero and stored deflated (``checkpoint.store``), so about the
 # parameters' 11.6 GB.
-RESUME_STEPS, RESUME_EVERY, RESUME_FAULT = 2, 2, ("data_error", 1)
+RESUME_STEPS, RESUME_EVERY, RESUME_FAULT = 1, 1, ("data_error", 0)
 RESUME_DIR, RESUME_RAM_MARGIN = "/dev/shm", 15e9
 RESUME_SECOND = dict(attn=(2, 1, 2), moe=(2, 2, 1), pp=1, vpp=1, microbatch=4)
 
@@ -376,7 +410,8 @@ RESUME_SECOND = dict(attn=(2, 1, 2), moe=(2, 2, 1), pp=1, vpp=1, microbatch=4)
 # same MoE fold at attention DP4, one whole sequence a rank, so that no
 # exchange runs and each MoE token shard is the same sequence in both.
 HANDOFF = dict(attn=ZERO_ATTN, moe=(2, 2, 1), seq=2048, batch=4,
-               run=("allgather", 1, True, False, "fsdp"))
+               runs=(("allgather", 1, True, False, "fsdp"),
+                     ("allgather", 1, True, True, "master")))
 HANDOFF_ORACLE = (4, 1, 1)
 # "train-configs": the new configs that fit one card train this many steps.
 CONFIG_STEPS = 2
@@ -470,7 +505,8 @@ HEADLINE = {("gmm", "serve"): "gate/up, decode (serving)",
             ("flash_attention", "train"): "causal self-attention 4096, partial"}
 
 
-def _flash_cases(torch, arch: str, cases=None, heads=None, modes=(False, True)) -> list:
+def _flash_cases(torch, arch: str, cases=None, heads=None, modes=(False, True),
+                 hd: int = 128) -> list:
     """Flash cases (default: the model's ``FLASH_CASES`` at its heads) in
     the output ``modes`` (partial or not). ``library_ms`` is the fastest of
     the ``scaled_dot_product_attention`` forms that compute the same
@@ -483,7 +519,7 @@ def _flash_cases(torch, arch: str, cases=None, heads=None, modes=(False, True)) 
     from repro_torch.kernels.flash.ref import flash_ref
     from repro_torch.launch.devtime import graph_ms, profiled_ms
     g = torch.Generator(device="cuda").manual_seed(2)
-    (H, Hkv), hd = heads or FLASH_HEADS[arch], 128
+    H, Hkv = heads or FLASH_HEADS[arch]
     out = []
     for label, Sq, L, offsets, *kv in cases or FLASH_CASES[arch]:
         kv_off = kv[0] if kv else 0
@@ -859,8 +895,9 @@ def phase_train_check(torch, arch: str) -> dict:
     leaf_err = {n: float((grads["card"][n] - c).norm() / c.norm().clamp_min(1e-30))
                 for n, c in grads["cpu"].items()}
     worst_leaf = max(leaf_err, key=leaf_err.get)
-    _say(f"[check] {arch} reduced training ({cfg.moe.n_experts} experts top-{cfg.moe.top_k}"
-         f"{', dropless' if cfg.moe.dropless else ''}), step 1 gradients, card vs CPU plain "
+    what = ("dense" if cfg.moe is None else f"{cfg.moe.n_experts} experts top-"
+            f"{cfg.moe.top_k}{', dropless' if cfg.moe.dropless else ''}")
+    _say(f"[check] {arch} reduced training ({what}), step 1 gradients, card vs CPU plain "
          "versions: "
          f"{len(leaf_err)} leaves, worst relative L2 {leaf_err[worst_leaf]:.3e} "
          f"({worst_leaf}; limit {CHECK_TOL})")
@@ -1190,7 +1227,7 @@ def phase_train_zero(torch) -> dict:
     smi = _smi()
     moe = _zero_fold()
     out, failures = {"moe": moe}, []
-    for arch in (MIXTRAL, QWEN2):
+    for arch in ZERO_RUNS:
         tag = "train-zero" + SHORT[arch]
         runs = [Run(*r) for r in ZERO_RUNS[arch]]
         base = runs[0].key
@@ -1465,7 +1502,7 @@ def _resume_full(torch, train_zero: dict, failures: list) -> dict:
     directory = tempfile.mkdtemp(prefix="chip-smoke-ckpt-", dir=RESUME_DIR)
     try:
         free, fs, mem = shutil.disk_usage(directory).free, _fs_type(directory), _meminfo()
-        need = step_bytes + n_params * 4        # step 2, and step 0's parameters
+        need = step_bytes + n_params * 4        # the last step, and step 0's parameters
         _say(f"[{tag}] checkpoint directory {directory} ({fs}): {free / 1e9:.2f} GB free; RAM "
              f"{mem['MemTotal'] / 1e9:.2f} GB, {mem['MemAvailable'] / 1e9:.2f} GB available; a "
              f"step is {step_bytes / 1e9:.2f} GB ({n_params / 1e9:.3f} B parameters x 12 B), "
@@ -1684,53 +1721,75 @@ def _handoff_kernels(torch) -> dict:
     return out
 
 
-def _handoff_world(name: str, attn: tuple, run, smi: str, failures: list) -> dict:
+def _handoff_world(name: str, attn: tuple, runs: list, smi: str, failures: list) -> dict:
     """One world of phase 12 (``name``: "handoff" or "oracle") at attention
-    fold ``attn``: its ranks' results, checked (the hand-off flag, launches
-    against the count from the code, optimizer-state bytes, finite steps)
-    and printed as soon as it ends."""
+    fold ``attn``, each of ``runs`` from the same weights: its ranks'
+    results, checked (the hand-off flag, launches against the count from
+    the code, optimizer-state bytes, finite steps, each later run's loss and
+    ``grad_norm`` within ``ZERO_TOL`` of the first's) and printed as soon
+    as it ends."""
     from repro_torch.launch.world import train_world
     t0 = time.perf_counter()
-    ranks = train_world(QWEN2, attn=attn, moe=HANDOFF["moe"], runs=[run], device="cuda",
+    ranks = train_world(QWEN2, attn=attn, moe=HANDOFF["moe"], runs=runs, device="cuda",
                         layers=1, seq=HANDOFF["seq"], batch=HANDOFF["batch"], seed=0,
                         profile=name == "handoff")
     wall = time.perf_counter() - t0
-    runs = [r["runs"][run.key] for r in ranks]
-    for r, got in zip(ranks, runs):
+    base = runs[0].key
+    for r in ranks:
         rid = f"train-handoff {name} rank {r['rank']}"
-        expect = _expected_world_launches(QWEN2, run.cp_mode, run.steps, attn,
-                                          tokens=r["seqs"] * HANDOFF["seq"])
         if r["handoff"] != (name == "handoff"):
             failures.append(f"{rid}: {r['seqs']} sequences a DP rank, hand-off {r['handoff']}")
-        if got["launches"] != expect:
-            failures.append(f"{rid}: launches {got['launches']} != expected {expect}")
-        if got["state_bytes"] != got["state_bytes_expected"]:
-            failures.append(f"{rid}: optimizer state {got['state_bytes']} B != "
-                            f"zero1_state_bytes {got['state_bytes_expected']} B")
-        for i, m in enumerate(got["metrics"]):
-            if not (m["step_ok"] and all(x == x and abs(x) != float("inf")
-                                         for x in (m["loss"], m["grad_norm"]))):
-                failures.append(f"{rid} step {i}: {m}")
+        for run in runs:
+            got = r["runs"][run.key]
+            expect = _expected_world_launches(QWEN2, run.cp_mode, run.steps, attn,
+                                              tokens=r["seqs"] * HANDOFF["seq"])
+            if got["launches"] != expect:
+                failures.append(f"{rid} {run.key}: launches {got['launches']} != expected "
+                                f"{expect}")
+            if got["state_bytes"] != got["state_bytes_expected"]:
+                failures.append(f"{rid} {run.key}: optimizer state {got['state_bytes']} B != "
+                                f"zero1_state_bytes {got['state_bytes_expected']} B")
+            for i, m in enumerate(got["metrics"]):
+                if not (m["step_ok"] and all(x == x and abs(x) != float("inf")
+                                             for x in (m["loss"], m["grad_norm"]))):
+                    failures.append(f"{rid} {run.key} step {i}: {m}")
+                    continue
+                if run.key == base:
+                    continue
+                ref = r["runs"][base]["metrics"][i]
+                for k in ("loss", "grad_norm"):
+                    e = abs(m[k] - ref[k]) / abs(ref[k])
+                    if not e <= ZERO_TOL:
+                        failures.append(f"{rid} {run.key} step {i} {k}: {m[k]:.6f} against "
+                                        f"{base}'s {ref[k]:.6f}, rel err {e:.3e} > {ZERO_TOL}")
     r0 = ranks[0]
-    _say(f"[train-handoff] {name}: {QWEN2} x1 layer at attention (dp, cp, tp) {attn}, MoE "
-         f"(edp, ep, etp) {HANDOFF['moe']}, {HANDOFF['batch']} x {HANDOFF['seq']} tokens a "
-         f"step, {r0['seqs']} sequences a DP rank (hand-off {r0['handoff']}): {len(runs)} ranks "
-         f"over gloo through the host on one card ({smi}); wall a step a rank " + "; ".join(
-             ", ".join(f"{t * 1e3:.1f}" for t in x["step_s"]) for x in runs)
-         + " ms; peak memory a rank " + ", ".join(f"{x['peak_gb']:.2f}" for x in runs)
-         + " GB (reserved " + ", ".join(f"{x['peak_reserved_gb']:.2f}" for x in runs)
-         + f" GB; card in use at the run's end {runs[0]['card_used_gb']:.2f} of "
-         f"{runs[0]['card_gb']:.2f} GB); optimizer state a rank " + ", ".join(
-             f"{x['state_bytes'] / 1e9:.3f}" for x in runs)
-         + f" GB (zero1_state_bytes {runs[0]['state_bytes_expected'] / 1e9:.3f} GB); launches a "
-         f"rank {runs[0]['launches']}; world wall {wall:.1f} s")
-    prof = runs[0].get("profile")
+    for run in runs:
+        per_rank = [r["runs"][run.key] for r in ranks]
+        got = per_rank[0]
+        _say(f"[train-handoff] {name} {run.key} (fsdp {got['fsdp']}, master_weights "
+             f"{got['master_weights']}): {QWEN2} x1 layer at attention (dp, cp, tp) {attn}, MoE "
+             f"(edp, ep, etp) {HANDOFF['moe']}, {HANDOFF['batch']} x {HANDOFF['seq']} tokens a "
+             f"step, {r0['seqs']} sequences a DP rank (hand-off {r0['handoff']}): {len(ranks)} "
+             f"ranks over gloo through the host on one card ({smi}); loss " + ", ".join(
+                 f"{m['loss']:.6f}" for m in got["metrics"]) + ", grad_norm " + ", ".join(
+                 f"{m['grad_norm']:.6f}" for m in got["metrics"]) + "; wall a step a rank "
+             + "; ".join(", ".join(f"{t * 1e3:.1f}" for t in x["step_s"]) for x in per_rank)
+             + " ms; peak memory a rank " + ", ".join(f"{x['peak_gb']:.2f}" for x in per_rank)
+             + " GB (reserved " + ", ".join(f"{x['peak_reserved_gb']:.2f}" for x in per_rank)
+             + f" GB; card in use at the run's end {got['card_used_gb']:.2f} of "
+             f"{got['card_gb']:.2f} GB); optimizer state a rank " + ", ".join(
+                 f"{x['state_bytes'] / 1e9:.3f}" for x in per_rank)
+             + f" GB (zero1_state_bytes {got['state_bytes_expected'] / 1e9:.3f} GB); launches a "
+             f"rank {got['launches']}")
+    _say(f"[train-handoff] {name}: runs {[run.key for run in runs]} from the same weights; "
+         f"weights built in turns in {r0['init_s']:.1f} s; world wall {wall:.1f} s")
+    prof = r0["runs"][base].get("profile")
     if prof:
         _say(f"[train-handoff] {name}: profiled step on rank 0: wall {prof['wall_ms']:.1f} ms, "
              f"device {prof['device_ms']:.1f} ms (" + ", ".join(
                  f"{k} {v:.1f}" for k, v in prof["parts_ms"].items()) + "); host ms in "
              + ", ".join(f"{k} {v:.1f}" for k, v in prof["comm_host_ms"].items()))
-    return dict(attn=attn, ranks=ranks, wall_s=wall)
+    return dict(attn=attn, runs=[run._asdict() for run in runs], ranks=ranks, wall_s=wall)
 
 
 def phase_train_handoff(torch) -> dict:
@@ -1739,11 +1798,15 @@ def phase_train_handoff(torch) -> dict:
     from repro_torch.launch.world import Run
 
     smi = _smi()
-    run = Run(*HANDOFF["run"])
+    runs = [Run(*r) for r in HANDOFF["runs"]]
+    run = runs[0]
     failures: list = []
     worlds = {}
-    for name, attn in (("handoff", HANDOFF["attn"]), ("oracle", HANDOFF_ORACLE)):
-        worlds[name] = _handoff_world(name, attn, run, smi, failures)
+    # The hand-off world runs every run (Qwen2's FSDP and fp32-master steps
+    # at phase 9's fold); the oracle the first only.
+    for name, attn, its_runs in (("handoff", HANDOFF["attn"], runs),
+                                 ("oracle", HANDOFF_ORACLE, runs[:1])):
+        worlds[name] = _handoff_world(name, attn, its_runs, smi, failures)
         torch.cuda.empty_cache()
     hand, oracle = worlds["handoff"]["ranks"], worlds["oracle"]["ranks"]
     same_tokens = [a["moe_tokens"] == b["moe_tokens"] for a, b in zip(hand, oracle)]
@@ -1943,6 +2006,354 @@ def phase_serve_world(torch, one_card: dict) -> dict:
     return out
 
 
+# Phase 14: dense decoder blocks and sliding-window ring caches.
+LLAMA = "llama3.2-1b"
+LONG = "long_500k"                  # launch.mappings.model_for: window 8192 on full attention
+WINDOW_ENGINE = dict(max_batch=2, page_size=128, prefill_chunk=512)
+WINDOW_PROMPTS, WINDOW_NEW = (12288, 1024), 32
+DENSE_TRAIN = dict(steps=2, seq=4096, batch=2)
+MOE_WINDOW = dict(layers=2, prompt=9000, new=16)
+
+
+def _serve_window(torch) -> dict:
+    """(a) Llama3.2-1B under ``model_for(..., "long_500k")`` at full width and
+    depth, bf16: the same two requests (12288 and 1024 prompt tokens) through
+    a paged and a dense engine, each run with the counters set to 0 just
+    before and read just after."""
+    from repro_torch.launch.serve import slice_config, submit_random
+    from repro_torch.launch.world import pool_bytes
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import Engine, EngineConfig
+    from repro_torch.serve.cache import kv_bytes_dense, kv_bytes_paged
+
+    cfg = slice_config(LLAMA, shape=LONG)
+    s_max = max(WINDOW_PROMPTS) + WINDOW_NEW
+    params = init_lm(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    out = dict(model=f"{cfg.name} x{cfg.n_layers} layers (full width and depth), window "
+                     f"{cfg.sliding_window}, bf16, {n_params / 1e9:.3f} B params", runs={})
+    failures = []
+    for cache in ("paged", "dense"):
+        tag = "serve-window" + ("" if cache == "paged" else "-dense")
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(cfg, params, EngineConfig(cache=cache, s_max=s_max, **WINDOW_ENGINE))
+        kv = pool_bytes(eng.state)
+        want_kv = (kv_bytes_paged(cfg, eng.scheduler.alloc.n_pages, eng.ecfg.page_size)
+                   if cache == "paged" else kv_bytes_dense(cfg, eng.ecfg.max_batch,
+                                                           eng.cache_len))
+        rids = submit_random(eng, cfg, WINDOW_PROMPTS, WINDOW_NEW, seed=0)
+        torch.cuda.synchronize()
+        _zero_counters()
+        t0 = time.perf_counter()
+        res = eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counters()
+        n_fwd = sum(1 for s in eng.stats if s.prefill_tokens) + \
+            sum(1 for s in eng.stats if s.decode_tokens)
+        expect = {"gmm": 0, "gmm_trans_w": 0, "flash_attention": cfg.n_layers * n_fwd}
+        pre_tok = sum(s.prefill_tokens for s in eng.stats)
+        pre_s = sum(t[0] for t in eng.timings)
+        dec = [t[1] for t in eng.timings if t[1] > 0]
+        run = dict(cache_len=eng.cache_len, kv_bytes=kv, kv_bytes_expected=want_kv,
+                   kv_bytes_a_request=kv_bytes_dense(cfg, 1, eng.cache_len),
+                   kv_bytes_full_context=kv_bytes_dense(cfg, 1, 524288),
+                   steps=len(eng.stats), forwards=n_fwd, launches=launches, wall_s=wall,
+                   prefill_tok_per_s=pre_tok / pre_s,
+                   decode_step_ms_median=statistics.median(dec) * 1e3,
+                   max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   tokens=[res[r].tokens.tolist() for r in rids])
+        _say(f"[{tag}] {out['model']}: cache_len {eng.cache_len}, KV store {kv} B (expected "
+             f"{want_kv}; {run['kv_bytes_a_request']} a request, "
+             f"{run['kv_bytes_full_context']} for a full 524288-token context); "
+             f"{len(rids)} requests, {run['steps']} steps, {n_fwd} forwards, wall {wall:.3f} s, "
+             f"launches {launches} (expected {expect}); prefill "
+             f"{run['prefill_tok_per_s']:.1f} tok/s, decode step median "
+             f"{run['decode_step_ms_median']:.3f} ms; max_memory_allocated "
+             f"{run['max_memory_allocated_gb']:.2f} GB")
+        if eng.cache_len != cfg.sliding_window or kv != want_kv:
+            failures.append(f"{tag}: cache_len {eng.cache_len}, KV bytes {kv} != {want_kv}")
+        if launches != expect:
+            failures.append(f"{tag}: launches {launches} != {expect}")
+        for r in rids:
+            if not (res[r].finished and len(res[r].tokens) == WINDOW_NEW):
+                failures.append(f"{tag} request {r} did not finish with {WINDOW_NEW} tokens")
+        out["runs"][cache] = run
+        del eng, res
+        torch.cuda.empty_cache()
+    same = out["runs"]["paged"]["tokens"] == out["runs"]["dense"]["tokens"]
+    _say(f"[serve-window] paged tokens equal dense tokens: {same}")
+    if not same:
+        failures.append("serve-window: paged tokens differ from dense tokens")
+    out["paged_equals_dense"] = same
+    del params
+    return out, failures
+
+
+def _train_dense_run(torch, cfg, profile: bool) -> dict:
+    """``DENSE_TRAIN`` steps from the seed's weights; with ``profile`` the
+    last step under ``torch.profiler`` (device time by part)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.profile_train import breakdown
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.loop import init_train_state, make_train_step
+
+    params = init_lm(cfg, seed=0, device="cuda")
+    opt = init_train_state(params)
+    step = make_train_step(cfg, guard=True)
+    data = SyntheticTokens(DataConfig(seq_len=DENSE_TRAIN["seq"],
+                                      global_batch=DENSE_TRAIN["batch"],
+                                      vocab_size=cfg.vocab_size, seed=0))
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in next(data).items()}
+               for _ in range(DENSE_TRAIN["steps"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    rows, prof = [], None
+    for i, b in enumerate(batches):
+        traced = profile and i == len(batches) - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if traced:
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+                params, opt, m = step(params, opt, b)
+                torch.cuda.synchronize()
+            prof = breakdown(p)
+        else:
+            params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        rows.append(dict({k: float(v) for k, v in m.items()},
+                         step_ms=(time.perf_counter() - t0) * 1e3))
+    out = dict(steps=rows, launches=_read_counters(),
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               state_gb=sum(t.numel() * t.element_size()
+                            for t in list(params.parameters()) + list(opt.mu.values())
+                            + list(opt.nu.values())) / 1e9,
+               profile=prof)
+    del params, opt, step, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_dense(torch) -> tuple:
+    """(b) Llama3.2-1B at full width and depth, tied embeddings, fp32
+    masters and AdamW, bf16 compute, remat: 2 steps of 2 x 4096 tokens, then
+    the same again from the same seed with the last step profiled."""
+    from repro_torch.launch.train import PEAK_BF16_FLOPS, step_flops, train_config
+    cfg = train_config(LLAMA)
+    flops = step_flops(cfg, DENSE_TRAIN["seq"], DENSE_TRAIN["batch"])
+    first = _train_dense_run(torch, cfg, profile=False)
+    rerun = _train_dense_run(torch, cfg, profile=True)
+    steps = DENSE_TRAIN["steps"]
+    expect = {"gmm": 0, "gmm_trans_w": 0, "flash_attention": 2 * cfg.n_layers * steps}
+    failures = []
+    for i, (a, b) in enumerate(zip(first["steps"], rerun["steps"])):
+        a["mfu"] = flops / (a["step_ms"] / 1e3) / PEAK_BF16_FLOPS
+        same = a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+        _say(f"[train-dense] step {i}: loss {a['loss']:.6f} (rerun {b['loss']:.6f}), grad_norm "
+             f"{a['grad_norm']:.4f} (rerun {b['grad_norm']:.4f}), bitwise {same}, step_ok "
+             f"{bool(a['step_ok'])}; wall {a['step_ms']:.3f} ms, MFU {100 * a['mfu']:.2f}%")
+        finite = all(x == x and abs(x) != float("inf") for x in (a["loss"], a["grad_norm"]))
+        if not (finite and a["step_ok"] and same):
+            failures.append(f"train-dense step {i}: loss {a['loss']} / rerun {b['loss']}, "
+                            f"grad_norm {a['grad_norm']} / rerun {b['grad_norm']}, "
+                            f"step_ok {a['step_ok']}")
+    for run in (first, rerun):
+        if run["launches"] != expect:
+            failures.append(f"train-dense launches {run['launches']} != {expect}")
+    # The profiler slows the step it traces (its first trace most): AdamW's
+    # device time is held against the unprofiled run's last step.
+    prof = rerun["profile"]
+    adamw = prof["parts_ms"]["adamw update"]
+    out = dict(model=f"{cfg.name} x{cfg.n_layers} layers (full width and depth), tied, "
+                     f"{DENSE_TRAIN['batch']} x {DENSE_TRAIN['seq']} tokens a step",
+               first=first, rerun=rerun, model_tflop_per_step=flops / 1e12,
+               compute_bound_ms=_bound(0, flops)[0], launches=first["launches"],
+               adamw_device_ms=adamw, adamw_share_of_step=adamw / first["steps"][-1]["step_ms"])
+    _say(f"[train-dense] {out['model']}: launches {first['launches']} (expected {expect}); "
+         f"{flops / 1e12:.3f} model TFLOP a step, compute bound {out['compute_bound_ms']:.3f} "
+         f"ms; max_memory_allocated {first['max_memory_allocated_gb']:.2f} GB (parameters "
+         f"and AdamW moments {first['state_gb']:.2f} GB); profiled step: wall "
+         f"{rerun['steps'][-1]['step_ms']:.1f} ms, device {prof['device_ms']:.1f} ms ("
+         + ", ".join(f"{k} {v:.1f}" for k, v in prof["parts_ms"].items())
+         + f"); AdamW {100 * out['adamw_share_of_step']:.1f}% of the unprofiled step "
+         f"({first['steps'][-1]['step_ms']:.1f} ms)")
+    return out, failures
+
+
+def _moe_window(torch) -> tuple:
+    """(c) Qwen3-MoE-30B-A3B under ``model_for(..., "long_500k")`` at full
+    width cut to 2 layers: one 9000-token request, 16 new tokens, paged."""
+    from repro_torch.launch.serve import slice_config, submit_random
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import Engine, EngineConfig
+    cfg = slice_config(QWEN3, layers=MOE_WINDOW["layers"], shape=LONG)
+    params = init_lm(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    eng = Engine(cfg, params, EngineConfig(s_max=MOE_WINDOW["prompt"] + MOE_WINDOW["new"],
+                                           **dict(WINDOW_ENGINE, max_batch=1)))
+    rids = submit_random(eng, cfg, (MOE_WINDOW["prompt"],), MOE_WINDOW["new"], seed=0)
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.perf_counter()
+    res = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    n_fwd = sum(1 for s in eng.stats if s.prefill_tokens) + \
+        sum(1 for s in eng.stats if s.decode_tokens)
+    expect = {"gmm": 3 * cfg.n_layers * n_fwd, "gmm_trans_w": 0,
+              "flash_attention": cfg.n_layers * n_fwd}
+    toks = res[rids[0]].tokens
+    out = dict(model=f"{cfg.name} x{cfg.n_layers} layers (full width), window "
+                     f"{cfg.sliding_window}, bf16", cache_len=eng.cache_len, forwards=n_fwd,
+               launches=launches, wall_s=wall, tokens=toks.tolist())
+    _say(f"[moe-window] {out['model']}: one {MOE_WINDOW['prompt']}-token request, cache_len "
+         f"{eng.cache_len}, {n_fwd} forwards, wall {wall:.3f} s, launches {launches} (expected "
+         f"{expect}), {len(toks)} tokens")
+    failures = []
+    if launches != expect:
+        failures.append(f"moe-window launches {launches} != {expect}")
+    if len(toks) != MOE_WINDOW["new"] or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        failures.append(f"moe-window: tokens {toks.tolist()}")
+    del eng, params, res
+    torch.cuda.empty_cache()
+    return out, failures
+
+
+def _flash_ring_cases(torch, cases, heads, hd: int, modes=(False, True)) -> list:
+    """Flash with key positions: ``(label, Sq, L, newest query position per
+    batch row, window)``: the queries of each row end at its position and
+    the L keys are the slots of a sliding-window ring
+    (``attention._cache_kv_positions``: wrapped, or not yet written).
+    Held against the plain version at the same positions; ``library_ms``:
+    SDPA with an ``attn_mask`` built from the positions. Bytes: q, the key
+    and value slots some query of the row sees, ``kv_pos`` and the output;
+    operations: the visible (query, key) pairs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash.flash import flash_attention
+    from repro_torch.kernels.flash.ref import flash_ref
+    from repro_torch.launch.devtime import graph_ms, profiled_ms
+    from repro_torch.models.attention import _cache_kv_positions
+    g = torch.Generator(device="cuda").manual_seed(4)
+    H, Hkv = heads
+    out = []
+    for label, Sq, L, last, window in cases:
+        B = len(last)
+        q = torch.randn((B, H, Sq, hd), generator=g, device="cuda").to(torch.bfloat16)
+        k = torch.randn((B, Hkv, L, hd), generator=g, device="cuda").to(torch.bfloat16)
+        v = torch.randn((B, Hkv, L, hd), generator=g, device="cuda").to(torch.bfloat16)
+        q_pos = torch.tensor(last, device="cuda")[:, None] - Sq + 1 + \
+            torch.arange(Sq, device="cuda")
+        kv_pos = _cache_kv_positions(q_pos, L).to(torch.int32).contiguous()
+        q_off = q_pos[:, 0].to(torch.int32).contiguous()
+        d = q_pos[:, :, None] - kv_pos[:, None, :].long()
+        vis = (d >= 0) & (d < window)
+        n_vis, n_keys = vis.sum().item(), vis.any(dim=1).sum().item()
+        mask = vis[:, None]
+        library_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True))
+        for partial in modes:
+            def run(partial=partial):
+                return flash_attention(q, k, v, q_off, kv_pos=kv_pos, window=window,
+                                       return_partial=partial)
+
+            def plain(partial=partial):
+                return flash_ref(q, k, v, q_off, kv_pos=kv_pos, window=window,
+                                 return_partial=partial)
+            got, ref = run(), plain()
+            torch.cuda.synchronize()
+            errs = [_err(torch, a, b) for a, b in (zip(got, ref) if partial else [(got, ref)])]
+            del got, ref
+            ms = graph_ms(torch, run)
+            plain_ms = profiled_ms(torch, plain, calls=3)
+            out_bytes = B * H * Sq * (hd * 4 + 8) if partial else B * H * Sq * hd * 2
+            nbytes = 2 * B * H * Sq * hd + 2 * 2 * Hkv * hd * n_keys + 4 * B * L + out_bytes
+            bound_ms, bound_by = _bound(nbytes, 4.0 * hd * H * n_vis)
+            out.append(dict(case=f"{label}, {'partial' if partial else 'normalized'}",
+                            shape=f"q({B},{H},{Sq},{hd}) kv({B},{Hkv},{L},{hd}) kv_pos "
+                                  f"ring, newest {last}, window {window}",
+                            max_abs_err=max(e[0] for e in errs), rel_err=max(e[1] for e in errs),
+                            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms, library_form="SDPA attn_mask from kv_pos",
+                            visible_pairs=n_vis))
+        del q, k, v, mask, vis, d
+        torch.cuda.empty_cache()
+    return out
+
+
+def _window_kernels(torch) -> dict:
+    """Phase 14's kernel rows, held and timed as in phase 3: flash with key
+    positions at (a)'s ring decode and prefill chunk and at (c)'s prefill
+    chunk, flash without them at (b)'s causal 4096 (2 sequences, 32/8 heads
+    of 64) and phase 3's Mixtral decode again, and the GMM at (c)'s decode."""
+    from repro_torch.launch.serve import slice_config
+    llama = slice_config(LLAMA, shape=LONG)
+    W = llama.sliding_window            # (a)'s rows end at 12300 and 1040 (W 8192)
+    heads = (llama.n_heads, llama.n_kv_heads)
+    qwen3 = slice_config(QWEN3, shape=LONG)
+    res = {LLAMA: {"flash_attention": _flash_ring_cases(torch, [
+        ("ring decode", 1, W, [3 * W // 2 + 12, W // 8 + 16], W),
+        ("ring prefill chunk", 512, W, [3 * W // 2 - 1], W)], heads, llama.resolved_head_dim) +
+        _flash_cases(torch, LLAMA, [("causal self-attention 4096", 4096, 4096, [0, 0])],
+                     heads=heads, modes=(True,), hd=llama.resolved_head_dim)},
+           MIXTRAL: {"flash_attention": _flash_cases(torch, MIXTRAL, FLASH_CASES[MIXTRAL][:1])},
+           QWEN3: {"flash_attention": _flash_ring_cases(torch, [
+               ("ring prefill chunk", 512, W, [W + 511], W)], (qwen3.n_heads, qwen3.n_kv_heads),
+               qwen3.resolved_head_dim, modes=(False,)),
+               "gmm": _gmm_cases(torch, qwen3.moe.n_experts, [(
+                   "gate/up, decode (serving)", qwen3.moe.n_experts * 128, qwen3.d_model,
+                   qwen3.moe.d_expert, 128, list(range(qwen3.moe.n_experts)), False)])}}
+    for arch, r in res.items():
+        _check_cases(arch, r)
+    return res
+
+
+def phase_window_dense(torch) -> dict:
+    """Phase 14: see the module docstring."""
+    t_phase = time.perf_counter()
+    out, failures = {}, []
+    out["serve"], f = _serve_window(torch)
+    failures += f
+    _free(torch, "serve-window done")
+    out["train"], f = _train_dense(torch)
+    failures += f
+    out["check_train"] = phase_train_check(torch, LLAMA)
+    _free(torch, "train-dense done")
+    out["moe"], f = _moe_window(torch)
+    failures += f
+    out["kernels"] = _window_kernels(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    _say(f"[window-dense] phase 14 took {out['seconds']:.1f} s")
+    if failures:
+        raise AssertionError("phase 14:\n" + "\n".join(failures))
+    return out
+
+
+def _window_dense_line(window: dict, sources: dict) -> list:
+    """Phase 14's entries of the kernels line: flash on (a)'s paged and dense
+    runs (timed at the ring decode), on (b) (causal 4096) and on (c) (its
+    ring prefill chunk), and the GMM on (c) (its decode)."""
+    def case(arch, name, label):
+        return next(c for c in window["kernels"][arch][name] if c["case"] == label)
+    serve, train, moe = window["serve"]["runs"], window["train"], window["moe"]
+    return [
+        _entry("flash_attention", "serve-window", LLAMA,
+               case(LLAMA, "flash_attention", "ring decode, normalized"),
+               serve["paged"]["launches"]["flash_attention"], sources),
+        _entry("flash_attention", "serve-window-dense", LLAMA,
+               case(LLAMA, "flash_attention", "ring decode, normalized"),
+               serve["dense"]["launches"]["flash_attention"], sources),
+        _entry("flash_attention", "train-dense", LLAMA,
+               case(LLAMA, "flash_attention", "causal self-attention 4096, partial"),
+               train["launches"]["flash_attention"], sources),
+        _entry("flash_attention", "moe-window", QWEN3,
+               case(QWEN3, "flash_attention", "ring prefill chunk, normalized"),
+               moe["launches"]["flash_attention"], sources),
+        _entry("gmm", "moe-window", QWEN3, case(QWEN3, "gmm", "gate/up, decode (serving)"),
+               moe["launches"]["gmm"], sources)]
+
+
 def _serve_world_line(serve_world: dict, sources: dict) -> list:
     """Phase 13's entries of the kernels line: per model (path
     ``serve-world[-qwen2]``) the GMM with rank 0's launches, timed at the
@@ -1988,7 +2399,7 @@ def _train_handoff_line(train_handoff: dict, sources: dict) -> list:
     """Phase 12's entries of the kernels line (path ``train-handoff``): each
     kernel with rank 0's launches in the hand-off world, timed at its shape."""
     runs = train_handoff["worlds"]["handoff"]["ranks"][0]["runs"]
-    launches = runs[HANDOFF["run"][4]]["launches"]
+    launches = runs[HANDOFF["runs"][0][4]]["launches"]
     return [_entry(name, "train-handoff", QWEN2, train_handoff["kernels"][name][0],
                    launches[name], sources)
             for name in ("gmm", "gmm_trans_w", "flash_attention")]
@@ -2016,7 +2427,7 @@ def _train_zero_line(train_zero: dict, sources: dict) -> list:
     ``train-zero[-qwen2]``) each kernel with rank 0's launches in its first
     run, timed at that run's shape."""
     line = []
-    for arch in (MIXTRAL, QWEN2):
+    for arch in ZERO_RUNS:
         res = train_zero[arch]
         launches = res["ranks"][0]["runs"][res["base"]]["launches"]
         line += [_entry(name, "train-zero" + SHORT[arch], arch, res["kernels"][name][0],
@@ -2082,29 +2493,55 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    from repro_torch.launch.world import pool
     t_start = time.perf_counter()
+    marks = [("start", t_start)]
+
+    def mark(label: str) -> None:
+        now = time.perf_counter()
+        _say(f"[time] {label}: {now - marks[-1][1]:.1f} s (script at {now - t_start:.1f} s)")
+        marks.append((label, now))
     phase_device(torch)
     build = phase_build()
-    train_zero = phase_train_zero(torch)          # first: see the module docstring
-    memory_zero = _free(torch, "phase 9 done, before phase 12")
-    train_handoff = phase_train_handoff(torch)
-    memory_handoff = _free(torch, "phase 12 done, before phase 10")
-    train_pipe = phase_train_pipe(torch)
-    memory_pipe = _free(torch, "phase 10 done")
-    train_resume = phase_train_resume(torch, train_zero)
-    memory_resume = _free(torch, "phase 11 done")
-    results = {MIXTRAL: run_model(torch, MIXTRAL)}
-    memory = _free(torch, "Mixtral-8x22B freed")
-    results[QWEN2] = run_model(torch, QWEN2)
-    memory_configs = _free(torch, "Qwen2-57B-A14B freed")
-    config_kernels = phase_config_kernels(torch)
-    train_configs = phase_train_configs(torch)
-    memory_world = _free(torch, "train-configs done")
-    world = phase_world(torch)
-    train_world = phase_train_world(torch, {arch: res["train"] for arch, res in results.items()})
-    memory_serve_world = _free(torch, "phase 8 done, before phase 13")
-    serve_world = phase_serve_world(torch, {arch: res["serve"].pop("reference")
-                                            for arch, res in results.items()})
+    mark("phases 1-2")
+    # One world of 4 ranks for every phase across ranks (9, 12, 10, 11, 7, 8,
+    # 13): each rank starts once, not once a world.
+    with pool(4, backend="gloo", device="cuda", timeout_s=1200):
+        mark("world of 4 started")
+        train_zero = phase_train_zero(torch)          # first: see the module docstring
+        mark("phase 9")
+        memory_zero = _free(torch, "phase 9 done, before phase 12")
+        train_handoff = phase_train_handoff(torch)
+        mark("phase 12")
+        memory_handoff = _free(torch, "phase 12 done, before phase 10")
+        train_pipe = phase_train_pipe(torch)
+        mark("phase 10")
+        memory_pipe = _free(torch, "phase 10 done")
+        train_resume = phase_train_resume(torch, train_zero)
+        mark("phase 11")
+        memory_resume = _free(torch, "phase 11 done")
+        results = {MIXTRAL: run_model(torch, MIXTRAL)}
+        mark("Mixtral phases 3-6")
+        memory = _free(torch, "Mixtral-8x22B freed")
+        results[QWEN2] = run_model(torch, QWEN2)
+        mark("Qwen2 phases 3-6")
+        memory_configs = _free(torch, "Qwen2-57B-A14B freed")
+        config_kernels = phase_config_kernels(torch)
+        train_configs = phase_train_configs(torch)
+        mark("train-configs")
+        memory_world = _free(torch, "train-configs done")
+        world = phase_world(torch)
+        mark("phase 7")
+        train_world = phase_train_world(torch, {arch: res["train"]
+                                                for arch, res in results.items()})
+        mark("phase 8")
+        memory_serve_world = _free(torch, "phase 8 done, before phase 13")
+        serve_world = phase_serve_world(torch, {arch: res["serve"].pop("reference")
+                                                for arch, res in results.items()})
+        mark("phase 13")
+    memory_window = _free(torch, "phase 13 done, before phase 14")
+    window = phase_window_dense(torch)
+    mark("phase 14")
     seconds = time.perf_counter() - t_start
 
     gmm_src = ("src/repro_torch/kernels/csrc/gmm.cu", "src/repro/kernels/gmm/gmm.py:73")
@@ -2129,6 +2566,7 @@ def main() -> int:
     line += _train_configs_line(config_kernels, train_configs, sources)
     line += _train_handoff_line(train_handoff, sources)
     line += _serve_world_line(serve_world, sources)
+    line += _window_dense_line(window, sources)
     smi = _smi()
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -2138,12 +2576,14 @@ def main() -> int:
         nvidia_smi=smi, device=device, timing=TIMING, build=build, models=results,
         world=world, train_world=train_world, train_zero=train_zero, train_pipe=train_pipe,
         train_resume=train_resume, train_handoff=train_handoff, serve_world=serve_world,
+        window_dense=window, memory_before_window_dense=memory_window,
         config_kernels=config_kernels,
         train_configs=train_configs, memory_after_train_zero=memory_zero,
         memory_after_train_handoff=memory_handoff,
         memory_after_train_pipe=memory_pipe, memory_after_train_resume=memory_resume,
         memory_between_models=memory, memory_before_train_configs=memory_configs,
         memory_before_world=memory_world, memory_before_serve_world=memory_serve_world,
+        phase_s={a: t - s0 for (_, s0), (a, t) in zip(marks, marks[1:])},
         seconds=seconds), indent=1))
     _say(f"[done] script time {seconds:.2f} s (build {build['seconds']:.2f} s)")
     print(json.dumps({"kernels": line}))

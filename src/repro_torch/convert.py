@@ -7,7 +7,8 @@ tree. The caller turns the leaves into numpy arrays
 (``jax.tree.map(np.asarray, tree)``); this module takes only numpy, so it
 never imports JAX. The port names each leaf as ``LMParams.named_parameters``
 does (``layers.3.moe.w1``; the shared experts' ``moe/shared/w1`` is
-``layers.3.moe.ws1``). With ``groups`` (a folded mapping) each rank gets
+``layers.3.moe.ws1``; a dense block's ``mlp/w_gate`` is
+``layers.3.mlp.w_gate``). With ``groups`` (a folded mapping) each rank gets
 its slices of the full tree (``models.sharding``): parameters in the store
 layout, gradients and AdamW state in the ZeRO-1 state layout, so a test
 holds each rank's tensors against its slices of JAX's; at a pipelined fold
@@ -28,8 +29,9 @@ from repro_torch.core.moe_layer import MoEParams, shard_moe_params
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import AttentionParams
 from repro_torch.models.sharding import shard_tensor
-from repro_torch.models.transformer import (LMParams, MoEBlockParams, model_cycle,
-                                            param_shapes)
+from repro_torch.models.ffn import FFNParams
+from repro_torch.models.transformer import (DenseBlockParams, LMParams, MoEBlockParams,
+                                            model_cycle, param_shapes)
 from repro_torch.optim.adamw import AdamWState
 
 
@@ -53,8 +55,8 @@ def jax_key(name: str, cfg: ModelConfig) -> Tuple[str, Optional[int]]:
     leaf = ".".join(rest)
     if leaf in ("norm1", "norm2"):
         path = f"{leaf}/w"
-    elif leaf.startswith("attn."):
-        path = "attn/" + leaf[5:]
+    elif leaf.startswith(("attn.", "mlp.")):
+        path = leaf.replace(".", "/", 1)
     elif leaf in ("moe.w1", "moe.w2", "moe.w3"):
         path = "moe/experts/" + leaf[4:]
     elif leaf == "moe.router":
@@ -130,6 +132,10 @@ def lm_params(t: Dict[str, torch.Tensor], cfg: ModelConfig) -> LMParams:
             continue
         attn = AttentionParams(**{k[len(pre) + 5:]: v for k, v in t.items()
                                   if k.startswith(pre + "attn.")})
+        if pre + "mlp.w_gate" in t:
+            mlp = FFNParams(t[pre + "mlp.w_gate"], t[pre + "mlp.w_down"], t.get(pre + "mlp.w_up"))
+            layers[layer] = DenseBlockParams(t[pre + "norm1"], attn, t[pre + "norm2"], mlp)
+            continue
         moe = MoEParams(*(t[f"{pre}moe.{k}"] for k in ("router", "w1", "w2", "w3")),
                         **{k: t[f"{pre}moe.{k}"] for k in SHARED_NAMES.values()
                            if f"{pre}moe.{k}" in t})

@@ -136,17 +136,19 @@ def pipelined(groups) -> bool:
 @dataclasses.dataclass(frozen=True)
 class Stage:
     """What one rank's pipeline stage holds: its layers (global indices),
-    the embedding (first stage) and the final norm and LM head (last)."""
+    the embedding (first stage) and the final norm and LM head (last). With
+    ``tied`` embeddings the last stage holds the embedding too, as its head."""
 
     index: int
     layers: Tuple[int, ...]
     first: bool
     last: bool
+    tied: bool = False
 
     def holds(self, name: str) -> bool:
         """Whether a leaf (by the port's parameter name) lives on this stage."""
         if name == "embed":
-            return self.first
+            return self.first or (self.tied and self.last)
         if name in ("final_norm", "lm_head"):
             return self.last
         return int(name.split(".")[1]) in self.layers
@@ -154,20 +156,16 @@ class Stage:
 
 def stage_of(cfg: ModelConfig, groups, index: Optional[int] = None) -> Optional[Stage]:
     """This rank's :class:`Stage` (or stage ``index``'s) at a pipelined fold
-    (``None`` at pp = 1). Tied embeddings at pp > 1 would need the
-    embedding's gradient summed between the first and last stage: not
-    ported."""
+    (``None`` at pp = 1). Tied embeddings put the embedding on the first
+    and the last stage (:func:`make_pipeline_grads` sums its gradient
+    between them)."""
     if not pipelined(groups):
         return None
-    if cfg.tie_embeddings:
-        raise NotImplementedError(
-            f"{cfg.name}: tied embeddings at pp > 1 are not ported (ROADMAP.md queue 1, "
-            "item 5)")
     part = stage_partition_for(cfg, groups.pp_degree, groups.pcfg.vpp)
     s = groups.pp_stage if index is None else index
     layers = tuple(l for c in part.chunks_of(s) for l in chunk_layers(part, cfg, c))
     return Stage(index=s, layers=tuple(sorted(layers)), first=s == part.owner(0),
-                 last=s == part.owner(part.n_chunks - 1))
+                 last=s == part.owner(part.n_chunks - 1), tied=cfg.tie_embeddings)
 
 
 # ---------------------------------------------------------------------------
@@ -487,6 +485,12 @@ def make_pipeline_grads(cfg: ModelConfig, groups, part: StagePartition, n_micro:
     terms and the last stage's loss, all-reduced over ``pp`` (each value
     lives on one stage), so every rank holds the pp = 1 step's numbers. The
     caller divides both sums by ``n_micro``.
+
+    Tied embeddings: the embedding is owned by chunk 0 (the lookup) and by
+    the last chunk (the head), and after the schedule the first and last
+    stage exchange their sums and both hold ``lookup + head`` (the
+    reference's ``pipeline_grads`` adds the two the same way), so their
+    optimizer steps stay equal.
     """
     from repro_torch.core import comm
     from repro_torch.core.folding import check_sp_moe_handoff
@@ -516,16 +520,18 @@ def make_pipeline_grads(cfg: ModelConfig, groups, part: StagePartition, n_micro:
         mbs = [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()} for i in range(n_micro)]
         for m in mbs:
             lm_positions(m, cfg)            # raises for explicit positions
-        check_sp_moe_handoff(groups)
+        if "moe" in cfg.blocks():
+            check_sp_moe_handoff(groups)
         named = dict(cparams.named_parameters())
         dev = next(iter(named.values())).device
         # The residual stream between chunks: sequence-parallel rows.
         wire = (mb, batch["tokens"].shape[1] // groups.tp, cfg.d_model)
         dtype = _compute_dtype(cfg)
+        head = ("final_norm", "lm_head") + (("embed",) if cfg.tie_embeddings else ())
         owned = {c: [n for n in named if (n.startswith("layers.") and
                                          int(n.split(".")[1]) in layers[c])
                      or (n == "embed" and c == 0)
-                     or (n in ("final_norm", "lm_head") and c == last)]
+                     or (n in head and c == last)]
                  for c in layers}
         cot = {k: torch.tensor(c, dtype=torch.float32, device=dev) / n_moe
                for k, c in coefs.items()}
@@ -582,9 +588,16 @@ def make_pipeline_grads(cfg: ModelConfig, groups, part: StagePartition, n_micro:
                     if p.grad is not None:
                         acc[n] += p.grad.float()
                         p.grad = None
-        link.wait_sends()
         if stash:
             raise RuntimeError(f"schedule left {sorted(stash)} without a backward")
+        if cfg.tie_embeddings and stage.first != stage.last:
+            # The two ends swap their embedding sums; each adds them first + last.
+            other = part.owner(last) if stage.first else part.owner(0)
+            done = 2 * n_micro * part.n_chunks           # a tag past every message's
+            link.send(acc["embed"], other, done)
+            theirs = link.recv(acc["embed"].shape, torch.float32, dev, other, done)
+            acc["embed"] = acc["embed"] + theirs if stage.first else theirs + acc["embed"]
+        link.wait_sends()
 
         layer_aux = comm.all_reduce(layer_aux, pp_ax.group)
         ce_tok = comm.all_reduce(ce_tok, pp_ax.group)

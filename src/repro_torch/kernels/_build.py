@@ -35,9 +35,9 @@ _I = ctypes.c_int
 SIGNATURES: Dict[str, Tuple[tuple, type]] = {
     # x, w, block_expert, y, M, K, N, bm, E, block_m, block_n, trans_w, stream
     "repro_gmm_bf16": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),
-    # q, k, v, q_offset, out, acc, m, l, ws, counters, B, H, Hkv, Sq, Skv, hd,
-    # kv_offset, causal, window, scale, path, splits, stream
-    "repro_flash_fwd_bf16": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+    # q, k, v, q_offset, kv_pos, out, acc, m, l, ws, counters, B, H, Hkv, Sq, Skv,
+    # hd, kv_offset, causal, window, scale, path, splits, stream
+    "repro_flash_fwd_bf16": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P), _I),
 }
 

@@ -8,7 +8,10 @@
 // cache attention. Same contract:
 //   q (B, H, Sq, hd), k/v (B, Hkv, Skv, hd), hd in {64, 128}; GQA head h
 //   reads KV head h / (H / Hkv); query row i of batch row b sits at
-//   position q_offset[b] + i, key j at kv_offset + j; causal and
+//   position q_offset[b] + i, key j at kv_offset + j, or at kv_pos[b, j]
+//   when the caller gives key positions (the reference's blockwise_attention
+//   contract, src/repro/models/attn_core.py: a sliding-window ring cache's
+//   slots hold positions that wrap inside the view); causal and
 //   sliding-window masks as flash.py:48-57 (NEG_INF = -1e30, p zeroed where
 //   not visible); p is rounded to bf16 before the PV product (flash.py:67).
 // Outputs: normalized o = acc / max(l, 1e-30) in bf16, or the fp32 partial
@@ -76,6 +79,18 @@
 // 8 one-tile splits at the serving step (4 of 2 tiles are 8% faster), two
 // accumulation chains for S on the decode path (no change), a 2-stage
 // prefill ring (within noise) and a persistent prefill grid (4-5% slower).
+// With key positions (chip_smoke.py phase 14, head size 64): the ring
+// decode against 8192 slots 0.021 ms (SDPA 0.018), a 512-query ring prefill
+// chunk 0.118 ms (SDPA 0.147). The prefill path stages a tile's positions
+// in shared memory: read per mask test they took 0.528 ms, and held in
+// registers (32 a thread) they spilled (0.201 ms).
+//
+// Key positions (kv_pos) keep both paths as they are and change only the
+// mask, in their own instantiations (template flag POS), so a launch
+// without them runs the code it ran before: with them the keys are not a
+// contiguous run, so every key is in the visible range (no split or tile is
+// skipped by position), each masked tile reads its keys' positions (int32,
+// L1-cached) and the prefill path evaluates the mask on every tile.
 //
 // Requires 16-byte aligned, contiguous tensors; the wrapper checks them and
 // this entry point again.
@@ -113,20 +128,43 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// Absolute positions of one batch row's keys: with POS the caller's
+// kv_pos[j] (pos: the row's (Skv,) run), else offset + j.
+template <bool POS>
+struct KeyPos {
+  const int* pos;
+  int offset;
+  __device__ __forceinline__ int operator()(int kidx) const {
+    if constexpr (POS) return __ldg(pos + kidx);
+    else return offset + kidx;
+  }
+};
+
 // Visibility of key index kidx (0-based in k) to a query at absolute
 // position q_pos: in range, causal, window (flash.py:48-57).
-__device__ __forceinline__ bool visible(int q_pos, int kidx, int Skv, int kv_offset,
+template <bool POS>
+__device__ __forceinline__ bool visible(int q_pos, int kidx, int Skv, const KeyPos<POS>& kp,
                                         int causal, int window) {
-  const int d = q_pos - (kv_offset + kidx);
+  if constexpr (POS) {
+    if (kidx >= Skv) return false;           // no position to read past the keys
+  }
+  const int d = q_pos - kp(kidx);
   return kidx < Skv && (!causal || d >= 0) && (!window || d < window);
 }
 
 // Keys [lo, hi) that some query at positions [q_first, q_last] can see;
-// hi <= lo when none.
-__device__ __forceinline__ void visible_range(int q_first, int q_last, int Skv, int kv_offset,
-                                              int causal, int window, int& lo, int& hi) {
-  lo = window ? max(0, q_first - window + 1 - kv_offset) : 0;
-  hi = causal ? min(Skv, q_last - kv_offset + 1) : Skv;
+// hi <= lo when none. With key positions every key may be seen.
+template <bool POS>
+__device__ __forceinline__ void visible_range(int q_first, int q_last, int Skv,
+                                              const KeyPos<POS>& kp, int causal, int window,
+                                              int& lo, int& hi) {
+  if constexpr (POS) {
+    lo = 0;
+    hi = Skv;
+  } else {
+    lo = window ? max(0, q_first - window + 1 - kp.offset) : 0;
+    hi = causal ? min(Skv, q_last - kp.offset + 1) : Skv;
+  }
 }
 
 // ===================================================== decode path (split)
@@ -187,9 +225,10 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
 // one, which writes the empty result when no key is visible).
 struct SplitPlan {
   int lo, hi, t_lo, t_hi, chunk, n_active;
-  __device__ __forceinline__ SplitPlan(int q_first, int q_last, int Skv, int kv_offset, int causal,
-                                       int window, int splits) {
-    visible_range(q_first, q_last, Skv, kv_offset, causal, window, lo, hi);
+  template <bool POS>
+  __device__ __forceinline__ SplitPlan(int q_first, int q_last, int Skv, const KeyPos<POS>& kp,
+                                       int causal, int window, int splits) {
+    visible_range(q_first, q_last, Skv, kp, causal, window, lo, hi);
     t_lo = lo / S_BKV;
     t_hi = hi > lo ? (hi + S_BKV - 1) / S_BKV : t_lo;
     const int n_t = t_hi - t_lo;
@@ -222,13 +261,14 @@ __device__ __forceinline__ void store_row(const float (&a)[N], float m, float l,
   }
 }
 
-template <int HD>
+template <int HD, bool POS>
 __global__ void __launch_bounds__(S_THREADS)
 flash_fwd_kernel_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_offset,
-                       __nv_bfloat16* __restrict__ out, float* __restrict__ acc_out,
-                       float* __restrict__ m_out, float* __restrict__ l_out,
-                       float* __restrict__ ws, int* __restrict__ counters, int H, int Hkv,
+                       const int* __restrict__ kv_pos, __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ acc_out, float* __restrict__ m_out,
+                       float* __restrict__ l_out, float* __restrict__ ws,
+                       int* __restrict__ counters, int H, int Hkv,
                        int Sq, int Skv, int kv_offset, int causal, int window, float scale,
                        int splits) {
   using C = SplitCfg<HD>;
@@ -243,8 +283,9 @@ flash_fwd_kernel_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const int n_rt = (R + S_ROWS - 1) / S_ROWS;
   const int r0 = rt * S_ROWS;
   const int q_off = q_offset[b];
-  const SplitPlan plan(q_off + r0 / rep, q_off + min(R - 1, r0 + S_ROWS - 1) / rep, Skv,
-                       kv_offset, causal, window, splits);
+  const KeyPos<POS> kp{POS ? kv_pos + static_cast<size_t>(b) * Skv : nullptr, kv_offset};
+  const SplitPlan plan(q_off + r0 / rep, q_off + min(R - 1, r0 + S_ROWS - 1) / rep, Skv, kp,
+                       causal, window, splits);
   if (s >= plan.n_active) return;            // no key of this split is visible
   const int ts = plan.t_lo + s * plan.chunk;
   const int n_tiles = max(0, min(plan.t_hi, ts + plan.chunk) - ts);
@@ -337,7 +378,7 @@ flash_fwd_kernel_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
       for (int e = 0; e < 4; ++e) {
         const int h = e / 2;
         const bool ok = row_ok[h] &&
-                        visible(q_pos[h], key0 + j * 8 + 2 * c + (e & 1), Skv, kv_offset, causal, window);
+                        visible(q_pos[h], key0 + j * 8 + 2 * c + (e & 1), Skv, kp, causal, window);
         vis |= static_cast<uint32_t>(ok) << (j * 4 + e);
         sc[j][e] = ok ? sc[j][e] * scale : NEG_INF;
         mx[h] = fmaxf(mx[h], sc[j][e]);
@@ -477,7 +518,10 @@ struct WgCfg {
   // 1024 B of slack to align Q to the swizzle atom, Q, the ring, then the
   // mbarriers: Q full, K full/empty and V full/empty per stage.
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (1 + 4 * STAGES);
-  static_assert(STAGES >= 2 && SMEM <= SMEM_LIMIT, "tiles do not fit shared memory");
+  // With key positions, after the mbarriers: each consumer warpgroup's copy
+  // of the 128 positions of the tile it masks.
+  static constexpr int POS_BYTES = 2 * W_BN * 4;
+  static_assert(STAGES >= 2 && SMEM + POS_BYTES <= SMEM_LIMIT, "tiles do not fit shared memory");
 };
 
 // One (64 columns, rows, 1) box of a 3-D (hd, S, B x heads) tensor map.
@@ -583,15 +627,15 @@ struct WgmmaRS<64> {
 };
 
 
-template <int HD>
+template <int HD, bool POS>
 __global__ void __launch_bounds__(W_THREADS, 1)
 flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
-                       const int* __restrict__ q_offset, __nv_bfloat16* __restrict__ out,
-                       float* __restrict__ acc_out, float* __restrict__ m_out,
-                       float* __restrict__ l_out, int H, int Hkv, int Sq, int Skv,
-                       int kv_offset, int causal, int window, float scale) {
+                       const int* __restrict__ q_offset, const int* __restrict__ kv_pos,
+                       __nv_bfloat16* __restrict__ out, float* __restrict__ acc_out,
+                       float* __restrict__ m_out, float* __restrict__ l_out, int H, int Hkv,
+                       int Sq, int Skv, int kv_offset, int causal, int window, float scale) {
   using C = WgCfg<HD>;
   constexpr int STAGES = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -610,8 +654,9 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int h = blockIdx.x, b = blockIdx.y, hk = h / (H / Hkv);
   const int q0 = qt * W_BM;
   const int q_off = q_offset[b];
+  const KeyPos<POS> kp{POS ? kv_pos + static_cast<size_t>(b) * Skv : nullptr, kv_offset};
   int lo, hi;
-  visible_range(q_off + q0, q_off + min(q0 + W_BM, Sq) - 1, Skv, kv_offset, causal, window, lo, hi);
+  visible_range(q_off + q0, q_off + min(q0 + W_BM, Sq) - 1, Skv, kp, causal, window, lo, hi);
   const int t_begin = lo / W_BN;
   const int t_end = hi > lo ? (hi + W_BN - 1) / W_BN : t_begin;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -663,6 +708,17 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   // -------------------------------------------------------------- consumers
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int wg = warp / 4, wq = warp % 4;    // warpgroup, warp within it
+  // Key positions (POS): each thread loads one of a tile's 128 before the
+  // tile's S product is issued, and the warpgroup stages them in its slot of
+  // shared memory for the mask (named barrier 3 + wg over its 128 threads),
+  // so no thread keeps the 32 its columns need in registers.
+  int* const pos_s = reinterpret_cast<int*>(smem_raw + (bars - raw) + 8 * (1 + 4 * STAGES)) +
+                     wg * W_BN;
+  const int tid_wg = threadIdx.x % 128;
+  auto fetch_pos = [&](int t) -> int {
+    const int kidx = t * W_BN + tid_wg;
+    return kidx < Skv ? kp(kidx) : 0;
+  };
   const int g = lane / 4, c = lane % 4;
   const int row0 = q0 + wg * 64 + wq * 16 + g;               // this thread's rows: row0, row0 + 8
   const int q_pos[2] = {q_off + row0, q_off + row0 + 8};
@@ -697,9 +753,14 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   // Online softmax of tile t's scores, in place: s[4j + e] (row row0 +
   // 8 (e / 2), key t*BN + 8j + 2c + (e & 1)) becomes p. Returns the rescale
   // factors of the rows' earlier sums in corr.
-  auto softmax = [&](float (&s)[W_BN / 2], int t, float (&corr)[2]) {
+  auto softmax = [&](float (&s)[W_BN / 2], int t, float (&corr)[2], int my_pos) {
     const int k0 = t * W_BN;
-    const bool edge = k0 + W_BN > Skv ||
+    if constexpr (POS) {
+      named_bar_sync(3 + wg, 128);           // every thread has read the last tile's
+      pos_s[tid_wg] = my_pos;
+      named_bar_sync(3 + wg, 128);
+    }
+    const bool edge = POS || k0 + W_BN > Skv ||
                       (causal && kv_offset + k0 + W_BN - 1 > q_off + wq_first) ||
                       (window && q_off + wq_last - (kv_offset + k0) >= window);
     // Off the mask edges with a positive scale, s stays unscaled (the max
@@ -710,8 +771,14 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int i = 0; i < W_BN / 2; ++i) {
         const int e = i % 4;
-        const bool ok = visible(q_pos[e / 2], k0 + (i / 4) * 8 + 2 * c + (e & 1), Skv, kv_offset,
-                                causal, window);
+        const int kidx = k0 + (i / 4) * 8 + 2 * c + (e & 1);
+        bool ok;
+        if constexpr (POS) {
+          const int d = q_pos[e / 2] - pos_s[kidx - k0];
+          ok = kidx < Skv && (!causal || d >= 0) && (!window || d < window);
+        } else {
+          ok = visible(q_pos[e / 2], kidx, Skv, kp, causal, window);
+        }
         s[i] = ok ? s[i] * scale : NEG_INF;
         mx[e / 2] = fmaxf(mx[e / 2], s[i]);
       }
@@ -779,6 +846,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     if (wg == 1) named_bar_arrive(other_bar, 256);
     float s[W_BN / 2], corr[2];
     uint32_t pa[W_BN / 16][4];
+    int my_pos = POS ? fetch_pos(t_begin) : 0;
     mbar_wait(k_full + 8 * stage, phase);
     my_turn();
     fence_regs(s);
@@ -788,12 +856,13 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     wgmma_wait<0>();
     fence_regs(s);
     if (lane == 0) mbar_arrive(k_empty + 8 * stage);
-    softmax(s, t_begin, corr);
+    softmax(s, t_begin, corr, my_pos);
     to_a(s, pa);
     int pv_stage = stage;                    // the stage of the tile whose P V is pending
     uint32_t pv_phase = phase;
     advance();
     for (int t = t_begin + 1; t < t_end; ++t) {
+      if constexpr (POS) my_pos = fetch_pos(t);
       mbar_wait(k_full + 8 * stage, phase);
       mbar_wait(v_full + 8 * pv_stage, pv_phase);
       my_turn();
@@ -807,7 +876,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
       wgmma_wait<1>();                       // S(t) done; P(t-1) V(t-1) may still run
       fence_regs(s);
       if (lane == 0) mbar_arrive(k_empty + 8 * stage);
-      softmax(s, t, corr);
+      softmax(s, t, corr, my_pos);
       wgmma_wait<0>();
       fence_regs(o);
       fence_regs(pa);                        // P(t-1) was read until here
@@ -928,6 +997,7 @@ cudaError_t set_smem_once(K kernel, int bytes, bool (&done)[MAX_DEVICES]) {
 struct Args {
   const void *q, *k, *v;
   const int* q_offset;
+  const int* kv_pos;
   __nv_bfloat16* out;
   float *acc, *m, *l, *ws;
   int* counters;
@@ -936,25 +1006,27 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int HD>
+template <int HD, bool POS>
 int launch_split(const Args& a) {
   static bool done[MAX_DEVICES];
-  const cudaError_t err = set_smem_once(flash_fwd_kernel_split<HD>, SplitCfg<HD>::SMEM, done);
+  const cudaError_t err = set_smem_once(flash_fwd_kernel_split<HD, POS>, SplitCfg<HD>::SMEM,
+                                        done);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = (a.H / a.Hkv) * a.Sq;
   const int n_rt = (rows + S_ROWS - 1) / S_ROWS;
   const dim3 grid(n_rt * a.splits, a.Hkv, a.B);
-  flash_fwd_kernel_split<HD><<<grid, S_THREADS, SplitCfg<HD>::SMEM, a.stream>>>(
+  flash_fwd_kernel_split<HD, POS><<<grid, S_THREADS, SplitCfg<HD>::SMEM, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), a.q_offset, a.out, a.acc, a.m, a.l, a.ws,
+      static_cast<const __nv_bfloat16*>(a.v), a.q_offset, a.kv_pos, a.out, a.acc, a.m, a.l, a.ws,
       a.counters, a.H, a.Hkv, a.Sq, a.Skv, a.kv_offset, a.causal, a.window, a.scale, a.splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <int HD, bool POS>
 int launch_wgmma(const Args& a) {
   static bool done[MAX_DEVICES];
-  const cudaError_t err = set_smem_once(flash_fwd_kernel_wgmma<HD>, WgCfg<HD>::SMEM, done);
+  constexpr int smem = WgCfg<HD>::SMEM + (POS ? WgCfg<HD>::POS_BYTES : 0);
+  const cudaError_t err = set_smem_once(flash_fwd_kernel_wgmma<HD, POS>, smem, done);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap q_map, k_map, v_map;
   if (!encode_3d(&q_map, a.q, HD, a.Sq, a.B * a.H, W_BM) ||
@@ -962,8 +1034,8 @@ int launch_wgmma(const Args& a) {
       !encode_3d(&v_map, a.v, HD, a.Skv, a.B * a.Hkv, W_BN))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(a.H, a.B, (a.Sq + W_BM - 1) / W_BM);
-  flash_fwd_kernel_wgmma<HD><<<grid, W_THREADS, WgCfg<HD>::SMEM, a.stream>>>(
-      q_map, k_map, v_map, a.q_offset, a.out, a.acc, a.m, a.l, a.H, a.Hkv, a.Sq, a.Skv,
+  flash_fwd_kernel_wgmma<HD, POS><<<grid, W_THREADS, smem, a.stream>>>(
+      q_map, k_map, v_map, a.q_offset, a.kv_pos, a.out, a.acc, a.m, a.l, a.H, a.Hkv, a.Sq, a.Skv,
       a.kv_offset, a.causal, a.window, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -974,9 +1046,11 @@ int launch_wgmma(const Args& a) {
 // `ws` holds their partials and `counters` one zeroed int per (batch row,
 // KV head, 16-row tile). path 1: the prefill (wgmma) path. out != nullptr:
 // normalized bf16 output; otherwise acc/m/l receive the fp32 partial
-// triple. One kernel launch per call.
+// triple. kv_pos: nullptr (key j at kv_offset + j) or (B, Skv) int32 key
+// positions. One kernel launch per call.
 extern "C" int repro_flash_fwd_bf16(const void* q, const void* k, const void* v,
-                                    const void* q_offset, void* out, void* acc, void* m,
+                                    const void* q_offset, const void* kv_pos, void* out,
+                                    void* acc, void* m,
                                     void* l, void* ws, void* counters, int B, int H, int Hkv,
                                     int Sq, int Skv, int hd, int kv_offset, int causal,
                                     int window, float scale, int path, int splits,
@@ -990,10 +1064,16 @@ extern "C" int repro_flash_fwd_bf16(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   if (path == 0 && (splits < 1 || (splits > 1 && (ws == nullptr || counters == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, static_cast<const int*>(q_offset), static_cast<__nv_bfloat16*>(out),
+  const Args a{q, k, v, static_cast<const int*>(q_offset), static_cast<const int*>(kv_pos),
+               static_cast<__nv_bfloat16*>(out),
                static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
                static_cast<float*>(ws), static_cast<int*>(counters), B, H, Hkv, Sq, Skv,
                kv_offset, causal, window, splits, scale, static_cast<cudaStream_t>(stream)};
-  if (path == 0) return hd == 128 ? launch_split<128>(a) : launch_split<64>(a);
-  return hd == 128 ? launch_wgmma<128>(a) : launch_wgmma<64>(a);
+  const bool pos = kv_pos != nullptr;
+  if (path == 0) {
+    if (pos) return hd == 128 ? launch_split<128, true>(a) : launch_split<64, true>(a);
+    return hd == 128 ? launch_split<128, false>(a) : launch_split<64, false>(a);
+  }
+  if (pos) return hd == 128 ? launch_wgmma<128, true>(a) : launch_wgmma<64, true>(a);
+  return hd == 128 ? launch_wgmma<128, false>(a) : launch_wgmma<64, false>(a);
 }

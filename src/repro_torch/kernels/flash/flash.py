@@ -1,11 +1,15 @@
 """Blockwise (flash) attention forward: the wrapper of ``csrc/flash.cu``.
 
 The contract of the JAX package's Pallas kernel
-``repro.kernels.flash.flash.flash_attention``, with one generalisation:
+``repro.kernels.flash.flash.flash_attention``, with two generalisations:
 ``q_offset`` is a ``(B,)`` int32 tensor, one base position per batch row
 (a uniform vector is exactly the TPU kernel's scalar), so the batched
-decode step can use it. For a CUDA tensor it launches the kernel or raises;
-only a CPU tensor takes the plain version (``ref.flash_ref``).
+decode step can use it; and the keys' positions may be given as a ``(B,
+Skv)`` int32 ``kv_pos`` in place of the run ``kv_offset + j`` (the
+reference's ``blockwise_attention(q, k, v, q_pos, kv_pos)`` contract: a
+sliding-window ring cache's slots wrap). For a CUDA tensor it launches the
+kernel or raises; only a CPU tensor takes the plain version
+(``ref.flash_ref``).
 
 One launch per call, on one of two device paths that ``plan`` picks from
 the shapes: the **decode** path packs the ``H / Hkv`` query heads that
@@ -67,16 +71,21 @@ def plan(B: int, H: int, Hkv: int, Sq: int, Skv: int, n_sms: int, *,
 
 
 def split_ranges(q_first: int, q_last: int, Skv: int, *, kv_offset: int = 0,
-                 causal: bool = True, window: int = 0,
-                 splits: int = 1) -> List[Tuple[int, int]]:
+                 causal: bool = True, window: int = 0, splits: int = 1,
+                 key_positions: bool = False) -> List[Tuple[int, int]]:
     """Keys ``[start, end)`` of each split of one decode group (one batch row
     and row tile, whose queries sit at positions ``q_first..q_last``) that
     has any: the keys the group can see, cut into runs of whole 64-key
-    tiles, clipped to the visible range. A group that sees no key keeps one
-    empty split (it writes m = -1e30, l = 0). The kernel's ``SplitPlan``
-    computes the same from ``q_offset`` on the device."""
-    lo = max(0, q_first - window + 1 - kv_offset) if window else 0
-    hi = min(Skv, q_last - kv_offset + 1) if causal else Skv
+    tiles, clipped to the visible range. With ``key_positions`` (a launch
+    given ``kv_pos``) the keys are no contiguous run and every key is in the
+    range. A group that sees no key keeps one empty split (it writes m =
+    -1e30, l = 0). The kernel's ``SplitPlan`` computes the same from
+    ``q_offset`` on the device."""
+    if key_positions:
+        lo, hi = 0, Skv
+    else:
+        lo = max(0, q_first - window + 1 - kv_offset) if window else 0
+        hi = min(Skv, q_last - kv_offset + 1) if causal else Skv
     t_lo = lo // KV_TILE
     t_hi = -(-hi // KV_TILE) if hi > lo else t_lo
     n_t = t_hi - t_lo
@@ -101,10 +110,12 @@ def _split_counters(device: torch.device, n: int) -> torch.Tensor:
 
 
 def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              q_offset: torch.Tensor) -> None:
+              q_offset: torch.Tensor, kv_pos: Optional[torch.Tensor]) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"flash kernel needs CUDA tensors, got {q.device}")
-    for name, t in (("k", k), ("v", v), ("q_offset", q_offset)):
+    named = (("k", k), ("v", v), ("q_offset", q_offset)) + \
+        ((("kv_pos", kv_pos),) if kv_pos is not None else ())
+    for name, t in named:
         if t.device != q.device:
             raise ValueError(f"flash: q on {q.device}, {name} on {t.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -128,7 +139,11 @@ def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q_offset.dtype != torch.int32 or tuple(q_offset.shape) != (B,):
         raise ValueError(f"flash: q_offset must be ({B},) int32, got "
                          f"{tuple(q_offset.shape)} {q_offset.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("q_offset", q_offset)):
+    if kv_pos is not None and (kv_pos.dtype != torch.int32 or
+                               tuple(kv_pos.shape) != (B, Skv)):
+        raise ValueError(f"flash: kv_pos must be ({B}, {Skv}) int32, got "
+                         f"{tuple(kv_pos.shape)} {kv_pos.dtype}")
+    for name, t in (("q", q),) + named:
         if not t.is_contiguous():
             raise ValueError(f"flash: {name} must be contiguous")
         if t.data_ptr() % 16:
@@ -137,10 +152,13 @@ def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: torch.Tensor, *, kv_offset: int = 0,
+                    kv_pos: Optional[torch.Tensor] = None,
                     causal: bool = True, window: int = 0,
                     sm_scale: float | None = None, return_partial: bool = False,
                     path: Optional[str] = None, splits: Optional[int] = None):
-    """q: (B, H, Sq, hd); k/v: (B, Hkv, Skv, hd); q_offset: (B,) int32.
+    """q: (B, H, Sq, hd); k/v: (B, Hkv, Skv, hd); q_offset: (B,) int32;
+    ``kv_pos``: optional (B, Skv) int32 key positions (``kv_offset`` is then
+    unused).
 
     Returns the normalized output in ``q.dtype`` (``l`` floored at 1e-30),
     or with ``return_partial`` the fp32 ``(acc, m, l)`` triple, acc
@@ -148,10 +166,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel's plan (see ``plan``; for measurement and tests).
     """
     if q.device.type == "cpu":
-        return flash_ref(q, k, v, q_offset, kv_offset=kv_offset, causal=causal,
-                         window=window, sm_scale=sm_scale,
+        return flash_ref(q, k, v, q_offset, kv_offset=kv_offset, kv_pos=kv_pos,
+                         causal=causal, window=window, sm_scale=sm_scale,
                          return_partial=return_partial)
-    _validate(q, k, v, q_offset)
+    _validate(q, k, v, q_offset, kv_pos)
     if window < 0:
         raise ValueError(f"flash: window must be >= 0, got {window}")
     B, H, Sq, hd = q.shape
@@ -174,7 +192,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ws_ptr, cnt_ptr = ws.data_ptr(), _split_counters(q.device, groups).data_ptr()
     with torch.cuda.device(q.device):
         rc = load_library().repro_flash_fwd_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offset.data_ptr(), out_ptr,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offset.data_ptr(),
+            None if kv_pos is None else kv_pos.data_ptr(), out_ptr,
             *ptrs, ws_ptr, cnt_ptr, B, H, Hkv, Sq, Skv, hd, int(kv_offset),
             int(bool(causal)), int(window), float(scale), PATHS.index(path), splits,
             torch.cuda.current_stream(q.device).cuda_stream)

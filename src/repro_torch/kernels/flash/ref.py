@@ -7,18 +7,22 @@ products and sums, masks from absolute positions, ``p`` rounded to
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.models.attn_core import NEG_INF, _pick_block
 
 
 def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              q_offset: torch.Tensor, *, kv_offset: int = 0, causal: bool = True,
+              q_offset: torch.Tensor, *, kv_offset: int = 0,
+              kv_pos: Optional[torch.Tensor] = None, causal: bool = True,
               window: int = 0, sm_scale: float | None = None,
               return_partial: bool = False, block_kv: int = 1024):
     """q: (B, H, Sq, hd); k/v: (B, Hkv, Skv, hd); q_offset: (B,) int —
     query row i of batch row b sits at ``q_offset[b] + i``, key j at
-    ``kv_offset + j``.
+    ``kv_offset + j``, or at ``kv_pos[b, j]`` when the (B, Skv) key
+    positions are given.
 
     Returns the normalized output in ``q.dtype``, or with ``return_partial``
     the fp32 ``(acc, m, l)`` triple.
@@ -32,7 +36,9 @@ def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = sm_scale if sm_scale is not None else hd ** -0.5
     dev = q.device
     q_pos = q_offset.to(dev).long()[:, None] + torch.arange(Sq, device=dev)   # (B, Sq)
-    kv_pos = kv_offset + torch.arange(Skv, device=dev)                       # (Skv,)
+    if kv_pos is None:
+        kv_pos = (kv_offset + torch.arange(Skv, device=dev)).expand(B, Skv)
+    kv_pos = kv_pos.to(dev).long()                                           # (B, Skv)
     block = _pick_block(Skv, block_kv)
 
     m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=dev)
@@ -43,7 +49,7 @@ def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kb = k[:, :, start:start + block].float()
         vb = v[:, :, start:start + block]
         s = (qf @ kb.transpose(-1, -2)) * scale                             # (B, H, Sq, t)
-        d = q_pos[:, None, :, None] - kv_pos[start:start + block]            # (B, 1, Sq, t)
+        d = q_pos[:, None, :, None] - kv_pos[:, None, None, start:start + block]   # (B, 1, Sq, t)
         vis = torch.ones_like(d, dtype=torch.bool)
         if causal:
             vis &= d >= 0

@@ -5,13 +5,24 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-57b-a14b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --reduced --device cpu \
         --attn 2 2 2 --moe 1 4 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b --reduced --device cpu \
+        --shape long_500k
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b --reduced --device cpu \
+        --shape long_500k --attn 1 2 2 --pods 2
 
 The first two serve a full-width model cut to 4 layers on the CUDA card (the
 port's serving slice); the third a smoke-sized model on the CPU; the last
 serves across the ranks of a pp = 1 fold, attention (dp, cp, tp) and MoE
 (edp, ep, etp), one process a rank over gloo (``launch.world.serve_world``;
-the reference launcher serves at (2, 2, 2) / (2, 2, 2)). ``--reduced``
-runs the reference launcher's ``--reduced`` workload: 4 slots, 64 slots of
+the reference launcher serves at (2, 2, 2) / (2, 2, 2)). A dense
+architecture (``llama3.2-1b``, ``qwen1.5-4b``, ``codeqwen1.5-7b``) serves
+the same way. ``--shape long_500k`` serves the sliding-window variant that
+``launch.mappings.model_for`` makes of a full-attention architecture for
+that row (a ring of ``min(window, s_max)`` cache slots a request);
+``--pods 2`` runs the fold on two pods with ``pod_role="cp"`` (the pods
+extend CP, as ``launch.mappings.pcfg_for`` maps the ``long_500k`` rows at
+``multi_pod``). ``--reduced`` runs the reference launcher's ``--reduced`` workload: 4 slots, 64 slots of
 context in pages of 8, prefill chunks of 8, four prompts of 8 tokens.
 Weights and prompts are random, from ``--seed``.
 """
@@ -34,16 +45,21 @@ REDUCED_ENGINE = dict(max_batch=4, s_max=64, cache="paged", page_size=8, prefill
 REDUCED_PROMPT_LENS = (8, 8, 8, 8)
 
 
-def slice_config(arch: str, *, layers: Optional[int] = None,
-                 reduce: bool = False) -> ModelConfig:
+def slice_config(arch: str, *, layers: Optional[int] = None, reduce: bool = False,
+                 shape: Optional[str] = None) -> ModelConfig:
     """The serving slice's configuration: the published widths (or the
-    ``reduced`` smoke size), depth cut to ``layers``, and the MoE knobs the
-    port runs — sorted permute (the GMM kernel's layout) and dropless."""
-    cfg = get_config(arch)
+    ``reduced`` smoke size) of ``arch`` as ``launch.mappings.model_for``
+    makes it for ``shape`` (``long_500k``: a sliding window), depth cut to
+    ``layers``, and the MoE knobs the port runs — sorted permute (the GMM
+    kernel's layout) and dropless."""
+    from repro_torch.launch.mappings import model_for
+    cfg = model_for(arch, shape) if shape else get_config(arch)
     if reduce:
         cfg = reduced(cfg)
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
+    if cfg.moe is None:
+        return cfg
     return dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, permute_mode="sort", dropless=True))
 
@@ -80,7 +96,13 @@ def main() -> None:
                     help="serve across the ranks of this attention fold")
     ap.add_argument("--moe", type=int, nargs=3, metavar=("EDP", "EP", "ETP"), default=None,
                     help="the MoE fold of the same ranks (default: the attention fold's)")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="with --attn: pods that extend CP (pod_role='cp')")
+    ap.add_argument("--shape", default=None,
+                    help="the mapping row's shape, e.g. long_500k (its sliding window)")
     args = ap.parse_args()
+    if args.pods > 1 and not args.attn:
+        ap.error("--pods goes with --attn")
 
     import torch
 
@@ -95,13 +117,14 @@ def main() -> None:
         attn = tuple(args.attn or args.moe)
         ranks = serve_world(dict(arch=args.arch, attn=attn, moe=tuple(args.moe or attn),
                                  reduce=args.reduced, layers=args.layers, engine=engine,
-                                 prompt_lens=lens, new_tokens=args.tokens, seed=args.seed),
+                                 prompt_lens=lens, new_tokens=args.tokens, seed=args.seed,
+                                 shape=args.shape, pods=args.pods),
                             device=str(device))[0]
         same = all(r["results"] == ranks[0]["results"] for r in ranks)
         for i, r in enumerate(ranks[0]["results"]):
             print(f"request {i}: {r['tokens']}")
         print(f"{args.arch} at attention (dp, cp, tp) {attn} / MoE (edp, ep, etp) "
-              f"{tuple(args.moe or attn)} on {len(ranks)} ranks ({device}): "
+              f"{tuple(args.moe or attn)}, {args.pods} pod(s), on {len(ranks)} ranks ({device}): "
               f"{len(ranks[0]['results'])} requests, {len(ranks[0]['forwards'])} steps, "
               f"serving wall {max(r['wall_s'] for r in ranks):.3f} s; every rank's tokens "
               f"equal: {same}")
@@ -109,7 +132,7 @@ def main() -> None:
             raise SystemExit("serve: the ranks' results differ")
         return
 
-    cfg = slice_config(args.arch, layers=args.layers, reduce=args.reduced)
+    cfg = slice_config(args.arch, layers=args.layers, reduce=args.reduced, shape=args.shape)
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     params = init_lm(cfg, seed=args.seed, dtype=dtype, device=device)
     t0 = time.perf_counter()
@@ -120,7 +143,8 @@ def main() -> None:
         print(f"request {r}: {results[r].tokens.tolist()}")
     n_tok = sum(len(results[r].tokens) for r in rids)
     print(f"{cfg.name} x{cfg.n_layers} layers on {device}: {len(rids)} requests, "
-          f"{n_tok} tokens generated in {wall:.3f} s, {len(eng.stats)} steps")
+          f"{n_tok} tokens generated in {wall:.3f} s, {len(eng.stats)} steps, "
+          f"{eng.cache_len} cache slots a request (window {cfg.sliding_window})")
 
 
 if __name__ == "__main__":

@@ -76,14 +76,24 @@ def train_config(arch: str, *, layers: Optional[int] = None,
                  reduce: bool = False) -> ModelConfig:
     """The training slice's configuration: the published widths (or the
     ``reduced`` smoke size), depth cut to ``layers``, the config's own
-    token-dropping MoE in the sorted layout (the GMM kernel's), and fp32
-    compute for the smoke size."""
+    token-dropping MoE in the sorted layout (the GMM kernel's; a dense
+    architecture has none), and fp32 compute for the smoke size."""
     cfg = get_config(arch)
     if reduce:
         cfg = dataclasses.replace(reduced(cfg), dtype="float32")
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
+    if cfg.moe is None:
+        return cfg
     return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, permute_mode="sort"))
+
+
+def moe_metrics(m) -> str:
+    """The MoE terms of a step's metrics (none for a dense model), printed."""
+    if "moe_aux_loss" not in m:
+        return ""
+    return (f"aux {float(m['moe_aux_loss']):.4f} z {float(m['moe_z_loss']):.4f} "
+            f"drop {float(m['moe_drop_fraction']):.4f} ")
 
 
 def step_flops(cfg: ModelConfig, seq: int, batch: int) -> float:
@@ -195,8 +205,7 @@ def main() -> None:
         loss = float(m["loss"])
         dt = time.perf_counter() - t0
         line = (f"step {i}: loss {loss:.4f} ce {float(m['ce_loss']):.4f} "
-                f"aux {float(m['moe_aux_loss']):.4f} z {float(m['moe_z_loss']):.4f} "
-                f"drop {float(m['moe_drop_fraction']):.4f} grad_norm "
+                f"{moe_metrics(m)}grad_norm "
                 f"{float(m['grad_norm']):.4f} step_ok {bool(m['step_ok'])} "
                 f"{dt * 1e3:.1f} ms {args.batch * args.seq / dt:.1f} tok/s")
         if cuda:
@@ -224,8 +233,7 @@ def _main_folded(args) -> None:
           f"{args.master_weights}: {len(res)} ranks over gloo, {args.batch} x {args.seq} "
           f"tokens a step, {run['params'] / 1e6:.1f} M parameters stored on rank 0")
     for i, m in enumerate(run["metrics"]):
-        print(f"step {i}: loss {m['loss']:.4f} ce {m['ce_loss']:.4f} aux {m['moe_aux_loss']:.4f} "
-              f"z {m['moe_z_loss']:.4f} drop {m['moe_drop_fraction']:.4f} grad_norm "
+        print(f"step {i}: loss {m['loss']:.4f} ce {m['ce_loss']:.4f} {moe_metrics(m)}grad_norm "
               f"{m['grad_norm']:.4f} step_ok {bool(m['step_ok'])} rank-0 wall "
               f"{run['step_s'][i] * 1e3:.1f} ms", flush=True)
     for r in res:

@@ -13,7 +13,11 @@ importable by name, so a module-level function) after each has joined the
 default group through a file rendezvous. It returns every rank's result,
 which must pickle, in rank order, and raises when a rank raises, dies or
 outlives ``timeout_s``: the other ranks are then killed, so a hung
-collective is a failure and never a stuck caller.
+collective is a failure and never a stuck caller. Inside ``with
+pool(world, backend=..., device=...)`` every such ``spawn`` runs on the
+same ``world`` processes, one call after another, so a run of several
+worlds pays each process's start (interpreter, CUDA context, kernel
+library, first launches) once.
 
 Gotchas a caller meets:
 
@@ -42,8 +46,10 @@ training step is started by ``python -m repro_torch.launch.train
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import datetime
+import gc
 import json
 import math
 import os
@@ -66,18 +72,23 @@ def init_world(backend: str, rank: int, world: int, init_method: str, *,
                             timeout=datetime.timedelta(seconds=timeout_s))
 
 
+def _join(rank: int, world: int, backend: str, init_method: str, device: str,
+          timeout_s: float) -> None:
+    torch.set_num_threads(1)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        # Ranks that share a card cannot take each other's cached but
+        # unused blocks: growable segments keep each rank's reserve near
+        # what it has allocated (set before the allocator first reads it).
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+        torch.cuda.set_device(dev.index or 0)
+    init_world(backend, rank, world, init_method, timeout_s=timeout_s)
+
+
 def _child(rank: int, world: int, backend: str, init_method: str, device: str,
            fn: Callable, args: Sequence, timeout_s: float, results) -> None:
     try:
-        torch.set_num_threads(1)
-        dev = torch.device(device)
-        if dev.type == "cuda":
-            # Ranks that share a card cannot take each other's cached but
-            # unused blocks: growable segments keep each rank's reserve near
-            # what it has allocated (set before the allocator first reads it).
-            os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
-            torch.cuda.set_device(dev.index or 0)
-        init_world(backend, rank, world, init_method, timeout_s=timeout_s)
+        _join(rank, world, backend, init_method, device, timeout_s)
         try:
             out = fn(rank, world, *args)
         finally:
@@ -87,6 +98,70 @@ def _child(rank: int, world: int, backend: str, init_method: str, device: str,
         results.put((rank, False, traceback.format_exc()))
 
 
+def _pool_child(rank: int, world: int, backend: str, init_method: str, device: str,
+                timeout_s: float, jobs, results) -> None:
+    """A rank of :func:`pool`: each job ``(fn, args)`` from ``jobs`` in turn
+    until ``None``, its memory released before the next; the first failure
+    ends the rank."""
+    try:
+        _join(rank, world, backend, init_method, device, timeout_s)
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+        return
+    try:
+        while (job := jobs.get()) is not None:
+            fn, args = job
+            try:
+                out = fn(rank, world, *args)
+            except BaseException:
+                results.put((rank, False, traceback.format_exc()))
+                return
+            results.put((rank, True, out))
+            del out, job
+            gc.collect()
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+                # gloo stages CUDA tensors through pinned host blocks, which
+                # the host allocator keeps: give them back to the machine.
+                host_empty = getattr(torch._C, "_host_emptyCache", None)
+                if host_empty is not None:
+                    host_empty()
+    finally:
+        dist.destroy_process_group()
+
+
+def _gather(procs: Sequence, results, world: int, timeout_s: float) -> List[Any]:
+    """Every rank's result from ``results``, in rank order; raises when a
+    rank raises, dies or outlives ``timeout_s``."""
+    got, deadline = {}, time.monotonic() + timeout_s
+    while len(got) < world:
+        try:
+            rank, ok, out = results.get(timeout=0.5)
+        except queue.Empty:
+            dead = [r for r, p in enumerate(procs) if r not in got and p.exitcode
+                    not in (None, 0)]
+            if dead:
+                raise RuntimeError(f"spawn: rank(s) {dead} exited with codes "
+                                   f"{[procs[r].exitcode for r in dead]}") from None
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"spawn: ranks {sorted(set(range(world)) - set(got))} "
+                                   f"did not finish within {timeout_s} s") from None
+            continue
+        if not ok:
+            raise RuntimeError(f"spawn: rank {rank} failed:\n{out}")
+        got[rank] = out
+    return [got[r] for r in range(world)]
+
+
+def _stop(procs: Sequence, results, wait_s: float) -> None:
+    for p in procs:
+        p.join(timeout=wait_s)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    results.close()
+
+
 def spawn(fn: Callable, world: int, *, backend: str, device: str,
           args: Sequence = (), timeout_s: float = 300.0,
           init_dir: Optional[str] = None) -> List[Any]:
@@ -94,9 +169,13 @@ def spawn(fn: Callable, world: int, *, backend: str, device: str,
     rank order. ``device`` ("cpu", "cuda", "cuda:0") is made current in each
     child before ``fn`` runs (``fn`` picks its own tensors' device); there is
     no fallback from CUDA to the CPU. ``init_dir`` holds the rendezvous file
-    (default: a fresh temporary directory)."""
+    (default: a fresh temporary directory). Inside an open :func:`pool` of
+    the same world size, backend and device, ``fn`` runs on its ranks."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("spawn(device='cuda'): no CUDA device is available")
+    if _open_pool is not None and init_dir is None and \
+            _open_pool.key == (world, backend, device):
+        return _open_pool.run(fn, args, timeout_s)
     init_dir = init_dir or tempfile.mkdtemp(prefix="repro-world-")
     init_method = f"file://{os.path.join(init_dir, 'rdzv')}"
     ctx = mp.get_context("spawn")
@@ -106,32 +185,74 @@ def spawn(fn: Callable, world: int, *, backend: str, device: str,
              for r in range(world)]
     for p in procs:
         p.start()
-    got, deadline = {}, time.monotonic() + timeout_s
+    done = False
     try:
-        while len(got) < world:
-            try:
-                rank, ok, out = results.get(timeout=0.5)
-            except queue.Empty:
-                dead = [r for r, p in enumerate(procs) if r not in got and p.exitcode
-                        not in (None, 0)]
-                if dead:
-                    raise RuntimeError(f"spawn: rank(s) {dead} exited with codes "
-                                       f"{[procs[r].exitcode for r in dead]}") from None
-                if time.monotonic() > deadline:
-                    raise TimeoutError(f"spawn: ranks {sorted(set(range(world)) - set(got))} "
-                                       f"did not finish within {timeout_s} s") from None
-                continue
-            if not ok:
-                raise RuntimeError(f"spawn: rank {rank} failed:\n{out}")
-            got[rank] = out
+        out = _gather(procs, results, world, timeout_s)
+        done = True
     finally:
-        for p in procs:
-            p.join(timeout=10 if len(got) == world else 0.1)
-            if p.is_alive():
-                p.kill()
-                p.join()
-        results.close()
-    return [got[r] for r in range(world)]
+        _stop(procs, results, 10 if done else 0.1)
+    return out
+
+
+class _Pool:
+    """The ranks of :func:`pool`."""
+
+    def __init__(self, world: int, backend: str, device: str, timeout_s: float):
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("pool(device='cuda'): no CUDA device is available")
+        self.key = (world, backend, device)
+        init_dir = tempfile.mkdtemp(prefix="repro-pool-")
+        ctx = mp.get_context("spawn")
+        self.results = ctx.Queue()
+        self.jobs = [ctx.Queue() for _ in range(world)]
+        self.procs = [ctx.Process(target=_pool_child, args=(
+            r, world, backend, f"file://{os.path.join(init_dir, 'rdzv')}", device, timeout_s,
+            self.jobs[r], self.results), daemon=True) for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, fn: Callable, args: Sequence, timeout_s: float) -> List[Any]:
+        global _open_pool
+        for q in self.jobs:
+            q.put((fn, tuple(args)))
+        try:
+            return _gather(self.procs, self.results, self.key[0], timeout_s)
+        except BaseException:      # the other ranks may wait in a collective: end them all
+            _open_pool = None
+            self.close(wait_s=0.1)
+            raise
+
+    def close(self, wait_s: float = 10.0) -> None:
+        for q in self.jobs:
+            q.put(None)
+        _stop(self.procs, self.results, wait_s)
+
+
+_open_pool: Optional[_Pool] = None
+
+
+@contextlib.contextmanager
+def pool(world: int, *, backend: str, device: str, timeout_s: float = 900.0):
+    """Keep ``world`` ranks alive for the block: every :func:`spawn` of that
+    world size, backend and device inside it runs on them, one call after
+    another, instead of starting fresh processes (each of which pays its
+    interpreter, CUDA context, kernel library and first launches again).
+    The ranks join one default group, which every call shares (the groups a
+    call makes stay); a rank frees its cached device and pinned host memory
+    between calls.
+    When a call fails, every rank is ended and later calls spawn afresh.
+    ``timeout_s``: the default group's collective timeout."""
+    global _open_pool
+    if _open_pool is not None:
+        raise RuntimeError("pool: a pool is open already")
+    p = _Pool(world, backend, device, timeout_s)
+    _open_pool = p
+    try:
+        yield p
+    finally:
+        if _open_pool is p:
+            _open_pool = None
+            p.close()
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +275,8 @@ def gmm_shape(arch: str, tokens: int, *, reduce: bool = False,
     cfg, _ = _model(dict(arch=arch, reduce=reduce, dtype="float32"))
     _, ep, etp = fold or FOLDS[arch][0]
     m = cfg.moe
+    if m is None:
+        raise ValueError(f"{arch} has no MoE layers: it launches no GMM")
     C = resolve_chunks(tokens, m.overlap_chunks)
     cap = capacity_per_expert(tokens, m)
     if C > 1:                              # the largest chunk's capacity
@@ -638,7 +761,8 @@ def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, 
     if spec["dtype"]:
         cfg = dataclasses.replace(cfg, dtype=spec["dtype"])
     pcfg = ParallelConfig(attn=PM(*spec["attn"]), moe=PM(*spec["moe"]), pp=spec["pp"],
-                          vpp=spec["vpp"], microbatch=spec["microbatch"])
+                          vpp=spec["vpp"], microbatch=spec["microbatch"], pods=spec["pods"],
+                          pod_role="cp")
     fg = build_folded_groups(pcfg, rank=rank, world=world)
     seqs = spec["batch"] // (max(spec["microbatch"], 1) * fg.dp)
     out: Dict[str, Any] = {"rank": rank, "stage": fg.pp_stage, "sp_index": sp_token_index(fg),
@@ -669,7 +793,8 @@ def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, 
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in
                 shard_batch(next(data), fg, microbatch=spec["microbatch"]).items()}
                for _ in range(n_steps)]
-    out["moe_tokens"] = _moe_token_ids(batches[0]["tokens"], fg, seqs)
+    if "moe" in cfg.blocks():
+        out["moe_tokens"] = _moe_token_ids(batches[0]["tokens"], fg, seqs)
 
     for i, r in enumerate(runs):
         fsdp = spec["fsdp"] if r.fsdp is None else r.fsdp
@@ -727,7 +852,7 @@ def train_world(arch: str, *, attn: Sequence[int], moe: Sequence[int],
                 layers: Optional[int] = None, seq: int = 4096, batch: int = 1, seed: int = 0,
                 lr: float = 3e-4, fsdp: bool = True, master_weights: bool = False,
                 profile: bool = False, against_pp1: bool = False, dtype: Optional[str] = None,
-                timeout_s: float = 900.0) -> List[Dict[str, Any]]:
+                pods: int = 1, timeout_s: float = 900.0) -> List[Dict[str, Any]]:
     """The folded training step of ``arch`` (cut to ``layers``) on
     attention (dp, cp, tp) ``attn`` and MoE (edp, ep, etp) ``moe``, with
     ``pp`` pipeline stages (``vpp`` virtual ones each) and ``microbatch``
@@ -754,13 +879,17 @@ def train_world(arch: str, *, attn: Sequence[int], moe: Sequence[int],
     again at pp = 1 on stage 0's ranks, and every rank's gradients
     (``steps = 0``) or final parameters against it, leaf by leaf (``pp1``).
     ``dtype``: the compute dtype (default the config's: fp32 at the
-    ``reduce`` size)."""
+    ``reduce`` size). ``pods`` > 1 puts the fold on that many pods, which
+    extend CP (``pod_role="cp"``, as ``launch.mappings.pcfg_for`` maps the
+    ``long_500k`` rows at ``multi_pod``; MoE layers refuse it,
+    ``folding.check_sp_moe_handoff``); the world is ``pods · pp · dp · cp ·
+    tp`` ranks."""
     spec = dict(arch=arch, attn=tuple(attn), moe=tuple(moe), runs=[tuple(r) for r in runs],
                 pp=pp, vpp=vpp, microbatch=microbatch, device=device, reduce=reduce,
                 layers=layers, seq=seq, batch=batch, seed=seed, lr=lr, fsdp=fsdp,
                 master_weights=master_weights, profile=profile, against_pp1=against_pp1,
-                dtype=dtype)
-    return spawn(_train_world_rank, pp * math.prod(attn), backend="gloo", device=device,
+                dtype=dtype, pods=pods)
+    return spawn(_train_world_rank, pods * pp * math.prod(attn), backend="gloo", device=device,
                  args=(spec,), timeout_s=timeout_s)
 
 
@@ -841,15 +970,17 @@ def _serve_run(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, Any]:
 
     t_enter = time.time()
     dev = torch.device(spec["device"])
-    fg = build_folded_groups(ParallelConfig(attn=PM(*spec["attn"]), moe=PM(*spec["moe"])),
+    fg = build_folded_groups(ParallelConfig(attn=PM(*spec["attn"]), moe=PM(*spec["moe"]),
+                                            pods=spec["pods"], pod_role="cp"),
                              rank=rank, world=world)
-    cfg = fold_config(slice_config(spec["arch"], layers=spec["layers"], reduce=spec["reduce"]),
-                      spec["moe"][1])
+    cfg = fold_config(slice_config(spec["arch"], layers=spec["layers"], reduce=spec["reduce"],
+                                   shape=spec["shape"]), spec["moe"][1])
     # The ragged exchange across EP ranks: a decode step holds a token or two
     # a shard, and the padded exchange would ship every expert's whole
     # 128-row span (Qwen2 at EP2: 58.7 MB a rank a layer) where the ragged
     # one ships the kept rows, with bitwise the same result.
-    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ragged_a2a=True))
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ragged_a2a=True))
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     out: Dict[str, Any] = {"rank": rank, "dp": fg.attn["dp"].index, "cp": fg.attn["cp"].index,
                            "tp": fg.attn["tp"].index, "tokens_index": fg.moe["tokens"].index,
@@ -913,7 +1044,9 @@ def serve_world(*runs: Dict[str, Any], device: str = "cuda",
     for each of ``runs`` in turn (every fold on the same number of ranks).
     A run is a dict: ``arch`` (``launch.serve.slice_config``, with the
     ragged exchange), ``attn`` (dp, cp, tp), ``moe`` (edp, ep, etp), and
-    optionally ``layers``, ``reduce``, ``engine`` (EngineConfig fields;
+    optionally ``layers``, ``reduce``, ``shape`` (as ``slice_config``
+    takes it; ``long_500k``: a sliding window), ``pods`` (> 1: pods
+    that extend CP, ``pod_role="cp"``), ``engine`` (EngineConfig fields;
     default the launcher's ``ENGINE``), ``prompt_lens`` (default
     ``PROMPT_LENS``), ``new_tokens`` (16), ``seed`` (0), ``keep_logits`` and
     ``profile``. Each rank builds the full model from ``seed`` in its turn
@@ -932,14 +1065,14 @@ def serve_world(*runs: Dict[str, Any], device: str = "cuda",
     end (teardown)."""
     from repro_torch.launch.serve import ENGINE, PROMPT_LENS
     defaults = dict(reduce=False, layers=None, engine=ENGINE, prompt_lens=PROMPT_LENS,
-                    new_tokens=16, seed=0, keep_logits=False, profile=False)
+                    new_tokens=16, seed=0, keep_logits=False, profile=False, shape=None, pods=1)
     specs = []
     for r in runs:
         spec = dict(defaults, **r, device=device)
         spec.update(attn=tuple(spec["attn"]), moe=tuple(spec["moe"]), engine=dict(spec["engine"]),
                     prompt_lens=tuple(spec["prompt_lens"]))
         specs.append(spec)
-    sizes = {math.prod(s["attn"]) for s in specs}
+    sizes = {s["pods"] * math.prod(s["attn"]) for s in specs}
     if len(sizes) != 1:
         raise ValueError(f"serve_world: the runs' folds span {sorted(sizes)} ranks, not one "
                          "world")

@@ -8,7 +8,10 @@ parallelism between layers, and context parallelism by all-gathered K/V or
 the load-balanced ring, ``ParallelConfig.cp_mode``) and
 ``attention_decode_paged`` / ``attention_decode`` → ``_cache_attend`` (at
 a fold: the rank's TP heads, its CP slice of the cache, LSE-merged partials
-or the ring-CP prefill). The page scatter and the
+or the ring-CP prefill). A sliding-window config keeps a ring of ``L``
+slots (position p in slot ``p % L``) whose positions wrap inside the view,
+so its attention gives the flash kernel each slot's position
+(:func:`_cache_kv_positions`). The page scatter and the
 page gather into a contiguous ``(B, Hkv, L, hd)`` view are plain torch
 indexing, as in JAX; the attention itself is the flash kernel (with its
 backward in ``attn_core``).
@@ -184,20 +187,57 @@ def check_decode_heads(cfg: ModelConfig, groups: Optional[FoldedGroups]) -> None
             "'K/V replicated over TP when n_kv_heads % tp')")
 
 
+def _cache_kv_positions(pos: torch.Tensor, L: int) -> torch.Tensor:
+    """Absolute position of every slot of a sliding-window ring of ``L``
+    slots, per batch row → (B, L) (the reference's ``_cache_kv_positions``
+    with a window). ``pos`` (B, C): the rows' query positions, whose tokens
+    are already written. A slot holds the most recent position congruent to
+    it mod ``L`` up to the row's newest one, ``pos[:, -1]``; a slot not yet
+    written gets ``newest + 1``, which the causal mask hides."""
+    slots = torch.arange(L, device=pos.device)
+    last = pos[:, -1:]                                   # (B, 1): each row wraps at its own
+    cand = last - (last - slots[None, :]) % L
+    return torch.where(cand >= 0, cand, last + 1)
+
+
+def ring_kv_positions(step: torch.Tensor, B: int, C: int, L: int,
+                      groups: Optional[FoldedGroups] = None) -> torch.Tensor:
+    """The positions of this rank's CP slice of a ring of ``L`` slots,
+    (B, L / cp) int32 (:func:`_cache_kv_positions`; the slice by slot, as
+    the caches are cut), for the C queries of each row from base ``step`` (B,).
+    They are the same in every layer of a forward: a stack computes them
+    once and hands them to each layer's :func:`attention_decode` or
+    :func:`attention_decode_paged` as ``kv_pos``."""
+    cp = 1 if groups is None else groups.cp
+    lo = (0 if groups is None else groups.attn["cp"].index) * (L // cp)
+    pos = _positions_for(step, B, C, device=step.device)
+    return _cache_kv_positions(pos, L)[:, lo:lo + L // cp].to(torch.int32).contiguous()
+
+
+def _require_ring_positions(window: int, kv_pos: Optional[torch.Tensor]) -> None:
+    if window and kv_pos is None:
+        raise ValueError("a sliding-window ring needs its slots' positions (kv_pos, "
+                         "ring_kv_positions)")
+
+
 def _cache_attend(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
                   pos: torch.Tensor, *, window: int, groups: Optional[FoldedGroups] = None,
-                  kv_offset: int = 0) -> torch.Tensor:
+                  kv_offset: int = 0, kv_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C query tokens against a realized (B, Hkv, L, hd) cache view.
 
     ``q``: (B, H, C, hd); ``pos``: (B, C) contiguous query positions. A
     full-attention cache holds position s at slot s, so the keys of the
     view start at position ``kv_offset`` and the causal mask hides the
-    slots not yet written. At one rank (or CP 1) the view is the whole
+    slots not yet written; a ring cache passes ``kv_pos`` (B, L_view), the
+    position of each slot of the view (:func:`ring_kv_positions`), and
+    ``kv_offset`` is unused. At one rank (or CP 1) the view is the whole
     cache: one flash launch, normalized output.
 
     With ``groups`` at CP > 1 the view is this rank's ``L / cp`` slice of
-    the cache, at ``kv_offset = cp_index · L / cp``, as the reference cuts
-    it (``repro.models.attention._cache_attend``):
+    the cache, at ``kv_offset = cp_index · L / cp`` (or with that slice of
+    the slots' positions: the slice is cut by slot, so on a ring it may
+    straddle the wrap), as the reference cuts it
+    (``repro.models.attention._cache_attend``):
 
     * C == 1 (decode) or C % cp != 0: every CP rank runs flash in partial
       mode for all C queries against its slice, and the partials are
@@ -206,27 +246,27 @@ def _cache_attend(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
       cp contiguous chunks, rank i starting with chunk i. Each hop runs one
       flash partial of the chunk held against the resident slice, and the
       chunk (with its running ``(m, l, acc)``) moves one rank on around the
-      CP ring (``comm.ring_shift_``), merged online as it arrives; a last
+      CP ring (``comm.ring_shift_``), merged online as it arrives (with its
+      queries' positions; the slice's ``kv_pos`` stays resident); a last
       rotation brings each chunk's accumulators back to its owner, and the
       normalized chunks are all-gathered over CP along C.
     """
+    keys = dict(kv_offset=kv_offset, kv_pos=kv_pos, causal=True, window=window)
     cp_ax = None if groups is None else groups.attn["cp"]
     if cp_ax is None or cp_ax.size == 1:
-        return flash(q, cache_k, cache_v, q_offset=pos[:, 0], kv_offset=kv_offset,
-                     causal=True, window=window)
+        return flash(q, cache_k, cache_v, q_offset=pos[:, 0], **keys)
     cp_ax.require_rank_order("the CP decode collectives")
     cp, C = cp_ax.size, q.shape[2]
     if C == 1 or C % cp:
-        acc, m, l = flash(q, cache_k, cache_v, q_offset=pos[:, 0], kv_offset=kv_offset,
-                          causal=True, window=window, return_partial=True)
+        acc, m, l = flash(q, cache_k, cache_v, q_offset=pos[:, 0], return_partial=True, **keys)
         acc, l = comm.cp_merge(acc, m, l, cp_ax)
         return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
     n, i = C // cp, cp_ax.index
 
     def partial(qc, chunk):
-        return flash(qc, cache_k, cache_v, q_offset=pos[:, chunk * n], kv_offset=kv_offset,
-                     causal=True, window=window, return_partial=True)
+        return flash(qc, cache_k, cache_v, q_offset=pos[:, chunk * n], return_partial=True,
+                     **keys)
 
     def shift(*parts):
         """One ring hop of the chunk's tensors, packed into one fp32 buffer
@@ -263,26 +303,23 @@ def _attn_output(out: torch.Tensor, p: AttentionParams, cfg: ModelConfig,
     return comm.all_reduce(y, groups.attn["tp"].group, name="tp_reduce").to(out.dtype)
 
 
-def _no_window(window: int) -> None:
-    if window:
-        raise NotImplementedError(
-            "sliding-window ring caches are not ported yet: their wrapped slot "
-            "positions are not contiguous (ROADMAP.md queue 1, 'Serving, rest')")
-
-
 def attention_decode_paged(p: AttentionParams, x: torch.Tensor,
                            pool_k: torch.Tensor, pool_v: torch.Tensor,
                            block_tables: torch.Tensor,
                            step: Union[int, torch.Tensor], cfg: ModelConfig, *,
-                           window: int = 0, groups: Optional[FoldedGroups] = None
+                           window: int = 0, groups: Optional[FoldedGroups] = None,
+                           kv_pos: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode step / prefill chunk against a paged (block) KV pool.
 
     ``x``: (B, C, D); ``pool_k/v``: (P, Hkv, page, hd) pages shared by all
     requests; ``block_tables``: (B, n_pg) physical page per logical page
     (page 0 is the scratch page); ``step``: scalar or (B,) base positions.
-    The new K/V are written into the pools in place (the JAX version
-    returns updated copies); the pools are returned for the same call shape.
+    The view's ``L = n_pg · page`` logical slots hold position p at slot
+    ``min(p, L − 1)``, or with a window at ``p % L`` (a ring; ``kv_pos``:
+    its :func:`ring_kv_positions`, which the caller makes once a forward). The new K/V
+    are written into the pools in place (the JAX version returns updated
+    copies); the pools are returned for the same call shape.
 
     With ``groups``: ``x`` is the rank's decode rows (replicated over CP
     and TP), ``p`` its compute slice (its TP heads) and the pools hold its
@@ -292,7 +329,6 @@ def attention_decode_paged(p: AttentionParams, x: torch.Tensor,
     all-reduced over TP.
     """
     window = window or cfg.sliding_window
-    _no_window(window)
     check_decode_heads(cfg, groups)
     B, C, _ = x.shape
     page = pool_k.shape[2]
@@ -304,7 +340,7 @@ def attention_decode_paged(p: AttentionParams, x: torch.Tensor,
 
     # Scatter the new tokens into their pages: logical slot → (page, offset).
     bt = block_tables.long()
-    lslot = torch.clamp(pos, max=L - 1)
+    lslot = pos % L if window else torch.clamp(pos, max=L - 1)
     phys = torch.gather(bt, 1, lslot // page)            # (B, C)
     off = lslot % page
     pool_k[phys, :, off, :] = k_new.to(pool_k.dtype)     # value (B, C, Hkv, hd)
@@ -323,23 +359,27 @@ def attention_decode_paged(p: AttentionParams, x: torch.Tensor,
         g = g.permute(0, 2, 1, 3, 4).reshape(B, pool.shape[1], -1, pool.shape[-1])
         return g if whole_pages else g[:, :, lo:lo + L // cp].contiguous()
 
+    _require_ring_positions(window, kv_pos)
     out = _cache_attend(q, view(pool_k), view(pool_v), pos, window=window, groups=groups,
-                        kv_offset=lo)
+                        kv_offset=lo, kv_pos=kv_pos)
     return _attn_output(out, p, cfg, groups), pool_k, pool_v
 
 
 def attention_decode(p: AttentionParams, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, step: Union[int, torch.Tensor],
                      cfg: ModelConfig, *, window: int = 0,
-                     groups: Optional[FoldedGroups] = None
+                     groups: Optional[FoldedGroups] = None,
+                     kv_pos: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode step / prefill chunk against a contiguous per-slot cache.
 
     ``x``: (B, C, D) — C = 1 for decode, C > 1 for a chunked-prefill
     segment; ``cache_k/v``: (B, Hkv, S_max, hd); ``step``: scalar or (B,)
     base positions — token c of row b sits at position ``step[b] + c``, in
-    slot ``min(step[b] + c, S_max - 1)``. The new K/V are written in place;
-    returns ``(y, cache_k, cache_v)``.
+    slot ``min(step[b] + c, S_max - 1)``, or with a window in slot
+    ``(step[b] + c) % S_max`` (a ring of ``S_max`` slots; ``kv_pos``: its
+    :func:`ring_kv_positions`, which the caller makes once a forward). The new K/V are
+    written in place; returns ``(y, cache_k, cache_v)``.
 
     With ``groups`` the cache is this rank's piece of the reference's
     ``(dp, tp, cp)`` layout (``transformer.init_decode_state``): its rows,
@@ -348,7 +388,6 @@ def attention_decode(p: AttentionParams, x: torch.Tensor, cache_k: torch.Tensor,
     attention is :func:`_cache_attend` over the rank's slots.
     """
     window = window or cfg.sliding_window
-    _no_window(window)
     check_decode_heads(cfg, groups)
     B, C, _ = x.shape
     S_loc = cache_k.shape[2]
@@ -359,7 +398,7 @@ def attention_decode(p: AttentionParams, x: torch.Tensor, cache_k: torch.Tensor,
     q, k_new, v_new = _project_qkv(p, x, x, pos, pos, cfg)
     q = q.transpose(1, 2).contiguous()                   # (B, H, C, hd)
 
-    slots = torch.clamp(pos, max=S_loc * cp - 1)         # (B, C)
+    slots = pos % (S_loc * cp) if window else torch.clamp(pos, max=S_loc * cp - 1)   # (B, C)
     rows = torch.arange(B, device=x.device)[:, None].expand(B, C)
     if cp > 1:                                           # the tokens of my slots
         mine = (slots >= lo) & (slots < lo + S_loc)
@@ -367,5 +406,7 @@ def attention_decode(p: AttentionParams, x: torch.Tensor, cache_k: torch.Tensor,
     cache_k[rows, :, slots, :] = k_new.to(cache_k.dtype)
     cache_v[rows, :, slots, :] = v_new.to(cache_v.dtype)
 
-    out = _cache_attend(q, cache_k, cache_v, pos, window=window, groups=groups, kv_offset=lo)
+    _require_ring_positions(window, kv_pos)
+    out = _cache_attend(q, cache_k, cache_v, pos, window=window, groups=groups, kv_offset=lo,
+                        kv_pos=kv_pos)
     return _attn_output(out, p, cfg, groups), cache_k, cache_v

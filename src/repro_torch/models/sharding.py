@@ -53,6 +53,8 @@ RULES: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
     (r"attn\.(wq|wk|wv)$",      ("fsdp", "tp")),       # (D, H*hd)
     (r"attn\.(bq|bk|bv)$",      ("tp",)),
     (r"attn\.wo$",              ("tp", "fsdp")),       # (H*hd, D)
+    (r"mlp\.(w_gate|w_up)$",    ("fsdp", "tp")),       # dense FFN (D, F)
+    (r"mlp\.w_down$",           ("tp", "fsdp")),       # dense FFN (F, D)
     (r"moe\.router$",           (None, None)),         # (D, E) tiny, replicated
     (r"moe\.w[13]$",            ("ep", "efsdp", "etp")),  # (E, D, F)
     (r"moe\.w2$",               ("ep", "etp", "efsdp")),  # (E, F, D)

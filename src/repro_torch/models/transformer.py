@@ -3,7 +3,9 @@ or across the folded groups) and the decode forward over the paged or
 dense cache (one rank or at a pp = 1 fold).
 
 Port of the parts of ``repro.models.transformer`` the serving and training
-slices run. Where JAX stacks layer parameters for one ``lax.scan``, the
+slices run: decoders of ``dense`` and ``moe`` blocks (RMSNorm, RoPE
+attention, then a dense FFN or the MoE block), in any mix. Where JAX stacks
+layer parameters for one ``lax.scan``, the
 port keeps one module per layer (``LMParams.layers``) and runs a Python
 loop; ``jax.checkpoint`` of the scan body becomes ``torch.utils.checkpoint``
 of each layer. Across ranks (``groups``) the residual stream is in Megatron's
@@ -27,8 +29,9 @@ from repro_torch.core.router import _top_k, deterministic_top_k
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (AttentionParams, attention, attention_decode,
                                           attention_decode_paged, check_decode_heads,
-                                          init_attention)
+                                          init_attention, ring_kv_positions)
 from repro_torch.models.common import rmsnorm
+from repro_torch.models.ffn import FFNParams, ffn, ffn_decode, init_ffn
 from repro_torch.models.sharding import gather_for_compute
 
 
@@ -40,6 +43,8 @@ class MoEBlockParams(nn.Module):
     """One ``moe`` layer: RMSNorm → attention → RMSNorm → MoE FFN.
     Norm weights store ``scale - 1``."""
 
+    kind = "moe"
+
     def __init__(self, norm1: torch.Tensor, attn: AttentionParams,
                  norm2: torch.Tensor, moe: MoEParams):
         super().__init__()
@@ -47,6 +52,21 @@ class MoEBlockParams(nn.Module):
         self.attn = attn
         self.norm2 = _param(norm2)
         self.moe = moe
+
+
+class DenseBlockParams(nn.Module):
+    """One ``dense`` layer: RMSNorm → attention → RMSNorm → dense FFN
+    (``mlp``). Norm weights store ``scale - 1``."""
+
+    kind = "dense"
+
+    def __init__(self, norm1: torch.Tensor, attn: AttentionParams,
+                 norm2: torch.Tensor, mlp: FFNParams):
+        super().__init__()
+        self.norm1 = _param(norm1)
+        self.attn = attn
+        self.norm2 = _param(norm2)
+        self.mlp = mlp
 
 
 class LayerStack(nn.Module):
@@ -125,14 +145,19 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise for architectures outside the ported slice."""
     blocks, _ = model_cycle(cfg)
     kinds = set(blocks)
-    if kinds != {"moe"} or cfg.shared_attention_every or cfg.is_encoder_decoder:
+    if not kinds <= set(APPLY) or cfg.shared_attention_every or cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {sorted(kinds)} — only 'moe' decoder "
+            f"{cfg.name}: block kinds {sorted(kinds)} — only 'dense' and 'moe' decoder "
             "blocks are ported so far (ROADMAP.md queue 1, 'Remaining block kinds')")
     if cfg.norm != "rmsnorm" or cfg.rope_kind != "rope" or cfg.n_vision_tokens:
         raise NotImplementedError(
             f"{cfg.name}: norm={cfg.norm!r}, rope_kind={cfg.rope_kind!r} — only "
             "RMSNorm + RoPE text decoders are ported so far")
+    if cfg.name.startswith("gemma"):     # the reference scales Gemma's embedding by name
+        raise NotImplementedError(
+            f"{cfg.name}: Gemma's embedding scaled by sqrt(d_model) is not ported, and "
+            "its heads of 256 not in the flash kernel (ROADMAP.md queue 1, 'Remaining "
+            "block kinds')")
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
@@ -164,11 +189,15 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
     embed = keep("embed", normal((V, D)))
     lm_head = None if cfg.tie_embeddings else keep("lm_head", normal((D, V)))
     layers = {}
-    for i in range(cfg.n_layers):
+    for i, kind in enumerate(cfg.blocks()):
         zeros = torch.zeros(D, device=device)
-        layer = MoEBlockParams(
-            zeros, init_attention(cfg, generator=g, dtype=dtype, device=device),
-            zeros.clone(), init_moe(cfg, generator=g, dtype=dtype, device=device))
+        attn = init_attention(cfg, generator=g, dtype=dtype, device=device)
+        if kind == "dense":
+            layer = DenseBlockParams(zeros, attn, zeros.clone(),
+                                     init_ffn(cfg, generator=g, dtype=dtype, device=device))
+        else:
+            layer = MoEBlockParams(zeros, attn, zeros.clone(),
+                                   init_moe(cfg, generator=g, dtype=dtype, device=device))
         if stage is None or i in stage.layers:
             layers[i] = layer
     return LMParams(embed, layers, keep("final_norm", torch.zeros(D, device=device)), lm_head)
@@ -188,11 +217,10 @@ def param_shapes(cfg: ModelConfig, groups: Optional[FoldedGroups] = None
 def _param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     check_supported(cfg)
     D, V, m = cfg.d_model, cfg.vocab_size, cfg.moe
-    E, F, fs = m.n_experts, m.d_expert, m.shared_expert_width
     out = {"embed": (V, D), "final_norm": (D,)}
     if not cfg.tie_embeddings:
         out["lm_head"] = (D, V)
-    for layer in range(cfg.n_layers):
+    for layer, kind in enumerate(cfg.blocks()):
         pre = f"layers.{layer}."
         out.update({pre + "norm1": (D,), pre + "norm2": (D,),
                     pre + "attn.wq": (D, cfg.q_dim), pre + "attn.wk": (D, cfg.kv_dim),
@@ -200,6 +228,12 @@ def _param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         if cfg.qkv_bias:
             out.update({pre + "attn.bq": (cfg.q_dim,), pre + "attn.bk": (cfg.kv_dim,),
                         pre + "attn.bv": (cfg.kv_dim,)})
+        if kind == "dense":
+            out.update({pre + "mlp.w_gate": (D, cfg.d_ff), pre + "mlp.w_down": (cfg.d_ff, D)})
+            if cfg.activation in ("swiglu", "geglu"):
+                out[pre + "mlp.w_up"] = (D, cfg.d_ff)
+            continue
+        E, F, fs = m.n_experts, m.d_expert, m.shared_expert_width
         out.update({pre + "moe.router": (D, E), pre + "moe.w1": (E, D, F),
                     pre + "moe.w2": (E, F, D), pre + "moe.w3": (E, D, F)})
         if fs:
@@ -292,6 +326,32 @@ def _expert_token_counts(h: torch.Tensor, w_gate: torch.Tensor, cfg: ModelConfig
     return one.sum(dim=0)
 
 
+def _decode_dense_paged(p: DenseBlockParams, x: torch.Tensor, state: Dict[str, torch.Tensor],
+                        step: torch.Tensor, cfg: ModelConfig, ctx: Dict,
+                        groups: Optional[FoldedGroups] = None
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], None]:
+    """One ``dense`` layer over the paged cache → (x, state, None: no
+    expert counts)."""
+    h = rmsnorm(x, p.norm1)
+    y, state["k"], state["v"] = attention_decode_paged(
+        p.attn, h, state["k"], state["v"], ctx["block_tables"], step, cfg, groups=groups,
+        kv_pos=ctx.get("kv_pos"))
+    x = x + y
+    return x + ffn_decode(p.mlp, rmsnorm(x, p.norm2), cfg, groups), state, None
+
+
+def _decode_dense(p: DenseBlockParams, x: torch.Tensor, state: Dict[str, torch.Tensor],
+                  step: torch.Tensor, cfg: ModelConfig, ctx: Dict,
+                  groups: Optional[FoldedGroups] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One ``dense`` layer over the dense cache → (x, state)."""
+    h = rmsnorm(x, p.norm1)
+    y, state["k"], state["v"] = attention_decode(p.attn, h, state["k"], state["v"], step,
+                                                 cfg, groups=groups, kv_pos=ctx.get("kv_pos"))
+    x = x + y
+    return x + ffn_decode(p.mlp, rmsnorm(x, p.norm2), cfg, groups), state
+
+
 def _decode_moe_paged(p: MoEBlockParams, x: torch.Tensor, state: Dict[str, torch.Tensor],
                       step: torch.Tensor, cfg: ModelConfig, ctx: Dict,
                       groups: Optional[FoldedGroups] = None
@@ -301,7 +361,8 @@ def _decode_moe_paged(p: MoEBlockParams, x: torch.Tensor, state: Dict[str, torch
     rank's rows, and ``rows_cut`` (rows cut over DP)."""
     h = rmsnorm(x, p.norm1)
     y, state["k"], state["v"] = attention_decode_paged(
-        p.attn, h, state["k"], state["v"], ctx["block_tables"], step, cfg, groups=groups)
+        p.attn, h, state["k"], state["v"], ctx["block_tables"], step, cfg, groups=groups,
+        kv_pos=ctx.get("kv_pos"))
     x = x + y
     h = rmsnorm(x, p.norm2)
     y = moe_block_decode(p.moe, h, cfg, groups=groups, rows_cut=ctx.get("rows_cut", False))
@@ -316,7 +377,7 @@ def _decode_moe(p: MoEBlockParams, x: torch.Tensor, state: Dict[str, torch.Tenso
     """One ``moe`` layer over the dense cache → (x, state)."""
     h = rmsnorm(x, p.norm1)
     y, state["k"], state["v"] = attention_decode(p.attn, h, state["k"], state["v"], step,
-                                                 cfg, groups=groups)
+                                                 cfg, groups=groups, kv_pos=ctx.get("kv_pos"))
     x = x + y
     h = rmsnorm(x, p.norm2)
     return x + moe_block_decode(p.moe, h, cfg, groups=groups,
@@ -341,7 +402,7 @@ def init_decode_state(cfg: ModelConfig, B: int, s_max: int, *, dtype=torch.bfloa
     device = resolve_device(device)
     return {"layers": [{"k": torch.zeros(shape, dtype=dtype, device=device),
                         "v": torch.zeros(shape, dtype=dtype, device=device)}
-                       for _ in range(cfg.n_layers)],      # every layer is "moe"
+                       for _ in range(cfg.n_layers)],      # every kind holds K/V
             "step": 0}
 
 
@@ -374,8 +435,11 @@ def decode_step(params: LMParams, state: Dict, tokens: torch.Tensor, cfg: ModelC
     lo, b = decode_rows(B, groups)
     x = decode_embed(params, tokens[lo:lo + b], cfg, groups)
     ctx = {"rows_cut": b != B}
+    if cfg.sliding_window:                 # the ring's positions, once for every layer
+        L = state["layers"][0]["k"].shape[2] * (1 if groups is None else groups.cp)
+        ctx["kv_pos"] = ring_kv_positions(base[lo:lo + b], b, C, L, groups)
     for layer, st in zip(params.layers, state["layers"]):
-        x, _ = _decode_moe(layer, x, st, base[lo:lo + b], cfg, ctx, groups)
+        x, _ = DECODE[layer.kind](layer, x, st, base[lo:lo + b], cfg, ctx, groups)
     if last_only:
         x = x[:, -1:]
     logits = decode_head(params, x, cfg, groups, rows_cut=b != B)
@@ -389,21 +453,28 @@ def paged_forward(params: LMParams, state: List[Dict[str, torch.Tensor]],
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward of ``tokens`` (B, C) at per-row base ``positions`` (B,) over
     the paged pools (updated in place) → (fp32 logits of each row's last
-    token (B, V), routed-assignment counts (E,) summed over layers and
-    rows). With ``groups`` the inputs are the global batch; see
-    :func:`decode_step`."""
+    token (B, V), routed-assignment counts (E,) summed over the MoE layers
+    and rows, or ``None`` for a model without MoE layers). With ``groups``
+    the inputs are the global batch; see :func:`decode_step`."""
     B, C = tokens.shape
     lo, b = decode_rows(B, groups)
     x = decode_embed(params, tokens[lo:lo + b], cfg, groups)
     ctx = {"block_tables": block_tables[lo:lo + b], "token_mask": token_mask[lo:lo + b],
            "rows_cut": b != B}
-    counts = torch.zeros(cfg.moe.n_experts, dtype=torch.float32, device=x.device)
+    if cfg.sliding_window:                 # the ring's positions, once for every layer
+        L = block_tables.shape[1] * state[0]["k"].shape[2]
+        ctx["kv_pos"] = ring_kv_positions(positions[lo:lo + b], b, C, L, groups)
+    counts = None
+    if "moe" in cfg.blocks():
+        counts = torch.zeros(cfg.moe.n_experts, dtype=torch.float32, device=x.device)
     for layer, st in zip(params.layers, state):
-        x, _, cnt = _decode_moe_paged(layer, x, st, positions[lo:lo + b], cfg, ctx, groups)
-        counts += cnt
+        x, _, cnt = DECODE_PAGED[layer.kind](layer, x, st, positions[lo:lo + b], cfg, ctx,
+                                             groups)
+        if cnt is not None:
+            counts += cnt
     # Only the last position's logits are read, so only it goes through the head.
     logits = decode_head(params, x[:, -1:], cfg, groups, rows_cut=b != B)[:, 0].float()
-    if b != B:
+    if b != B and counts is not None:
         counts = comm.all_reduce(counts, groups.attn["dp"].group, name="expert_load")
     return logits, counts
 
@@ -427,20 +498,46 @@ def _apply_moe(p: MoEBlockParams, x: torch.Tensor, pos: Optional[torch.Tensor],
     exchange over the DP rank's cp·tp ranks when B > 1 and the sequence is
     cut)."""
     h = rmsnorm(x, p.norm1)
-    attn = p.attn
-    if groups is not None:
-        attn = types.SimpleNamespace(**{k: gather_for_compute(f"attn.{k}", t, groups)
-                                        for k, t in p.attn.named_parameters()})
-    x = x + attention(attn, h, pos, cfg, groups=groups)
+    x = x + attention(_compute_slices(p.attn, "attn", groups), h, pos, cfg, groups=groups)
     h = rmsnorm(x, p.norm2)
     y, aux = moe_block(p.moe, h, cfg, groups=groups)
     return x + y, aux
 
 
+def _compute_slices(p: nn.Module, prefix: str, groups: Optional[FoldedGroups]):
+    """A layer's ``attn`` or ``mlp`` with each leaf gathered from its store
+    slice to its compute slice (FSDP: per layer, and again in remat's
+    recompute); ``p`` itself at one rank."""
+    if groups is None:
+        return p
+    leaves = {k: None if t is None else gather_for_compute(f"{prefix}.{k}", t, groups)
+              for k, t in p._parameters.items()}
+    return types.SimpleNamespace(**leaves)
+
+
+def _apply_dense(p: DenseBlockParams, x: torch.Tensor, pos: Optional[torch.Tensor],
+                 cfg: ModelConfig, groups: Optional[FoldedGroups] = None
+                 ) -> Tuple[torch.Tensor, AuxDict]:
+    """One ``dense`` layer over whole sequences: x (B, S, D) → (x, zero
+    aux). With ``groups``, as :func:`_apply_moe`: the leaves stored over DP
+    are gathered here, and the attention and the FFN run across the TP (and
+    CP) ranks on the sequence-parallel rows."""
+    h = rmsnorm(x, p.norm1)
+    x = x + attention(_compute_slices(p.attn, "attn", groups), h, pos, cfg, groups=groups)
+    x = x + ffn(_compute_slices(p.mlp, "mlp", groups), rmsnorm(x, p.norm2), cfg, groups)
+    return x, {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in AUX_KEYS}
+
+
+APPLY = {"dense": _apply_dense, "moe": _apply_moe}
+DECODE = {"dense": _decode_dense, "moe": _decode_moe}
+DECODE_PAGED = {"dense": _decode_dense_paged, "moe": _decode_moe_paged}
+
+
 def _run_stack(layers, x: torch.Tensor, pos: Optional[torch.Tensor], cfg: ModelConfig, *,
                remat: bool = True, groups: Optional[FoldedGroups] = None,
                layer_aux: Optional[List[AuxDict]] = None) -> Tuple[torch.Tensor, AuxDict]:
-    """All layers in order → (x, aux summed over layers). With ``remat``
+    """All layers in order, each by its kind (:data:`APPLY`) → (x, aux
+    summed over layers). With ``remat``
     each layer keeps only its input for the backward and runs its forward
     again there (``jax.checkpoint`` of the JAX scan body, no policy); across
     ranks the recompute runs the layer's collectives again, in the same
@@ -448,11 +545,12 @@ def _run_stack(layers, x: torch.Tensor, pos: Optional[torch.Tensor], cfg: ModelC
     (a list) receives each layer's aux terms, detached."""
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in AUX_KEYS}
     for layer in layers:
+        apply = APPLY[layer.kind]
         if remat:
-            x, a = checkpoint(_apply_moe, layer, x, pos, cfg, groups, use_reentrant=False,
+            x, a = checkpoint(apply, layer, x, pos, cfg, groups, use_reentrant=False,
                               preserve_rng_state=False)
         else:
-            x, a = _apply_moe(layer, x, pos, cfg, groups)
+            x, a = apply(layer, x, pos, cfg, groups)
         if layer_aux is not None:
             layer_aux.append({k: a[k].detach() for k in AUX_KEYS})
         aux = {k: aux[k] + a[k] for k in AUX_KEYS}
@@ -540,7 +638,8 @@ def apply_lm(params: LMParams, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         pos = lm_positions(batch, cfg)
     else:
         lm_positions(batch, cfg)           # raises for explicit positions
-        check_sp_moe_handoff(groups)
+        if "moe" in cfg.blocks():
+            check_sp_moe_handoff(groups)
         pos = None
     x = lm_embed(params, batch, pos, cfg, groups)
     x, aux = _run_stack(params.layers, x, pos, cfg, remat=remat, groups=groups)

@@ -9,6 +9,11 @@ layer the attention (flash kernel: one launch, or one per CP rank of a
 ring-CP prefill chunk) and the MoE FFN (GMM kernel, three launches a
 dispatcher chunk).
 
+A sliding-window config keeps ``cache_len = min(window, s_max)`` slots a
+request in either cache, as a ring (position p in slot ``p % cache_len``),
+so a context of any length takes O(window) memory; the attention gives the
+flash kernel each slot's position (``models.attention``).
+
 Across ranks (``groups``, a ``FoldedGroups`` at pp = 1) every rank runs the
 same engine on its compute slices of the parameters: the same scheduler,
 the same sampling from the same gathered fp32 logits, so every rank takes
@@ -200,9 +205,6 @@ class Engine:
         if ecfg.compute_dtype not in _DTYPES:
             raise ValueError(f"bad compute_dtype {ecfg.compute_dtype!r}")
         check_supported(cfg)
-        if cfg.sliding_window:
-            raise NotImplementedError("sliding-window ring caches are not ported "
-                                      "yet (ROADMAP.md queue 1, 'Serving, rest')")
         if groups is not None:
             want = (cfg.vocab_size // groups.tp, cfg.d_model)
             if tuple(params.embed.shape) != want:
@@ -214,8 +216,16 @@ class Engine:
         self.paged = ecfg.cache == "paged"
         self.device = params.embed.device
         dt = _DTYPES[ecfg.compute_dtype]
-        cast_params(params, dt)
         self.cache_len = cache_len_for(cfg, ecfg.s_max)
+        if cfg.sliding_window and ecfg.prefill_chunk > self.cache_len:
+            # The chunk's tokens are written before they attend: a chunk
+            # longer than the ring would write some slots twice, in no order
+            # the reference defines.
+            raise ValueError(
+                f"prefill_chunk {ecfg.prefill_chunk} exceeds the ring of cache_len "
+                f"{self.cache_len} slots (sliding_window {cfg.sliding_window}, s_max "
+                f"{ecfg.s_max}): a chunk would overwrite its own slots")
+        cast_params(params, dt)
         page_size = ecfg.page_size if self.paged else 0
         n_slot_pages = self.cache_len // page_size if self.paged else 0
         n_pages = (ecfg.n_pages if ecfg.n_pages is not None
@@ -223,7 +233,8 @@ class Engine:
         self._sched = Scheduler(
             max_batch=ecfg.max_batch, cache_len=self.cache_len,
             prefill_chunk=ecfg.prefill_chunk, page_size=page_size,
-            n_pages=n_pages if self.paged else 0, window=0, preempt=ecfg.preempt,
+            n_pages=n_pages if self.paged else 0, window=cfg.sliding_window or 0,
+            preempt=ecfg.preempt,
             max_waiting=ecfg.max_waiting)
         if self.paged:
             self.state = init_paged_state(cfg, n_pages=n_pages, page_size=page_size,

@@ -198,14 +198,16 @@ def _norm_args(layouts, groups: FoldedGroups, cfg: Optional[ModelConfig]) -> Dic
     """``adamw.update``'s arguments for the global norm at a fold: which
     shards count, the stage's group, and at a pipelined fold the pp group
     with every leaf name in the pp = 1 order (``param_shapes``')."""
-    from repro_torch.core.pipeline import pipelined
+    from repro_torch.core.pipeline import pipelined, stage_of
     stages = None
+    counted = sharding.norm_counted(layouts, groups)
     if pipelined(groups):
         if cfg is None:
             raise ValueError("grad_norm at a pipelined fold needs cfg (the model's leaf order)")
         stages = (groups.attn["pp"].group, tuple(param_shapes(cfg)))
-    return dict(counted=sharding.norm_counted(layouts, groups),
-                norm_group=groups.attn["stage"].group, norm_stages=stages)
+        if "embed" in counted and not stage_of(cfg, groups).first:
+            counted["embed"] = False          # tied: the first stage counts it
+    return dict(counted=counted, norm_group=groups.attn["stage"].group, norm_stages=stages)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] = None, *,

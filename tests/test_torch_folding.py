@@ -294,3 +294,38 @@ def test_folded_groups_in_a_world_match_jax(tmp_path):
                 assert v["ranks"][v["index"]] == rank
                 assert v["members"] == sorted(v["ranks"]), (i, side, ax)
             assert g["moe", "tokens"]["index"] == shard_of[rank], (i, rank)
+
+
+def _pool_probe(rank, world, fold, fail):
+    """This rank's process id and the members of its attention TP group (an
+    all_gather over the group the call builds); rank 1 raises with
+    ``fail`` while rank 0 waits in the groups' creation."""
+    import os
+    import torch.distributed as dist
+    if fail and rank == 1:
+        raise ValueError("probe failure")
+    fg = folding.build_folded_groups(_pcfg(*fold), rank=rank, world=world)
+    buf = torch.empty(world, dtype=torch.int64)
+    dist.all_gather_into_tensor(buf, torch.tensor([rank]), group=fg.attn["tp"].group)
+    return os.getpid(), buf.tolist()
+
+
+def test_pool_keeps_its_ranks_between_calls():
+    """Inside ``world.pool`` every ``spawn`` of its size runs on the same
+    processes, each call building its own groups in the one default group;
+    a failing call ends every rank, and the next call spawns afresh."""
+    from repro_torch.launch import world as W
+    fold = ((1, 1, 2), (1, 2, 1), 1)
+
+    def call(fail=False):
+        return W.spawn(_pool_probe, 2, backend="gloo", device="cpu", args=(fold, fail),
+                       timeout_s=120)
+    with W.pool(2, backend="gloo", device="cpu", timeout_s=120) as ranks:
+        a, b = call(), call()
+        assert [x[0] for x in a] == [x[0] for x in b] == [p.pid for p in ranks.procs]
+        assert all(x[1] == [0, 1] for x in a + b)
+        with pytest.raises(RuntimeError, match="probe failure"):
+            call(fail=True)
+        assert W._open_pool is None and not any(p.is_alive() for p in ranks.procs)
+        c = call()
+        assert c[0][1] == [0, 1] and not {x[0] for x in c} & {x[0] for x in a}

@@ -159,6 +159,43 @@ def test_flash_paths_match_plain(cuda, B, H, Hkv, Sq, Skv, hd, offs, kv_off, cau
         assert _rel_err(a, b) <= REL_TOL
 
 
+# Ring caches, keys at given positions (kv_pos): (B, H, Hkv, Sq, L, hd,
+# newest query position a row, window, path, splits). L slots hold the
+# positions of a sliding-window ring (attention._cache_kv_positions): rows
+# wrap at other slots, and a row whose ring is not full has unwritten slots.
+RING_CASES = [
+    (2, 32, 8, 1, 8192, 64, [12319, 1055], 8192, None, None),     # serving's ring decode
+    (3, 12, 4, 2, 333, 128, [5, 400, 1000], 100, "decode", 3),     # unwritten slots; splits
+    (1, 32, 8, 512, 8192, 64, [12287], 8192, None, None),          # a ring prefill chunk
+    (2, 4, 2, 70, 190, 128, [60, 500], 64, "prefill", None),
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,L,hd,last,window,path,splits", RING_CASES)
+@pytest.mark.parametrize("partial", [False, True])
+def test_flash_key_positions_match_plain(cuda, B, H, Hkv, Sq, L, hd, last, window, path,
+                                         splits, partial):
+    """The whole ring, and its second half (a CP slice, cut by slot, that
+    may straddle the wrap), against the plain version at the same key
+    positions."""
+    from repro_torch.models.attention import _cache_kv_positions
+    rng = np.random.default_rng(8)
+    q = _bf16(rng, (B, H, Sq, hd))
+    k, v = (_bf16(rng, (B, Hkv, L, hd)) for _ in range(2))
+    pos = torch.tensor(last, device=cuda)[:, None] - Sq + 1 + torch.arange(Sq, device=cuda)
+    kv_pos = _cache_kv_positions(pos, L).to(torch.int32)
+    q_off = pos[:, 0].to(torch.int32).contiguous()
+    for s in (slice(0, L), slice(L // 2, L)):
+        kk, vv, kp = k[:, :, s].contiguous(), v[:, :, s].contiguous(), kv_pos[:, s].contiguous()
+        kw = dict(kv_pos=kp, window=window, return_partial=partial)
+        n0 = flash_attention.launches
+        got = flash_attention(q, kk, vv, q_off, path=path, splits=splits, **kw)
+        assert flash_attention.launches == n0 + 1
+        ref = flash_ref(q, kk, vv, q_off, **kw)
+        for a, b in (zip(got, ref) if partial else [(got, ref)]):
+            assert _rel_err(a, b) <= REL_TOL
+
+
 @pytest.mark.parametrize("path", ["decode", "prefill"])
 def test_flash_paths_rows_that_see_nothing(cuda, path):
     """Rows whose window hides every key, on each path: output 0,
@@ -198,6 +235,9 @@ def test_kernels_reject_shapes_they_do_not_take(cuda):
         flash_attention(q, q, q, offs, path="prefill", splits=2)
     with pytest.raises(ValueError, match="path"):
         flash_attention(q, q, q, offs, path="ring")
+    with pytest.raises(ValueError, match="kv_pos must be"):
+        flash_attention(q, q, q, offs, kv_pos=torch.zeros((1, 3), dtype=torch.int32,
+                                                          device=cuda))
 
 
 # The dgrad mode at the training slice's widths: w (E, 6144, 16384) or

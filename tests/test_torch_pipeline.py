@@ -150,12 +150,17 @@ def test_same_errors_as_reference(what):
 
 
 def test_tied_embeddings_at_pp_raise():
+    """Tied embeddings at pp > 1 are ported and raise no more: the
+    embedding lives on the first and the last stage (whose head reads it)
+    and on no other, and an untied model's only on the first."""
     from repro_torch.configs import get_config, reduced
-    cfg = dataclasses.replace(reduced(get_config("mixtral-8x22b")), tie_embeddings=True)
-    fg = folding.folded_layout(ParallelConfig(attn=PM(1, 1, 2), moe=PM(1, 2, 1), pp=2),
-                               rank=0, world=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pl.stage_of(cfg, fg)
+    for tied in (True, False):
+        cfg = dataclasses.replace(reduced(get_config("mixtral-8x22b"), n_layers=4),
+                                  tie_embeddings=tied)
+        pcfg = ParallelConfig(attn=PM(1, 1, 2), moe=PM(1, 2, 1), pp=4)
+        held = [pl.stage_of(cfg, folding.folded_layout(pcfg, rank=r, world=8)).holds("embed")
+                for r in range(0, 8, 2)]
+        assert held == [True, False, False, tied], tied
 
 
 # ---------------------------------------------------------------------------

@@ -148,11 +148,21 @@ def test_deadlines_and_bounded_queue():
     assert (h["submitted"], h["rejected"], h["timed_out"], h["finished"]) == (2, 1, 1, 1)
 
 
-def test_unported_engine_modes_raise():
-    cfg = dataclasses.replace(slice_config("mixtral-8x22b", reduce=True), dtype="float32")
-    params = init_lm(cfg, seed=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        Engine(dataclasses.replace(cfg, sliding_window=16), params, EngineConfig())
+@pytest.mark.parametrize("arch,what", [
+    ("xlstm-125m", "block kinds"), ("whisper-small", "block kinds"),
+    ("zamba2-2.7b", "block kinds"), ("qwen2-vl-7b", "rope_kind='mrope'"),
+    ("gemma-7b", "sqrt\\(d_model\\)")])
+def test_unported_block_kinds_raise(arch, what):
+    """The architectures whose blocks are not ported refuse to build, at the
+    published widths and the reduced ones alike: the recurrent, enc-dec,
+    shared-attention and M-RoPE ones by their kinds, Gemma (heads of 256,
+    which the flash kernel does not take) by its scaled embedding."""
+    from repro_torch.models.transformer import check_supported
+    cfg = get_config(arch)
+    with pytest.raises(NotImplementedError, match=what):
+        check_supported(cfg)
+    with pytest.raises(NotImplementedError, match=what):
+        init_lm(reduced(cfg), device="cpu")
 
 
 def test_params_from_jax_carries_bf16_bits():
