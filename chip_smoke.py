@@ -11,7 +11,8 @@ configs registered with the reference's mapping table: Mixtral-8x22B-G8T8
 32 heads of 128 over d_model 2048) trained on one card, Llama3-8x70B and
 DBRX-132B at their kernel shapes; and the dense Llama3.2-1B at full width
 and depth with a sliding-window ring cache, beside Qwen3-MoE-30B-A3B's
-window variant (phase 14). Phases (any failure exits non-zero; nothing is
+window variant (phase 14); and Gemma-7B, Qwen2-VL-7B and Whisper-small,
+whose blocks are of other kinds (phase 15). Phases (any failure exits non-zero; nothing is
 caught):
 
 1. device  — require CUDA; print the card's name and power limit and torch's
@@ -245,6 +246,28 @@ train-configs — phase 5's one-card training (2 steps, launches 3 + 3 + 3
    ``attn_mask`` from the positions), flash without them at (b)'s causal
    4096 and at phase 3's Mixtral decode again, and the GMM at (c)'s decode.
 
+15. block-kinds — the three archs of other block kinds, one card, random
+   weights from the seed, bf16. (a) Gemma-7B (16 heads of 256, √d_model
+   embedding, GeGLU, tied) cut to 4 layers serves 2 requests (prompts of
+   1000 and 700 tokens in chunks of 512, 16 new tokens) through a paged
+   (pages of 128) and a dense engine: paged tokens equal dense, 1 flash
+   launch a layer a forward at heads of 256; cut to 1 layer it takes 2
+   AdamW steps of one 4096-token sequence (2 flash launches a layer a
+   step: forward and remat). (b) Qwen2-VL-7B, cut to 4 / 2 layers, the
+   same, training with 256 vision rows and M-RoPE streams whose height and
+   width are the patch grid. (c) Whisper-small at full depth (12 + 12): 2
+   training steps of one 4096-token sequence against 1500 frames (2 flash
+   launches a step per self-attention, cross-attention and encoder layer),
+   then a prompt chunk and 3 greedy ``decode_step``s (2 a layer a call).
+   Each run's counters are set to 0 just before and read just after; step
+   ms, MFU (``_blocks_flops``) and peak memory are printed. Then phase 6's
+   reduced card-vs-CPU checks for the three (Gemma's reduced heads set to
+   256; Whisper's ``decode_step`` logits), and flash against its plain
+   version at each path's shapes: Gemma's causal 4096, decode against 1024
+   keys and prefill chunk at heads of 256, Qwen2-VL's causal 4096 and
+   decode, Whisper's encoder (1500 × 1500) and cross-attention (4096 ×
+   1500, and its decode) not causal, with ``library_ms`` from SDPA.
+
 Phase 9 runs first, right after the build: its 4 ranks need about 70 GB
 of the card (Qwen2: 18.02 GB peak a rank on an H100), and what the other
 phases leave in this process (3.9 GB reserved before phase 7) left Qwen2's
@@ -254,7 +277,7 @@ printed. Then Mixtral runs phases 3, 4, 5, 6; every Mixtral tensor is
 freed and Qwen2
 runs 4, 5, 3, 6; then the added configs' phase 3 rows and train-configs;
 then Mixtral and Qwen2 run 7 and 8, then phase 13 with phase 4's requests,
-then phase 14. Every phase across ranks runs on one set of 4 processes
+then phases 14 and 15. Every phase across ranks runs on one set of 4 processes
 (``launch.world.pool``), started after the build: each rank pays its
 interpreter, CUDA context, kernel library and first launches once, not
 once a world; ``[time]`` lines give each phase's wall. Then it prints the
@@ -358,7 +381,8 @@ def phase_build() -> dict:
 MIXTRAL, QWEN2 = "mixtral-8x22b", "qwen2-57b-a14b"
 G8T8, QWEN3 = "mixtral-8x22b-g8t8", "qwen3-moe-30b-a3b"     # trained on one card too
 LLAMA3, DBRX = "llama3-8x70b", "dbrx-132b"                 # kernel rows only
-SHORT = {MIXTRAL: "", QWEN2: "-qwen2", G8T8: "-g8t8", QWEN3: "-qwen3moe"}  # path-name suffixes
+SHORT = {MIXTRAL: "", QWEN2: "-qwen2", G8T8: "-g8t8", QWEN3: "-qwen3moe",   # path-name suffixes
+         "gemma-7b": "-gemma", "qwen2-vl-7b": "-qwen2vl", "whisper-small": "-whisper"}
 # Phase 8: the folded train step, 4 ranks on the card. Attention (dp, cp, tp),
 # MoE (edp, ep, etp), and its runs (cp_mode, steps; 0 = one forward and
 # backward, no optimizer), each from the same start.
@@ -506,12 +530,13 @@ HEADLINE = {("gmm", "serve"): "gate/up, decode (serving)",
 
 
 def _flash_cases(torch, arch: str, cases=None, heads=None, modes=(False, True),
-                 hd: int = 128) -> list:
+                 hd: int = 128, causal: bool = True) -> list:
     """Flash cases (default: the model's ``FLASH_CASES`` at its heads) in
     the output ``modes`` (partial or not). ``library_ms`` is the fastest of
     the ``scaled_dot_product_attention`` forms that compute the same
     function on the same (GQA) inputs: an explicit mask (offsets differ per
-    row), and ``is_causal`` where the queries start at key 0. Keys sit at
+    row), and ``is_causal`` where the queries start at key 0; not
+    ``causal``, SDPA with no mask (every key visible). Keys sit at
     ``kv_offset + j``; a query row that sees none (a ring pair wholly in its
     future) must agree with the plain version's ``m = -1e30, l = 0, acc = 0``."""
     import torch.nn.functional as F
@@ -531,23 +556,29 @@ def _flash_cases(torch, arch: str, cases=None, heads=None, modes=(False, True),
         q_pos = q_off[:, None].long() + torch.arange(Sq, device="cuda")          # (B, Sq)
         kv_pos = kv_off + torch.arange(L, device="cuda")
         vis = kv_pos[None, None, :] <= q_pos[:, :, None]
+        if not causal:
+            vis = torch.ones_like(vis)
         n_vis = vis.sum().item()                         # visible (row, key) pairs per head
-        n_keys = sum(max(0, min(L, o + Sq - kv_off)) for o in offsets)   # KV rows seen
+        n_keys = sum(max(0, min(L, o + Sq - kv_off)) if causal else L
+                     for o in offsets)                   # KV rows seen
         mask = vis[:, None]
         forms = {"SDPA attn_mask, enable_gqa": lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True)}
-        if all(o == 0 for o in offsets) and Sq == L and kv_off == 0:
+        if not causal:
+            forms = {"SDPA no mask, enable_gqa": lambda: F.scaled_dot_product_attention(
+                q, k, v, enable_gqa=True)}
+        elif all(o == 0 for o in offsets) and Sq == L and kv_off == 0:
             forms["SDPA is_causal, enable_gqa"] = lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)
         library = {name: graph_ms(torch, fn) for name, fn in forms.items()}
         library_form = min(library, key=library.get)
         for partial in modes:
             def run(partial=partial):
-                return flash_attention(q, k, v, q_off, kv_offset=kv_off, causal=True,
+                return flash_attention(q, k, v, q_off, kv_offset=kv_off, causal=causal,
                                        return_partial=partial)
 
             def plain(partial=partial):
-                return flash_ref(q, k, v, q_off, kv_offset=kv_off, causal=True,
+                return flash_ref(q, k, v, q_off, kv_offset=kv_off, causal=causal,
                                  return_partial=partial)
             got, ref = run(), plain()
             torch.cuda.synchronize()
@@ -801,15 +832,16 @@ def phase_train(torch, arch: str, steps: int = TRAIN_STEPS, tag: str = "") -> di
     return out
 
 
-def phase_check(torch, arch: str) -> dict:
-    """Reduced slice: kernels on the card vs plain versions on the CPU, same weights."""
+def phase_check(torch, arch: str, cfg=None) -> dict:
+    """Reduced slice (or ``cfg``): kernels on the card vs plain versions on
+    the CPU, same weights."""
     import copy
 
     import numpy as np
     from repro_torch.launch.serve import run_requests, slice_config
     from repro_torch.models.transformer import init_lm
 
-    cfg = slice_config(arch, reduce=True)
+    cfg = cfg or slice_config(arch, reduce=True)
     cpu = init_lm(cfg, seed=3, dtype=torch.bfloat16, device="cpu")
     gpu = copy.deepcopy(cpu).to("cuda")
     lens = (5, 40, 19, 130)
@@ -855,27 +887,28 @@ def _reduced_train_config(arch: str):
                                **({"head_dim": HEAD_DIM[arch]} if arch in HEAD_DIM else {}))
 
 
-def phase_train_check(torch, arch: str) -> dict:
-    """Reduced training slice, bf16, the kernels on the card vs the plain
-    versions on the CPU, same weights and batches: step 1's gradients leaf
-    by leaf (relative L2), then two steps' loss and gradient norm. The
+def phase_train_check(torch, arch: str, cfg=None) -> dict:
+    """Reduced training slice (or ``cfg``), bf16, the kernels on the card vs
+    the plain versions on the CPU, same weights and batches (with the
+    arch's stub inputs, ``materialize_batch``): step 1's gradients leaf by
+    leaf (relative L2), then two steps' loss and gradient norm. The
     learning rate warms up in 2 steps, so step 2 sees step 1's update."""
     import copy
     import dataclasses
 
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, materialize_batch
     from repro_torch.models.transformer import init_lm
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.loop import cast_params, init_train_state, loss_fn, make_train_step
 
-    cfg = dataclasses.replace(_reduced_train_config(arch), dtype="bfloat16")
+    cfg = dataclasses.replace(cfg or _reduced_train_config(arch), dtype="bfloat16")
     if arch in FANOUT:                      # dropless: see FANOUT
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dropless=True))
     cpu = init_lm(cfg, seed=3, device="cpu")
     runs = {"card": ("cuda", copy.deepcopy(cpu).to("cuda")), "cpu": ("cpu", cpu)}
     data = SyntheticTokens(DataConfig(seq_len=256, global_batch=2, vocab_size=cfg.vocab_size,
                                       seed=3))
-    batches = [next(data) for _ in range(2)]
+    batches = [materialize_batch(cfg, next(data)) for _ in range(2)]
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=100)
     out, grads = {}, {}
     for run, (dev, params) in runs.items():
@@ -2456,6 +2489,360 @@ def _train_world_line(train_world: dict, sources: dict) -> list:
     return line
 
 
+# ----------------------------------------------------------- phase 15: block kinds
+
+GEMMA, QWEN2VL, WHISPER = "gemma-7b", "qwen2-vl-7b", "whisper-small"
+BLOCKS_SERVE = dict(layers=4, prompts=(1000, 700), new=16, s_max=1024)
+BLOCKS_ENGINE = dict(max_batch=2, page_size=128, prefill_chunk=512)
+# Training depth (None: the published depth) and steps of one 4096-token sequence.
+BLOCKS_TRAIN = dict(layers={GEMMA: 1, QWEN2VL: 2, WHISPER: None}, seq=4096, batch=1, steps=2)
+WHISPER_DECODE = dict(prompt=8, steps=3, s_max=64)
+
+
+def _flash_layers(cfg) -> int:
+    """Flash launches of one forward of ``cfg``'s training step: one per
+    self-attention, one per cross-attention and one per encoder layer."""
+    return cfg.n_layers * (2 if cfg.is_encoder_decoder else 1) + cfg.n_encoder_layers
+
+
+def _blocks_flops(cfg, S: int) -> float:
+    """Model FLOPs of one training step of one S-token sequence: 6 per
+    weight per token it touches (the encoder's and the cross K/V weights
+    per frame), the LM head, and the attention products (3 × 4·hd per
+    visible query-key pair per head: causal self-attention, the encoder's
+    and the cross-attention's full ones). The input lookup is no product."""
+    D, F, V, H, hd = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_heads, cfg.resolved_head_dim
+    attn = D * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * D
+    ffn = D * F * (3 if cfg.activation in ("swiglu", "geglu") else 2)
+    flops = 6.0 * S * (cfg.n_layers * (attn + ffn) + D * V)
+    pairs = cfg.n_layers * S * (S + 1) / 2
+    if cfg.is_encoder_decoder:
+        T = cfg.max_source_positions
+        cross_q = D * cfg.q_dim + cfg.q_dim * D
+        flops += 6.0 * (S * cfg.n_layers * cross_q + T * cfg.n_layers * 2 * D * cfg.kv_dim
+                        + T * cfg.n_encoder_layers * (attn + ffn))
+        pairs += cfg.n_layers * S * T + cfg.n_encoder_layers * T * T
+    return flops + 3 * 4.0 * hd * H * pairs
+
+
+def _vision_positions(cfg, B: int, S: int):
+    """M-RoPE streams (B, S, 3) for a batch whose first ``n_vision_tokens``
+    rows are an image's patches: the temporal stream a run (what the flash
+    kernel's mask takes), height and width the patch grid, then the text's
+    positions on every stream."""
+    import numpy as np
+    n = cfg.n_vision_tokens
+    side = int(round(n ** 0.5))
+    t = np.arange(S)
+    h, w = t.copy(), t.copy()
+    h[:n], w[:n] = np.arange(n) // side, np.arange(n) % side
+    return np.broadcast_to(np.stack([t, h, w], -1), (B, S, 3)).astype(np.int32).copy()
+
+
+def _blocks_batches(cfg, seq: int, batch: int, steps: int) -> list:
+    """``steps`` batches from ``SyntheticTokens(seed=0)`` with the arch's stub
+    inputs (``materialize_batch``; Qwen2-VL's positions from
+    :func:`_vision_positions`)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, materialize_batch
+    data = SyntheticTokens(DataConfig(seq_len=seq, global_batch=batch,
+                                      vocab_size=cfg.vocab_size, seed=0))
+    out = []
+    for _ in range(steps):
+        b = materialize_batch(cfg, next(data))
+        if cfg.rope_kind == "mrope":
+            b["positions"] = _vision_positions(cfg, batch, seq)
+        out.append(b)
+    return out
+
+
+def _blocks_serve(torch, arch: str) -> tuple:
+    """(a)/(b) serving: ``arch`` at full width cut to 4 layers, bf16, the same
+    two requests through a paged and a dense engine, each run with the
+    counters set to 0 just before and read just after."""
+    from repro_torch.launch.serve import slice_config, submit_random
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import Engine, EngineConfig
+    cfg = slice_config(arch, layers=BLOCKS_SERVE["layers"])
+    params = init_lm(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    out, failures = dict(model=f"{cfg.name} x{cfg.n_layers} layers (full width), bf16, heads "
+                               f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim}",
+                         runs={}), []
+    for cache in ("paged", "dense"):
+        tag = f"serve-{SHORT[arch][1:]}" + ("" if cache == "paged" else "-dense")
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(cfg, params, EngineConfig(cache=cache, s_max=BLOCKS_SERVE["s_max"],
+                                               **BLOCKS_ENGINE))
+        rids = submit_random(eng, cfg, BLOCKS_SERVE["prompts"], BLOCKS_SERVE["new"], seed=0)
+        torch.cuda.synchronize()
+        _zero_counters()
+        t0 = time.perf_counter()
+        res = eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counters()
+        n_fwd = sum(1 for s in eng.stats if s.prefill_tokens) + \
+            sum(1 for s in eng.stats if s.decode_tokens)
+        expect = {"gmm": 0, "gmm_trans_w": 0, "flash_attention": cfg.n_layers * n_fwd}
+        dec = [t[1] for t in eng.timings if t[1] > 0]
+        run = dict(forwards=n_fwd, launches=launches, wall_s=wall,
+                   decode_step_ms_median=statistics.median(dec) * 1e3,
+                   prefill_tok_per_s=sum(s.prefill_tokens for s in eng.stats) /
+                   sum(t[0] for t in eng.timings),
+                   max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   tokens=[res[r].tokens.tolist() for r in rids])
+        _say(f"[blocks {tag}] {out['model']}: {len(rids)} requests, {n_fwd} forwards, wall "
+             f"{wall:.3f} s, launches {launches} (expected {expect}); prefill "
+             f"{run['prefill_tok_per_s']:.1f} tok/s, decode step median "
+             f"{run['decode_step_ms_median']:.3f} ms; max_memory_allocated "
+             f"{run['max_memory_allocated_gb']:.2f} GB")
+        if launches != expect:
+            failures.append(f"{arch} {tag}: launches {launches} != {expect}")
+        for r in rids:
+            toks = res[r].tokens
+            if not (res[r].finished and len(toks) == BLOCKS_SERVE["new"]
+                    and 0 <= toks.min() and toks.max() < cfg.vocab_size):
+                failures.append(f"{arch} {tag} request {r}: tokens {toks.tolist()}")
+        out["runs"][cache] = run
+        del eng, res
+        torch.cuda.empty_cache()
+    out["paged_equals_dense"] = out["runs"]["paged"]["tokens"] == out["runs"]["dense"]["tokens"]
+    _say(f"[blocks serve] {arch}: paged tokens equal dense tokens: {out['paged_equals_dense']}")
+    if not out["paged_equals_dense"]:
+        failures.append(f"{arch}: paged tokens differ from dense tokens")
+    del params
+    return out, failures
+
+
+def _blocks_train(torch, arch: str) -> tuple:
+    """(a)/(b)/(c) training: AdamW steps of one 4096-token sequence (fp32
+    masters and moments, bf16 compute, full remat), counters set to 0 just
+    before and read just after: 2 flash launches (forward, remat's
+    recompute) a step per self-attention, cross-attention and encoder
+    layer."""
+    from repro_torch.launch.train import PEAK_BF16_FLOPS, train_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.loop import init_train_state, make_train_step
+    cfg = train_config(arch, layers=BLOCKS_TRAIN["layers"][arch])
+    seq, steps = BLOCKS_TRAIN["seq"], BLOCKS_TRAIN["steps"]
+    params = init_lm(cfg, seed=0, device="cuda")
+    opt = init_train_state(params)
+    step = make_train_step(cfg, guard=True)
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+               for b in _blocks_batches(cfg, seq, BLOCKS_TRAIN["batch"], steps)]
+    flops = _blocks_flops(cfg, seq) * BLOCKS_TRAIN["batch"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    rows = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rows.append(dict({k: float(v) for k, v in m.items()}, step_ms=dt * 1e3,
+                         mfu=flops / dt / PEAK_BF16_FLOPS))
+    launches = _read_counters()
+    expect = {"gmm": 0, "gmm_trans_w": 0, "flash_attention": 2 * _flash_layers(cfg) * steps}
+    out = dict(model=f"{cfg.name} x{cfg.n_layers} layers"
+                     + (f" + {cfg.n_encoder_layers} encoder layers over "
+                        f"{cfg.max_source_positions} frames" if cfg.is_encoder_decoder else "")
+                     + (f", {cfg.n_vision_tokens} vision rows" if cfg.n_vision_tokens else "")
+                     + f" (full width), {BLOCKS_TRAIN['batch']} x {seq} tokens a step",
+               steps=rows, launches=launches, model_tflop_per_step=flops / 1e12,
+               compute_bound_ms=_bound(0, flops)[0],
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    failures = []
+    for i, r in enumerate(rows):
+        _say(f"[blocks train-{SHORT[arch][1:]}] step {i}: loss {r['loss']:.6f} grad_norm "
+             f"{r['grad_norm']:.4f} step_ok {bool(r['step_ok'])}; {r['step_ms']:.1f} ms, MFU "
+             f"{100 * r['mfu']:.2f}%")
+        if not (r["loss"] == r["loss"] and abs(r["loss"]) != float("inf") and r["step_ok"]):
+            failures.append(f"{arch} train step {i}: loss {r['loss']}, step_ok {r['step_ok']}")
+    _say(f"[blocks train-{SHORT[arch][1:]}] {out['model']}: launches {launches} (expected "
+         f"{expect}); {flops / 1e12:.3f} model TFLOP a step, compute bound "
+         f"{out['compute_bound_ms']:.3f} ms; max_memory_allocated "
+         f"{out['max_memory_allocated_gb']:.2f} GB")
+    if launches != expect:
+        failures.append(f"{arch} train launches {launches} != {expect}")
+    del params, opt, step, batches
+    torch.cuda.empty_cache()
+    return out, failures
+
+
+def _whisper_decode(torch) -> tuple:
+    """(c) Whisper's ``decode_step`` at full depth, bf16, one row: a prompt
+    chunk, then greedy decode steps, counters set to 0 just before and read
+    just after (2 flash launches a layer a call: self- and cross-attention,
+    the cross K/V zeros, as the reference leaves them)."""
+    from repro_torch.launch.train import train_config
+    from repro_torch.models.transformer import decode_step, init_decode_state, init_lm
+    cfg = train_config(WHISPER)
+    params = init_lm(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    state = init_decode_state(cfg, 1, WHISPER_DECODE["s_max"], device="cuda")
+    g = torch.Generator(device="cpu").manual_seed(0)
+    tok = torch.randint(0, cfg.vocab_size, (1, WHISPER_DECODE["prompt"]), generator=g)
+    tok = tok.to("cuda")
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.perf_counter()
+    calls, new, finite = 0, [], True
+    with torch.no_grad():
+        for _ in range(WHISPER_DECODE["steps"] + 1):
+            logits, state = decode_step(params, state, tok, cfg)
+            calls += 1
+            finite &= bool(torch.isfinite(logits).all())
+            tok = logits[:, -1:].argmax(-1)
+            new.append(int(tok))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    expect = {"gmm": 0, "gmm_trans_w": 0, "flash_attention": 2 * cfg.n_layers * calls}
+    out = dict(calls=calls, launches=launches, wall_s=wall, tokens=new, step=state["step"])
+    _say(f"[blocks decode-whisper] {cfg.name} x{cfg.n_layers} decoder layers, bf16: a "
+         f"{WHISPER_DECODE['prompt']}-token chunk then {WHISPER_DECODE['steps']} decode steps in "
+         f"{wall:.3f} s, tokens {new}, launches {launches} (expected {expect}), finite {finite}")
+    failures = []
+    if launches != expect or not finite or state["step"] != WHISPER_DECODE["prompt"] + \
+            WHISPER_DECODE["steps"] or not all(0 <= t < cfg.vocab_size for t in new):
+        failures.append(f"whisper decode: launches {launches} (expected {expect}), finite "
+                        f"{finite}, step {state['step']}, tokens {new}")
+    del params, state
+    torch.cuda.empty_cache()
+    return out, failures
+
+
+def _blocks_checks(torch) -> dict:
+    """Phase 6's reduced card-vs-CPU checks for the three archs: training
+    (gradients leaf by leaf, two steps' loss and grad_norm) with their stub
+    inputs, serving's prefill logits for Gemma and Qwen2-VL, and Whisper's
+    ``decode_step`` logits. Gemma's reduced heads are set to 256, so the
+    check runs the head-256 kernels."""
+    import copy
+    import dataclasses
+    from repro_torch.launch.serve import slice_config
+    from repro_torch.launch.train import train_config
+    from repro_torch.models.transformer import decode_step, init_decode_state, init_lm
+    heads = {GEMMA: dict(head_dim=256)}
+    out = {}
+    for arch in (GEMMA, QWEN2VL, WHISPER):
+        kw = heads.get(arch, {})
+        res = {"train": phase_train_check(torch, arch, dataclasses.replace(
+            train_config(arch, reduce=True), **kw))}
+        if arch != WHISPER:
+            res["serve"] = phase_check(torch, arch, dataclasses.replace(
+                slice_config(arch, reduce=True), **kw))
+        else:
+            cfg = train_config(arch, reduce=True)
+            cfg = dataclasses.replace(cfg, dtype="bfloat16")
+            cpu = init_lm(cfg, seed=3, dtype=torch.bfloat16, device="cpu")
+            runs = {"cuda": copy.deepcopy(cpu).to("cuda"), "cpu": cpu}
+            tok = torch.randint(0, cfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(3))
+            logits = {}
+            with torch.no_grad():
+                for dev, p in runs.items():
+                    st = init_decode_state(cfg, 2, 32, device=dev)
+                    outs = []
+                    for lo, hi in ((0, 6), (6, 7), (7, 8), (8, 9)):
+                        lg, st = decode_step(p, st, tok[:, lo:hi].to(dev), cfg)
+                        outs.append(lg.float().cpu())
+                    logits[dev] = torch.cat(outs, 1)
+            err = float((logits["cuda"] - logits["cpu"]).abs().max() / logits["cpu"].abs().max())
+            _say(f"[check] {arch} reduced decode_step, card vs CPU plain versions: logits rel "
+                 f"err {err:.3e} (limit {CHECK_TOL})")
+            if not (torch.isfinite(logits["cuda"]).all() and err <= CHECK_TOL):
+                raise AssertionError(f"{arch} reduced decode_step: card vs CPU rel err {err:.3e}")
+            res["decode"] = {"logits_rel_err": err}
+        out[arch] = res
+    return out
+
+
+def _blocks_kernels(torch) -> dict:
+    """Phase 15's kernel rows, held and timed as in phase 3: flash at Gemma's
+    heads of 256 (causal 4096 in the training step's partial mode, the
+    serving decode against 1024 keys, a 512-query prefill chunk), at
+    Qwen2-VL's (28/4 of 128: causal 4096, its decode), and at Whisper's 12
+    of 64, not causal, over 1500 frames (the encoder; cross-attention of
+    4096 queries)."""
+    from repro_torch.launch.train import train_config
+    res = {}
+    for arch, rows in ((GEMMA, [
+            (("causal self-attention 4096", 4096, 4096, [0]), (True,), True),
+            (("decode, 1024 keys", 1, 1024, [1023, 1023]), (False,), True),
+            (("prefill chunk 512 of 1024", 512, 1024, [512]), (False,), True)]),
+            (QWEN2VL, [
+                (("causal self-attention 4096", 4096, 4096, [0]), (True,), True),
+                (("decode, 1024 keys", 1, 1024, [1023, 1023]), (False,), True)]),
+            (WHISPER, [
+                (("encoder 1500 x 1500", 1500, 1500, [0]), (True,), False),
+                (("cross-attention 4096 x 1500", 4096, 1500, [0]), (True,), False),
+                (("decode cross-attention, 1500 frames", 1, 1500, [0]), (False,), False),
+                (("causal self-attention 4096", 4096, 4096, [0]), (True,), True)])):
+        cfg = train_config(arch)
+        cases = []
+        for case, modes, causal in rows:
+            cases += _flash_cases(torch, arch, [case], heads=(cfg.n_heads, cfg.n_kv_heads),
+                                  modes=modes, hd=cfg.resolved_head_dim, causal=causal)
+        res[arch] = {"flash_attention": cases}
+        _check_cases(arch, res[arch])
+    return res
+
+
+def phase_blocks(torch) -> dict:
+    """Phase 15: see the module docstring."""
+    t_phase = time.perf_counter()
+    out, failures = {}, []
+    for arch in (GEMMA, QWEN2VL):
+        out[arch] = {}
+        out[arch]["serve"], f = _blocks_serve(torch, arch)
+        failures += f
+        _free(torch, f"{arch} serving done")
+        out[arch]["train"], f = _blocks_train(torch, arch)
+        failures += f
+        _free(torch, f"{arch} training done")
+    out[WHISPER] = {}
+    out[WHISPER]["train"], f = _blocks_train(torch, WHISPER)
+    failures += f
+    out[WHISPER]["decode"], f = _whisper_decode(torch)
+    failures += f
+    _free(torch, "whisper done")
+    out["checks"] = _blocks_checks(torch)
+    out["kernels"] = _blocks_kernels(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    _say(f"[blocks] phase 15 took {out['seconds']:.1f} s")
+    if failures:
+        raise AssertionError("phase 15:\n" + "\n".join(failures))
+    return out
+
+
+def _blocks_line(blocks: dict, sources: dict) -> list:
+    """Phase 15's entries of the kernels line: flash on each arch's paths
+    (``blocks-serve[-dense]-<arch>``, ``blocks-train-<arch>``,
+    ``blocks-decode-whisper``), each with its own launches, timed at that
+    path's shape."""
+    def case(arch, label):
+        return next(c for c in blocks["kernels"][arch]["flash_attention"]
+                    if c["case"] == label)
+    line = []
+    for arch in (GEMMA, QWEN2VL):
+        runs = blocks[arch]["serve"]["runs"]
+        for cache in ("paged", "dense"):
+            line.append(_entry("flash_attention",
+                               "blocks-serve" + ("" if cache == "paged" else "-dense")
+                               + SHORT[arch], arch, case(arch, "decode, 1024 keys, normalized"),
+                               runs[cache]["launches"]["flash_attention"], sources))
+        line.append(_entry("flash_attention", "blocks-train" + SHORT[arch], arch,
+                           case(arch, "causal self-attention 4096, partial"),
+                           blocks[arch]["train"]["launches"]["flash_attention"], sources))
+    line.append(_entry("flash_attention", "blocks-train" + SHORT[WHISPER], WHISPER,
+                       case(WHISPER, "cross-attention 4096 x 1500, partial"),
+                       blocks[WHISPER]["train"]["launches"]["flash_attention"], sources))
+    line.append(_entry("flash_attention", "blocks-decode" + SHORT[WHISPER], WHISPER,
+                       case(WHISPER, "decode cross-attention, 1500 frames, normalized"),
+                       blocks[WHISPER]["decode"]["launches"]["flash_attention"], sources))
+    return line
+
+
 def _free(torch, label: str) -> dict:
     """Release every cached block; the reserved memory before and after."""
     before = torch.cuda.memory_reserved() / 1e9
@@ -2542,6 +2929,9 @@ def main() -> int:
     memory_window = _free(torch, "phase 13 done, before phase 14")
     window = phase_window_dense(torch)
     mark("phase 14")
+    memory_blocks = _free(torch, "phase 14 done, before phase 15")
+    blocks = phase_blocks(torch)
+    mark("phase 15")
     seconds = time.perf_counter() - t_start
 
     gmm_src = ("src/repro_torch/kernels/csrc/gmm.cu", "src/repro/kernels/gmm/gmm.py:73")
@@ -2567,6 +2957,7 @@ def main() -> int:
     line += _train_handoff_line(train_handoff, sources)
     line += _serve_world_line(serve_world, sources)
     line += _window_dense_line(window, sources)
+    line += _blocks_line(blocks, sources)
     smi = _smi()
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -2577,6 +2968,7 @@ def main() -> int:
         world=world, train_world=train_world, train_zero=train_zero, train_pipe=train_pipe,
         train_resume=train_resume, train_handoff=train_handoff, serve_world=serve_world,
         window_dense=window, memory_before_window_dense=memory_window,
+        blocks=blocks, memory_before_blocks=memory_blocks,
         config_kernels=config_kernels,
         train_configs=train_configs, memory_after_train_zero=memory_zero,
         memory_after_train_handoff=memory_handoff,

@@ -8,7 +8,9 @@ tree. The caller turns the leaves into numpy arrays
 never imports JAX. The port names each leaf as ``LMParams.named_parameters``
 does (``layers.3.moe.w1``; the shared experts' ``moe/shared/w1`` is
 ``layers.3.moe.ws1``; a dense block's ``mlp/w_gate`` is
-``layers.3.mlp.w_gate``). With ``groups`` (a folded mapping) each rank gets
+``layers.3.mlp.w_gate``; a LayerNorm's ``norm1/{w,b}`` are
+``layers.3.norm1.{w,b}``; Whisper's ``encoder/cycle/b0/...`` are
+``encoder.layers.<j>....``). With ``groups`` (a folded mapping) each rank gets
 its slices of the full tree (``models.sharding``): parameters in the store
 layout, gradients and AdamW state in the ZeRO-1 state layout, so a test
 holds each rank's tensors against its slices of JAX's; at a pipelined fold
@@ -30,8 +32,9 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import AttentionParams
 from repro_torch.models.sharding import shard_tensor
 from repro_torch.models.ffn import FFNParams
-from repro_torch.models.transformer import (DenseBlockParams, LMParams, MoEBlockParams,
-                                            model_cycle, param_shapes)
+from repro_torch.models.transformer import (DenseBlockParams, DenseXBlockParams,
+                                            EncoderParams, LayerNormParams, LMParams,
+                                            MoEBlockParams, model_cycle, param_shapes)
 from repro_torch.optim.adamw import AdamWState
 
 
@@ -45,17 +48,28 @@ def jax_key(name: str, cfg: ModelConfig) -> Tuple[str, Optional[int]]:
     ``name``, and its index on the stacked layer-repeat axis (``None`` for
     the leaves outside the layers). Layer ``l`` is cycle position
     ``l % len(cycle)``, repeat ``l // len(cycle)``: ``layers.3.attn.wq`` is
-    ``cycle/b0/attn/wq`` at index 3 for a cycle of one block."""
+    ``cycle/b0/attn/wq`` at index 3 for a cycle of one block. A LayerNorm's
+    ``norm1.w``/``norm1.b`` are ``norm1/w``/``norm1/b`` (an RMSNorm's
+    ``norm1`` is ``norm1/w``); the encoder's ``encoder.layers.j.*`` are
+    ``encoder/cycle/b0/*`` at index j, its ``encoder.final_norm.*``
+    ``encoder/final_norm/*``."""
     if name in ("embed", "lm_head"):
         return name, None
-    if name == "final_norm":
-        return "final_norm/w", None
+    if name.startswith("encoder."):
+        key, i = _layer_key(name[len("encoder."):], 1)
+        return "encoder/" + key, i
+    return _layer_key(name, len(model_cycle(cfg)[1]))
+
+
+def _layer_key(name: str, n: int) -> Tuple[str, Optional[int]]:
+    """:func:`jax_key` of a leaf of a stack whose cycle has ``n`` blocks."""
+    if name.split(".")[0] == "final_norm":
+        return _norm_key(name), None
     _, layer, *rest = name.split(".")
-    n = len(model_cycle(cfg)[1])
     leaf = ".".join(rest)
-    if leaf in ("norm1", "norm2"):
-        path = f"{leaf}/w"
-    elif leaf.startswith(("attn.", "mlp.")):
+    if leaf.split(".")[0] in ("norm1", "norm2", "norm_x"):
+        path = _norm_key(leaf)
+    elif leaf.startswith(("attn.", "mlp.", "xattn.")):
         path = leaf.replace(".", "/", 1)
     elif leaf in ("moe.w1", "moe.w2", "moe.w3"):
         path = "moe/experts/" + leaf[4:]
@@ -66,11 +80,20 @@ def jax_key(name: str, cfg: ModelConfig) -> Tuple[str, Optional[int]]:
     return f"cycle/b{int(layer) % n}/{path}", int(layer) // n
 
 
+def _norm_key(leaf: str) -> str:
+    """``norm1`` (RMSNorm) → ``norm1/w``; ``norm1.w``/``.b`` (LayerNorm) →
+    ``norm1/w``/``norm1/b``."""
+    return leaf.replace(".", "/") if "." in leaf else leaf + "/w"
+
+
 def stacked_shape(name: str, shape: Sequence[int], cfg: ModelConfig) -> Tuple[int, ...]:
     """The shape of :func:`jax_key`'s leaf in the JAX tree from the port
-    leaf's ``shape``: a layer leaf gains the repeat axis in front."""
+    leaf's ``shape``: a layer leaf gains the repeat axis in front (the
+    encoder's has one repeat per encoder layer)."""
     if jax_key(name, cfg)[1] is None:
         return tuple(shape)
+    if name.startswith("encoder."):
+        return (cfg.n_encoder_layers,) + tuple(shape)
     return (cfg.n_layers // len(model_cycle(cfg)[1]),) + tuple(shape)
 
 
@@ -125,22 +148,42 @@ def params_from_jax(tree: Dict, cfg: ModelConfig, *, device: DeviceLike = None,
 def lm_params(t: Dict[str, torch.Tensor], cfg: ModelConfig) -> LMParams:
     """:class:`LMParams` from its leaves by name (all of them, or a
     pipeline stage's), the tensors taken as they are."""
-    layers = {}
-    for layer in range(cfg.n_layers):
-        pre = f"layers.{layer}."
-        if pre + "norm1" not in t:
-            continue
-        attn = AttentionParams(**{k[len(pre) + 5:]: v for k, v in t.items()
-                                  if k.startswith(pre + "attn.")})
-        if pre + "mlp.w_gate" in t:
-            mlp = FFNParams(t[pre + "mlp.w_gate"], t[pre + "mlp.w_down"], t.get(pre + "mlp.w_up"))
-            layers[layer] = DenseBlockParams(t[pre + "norm1"], attn, t[pre + "norm2"], mlp)
-            continue
-        moe = MoEParams(*(t[f"{pre}moe.{k}"] for k in ("router", "w1", "w2", "w3")),
-                        **{k: t[f"{pre}moe.{k}"] for k in SHARED_NAMES.values()
-                           if f"{pre}moe.{k}" in t})
-        layers[layer] = MoEBlockParams(t[pre + "norm1"], attn, t[pre + "norm2"], moe)
-    return LMParams(t.get("embed"), layers, t.get("final_norm"), t.get("lm_head"))
+    def norm(name):
+        if cfg.norm == "layernorm":
+            return LayerNormParams(t[name + ".w"], t[name + ".b"]) if name + ".w" in t else None
+        return t.get(name)
+
+    def attention(pre):
+        return AttentionParams(**{k[len(pre):]: v for k, v in t.items() if k.startswith(pre)})
+
+    def layers(prefix, count):
+        out = {}
+        for layer in range(count):
+            pre = f"{prefix}{layer}."
+            if norm(pre + "norm1") is None:
+                continue
+            n1, n2, attn = norm(pre + "norm1"), norm(pre + "norm2"), attention(pre + "attn.")
+            if pre + "mlp.w_gate" in t:
+                mlp = FFNParams(t[pre + "mlp.w_gate"], t[pre + "mlp.w_down"],
+                                t.get(pre + "mlp.w_up"))
+                if pre + "xattn.wq" in t:
+                    out[layer] = DenseXBlockParams(n1, attn, n2, mlp, norm(pre + "norm_x"),
+                                                   attention(pre + "xattn."))
+                else:
+                    out[layer] = DenseBlockParams(n1, attn, n2, mlp)
+                continue
+            moe = MoEParams(*(t[f"{pre}moe.{k}"] for k in ("router", "w1", "w2", "w3")),
+                            **{k: t[f"{pre}moe.{k}"] for k in SHARED_NAMES.values()
+                               if f"{pre}moe.{k}" in t})
+            out[layer] = MoEBlockParams(n1, attn, n2, moe)
+        return out
+
+    encoder = None
+    if cfg.is_encoder_decoder and norm("encoder.final_norm") is not None:
+        encoder = EncoderParams(layers("encoder.layers.", cfg.n_encoder_layers),
+                                norm("encoder.final_norm"))
+    return LMParams(t.get("embed"), layers("layers.", cfg.n_layers), norm("final_norm"),
+                    t.get("lm_head"), encoder)
 
 
 def moe_params_from_jax(tree: Dict, *, device: DeviceLike = None,

@@ -149,7 +149,7 @@ class Stage:
         """Whether a leaf (by the port's parameter name) lives on this stage."""
         if name == "embed":
             return self.first or (self.tied and self.last)
-        if name in ("final_norm", "lm_head"):
+        if name.split(".")[0] in ("final_norm", "lm_head"):
             return self.last
         return int(name.split(".")[1]) in self.layers
 
@@ -494,10 +494,9 @@ def make_pipeline_grads(cfg: ModelConfig, groups, part: StagePartition, n_micro:
     """
     from repro_torch.core import comm
     from repro_torch.core.folding import check_sp_moe_handoff
-    from repro_torch.models.common import vocab_parallel_cross_entropy
     from repro_torch.models.transformer import (AUX_KEYS, _compute_dtype, _run_stack,
-                                                lm_embed, lm_head_logits, lm_positions,
-                                                vocab_start)
+                                                decoder_positions, lm_embed, lm_head_logits,
+                                                lm_loss)
     from repro_torch.train.loop import assemble_loss_metrics, aux_loss_coefs
 
     stage = stage_of(cfg, groups)
@@ -518,8 +517,8 @@ def make_pipeline_grads(cfg: ModelConfig, groups, part: StagePartition, n_micro:
             raise ValueError(f"batch {B} not divisible by {n_micro} microbatches")
         mb = B // n_micro
         mbs = [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()} for i in range(n_micro)]
-        for m in mbs:
-            lm_positions(m, cfg)            # raises for explicit positions
+        # None (the layout's), or M-RoPE's streams of the rank's CP chunk
+        pos = [decoder_positions(m, cfg, groups) for m in mbs]
         if "moe" in cfg.blocks():
             check_sp_moe_handoff(groups)
         named = dict(cparams.named_parameters())
@@ -547,21 +546,18 @@ def make_pipeline_grads(cfg: ModelConfig, groups, part: StagePartition, n_micro:
             if op.kind == "F":
                 if c == 0:
                     h_in = None
-                    x = lm_embed(cparams, mbs[i], None, cfg, groups)
+                    x = lm_embed(cparams, mbs[i], pos[i], cfg, groups)
                 else:
                     h_in = link.recv(wire, dtype, dev, part.owner(c - 1), tag("F", i, c - 1))
                     x = h_in.requires_grad_()
                 per_layer: List[Dict[str, torch.Tensor]] = []
-                h, aux = _run_stack([cparams.layers[l] for l in layers[c]], x, None, cfg,
+                h, aux = _run_stack([cparams.layers[l] for l in layers[c]], x, pos[i], cfg,
                                     remat=remat, groups=groups, layer_aux=per_layer)
                 for l, a in zip(layers[c], per_layer):
                     layer_aux[i, l] = torch.stack([a[k] for k in AUX_KEYS])
                 if c == last:
                     logits = lm_head_logits(cparams, h, cfg, groups)
-                    ce, n_tok = vocab_parallel_cross_entropy(
-                        logits, mbs[i]["labels"], vocab_start=vocab_start(cparams, groups),
-                        vocab_group=groups.attn["tp"].group,
-                        token_group=groups.attn["dp_cp"].group)
+                    ce, n_tok = lm_loss(cparams, logits, mbs[i]["labels"], cfg, groups)
                     ce_tok[i, 0], ce_tok[i, 1] = ce.detach(), n_tok
                     out = ce
                 else:

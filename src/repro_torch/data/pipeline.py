@@ -107,6 +107,10 @@ def materialize_batch(cfg, np_batch: Mapping[str, np.ndarray], seed: int = 0
     return out
 
 
+# Batch entries that every rank of a DP rank holds whole along dim 1.
+WHOLE_SEQUENCE = ("vision_embeds", "audio_embeds")
+
+
 def shard_batch(batch: Mapping[str, np.ndarray], groups, *, microbatch: int = 0
                 ) -> Dict[str, np.ndarray]:
     """This rank's share of a global batch (``tokens``, ``labels``: (B, S)).
@@ -122,6 +126,14 @@ def shard_batch(batch: Mapping[str, np.ndarray], groups, *, microbatch: int = 0
     same rows, replicated over ``pp`` as the reference's
     ``batch_shardings`` put them (the first stage reads the tokens, the
     last the labels).
+
+    M-RoPE's ``positions`` (B, S, 3) are cut like the tokens; their
+    temporal stream must be a run on each row of the whole sequence (what
+    the flash kernel's mask takes, checked here where the whole sequence is
+    seen). ``vision_embeds`` and ``audio_embeds`` (B, n, D) are cut over DP
+    only, as ``batch_shardings`` leaves them: the ranks whose rows hold the
+    vision positions splice them in, and every rank runs the encoder on its
+    rows of the whole audio.
     """
     a = groups.attn
     dp, cp = a["dp"], a["cp"]
@@ -130,11 +142,21 @@ def shard_batch(batch: Mapping[str, np.ndarray], groups, *, microbatch: int = 0
         v = np.asarray(v)
         B, S = v.shape[:2]
         n = max(microbatch, 1)
-        if B % (n * dp.size) or S % cp.size:
+        whole = k in WHOLE_SEQUENCE
+        if B % (n * dp.size) or (S % cp.size and not whole):
             raise ValueError(f"batch {k} {v.shape}: rows do not split over {n} microbatches "
                              f"x DP {dp.size}, or the sequence over CP {cp.size}")
+        if k == "positions":
+            t = v[..., 0]
+            if not np.array_equal(t, t[:, :1] + np.arange(S)):
+                raise NotImplementedError(
+                    "positions whose temporal stream is not offset + arange(S) on each row "
+                    "are not ported (ROADMAP.md queue 1, 'Temporal positions that are not "
+                    "a run')")
         rows = v.reshape(n, dp.size, B // (n * dp.size), *v.shape[1:])[:, dp.index]
+        rows = rows.reshape(-1, *v.shape[1:])
         c = S // cp.size
-        out[k] = np.ascontiguousarray(
-            rows.reshape(-1, *v.shape[1:])[:, cp.index * c:(cp.index + 1) * c])
+        out[k] = np.ascontiguousarray(rows if whole else
+                                      rows[:, cp.index * c:(cp.index + 1) * c])
     return out
+

@@ -6,7 +6,7 @@
 // src/repro/kernels/flash/flash.py, and with it the jnp scan `_fwd_scan`
 // (src/repro/models/attn_core.py) that the JAX serving path runs for its
 // cache attention. Same contract:
-//   q (B, H, Sq, hd), k/v (B, Hkv, Skv, hd), hd in {64, 128}; GQA head h
+//   q (B, H, Sq, hd), k/v (B, Hkv, Skv, hd), hd in {64, 128, 256}; GQA head h
 //   reads KV head h / (H / Hkv); query row i of batch row b sits at
 //   position q_offset[b] + i, key j at kv_offset + j, or at kv_pos[b, j]
 //   when the caller gives key positions (the reference's blockwise_attention
@@ -49,10 +49,10 @@
 //      every head's last query tile is issued first, so the long causal
 //      rows start first.
 //    - Two producer threads issue TMA loads (128 B swizzle): one the Q tile
-//      and the 128-key K tiles, the other the V tiles, into a 3-stage ring
-//      (4 at hd 64) with separate full/empty mbarriers for K and V, from 3-D
-//      tensor maps over (hd, S, B x heads), so the zero fill stops at a
-//      head's ragged edge.
+//      and the 128-key K tiles (64 at hd 256), the other the V tiles, into a
+//      3-stage ring (4 at hd 64, 2 at hd 256) with separate full/empty
+//      mbarriers for K and V, from 3-D tensor maps over (hd, S, B x heads),
+//      so the zero fill stops at a head's ragged edge.
 //    - Two consumer warpgroups of 64 rows each run wgmma: S = Q K^T (both
 //      K-major), the online softmax on S in registers, then O += P V with P
 //      converted in registers as the A operand and V as MN-major B (the
@@ -84,6 +84,13 @@
 // chunk 0.118 ms (SDPA 0.147). The prefill path stages a tile's positions
 // in shared memory: read per mask test they took 0.528 ms, and held in
 // registers (32 a thread) they spilled (0.201 ms).
+//
+// Heads of 256 (Gemma): the prefill path takes 64-key tiles (WgCfg::BN; a
+// 128-key K or V tile is 64 KB, so only one stage would fit beside the
+// 64 KB Q tile), its S product one m64n64k16 wgmma a k-step and its P V two
+// N = 128 wgmma on the two halves of O and of V's swizzle atoms; the
+// decode path reads Q's fragments from the staged Q tile at each k-step
+// instead of holding all 64 registers of them beside the accumulator's 128.
 //
 // Key positions (kv_pos) keep both paths as they are and change only the
 // mask, in their own instantiations (template flag POS), so a launch
@@ -330,10 +337,18 @@ flash_fwd_kernel_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     *reinterpret_cast<uint4*>(Qs + r * C::LD + ch * 8) = val;
   }
   __syncthreads();
-  uint32_t qf[HD / 16][4];
+  // Q's fragments: held in registers up to heads of 128; at 256 they would
+  // take 64 registers beside the 128 of the accumulator, so each k-step
+  // reads its fragment from the staged tile instead.
+  constexpr bool Q_REGS = HD <= 128;
+  auto q_addr = [&](int kk) {
+    return smem_u32(Qs + (lane % 16) * C::LD + kk * 16 + (lane / 16) * 8);
+  };
+  uint32_t qf[Q_REGS ? HD / 16 : 1][4];
+  if constexpr (Q_REGS) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    ldsm_x4(qf[kk], smem_u32(Qs + (lane % 16) * C::LD + kk * 16 + (lane / 16) * 8));
+    for (int kk = 0; kk < HD / 16; ++kk) ldsm_x4(qf[kk], q_addr(kk));
+  }
 
   // This thread's two rows (g, g + 8) and their positions.
   bool row_ok[2];
@@ -366,8 +381,15 @@ flash_fwd_kernel_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     for (int kk = 0; kk < HD / 16; ++kk) {
       uint32_t kf[4];
       ldsm_x4(kf, ks + (((lane / 16) * 8 + lane % 8) * C::LD + kk * 16 + ((lane / 8) & 1) * 8) * 2);
-      mma16816(sc[0], qf[kk], kf[0], kf[1]);
-      mma16816(sc[1], qf[kk], kf[2], kf[3]);
+      if constexpr (Q_REGS) {
+        mma16816(sc[0], qf[kk], kf[0], kf[1]);
+        mma16816(sc[1], qf[kk], kf[2], kf[3]);
+      } else {
+        uint32_t qa[4];
+        ldsm_x4(qa, q_addr(kk));
+        mma16816(sc[0], qa, kf[0], kf[1]);
+        mma16816(sc[1], qa, kf[2], kf[3]);
+      }
     }
     // Online softmax over these 16 keys; rows g (e < 2) and g + 8 (e >= 2).
     uint32_t vis = 0;
@@ -503,24 +525,27 @@ flash_fwd_kernel_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 // ================================================== prefill path (wgmma)
 
 constexpr int W_BM = 128;                    // query rows per block: 64 per consumer warpgroup
-constexpr int W_BN = 128;                    // keys per K/V tile
 constexpr int W_CONSUMER_WARPS = 8;
 constexpr int W_THREADS = 32 * W_CONSUMER_WARPS + 128;   // + the producer warpgroup
 constexpr int W_EPI_COLS = 32;               // fp32 epilogue strip: 16 rows x 32 columns per warp
 
 template <int HD>
 struct WgCfg {
+  // Keys per K/V tile: 128, or 64 at heads of 256, where a 128-key tile
+  // (64 KB for K or V) leaves room for one stage beside the 64 KB Q tile and
+  // a consumer thread's S would take 64 registers beside O's 128.
+  static constexpr int BN = HD > 128 ? 64 : 128;
   static constexpr int ATOMS = HD / 64;      // 64-column (128 B) swizzle atoms per row
   static constexpr int Q_BYTES = W_BM * HD * 2;
-  static constexpr int KV_BYTES = W_BN * HD * 2;            // one K or V tile
+  static constexpr int KV_BYTES = BN * HD * 2;              // one K or V tile
   static constexpr int FIT = (SMEM_LIMIT - 1024 - Q_BYTES - 256) / (2 * KV_BYTES);
   static constexpr int STAGES = FIT > 4 ? 4 : FIT;
   // 1024 B of slack to align Q to the swizzle atom, Q, the ring, then the
   // mbarriers: Q full, K full/empty and V full/empty per stage.
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (1 + 4 * STAGES);
   // With key positions, after the mbarriers: each consumer warpgroup's copy
-  // of the 128 positions of the tile it masks.
-  static constexpr int POS_BYTES = 2 * W_BN * 4;
+  // of the BN positions of the tile it masks.
+  static constexpr int POS_BYTES = 2 * BN * 4;
   static_assert(STAGES >= 2 && SMEM + POS_BYTES <= SMEM_LIMIT, "tiles do not fit shared memory");
 };
 
@@ -589,6 +614,23 @@ struct WgmmaSS<128> {
 };
 
 template <>
+struct WgmmaSS<64> {
+  __device__ static __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
 struct WgmmaRS<128> {
   __device__ static __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
                                              int scale_d) {
@@ -638,6 +680,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                        int Sq, int Skv, int kv_offset, int causal, int window, float scale) {
   using C = WgCfg<HD>;
   constexpr int STAGES = C::STAGES;
+  constexpr int BN = C::BN;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -657,8 +700,8 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   const KeyPos<POS> kp{POS ? kv_pos + static_cast<size_t>(b) * Skv : nullptr, kv_offset};
   int lo, hi;
   visible_range(q_off + q0, q_off + min(q0 + W_BM, Sq) - 1, Skv, kp, causal, window, lo, hi);
-  const int t_begin = lo / W_BN;
-  const int t_end = hi > lo ? (hi + W_BN - 1) / W_BN : t_begin;
+  const int t_begin = lo / BN;
+  const int t_end = hi > lo ? (hi + BN - 1) / BN : t_begin;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -698,7 +741,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
         mbar_expect_tx(full + 8 * stage, C::KV_BYTES);
 #pragma unroll
         for (int j = 0; j < C::ATOMS; ++j)
-          tma_load_3d(dst + j * W_BN * 128, map, full + 8 * stage, j * 64, t * W_BN, b * Hkv + hk);
+          tma_load_3d(dst + j * BN * 128, map, full + 8 * stage, j * 64, t * BN, b * Hkv + hk);
         if (++stage == STAGES) { stage = 0; phase ^= 1; }
       }
     }
@@ -708,15 +751,15 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   // -------------------------------------------------------------- consumers
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int wg = warp / 4, wq = warp % 4;    // warpgroup, warp within it
-  // Key positions (POS): each thread loads one of a tile's 128 before the
-  // tile's S product is issued, and the warpgroup stages them in its slot of
+  // Key positions (POS): each of the first BN threads loads one of a tile's
+  // BN before the tile's S product is issued, and the warpgroup stages them in its slot of
   // shared memory for the mask (named barrier 3 + wg over its 128 threads),
   // so no thread keeps the 32 its columns need in registers.
   int* const pos_s = reinterpret_cast<int*>(smem_raw + (bars - raw) + 8 * (1 + 4 * STAGES)) +
-                     wg * W_BN;
+                     wg * BN;
   const int tid_wg = threadIdx.x % 128;
   auto fetch_pos = [&](int t) -> int {
-    const int kidx = t * W_BN + tid_wg;
+    const int kidx = t * BN + tid_wg;
     return kidx < Skv ? kp(kidx) : 0;
   };
   const int g = lane / 4, c = lane % 4;
@@ -734,34 +777,45 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     if (++stage == STAGES) { stage = 0; phase ^= 1; }
   };
   // S = Q K^T of the stage's K tile into s, one commit group.
-  auto mma_s = [&](float (&s)[W_BN / 2], int st) {
+  auto mma_s = [&](float (&s)[BN / 2], int st) {
     const uint32_t ks = ring + st * 2 * C::KV_BYTES;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      WgmmaSS<W_BN>::mma(s, sw128_desc(q_wg + (kk / 4) * W_BM * 128 + (kk % 4) * 32, 16, 1024),
-                         sw128_desc(ks + (kk / 4) * W_BN * 128 + (kk % 4) * 32, 16, 1024), kk);
+      WgmmaSS<BN>::mma(s, sw128_desc(q_wg + (kk / 4) * W_BM * 128 + (kk % 4) * 32, 16, 1024),
+                         sw128_desc(ks + (kk / 4) * BN * 128 + (kk % 4) * 32, 16, 1024), kk);
     wgmma_commit();
   };
-  // O += P V of the stage's V tile, one commit group.
-  auto mma_pv = [&](const uint32_t (&pa)[W_BN / 16][4], int st) {
+  // O += P V of the stage's V tile, one commit group. At heads of 256 the
+  // product is two N = 128 wgmma per k-step, on the two halves of O (its
+  // registers are column-major in 8-column groups, so a half is a run of 64)
+  // and of V's swizzle atoms.
+  auto mma_pv = [&](const uint32_t (&pa)[BN / 16][4], int st) {
     const uint32_t vs = ring + st * 2 * C::KV_BYTES + C::KV_BYTES;
 #pragma unroll
-    for (int kc = 0; kc < W_BN / 16; ++kc)
-      WgmmaRS<HD>::mma(o, pa[kc], sw128_desc(vs + kc * 16 * 128, W_BN * 128, 1024), 1);
+    for (int kc = 0; kc < BN / 16; ++kc) {
+      if constexpr (HD <= 128) {
+        WgmmaRS<HD>::mma(o, pa[kc], sw128_desc(vs + kc * 16 * 128, BN * 128, 1024), 1);
+      } else {
+#pragma unroll
+        for (int n = 0; n < HD / 128; ++n)
+          WgmmaRS<128>::mma(*reinterpret_cast<float(*)[64]>(&o[64 * n]), pa[kc],
+                            sw128_desc(vs + n * 2 * BN * 128 + kc * 16 * 128, BN * 128, 1024), 1);
+      }
+    }
     wgmma_commit();
   };
   // Online softmax of tile t's scores, in place: s[4j + e] (row row0 +
   // 8 (e / 2), key t*BN + 8j + 2c + (e & 1)) becomes p. Returns the rescale
   // factors of the rows' earlier sums in corr.
-  auto softmax = [&](float (&s)[W_BN / 2], int t, float (&corr)[2], int my_pos) {
-    const int k0 = t * W_BN;
+  auto softmax = [&](float (&s)[BN / 2], int t, float (&corr)[2], int my_pos) {
+    const int k0 = t * BN;
     if constexpr (POS) {
       named_bar_sync(3 + wg, 128);           // every thread has read the last tile's
-      pos_s[tid_wg] = my_pos;
+      if (tid_wg < BN) pos_s[tid_wg] = my_pos;
       named_bar_sync(3 + wg, 128);
     }
-    const bool edge = POS || k0 + W_BN > Skv ||
-                      (causal && kv_offset + k0 + W_BN - 1 > q_off + wq_first) ||
+    const bool edge = POS || k0 + BN > Skv ||
+                      (causal && kv_offset + k0 + BN - 1 > q_off + wq_first) ||
                       (window && q_off + wq_last - (kv_offset + k0) >= window);
     // Off the mask edges with a positive scale, s stays unscaled (the max
     // commutes with the scale) and the scale goes into the exponent's FFMA.
@@ -769,7 +823,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     float mx[2] = {NEG_INF, NEG_INF};
     if (edge) {
 #pragma unroll
-      for (int i = 0; i < W_BN / 2; ++i) {
+      for (int i = 0; i < BN / 2; ++i) {
         const int e = i % 4;
         const int kidx = k0 + (i / 4) * 8 + 2 * c + (e & 1);
         bool ok;
@@ -784,12 +838,12 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
       }
     } else if (raw) {
 #pragma unroll
-      for (int i = 0; i < W_BN / 2; ++i) mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
+      for (int i = 0; i < BN / 2; ++i) mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
       mx[0] *= scale;
       mx[1] *= scale;
     } else {
 #pragma unroll
-      for (int i = 0; i < W_BN / 2; ++i) {
+      for (int i = 0; i < BN / 2; ++i) {
         s[i] *= scale;
         mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
       }
@@ -805,7 +859,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
       l_run[r] *= corr[r];
     }
 #pragma unroll
-    for (int i = 0; i < W_BN / 2; ++i) {
+    for (int i = 0; i < BN / 2; ++i) {
       const int r = (i % 4) / 2;
       float p = fast_exp2(fmaf(s[i], mul, -mb[r]));
       if (edge && s[i] == NEG_INF) p = 0.f;  // hidden key: 0 even when m is NEG_INF
@@ -814,9 +868,9 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     }
   };
   // p (fp32) -> the bf16 A operand of P V: pa[kc] holds keys 16kc..16kc+15.
-  auto to_a = [&](const float (&s)[W_BN / 2], uint32_t (&pa)[W_BN / 16][4]) {
+  auto to_a = [&](const float (&s)[BN / 2], uint32_t (&pa)[BN / 16][4]) {
 #pragma unroll
-    for (int i = 0; i < W_BN / 2; i += 2) pa[i / 8][(i % 8) / 2] = pack_bf16(s[i], s[i + 1]);
+    for (int i = 0; i < BN / 2; i += 2) pa[i / 8][(i % 8) / 2] = pack_bf16(s[i], s[i + 1]);
   };
 
   // Ping-pong: the two warpgroups take turns to issue their wgmma (named
@@ -844,8 +898,8 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     // instruction writes them while the wgmma are in flight (ptxas would
     // serialize the wgmma).
     if (wg == 1) named_bar_arrive(other_bar, 256);
-    float s[W_BN / 2], corr[2];
-    uint32_t pa[W_BN / 16][4];
+    float s[BN / 2], corr[2];
+    uint32_t pa[BN / 16][4];
     int my_pos = POS ? fetch_pos(t_begin) : 0;
     mbar_wait(k_full + 8 * stage, phase);
     my_turn();
@@ -1030,14 +1084,23 @@ int launch_wgmma(const Args& a) {
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap q_map, k_map, v_map;
   if (!encode_3d(&q_map, a.q, HD, a.Sq, a.B * a.H, W_BM) ||
-      !encode_3d(&k_map, a.k, HD, a.Skv, a.B * a.Hkv, W_BN) ||
-      !encode_3d(&v_map, a.v, HD, a.Skv, a.B * a.Hkv, W_BN))
+      !encode_3d(&k_map, a.k, HD, a.Skv, a.B * a.Hkv, WgCfg<HD>::BN) ||
+      !encode_3d(&v_map, a.v, HD, a.Skv, a.B * a.Hkv, WgCfg<HD>::BN))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(a.H, a.B, (a.Sq + W_BM - 1) / W_BM);
   flash_fwd_kernel_wgmma<HD, POS><<<grid, W_THREADS, smem, a.stream>>>(
       q_map, k_map, v_map, a.q_offset, a.kv_pos, a.out, a.acc, a.m, a.l, a.H, a.Hkv, a.Sq, a.Skv,
       a.kv_offset, a.causal, a.window, a.scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool POS>
+int launch(const Args& a, int path, int hd) {
+  if (path == 0)
+    return hd == 256 ? launch_split<256, POS>(a)
+                     : hd == 128 ? launch_split<128, POS>(a) : launch_split<64, POS>(a);
+  return hd == 256 ? launch_wgmma<256, POS>(a)
+                   : hd == 128 ? launch_wgmma<128, POS>(a) : launch_wgmma<64, POS>(a);
 }
 
 }  // namespace
@@ -1056,7 +1119,7 @@ extern "C" int repro_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                     int window, float scale, int path, int splits,
                                     void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv ||
-      (hd != 64 && hd != 128) || window < 0)
+      (hd != 64 && hd != 128 && hd != 256) || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (out == nullptr && (acc == nullptr || m == nullptr || l == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1069,11 +1132,5 @@ extern "C" int repro_flash_fwd_bf16(const void* q, const void* k, const void* v,
                static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
                static_cast<float*>(ws), static_cast<int*>(counters), B, H, Hkv, Sq, Skv,
                kv_offset, causal, window, splits, scale, static_cast<cudaStream_t>(stream)};
-  const bool pos = kv_pos != nullptr;
-  if (path == 0) {
-    if (pos) return hd == 128 ? launch_split<128, true>(a) : launch_split<64, true>(a);
-    return hd == 128 ? launch_split<128, false>(a) : launch_split<64, false>(a);
-  }
-  if (pos) return hd == 128 ? launch_wgmma<128, true>(a) : launch_wgmma<64, true>(a);
-  return hd == 128 ? launch_wgmma<128, false>(a) : launch_wgmma<64, false>(a);
+  return kv_pos != nullptr ? launch<true>(a, path, hd) : launch<false>(a, path, hd);
 }

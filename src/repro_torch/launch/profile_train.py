@@ -2,10 +2,10 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train [--arch mixtral-8x22b] [--layers 1] [--seq 4096]
 
-The full-width ``--arch`` (Mixtral-8x22B or Qwen2-57B-A14B) cut to ``--layers`` layers, the training slice of
+The full-width ``--arch`` (any the port trains) cut to ``--layers`` layers, the training slice of
 ``launch/train.py`` (fp32 masters and AdamW state, bf16 compute, full remat,
 token-dropping MoE, ``guard=True``), one sequence of ``--seq`` tokens a
-step. After ``--warmup`` steps it times ``--steps`` steps by the host clock
+step, with the arch's stub inputs (``data.pipeline.materialize_batch``). After ``--warmup`` steps it times ``--steps`` steps by the host clock
 (each ending in a synchronize), then runs one more step under
 ``torch.profiler`` (CPU + CUDA activities) and splits its device time:
 
@@ -94,7 +94,7 @@ def main() -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, materialize_batch
     from repro_torch.device import resolve_device
     from repro_torch.launch.train import PEAK_BF16_FLOPS, step_flops, train_config
     from repro_torch.models.transformer import init_lm
@@ -113,7 +113,8 @@ def main() -> None:
 
     def run():
         nonlocal params, opt
-        batch = {k: torch.from_numpy(v).to(device) for k, v in next(data).items()}
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in materialize_batch(cfg, next(data)).items()}
         params, opt, m = step(params, opt, batch)
         return m
 

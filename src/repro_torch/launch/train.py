@@ -176,7 +176,7 @@ def main() -> None:
 
     import torch
 
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, materialize_batch
     from repro_torch.device import resolve_device
     from repro_torch.models.transformer import init_lm
     from repro_torch.optim.adamw import AdamWConfig
@@ -197,7 +197,8 @@ def main() -> None:
           f"{cfg.dtype} compute on {device}: {args.batch} x {args.seq} tokens a step, "
           f"{flops / 1e12:.2f} model TFLOP a step")
     for i, nb in zip(range(args.steps), data):
-        batch = {k: torch.from_numpy(v).to(device) for k, v in nb.items()}
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in materialize_batch(cfg, nb).items()}
         if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -337,7 +338,8 @@ def _checkpointed_loop(spec, cfg, opt_cfg, groups, dev, out, on_restore) -> None
     """:func:`resilient_run` without ``supervise``."""
     import torch
     from repro_torch.checkpoint import store
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, shard_batch
+    from repro_torch.data.pipeline import (DataConfig, SyntheticTokens, materialize_batch,
+                                           shard_batch)
     from repro_torch.resilience.driver import init_params
     from repro_torch.train import loop
     ckpt, every, keep = spec["ckpt_dir"], max(spec["ckpt_every"], 1), spec["keep"]
@@ -372,7 +374,7 @@ def _checkpointed_loop(spec, cfg, opt_cfg, groups, dev, out, on_restore) -> None
                               bytes=p.bytes, **p.timings))
 
     for i in range(start, spec["steps"]):
-        nb = next(data)
+        nb = materialize_batch(cfg, next(data))
         if groups is not None:
             nb = shard_batch(nb, groups, microbatch=micro)
         t0 = time.perf_counter()

@@ -750,10 +750,11 @@ def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, 
     """One rank of :func:`train_world` (see there)."""
     from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
     from repro_torch.core.folding import build_folded_groups, sp_token_index
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, shard_batch
+    from repro_torch.data.pipeline import (DataConfig, SyntheticTokens, materialize_batch,
+                                           shard_batch)
     from repro_torch.launch.train import train_config
     from repro_torch.models import sharding
-    from repro_torch.models.transformer import init_lm
+    from repro_torch.models.transformer import init_lm, param_shapes
 
     dev = torch.device(spec["device"])
     cfg = fold_config(train_config(spec["arch"], layers=spec["layers"], reduce=spec["reduce"]),
@@ -791,7 +792,8 @@ def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, 
                                       vocab_size=cfg.vocab_size, seed=spec["seed"]))
     n_steps = max([r.steps for r in runs] + [1])
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in
-                shard_batch(next(data), fg, microbatch=spec["microbatch"]).items()}
+                shard_batch(materialize_batch(cfg, next(data)), fg,
+                            microbatch=spec["microbatch"]).items()}
                for _ in range(n_steps)]
     if "moe" in cfg.blocks():
         out["moe_tokens"] = _moe_token_ids(batches[0]["tokens"], fg, seqs)
@@ -803,8 +805,9 @@ def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, 
                                                                   fsdp=fsdp))
         r = r._replace(fsdp=fsdp, master_weights=master)
         # Every run from the same start, in its own store layout.
-        params = sharding.map_params(sharding.store_from_compute(start, fgm),
-                                     lambda n, t: t.to(dev))
+        params = sharding.map_params(
+            sharding.store_from_compute(start, fgm, param_shapes(cfg, fgm)),
+            lambda n, t: t.to(dev))
         if not on_host:
             del start
         run, result = _one_run(r, fgm, cfg, params, batches, spec, dev, timed=True,

@@ -28,7 +28,7 @@ from repro_torch.core import comm
 from repro_torch.core.folding import FoldedGroups, zigzag_runs
 from repro_torch.kernels.flash.ops import flash
 from repro_torch.models.attn_core import _merge_partials, blockwise_attention, ring_attention
-from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.models.common import apply_mrope, apply_rope, dense_init, mrope_sections
 
 
 class AttentionParams(nn.Module):
@@ -57,11 +57,43 @@ def init_attention(cfg: ModelConfig, *, generator: torch.Generator,
     return AttentionParams(wq, wk, wv, wo, **biases)
 
 
+def _apply_positional(x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """RoPE or M-RoPE of x (B, S, H, hd) at ``pos``: (B, S) ids, or for
+    M-RoPE (B, S, 3) streams (plain ids are the same stream three times, as
+    decode gives them); x as it is for ``rope_kind="none"``."""
+    if cfg.rope_kind == "rope":
+        return apply_rope(x, pos, cfg.rope_theta)
+    if cfg.rope_kind == "mrope":
+        if pos.dim() == x.dim() - 2:
+            pos = pos[..., None].expand(*pos.shape, 3)
+        return apply_mrope(x, pos, cfg.rope_theta, sections=mrope_sections(x.shape[-1]))
+    if cfg.rope_kind != "none":
+        raise ValueError(f"unknown rope_kind {cfg.rope_kind!r}")
+    return x
+
+
+def check_temporal_run(pos: torch.Tensor) -> None:
+    """Training masks by the temporal stream ``pos[..., 0]`` of M-RoPE
+    positions (B, S, 3); the flash kernel takes a run of positions per
+    launch, so each row's temporal stream must be ``offset + arange(S)``
+    (any offset per row: the mask reads only differences). The height and
+    width streams may be anything. Synchronises with the device."""
+    t = pos[..., 0]
+    run = t[:, :1] + torch.arange(t.shape[1], dtype=t.dtype, device=t.device)
+    if not torch.equal(t, run):
+        raise NotImplementedError(
+            "M-RoPE positions whose temporal stream is not offset + arange(S) on each row "
+            "(an image's patches that share one temporal id) are not ported: the flash "
+            "kernel takes key runs (ROADMAP.md queue 1, 'Temporal positions that are not "
+            "a run')")
+
+
 def _project_qkv(p: AttentionParams, x: torch.Tensor, x_kv: torch.Tensor,
                  pos: torch.Tensor, kv_pos: torch.Tensor, cfg: ModelConfig
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(B, S, D) → q (B, S, H, hd), k/v (B, S_kv, Hkv, hd), RoPE applied;
-    H and Hkv are the heads of the weights given (a TP rank's slice)."""
+    """(B, S, D) → q (B, S, H, hd), k/v (B, S_kv, Hkv, hd), RoPE or M-RoPE
+    applied (:func:`_apply_positional`); H and Hkv are the heads of the
+    weights given (a TP rank's slice)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q = x @ p.wq.to(x.dtype)
@@ -74,37 +106,45 @@ def _project_qkv(p: AttentionParams, x: torch.Tensor, x_kv: torch.Tensor,
     q = q.reshape(B, S, -1, hd)
     k = k.reshape(B, x_kv.shape[1], -1, hd)
     v = v.reshape(B, x_kv.shape[1], -1, hd)
-    if cfg.rope_kind == "rope":
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, kv_pos, cfg.rope_theta)
-    elif cfg.rope_kind != "none":
-        raise NotImplementedError(f"rope_kind={cfg.rope_kind!r} is not ported yet "
-                                  "(ROADMAP.md queue 1, 'Remaining block kinds')")
-    return q, k, v
+    return _apply_positional(q, pos, cfg), _apply_positional(k, kv_pos, cfg), v
 
 
 def attention(p: AttentionParams, x: torch.Tensor, pos: Optional[torch.Tensor],
               cfg: ModelConfig, *, causal: bool = True, window: int = 0,
-              block_kv: int = 1024, groups: Optional[FoldedGroups] = None) -> torch.Tensor:
-    """Self-attention over whole sequences: x (B, S, D) → (B, S, D).
+              block_kv: int = 1024, groups: Optional[FoldedGroups] = None,
+              cross_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Self- or cross-attention over whole sequences: x (B, S, D) → (B, S, D).
 
-    ``pos`` (B, S) are the tokens' RoPE positions and must be the default
-    ``arange(S)`` on every row (``transformer.lm_positions``): the mask is
-    the flash kernel's at offset 0 (``attn_core.blockwise_attention``).
+    ``pos`` are the tokens' RoPE positions: (B, S) ids, which must be the
+    default ``arange(S)`` on every row (``transformer.lm_positions``), or
+    for M-RoPE (B, S, 3) streams whose temporal stream is a run on each row
+    (:func:`check_temporal_run`, which the caller makes): the mask is the
+    flash kernel's at offset 0 (``attn_core.blockwise_attention``).
+    ``causal=False`` is the encoder's. ``cross_x`` (B, T, D): the keys and
+    values come from it (the encoder's output, whole), not causal, with no
+    ring, as the reference runs cross-attention; the keys sit at positions
+    ``arange(T)``.
 
     With ``groups``, ``x`` is this rank's sequence-parallel rows (B, S /
     (cp·tp), D), ``p`` its TP slice (``models.sharding``), ``pos`` must be
-    ``None`` (the positions are the default ones, placed by the layout) and
-    the result is in the same layout: see :func:`_folded_attention`.
+    ``None`` (the positions are the default ones, placed by the layout) or
+    for M-RoPE the rank's CP chunk of the streams (B, S / cp, 3), and the
+    result is in the same layout: see :func:`_folded_attention`.
     """
     window = window or cfg.sliding_window
+    if cross_x is not None:
+        causal = False
     if groups is not None:
-        if pos is not None:
+        if pos is not None and pos.dim() != 3:
             raise ValueError("attention(groups=...): positions come from the layout; "
-                             "pass pos=None")
+                             "pass pos=None (or the M-RoPE streams of the rank's chunk)")
         return _folded_attention(p, x, cfg, groups, causal=causal, window=window,
-                                 block_kv=block_kv)
-    q, k, v = _project_qkv(p, x, x, pos, pos, cfg)
+                                 block_kv=block_kv, pos3=pos, cross_x=cross_x)
+    x_kv = x if cross_x is None else cross_x
+    kv_pos = pos
+    if cross_x is not None:
+        kv_pos = torch.arange(x_kv.shape[1], device=x.device).expand(x.shape[0], -1)
+    q, k, v = _project_qkv(p, x, x_kv, pos, kv_pos, cfg)
     out = blockwise_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                               causal=causal, window=window, block_kv=block_kv)
     return _attn_output(out, p, cfg)
@@ -112,20 +152,25 @@ def attention(p: AttentionParams, x: torch.Tensor, pos: Optional[torch.Tensor],
 
 def _folded_attention(p: AttentionParams, x: torch.Tensor, cfg: ModelConfig,
                       groups: FoldedGroups, *, causal: bool, window: int,
-                      block_kv: int) -> torch.Tensor:
+                      block_kv: int, pos3: Optional[torch.Tensor] = None,
+                      cross_x: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention across the TP and CP ranks of ``groups`` (the reference's
     all-gather path and ``_ring_self_attention``).
 
     1. SP all-gather over TP: the rank's CP chunk of the sequence, in
        natural order (chunk ``cp_index`` of cp).
-    2. ``"ring"`` (cp > 1): the chunk goes to the zigzag layout over CP
-       (chunks i and 2·cp − 1 − i of 2·cp).
+    2. ``"ring"`` (cp > 1, self-attention): the chunk goes to the zigzag
+       layout over CP (chunks i and 2·cp − 1 − i of 2·cp), and the M-RoPE
+       streams ``pos3`` with it.
     3. Column-parallel ``wq/wk/wv`` (+ biases) over this rank's heads, RoPE
-       at the tokens' positions.
+       at the tokens' positions (M-RoPE at ``pos3``'s streams).
     4. ``"allgather"``: K/V all-gathered over CP, one flash launch with the
        queries at the chunk's offset. ``"ring"``: :func:`ring_attention`,
        then the output back to natural order — the zigzag order lives only
        inside attention, so the MoE router sees the same tokens per shard.
+       Cross-attention (``cross_x``, the encoder's whole output): K/V
+       projected from it at the rank's heads, one flash launch, not causal
+       (the reference runs it without the ring whatever ``cp_mode`` says).
     5. Row-parallel ``wo``; its partial sums reduce-scattered over TP back
        to the SP layout.
     """
@@ -141,22 +186,32 @@ def _folded_attention(p: AttentionParams, x: torch.Tensor, cfg: ModelConfig,
     S_cp = S_sp * tp
     S = S_cp * cp
     dev = x.device
-    ring = cp > 1 and groups.pcfg.cp_mode == "ring"
+    ring = cp > 1 and groups.pcfg.cp_mode == "ring" and cross_x is None
     xg = comm.sp_gather(x, tp_ax.group)                   # (B, S/cp, D)
     if ring:
         runs = zigzag_runs(S, cp)
         xg = comm.to_zigzag(xg, cp_ax, dim=1)
         half = torch.arange(S_cp // 2, dtype=torch.int32, device=dev)
         pos = torch.cat([half + o for o in runs[cp_ax.index]])
+        if pos3 is not None:
+            pos3 = comm.to_zigzag(pos3, cp_ax, dim=1)
     else:
         pos = cp_ax.index * S_cp + torch.arange(S_cp, dtype=torch.int32, device=dev)
-    pos = pos.expand(B, S_cp)
-    q, k, v = _project_qkv(p, xg, xg, pos, pos, cfg)
+    pos = pos.expand(B, S_cp) if pos3 is None else pos3
+    if cross_x is not None:
+        T = cross_x.shape[1]
+        q, k, v = _project_qkv(p, xg, cross_x, pos,
+                               torch.arange(T, device=dev).expand(B, T), cfg)
+    else:
+        q, k, v = _project_qkv(p, xg, xg, pos, pos, cfg)
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)   # (B, heads, S/cp, hd)
     if ring:
         out = ring_attention(q, k, v, runs, ring=cp_ax, index=cp_ax.index, causal=causal,
                              window=window, block_kv=block_kv)
         out = comm.from_zigzag(out.transpose(1, 2).reshape(B, S_cp, -1), cp_ax, dim=1)
+    elif cross_x is not None:
+        out = blockwise_attention(q, k, v, causal=False, window=window, block_kv=block_kv)
+        out = out.transpose(1, 2).reshape(B, S_cp, -1)
     else:
         k = comm.all_gather(k, cp_ax.group, 2)            # (B, Hkv/tp, S, hd)
         v = comm.all_gather(v, cp_ax.group, 2)
@@ -410,3 +465,20 @@ def attention_decode(p: AttentionParams, x: torch.Tensor, cache_k: torch.Tensor,
     out = _cache_attend(q, cache_k, cache_v, pos, window=window, groups=groups, kv_offset=lo,
                         kv_pos=kv_pos)
     return _attn_output(out, p, cfg, groups), cache_k, cache_v
+
+
+def attention_decode_cross(p: AttentionParams, x: torch.Tensor, cache_xk: torch.Tensor,
+                           cache_xv: torch.Tensor, cfg: ModelConfig, *,
+                           groups: Optional[FoldedGroups] = None) -> torch.Tensor:
+    """Cross-attention of decode rows x (B, C, D) against the cross K/V
+    cache (B, Hkv, T, hd): every key visible, no positional rotation of the
+    queries (the reference's ``_decode_dense_x``). With ``groups``, ``p`` and
+    the cache hold the rank's TP heads and the output projection is summed
+    over TP."""
+    B, C, _ = x.shape
+    q = x @ p.wq.to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p.bq.to(x.dtype)
+    q = q.reshape(B, C, -1, cfg.resolved_head_dim).transpose(1, 2).contiguous()
+    out = flash(q, cache_xk, cache_xv, causal=False)
+    return _attn_output(out, p, cfg, groups)

@@ -1,5 +1,5 @@
-"""Shared building blocks: RMSNorm, RoPE, activations, initializers, and
-the cross-entropy loss.
+"""Shared building blocks: RMSNorm and LayerNorm, RoPE and M-RoPE,
+activations, initializers, and the cross-entropy loss.
 
 Port of ``repro.models.common`` (the parts the serving and training slices
 run).
@@ -38,6 +38,26 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return (x * (1.0 + w.float())).to(dt)
 
 
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with the scale ``w`` stored as it is and a bias ``b``,
+    computed in fp32 and cast back to ``x.dtype``."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
+
+
+def norm_apply(kind: str, x: torch.Tensor, p) -> torch.Tensor:
+    """The config's norm (``ModelConfig.norm``): ``p`` is the RMSNorm weight,
+    or for ``"layernorm"`` a module (or namespace) with ``w`` and ``b``."""
+    if kind == "layernorm":
+        return layernorm(x, p.w, p.b)
+    return rmsnorm(x, p)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                          device=device) / head_dim))
@@ -52,6 +72,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, device=x.device)            # (hd/2,)
     ang = positions[..., None].float() * freqs                 # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mrope_sections(head_dim: int) -> Tuple[int, int, int]:
+    """The (temporal, height, width) frequency sections of M-RoPE for heads
+    of ``head_dim`` (``repro.models.attention._apply_positional``)."""
+    base = head_dim // 2
+    return (base - 2 * (base * 3 // 8), base * 3 // 8, base * 3 // 8)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int] = (16, 24, 24)) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: x (..., S, H, hd); ``positions_3d``
+    (..., S, 3) the (temporal, height, width) position ids. The hd/2
+    frequency channels are cut into three sections, each rotated by its own
+    position stream, in fp32 [arXiv:2409.12191]."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not cover {hd // 2} channels")
+    freqs = rope_freqs(hd, theta, device=x.device)              # (hd/2,)
+    sec_id = torch.repeat_interleave(torch.arange(3, device=x.device),
+                                     torch.tensor(sections, device=x.device))
+    pos = positions_3d.float()[..., sec_id]                     # (..., S, hd/2)
+    ang = pos * freqs
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

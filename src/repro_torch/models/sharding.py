@@ -23,20 +23,31 @@ MoE EDP axis. A leaf has three layouts (``KINDS``):
   DP atoms of the leaf's side appended by ZeRO-1
   (``optim.adamw.zero1_spec``).
 
+The leaves of the other block kinds match the same rules: ``xattn.*``
+(cross-attention) as ``attn.*``, ``norm_x`` and a LayerNorm's ``.w``/``.b``
+as the other norms, ``encoder.*`` as the decoder's layers.
+
 ``efsdp`` cuts the experts' ``D`` over EDP in all three, whatever
 ``fsdp`` says, because the dispatcher gathers them from there (reference
 ``dispatcher.py:425-428``, whose ``shard_map`` cuts ``edp`` regardless of
 ``fsdp``). So with ``fsdp=False`` the port stores the experts cut where the
 reference replicates them: the numbers are the same, only memory differs.
 As in the reference, a symbol whose atoms do not divide its dimension
-leaves it whole in a spec; :func:`shard_tensor` refuses such a cut.
+leaves it whole in a spec (``_safe_spec``), and :func:`shard_tensor` keeps
+the vocabulary dim (``VOCAB_DIMS``) whole: a vocabulary that TP does not
+divide (Whisper's 51865) stays whole on every TP rank, which then looks up,
+projects and scores the whole vocabulary for its own rows
+(``models.transformer.vocab_cut``). Every other cut is required where it
+resolves (the TP matmuls sum partial products, the dispatcher takes the
+experts cut, FSDP's gather assumes the cut), so :func:`shard_tensor`
+refuses a dim that does not divide.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import re
-from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -100,15 +111,6 @@ def leaf_spec(name: str, shape: Sequence[int], layout, kind: str = "store") -> S
     return tuple(spec)
 
 
-def full_shape(name: str, shape: Sequence[int], layout, kind: str = "store"
-               ) -> Tuple[int, ...]:
-    """The full leaf's shape from the ``shape`` of a ``compute`` or
-    ``store`` slice (:func:`shard_tensor` cuts every symbol it resolves)."""
-    fg = as_layout(layout)
-    return tuple(d * fg.atom_size(_resolve(s, fg, kind))
-                 for d, s in zip(shape, _symbols(name, len(shape))))
-
-
 def _cut(t: torch.Tensor, dim: int, atoms: Sequence[str], fg: FoldedGroups) -> torch.Tensor:
     """This rank's piece of ``t`` along ``dim`` cut over ``atoms``."""
     n = fg.atom_size(atoms)
@@ -118,12 +120,18 @@ def _cut(t: torch.Tensor, dim: int, atoms: Sequence[str], fg: FoldedGroups) -> t
     return t.narrow(dim, fg.atom_index(atoms) * step, step)
 
 
+# The vocabulary dim of each leaf that has one: the only dim a spec may
+# keep whole where its atoms do not divide it.
+VOCAB_DIMS = {"embed": 0, "lm_head": 1}
+
+
 def _checked_spec(name: str, shape: Sequence[int], fg: FoldedGroups, kind: str) -> Spec:
-    """:func:`leaf_spec`, raising where a symbol's atoms do not divide."""
+    """:func:`leaf_spec`, raising where a symbol's atoms do not divide its
+    dim, but for the vocabulary dim (``VOCAB_DIMS``), which stays whole."""
     spec = leaf_spec(name, shape, fg, kind)
     for dim, (sym, atoms) in enumerate(zip(_symbols(name, len(shape)), spec)):
         want = _resolve(sym, fg, "compute" if kind == "compute" else "store")
-        if want and not set(want) <= set(atoms):
+        if VOCAB_DIMS.get(name) != dim and want and not set(want) <= set(atoms):
             raise ValueError(f"{name}: dim {dim} of size {shape[dim]} does not split "
                              f"over {fg.atom_size(want)} ranks")
     return spec
@@ -157,12 +165,14 @@ def shard_lm_params(params: nn.Module, groups: FoldedGroups, kind: str = "store"
     return map_params(params, lambda n, t: shard_tensor(n, t, groups, kind))
 
 
-def store_from_compute(params: nn.Module, groups: FoldedGroups) -> nn.Module:
-    """This rank's store slices from its compute slices: the FSDP leaves cut
-    further over DP (a copy; the same tree when nothing is)."""
+def store_from_compute(params: nn.Module, groups: FoldedGroups,
+                       shapes: Mapping[str, Sequence[int]]) -> nn.Module:
+    """This rank's store slices from its compute slices (``shapes``: the
+    full leaves', ``transformer.param_shapes``): the FSDP leaves cut further
+    over DP (a copy; the same tree when nothing is)."""
     def cut(name: str, t: torch.Tensor) -> torch.Tensor:
-        full = full_shape(name, t.shape, groups, "compute")
-        comp, store = (_checked_spec(name, full, groups, k) for k in ("compute", "store"))
+        comp, store = (_checked_spec(name, shapes[name], groups, k)
+                       for k in ("compute", "store"))
         for dim, (c, s) in enumerate(zip(comp, store)):
             t = _cut(t, dim, s[len(c):], groups)
         return t.clone().contiguous()
@@ -226,11 +236,12 @@ def leaf_layout(name: str, shape: Sequence[int], layout) -> LeafLayout:
     return LeafLayout(state, fsdp, zero_dim, dp_axis(name))
 
 
-def layouts_of(params: Mapping[str, torch.Tensor], groups: FoldedGroups
-               ) -> Dict[str, LeafLayout]:
-    """The :class:`LeafLayout` of each leaf of this rank's store slices."""
-    return {n: leaf_layout(n, full_shape(n, p.shape, groups), groups)
-            for n, p in params.items()}
+def layouts_of(params: Iterable[str], groups: FoldedGroups,
+               shapes: Mapping[str, Sequence[int]]) -> Dict[str, LeafLayout]:
+    """The :class:`LeafLayout` of each leaf named in ``params`` (this rank's
+    store slices), from the full leaves' ``shapes``
+    (``transformer.param_shapes``)."""
+    return {n: leaf_layout(n, shapes[n], groups) for n in params}
 
 
 def state_view(p: torch.Tensor, lay: LeafLayout, groups: FoldedGroups) -> torch.Tensor:
@@ -271,9 +282,13 @@ def reduce_grads(grads: Dict[str, torch.Tensor], groups: FoldedGroups,
     over DP by its gather's backward, only over the rest; a MoE leaf (summed
     in the dispatcher) is only cut. Returns the reduced gradients."""
     out = {}
+    tp_atoms = set(groups.atoms("attn", "tp"))
     for name, g in grads.items():
         axis = reduce_axis(name)
         lay = None if layouts is None else layouts[name]
+        if axis == "dp_cp" and lay is not None and \
+                not tp_atoms <= {a for e in lay.state for a in e}:
+            axis = "stage"          # a dim TP does not divide: whole, every rank a share
         if lay is not None:
             if lay.zero_dim is not None and axis is None:
                 g = _cut(g, lay.zero_dim, groups.atoms(*lay.dp), groups).contiguous()

@@ -3,8 +3,12 @@ or across the folded groups) and the decode forward over the paged or
 dense cache (one rank or at a pp = 1 fold).
 
 Port of the parts of ``repro.models.transformer`` the serving and training
-slices run: decoders of ``dense`` and ``moe`` blocks (RMSNorm, RoPE
-attention, then a dense FFN or the MoE block), in any mix. Where JAX stacks
+slices run: decoders of ``dense`` and ``moe`` blocks (RMSNorm or LayerNorm,
+RoPE or M-RoPE attention, then a dense FFN or the MoE block), in any mix;
+Gemma's scaled embedding, Qwen2-VL's stub vision rows, and Whisper's
+encoder–decoder (a bidirectional encoder of ``dense`` blocks over the audio
+frames, then ``dense_x`` decoder blocks with cross-attention to its output,
+sinusoid positions on both sides). Where JAX stacks
 layer parameters for one ``lax.scan``, the
 port keeps one module per layer (``LMParams.layers``) and runs a Python
 loop; ``jax.checkpoint`` of the scan body becomes ``torch.utils.checkpoint``
@@ -14,8 +18,9 @@ the vocabulary over TP.
 """
 from __future__ import annotations
 
+import math
 import types
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -27,10 +32,13 @@ from repro_torch.core.folding import FoldedGroups, check_sp_moe_handoff
 from repro_torch.core.moe_layer import MoEParams, init_moe, moe_block, moe_block_decode
 from repro_torch.core.router import _top_k, deterministic_top_k
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.attention import (AttentionParams, attention, attention_decode,
-                                          attention_decode_paged, check_decode_heads,
+from repro_torch.models.attention import (AttentionParams, _positions_for, attention,
+                                          attention_decode, attention_decode_cross,
+                                          attention_decode_paged,
+                                          check_decode_heads, check_temporal_run,
                                           init_attention, ring_kv_positions)
-from repro_torch.models.common import rmsnorm
+from repro_torch.models.common import (norm_apply, softmax_cross_entropy,
+                                       vocab_parallel_cross_entropy)
 from repro_torch.models.ffn import FFNParams, ffn, ffn_decode, init_ffn
 from repro_torch.models.sharding import gather_for_compute
 
@@ -39,34 +47,77 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t)
 
 
+class LayerNormParams(nn.Module):
+    """A LayerNorm's scale ``w`` (stored as it is) and bias ``b``, both (D,):
+    the reference's ``{"w", "b"}`` norm leaves."""
+
+    def __init__(self, w: torch.Tensor, b: torch.Tensor):
+        super().__init__()
+        self.w = _param(w)
+        self.b = _param(b)
+
+
+# A norm's parameters: the RMSNorm weight (``scale - 1``), or LayerNorm's pair.
+Norm = Union[torch.Tensor, LayerNormParams]
+
+
+def _set_norm(m: nn.Module, name: str, norm: Optional[Norm]) -> None:
+    if isinstance(norm, nn.Module) or norm is None:
+        setattr(m, name, norm)
+    else:
+        setattr(m, name, _param(norm))
+
+
+def _init_norm(cfg: ModelConfig, device) -> Norm:
+    """The reference's ``norm_init``: RMSNorm zeros, LayerNorm ones and zeros."""
+    D = cfg.d_model
+    if cfg.norm == "layernorm":
+        return LayerNormParams(torch.ones(D, device=device), torch.zeros(D, device=device))
+    return torch.zeros(D, device=device)
+
+
+def _norm_names(cfg: ModelConfig, name: str) -> Tuple[str, ...]:
+    return (name + ".w", name + ".b") if cfg.norm == "layernorm" else (name,)
+
+
 class MoEBlockParams(nn.Module):
-    """One ``moe`` layer: RMSNorm → attention → RMSNorm → MoE FFN.
-    Norm weights store ``scale - 1``."""
+    """One ``moe`` layer: norm → attention → norm → MoE FFN."""
 
     kind = "moe"
 
-    def __init__(self, norm1: torch.Tensor, attn: AttentionParams,
-                 norm2: torch.Tensor, moe: MoEParams):
+    def __init__(self, norm1: Norm, attn: AttentionParams, norm2: Norm, moe: MoEParams):
         super().__init__()
-        self.norm1 = _param(norm1)
+        _set_norm(self, "norm1", norm1)
         self.attn = attn
-        self.norm2 = _param(norm2)
+        _set_norm(self, "norm2", norm2)
         self.moe = moe
 
 
 class DenseBlockParams(nn.Module):
-    """One ``dense`` layer: RMSNorm → attention → RMSNorm → dense FFN
-    (``mlp``). Norm weights store ``scale - 1``."""
+    """One ``dense`` layer: norm → attention → norm → dense FFN (``mlp``)."""
 
     kind = "dense"
 
-    def __init__(self, norm1: torch.Tensor, attn: AttentionParams,
-                 norm2: torch.Tensor, mlp: FFNParams):
+    def __init__(self, norm1: Norm, attn: AttentionParams, norm2: Norm, mlp: FFNParams):
         super().__init__()
-        self.norm1 = _param(norm1)
+        _set_norm(self, "norm1", norm1)
         self.attn = attn
-        self.norm2 = _param(norm2)
+        _set_norm(self, "norm2", norm2)
         self.mlp = mlp
+
+
+class DenseXBlockParams(DenseBlockParams):
+    """One ``dense_x`` layer (Whisper's decoder): norm → causal
+    self-attention → norm (``norm_x``) → cross-attention (``xattn``) to the
+    encoder's output → norm → dense FFN."""
+
+    kind = "dense_x"
+
+    def __init__(self, norm1: Norm, attn: AttentionParams, norm2: Norm, mlp: FFNParams,
+                 norm_x: Norm, xattn: AttentionParams):
+        super().__init__(norm1, attn, norm2, mlp)
+        _set_norm(self, "norm_x", norm_x)
+        self.xattn = xattn
 
 
 class LayerStack(nn.Module):
@@ -89,9 +140,19 @@ class LayerStack(nn.Module):
         return self._modules[str(i)]
 
 
+class EncoderParams(nn.Module):
+    """Whisper's encoder: ``dense`` layers (``layers``) and its final norm."""
+
+    def __init__(self, layers: Dict[int, nn.Module], final_norm: Norm):
+        super().__init__()
+        self.layers = LayerStack(layers)
+        _set_norm(self, "final_norm", final_norm)
+
+
 class LMParams(nn.Module):
-    """Embedding ``(V, D)``, layers, final norm ``(D,)`` and LM head
-    ``(D, V)`` (``None`` when embeddings are tied).
+    """Embedding ``(V, D)``, layers, final norm and LM head ``(D, V)``
+    (``None`` when embeddings are tied); an encoder–decoder model also has
+    its ``encoder``.
 
     ``layers``: global index → layer. A pipeline stage
     (``core.pipeline.Stage``) holds its layers under their global indices,
@@ -99,13 +160,15 @@ class LMParams(nn.Module):
     on the last (``None`` elsewhere), so its leaf names are the full
     model's."""
 
-    def __init__(self, embed: Optional[torch.Tensor], layers,
-                 final_norm: Optional[torch.Tensor], lm_head: Optional[torch.Tensor] = None):
+    def __init__(self, embed: Optional[torch.Tensor], layers, final_norm: Optional[Norm],
+                 lm_head: Optional[torch.Tensor] = None,
+                 encoder: Optional[EncoderParams] = None):
         super().__init__()
         self.embed = _param(embed) if embed is not None else None
         self.layers = LayerStack(layers)
-        self.final_norm = _param(final_norm) if final_norm is not None else None
+        _set_norm(self, "final_norm", final_norm)
         self.lm_head = _param(lm_head) if lm_head is not None else None
+        self.encoder = encoder
 
 
 def _cycle_of(blocks: Tuple[str, ...]) -> Tuple[str, ...]:
@@ -134,30 +197,50 @@ def model_cycle(cfg: ModelConfig) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
 
 
 def leaf_rank(name: str, p: torch.Tensor) -> int:
-    """A leaf's rank in the JAX package's tree, where every layer leaf is
-    stacked over the layer repeats: its casts to the compute dtype and its
-    weight decay take the leaves of rank >= 2, per-layer norms and biases
-    among them."""
-    return p.dim() + (1 if name.startswith("layers.") else 0)
+    """A leaf's rank in the JAX package's tree, where every layer leaf (the
+    encoder's too) is stacked over the layer repeats: its casts to the
+    compute dtype and its weight decay take the leaves of rank >= 2,
+    per-layer norms and biases among them."""
+    return p.dim() + (1 if name.startswith(("layers.", "encoder.layers.")) else 0)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for architectures outside the ported slice."""
+    """Raise for architectures outside the ported slice: the recurrent
+    block kinds and Zamba2's shared attention block."""
     blocks, _ = model_cycle(cfg)
     kinds = set(blocks)
-    if not kinds <= set(APPLY) or cfg.shared_attention_every or cfg.is_encoder_decoder:
+    if not kinds <= set(APPLY) or cfg.shared_attention_every:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {sorted(kinds)} — only 'dense' and 'moe' decoder "
-            "blocks are ported so far (ROADMAP.md queue 1, 'Remaining block kinds')")
-    if cfg.norm != "rmsnorm" or cfg.rope_kind != "rope" or cfg.n_vision_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: norm={cfg.norm!r}, rope_kind={cfg.rope_kind!r} — only "
-            "RMSNorm + RoPE text decoders are ported so far")
-    if cfg.name.startswith("gemma"):     # the reference scales Gemma's embedding by name
-        raise NotImplementedError(
-            f"{cfg.name}: Gemma's embedding scaled by sqrt(d_model) is not ported, and "
-            "its heads of 256 not in the flash kernel (ROADMAP.md queue 1, 'Remaining "
-            "block kinds')")
+            f"{cfg.name}: block kinds {sorted(kinds)}"
+            f"{', shared_attention_every' if cfg.shared_attention_every else ''} — the "
+            "recurrent kinds (mamba2, mlstm, slstm) and the shared attention block are not "
+            "ported yet (ROADMAP.md queue 1, 'Remaining block kinds')")
+    if cfg.norm not in ("rmsnorm", "layernorm") or cfg.rope_kind not in ("rope", "mrope",
+                                                                          "none"):
+        raise NotImplementedError(f"{cfg.name}: norm={cfg.norm!r}, rope_kind="
+                                  f"{cfg.rope_kind!r} are not ported")
+
+
+def _embed_scale(cfg: ModelConfig) -> Optional[float]:
+    """Gemma's embedding multiplier √d_model (the reference keys it on the
+    name), or ``None``."""
+    return math.sqrt(cfg.d_model) if cfg.name.startswith("gemma") else None
+
+
+def _block(kind: str, cfg: ModelConfig, g: torch.Generator, dtype, device) -> nn.Module:
+    """One randomly initialised layer of ``kind`` (``dense``, ``moe``,
+    ``dense_x``), its leaves drawn in the reference's order."""
+    norm1 = _init_norm(cfg, device)
+    attn = init_attention(cfg, generator=g, dtype=dtype, device=device)
+    norm2 = _init_norm(cfg, device)
+    if kind == "moe":
+        return MoEBlockParams(norm1, attn, norm2,
+                              init_moe(cfg, generator=g, dtype=dtype, device=device))
+    mlp = init_ffn(cfg, generator=g, dtype=dtype, device=device)
+    if kind == "dense":
+        return DenseBlockParams(norm1, attn, norm2, mlp)
+    return DenseXBlockParams(norm1, attn, norm2, mlp, _init_norm(cfg, device),
+                             init_attention(cfg, generator=g, dtype=dtype, device=device))
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
@@ -165,7 +248,8 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
     """Random parameters from a seeded ``torch.Generator`` on ``device``.
 
     Like the JAX ``init_lm``: embedding and LM head are N(0, 0.02²) fp32,
-    norms zero (RMSNorm stores ``scale - 1``), block matrices in ``dtype``.
+    norms as ``norm_init`` (RMSNorm stores ``scale - 1``: zeros; LayerNorm
+    ones and zeros), block matrices in ``dtype``.
     The numbers differ from JAX's (another generator); to load the JAX
     package's weights use :func:`repro_torch.convert.params_from_jax`.
     With ``groups`` at a pipelined fold, only this rank's stage's leaves
@@ -189,18 +273,17 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
     embed = keep("embed", normal((V, D)))
     lm_head = None if cfg.tie_embeddings else keep("lm_head", normal((D, V)))
     layers = {}
-    for i, kind in enumerate(cfg.blocks()):
-        zeros = torch.zeros(D, device=device)
-        attn = init_attention(cfg, generator=g, dtype=dtype, device=device)
-        if kind == "dense":
-            layer = DenseBlockParams(zeros, attn, zeros.clone(),
-                                     init_ffn(cfg, generator=g, dtype=dtype, device=device))
-        else:
-            layer = MoEBlockParams(zeros, attn, zeros.clone(),
-                                   init_moe(cfg, generator=g, dtype=dtype, device=device))
+    for i, kind in enumerate(model_cycle(cfg)[0]):
+        layer = _block(kind, cfg, g, dtype, device)
         if stage is None or i in stage.layers:
             layers[i] = layer
-    return LMParams(embed, layers, keep("final_norm", torch.zeros(D, device=device)), lm_head)
+    encoder = None
+    if cfg.is_encoder_decoder:
+        encoder = EncoderParams({j: _block("dense", cfg, g, dtype, device)
+                                 for j in range(cfg.n_encoder_layers)},
+                                _init_norm(cfg, device))
+    final_norm = _init_norm(cfg, device) if stage is None or stage.last else None
+    return LMParams(embed, layers, final_norm, lm_head, encoder)
 
 
 def param_shapes(cfg: ModelConfig, groups: Optional[FoldedGroups] = None
@@ -214,25 +297,27 @@ def param_shapes(cfg: ModelConfig, groups: Optional[FoldedGroups] = None
     return out if stage is None else {n: s for n, s in out.items() if stage.holds(n)}
 
 
-def _param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
-    check_supported(cfg)
-    D, V, m = cfg.d_model, cfg.vocab_size, cfg.moe
-    out = {"embed": (V, D), "final_norm": (D,)}
-    if not cfg.tie_embeddings:
-        out["lm_head"] = (D, V)
-    for layer, kind in enumerate(cfg.blocks()):
-        pre = f"layers.{layer}."
-        out.update({pre + "norm1": (D,), pre + "norm2": (D,),
-                    pre + "attn.wq": (D, cfg.q_dim), pre + "attn.wk": (D, cfg.kv_dim),
-                    pre + "attn.wv": (D, cfg.kv_dim), pre + "attn.wo": (cfg.q_dim, D)})
+def _block_shapes(cfg: ModelConfig, pre: str, kind: str) -> Dict[str, Tuple[int, ...]]:
+    """The leaves of one layer of ``kind`` under prefix ``pre``, in
+    ``named_parameters`` order."""
+    D, m = cfg.d_model, cfg.moe
+    out: Dict[str, Tuple[int, ...]] = {}
+
+    def norm(name):
+        out.update({n: (D,) for n in _norm_names(cfg, pre + name)})
+
+    def attn(name):
+        p = pre + name + "."
+        out.update({p + "wq": (D, cfg.q_dim), p + "wk": (D, cfg.kv_dim),
+                    p + "wv": (D, cfg.kv_dim), p + "wo": (cfg.q_dim, D)})
         if cfg.qkv_bias:
-            out.update({pre + "attn.bq": (cfg.q_dim,), pre + "attn.bk": (cfg.kv_dim,),
-                        pre + "attn.bv": (cfg.kv_dim,)})
-        if kind == "dense":
-            out.update({pre + "mlp.w_gate": (D, cfg.d_ff), pre + "mlp.w_down": (cfg.d_ff, D)})
-            if cfg.activation in ("swiglu", "geglu"):
-                out[pre + "mlp.w_up"] = (D, cfg.d_ff)
-            continue
+            out.update({p + "bq": (cfg.q_dim,), p + "bk": (cfg.kv_dim,),
+                        p + "bv": (cfg.kv_dim,)})
+
+    norm("norm1")
+    attn("attn")
+    norm("norm2")
+    if kind == "moe":
         E, F, fs = m.n_experts, m.d_expert, m.shared_expert_width
         out.update({pre + "moe.router": (D, E), pre + "moe.w1": (E, D, F),
                     pre + "moe.w2": (E, F, D), pre + "moe.w3": (E, D, F)})
@@ -241,6 +326,29 @@ def _param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
                         pre + "moe.ws3": (D, fs)})
             if m.shared_expert_gate:
                 out[pre + "moe.gate"] = (D, 1)
+        return out
+    out.update({pre + "mlp.w_gate": (D, cfg.d_ff), pre + "mlp.w_down": (cfg.d_ff, D)})
+    if cfg.activation in ("swiglu", "geglu"):
+        out[pre + "mlp.w_up"] = (D, cfg.d_ff)
+    if kind == "dense_x":
+        norm("norm_x")
+        attn("xattn")
+    return out
+
+
+def _param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    check_supported(cfg)
+    D, V = cfg.d_model, cfg.vocab_size
+    out: Dict[str, Tuple[int, ...]] = {"embed": (V, D)}
+    out.update({n: (D,) for n in _norm_names(cfg, "final_norm")})
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (D, V)
+    for layer, kind in enumerate(model_cycle(cfg)[0]):
+        out.update(_block_shapes(cfg, f"layers.{layer}.", kind))
+    if cfg.is_encoder_decoder:
+        for j in range(cfg.n_encoder_layers):
+            out.update(_block_shapes(cfg, f"encoder.layers.{j}.", "dense"))
+        out.update({n: (D,) for n in _norm_names(cfg, "encoder.final_norm")})
     return out
 
 
@@ -269,35 +377,66 @@ def decode_rows(B: int, groups: Optional[FoldedGroups]) -> Tuple[int, int]:
     return groups.attn["dp"].index * n, n
 
 
-def decode_embed(params: LMParams, tokens: torch.Tensor, cfg: ModelConfig,
-                 groups: Optional[FoldedGroups] = None) -> torch.Tensor:
-    """Token ids (b, C) → activations (b, C, D) in the compute dtype. At TP
-    > 1 each rank looks up the ids of its vocabulary slice (zeros
-    elsewhere) and the rows are summed over TP: exactly one rank adds a
-    non-zero row (``comm vocab_lookup``)."""
-    tokens = tokens.long()
+def vocab_cut(params: LMParams, cfg: ModelConfig, groups: Optional[FoldedGroups]) -> bool:
+    """Whether this rank holds a TP slice of the vocabulary. A vocabulary
+    that TP does not divide stays whole on every rank (the reference's
+    ``_safe_spec``; Whisper's 51865): the lookup, head and loss then run on
+    the whole vocabulary."""
     if groups is None or groups.tp == 1:
-        return params.embed[tokens].to(_compute_dtype(cfg))
-    tp = groups.attn["tp"]
-    tp.require_rank_order("the vocabulary-parallel lookup")
-    local = tokens - vocab_start(params, groups)
-    mine = (local >= 0) & (local < params.embed.shape[0])
-    x = params.embed[torch.where(mine, local, 0)] * mine[..., None].to(params.embed.dtype)
-    return comm.all_reduce(x.to(_compute_dtype(cfg)), tp.group, name="vocab_lookup")
+        return False
+    held = params.embed.shape[0] if params.embed is not None else params.lm_head.shape[1]
+    return held < cfg.vocab_size
+
+
+def _embed_extras(x: torch.Tensor, pos: Optional[torch.Tensor], cfg: ModelConfig
+                  ) -> torch.Tensor:
+    """What the reference adds to the looked-up rows: Gemma's √d_model
+    (cast to the compute dtype before the product, as the reference casts
+    it) and, for a decoder-only model without rotary positions, the
+    sinusoid at ``pos`` (b, C)."""
+    scale = _embed_scale(cfg)
+    if scale is not None:
+        x = x * torch.tensor(scale, dtype=x.dtype, device=x.device)
+    if cfg.rope_kind == "none" and not cfg.is_encoder_decoder:
+        x = x + _sinusoid(pos, cfg.d_model).to(x.dtype)
+    return x
+
+
+def decode_embed(params: LMParams, tokens: torch.Tensor, cfg: ModelConfig,
+                 groups: Optional[FoldedGroups] = None,
+                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token ids (b, C) at ``positions`` (b, C) → activations (b, C, D) in
+    the compute dtype, with :func:`_embed_extras`. At TP > 1 each rank looks
+    up the ids of its vocabulary slice (zeros elsewhere) and the rows are
+    summed over TP: exactly one rank adds a non-zero row (``comm
+    vocab_lookup``); a vocabulary left whole is looked up on every rank."""
+    tokens = tokens.long()
+    if not vocab_cut(params, cfg, groups):
+        x = params.embed[tokens].to(_compute_dtype(cfg))
+    else:
+        tp = groups.attn["tp"]
+        tp.require_rank_order("the vocabulary-parallel lookup")
+        local = tokens - vocab_start(params, groups)
+        mine = (local >= 0) & (local < params.embed.shape[0])
+        x = params.embed[torch.where(mine, local, 0)] * mine[..., None].to(params.embed.dtype)
+        x = comm.all_reduce(x.to(_compute_dtype(cfg)), tp.group, name="vocab_lookup")
+    return _embed_extras(x, positions, cfg)
 
 
 def decode_head(params: LMParams, x: torch.Tensor, cfg: ModelConfig,
                 groups: Optional[FoldedGroups] = None, rows_cut: bool = False) -> torch.Tensor:
     """Final norm and LM head: (b, C, D) → logits (B, C, V) in ``x``'s
-    dtype. At a fold the rank's vocabulary slice is all-gathered over TP,
-    and with ``rows_cut`` the rows over DP (``comm logits_gather``)."""
-    x = rmsnorm(x, params.final_norm)
+    dtype. At a fold the rank's vocabulary slice is all-gathered over TP
+    (unless the vocabulary is whole), and with ``rows_cut`` the rows over
+    DP (``comm logits_gather``)."""
+    x = norm_apply(cfg.norm, x, params.final_norm)
     head = params.lm_head if params.lm_head is not None else params.embed.T
     logits = x @ head.to(x.dtype)
     if groups is not None:
-        tp = groups.attn["tp"]
-        tp.require_rank_order("the logits gather")
-        logits = comm.gather_rows(logits, tp.group, "logits_gather", dim=-1)
+        if vocab_cut(params, cfg, groups):
+            tp = groups.attn["tp"]
+            tp.require_rank_order("the logits gather")
+            logits = comm.gather_rows(logits, tp.group, "logits_gather", dim=-1)
         if rows_cut:
             dp = groups.attn["dp"]
             dp.require_rank_order("the logits gather")
@@ -332,12 +471,12 @@ def _decode_dense_paged(p: DenseBlockParams, x: torch.Tensor, state: Dict[str, t
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], None]:
     """One ``dense`` layer over the paged cache → (x, state, None: no
     expert counts)."""
-    h = rmsnorm(x, p.norm1)
+    h = norm_apply(cfg.norm, x, p.norm1)
     y, state["k"], state["v"] = attention_decode_paged(
         p.attn, h, state["k"], state["v"], ctx["block_tables"], step, cfg, groups=groups,
         kv_pos=ctx.get("kv_pos"))
     x = x + y
-    return x + ffn_decode(p.mlp, rmsnorm(x, p.norm2), cfg, groups), state, None
+    return x + ffn_decode(p.mlp, norm_apply(cfg.norm, x, p.norm2), cfg, groups), state, None
 
 
 def _decode_dense(p: DenseBlockParams, x: torch.Tensor, state: Dict[str, torch.Tensor],
@@ -345,11 +484,11 @@ def _decode_dense(p: DenseBlockParams, x: torch.Tensor, state: Dict[str, torch.T
                   groups: Optional[FoldedGroups] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One ``dense`` layer over the dense cache → (x, state)."""
-    h = rmsnorm(x, p.norm1)
+    h = norm_apply(cfg.norm, x, p.norm1)
     y, state["k"], state["v"] = attention_decode(p.attn, h, state["k"], state["v"], step,
                                                  cfg, groups=groups, kv_pos=ctx.get("kv_pos"))
     x = x + y
-    return x + ffn_decode(p.mlp, rmsnorm(x, p.norm2), cfg, groups), state
+    return x + ffn_decode(p.mlp, norm_apply(cfg.norm, x, p.norm2), cfg, groups), state
 
 
 def _decode_moe_paged(p: MoEBlockParams, x: torch.Tensor, state: Dict[str, torch.Tensor],
@@ -359,12 +498,12 @@ def _decode_moe_paged(p: MoEBlockParams, x: torch.Tensor, state: Dict[str, torch
     """One ``moe`` layer over the paged cache → (x, state, expert counts of
     this rank's rows). ``ctx``: ``block_tables`` and ``token_mask`` of the
     rank's rows, and ``rows_cut`` (rows cut over DP)."""
-    h = rmsnorm(x, p.norm1)
+    h = norm_apply(cfg.norm, x, p.norm1)
     y, state["k"], state["v"] = attention_decode_paged(
         p.attn, h, state["k"], state["v"], ctx["block_tables"], step, cfg, groups=groups,
         kv_pos=ctx.get("kv_pos"))
     x = x + y
-    h = rmsnorm(x, p.norm2)
+    h = norm_apply(cfg.norm, x, p.norm2)
     y = moe_block_decode(p.moe, h, cfg, groups=groups, rows_cut=ctx.get("rows_cut", False))
     counts = _expert_token_counts(h, p.moe.router, cfg, ctx.get("token_mask"))
     return x + y, state, counts
@@ -375,20 +514,38 @@ def _decode_moe(p: MoEBlockParams, x: torch.Tensor, state: Dict[str, torch.Tenso
                 groups: Optional[FoldedGroups] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One ``moe`` layer over the dense cache → (x, state)."""
-    h = rmsnorm(x, p.norm1)
+    h = norm_apply(cfg.norm, x, p.norm1)
     y, state["k"], state["v"] = attention_decode(p.attn, h, state["k"], state["v"], step,
                                                  cfg, groups=groups, kv_pos=ctx.get("kv_pos"))
     x = x + y
-    h = rmsnorm(x, p.norm2)
+    h = norm_apply(cfg.norm, x, p.norm2)
     return x + moe_block_decode(p.moe, h, cfg, groups=groups,
                                 rows_cut=ctx.get("rows_cut", False)), state
+
+
+def _decode_dense_x(p: DenseXBlockParams, x: torch.Tensor, state: Dict[str, torch.Tensor],
+                    step: torch.Tensor, cfg: ModelConfig, ctx: Dict,
+                    groups: Optional[FoldedGroups] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One ``dense_x`` layer over the dense cache → (x, state): the causal
+    self-attention, then cross-attention against the cached encoder K/V
+    (``xk``/``xv``), then the FFN. As in the reference nothing writes the
+    cross K/V, so decode attends to their zeros (ROADMAP.md §3)."""
+    h = norm_apply(cfg.norm, x, p.norm1)
+    y, state["k"], state["v"] = attention_decode(p.attn, h, state["k"], state["v"], step,
+                                                 cfg, groups=groups, kv_pos=ctx.get("kv_pos"))
+    x = x + y
+    h = norm_apply(cfg.norm, x, p.norm_x)
+    x = x + attention_decode_cross(p.xattn, h, state["xk"], state["xv"], cfg, groups=groups)
+    return x + ffn_decode(p.mlp, norm_apply(cfg.norm, x, p.norm2), cfg, groups), state
 
 
 def init_decode_state(cfg: ModelConfig, B: int, s_max: int, *, dtype=torch.bfloat16,
                       device: DeviceLike = None, groups: Optional[FoldedGroups] = None
                       ) -> Dict:
     """The dense decode cache: ``{"layers": [{"k", "v"} per layer], "step":
-    0}``, each ``(B, Hkv, s_max, hd)`` zeros (the reference's
+    0}``, each ``(B, Hkv, s_max, hd)`` zeros, and for a ``dense_x`` layer the
+    cross K/V ``xk``/``xv`` (B, Hkv, max_source_positions, hd) (the reference's
     ``init_decode_state``, layers as a list). With ``groups``, this rank's
     piece of the reference's ``(dp, tp, cp)`` layout: its rows of B when
     DP divides B (else all), its TP heads and its ``s_max / cp`` slots."""
@@ -400,10 +557,17 @@ def init_decode_state(cfg: ModelConfig, B: int, s_max: int, *, dtype=torch.bfloa
         raise ValueError(f"s_max {s_max} does not split over CP {cp}")
     shape = (b, cfg.n_kv_heads // tp, s_max // cp, cfg.resolved_head_dim)
     device = resolve_device(device)
-    return {"layers": [{"k": torch.zeros(shape, dtype=dtype, device=device),
-                        "v": torch.zeros(shape, dtype=dtype, device=device)}
-                       for _ in range(cfg.n_layers)],      # every kind holds K/V
-            "step": 0}
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def layer(kind):
+        st = {"k": zeros(shape), "v": zeros(shape)}        # every kind holds K/V
+        if kind == "dense_x":       # the cross K/V: the encoder's whole length, not cut
+            xs = (b, cfg.n_kv_heads // tp, cfg.max_source_positions, cfg.resolved_head_dim)
+            st["xk"], st["xv"] = zeros(xs), zeros(xs)
+        return st
+    return {"layers": [layer(kind) for kind in model_cycle(cfg)[0]], "step": 0}
 
 
 def _as_positions(base, B: int, device) -> torch.Tensor:
@@ -433,7 +597,10 @@ def decode_step(params: LMParams, state: Dict, tokens: torch.Tensor, cfg: ModelC
     B, C = tokens.shape
     base = _as_positions(state["step"] if positions is None else positions, B, tokens.device)
     lo, b = decode_rows(B, groups)
-    x = decode_embed(params, tokens[lo:lo + b], cfg, groups)
+    x = decode_embed(params, tokens[lo:lo + b], cfg, groups,
+                     _positions_for(base[lo:lo + b], b, C))
+    if cfg.is_encoder_decoder:     # the reference adds the sinusoid after the lookup here too
+        x = x + _sinusoid(_positions_for(base[lo:lo + b], b, C), cfg.d_model).to(x.dtype)
     ctx = {"rows_cut": b != B}
     if cfg.sliding_window:                 # the ring's positions, once for every layer
         L = state["layers"][0]["k"].shape[2] * (1 if groups is None else groups.cp)
@@ -458,7 +625,8 @@ def paged_forward(params: LMParams, state: List[Dict[str, torch.Tensor]],
     the inputs are the global batch; see :func:`decode_step`."""
     B, C = tokens.shape
     lo, b = decode_rows(B, groups)
-    x = decode_embed(params, tokens[lo:lo + b], cfg, groups)
+    x = decode_embed(params, tokens[lo:lo + b], cfg, groups,
+                     _positions_for(positions[lo:lo + b], b, C))
     ctx = {"block_tables": block_tables[lo:lo + b], "token_mask": token_mask[lo:lo + b],
            "rows_cut": b != B}
     if cfg.sliding_window:                 # the ring's positions, once for every layer
@@ -487,8 +655,13 @@ AuxDict = Dict[str, torch.Tensor]
 AUX_KEYS = ("moe_aux_loss", "moe_z_loss", "moe_drop_fraction")
 
 
+def _zero_aux(device) -> AuxDict:
+    return {k: torch.zeros((), dtype=torch.float32, device=device) for k in AUX_KEYS}
+
+
 def _apply_moe(p: MoEBlockParams, x: torch.Tensor, pos: Optional[torch.Tensor],
-               cfg: ModelConfig, groups: Optional[FoldedGroups] = None
+               cfg: ModelConfig, groups: Optional[FoldedGroups] = None,
+               enc: Optional[torch.Tensor] = None, causal: bool = True
                ) -> Tuple[torch.Tensor, AuxDict]:
     """One ``moe`` layer over whole sequences: x (B, S, D) → (x, aux). With
     ``groups``, ``x`` is this rank's sequence-parallel rows and ``p`` its
@@ -497,9 +670,9 @@ def _apply_moe(p: MoEBlockParams, x: torch.Tensor, pos: Optional[torch.Tensor],
     rows to the reference's MoE token shard and back (``moe_block``: an
     exchange over the DP rank's cp·tp ranks when B > 1 and the sequence is
     cut)."""
-    h = rmsnorm(x, p.norm1)
+    h = norm_apply(cfg.norm, x, p.norm1)
     x = x + attention(_compute_slices(p.attn, "attn", groups), h, pos, cfg, groups=groups)
-    h = rmsnorm(x, p.norm2)
+    h = norm_apply(cfg.norm, x, p.norm2)
     y, aux = moe_block(p.moe, h, cfg, groups=groups)
     return x + y, aux
 
@@ -516,57 +689,99 @@ def _compute_slices(p: nn.Module, prefix: str, groups: Optional[FoldedGroups]):
 
 
 def _apply_dense(p: DenseBlockParams, x: torch.Tensor, pos: Optional[torch.Tensor],
-                 cfg: ModelConfig, groups: Optional[FoldedGroups] = None
+                 cfg: ModelConfig, groups: Optional[FoldedGroups] = None,
+                 enc: Optional[torch.Tensor] = None, causal: bool = True
                  ) -> Tuple[torch.Tensor, AuxDict]:
     """One ``dense`` layer over whole sequences: x (B, S, D) → (x, zero
-    aux). With ``groups``, as :func:`_apply_moe`: the leaves stored over DP
-    are gathered here, and the attention and the FFN run across the TP (and
-    CP) ranks on the sequence-parallel rows."""
-    h = rmsnorm(x, p.norm1)
+    aux); ``causal=False`` in the encoder. With ``groups``, as
+    :func:`_apply_moe`: the leaves stored over DP are gathered here, and the
+    attention and the FFN run across the TP (and CP) ranks on the
+    sequence-parallel rows."""
+    h = norm_apply(cfg.norm, x, p.norm1)
+    x = x + attention(_compute_slices(p.attn, "attn", groups), h, pos, cfg, groups=groups,
+                      causal=causal)
+    x = x + ffn(_compute_slices(p.mlp, "mlp", groups), norm_apply(cfg.norm, x, p.norm2), cfg,
+                groups)
+    return x, _zero_aux(x.device)
+
+
+def _apply_dense_x(p: DenseXBlockParams, x: torch.Tensor, pos: Optional[torch.Tensor],
+                   cfg: ModelConfig, groups: Optional[FoldedGroups] = None,
+                   enc: Optional[torch.Tensor] = None, causal: bool = True
+                   ) -> Tuple[torch.Tensor, AuxDict]:
+    """One ``dense_x`` layer: causal self-attention, cross-attention to the
+    encoder's output ``enc`` (B, T, D; whole at a fold, see
+    :func:`_encode`), then the FFN."""
+    h = norm_apply(cfg.norm, x, p.norm1)
     x = x + attention(_compute_slices(p.attn, "attn", groups), h, pos, cfg, groups=groups)
-    x = x + ffn(_compute_slices(p.mlp, "mlp", groups), rmsnorm(x, p.norm2), cfg, groups)
-    return x, {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in AUX_KEYS}
+    h = norm_apply(cfg.norm, x, p.norm_x)
+    x = x + attention(_compute_slices(p.xattn, "xattn", groups), h, pos, cfg, groups=groups,
+                      cross_x=enc)
+    x = x + ffn(_compute_slices(p.mlp, "mlp", groups), norm_apply(cfg.norm, x, p.norm2), cfg,
+                groups)
+    return x, _zero_aux(x.device)
 
 
-APPLY = {"dense": _apply_dense, "moe": _apply_moe}
-DECODE = {"dense": _decode_dense, "moe": _decode_moe}
+APPLY = {"dense": _apply_dense, "moe": _apply_moe, "dense_x": _apply_dense_x}
+DECODE = {"dense": _decode_dense, "moe": _decode_moe, "dense_x": _decode_dense_x}
 DECODE_PAGED = {"dense": _decode_dense_paged, "moe": _decode_moe_paged}
 
 
 def _run_stack(layers, x: torch.Tensor, pos: Optional[torch.Tensor], cfg: ModelConfig, *,
                remat: bool = True, groups: Optional[FoldedGroups] = None,
-               layer_aux: Optional[List[AuxDict]] = None) -> Tuple[torch.Tensor, AuxDict]:
+               layer_aux: Optional[List[AuxDict]] = None, enc: Optional[torch.Tensor] = None,
+               causal: bool = True) -> Tuple[torch.Tensor, AuxDict]:
     """All layers in order, each by its kind (:data:`APPLY`) → (x, aux
     summed over layers). With ``remat``
     each layer keeps only its input for the backward and runs its forward
     again there (``jax.checkpoint`` of the JAX scan body, no policy); across
     ranks the recompute runs the layer's collectives again, in the same
     order on every rank, as every rank runs the same graph. ``layer_aux``
-    (a list) receives each layer's aux terms, detached."""
-    aux = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in AUX_KEYS}
+    (a list) receives each layer's aux terms, detached. ``enc``: the
+    encoder's output for ``dense_x`` layers; ``causal=False``: the
+    encoder's own layers."""
+    aux = _zero_aux(x.device)
     for layer in layers:
         apply = APPLY[layer.kind]
         if remat:
-            x, a = checkpoint(apply, layer, x, pos, cfg, groups, use_reentrant=False,
-                              preserve_rng_state=False)
+            x, a = checkpoint(apply, layer, x, pos, cfg, groups, enc, causal,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
-            x, a = apply(layer, x, pos, cfg, groups)
+            x, a = apply(layer, x, pos, cfg, groups, enc, causal)
         if layer_aux is not None:
             layer_aux.append({k: a[k].detach() for k in AUX_KEYS})
         aux = {k: aux[k] + a[k] for k in AUX_KEYS}
     return x, aux
 
 
+def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoid position table (..., d) at ``positions``, fp32: sines then
+    cosines of ``positions · exp(−ln(10⁴) · i / max(d/2 − 1, 1))``
+    (``repro.models.transformer._sinusoid``)."""
+    half = d // 2
+    i = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = torch.exp(-math.log(10000.0) * i / max(half - 1, 1))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def lm_positions(batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
-    """Token positions (B, S) of a batch: the default ``arange``, the only
-    ones the train path's attention takes so far; a batch that carries its
-    own ``positions`` raises."""
-    if "positions" in batch:
-        raise NotImplementedError(
-            "apply_lm: batch['positions'] is not ported, only the default positions "
-            "arange(S) (ROADMAP.md queue 1, 'Attention, rest': explicit positions)")
+    """Token positions of a batch: the default ``arange`` (B, S), or for
+    M-RoPE the batch's own (B, S, 3) streams (``data.pipeline.
+    materialize_batch``), whose temporal stream must be a run on each row
+    (``attention.check_temporal_run``). Any other explicit ``positions``
+    raise: the train path's attention takes runs (flash offsets)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
+    pos = batch.get("positions")
+    if pos is not None:
+        if cfg.rope_kind != "mrope" or pos.dim() != 3:
+            raise NotImplementedError(
+                "apply_lm: batch['positions'] is ported for M-RoPE's (B, S, 3) streams "
+                "only; other explicit positions (packed sequences) are not, only the "
+                "default arange(S) (ROADMAP.md queue 1, 'Attention, rest')")
+        check_temporal_run(pos)
+        return pos
     return torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
 
 
@@ -582,33 +797,66 @@ def vocab_start(params: LMParams, groups: FoldedGroups) -> int:
     return groups.attn["tp"].index * per_rank
 
 
+def _sp_rows(groups: FoldedGroups, S_cp: int) -> Tuple[int, int]:
+    """``(first position, rows)`` of this rank's sequence-parallel rows of a
+    sequence whose CP chunk (natural order) is ``S_cp`` long."""
+    tp = groups.attn["tp"]
+    n = S_cp // tp.size
+    return groups.attn["cp"].index * S_cp + tp.index * n, n
+
+
 def lm_embed(params: LMParams, batch: Dict[str, torch.Tensor], pos: Optional[torch.Tensor],
              cfg: ModelConfig, groups: Optional[FoldedGroups] = None) -> torch.Tensor:
-    """Embedding prologue: tokens (B, S) → activations (B, S, D).
+    """Embedding prologue: tokens (B, S) → activations (B, S, D), with
+    Gemma's scale and the decoder-only sinusoid (:func:`_embed_extras`),
+    then ``batch["vision_embeds"]`` (B, n_vision, D) spliced over positions
+    ``0 .. n_vision − 1`` (reference ``transformer.py:360-379``).
 
     With ``groups``: ``batch["tokens"]`` is the rank's CP chunk (shared by
     its TP ranks) and ``params.embed`` its vocabulary slice (gathered over
-    DP here when stored cut there); each TP rank
-    looks up the ids it holds (zeros elsewhere) and the reduce-scatter over
-    TP sums them into the sequence-parallel rows (reference
-    ``transformer.py:360-379``: exactly one rank adds a non-zero row)."""
+    DP here when stored cut there); each TP rank looks up the ids it holds
+    (zeros elsewhere) and the reduce-scatter over TP sums them into the
+    sequence-parallel rows (exactly one rank adds a non-zero row). A whole
+    vocabulary (:func:`vocab_cut`) is looked up for the rank's rows only.
+    The vision rows land on the ranks whose sequence-parallel rows hold
+    those positions (the CP chunk is in natural order here; the ring's
+    zigzag lives inside attention)."""
     tokens = batch["tokens"].long()
+    dt = _compute_dtype(cfg)
     if groups is None:
-        return params.embed[tokens].to(_compute_dtype(cfg))
-    embed = gather_for_compute("embed", params.embed, groups)
-    local = tokens - vocab_start(params, groups)
-    mine = (local >= 0) & (local < embed.shape[0])
-    x = embed[torch.where(mine, local, 0)] * mine[..., None].to(embed.dtype)
-    return comm.sp_scatter(x.to(_compute_dtype(cfg)), groups.attn["tp"].group)
+        x, lo = params.embed[tokens].to(dt), 0
+        rows_pos = pos if pos is None or pos.dim() == 2 else pos[..., 0]
+    else:
+        embed = gather_for_compute("embed", params.embed, groups)
+        lo, n = _sp_rows(groups, tokens.shape[1])
+        off = lo - groups.attn["cp"].index * tokens.shape[1]
+        if vocab_cut(params, cfg, groups):
+            local = tokens - vocab_start(params, groups)
+            mine = (local >= 0) & (local < embed.shape[0])
+            x = embed[torch.where(mine, local, 0)] * mine[..., None].to(embed.dtype)
+            x = comm.sp_scatter(x.to(dt), groups.attn["tp"].group)
+        else:
+            x = embed[tokens[:, off:off + n]].to(dt)
+        rows_pos = lo + torch.arange(n, device=x.device).expand(x.shape[0], n)
+    x = _embed_extras(x, rows_pos, cfg)
+    if cfg.n_vision_tokens and "vision_embeds" in batch:
+        n_vis = min(batch["vision_embeds"].shape[1], lo + x.shape[1]) - lo
+        if n_vis > 0:
+            ve = batch["vision_embeds"][:, lo:lo + n_vis].to(device=x.device, dtype=dt)
+            x = torch.cat([ve, x[:, n_vis:]], dim=1)
+    return x
 
 
 def lm_head_logits(params: LMParams, x: torch.Tensor, cfg: ModelConfig,
                    groups: Optional[FoldedGroups] = None) -> torch.Tensor:
     """LM-head epilogue: final norm, then (B, S, D) → logits (B, S, V).
     With ``groups``: the norm on the sequence-parallel rows, an all-gather
-    over TP, and logits of this rank's CP chunk on its vocabulary slice."""
-    x = rmsnorm(x, params.final_norm)
-    if groups is not None:
+    over TP, and logits of this rank's CP chunk on its vocabulary slice; a
+    whole vocabulary (:func:`vocab_cut`) gives the whole vocabulary's
+    logits of the rank's sequence-parallel rows, with no gather."""
+    x = norm_apply(cfg.norm, x, params.final_norm)
+    cut = vocab_cut(params, cfg, groups)
+    if cut:
         x = comm.sp_gather(x, groups.attn["tp"].group)
     if params.lm_head is not None:
         head = gather_for_compute("lm_head", params.lm_head, groups)
@@ -617,32 +865,107 @@ def lm_head_logits(params: LMParams, x: torch.Tensor, cfg: ModelConfig,
     return x @ head.to(x.dtype)
 
 
+def lm_loss(params: LMParams, logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
+            groups: Optional[FoldedGroups] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean token cross-entropy of :func:`lm_head_logits`' logits against
+    ``labels`` (the batch's, or at a fold the rank's CP chunk) → ``(loss,
+    n_tok)``, global at a fold: vocabulary-parallel over TP, or with a whole
+    vocabulary on the rank's sequence-parallel rows summed over the stage."""
+    if groups is None:
+        return softmax_cross_entropy(logits, labels)
+    a = groups.attn
+    if vocab_cut(params, cfg, groups):
+        return vocab_parallel_cross_entropy(
+            logits, labels, vocab_start=vocab_start(params, groups),
+            vocab_group=a["tp"].group, token_group=a["dp_cp"].group)
+    lo, n = _sp_rows(groups, labels.shape[1])
+    off = lo - a["cp"].index * labels.shape[1]
+    return vocab_parallel_cross_entropy(logits, labels[:, off:off + n], vocab_start=0,
+                                        vocab_group=None, token_group=a["stage"].group)
+
+
+def _encode(params: LMParams, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+            remat: bool, groups: Optional[FoldedGroups]) -> torch.Tensor:
+    """The encoder (reference ``transformer.py:417-429``): the audio frames
+    ``batch["audio_embeds"]`` (B, T, D) plus the sinusoid, the bidirectional
+    ``dense`` layers, the encoder's final norm → (B, T, D). With ``groups``
+    the frames (whole on every rank of a DP rank) are cut to the rank's
+    sequence-parallel rows, the layers run across TP and CP (all-gather or
+    ring CP, not causal), and the output is gathered whole (over TP, then
+    CP), as the reference's cross-attention takes it: the gathers'
+    backward reduce-scatters each rank's share of its gradient."""
+    dt = _compute_dtype(cfg)
+    ae = batch["audio_embeds"].to(dt)
+    B, T, _ = ae.shape
+    epos = torch.arange(T, device=ae.device)
+    xe = ae + _sinusoid(epos, cfg.d_model).to(dt)
+    pos = None
+    if groups is None:
+        pos = epos.expand(B, T)
+    else:
+        cp = groups.attn["cp"]
+        if T % (cp.size * groups.tp):
+            raise ValueError(f"{T} encoder frames do not split over cp·tp = "
+                             f"{cp.size * groups.tp}")
+        lo, n = _sp_rows(groups, T // cp.size)
+        xe = xe[:, lo:lo + n]
+    xe, _ = _run_stack(params.encoder.layers, xe, pos, cfg, remat=remat, groups=groups,
+                       causal=False)
+    xe = norm_apply(cfg.norm, xe, params.encoder.final_norm)
+    if groups is not None:
+        xe = comm.sp_gather(xe, groups.attn["tp"].group)
+        xe = comm.all_gather(xe, groups.attn["cp"].group, 1)
+    return xe
+
+
+def decoder_positions(batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                      groups: Optional[FoldedGroups]) -> Optional[torch.Tensor]:
+    """The positions the layers take: :func:`lm_positions` at one rank; at
+    a fold ``None`` (the layout gives them), or M-RoPE's streams of the
+    rank's CP chunk, whose temporal stream ``data.pipeline.shard_batch``
+    has checked to be a run over the whole sequence."""
+    if groups is None:
+        return lm_positions(batch, cfg)
+    pos = batch.get("positions")
+    if pos is not None and (cfg.rope_kind != "mrope" or pos.dim() != 3):
+        lm_positions(batch, cfg)            # raises
+    return pos
+
+
 def apply_lm(params: LMParams, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
              remat: bool = True, groups: Optional[FoldedGroups] = None
              ) -> Tuple[torch.Tensor, AuxDict]:
     """Forward pass → (logits, aux), aux averaged over the MoE layers.
 
-    ``batch["tokens"]``: (B, S) integer tokens on the parameters' device.
-    With ``groups``: ``params`` are this rank's store slices
-    (``models.sharding.shard_lm_params``), ``batch`` its share
-    (``data.pipeline.shard_batch``: its DP rows and CP chunk), and the
-    logits (B, S / cp, V / tp) those of its CP chunk on its vocabulary
-    slice (``models.common.vocab_parallel_cross_entropy``); aux is global.
+    ``batch``: ``tokens`` (B, S) integer tokens on the parameters' device;
+    for M-RoPE optionally ``positions`` (B, S, 3); for a VLM optionally
+    ``vision_embeds`` (B, n_vision, D); for an encoder–decoder
+    ``audio_embeds`` (B, T, D). With ``groups``: ``params`` are this rank's
+    store slices (``models.sharding.shard_lm_params``), ``batch`` its share
+    (``data.pipeline.shard_batch``: its DP rows and CP chunk of the tokens
+    and positions, its DP rows of the embeddings), and the logits (B, S /
+    cp, V / tp) those of its CP chunk on its vocabulary slice
+    (:func:`lm_loss`); aux is global.
     """
     check_supported(cfg)
     from repro_torch.core.pipeline import pipelined
     if pipelined(groups):
         raise ValueError("apply_lm runs the whole model: at pp > 1 a rank holds one stage, "
                          "which core.pipeline.make_pipeline_grads runs")
-    if groups is None:
-        pos = lm_positions(batch, cfg)
-    else:
-        lm_positions(batch, cfg)           # raises for explicit positions
-        if "moe" in cfg.blocks():
-            check_sp_moe_handoff(groups)
-        pos = None
+    pos = decoder_positions(batch, cfg, groups)
+    if groups is not None and "moe" in cfg.blocks():
+        check_sp_moe_handoff(groups)
     x = lm_embed(params, batch, pos, cfg, groups)
-    x, aux = _run_stack(params.layers, x, pos, cfg, remat=remat, groups=groups)
+    enc = None
+    if cfg.is_encoder_decoder:
+        enc = _encode(params, batch, cfg, remat=remat, groups=groups)
+        if groups is None:
+            rows = pos
+        else:
+            lo, n = _sp_rows(groups, batch["tokens"].shape[1])
+            rows = lo + torch.arange(n, device=x.device)
+        x = x + _sinusoid(rows, cfg.d_model).to(x.dtype)
+    x, aux = _run_stack(params.layers, x, pos, cfg, remat=remat, groups=groups, enc=enc)
     logits = lm_head_logits(params, x, cfg, groups)
     n_moe = sum(1 for b in cfg.blocks() if b == "moe")
     if n_moe:

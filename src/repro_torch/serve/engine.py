@@ -205,8 +205,14 @@ class Engine:
         if ecfg.compute_dtype not in _DTYPES:
             raise ValueError(f"bad compute_dtype {ecfg.compute_dtype!r}")
         check_supported(cfg)
+        if cfg.is_encoder_decoder:
+            raise ValueError(
+                "Engine serves decoder-only models; enc-dec (whisper) needs "
+                "an encoder pass + cross-KV prefill that lives in apply_lm")
         if groups is not None:
-            want = (cfg.vocab_size // groups.tp, cfg.d_model)
+            vocab = cfg.vocab_size // groups.tp if cfg.vocab_size % groups.tp == 0 \
+                else cfg.vocab_size
+            want = (vocab, cfg.d_model)
             if tuple(params.embed.shape) != want:
                 raise ValueError(f"Engine(groups=...): embed {tuple(params.embed.shape)} is "
                                  f"not the rank's compute slice {want} "

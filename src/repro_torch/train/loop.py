@@ -54,9 +54,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.folding import FoldedGroups
 from repro_torch.models import sharding
-from repro_torch.models.common import softmax_cross_entropy, vocab_parallel_cross_entropy
-from repro_torch.models.transformer import (LMParams, apply_lm, leaf_rank, param_shapes,
-                                            vocab_start)
+from repro_torch.models.transformer import LMParams, apply_lm, leaf_rank, lm_loss, param_shapes
 from repro_torch.optim import adamw
 
 Tensors = Dict[str, torch.Tensor]
@@ -111,12 +109,7 @@ def loss_fn(cparams: LMParams, batch: Tensors, cfg: ModelConfig, *,
     ``groups``, every rank returns the global loss and metrics and
     back-propagates its own share."""
     logits, aux = apply_lm(cparams, batch, cfg, remat=remat, groups=groups)
-    if groups is None:
-        ce, n_tok = softmax_cross_entropy(logits, batch["labels"])
-    else:
-        ce, n_tok = vocab_parallel_cross_entropy(
-            logits, batch["labels"], vocab_start=vocab_start(cparams, groups),
-            vocab_group=groups.attn["tp"].group, token_group=groups.attn["dp_cp"].group)
+    ce, n_tok = lm_loss(cparams, logits, batch["labels"], cfg, groups)
     return assemble_loss_metrics(ce, n_tok, aux, cfg)
 
 
@@ -175,8 +168,7 @@ def loss_and_grads(params: LMParams, batch: Tensors, cfg: ModelConfig, *,
         grads, metrics = _grads_of(cparams, batch, cfg, remat, groups)
     del cparams
     if groups is not None:
-        grads = sharding.reduce_grads(
-            grads, groups, sharding.layouts_of(dict(params.named_parameters()), groups))
+        grads = sharding.reduce_grads(grads, groups, _layouts(params, groups, cfg))
     return grads, metrics
 
 
@@ -188,10 +180,20 @@ def grad_norm(grads: Tensors, groups: Optional[FoldedGroups] = None,
     slices they belong to; ``cfg`` at a pipelined fold)."""
     if groups is None:
         return adamw.global_norm(grads)
-    layouts = sharding.layouts_of(dict(params.named_parameters()), groups)
+    layouts = _layouts(params, groups, cfg)
     norm = _norm_args(layouts, groups, cfg)
     return adamw.global_norm(grads, counted=norm["counted"], group=norm["norm_group"],
                              stages=norm["norm_stages"])
+
+
+def _layouts(params: LMParams, groups: FoldedGroups, cfg: Optional[ModelConfig]
+             ) -> Dict[str, sharding.LeafLayout]:
+    """The layout of each of this rank's store slices, from the full leaves'
+    shapes: a slice does not tell a cut dim from one kept whole."""
+    if cfg is None:
+        raise ValueError("a folded step needs cfg: the leaves' layouts come from its shapes")
+    return sharding.layouts_of((n for n, _ in params.named_parameters()), groups,
+                               param_shapes(cfg, groups))
 
 
 def _norm_args(layouts, groups: FoldedGroups, cfg: Optional[ModelConfig]) -> Dict:
@@ -254,7 +256,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] = Non
         if groups is None:
             shards, norm = named, {}
         else:
-            layouts = sharding.layouts_of(named, groups)
+            layouts = _layouts(params, groups, cfg)
             shards = {n: sharding.state_view(p.data, layouts[n], groups)
                       for n, p in named.items()}
             norm = _norm_args(layouts, groups, cfg)
@@ -281,7 +283,7 @@ def init_train_state(params: LMParams, opt_cfg: Optional[adamw.AdamWConfig] = No
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     named = dict(params.named_parameters())
     if groups is not None:
-        layouts = sharding.layouts_of(named, groups)
+        layouts = _layouts(params, groups, cfg)
         named = {n: sharding.state_view(p.detach(), layouts[n], groups)
                  for n, p in named.items()}
     state = adamw.init(named, master_weights=opt_cfg.master_weights)

@@ -135,6 +135,17 @@ PATH_CASES = [
     (1, 6, 6, 130, 700, 128, [570], 0, True, 200, None, None),             # window
     (1, 2, 1, 129, 255, 64, [0], 0, False, 0, "prefill", None),            # not causal
     (2, 4, 2, 70, 190, 128, [120, 5], 64, True, 0, "prefill", None),       # kv_offset
+    # heads of 256 (Gemma): 64-key prefill tiles, Q fragments read from shared memory
+    (2, 16, 16, 1, 1024, 256, [1023, 300], 0, True, 0, None, None),       # Gemma's decode
+    (3, 8, 2, 2, 333, 256, [5, 100, 331], 0, True, 0, "decode", 3),
+    (1, 4, 4, 300, 300, 256, [0], 0, True, 0, "prefill", None),
+    (1, 4, 2, 200, 333, 256, [133], 0, True, 0, None, None),               # prefill chunk
+    (1, 2, 2, 130, 700, 256, [570], 0, True, 200, "prefill", None),        # window
+    (2, 4, 2, 70, 190, 256, [120, 5], 64, True, 0, "prefill", None),       # kv_offset
+    # Whisper: 1500 frames, no multiple of any key tile, not causal
+    (1, 12, 12, 1500, 1500, 64, [0], 0, False, 0, None, None),             # the encoder
+    (1, 12, 12, 300, 1500, 64, [0], 0, False, 0, "prefill", None),         # cross-attention
+    (2, 12, 12, 1, 1500, 64, [0, 0], 0, False, 0, "decode", None),
 ]
 PATH_IDS = ["-".join(str(x) for x in (c[10] or "auto", c[5], c[3], c[4], f"w{c[9]}", f"s{c[11]}"))
             for c in PATH_CASES]
@@ -168,6 +179,8 @@ RING_CASES = [
     (3, 12, 4, 2, 333, 128, [5, 400, 1000], 100, "decode", 3),     # unwritten slots; splits
     (1, 32, 8, 512, 8192, 64, [12287], 8192, None, None),          # a ring prefill chunk
     (2, 4, 2, 70, 190, 128, [60, 500], 64, "prefill", None),
+    (2, 16, 16, 1, 1024, 256, [2000, 300], 1024, None, None),       # heads of 256
+    (1, 4, 2, 130, 304, 256, [700], 256, "prefill", None),
 ]
 
 
