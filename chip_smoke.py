@@ -12,8 +12,9 @@ configs registered with the reference's mapping table: Mixtral-8x22B-G8T8
 DBRX-132B at their kernel shapes; and the dense Llama3.2-1B at full width
 and depth with a sliding-window ring cache, beside Qwen3-MoE-30B-A3B's
 window variant (phase 14); and Gemma-7B, Qwen2-VL-7B and Whisper-small,
-whose blocks are of other kinds (phase 15). Phases (any failure exits non-zero; nothing is
-caught):
+whose blocks are of other kinds (phase 15); and xLSTM-125M and Zamba2-2.7B,
+whose blocks are recurrent (phase 16). Phases (any failure exits non-zero;
+nothing is caught):
 
 1. device  — require CUDA; print the card's name and power limit and torch's
    version; turn TF32 off.
@@ -268,6 +269,26 @@ train-configs — phase 5's one-card training (2 steps, launches 3 + 3 + 3
    decode, Whisper's encoder (1500 × 1500) and cross-attention (4096 ×
    1500, and its decode) not causal, with ``library_ms`` from SDPA.
 
+16. recurrent — the recurrent block kinds, one card, random weights from
+   the seed, bf16. (a) xLSTM-125M at full width and depth (12 layers: mLSTM
+   ×3 + sLSTM, 4 heads over 768) serves phase 15's two requests through a
+   paged and a dense engine (paged tokens equal dense; no kernel on the
+   path: every launch counter stays 0) and prints the recurrent state a
+   request; then, cut to one cycle (4 layers: ``RECUR_TRAIN``), 2 AdamW
+   steps of one 4096-token sequence, and the same again (losses finite,
+   losses and grad_norm bitwise equal across the runs), step ms and MFU
+   (``launch.train.recurrent_flops``), and the sLSTM layer's share of the
+   step from one sLSTM layer timed alone. (b)
+   Zamba2-2.7B at full width cut to 12 layers (two cycle repeats of 6
+   Mamba2 layers, each followed by the shared attention + MLP block, 32
+   heads of 80) serves the same requests through a dense engine (1 flash
+   launch a repeat a forward) and trains as (a) (2 flash launches a repeat
+   a step: forward and remat). Then phase 6's reduced card-vs-CPU checks
+   for both at 4 layers (xLSTM's training check in fp32, Zamba2's heads set
+   to 80), and flash at heads of
+   80 against its plain version: causal 4096 (partial), the decode against
+   1024 keys and a 512-query prefill chunk, ``library_ms`` from SDPA.
+
 Phase 9 runs first, right after the build: its 4 ranks need about 70 GB
 of the card (Qwen2: 18.02 GB peak a rank on an H100), and what the other
 phases leave in this process (3.9 GB reserved before phase 7) left Qwen2's
@@ -277,7 +298,7 @@ printed. Then Mixtral runs phases 3, 4, 5, 6; every Mixtral tensor is
 freed and Qwen2
 runs 4, 5, 3, 6; then the added configs' phase 3 rows and train-configs;
 then Mixtral and Qwen2 run 7 and 8, then phase 13 with phase 4's requests,
-then phases 14 and 15. Every phase across ranks runs on one set of 4 processes
+then phases 14, 15 and 16. Every phase across ranks runs on one set of 4 processes
 (``launch.world.pool``), started after the build: each rank pays its
 interpreter, CUDA context, kernel library and first launches once, not
 once a world; ``[time]`` lines give each phase's wall. Then it prints the
@@ -291,6 +312,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -382,7 +404,8 @@ MIXTRAL, QWEN2 = "mixtral-8x22b", "qwen2-57b-a14b"
 G8T8, QWEN3 = "mixtral-8x22b-g8t8", "qwen3-moe-30b-a3b"     # trained on one card too
 LLAMA3, DBRX = "llama3-8x70b", "dbrx-132b"                 # kernel rows only
 SHORT = {MIXTRAL: "", QWEN2: "-qwen2", G8T8: "-g8t8", QWEN3: "-qwen3moe",   # path-name suffixes
-         "gemma-7b": "-gemma", "qwen2-vl-7b": "-qwen2vl", "whisper-small": "-whisper"}
+         "gemma-7b": "-gemma", "qwen2-vl-7b": "-qwen2vl", "whisper-small": "-whisper",
+         "xlstm-125m": "-xlstm", "zamba2-2.7b": "-zamba2"}
 # Phase 8: the folded train step, 4 ranks on the card. Attention (dp, cp, tp),
 # MoE (edp, ep, etp), and its runs (cp_mode, steps; 0 = one forward and
 # backward, no optimizer), each from the same start.
@@ -845,8 +868,9 @@ def phase_check(torch, arch: str, cfg=None) -> dict:
     cpu = init_lm(cfg, seed=3, dtype=torch.bfloat16, device="cpu")
     gpu = copy.deepcopy(cpu).to("cuda")
     lens = (5, 40, 19, 130)
-    _, rids, res_g = run_requests(cfg, gpu, lens, 8)
-    _, _, res_c = run_requests(cfg, cpu, lens, 8)
+    kw = {"cache": "dense"} if cfg.shared_attention_every else {}   # as launch/serve.py serves it
+    _, rids, res_g = run_requests(cfg, gpu, lens, 8, **kw)
+    _, _, res_c = run_requests(cfg, cpu, lens, 8, **kw)
     worst, same = 0.0, 0
     for rid in rids:
         a, b = res_g[rid].last_prefill_logits, res_c[rid].last_prefill_logits
@@ -887,8 +911,8 @@ def _reduced_train_config(arch: str):
                                **({"head_dim": HEAD_DIM[arch]} if arch in HEAD_DIM else {}))
 
 
-def phase_train_check(torch, arch: str, cfg=None) -> dict:
-    """Reduced training slice (or ``cfg``), bf16, the kernels on the card vs
+def phase_train_check(torch, arch: str, cfg=None, dtype: str = "bfloat16") -> dict:
+    """Reduced training slice (or ``cfg``), in ``dtype``, the kernels on the card vs
     the plain versions on the CPU, same weights and batches (with the
     arch's stub inputs, ``materialize_batch``): step 1's gradients leaf by
     leaf (relative L2), then two steps' loss and gradient norm. The
@@ -901,7 +925,7 @@ def phase_train_check(torch, arch: str, cfg=None) -> dict:
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.loop import cast_params, init_train_state, loss_fn, make_train_step
 
-    cfg = dataclasses.replace(cfg or _reduced_train_config(arch), dtype="bfloat16")
+    cfg = dataclasses.replace(cfg or _reduced_train_config(arch), dtype=dtype)
     if arch in FANOUT:                      # dropless: see FANOUT
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dropless=True))
     cpu = init_lm(cfg, seed=3, device="cpu")
@@ -2843,6 +2867,284 @@ def _blocks_line(blocks: dict, sources: dict) -> list:
     return line
 
 
+XLSTM, ZAMBA2 = "xlstm-125m", "zamba2-2.7b"
+# Phase 16: the depth of each arch (None: the published one), the serving
+# workload (BLOCKS_SERVE's requests and engine), Zamba2 from a dense cache
+# only (its shared block's cache is per cycle repeat), and the training runs.
+RECUR_LAYERS = {XLSTM: None, ZAMBA2: 12}
+RECUR_CACHES = {XLSTM: ("paged", "dense"), ZAMBA2: ("dense",)}
+# xLSTM trains one cycle (4 layers: mLSTM x3 + sLSTM): at its 12 layers a
+# step took 23.6-25.8 s on an H100 (3 sLSTM layers of 4096 sequential
+# cells, 88% of it), so its four steps would take 100 s alone.
+RECUR_TRAIN = dict(seq=4096, batch=1, steps=2, layers={XLSTM: 4, ZAMBA2: 12})
+
+
+def _recurrent_serve(torch, arch: str) -> tuple:
+    """(a)/(b) serving: BLOCKS_SERVE's two requests through each of the
+    arch's engines, each run with the counters set to 0 just before and
+    read just after: 1 flash launch per forward per KV-bearing layer (none
+    for xLSTM; Zamba2's shared block once a cycle repeat), no GMM."""
+    from repro_torch.launch.serve import slice_config, submit_random
+    from repro_torch.models import ssm_blocks
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import Engine, EngineConfig
+    from repro_torch.serve.cache import n_kv_layers
+    cfg = slice_config(arch, layers=RECUR_LAYERS[arch])
+    params = init_lm(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    state = {k: ssm_blocks.state_bytes(k, cfg) for k in set(cfg.blocks()) & set(ssm_blocks.KINDS)}
+    out, failures = dict(model=f"{cfg.name} x{cfg.n_layers} layers (full width), bf16",
+                         state_bytes_a_layer=state,
+                         state_bytes_a_request=sum(state[k] for k in cfg.blocks() if k in state),
+                         runs={}), []
+    _say(f"[recurrent serve{SHORT[arch]}] recurrent state a request: "
+         f"{out['state_bytes_a_request'] / 1e6:.2f} MB ("
+         + ", ".join(f"{k} {v / 1e6:.3f} MB a layer" for k, v in state.items()) + ")")
+    for cache in RECUR_CACHES[arch]:
+        tag = f"serve{SHORT[arch]}" + ("" if cache == "paged" else "-dense")
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(cfg, params, EngineConfig(cache=cache, s_max=BLOCKS_SERVE["s_max"],
+                                               **BLOCKS_ENGINE))
+        rids = submit_random(eng, cfg, BLOCKS_SERVE["prompts"], BLOCKS_SERVE["new"], seed=0)
+        torch.cuda.synchronize()
+        _zero_counters()
+        t0 = time.perf_counter()
+        res = eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counters()
+        n_fwd = sum(1 for s in eng.stats if s.prefill_tokens) + \
+            sum(1 for s in eng.stats if s.decode_tokens)
+        expect = {"gmm": 0, "gmm_trans_w": 0, "flash_attention": n_kv_layers(cfg) * n_fwd}
+        dec = [t[1] for t in eng.timings if t[1] > 0]
+        run = dict(forwards=n_fwd, launches=launches, wall_s=wall,
+                   decode_step_ms_median=statistics.median(dec) * 1e3,
+                   prefill_tok_per_s=sum(s.prefill_tokens for s in eng.stats) /
+                   sum(t[0] for t in eng.timings),
+                   max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   tokens=[res[r].tokens.tolist() for r in rids])
+        _say(f"[recurrent {tag}] {out['model']}: {len(rids)} requests, {n_fwd} forwards, wall "
+             f"{wall:.3f} s, launches {launches} (expected {expect}); prefill "
+             f"{run['prefill_tok_per_s']:.1f} tok/s, decode step median "
+             f"{run['decode_step_ms_median']:.3f} ms; max_memory_allocated "
+             f"{run['max_memory_allocated_gb']:.2f} GB")
+        if launches != expect:
+            failures.append(f"{arch} {tag}: launches {launches} != {expect}")
+        for r in rids:
+            toks = res[r].tokens
+            if not (res[r].finished and len(toks) == BLOCKS_SERVE["new"]
+                    and 0 <= toks.min() and toks.max() < cfg.vocab_size):
+                failures.append(f"{arch} {tag} request {r}: tokens {toks.tolist()}")
+        out["runs"][cache] = run
+        del eng, res
+        torch.cuda.empty_cache()
+    if "paged" in out["runs"]:
+        out["paged_equals_dense"] = out["runs"]["paged"]["tokens"] == \
+            out["runs"]["dense"]["tokens"]
+        _say(f"[recurrent serve] {arch}: paged tokens equal dense tokens: "
+             f"{out['paged_equals_dense']}")
+        if not out["paged_equals_dense"]:
+            failures.append(f"{arch}: paged tokens differ from dense tokens")
+    del params
+    return out, failures
+
+
+def _recurrent_train_run(torch, cfg, batches) -> dict:
+    """RECUR_TRAIN's AdamW steps from the seed's weights (fp32 masters and
+    moments, bf16 compute, remat), counters set to 0 just before and read
+    just after. (Not profiled here: under ``torch.profiler`` an xLSTM step
+    of 4096 sLSTM cells took 400 s; ``launch/profile_train.py`` splits
+    one.)"""
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.loop import init_train_state, make_train_step
+    params = init_lm(cfg, seed=0, device="cuda")
+    opt = init_train_state(params)
+    step = make_train_step(cfg, guard=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    rows = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        rows.append(dict({k: float(v) for k, v in m.items()},
+                         step_ms=(time.perf_counter() - t0) * 1e3))
+    out = dict(steps=rows, launches=_read_counters(),
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _slstm_ms(torch, cfg) -> dict:
+    """One sLSTM block at ``cfg``'s width over RECUR_TRAIN's sequence, bf16,
+    timed alone by the host clock (each synchronised; the training runs
+    before warmed its ops): its forward without autograd (the step's first
+    forward under the reentrant remat) and its forward with the backward
+    (remat's recompute and the backward). A step runs both in each sLSTM
+    layer. Launch-bound on a host shared with other machines' work, so
+    noisy: read it beside the step it is divided by, from the same run."""
+    from repro_torch.models import ssm_blocks
+    from repro_torch.models.transformer import _init_norm
+    g = torch.Generator(device="cuda").manual_seed(5)
+    p = ssm_blocks.init_block("slstm", cfg, _init_norm(cfg, "cuda"), generator=g,
+                              dtype=torch.bfloat16, device="cuda")
+    x = torch.randn((RECUR_TRAIN["batch"], RECUR_TRAIN["seq"], cfg.d_model), generator=g,
+                    device="cuda").to(torch.bfloat16).requires_grad_()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def fwd():
+        with torch.no_grad():
+            ssm_blocks.apply_block(p, x, cfg)
+
+    def fwd_bwd():
+        torch.autograd.grad(ssm_blocks.apply_block(p, x, cfg).float().sum(), [x])
+    return {"forward_ms": timed(fwd), "forward_backward_ms": timed(fwd_bwd)}
+
+
+def _recurrent_train(torch, arch: str) -> tuple:
+    """(a)/(b) training: RECUR_TRAIN's steps of one 4096-token sequence
+    (``SyntheticTokens(seed=0)``), then the same again: losses finite and
+    ``step_ok``, losses and ``grad_norm`` bitwise equal across the two
+    runs, flash launches 2 a step per KV-bearing layer (forward and remat's
+    recompute: Zamba2's shared block twice, xLSTM none), no GMM. For xLSTM
+    also the sLSTM layers' estimated share of the step (``_slstm_ms``)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import PEAK_BF16_FLOPS, recurrent_flops, train_config
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.serve.cache import n_kv_layers
+    cfg = train_config(arch, layers=RECUR_TRAIN["layers"][arch])
+    seq, steps = RECUR_TRAIN["seq"], RECUR_TRAIN["steps"]
+    data = SyntheticTokens(DataConfig(seq_len=seq, global_batch=RECUR_TRAIN["batch"],
+                                      vocab_size=cfg.vocab_size, seed=0))
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in next(data).items()}
+               for _ in range(steps)]
+    flops = recurrent_flops(cfg, seq) * RECUR_TRAIN["batch"]
+    first = _recurrent_train_run(torch, cfg, batches)
+    rerun = _recurrent_train_run(torch, cfg, batches)
+    expect = {"gmm": 0, "gmm_trans_w": 0, "flash_attention": 2 * n_kv_layers(cfg) * steps}
+    n_params = sum(math.prod(s) for s in param_shapes(cfg).values())
+    out = dict(model=f"{cfg.name} x{cfg.n_layers} layers (full width), {n_params / 1e9:.3f} B "
+                     f"parameters, {RECUR_TRAIN['batch']} x {seq} tokens a step",
+               first=first, rerun=rerun, launches=first["launches"],
+               model_tflop_per_step=flops / 1e12, compute_bound_ms=_bound(0, flops)[0])
+    failures = []
+    tag = f"[recurrent train{SHORT[arch]}]"
+    for i, (a, b) in enumerate(zip(first["steps"], rerun["steps"])):
+        a["mfu"] = flops / (a["step_ms"] / 1e3) / PEAK_BF16_FLOPS
+        same = a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+        _say(f"{tag} step {i}: loss {a['loss']:.6f} (rerun {b['loss']:.6f}), grad_norm "
+             f"{a['grad_norm']:.4f} (rerun {b['grad_norm']:.4f}), bitwise {same}, step_ok "
+             f"{bool(a['step_ok'])}; wall {a['step_ms']:.1f} ms (rerun {b['step_ms']:.1f}), "
+             f"MFU {100 * a['mfu']:.3f}%")
+        finite = all(x == x and abs(x) != float("inf") for x in (a["loss"], a["grad_norm"]))
+        if not (finite and a["step_ok"] and same):
+            failures.append(f"{arch} train step {i}: loss {a['loss']} / rerun {b['loss']}, "
+                            f"grad_norm {a['grad_norm']} / rerun {b['grad_norm']}, "
+                            f"step_ok {a['step_ok']}")
+    for run in (first, rerun):
+        if run["launches"] != expect:
+            failures.append(f"{arch} train launches {run['launches']} != {expect}")
+    _say(f"{tag} {out['model']}: launches {first['launches']} (expected {expect}); "
+         f"{flops / 1e12:.3f} model TFLOP a step (recurrent_flops), compute bound "
+         f"{out['compute_bound_ms']:.3f} ms; max_memory_allocated "
+         f"{first['max_memory_allocated_gb']:.2f} GB")
+    n_slstm = sum(1 for k in cfg.blocks() if k == "slstm")
+    if n_slstm:
+        sl = _slstm_ms(torch, cfg)
+        # the steps but the first (its warm-up), median: the host's pace varies
+        step_ms = statistics.median(r["step_ms"] for r in first["steps"][1:] + rerun["steps"])
+        sl["layers"] = n_slstm
+        sl["share_of_step"] = n_slstm * (sl["forward_ms"] + sl["forward_backward_ms"]) / step_ms
+        out["slstm"] = sl
+        _say(f"{tag} one sLSTM layer alone over {seq} tokens: forward {sl['forward_ms']:.1f} ms, "
+             f"forward + backward {sl['forward_backward_ms']:.1f} ms; {n_slstm} layers ~ "
+             f"{100 * sl['share_of_step']:.1f}% of the median step, {step_ms:.1f} ms")
+    return out, failures
+
+
+def _recurrent_checks(torch) -> dict:
+    """Phase 6's reduced card-vs-CPU checks for both archs at 4 layers
+    (xLSTM's cycle with its sLSTM layer; Zamba2's two shared-block repeats,
+    its heads set to 80 so that the check runs the head-80 kernels):
+    training's gradients and two steps, and serving's prefill logits
+    (Zamba2 from a dense cache). xLSTM's path has no kernel, and in bf16
+    its gate gradients part from fp32 by 3–36% on the CPU alone (two card
+    runs of the bf16 check held layer 2's ``wf`` at 1.0e-1 and
+    ``w_qkv_lstm`` at 6.0e-2 against the CPU): its training check runs in
+    fp32 on both sides (TF32 off), where a device-side fault stands out.
+    Zamba2's runs the head-80 flash kernel, which takes bf16."""
+    import dataclasses
+    from repro_torch.launch.serve import slice_config
+    from repro_torch.launch.train import train_config
+    kw = {XLSTM: dict(n_layers=4), ZAMBA2: dict(n_layers=4, head_dim=80)}
+    train_kw = {XLSTM: dict(dtype="float32"), ZAMBA2: {}}
+    return {arch: {"train": phase_train_check(torch, arch, dataclasses.replace(
+                       train_config(arch, reduce=True), **kw[arch]), **train_kw[arch]),
+                   "serve": phase_check(torch, arch, dataclasses.replace(
+                       slice_config(arch, reduce=True), **kw[arch]))}
+            for arch in (XLSTM, ZAMBA2)}
+
+
+def _recurrent_kernels(torch) -> dict:
+    """Phase 16's kernel rows, held and timed as in phase 3: flash at
+    Zamba2's heads (32/32 of 80): causal 4096 in the training step's
+    partial mode, the serving decode against 1024 keys, a 512-query prefill
+    chunk against 1024 keys."""
+    cases = []
+    for case, modes in ((("causal self-attention 4096", 4096, 4096, [0]), (True,)),
+                        (("decode, 1024 keys", 1, 1024, [1023, 1023]), (False,)),
+                        (("prefill chunk 512 of 1024", 512, 1024, [512]), (False,))):
+        cases += _flash_cases(torch, ZAMBA2, [case], heads=(32, 32), modes=modes, hd=80)
+    res = {"flash_attention": cases}
+    _check_cases(ZAMBA2, res)
+    return res
+
+
+def phase_recurrent(torch) -> dict:
+    """Phase 16: see the module docstring."""
+    t_phase = time.perf_counter()
+    out, failures = {}, []
+    for arch in (XLSTM, ZAMBA2):
+        out[arch] = {}
+        out[arch]["serve"], f = _recurrent_serve(torch, arch)
+        failures += f
+        _free(torch, f"{arch} serving done")
+        out[arch]["train"], f = _recurrent_train(torch, arch)
+        failures += f
+        _free(torch, f"{arch} training done")
+    out["checks"] = _recurrent_checks(torch)
+    out["kernels"] = _recurrent_kernels(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    _say(f"[recurrent] phase 16 took {out['seconds']:.1f} s")
+    if failures:
+        raise AssertionError("phase 16:\n" + "\n".join(failures))
+    return out
+
+
+def _recurrent_line(rec: dict, sources: dict) -> list:
+    """Phase 16's entries of the kernels line: flash on Zamba2's paths
+    (``recurrent-serve-dense-zamba2``, ``recurrent-train-zamba2``), each with
+    its own launches, timed at that path's shape. xLSTM's paths launch no
+    kernel: the reference has no TPU kernel on them."""
+    def case(label):
+        return next(c for c in rec["kernels"]["flash_attention"] if c["case"] == label)
+    return [_entry("flash_attention", "recurrent-serve-dense" + SHORT[ZAMBA2], ZAMBA2,
+                   case("decode, 1024 keys, normalized"),
+                   rec[ZAMBA2]["serve"]["runs"]["dense"]["launches"]["flash_attention"],
+                   sources),
+            _entry("flash_attention", "recurrent-train" + SHORT[ZAMBA2], ZAMBA2,
+                   case("causal self-attention 4096, partial"),
+                   rec[ZAMBA2]["train"]["launches"]["flash_attention"], sources)]
+
+
 def _free(torch, label: str) -> dict:
     """Release every cached block; the reserved memory before and after."""
     before = torch.cuda.memory_reserved() / 1e9
@@ -2932,6 +3234,9 @@ def main() -> int:
     memory_blocks = _free(torch, "phase 14 done, before phase 15")
     blocks = phase_blocks(torch)
     mark("phase 15")
+    memory_recurrent = _free(torch, "phase 15 done, before phase 16")
+    recurrent = phase_recurrent(torch)
+    mark("phase 16")
     seconds = time.perf_counter() - t_start
 
     gmm_src = ("src/repro_torch/kernels/csrc/gmm.cu", "src/repro/kernels/gmm/gmm.py:73")
@@ -2958,6 +3263,7 @@ def main() -> int:
     line += _serve_world_line(serve_world, sources)
     line += _window_dense_line(window, sources)
     line += _blocks_line(blocks, sources)
+    line += _recurrent_line(recurrent, sources)
     smi = _smi()
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -2969,6 +3275,7 @@ def main() -> int:
         train_resume=train_resume, train_handoff=train_handoff, serve_world=serve_world,
         window_dense=window, memory_before_window_dense=memory_window,
         blocks=blocks, memory_before_blocks=memory_blocks,
+        recurrent=recurrent, memory_before_recurrent=memory_recurrent,
         config_kernels=config_kernels,
         train_configs=train_configs, memory_after_train_zero=memory_zero,
         memory_after_train_handoff=memory_handoff,

@@ -2,8 +2,8 @@
 architecture of ``repro.configs`` (copied as data), the input shapes, and
 ``reduced``.
 
-Every architecture is registered; the port trains and serves those whose
-blocks it has (``models.transformer.check_supported`` refuses the rest).
+Every architecture is registered, and the port trains and serves each of
+them (Whisper trains only, as the reference's engine refuses enc-dec).
 """
 from __future__ import annotations
 

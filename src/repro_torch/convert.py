@@ -10,7 +10,9 @@ does (``layers.3.moe.w1``; the shared experts' ``moe/shared/w1`` is
 ``layers.3.moe.ws1``; a dense block's ``mlp/w_gate`` is
 ``layers.3.mlp.w_gate``; a LayerNorm's ``norm1/{w,b}`` are
 ``layers.3.norm1.{w,b}``; Whisper's ``encoder/cycle/b0/...`` are
-``encoder.layers.<j>....``). With ``groups`` (a folded mapping) each rank gets
+``encoder.layers.<j>....``; a recurrent block's ``cycle/b1/w_in`` is
+``layers.5.w_in``; Zamba2's unstacked ``shared/attn/wq`` is
+``shared.attn.wq``). With ``groups`` (a folded mapping) each rank gets
 its slices of the full tree (``models.sharding``): parameters in the store
 layout, gradients and AdamW state in the ZeRO-1 state layout, so a test
 holds each rank's tensors against its slices of JAX's; at a pipelined fold
@@ -31,6 +33,7 @@ from repro_torch.core.moe_layer import MoEParams, shard_moe_params
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import AttentionParams
 from repro_torch.models.sharding import shard_tensor
+from repro_torch.models import ssm_blocks
 from repro_torch.models.ffn import FFNParams
 from repro_torch.models.transformer import (DenseBlockParams, DenseXBlockParams,
                                             EncoderParams, LayerNormParams, LMParams,
@@ -55,6 +58,10 @@ def jax_key(name: str, cfg: ModelConfig) -> Tuple[str, Optional[int]]:
     ``encoder/final_norm/*``."""
     if name in ("embed", "lm_head"):
         return name, None
+    if name.startswith("shared."):          # one block, not stacked
+        leaf = name[len("shared."):]
+        path = _norm_key(leaf) if leaf in ("norm1", "norm2") else leaf.replace(".", "/", 1)
+        return "shared/" + path, None
     if name.startswith("encoder."):
         key, i = _layer_key(name[len("encoder."):], 1)
         return "encoder/" + key, i
@@ -75,6 +82,8 @@ def _layer_key(name: str, n: int) -> Tuple[str, Optional[int]]:
         path = "moe/experts/" + leaf[4:]
     elif leaf == "moe.router":
         path = "moe/router"
+    elif "." not in leaf:                  # a recurrent block's leaf (models.ssm_blocks)
+        path = leaf
     else:
         path = "moe/shared/" + JAX_SHARED[leaf[4:]]
     return f"cycle/b{int(layer) % n}/{path}", int(layer) // n
@@ -156,34 +165,35 @@ def lm_params(t: Dict[str, torch.Tensor], cfg: ModelConfig) -> LMParams:
     def attention(pre):
         return AttentionParams(**{k[len(pre):]: v for k, v in t.items() if k.startswith(pre)})
 
-    def layers(prefix, count):
-        out = {}
-        for layer in range(count):
-            pre = f"{prefix}{layer}."
-            if norm(pre + "norm1") is None:
-                continue
-            n1, n2, attn = norm(pre + "norm1"), norm(pre + "norm2"), attention(pre + "attn.")
-            if pre + "mlp.w_gate" in t:
-                mlp = FFNParams(t[pre + "mlp.w_gate"], t[pre + "mlp.w_down"],
-                                t.get(pre + "mlp.w_up"))
-                if pre + "xattn.wq" in t:
-                    out[layer] = DenseXBlockParams(n1, attn, n2, mlp, norm(pre + "norm_x"),
-                                                   attention(pre + "xattn."))
-                else:
-                    out[layer] = DenseBlockParams(n1, attn, n2, mlp)
-                continue
-            moe = MoEParams(*(t[f"{pre}moe.{k}"] for k in ("router", "w1", "w2", "w3")),
-                            **{k: t[f"{pre}moe.{k}"] for k in SHARED_NAMES.values()
-                               if f"{pre}moe.{k}" in t})
-            out[layer] = MoEBlockParams(n1, attn, n2, moe)
-        return out
+    def block(pre, kind):
+        if kind in ssm_blocks.KINDS:
+            return ssm_blocks.block_from_leaves(
+                kind, norm(pre + "norm1"),
+                {k[len(pre):]: v for k, v in t.items() if k.startswith(pre)})
+        n1, n2, attn = norm(pre + "norm1"), norm(pre + "norm2"), attention(pre + "attn.")
+        if pre + "mlp.w_gate" in t:
+            mlp = FFNParams(t[pre + "mlp.w_gate"], t[pre + "mlp.w_down"],
+                            t.get(pre + "mlp.w_up"))
+            if pre + "xattn.wq" in t:
+                return DenseXBlockParams(n1, attn, n2, mlp, norm(pre + "norm_x"),
+                                         attention(pre + "xattn."))
+            return DenseBlockParams(n1, attn, n2, mlp)
+        moe = MoEParams(*(t[f"{pre}moe.{k}"] for k in ("router", "w1", "w2", "w3")),
+                        **{k: t[f"{pre}moe.{k}"] for k in SHARED_NAMES.values()
+                           if f"{pre}moe.{k}" in t})
+        return MoEBlockParams(n1, attn, n2, moe)
+
+    def layers(prefix, kinds):
+        return {layer: block(f"{prefix}{layer}.", kind) for layer, kind in enumerate(kinds)
+                if norm(f"{prefix}{layer}.norm1") is not None}
 
     encoder = None
     if cfg.is_encoder_decoder and norm("encoder.final_norm") is not None:
-        encoder = EncoderParams(layers("encoder.layers.", cfg.n_encoder_layers),
+        encoder = EncoderParams(layers("encoder.layers.", ("dense",) * cfg.n_encoder_layers),
                                 norm("encoder.final_norm"))
-    return LMParams(t.get("embed"), layers("layers.", cfg.n_layers), norm("final_norm"),
-                    t.get("lm_head"), encoder)
+    shared = block("shared.", "dense") if norm("shared.norm1") is not None else None
+    return LMParams(t.get("embed"), layers("layers.", model_cycle(cfg)[0]), norm("final_norm"),
+                    t.get("lm_head"), encoder, shared)
 
 
 def moe_params_from_jax(tree: Dict, *, device: DeviceLike = None,

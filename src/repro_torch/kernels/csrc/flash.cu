@@ -6,7 +6,7 @@
 // src/repro/kernels/flash/flash.py, and with it the jnp scan `_fwd_scan`
 // (src/repro/models/attn_core.py) that the JAX serving path runs for its
 // cache attention. Same contract:
-//   q (B, H, Sq, hd), k/v (B, Hkv, Skv, hd), hd in {64, 128, 256}; GQA head h
+//   q (B, H, Sq, hd), k/v (B, Hkv, Skv, hd), hd in {64, 80, 128, 256}; GQA head h
 //   reads KV head h / (H / Hkv); query row i of batch row b sits at
 //   position q_offset[b] + i, key j at kv_offset + j, or at kv_pos[b, j]
 //   when the caller gives key positions (the reference's blockwise_attention
@@ -91,6 +91,15 @@
 // N = 128 wgmma on the two halves of O and of V's swizzle atoms; the
 // decode path reads Q's fragments from the staged Q tile at each k-step
 // instead of holding all 64 registers of them beside the accumulator's 128.
+//
+// Heads of 80 (Zamba2's shared block): the decode path runs 5 k-steps and
+// 10 n-tiles of mma.sync (row pitch 88: 176 B, 16-byte aligned, no
+// ldmatrix conflicts) and merges 10 columns a thread with 4- and 8-byte
+// stores. The prefill path keeps its 64-column swizzle atoms: its tiles are
+// 128 columns wide (WgCfg::TD), the tensor maps' inner extent stays 80 (a
+// row pitch of 160 B), so the TMA fills columns 80..127 with zeros; S = Q K^T
+// takes 5 k-steps (the zero columns add nothing), P V runs at N = 128 (1.6x
+// the products an exact 80 needs) and the epilogue stores only 80 columns.
 //
 // Key positions (kv_pos) keep both paths as they are and change only the
 // mask, in their own instantiations (template flag POS), so a launch
@@ -244,6 +253,38 @@ struct SplitPlan {
   }
 };
 
+// N fp32 values to dst: 16-byte stores, or 8-byte ones where N is not a
+// multiple of 4 (heads of 80: 10 columns a thread at an 8-byte boundary).
+template <int N>
+__device__ __forceinline__ void store_f32(float* dst, const float (&a)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i)
+      reinterpret_cast<float4*>(dst)[i] = make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) reinterpret_cast<float2*>(dst)[i] = make_float2(a[2 * i], a[2 * i + 1]);
+  }
+}
+
+// a += f * src[0..N), read past L1 (another block's partial), 16 or 8 bytes at a time.
+template <int N>
+__device__ __forceinline__ void add_scaled_cg(float (&a)[N], float f, const float* src) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 x = __ldcg(reinterpret_cast<const float4*>(src) + i);
+      a[4 * i] += f * x.x; a[4 * i + 1] += f * x.y; a[4 * i + 2] += f * x.z; a[4 * i + 3] += f * x.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float2 x = __ldcg(reinterpret_cast<const float2*>(src) + i);
+      a[2 * i] += f * x.x; a[2 * i + 1] += f * x.y;
+    }
+  }
+}
+
 // Store one merged row segment: normalized bf16, or the fp32 partial.
 template <int N>
 __device__ __forceinline__ void store_row(const float (&a)[N], float m, float l, bool lead,
@@ -254,13 +295,17 @@ __device__ __forceinline__ void store_row(const float (&a)[N], float m, float l,
     uint32_t w[N / 2];
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) w[i] = pack_bf16(a[2 * i] / den, a[2 * i + 1] / den);
-    uint4* dst = reinterpret_cast<uint4*>(out + row * HDv + col);
+    if constexpr (N % 8 == 0) {
+      uint4* dst = reinterpret_cast<uint4*>(out + row * HDv + col);
 #pragma unroll
-    for (int i = 0; i < N / 8; ++i) dst[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+      for (int i = 0; i < N / 8; ++i) dst[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+    } else {                                 // heads of 80: 10 columns a thread, 4-byte aligned
+      uint32_t* dst = reinterpret_cast<uint32_t*>(out + row * HDv + col);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) dst[i] = w[i];
+    }
   } else {
-    float4* dst = reinterpret_cast<float4*>(acc_out + row * HDv + col);
-#pragma unroll
-    for (int i = 0; i < N / 4; ++i) dst[i] = make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
+    store_f32<N>(acc_out + row * HDv + col, a);
     if (lead) {
       m_out[row] = m;
       l_out[row] = l;
@@ -490,9 +535,7 @@ flash_fwd_kernel_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     part[row] = m;
     part[S_ROWS + row] = l;
   }
-  float4* pa4 = reinterpret_cast<float4*>(part + 2 * S_ROWS + row * HD + col);
-#pragma unroll
-  for (int i = 0; i < SEG / 4; ++i) pa4[i] = make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
+  store_f32<SEG>(part + 2 * S_ROWS + row * HD + col, a);
   __threadfence();
   __syncthreads();
   __shared__ int is_last;
@@ -511,12 +554,7 @@ flash_fwd_kernel_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     const float* src = parts + p * C::PART;
     const float f = exp2f((__ldcg(src + row) - m) * LOG2E);
     l += f * __ldcg(src + S_ROWS + row);
-    const float4* s4 = reinterpret_cast<const float4*>(src + 2 * S_ROWS + row * HD + col);
-#pragma unroll
-    for (int i = 0; i < SEG / 4; ++i) {
-      const float4 x = __ldcg(s4 + i);
-      a[4 * i] += f * x.x; a[4 * i + 1] += f * x.y; a[4 * i + 2] += f * x.z; a[4 * i + 3] += f * x.w;
-    }
+    add_scaled_cg<SEG>(a, f, src + 2 * S_ROWS + row * HD + col);
   }
   if (row_valid) store_row(a, m, l, lead, out_row(row), col, HD, out, acc_out, m_out, l_out);
   if (tid == 0) counters[grp] = 0;           // ready for the next launch
@@ -535,9 +573,14 @@ struct WgCfg {
   // (64 KB for K or V) leaves room for one stage beside the 64 KB Q tile and
   // a consumer thread's S would take 64 registers beside O's 128.
   static constexpr int BN = HD > 128 ? 64 : 128;
-  static constexpr int ATOMS = HD / 64;      // 64-column (128 B) swizzle atoms per row
-  static constexpr int Q_BYTES = W_BM * HD * 2;
-  static constexpr int KV_BYTES = BN * HD * 2;              // one K or V tile
+  // Columns of a tile row: heads of 80 sit in tiles of 128 (two swizzle
+  // atoms), whose columns 80..127 the TMA fills with zeros, past the
+  // tensor map's inner extent of 80.
+  static constexpr int TD = HD == 80 ? 128 : HD;
+  static constexpr int KS = (HD + 15) / 16;  // k-steps of S = Q K^T: the zero columns add nothing
+  static constexpr int ATOMS = TD / 64;      // 64-column (128 B) swizzle atoms per row
+  static constexpr int Q_BYTES = W_BM * TD * 2;
+  static constexpr int KV_BYTES = BN * TD * 2;              // one K or V tile
   static constexpr int FIT = (SMEM_LIMIT - 1024 - Q_BYTES - 256) / (2 * KV_BYTES);
   static constexpr int STAGES = FIT > 4 ? 4 : FIT;
   // 1024 B of slack to align Q to the swizzle atom, Q, the ring, then the
@@ -766,9 +809,10 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int row0 = q0 + wg * 64 + wq * 16 + g;               // this thread's rows: row0, row0 + 8
   const int q_pos[2] = {q_off + row0, q_off + row0 + 8};
   const int wq_first = q0 + wg * 64, wq_last = min(q0 + wg * 64 + 63, Sq - 1);
-  float o[HD / 2];
+  constexpr int TD = C::TD;
+  float o[TD / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < TD / 2; ++i) o[i] = 0.f;
   float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
   const uint32_t q_wg = q_s + wg * 64 * 128;
   int stage = 0;
@@ -780,7 +824,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   auto mma_s = [&](float (&s)[BN / 2], int st) {
     const uint32_t ks = ring + st * 2 * C::KV_BYTES;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < C::KS; ++kk)
       WgmmaSS<BN>::mma(s, sw128_desc(q_wg + (kk / 4) * W_BM * 128 + (kk % 4) * 32, 16, 1024),
                          sw128_desc(ks + (kk / 4) * BN * 128 + (kk % 4) * 32, 16, 1024), kk);
     wgmma_commit();
@@ -793,11 +837,11 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     const uint32_t vs = ring + st * 2 * C::KV_BYTES + C::KV_BYTES;
 #pragma unroll
     for (int kc = 0; kc < BN / 16; ++kc) {
-      if constexpr (HD <= 128) {
-        WgmmaRS<HD>::mma(o, pa[kc], sw128_desc(vs + kc * 16 * 128, BN * 128, 1024), 1);
+      if constexpr (TD <= 128) {
+        WgmmaRS<TD>::mma(o, pa[kc], sw128_desc(vs + kc * 16 * 128, BN * 128, 1024), 1);
       } else {
 #pragma unroll
-        for (int n = 0; n < HD / 128; ++n)
+        for (int n = 0; n < TD / 128; ++n)
           WgmmaRS<128>::mma(*reinterpret_cast<float(*)[64]>(&o[64 * n]), pa[kc],
                             sw128_desc(vs + n * 2 * BN * 128 + kc * 16 * 128, BN * 128, 1024), 1);
       }
@@ -937,7 +981,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
       if (lane == 0) mbar_arrive(v_empty + 8 * pv_stage);
       to_a(s, pa);
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i % 4) / 2];
+      for (int i = 0; i < TD / 2; ++i) o[i] *= corr[(i % 4) / 2];
       pv_stage = stage;
       pv_phase = phase;
       advance();
@@ -972,7 +1016,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int wrow0 = q0 + wg * 64 + wq * 16;                  // the strip's first row
   const size_t head_row = (static_cast<size_t>(b) * H + h) * Sq;
 #pragma unroll
-  for (int cc = 0; cc < HD / W_EPI_COLS; ++cc) {
+  for (int cc = 0; cc < (HD + W_EPI_COLS - 1) / W_EPI_COLS; ++cc) {   // 2.5 strips at 80
 #pragma unroll
     for (int jj = 0; jj < W_EPI_COLS / 8; ++jj) {
       const int j = cc * (W_EPI_COLS / 8) + jj;
@@ -986,7 +1030,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int r = (i * 32 + lane) / 4, ch = lane % 4;
-        if (wrow0 + r < Sq) {
+        if (wrow0 + r < Sq && cc * W_EPI_COLS + ch * 8 < HD) {
           const float4 x = *reinterpret_cast<const float4*>(at(r, ch * 8));
           const float4 y = *reinterpret_cast<const float4*>(at(r, ch * 8) + 4);
           *reinterpret_cast<uint4*>(out + (head_row + wrow0 + r) * HD + cc * W_EPI_COLS + ch * 8) =
@@ -998,7 +1042,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = (i * 32 + lane) / 8, q4 = lane % 8;
-        if (wrow0 + r < Sq)
+        if (wrow0 + r < Sq && cc * W_EPI_COLS + q4 * 4 < HD)
           *reinterpret_cast<float4*>(acc_out + (head_row + wrow0 + r) * HD + cc * W_EPI_COLS + q4 * 4) =
               *reinterpret_cast<const float4*>(at(r, q4 * 4));
       }
@@ -1098,9 +1142,11 @@ template <bool POS>
 int launch(const Args& a, int path, int hd) {
   if (path == 0)
     return hd == 256 ? launch_split<256, POS>(a)
-                     : hd == 128 ? launch_split<128, POS>(a) : launch_split<64, POS>(a);
+           : hd == 128 ? launch_split<128, POS>(a)
+           : hd == 80 ? launch_split<80, POS>(a) : launch_split<64, POS>(a);
   return hd == 256 ? launch_wgmma<256, POS>(a)
-                   : hd == 128 ? launch_wgmma<128, POS>(a) : launch_wgmma<64, POS>(a);
+         : hd == 128 ? launch_wgmma<128, POS>(a)
+         : hd == 80 ? launch_wgmma<80, POS>(a) : launch_wgmma<64, POS>(a);
 }
 
 }  // namespace
@@ -1119,7 +1165,7 @@ extern "C" int repro_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                     int window, float scale, int path, int splits,
                                     void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv ||
-      (hd != 64 && hd != 128 && hd != 256) || window < 0)
+      (hd != 64 && hd != 80 && hd != 128 && hd != 256) || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (out == nullptr && (acc == nullptr || m == nullptr || l == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);

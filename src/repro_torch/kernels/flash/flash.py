@@ -27,7 +27,7 @@ import torch
 from repro_torch.kernels._build import check, load_library
 from repro_torch.kernels.flash.ref import flash_ref
 
-HEAD_DIMS = (64, 128, 256)   # head sizes the kernel is instantiated for
+HEAD_DIMS = (64, 80, 128, 256)   # head sizes the kernel is instantiated for
 PATHS = ("decode", "prefill")
 DECODE_MAX_ROWS = 64    # (H / Hkv) * Sq at or below this take the decode path
 ROW_TILE = 16           # packed rows per decode block (one mma.sync m16 tile)

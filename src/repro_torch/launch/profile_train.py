@@ -16,7 +16,9 @@ step, with the arch's stub inputs (``data.pipeline.materialize_batch``). After `
   (the weight gradients' ``torch.bmm``), ``attention backward``
   (``attn_core._bwd_scan`` and the GQA fold), ``shared expert`` (the
   shared experts' forward and its remat recompute; their backward is in
-  the rest) and ``adamw update``;
+  the rest), ``adamw update`` and ``recurrent scan`` (the recurrent
+  blocks' chunked decay scans and sLSTM cells, forward and recompute;
+  their backward is in the rest);
 * the rest (projections and their gradients, router, dispatch, norms, loss,
   cast), as the step's device time less those.
 
@@ -32,7 +34,8 @@ import subprocess
 import time
 from pathlib import Path
 
-RANGES = ("gmm wgrad", "attention backward", "shared expert", "adamw update")
+RANGES = ("gmm wgrad", "attention backward", "shared expert", "adamw update",
+          "recurrent scan")
 
 
 def _kernel_part(name: str) -> str:

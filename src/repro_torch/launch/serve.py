@@ -10,6 +10,8 @@
         --shape long_500k
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b --reduced --device cpu \
         --shape long_500k --attn 1 2 2 --pods 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --layers 12
 
 The first two serve a full-width model cut to 4 layers on the CUDA card (the
 port's serving slice); the third a smoke-sized model on the CPU; the last
@@ -22,7 +24,11 @@ the same way. ``--shape long_500k`` serves the sliding-window variant that
 that row (a ring of ``min(window, s_max)`` cache slots a request);
 ``--pods 2`` runs the fold on two pods with ``pod_role="cp"`` (the pods
 extend CP, as ``launch.mappings.pcfg_for`` maps the ``long_500k`` rows at
-``multi_pod``). ``--reduced`` runs the reference launcher's ``--reduced`` workload: 4 slots, 64 slots of
+``multi_pod``). The recurrent architectures (``xlstm-125m``,
+``zamba2-2.7b``) serve at one device; Zamba2 from a dense cache, as the
+reference launcher serves it (its shared block's cache is per cycle
+repeat, which the paged engine does not take).
+``--reduced`` runs the reference launcher's ``--reduced`` workload: 4 slots, 64 slots of
 context in pages of 8, prefill chunks of 8, four prompts of 8 tokens.
 Weights and prompts are random, from ``--seed``.
 """
@@ -133,6 +139,8 @@ def main() -> None:
         return
 
     cfg = slice_config(args.arch, layers=args.layers, reduce=args.reduced, shape=args.shape)
+    if cfg.shared_attention_every:
+        engine = dict(engine, cache="dense")
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     params = init_lm(cfg, seed=args.seed, dtype=dtype, device=device)
     t0 = time.perf_counter()

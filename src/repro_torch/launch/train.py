@@ -9,6 +9,9 @@ device or at a folded mapping across a world of ranks.
     PYTHONPATH=src python -m repro_torch.launch.train --attn-fold 2,1,2 --moe-fold 2,2,1 --reduced --device cpu --seq 64 --batch 2 --master-weights
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-57b-a14b --attn-fold 2,1,2 --moe-fold 2,2,1 --reduced --device cpu --seq 64 --batch 4
     PYTHONPATH=src python -m repro_torch.launch.train --attn-fold 1,1,2 --moe-fold 1,2,1 --pp 2 --vpp 2 --microbatch 4 --reduced --layers 4 --device cpu --seq 64 --batch 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m --seq 4096 --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b --layers 12 --seq 4096 --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m --attn-fold 2,1,2 --moe-fold 2,1,2 --reduced --device cpu --seq 64 --batch 2
 
 The first two train a full-width model cut to one layer on the CUDA card
 (the port's training slice: bf16 compute, fp32 masters and AdamW state,
@@ -64,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import time
 from typing import Any, Dict, Optional
 
@@ -100,9 +104,45 @@ def step_flops(cfg: ModelConfig, seq: int, batch: int) -> float:
     """Model FLOPs of one step: 6 per active parameter per token, plus the
     causal attention (``ModelConfig.model_flops_per_token``), less the input
     embedding, which is a gather and no product (unless it is tied to the
-    LM head). Remat's recompute is not counted."""
+    LM head); :func:`recurrent_flops` for a model with recurrent layers.
+    Remat's recompute is not counted."""
+    from repro_torch.models import ssm_blocks
+    if set(cfg.blocks()) & set(ssm_blocks.KINDS):
+        return recurrent_flops(cfg, seq) * batch
     embed = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
     return (cfg.model_flops_per_token(seq) - 6.0 * embed) * seq * batch
+
+
+def recurrent_flops(cfg: ModelConfig, seq: int, chunk: int = 256) -> float:
+    """Model FLOPs of one step of one ``seq``-token sequence of a model with
+    recurrent layers (xLSTM, Zamba2), counted from the leaves it applies: 6
+    a token per weight of every matrix (the convolution's and the sLSTM
+    recurrence's too; Zamba2's shared block once a cycle repeat; the LM
+    head), 3 × 2 a token per multiply-add of the chunked scans (a chunk's
+    quadratic part over all ``chunk`` keys, as computed, and the state's
+    read and update: ``2·c·(dk + dv) + 4·dk·dv`` a head) and 3 × 4·hd a
+    visible query-key pair a head of the shared block's causal attention."""
+    from repro_torch.models import ssm_blocks
+    from repro_torch.models.transformer import model_cycle, param_shapes
+    blocks, cycle = model_cycle(cfg)
+    n_rep = len(blocks) // len(cycle)
+    weights = 0
+    for name, shape in param_shapes(cfg).items():
+        if len(shape) >= 2 and (name != "embed" or cfg.tie_embeddings):
+            n = math.prod(shape)
+            weights += n * (n_rep if name.startswith("shared.") else 1)
+    c = min(chunk, seq)
+    scan = 0
+    for kind in blocks:
+        if kind == "mamba2":
+            _, nh, hp, n = ssm_blocks.mamba_dims(cfg)
+            scan += nh * (2 * c * (n + hp) + 4 * n * hp)
+        elif kind == "mlstm":
+            _, nh, hp = ssm_blocks.mlstm_dims(cfg)
+            scan += nh * (2 * c * (2 * hp + 1) + 4 * hp * (hp + 1))
+    pairs = n_rep * seq * (seq + 1) / 2 if cfg.shared_attention_every else 0
+    return 6.0 * seq * weights + 3.0 * seq * scan + \
+        3 * 4.0 * cfg.resolved_head_dim * cfg.n_heads * pairs
 
 
 def main() -> None:

@@ -25,7 +25,11 @@ MoE EDP axis. A leaf has three layouts (``KINDS``):
 
 The leaves of the other block kinds match the same rules: ``xattn.*``
 (cross-attention) as ``attn.*``, ``norm_x`` and a LayerNorm's ``.w``/``.b``
-as the other norms, ``encoder.*`` as the decoder's layers.
+as the other norms, ``encoder.*`` as the decoder's layers, Zamba2's
+``shared.*`` block as a dense layer's. The recurrent blocks' leaves
+(``models.ssm_blocks``) are stored as the reference stores them but
+computed on whole (:func:`gather_whole`); their gradients are reduced as
+any other TP leaf's.
 
 ``efsdp`` cuts the experts' ``D`` over EDP in all three, whatever
 ``fsdp`` says, because the dispatcher gathers them from there (reference
@@ -72,7 +76,13 @@ RULES: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
     (r"moe\.ws[13]$",           ("efsdp", "etp")),     # shared (D, Fs)
     (r"moe\.ws2$",              ("etp", "efsdp")),     # shared (Fs, D)
     (r"^lm_head$",              ("fsdp", "tp")),       # (D, V)
-    (r".*",                     ()),                   # norms, the gate: replicated
+    # Recurrent blocks (models.ssm_blocks): input-dim FSDP, inner-dim TP, as
+    # the reference stores them; they compute on whole leaves (gather_whole).
+    (r"(^|\.)(w_in|w_x|w_qkv_lstm|wi|wf)$", ("fsdp", "tp")),
+    (r"(^|\.)(w_out_ssm|w_proj_down)$", ("tp", "fsdp")),
+    (r"(^|\.)(a_log|dt_bias|d_skip)$", ("tp",)),
+    (r"(^|\.)conv_w$",          (None, None, "tp")),   # (W, 1, C)
+    (r".*",                     ()),                   # norms, the gate, r_h, b: replicated
 )
 _AXIS = {"tp": ("attn", "tp"), "fsdp": ("attn", "dp"), "ep": ("moe", "ep"),
          "etp": ("moe", "etp"), "efsdp": ("moe", "edp")}
@@ -193,6 +203,24 @@ def gather_for_compute(name: str, t: torch.Tensor, groups: Optional[FoldedGroups
     dp = groups.attn["dp"]
     dp.require_rank_order("the FSDP gather")
     return comm.all_gather(t, dp.group, sym.index("fsdp"))
+
+
+def gather_whole(name: str, t: torch.Tensor, groups: Optional[FoldedGroups]) -> torch.Tensor:
+    """The whole leaf from its store slice ``t``: :func:`gather_for_compute`'s
+    FSDP gather, then an all-gather over the attention TP ranks along its
+    ``tp`` dim. A recurrent block computes on whole leaves, because the
+    reference's TP cut of ``w_in`` runs across its concatenated z | x | B |
+    C | dt columns, not along heads; each gather's backward reduce-scatters,
+    so the gradient of the rank's slice arrives summed over TP (and DP)."""
+    t = gather_for_compute(name, t, groups)
+    if groups is None or groups.tp == 1:
+        return t
+    sym = _symbols(name, t.dim())
+    if "tp" not in sym:
+        return t
+    tp = groups.attn["tp"]
+    tp.require_rank_order("the recurrent block's weight gather")
+    return comm.all_gather(t, tp.group, sym.index("tp"))
 
 
 def reduce_axis(name: str) -> Optional[str]:

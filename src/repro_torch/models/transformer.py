@@ -2,9 +2,11 @@
 or across the folded groups) and the decode forward over the paged or
 dense cache (one rank or at a pp = 1 fold).
 
-Port of the parts of ``repro.models.transformer`` the serving and training
-slices run: decoders of ``dense`` and ``moe`` blocks (RMSNorm or LayerNorm,
-RoPE or M-RoPE attention, then a dense FFN or the MoE block), in any mix;
+Port of ``repro.models.transformer``: decoders of ``dense`` and ``moe``
+blocks (RMSNorm or LayerNorm, RoPE or M-RoPE attention, then a dense FFN or
+the MoE block), in any mix; the recurrent kinds ``mamba2``, ``mlstm`` and
+``slstm`` (``models.ssm_blocks``) and Zamba2's one ``shared`` attention +
+MLP block, applied after every cycle repeat with a KV cache per repeat;
 Gemma's scaled embedding, Qwen2-VL's stub vision rows, and Whisper's
 encoder–decoder (a bidirectional encoder of ``dense`` blocks over the audio
 frames, then ``dense_x`` decoder blocks with cross-attention to its output,
@@ -39,6 +41,7 @@ from repro_torch.models.attention import (AttentionParams, _positions_for, atten
                                           init_attention, ring_kv_positions)
 from repro_torch.models.common import (norm_apply, softmax_cross_entropy,
                                        vocab_parallel_cross_entropy)
+from repro_torch.models import ssm_blocks
 from repro_torch.models.ffn import FFNParams, ffn, ffn_decode, init_ffn
 from repro_torch.models.sharding import gather_for_compute
 
@@ -152,7 +155,8 @@ class EncoderParams(nn.Module):
 class LMParams(nn.Module):
     """Embedding ``(V, D)``, layers, final norm and LM head ``(D, V)``
     (``None`` when embeddings are tied); an encoder–decoder model also has
-    its ``encoder``.
+    its ``encoder``, Zamba2 its ``shared`` block (a :class:`DenseBlockParams`
+    applied after every cycle repeat).
 
     ``layers``: global index → layer. A pipeline stage
     (``core.pipeline.Stage``) holds its layers under their global indices,
@@ -162,13 +166,15 @@ class LMParams(nn.Module):
 
     def __init__(self, embed: Optional[torch.Tensor], layers, final_norm: Optional[Norm],
                  lm_head: Optional[torch.Tensor] = None,
-                 encoder: Optional[EncoderParams] = None):
+                 encoder: Optional[EncoderParams] = None,
+                 shared: Optional[DenseBlockParams] = None):
         super().__init__()
         self.embed = _param(embed) if embed is not None else None
         self.layers = LayerStack(layers)
         _set_norm(self, "final_norm", final_norm)
         self.lm_head = _param(lm_head) if lm_head is not None else None
         self.encoder = encoder
+        self.shared = shared
 
 
 def _cycle_of(blocks: Tuple[str, ...]) -> Tuple[str, ...]:
@@ -200,21 +206,19 @@ def leaf_rank(name: str, p: torch.Tensor) -> int:
     """A leaf's rank in the JAX package's tree, where every layer leaf (the
     encoder's too) is stacked over the layer repeats: its casts to the
     compute dtype and its weight decay take the leaves of rank >= 2,
-    per-layer norms and biases among them."""
+    per-layer norms and biases (and a recurrent block's ``a_log``, ``b``...)
+    among them. Zamba2's ``shared.*`` block is one unstacked block there."""
     return p.dim() + (1 if name.startswith(("layers.", "encoder.layers.")) else 0)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for architectures outside the ported slice: the recurrent
-    block kinds and Zamba2's shared attention block."""
+    """Raise for a block kind, norm or positional encoding the port does
+    not have (every config of the registry has only ported ones)."""
     blocks, _ = model_cycle(cfg)
     kinds = set(blocks)
-    if not kinds <= set(APPLY) or cfg.shared_attention_every:
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {sorted(kinds)}"
-            f"{', shared_attention_every' if cfg.shared_attention_every else ''} — the "
-            "recurrent kinds (mamba2, mlstm, slstm) and the shared attention block are not "
-            "ported yet (ROADMAP.md queue 1, 'Remaining block kinds')")
+    if not kinds <= set(APPLY):
+        raise NotImplementedError(f"{cfg.name}: block kinds {sorted(kinds - set(APPLY))} "
+                                  "are not ported")
     if cfg.norm not in ("rmsnorm", "layernorm") or cfg.rope_kind not in ("rope", "mrope",
                                                                           "none"):
         raise NotImplementedError(f"{cfg.name}: norm={cfg.norm!r}, rope_kind="
@@ -228,9 +232,11 @@ def _embed_scale(cfg: ModelConfig) -> Optional[float]:
 
 
 def _block(kind: str, cfg: ModelConfig, g: torch.Generator, dtype, device) -> nn.Module:
-    """One randomly initialised layer of ``kind`` (``dense``, ``moe``,
-    ``dense_x``), its leaves drawn in the reference's order."""
+    """One randomly initialised layer of ``kind``, its leaves drawn in the
+    reference's order."""
     norm1 = _init_norm(cfg, device)
+    if kind in ssm_blocks.KINDS:
+        return ssm_blocks.init_block(kind, cfg, norm1, generator=g, dtype=dtype, device=device)
     attn = init_attention(cfg, generator=g, dtype=dtype, device=device)
     norm2 = _init_norm(cfg, device)
     if kind == "moe":
@@ -277,13 +283,14 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
         layer = _block(kind, cfg, g, dtype, device)
         if stage is None or i in stage.layers:
             layers[i] = layer
+    shared = _block("dense", cfg, g, dtype, device) if cfg.shared_attention_every else None
     encoder = None
     if cfg.is_encoder_decoder:
         encoder = EncoderParams({j: _block("dense", cfg, g, dtype, device)
                                  for j in range(cfg.n_encoder_layers)},
                                 _init_norm(cfg, device))
     final_norm = _init_norm(cfg, device) if stage is None or stage.last else None
-    return LMParams(embed, layers, final_norm, lm_head, encoder)
+    return LMParams(embed, layers, final_norm, lm_head, encoder, shared)
 
 
 def param_shapes(cfg: ModelConfig, groups: Optional[FoldedGroups] = None
@@ -305,6 +312,11 @@ def _block_shapes(cfg: ModelConfig, pre: str, kind: str) -> Dict[str, Tuple[int,
 
     def norm(name):
         out.update({n: (D,) for n in _norm_names(cfg, pre + name)})
+
+    if kind in ssm_blocks.KINDS:
+        norm("norm1")
+        out.update({pre + k: s for k, s in ssm_blocks.leaf_shapes(kind, cfg).items()})
+        return out
 
     def attn(name):
         p = pre + name + "."
@@ -349,6 +361,8 @@ def _param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         for j in range(cfg.n_encoder_layers):
             out.update(_block_shapes(cfg, f"encoder.layers.{j}.", "dense"))
         out.update({n: (D,) for n in _norm_names(cfg, "encoder.final_norm")})
+    if cfg.shared_attention_every:
+        out.update(_block_shapes(cfg, "shared.", "dense"))
     return out
 
 
@@ -540,16 +554,49 @@ def _decode_dense_x(p: DenseXBlockParams, x: torch.Tensor, state: Dict[str, torc
     return x + ffn_decode(p.mlp, norm_apply(cfg.norm, x, p.norm2), cfg, groups), state
 
 
+def _decode_recurrent(p: nn.Module, x: torch.Tensor, state: Dict[str, torch.Tensor],
+                      step: torch.Tensor, cfg: ModelConfig, ctx: Dict,
+                      groups: Optional[FoldedGroups] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One recurrent layer (``models.ssm_blocks``) from its per-row state,
+    written in place; rows whose ``ctx["token_mask"]`` is 0 keep theirs."""
+    x, new = ssm_blocks.decode_block(p, x, state, cfg)
+    ssm_blocks.write_state(state, new, ctx.get("token_mask"))
+    return x, state
+
+
+def _decode_recurrent_paged(p: nn.Module, x: torch.Tensor, state: Dict[str, torch.Tensor],
+                            step: torch.Tensor, cfg: ModelConfig, ctx: Dict,
+                            groups: Optional[FoldedGroups] = None
+                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], None]:
+    """:func:`_decode_recurrent` beside the paged pools: the state is per
+    slot (the reference keeps it so in paged mode too)."""
+    return _decode_recurrent(p, x, state, step, cfg, ctx, groups) + (None,)
+
+
+def check_decode_supported(cfg: ModelConfig, groups: Optional[FoldedGroups]) -> None:
+    """Decoding the recurrent kinds runs at one rank: serving them across
+    ranks is not ported."""
+    if groups is not None and set(model_cycle(cfg)[0]) & set(ssm_blocks.KINDS):
+        raise NotImplementedError(
+            f"{cfg.name}: decoding the recurrent block kinds across ranks is not ported "
+            "(ROADMAP.md queue 1, 'Serving the recurrent kinds across ranks')")
+
+
 def init_decode_state(cfg: ModelConfig, B: int, s_max: int, *, dtype=torch.bfloat16,
                       device: DeviceLike = None, groups: Optional[FoldedGroups] = None
                       ) -> Dict:
-    """The dense decode cache: ``{"layers": [{"k", "v"} per layer], "step":
-    0}``, each ``(B, Hkv, s_max, hd)`` zeros, and for a ``dense_x`` layer the
-    cross K/V ``xk``/``xv`` (B, Hkv, max_source_positions, hd) (the reference's
-    ``init_decode_state``, layers as a list). With ``groups``, this rank's
-    piece of the reference's ``(dp, tp, cp)`` layout: its rows of B when
-    DP divides B (else all), its TP heads and its ``s_max / cp`` slots."""
+    """The dense decode cache: ``{"layers": [state per layer], "step": 0}``
+    (the reference's ``init_decode_state``, layers as a list): K/V ``{"k",
+    "v"}`` ``(B, Hkv, s_max, hd)`` zeros, and for a ``dense_x`` layer the
+    cross K/V ``xk``/``xv`` (B, Hkv, max_source_positions, hd); a recurrent
+    layer's per-row state (``ssm_blocks.init_state``); with Zamba2's shared
+    block, ``"shared"``: its K/V once per cycle repeat. With ``groups``,
+    this rank's piece of the reference's ``(dp, tp, cp)`` layout: its rows
+    of B when DP divides B (else all), its TP heads and its ``s_max / cp``
+    slots."""
     check_supported(cfg)
+    check_decode_supported(cfg, groups)
     _, b = decode_rows(B, groups)
     tp, cp = (1, 1) if groups is None else (groups.tp, groups.cp)
     check_decode_heads(cfg, groups)
@@ -562,12 +609,18 @@ def init_decode_state(cfg: ModelConfig, B: int, s_max: int, *, dtype=torch.bfloa
         return torch.zeros(shape, dtype=dtype, device=device)
 
     def layer(kind):
-        st = {"k": zeros(shape), "v": zeros(shape)}        # every kind holds K/V
+        if kind in ssm_blocks.KINDS:
+            return ssm_blocks.init_state(kind, cfg, b, dtype=dtype, device=device)
+        st = {"k": zeros(shape), "v": zeros(shape)}        # every other kind holds K/V
         if kind == "dense_x":       # the cross K/V: the encoder's whole length, not cut
             xs = (b, cfg.n_kv_heads // tp, cfg.max_source_positions, cfg.resolved_head_dim)
             st["xk"], st["xv"] = zeros(xs), zeros(xs)
         return st
-    return {"layers": [layer(kind) for kind in model_cycle(cfg)[0]], "step": 0}
+    blocks, cycle = model_cycle(cfg)
+    state = {"layers": [layer(kind) for kind in blocks], "step": 0}
+    if cfg.shared_attention_every:
+        state["shared"] = [layer("dense") for _ in range(len(blocks) // len(cycle))]
+    return state
 
 
 def _as_positions(base, B: int, device) -> torch.Tensor:
@@ -585,15 +638,17 @@ def decode_step(params: LMParams, state: Dict, tokens: torch.Tensor, cfg: ModelC
     cache fills for all C positions and logits come back for each, or for
     the last one with ``last_only``). ``positions``: optional (B,) per-row
     base positions (continuous batching); default the carried uniform
-    ``state["step"]``. ``token_mask`` is the reference's for recurrent
-    state, which an ``moe`` decoder has none of (its K/V writes are not
-    masked in either package), so it changes nothing here. The caches are
-    written in place; returns ``(logits (B, C', V), state)`` with
-    ``state["step"]`` advanced by C. With ``groups``: ``params`` are the
+    ``state["step"]``. ``token_mask`` (B,): rows with 0 keep their
+    recurrent state (K/V writes are not masked, in either package). Zamba2's
+    shared block runs after every cycle repeat against that repeat's K/V
+    (``state["shared"]``). The caches and states are written in place;
+    returns ``(logits (B, C', V), state)`` with ``state["step"]`` advanced
+    by C. With ``groups``: ``params`` are the
     rank's compute slices, ``state`` its piece (:func:`init_decode_state`),
     ``tokens`` and ``positions`` the global batch; every rank gets the whole
     batch's logits."""
     check_supported(cfg)
+    check_decode_supported(cfg, groups)
     B, C = tokens.shape
     base = _as_positions(state["step"] if positions is None else positions, B, tokens.device)
     lo, b = decode_rows(B, groups)
@@ -601,12 +656,17 @@ def decode_step(params: LMParams, state: Dict, tokens: torch.Tensor, cfg: ModelC
                      _positions_for(base[lo:lo + b], b, C))
     if cfg.is_encoder_decoder:     # the reference adds the sinusoid after the lookup here too
         x = x + _sinusoid(_positions_for(base[lo:lo + b], b, C), cfg.d_model).to(x.dtype)
-    ctx = {"rows_cut": b != B}
+    ctx = {"rows_cut": b != B,
+           "token_mask": None if token_mask is None else token_mask[lo:lo + b]}
     if cfg.sliding_window:                 # the ring's positions, once for every layer
         L = state["layers"][0]["k"].shape[2] * (1 if groups is None else groups.cp)
         ctx["kv_pos"] = ring_kv_positions(base[lo:lo + b], b, C, L, groups)
-    for layer, st in zip(params.layers, state["layers"]):
+    n_cycle = len(model_cycle(cfg)[1])
+    for i, (layer, st) in enumerate(zip(params.layers, state["layers"])):
         x, _ = DECODE[layer.kind](layer, x, st, base[lo:lo + b], cfg, ctx, groups)
+        if params.shared is not None and (i + 1) % n_cycle == 0:
+            x, _ = _decode_dense(params.shared, x, state["shared"][i // n_cycle],
+                                 base[lo:lo + b], cfg, ctx, groups)
     if last_only:
         x = x[:, -1:]
     logits = decode_head(params, x, cfg, groups, rows_cut=b != B)
@@ -619,10 +679,17 @@ def paged_forward(params: LMParams, state: List[Dict[str, torch.Tensor]],
                   groups: Optional[FoldedGroups] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward of ``tokens`` (B, C) at per-row base ``positions`` (B,) over
-    the paged pools (updated in place) → (fp32 logits of each row's last
-    token (B, V), routed-assignment counts (E,) summed over the MoE layers
-    and rows, or ``None`` for a model without MoE layers). With ``groups``
-    the inputs are the global batch; see :func:`decode_step`."""
+    the paged pools (updated in place; ``state``: one entry a layer, a
+    recurrent layer's its per-slot state, whose rows with ``token_mask`` 0
+    keep their values) → (fp32 logits of each row's last token (B, V),
+    routed-assignment counts (E,) summed over the MoE layers and rows, or
+    ``None`` for a model without MoE layers). With ``groups`` the inputs are
+    the global batch; see :func:`decode_step`. A shared block's per-repeat
+    cache has no paged form (:class:`serve.engine.Engine` refuses it, as
+    the reference does)."""
+    if params.shared is not None:
+        raise ValueError("paged_forward: the shared block's cache is per repeat, not paged")
+    check_decode_supported(cfg, groups)
     B, C = tokens.shape
     lo, b = decode_rows(B, groups)
     x = decode_embed(params, tokens[lo:lo + b], cfg, groups,
@@ -722,15 +789,38 @@ def _apply_dense_x(p: DenseXBlockParams, x: torch.Tensor, pos: Optional[torch.Te
     return x, _zero_aux(x.device)
 
 
-APPLY = {"dense": _apply_dense, "moe": _apply_moe, "dense_x": _apply_dense_x}
-DECODE = {"dense": _decode_dense, "moe": _decode_moe, "dense_x": _decode_dense_x}
-DECODE_PAGED = {"dense": _decode_dense_paged, "moe": _decode_moe_paged}
+def _apply_recurrent(p: nn.Module, x: torch.Tensor, pos: Optional[torch.Tensor],
+                     cfg: ModelConfig, groups: Optional[FoldedGroups] = None,
+                     enc: Optional[torch.Tensor] = None, causal: bool = True
+                     ) -> Tuple[torch.Tensor, AuxDict]:
+    """One recurrent layer (``ssm_blocks.apply_block``; at a fold over whole
+    sequences gathered over ``cp_tp``)."""
+    return ssm_blocks.apply_block(p, x, cfg, groups), _zero_aux(x.device)
+
+
+APPLY = {"dense": _apply_dense, "moe": _apply_moe, "dense_x": _apply_dense_x,
+         **{k: _apply_recurrent for k in ssm_blocks.KINDS}}
+DECODE = {"dense": _decode_dense, "moe": _decode_moe, "dense_x": _decode_dense_x,
+          **{k: _decode_recurrent for k in ssm_blocks.KINDS}}
+DECODE_PAGED = {"dense": _decode_dense_paged, "moe": _decode_moe_paged,
+                **{k: _decode_recurrent_paged for k in ssm_blocks.KINDS}}
+
+
+def _apply_repeat(layers, shared: DenseBlockParams, x: torch.Tensor,
+                  pos: Optional[torch.Tensor], cfg: ModelConfig,
+                  groups: Optional[FoldedGroups]) -> torch.Tensor:
+    """One cycle repeat of a model with a shared block: its layers, then the
+    shared attention + MLP block (the reference's ``_run_stack`` body)."""
+    for layer in layers:
+        x, _ = APPLY[layer.kind](layer, x, pos, cfg, groups)
+    return _apply_dense(shared, x, pos, cfg, groups)[0]
 
 
 def _run_stack(layers, x: torch.Tensor, pos: Optional[torch.Tensor], cfg: ModelConfig, *,
                remat: bool = True, groups: Optional[FoldedGroups] = None,
                layer_aux: Optional[List[AuxDict]] = None, enc: Optional[torch.Tensor] = None,
-               causal: bool = True) -> Tuple[torch.Tensor, AuxDict]:
+               causal: bool = True, shared: Optional[DenseBlockParams] = None
+               ) -> Tuple[torch.Tensor, AuxDict]:
     """All layers in order, each by its kind (:data:`APPLY`) → (x, aux
     summed over layers). With ``remat``
     each layer keeps only its input for the backward and runs its forward
@@ -739,13 +829,29 @@ def _run_stack(layers, x: torch.Tensor, pos: Optional[torch.Tensor], cfg: ModelC
     order on every rank, as every rank runs the same graph. ``layer_aux``
     (a list) receives each layer's aux terms, detached. ``enc``: the
     encoder's output for ``dense_x`` layers; ``causal=False``: the
-    encoder's own layers."""
+    encoder's own layers. ``shared`` (Zamba2): the block applied after
+    every cycle repeat; the remat unit is then the repeat with its shared
+    block, as the reference's scan body is (no aux terms: no MoE layer; no
+    pipeline, which refuses the shared block).
+    A unit with recurrent layers is checkpointed in the reentrant form
+    (its first forward without autograd, then forward and backward again
+    in the backward): the other form sends every tensor a token's cell
+    saves through Python hooks, which took an xLSTM step (4096 sLSTM cells
+    a layer) from 2.8 to 6.5 s on the CPU."""
     aux = _zero_aux(x.device)
+    if shared is not None:
+        layers, n = list(layers), len(model_cycle(cfg)[1])
+        for i in range(0, len(layers), n):
+            args = (layers[i:i + n], shared, x, pos, cfg, groups)
+            x = checkpoint(_apply_repeat, *args, use_reentrant=True,
+                           preserve_rng_state=False) if remat else _apply_repeat(*args)
+        return x, aux
     for layer in layers:
         apply = APPLY[layer.kind]
         if remat:
             x, a = checkpoint(apply, layer, x, pos, cfg, groups, enc, causal,
-                              use_reentrant=False, preserve_rng_state=False)
+                              use_reentrant=layer.kind in ssm_blocks.KINDS,
+                              preserve_rng_state=False)
         else:
             x, a = apply(layer, x, pos, cfg, groups, enc, causal)
         if layer_aux is not None:
@@ -965,7 +1071,8 @@ def apply_lm(params: LMParams, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             lo, n = _sp_rows(groups, batch["tokens"].shape[1])
             rows = lo + torch.arange(n, device=x.device)
         x = x + _sinusoid(rows, cfg.d_model).to(x.dtype)
-    x, aux = _run_stack(params.layers, x, pos, cfg, remat=remat, groups=groups, enc=enc)
+    x, aux = _run_stack(params.layers, x, pos, cfg, remat=remat, groups=groups, enc=enc,
+                        shared=params.shared)
     logits = lm_head_logits(params, x, cfg, groups)
     n_moe = sum(1 for b in cfg.blocks() if b == "moe")
     if n_moe:

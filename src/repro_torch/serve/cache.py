@@ -62,8 +62,16 @@ class BlockAllocator:
 
 
 def n_kv_layers(cfg) -> int:
-    """KV-bearing layers (full depth)."""
-    return sum(1 for b in cfg.blocks() if b in ("dense", "moe"))
+    """KV-bearing layers (full depth): the attention layers, and for Zamba2
+    the shared block once per cycle repeat (its cache is per repeat). The
+    recurrent layers hold O(1) state a request instead
+    (``models.ssm_blocks.state_bytes``)."""
+    n = sum(1 for b in cfg.blocks() if b in ("dense", "moe"))
+    if cfg.shared_attention_every:
+        from repro_torch.models.transformer import model_cycle
+        blocks, cycle = model_cycle(cfg)
+        n += len(blocks) // len(cycle)
+    return n
 
 
 def kv_bytes_dense(cfg, batch: int, cache_len: int, *,
@@ -83,21 +91,31 @@ def kv_bytes_paged(cfg, n_pages: int, page_size: int, *,
 
 
 def init_paged_state(cfg, *, n_pages: int, page_size: int, dtype=torch.bfloat16,
-                     device=None, groups=None) -> List[Dict[str, torch.Tensor]]:
+                     device=None, groups=None, max_batch: int = 0
+                     ) -> List[Dict[str, torch.Tensor]]:
     """Per-layer zeroed pools ``{"k", "v"}`` of shape
-    ``(n_pages, Hkv, page_size, hd)``. With ``groups`` (a fold's
+    ``(n_pages, Hkv, page_size, hd)``; a recurrent layer keeps its per-slot
+    state instead (``ssm_blocks.init_state`` of ``max_batch`` rows), as the
+    reference's paged state does. With ``groups`` (a fold's
     ``FoldedGroups``) a rank's pools hold its TP heads, ``Hkv / tp``, of
     every page: whole over DP and CP, as the reference shards them. Each
     rank writes the new tokens of the rows it computes, and pages of
     different rows are disjoint, so every rank reads what the reference
     reads."""
+    from repro_torch.models import ssm_blocks
     from repro_torch.models.attention import check_decode_heads
+    from repro_torch.models.transformer import check_decode_supported, model_cycle
     check_decode_heads(cfg, groups)
+    check_decode_supported(cfg, groups)
     tp = 1 if groups is None else groups.tp
     shape = (n_pages, cfg.n_kv_heads // tp, page_size, cfg.resolved_head_dim)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in range(n_kv_layers(cfg))]
+
+    def layer(kind):
+        if kind in ssm_blocks.KINDS:
+            return ssm_blocks.init_state(kind, cfg, max_batch, dtype=dtype, device=device)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return [layer(kind) for kind in model_cycle(cfg)[0]]
 
 
 def pages_for(total_len: int, cache_len: int, page_size: int) -> int:

@@ -14,6 +14,13 @@ request in either cache, as a ring (position p in slot ``p % cache_len``),
 so a context of any length takes O(window) memory; the attention gives the
 flash kernel each slot's position (``models.attention``).
 
+The recurrent kinds (xLSTM, Zamba2's Mamba2 layers) keep O(1) state a slot
+beside the KV pools, in either mode: zeroed when a request starts (its
+first prefill chunk, the reference's ``_reset_fresh_request``), advanced by
+its chunks and decode steps, frozen on the padded rows of a decode batch.
+Zamba2's shared block keeps a dense K/V cache per cycle repeat, so a paged
+engine refuses it, as the reference's does.
+
 Across ranks (``groups``, a ``FoldedGroups`` at pp = 1) every rank runs the
 same engine on its compute slices of the parameters: the same scheduler,
 the same sampling from the same gathered fp32 logits, so every rank takes
@@ -35,9 +42,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import comm
 from repro_torch.core.folding import FoldedGroups
+from repro_torch.models import ssm_blocks
 from repro_torch.models.sharding import map_params, shard_lm_params
-from repro_torch.models.transformer import (LMParams, apply_lm, check_supported, decode_rows,
-                                            decode_step, init_decode_state, init_lm, leaf_rank,
+from repro_torch.models.transformer import (LMParams, apply_lm, check_decode_supported,
+                                            check_supported, decode_rows, decode_step,
+                                            init_decode_state, init_lm, leaf_rank, model_cycle,
                                             paged_forward)
 from repro_torch.serve.cache import (init_paged_state, kv_bytes_dense,
                                      kv_bytes_paged)
@@ -209,6 +218,12 @@ class Engine:
             raise ValueError(
                 "Engine serves decoder-only models; enc-dec (whisper) needs "
                 "an encoder pass + cross-KV prefill that lives in apply_lm")
+        if ecfg.cache == "paged" and cfg.shared_attention_every:
+            raise ValueError(
+                "paged KV does not support shared_attention_every (zamba2): "
+                "the shared block's cache is per-repeat, not per-layer — "
+                "use EngineConfig(cache='dense')")
+        check_decode_supported(cfg, groups)
         if groups is not None:
             vocab = cfg.vocab_size // groups.tp if cfg.vocab_size % groups.tp == 0 \
                 else cfg.vocab_size
@@ -244,7 +259,8 @@ class Engine:
             max_waiting=ecfg.max_waiting)
         if self.paged:
             self.state = init_paged_state(cfg, n_pages=n_pages, page_size=page_size,
-                                          dtype=dt, device=self.device, groups=groups)
+                                          dtype=dt, device=self.device, groups=groups,
+                                          max_batch=ecfg.max_batch)
         else:
             self.state = init_decode_state(cfg, ecfg.max_batch, self.cache_len, dtype=dt,
                                            device=self.device, groups=groups)
@@ -292,7 +308,19 @@ class Engine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    def _dense_prefill(self, toks: torch.Tensor, base: torch.Tensor, slot: int
+    def _reset_slot(self, layers: List[Dict[str, torch.Tensor]], kinds, fresh: bool) -> None:
+        """Zero the recurrent state of a slot's views ``layers`` when its
+        request starts (``fresh``: the chunk at position 0); K/V are
+        overwritten position by position before they are read."""
+        if not fresh:
+            return
+        for kind, st in zip(kinds, layers):
+            if kind in ssm_blocks.KINDS:
+                init = ssm_blocks.init_state(kind, self.cfg, 1, device=self.device)
+                for k, t in st.items():          # copy_ casts to the state's dtype
+                    t.copy_(init[k])
+
+    def _dense_prefill(self, toks: torch.Tensor, base: torch.Tensor, slot: int, fresh: bool
                        ) -> torch.Tensor:
         """One slot's prefill chunk over the dense cache → fp32 last logits
         (1, V). The slot's rows of the cache are views where this rank holds
@@ -301,16 +329,21 @@ class Engine:
         slot out of the DP-sharded state) and written back on the owner."""
         B = self.ecfg.max_batch
         lo, b = decode_rows(B, self.groups)
-        layers = self.state["layers"]
+        layers = self.state["layers"] + self.state.get("shared", [])
         if b == B:
             rows = [{k: t[slot:slot + 1] for k, t in st.items()} for st in layers]
-        else:
+            self._reset_slot(rows, model_cycle(self.cfg)[0], fresh)
+        else:          # no recurrent layer here: check_decode_supported refused them
             dp = self.groups.attn["dp"]
             owner, local = divmod(slot, b)
             rows = [{k: comm.gather_rows(t[local:local + 1], dp.group, "slot_gather")
                      [owner:owner + 1].clone() for k, t in st.items()} for st in layers]
-        logits, _ = decode_step(self.params, {"layers": rows, "step": 0}, toks, self.cfg,
-                                positions=base, groups=self.groups, last_only=True)
+        n = len(self.state["layers"])
+        sliced = {"layers": rows[:n], "step": 0}
+        if "shared" in self.state:
+            sliced["shared"] = rows[n:]
+        logits, _ = decode_step(self.params, sliced, toks, self.cfg, positions=base,
+                                groups=self.groups, last_only=True)
         if b != B and self.groups.attn["dp"].index == owner:
             for st, row in zip(layers, rows):
                 for k, t in st.items():
@@ -348,12 +381,17 @@ class Engine:
             base = self._tensor(np.asarray([run.pos], np.int64))
             if self.paged:
                 row = self._tensor(s.block_row(run)[None])
+                kinds = model_cycle(self.cfg)[0]
+                state = [{k: t[run.slot:run.slot + 1] for k, t in st.items()}
+                         if kind in ssm_blocks.KINDS else st
+                         for kind, st in zip(kinds, self.state)]
+                self._reset_slot(state, kinds, run.pos == 0)
                 last, counts = paged_forward(
-                    self.params, self.state, toks, base, row,
+                    self.params, state, toks, base, row,
                     torch.ones(1, dtype=torch.int32, device=self.device), self.cfg,
                     self.groups)
             else:
-                last = self._dense_prefill(toks, base, run.slot)
+                last = self._dense_prefill(toks, base, run.slot, run.pos == 0)
             lg = last[0].cpu().numpy()
             prefill_s = time.perf_counter() - t0
             run.pos += c

@@ -95,6 +95,7 @@ FLASH_CASES = [
     dict(B=1, H=4, Hkv=2, Sq=128, Skv=256, hd=64, q_off=200, kv_off=64, causal=True, window=0),
     dict(B=2, H=4, Hkv=2, Sq=128, Skv=256, hd=64, q_off=128, kv_off=0, causal=True, window=96),
     dict(B=1, H=2, Hkv=2, Sq=128, Skv=128, hd=64, q_off=0, kv_off=0, causal=False, window=0),
+    dict(B=1, H=4, Hkv=4, Sq=128, Skv=256, hd=80, q_off=128, kv_off=0, causal=True, window=0),
 ]
 
 
@@ -250,6 +251,7 @@ SPLIT_CASES = [
     (1, 8, 1, 5, 96, 128, [91], 0, True, 0, 2),               # hd 128, 3 row tiles
     (1, 4, 2, 3, 128, 64, [0], 0, False, 0, 2),               # not causal
     (2, 2, 1, 2, 256, 64, [1000, 20], 0, True, 30, 2),        # row 0 sees nothing
+    (2, 32, 32, 1, 256, 80, [255, 100], 0, True, 0, 3),       # hd 80 (Zamba2's decode)
 ]
 
 
@@ -358,6 +360,7 @@ ATTN_GRAD_CASES = [
     dict(B=2, H=4, Hkv=2, S=192, hd=64, causal=True, window=0, block=64),
     dict(B=1, H=4, Hkv=1, S=128, hd=64, causal=True, window=40, block=32),
     dict(B=1, H=2, Hkv=2, S=96, hd=64, causal=False, window=0, block=96),
+    dict(B=1, H=2, Hkv=2, S=160, hd=80, causal=True, window=0, block=64),  # Zamba2's heads
 ]
 
 

@@ -142,6 +142,17 @@ PATH_CASES = [
     (1, 4, 2, 200, 333, 256, [133], 0, True, 0, None, None),               # prefill chunk
     (1, 2, 2, 130, 700, 256, [570], 0, True, 200, "prefill", None),        # window
     (2, 4, 2, 70, 190, 256, [120, 5], 64, True, 0, "prefill", None),       # kv_offset
+    # heads of 80 (Zamba2's shared block): 128-column prefill tiles over an
+    # 80-column tensor map, 10 columns a thread in the decode merge
+    (2, 32, 32, 1, 1024, 80, [1023, 300], 0, True, 0, None, None),        # Zamba2's decode
+    (3, 8, 2, 2, 333, 80, [5, 100, 331], 0, True, 0, "decode", 3),
+    (2, 6, 1, 1, 777, 80, [900, 700], 120, True, 0, "decode", 64),         # kv_offset; empty splits
+    (1, 4, 4, 300, 300, 80, [0], 0, True, 0, "prefill", None),
+    (1, 32, 32, 512, 1024, 80, [512], 0, True, 0, None, None),             # prefill chunk
+    (1, 2, 2, 130, 700, 80, [570], 0, True, 200, "prefill", None),         # window
+    (2, 4, 2, 70, 190, 80, [120, 5], 64, True, 0, "prefill", None),        # kv_offset
+    (1, 4, 2, 129, 255, 80, [0], 0, False, 0, "prefill", None),            # not causal
+    (2, 4, 4, 1, 255, 80, [0, 0], 0, False, 0, "decode", 2),               # not causal, decode
     # Whisper: 1500 frames, no multiple of any key tile, not causal
     (1, 12, 12, 1500, 1500, 64, [0], 0, False, 0, None, None),             # the encoder
     (1, 12, 12, 300, 1500, 64, [0], 0, False, 0, "prefill", None),         # cross-attention
@@ -181,6 +192,8 @@ RING_CASES = [
     (2, 4, 2, 70, 190, 128, [60, 500], 64, "prefill", None),
     (2, 16, 16, 1, 1024, 256, [2000, 300], 1024, None, None),       # heads of 256
     (1, 4, 2, 130, 304, 256, [700], 256, "prefill", None),
+    (2, 32, 32, 1, 1024, 80, [2000, 300], 1024, None, None),        # heads of 80
+    (1, 4, 2, 130, 304, 80, [700], 256, "prefill", None),
 ]
 
 

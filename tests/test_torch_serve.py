@@ -153,29 +153,32 @@ def test_deadlines_and_bounded_queue():
     ("zamba2-2.7b", "block kinds"), ("qwen2-vl-7b", None),
     ("gemma-7b", None)])
 def test_unported_block_kinds_raise(arch, what):
-    """The architectures whose blocks are not ported refuse to build, at the
-    published widths and the reduced ones alike, by their kinds: the
-    recurrent ones and Zamba2's shared attention block. Whisper (enc-dec),
-    Qwen2-VL (M-RoPE) and Gemma (heads of 256) build at both widths: the
-    published one as leaf shapes (its tensors would not fit a test), the
-    reduced one as tensors."""
+    """Every registered architecture builds, at the published widths (as
+    leaf shapes: its tensors would not fit a test) and the reduced ones (as
+    tensors): Whisper (enc-dec), Qwen2-VL (M-RoPE), Gemma (heads of 256),
+    and xLSTM and Zamba2, whose recurrent kinds and shared attention block
+    are ported. A block kind the port does not have is refused by its kind
+    (``what``: such a kind in place of xLSTM's and Zamba2's)."""
     from repro_torch.models.transformer import check_supported, param_shapes
     cfg = get_config(arch)
+    check_supported(cfg)
+    shapes = param_shapes(cfg)
+    params = init_lm(reduced(cfg), device="cpu")
+    assert {n: tuple(p.shape) for n, p in params.named_parameters()} == \
+        param_shapes(reduced(cfg))
+    assert shapes["embed"] == (cfg.vocab_size, cfg.d_model)
+    if cfg.is_encoder_decoder:
+        assert f"encoder.layers.{cfg.n_encoder_layers - 1}.attn.wq" in shapes
+        assert f"layers.{cfg.n_layers - 1}.xattn.wo" in shapes
+    if cfg.shared_attention_every:
+        assert "shared.attn.wq" in shapes and "shared.mlp.w_down" in shapes
     if what is None:
-        check_supported(cfg)
-        shapes = param_shapes(cfg)
-        params = init_lm(reduced(cfg), device="cpu")
-        assert {n: tuple(p.shape) for n, p in params.named_parameters()} == \
-            param_shapes(reduced(cfg))
-        assert shapes["embed"] == (cfg.vocab_size, cfg.d_model)
-        if cfg.is_encoder_decoder:
-            assert f"encoder.layers.{cfg.n_encoder_layers - 1}.attn.wq" in shapes
-            assert f"layers.{cfg.n_layers - 1}.xattn.wo" in shapes
         return
+    other = dataclasses.replace(cfg, block_pattern=("retnet",) + cfg.blocks()[1:])
     with pytest.raises(NotImplementedError, match=what):
-        check_supported(cfg)
+        check_supported(other)
     with pytest.raises(NotImplementedError, match=what):
-        init_lm(reduced(cfg), device="cpu")
+        init_lm(reduced(other), device="cpu")
 
 
 def test_params_from_jax_carries_bf16_bits():
