@@ -217,11 +217,18 @@ train-configs — phase 5's one-card training (2 steps, launches 3 + 3 + 3
    tokens equal before the first divergence, and per model peak memory a
    rank (build and serving), the build time in turns, the decode-step
    median and prefill tok/s; for (a) rank 0's profiled decode step (device
-   time by part, host ms in the ``comm`` ranges). Both models run in one
-   world of 4 processes, one after the other. Then the flash kernel in partial
+   time by part, host ms in the ``comm`` ranges). (c) The recurrent kinds
+   at DP2×TP2 (``SERVE_WORLD_RECUR``): phase 16's serving workload (xLSTM
+   x12 paged, Zamba2 x12 dense) with a slot's state on its DP rank and
+   the recurrent layers on leaves gathered whole once: every rank's results
+   equal rank 0's, 1 flash launch a forward a KV-bearing layer (Zamba2's
+   shared block, none for xLSTM); after phase 16, each request's prefill
+   logits within ``CHECK_TOL`` of phase 16's one-card run of the same and
+   its first token equal where the margin allows, as in (a). All four runs
+   share one world of 4 processes, one after the other. Then the flash kernel in partial
    mode on a CP slice (a decode step, a ring-prefill hop), flash at (b)'s
-   decode (a DP rank's rows at a TP rank's heads) and the GMM at each
-   fold's decode shard, held and timed as in phase 3.
+   and (c)'s decode (a DP rank's rows at a TP rank's heads) and the GMM at
+   each fold's decode shard, held and timed as in phase 3.
 
 14. window-dense — dense decoder blocks and sliding-window ring caches, one
    card, three parts. (a) serve-window: Llama3.2-1B as
@@ -245,7 +252,11 @@ train-configs — phase 5's one-card training (2 steps, launches 3 + 3 + 3
    (``kv_pos``) at (a)'s ring decode and prefill chunk and at (c)'s prefill
    chunk against the plain version (``library_ms``: SDPA with an
    ``attn_mask`` from the positions), flash without them at (b)'s causal
-   4096 and at phase 3's Mixtral decode again, and the GMM at (c)'s decode.
+   4096 and at phase 3's Mixtral decode again, and the GMM at (c)'s decode;
+   beside them flash with query positions (``q_pos``) at (a)'s heads: (b)'s
+   causal 2 × 4096 with two packed sequences a row (``kv_pos`` = ``q_pos``)
+   and a decode of 4 rows at their own positions, ``library_ms`` from SDPA
+   with an ``attn_mask`` from the positions.
 
 15. block-kinds — the three archs of other block kinds, one card, random
    weights from the seed, bf16. (a) Gemma-7B (16 heads of 256, √d_model
@@ -260,6 +271,10 @@ train-configs — phase 5's one-card training (2 steps, launches 3 + 3 + 3
    training steps of one 4096-token sequence against 1500 frames (2 flash
    launches a step per self-attention, cross-attention and encoder layer),
    then a prompt chunk and 3 greedy ``decode_step``s (2 a layer a call).
+   (d) Qwen2-VL at (b)'s 2 layers with its 256 vision rows sharing one
+   temporal id (the flash kernel's ``q_pos`` / ``kv_pos`` path): its loss and
+   gradient norm at 320 tokens on the card (bf16) against the CPU plain
+   path (fp32) within ``CHECK_TOL``, then one AdamW step of 4096 tokens.
    Each run's counters are set to 0 just before and read just after; step
    ms, MFU (``_blocks_flops``) and peak memory are printed. Then phase 6's
    reduced card-vs-CPU checks for the three (Gemma's reduced heads set to
@@ -267,23 +282,24 @@ train-configs — phase 5's one-card training (2 steps, launches 3 + 3 + 3
    version at each path's shapes: Gemma's causal 4096, decode against 1024
    keys and prefill chunk at heads of 256, Qwen2-VL's causal 4096 and
    decode, Whisper's encoder (1500 × 1500) and cross-attention (4096 ×
-   1500, and its decode) not causal, with ``library_ms`` from SDPA.
+   1500, and its decode) not causal, and (d)'s causal 4096 at its
+   positions, with ``library_ms`` from SDPA.
 
 16. recurrent — the recurrent block kinds, one card, random weights from
    the seed, bf16. (a) xLSTM-125M at full width and depth (12 layers: mLSTM
    ×3 + sLSTM, 4 heads over 768) serves phase 15's two requests through a
    paged and a dense engine (paged tokens equal dense; no kernel on the
    path: every launch counter stays 0) and prints the recurrent state a
-   request; then, cut to one cycle (4 layers: ``RECUR_TRAIN``), 2 AdamW
-   steps of one 4096-token sequence, and the same again (losses finite,
+   request; then, cut to one cycle (4 layers: ``RECUR_TRAIN``), 1 AdamW
+   step of one 4096-token sequence, and the same again (losses finite,
    losses and grad_norm bitwise equal across the runs), step ms and MFU
    (``launch.train.recurrent_flops``), and the sLSTM layer's share of the
    step from one sLSTM layer timed alone. (b)
    Zamba2-2.7B at full width cut to 12 layers (two cycle repeats of 6
    Mamba2 layers, each followed by the shared attention + MLP block, 32
    heads of 80) serves the same requests through a dense engine (1 flash
-   launch a repeat a forward) and trains as (a) (2 flash launches a repeat
-   a step: forward and remat). Then phase 6's reduced card-vs-CPU checks
+   launch a repeat a forward) and trains as (a), 2 steps a run (2 flash
+   launches a repeat a step: forward and remat). Then phase 6's reduced card-vs-CPU checks
    for both at 4 layers (xLSTM's training check in fp32, Zamba2's heads set
    to 80), and flash at heads of
    80 against its plain version: causal 4096 (partial), the decode against
@@ -696,14 +712,22 @@ def _zero_counters() -> None:
     from repro_torch.kernels.flash.flash import flash_attention
     from repro_torch.kernels.gmm.gmm import gmm
     gmm.launches = gmm.trans_w_launches = flash_attention.launches = 0
+    flash_attention.qpos_launches = 0
 
 
 def _read_counters() -> dict:
-    """Launches by kernel mode: the GMM forward mode, its trans_w mode, flash."""
+    """Launches by kernel mode: the GMM forward mode, its trans_w mode,
+    flash, and of those flash's with ``q_pos`` (``flash_attention_qpos``,
+    a key only where there were some: a path whose expected counts lack it
+    fails if it launched the ``QPOS`` instantiations, which its kernel row
+    does not time)."""
     from repro_torch.kernels.flash.flash import flash_attention
     from repro_torch.kernels.gmm.gmm import gmm
-    return {"gmm": gmm.launches - gmm.trans_w_launches, "gmm_trans_w": gmm.trans_w_launches,
-            "flash_attention": flash_attention.launches}
+    out = {"gmm": gmm.launches - gmm.trans_w_launches, "gmm_trans_w": gmm.trans_w_launches,
+           "flash_attention": flash_attention.launches}
+    if flash_attention.qpos_launches:
+        out["flash_attention_qpos"] = flash_attention.qpos_launches
+    return out
 
 
 def phase_serve(torch, arch: str) -> dict:
@@ -920,7 +944,8 @@ def phase_train_check(torch, arch: str, cfg=None, dtype: str = "bfloat16") -> di
     import copy
     import dataclasses
 
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, materialize_batch
+    from repro_torch.data.pipeline import (DataConfig, SyntheticTokens, mark_runs,
+                                           materialize_batch)
     from repro_torch.models.transformer import init_lm
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.loop import cast_params, init_train_state, loss_fn, make_train_step
@@ -932,7 +957,7 @@ def phase_train_check(torch, arch: str, cfg=None, dtype: str = "bfloat16") -> di
     runs = {"card": ("cuda", copy.deepcopy(cpu).to("cuda")), "cpu": ("cpu", cpu)}
     data = SyntheticTokens(DataConfig(seq_len=256, global_batch=2, vocab_size=cfg.vocab_size,
                                       seed=3))
-    batches = [materialize_batch(cfg, next(data)) for _ in range(2)]
+    batches = [mark_runs(materialize_batch(cfg, next(data))) for _ in range(2)]
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=100)
     out, grads = {}, {}
     for run, (dev, params) in runs.items():
@@ -1898,6 +1923,10 @@ def phase_train_handoff(torch) -> dict:
 # model the attention (dp, cp, tp) and MoE (edp, ep, etp) folds.
 SERVE_WORLD = {MIXTRAL: dict(attn=(1, 2, 2), moe=(1, 4, 1)),
                QWEN2: dict(attn=(2, 1, 2), moe=(1, 2, 2))}
+# (c): the recurrent kinds at DP2 x TP2, phase 16's serving workload (its
+# depth, requests and engine; xLSTM paged, Zamba2 dense), held against
+# phase 16's one-card run of the same.
+SERVE_WORLD_RECUR = dict(attn=(2, 1, 2), moe=(2, 1, 2))
 
 
 def _expected_serve_launches(cfg, forwards, attn, moe, max_batch: int) -> dict:
@@ -1925,8 +1954,10 @@ def _serve_world_kernels(torch) -> dict:
     keys 256-511): a decode step of 4 rows and one ring-prefill hop (the
     second 64-query half of a 128-token chunk at 256); flash normalized at
     Qwen2's decode (a DP rank's 2 rows, a TP rank's 14 / 2 heads, 512
-    keys); the GMM forward at each fold's decode shard (dropless, one token
-    a shard: one 128-row block a source, EP·ETP sources an expert)."""
+    keys) and at (c)'s Zamba2 decode (a DP rank's row at a TP rank's 16 /
+    16 heads of 80, 1024 keys); the GMM forward at each fold's decode shard
+    (dropless, one token a shard: one 128-row block a source, EP·ETP
+    sources an expert)."""
     from repro_torch.launch.serve import slice_config
     H, Hkv = (h // SERVE_WORLD[MIXTRAL]["attn"][2] for h in FLASH_HEADS[MIXTRAL])
     flash = {MIXTRAL: _flash_cases(torch, MIXTRAL, [
@@ -1937,6 +1968,11 @@ def _serve_world_kernels(torch) -> dict:
     flash[QWEN2] = _flash_cases(torch, QWEN2, [
         ("serve-world decode, a DP rank's 2 rows", 1, 512, [37, 300])], heads=(H, Hkv),
         modes=(False,))
+    tp = SERVE_WORLD_RECUR["attn"][2]
+    flash[ZAMBA2] = _flash_cases(torch, ZAMBA2, [
+        ("serve-world decode, a DP rank's row, 1024 keys", 1, 1024, [1023])],
+        heads=(32 // tp, 32 // tp), modes=(False,), hd=80)
+    _check_cases(ZAMBA2, {"flash_attention": flash[ZAMBA2]})
     out = {"flash_attention": flash, "gmm": {}}
     for arch in (MIXTRAL, QWEN2):
         cfg = slice_config(arch)
@@ -1948,6 +1984,93 @@ def _serve_world_kernels(torch) -> dict:
         out["gmm"][arch] = _gmm_cases(torch, E, [(f"serve-world gate/up, EP{ep} ETP{etp} "
                                                   f"decode shard", M, D, F, bm, blocks, False)])
         _check_cases(arch, {"gmm": out["gmm"][arch], "flash_attention": flash[arch]})
+    return out
+
+
+def _serve_world_recurrent(worlds: dict) -> tuple:
+    """(c)'s checks within the world: every rank's tokens and prefill
+    logits equal rank 0's, launches as counted (1 flash launch a forward a
+    KV-bearing layer: Zamba2's shared block a repeat; none for xLSTM).
+    Phase 16's one-card run of the same is compared after it ran
+    (:func:`_recurrent_world_check`)."""
+    import numpy as np
+    from repro_torch.launch.serve import slice_config
+    from repro_torch.serve.cache import n_kv_layers
+    out, failures = {}, []
+    for arch, ranks in worlds.items():
+        tag = "serve-world" + SHORT[arch]
+        cfg = slice_config(arch, layers=RECUR_LAYERS[arch])
+        r0 = ranks[0]
+        expect = {"gmm": 0, "gmm_trans_w": 0,
+                  "flash_attention": n_kv_layers(cfg) * sum(bool(p) + bool(d)
+                                                            for p, d in r0["forwards"])}
+        for r in ranks:
+            if r["launches"] != expect:
+                failures.append(f"{tag} rank {r['rank']}: launches {r['launches']} != {expect}")
+            if any(a["tokens"] != b["tokens"] or not np.array_equal(a["logits"], b["logits"])
+                   for a, b in zip(r["results"], r0["results"])):
+                failures.append(f"{tag} rank {r['rank']}: results differ from rank 0's")
+        dec = [t[1] for t in r0["timings"] if t[1] > 0]
+        out[arch] = dict(fold=SERVE_WORLD_RECUR, ranks=ranks, launches_expected=expect,
+                         decode_step_ms_median=statistics.median(dec) * 1e3)
+        _say(f"[{tag}] {cfg.name} x{cfg.n_layers} layers (full width, bf16), "
+             f"{RECUR_CACHES[arch][0]} cache, at attention (dp, cp, tp) "
+             f"{SERVE_WORLD_RECUR['attn']}: {len(r0['forwards'])} steps, serving wall a rank "
+             + ", ".join(f"{r['wall_s']:.2f}" for r in ranks) + f" s, decode step median "
+             f"{out[arch]['decode_step_ms_median']:.1f} ms; build in turns {r0['init_s']:.1f} s; "
+             f"launches a rank {r0['launches']} (expected {expect}); peak memory a rank "
+             + ", ".join(f"{r.get('peak_gb', 0.0):.2f}" for r in ranks) + " GB; tokens "
+             + "; ".join(str(x["tokens"]) for x in r0["results"]))
+    return out, failures
+
+
+def _recurrent_world_check(serve_world: dict, recurrent: dict) -> dict:
+    """Phase 13 (c) against phase 16's one-card run of the same arch,
+    cache, weights and requests: each request's prefill logits within
+    ``CHECK_TOL`` (relative), its first token equal wherever the one-card
+    top-1/top-2 margin exceeds twice the max |Δlogit| (the fold sums bf16
+    in other orders: TP's fp32 partial sums of the shared block), and the
+    tokens equal before the first divergence, printed. Drops the logits
+    from both records."""
+    import numpy as np
+    out, failures = {}, []
+    for arch, world in serve_world["recurrent"].items():
+        tag = "serve-world" + SHORT[arch]
+        one = recurrent[arch]["serve"]["runs"][RECUR_CACHES[arch][0]]
+        errors = []
+        for i, (got, tok, lg) in enumerate(zip(world["ranks"][0]["results"], one["tokens"],
+                                               one["logits"])):
+            base = np.asarray(lg, np.float64)
+            delta = float(np.abs(np.asarray(got["logits"], np.float64) - base).max())
+            rel = delta / max(float(np.abs(base).max()), 1e-30)
+            top2 = np.sort(base)[-2:]
+            margin = float(top2[1] - top2[0])
+            agree = next((k for k, (a, b) in enumerate(zip(got["tokens"], tok)) if a != b),
+                         len(tok))
+            errors.append(dict(max_abs=delta, rel=rel, margin=margin, agree=agree))
+            if not (got["finished"] and len(got["tokens"]) == len(tok)):
+                failures.append(f"{tag} request {i}: finished {got['finished']} with "
+                                f"{len(got['tokens'])} tokens")
+            if not rel <= CHECK_TOL:
+                failures.append(f"{tag} request {i}: prefill logits rel err {rel:.3e} > "
+                                f"{CHECK_TOL} against phase 16's")
+            if margin > 2 * delta and got["tokens"][0] != tok[0]:
+                failures.append(f"{tag} request {i}: first token {got['tokens'][0]} != phase "
+                                f"16's {tok[0]} with margin {margin:.4f} > 2 x {delta:.4f}")
+        out[arch] = errors
+        _say(f"[{tag}] against phase 16 (one card, same weights, cache and requests): prefill "
+             "logits rel err " + ", ".join(f"{e['rel']:.2e}" for e in errors)
+             + f" (limit {CHECK_TOL}); top-1/2 margin "
+             + ", ".join(f"{e['margin']:.4f}" for e in errors) + "; tokens equal before the "
+             "first divergence " + ", ".join(str(e["agree"]) for e in errors)
+             + f" of {BLOCKS_SERVE['new']}")
+        for r in world["ranks"]:
+            for x in r["results"]:
+                x["logits"] = None
+        for run in recurrent[arch]["serve"]["runs"].values():
+            run["logits"] = None
+    if failures:
+        raise AssertionError("phase 13 (c):\n" + "\n".join(failures))
     return out
 
 
@@ -1963,14 +2086,23 @@ def phase_serve_world(torch, one_card: dict) -> dict:
     smi = _smi()
     t_phase = time.perf_counter()
     out, failures = {}, []
-    # Both models in one world of 4 (one start, one teardown); rank 0
-    # profiles a decode step of the first.
+    # Both models and (c)'s two in one world of 4 (one start, one
+    # teardown); rank 0 profiles a decode step of the first.
     worlds = serve_world(*(dict(arch=arch, attn=SERVE_WORLD[arch]["attn"],
                                 moe=SERVE_WORLD[arch]["moe"], layers=SERVE_LAYERS,
                                 new_tokens=SERVE_NEW_TOKENS, keep_logits=True,
                                 profile=arch == MIXTRAL) for arch in (MIXTRAL, QWEN2)),
+                         *(dict(arch=arch, **SERVE_WORLD_RECUR, layers=RECUR_LAYERS[arch],
+                                engine=dict(BLOCKS_ENGINE, cache=RECUR_CACHES[arch][0],
+                                            s_max=BLOCKS_SERVE["s_max"]),
+                                prompt_lens=BLOCKS_SERVE["prompts"],
+                                new_tokens=BLOCKS_SERVE["new"], keep_logits=True)
+                           for arch in (XLSTM, ZAMBA2)),
                          device="cuda")
     wall = time.perf_counter() - t_phase
+    out["recurrent"], failures = _serve_world_recurrent(dict(zip((XLSTM, ZAMBA2),
+                                                                  worlds[2:])))
+    worlds = worlds[:2]
     for arch, ranks in zip((MIXTRAL, QWEN2), worlds):
         tag = "serve-world" + SHORT[arch]
         w = SERVE_WORLD[arch]
@@ -2339,11 +2471,94 @@ def _flash_ring_cases(torch, cases, heads, hd: int, modes=(False, True)) -> list
     return out
 
 
+def _packed_positions(B: int, S: int, cuts) -> "np.ndarray":
+    """(B, S) positions of packed rows: row b holds two sequences, the
+    second restarting at 0 after ``cuts[b]`` tokens."""
+    import numpy as np
+    return np.stack([np.concatenate([np.arange(c), np.arange(S - c)]) for c in cuts[:B]]
+                    ).astype(np.int32)
+
+
+def _shared_positions(cfg, B: int, S: int) -> "np.ndarray":
+    """M-RoPE streams (B, S, 3) of a batch whose first ``n_vision_tokens``
+    rows are an image's patches that share one temporal id (0), height and
+    width the patch grid, then text that continues past the grid on every
+    stream (Qwen2-VL's own layout)."""
+    import numpy as np
+    n = cfg.n_vision_tokens
+    side = int(round(n ** 0.5))
+    text = side + np.arange(S - n)
+    t = np.concatenate([np.zeros(n), text])
+    h = np.concatenate([np.arange(n) // side, text])
+    w = np.concatenate([np.arange(n) % side, text])
+    return np.broadcast_to(np.stack([t, h, w], -1), (B, S, 3)).astype(np.int32).copy()
+
+
+def _flash_qpos_cases(torch, cases, heads, hd: int, modes=(False, True)) -> list:
+    """Flash with query positions (``q_pos``): ``(label, q_pos (B, Sq)
+    numpy, Skv, keys)``, keys ``"self"`` (``kv_pos`` = ``q_pos``, causal
+    self-attention) or an int ``kv_offset`` (keys a run from it, causal).
+    Held against the plain version at the same positions; ``library_ms``:
+    SDPA with an ``attn_mask`` built from the positions. Bytes: q, the key
+    and value rows some query of the row sees, the positions and the
+    output; operations: the visible (query, key) pairs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash.flash import flash_attention
+    from repro_torch.kernels.flash.ref import flash_ref
+    from repro_torch.launch.devtime import graph_ms, profiled_ms
+    g = torch.Generator(device="cuda").manual_seed(6)
+    H, Hkv = heads
+    out = []
+    for label, pos, L, keys in cases:
+        B, Sq = pos.shape
+        q = torch.randn((B, H, Sq, hd), generator=g, device="cuda").to(torch.bfloat16)
+        k = torch.randn((B, Hkv, L, hd), generator=g, device="cuda").to(torch.bfloat16)
+        v = torch.randn((B, Hkv, L, hd), generator=g, device="cuda").to(torch.bfloat16)
+        q_pos = torch.from_numpy(pos).to("cuda")
+        kw = dict(kv_pos=q_pos) if keys == "self" else dict(kv_offset=keys)
+        kv_pos = q_pos if keys == "self" else \
+            keys + torch.arange(L, dtype=torch.int32, device="cuda").expand(B, L)
+        vis = kv_pos[:, None, :].long() <= q_pos[:, :, None].long()
+        n_vis, n_keys = vis.sum().item(), vis.any(dim=1).sum().item()
+        mask = vis[:, None]
+        library_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True))
+        for partial in modes:
+            def run(partial=partial):
+                return flash_attention(q, k, v, None, q_pos=q_pos, return_partial=partial,
+                                       **kw)
+
+            def plain(partial=partial):
+                return flash_ref(q, k, v, None, q_pos=q_pos, return_partial=partial, **kw)
+            got, ref = run(), plain()
+            torch.cuda.synchronize()
+            errs = [_err(torch, a, b) for a, b in (zip(got, ref) if partial else [(got, ref)])]
+            del got, ref
+            ms = graph_ms(torch, run)
+            plain_ms = profiled_ms(torch, plain, calls=3)
+            out_bytes = B * H * Sq * (hd * 4 + 8) if partial else B * H * Sq * hd * 2
+            nbytes = 2 * B * H * Sq * hd + 2 * 2 * Hkv * hd * n_keys + 4 * B * Sq + out_bytes
+            bound_ms, bound_by = _bound(nbytes, 4.0 * hd * H * n_vis)
+            out.append(dict(case=f"{label}, {'partial' if partial else 'normalized'}",
+                            shape=f"q({B},{H},{Sq},{hd}) kv({B},{Hkv},{L},{hd}) q_pos "
+                                  + ("and kv_pos" if keys == "self" else f"kv_offset={keys}"),
+                            max_abs_err=max(e[0] for e in errs), rel_err=max(e[1] for e in errs),
+                            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms, library_form="SDPA attn_mask from q_pos",
+                            visible_pairs=n_vis))
+        del q, k, v, mask, vis
+        torch.cuda.empty_cache()
+    return out
+
+
 def _window_kernels(torch) -> dict:
     """Phase 14's kernel rows, held and timed as in phase 3: flash with key
     positions at (a)'s ring decode and prefill chunk and at (c)'s prefill
     chunk, flash without them at (b)'s causal 4096 (2 sequences, 32/8 heads
-    of 64) and phase 3's Mixtral decode again, and the GMM at (c)'s decode."""
+    of 64) and phase 3's Mixtral decode again, and the GMM at (c)'s decode;
+    beside them flash with query positions at (a)'s heads (``qpos``): (b)'s
+    shape with two packed sequences a row, and a decode of 4 rows."""
+    import numpy as np
     from repro_torch.launch.serve import slice_config
     llama = slice_config(LLAMA, shape=LONG)
     W = llama.sliding_window            # (a)'s rows end at 12300 and 1040 (W 8192)
@@ -2355,6 +2570,12 @@ def _window_kernels(torch) -> dict:
         _flash_cases(torch, LLAMA, [("causal self-attention 4096", 4096, 4096, [0, 0])],
                      heads=heads, modes=(True,), hd=llama.resolved_head_dim)},
            MIXTRAL: {"flash_attention": _flash_cases(torch, MIXTRAL, FLASH_CASES[MIXTRAL][:1])},
+           "qpos": {"flash_attention": _flash_qpos_cases(torch, [
+               ("packed rows, causal self-attention 2 x 4096",
+                _packed_positions(2, 4096, (1536, 2560)), 4096, "self"),
+               ("decode, 4 rows at their own positions, 4096 keys",
+                np.array([[4095], [3000], [100], [2047]], np.int32), 4096, 0)],
+               heads, llama.resolved_head_dim)},
            QWEN3: {"flash_attention": _flash_ring_cases(torch, [
                ("ring prefill chunk", 512, W, [W + 511], W)], (qwen3.n_heads, qwen3.n_kv_heads),
                qwen3.resolved_head_dim, modes=(False,)),
@@ -2425,6 +2646,10 @@ def _serve_world_line(serve_world: dict, sources: dict) -> list:
         line.append(_entry("flash_attention", path, arch,
                            serve_world["kernels"]["flash_attention"][arch][0],
                            launches["flash_attention"], sources))
+    line.append(_entry("flash_attention", "serve-world" + SHORT[ZAMBA2], ZAMBA2,
+                       serve_world["kernels"]["flash_attention"][ZAMBA2][0],
+                       serve_world["recurrent"][ZAMBA2]["ranks"][0]["launches"]
+                       ["flash_attention"], sources))
     return line
 
 
@@ -2521,6 +2746,11 @@ BLOCKS_ENGINE = dict(max_batch=2, page_size=128, prefill_chunk=512)
 # Training depth (None: the published depth) and steps of one 4096-token sequence.
 BLOCKS_TRAIN = dict(layers={GEMMA: 1, QWEN2VL: 2, WHISPER: None}, seq=4096, batch=1, steps=2)
 WHISPER_DECODE = dict(prompt=8, steps=3, s_max=64)
+# (d): Qwen2-VL's step with an image's patches that share one temporal id,
+# its kernel row, and the length of its card-vs-CPU check at full width
+# (the CPU takes seconds a step there: 256 vision rows and 64 of text).
+POSITIONS_ROW = "causal self-attention 4096, 256 vision rows share a temporal id"
+POSITIONS_CHECK_SEQ = 320
 
 
 def _flash_layers(cfg) -> int:
@@ -2566,8 +2796,10 @@ def _vision_positions(cfg, B: int, S: int):
 def _blocks_batches(cfg, seq: int, batch: int, steps: int) -> list:
     """``steps`` batches from ``SyntheticTokens(seed=0)`` with the arch's stub
     inputs (``materialize_batch``; Qwen2-VL's positions from
-    :func:`_vision_positions`)."""
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, materialize_batch
+    :func:`_vision_positions`), read on the host as the launcher reads
+    them (``mark_runs``: a temporal run masks at scalar offsets)."""
+    from repro_torch.data.pipeline import (DataConfig, SyntheticTokens, mark_runs,
+                                           materialize_batch)
     data = SyntheticTokens(DataConfig(seq_len=seq, global_batch=batch,
                                       vocab_size=cfg.vocab_size, seed=0))
     out = []
@@ -2575,7 +2807,7 @@ def _blocks_batches(cfg, seq: int, batch: int, steps: int) -> list:
         b = materialize_batch(cfg, next(data))
         if cfg.rope_kind == "mrope":
             b["positions"] = _vision_positions(cfg, batch, seq)
-        out.append(b)
+        out.append(mark_runs(b))
     return out
 
 
@@ -2694,6 +2926,101 @@ def _blocks_train(torch, arch: str) -> tuple:
     return out, failures
 
 
+def _blocks_train_positions(torch) -> tuple:
+    """(d) Qwen2-VL at BLOCKS_TRAIN's depth and width, an image's 256
+    patches sharing one temporal id (``_shared_positions``): the flash
+    kernel takes the temporal stream as ``q_pos`` and ``kv_pos``. First the
+    check at POSITIONS_CHECK_SEQ tokens, the card (bf16) against the CPU
+    plain path (fp32) on the same weights: the loss, the gradient norm and
+    the logits (max abs error over max abs) within ``CHECK_TOL``; and a
+    control, the card with the positions dropped (the default causal mask
+    at offsets), whose logits must part from the CPU's by more than
+    ``CHECK_TOL``, or the check could not tell the positions from the
+    default. Then one AdamW step of 4096 tokens, counters set to 0 just
+    before and read just after (2 flash launches a layer, all with
+    ``q_pos``)."""
+    import dataclasses
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, materialize_batch
+    from repro_torch.launch.train import PEAK_BF16_FLOPS, train_config
+    from repro_torch.models.sharding import map_params
+    from repro_torch.models.transformer import apply_lm, init_lm
+    from repro_torch.train.loop import (grad_norm, init_train_state, loss_and_grads,
+                                        make_train_step)
+    cfg = train_config(QWEN2VL, layers=BLOCKS_TRAIN["layers"][QWEN2VL])
+    params = init_lm(cfg, seed=0, device="cuda")
+
+    def batch(seq, seed):
+        data = SyntheticTokens(DataConfig(seq_len=seq, global_batch=1,
+                                          vocab_size=cfg.vocab_size, seed=seed))
+        b = materialize_batch(cfg, next(data))
+        b["positions"] = _shared_positions(cfg, 1, seq)
+        return b
+    check = batch(POSITIONS_CHECK_SEQ, 1)
+    control = {k: v for k, v in check.items() if k != "positions"}
+    got, logits = {}, {}
+    t0 = time.perf_counter()
+    for run, dev, c, p, b in (
+            ("card", "cuda", cfg, params, check), ("control", "cuda", cfg, params, control),
+            ("cpu", "cpu", dataclasses.replace(cfg, dtype="float32"),
+             map_params(params, lambda n, t: t.cpu()), check)):
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        grads, m = loss_and_grads(p, tb, c, remat=False)
+        got[run] = dict(loss=float(m["loss"]), grad_norm=float(grad_norm(grads)))
+        del grads
+        with torch.no_grad():
+            logits[run] = apply_lm(p, tb, c, remat=False)[0].float().cpu()
+        del p, tb
+    check_s = time.perf_counter() - t0
+    scale = float(logits["cpu"].abs().max())
+    rel = {run: dict({k: abs(got[run][k] - got["cpu"][k]) / abs(got["cpu"][k])
+                      for k in got["cpu"]},
+                     logits=float((logits[run] - logits["cpu"]).abs().max()) / scale)
+           for run in ("card", "control")}
+    del logits
+    _say(f"[blocks train-positions-qwen2vl] {POSITIONS_CHECK_SEQ} tokens, 256 vision rows "
+         f"sharing a temporal id, full width x{cfg.n_layers}: card (bf16) {got['card']}, CPU "
+         f"plain path (fp32) {got['cpu']}: rel err {rel['card']} (limit {CHECK_TOL}); "
+         f"control, the card without the positions: {got['control']}, rel err "
+         f"{rel['control']} (logits must exceed {CHECK_TOL}); {check_s:.1f} s")
+    failures = []
+    if max(rel["card"].values()) > CHECK_TOL:
+        failures.append(f"qwen2-vl positions check: rel err {rel['card']}")
+    if rel["control"]["logits"] <= CHECK_TOL:
+        failures.append(f"qwen2-vl positions check: the control (no positions) is within "
+                        f"the limit too, logits rel err {rel['control']['logits']:.3e}")
+    seq = BLOCKS_TRAIN["seq"]
+    step_batch = {k: torch.from_numpy(v).to("cuda") for k, v in batch(seq, 0).items()}
+    opt = init_train_state(params)
+    step = make_train_step(cfg, guard=True)
+    flops = _blocks_flops(cfg, seq)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, step_batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _read_counters()
+    expect = {"gmm": 0, "gmm_trans_w": 0, "flash_attention": 2 * _flash_layers(cfg),
+              "flash_attention_qpos": 2 * _flash_layers(cfg)}
+    row = dict({k: float(v) for k, v in m.items()}, step_ms=dt * 1e3,
+               mfu=flops / dt / PEAK_BF16_FLOPS)
+    out = dict(model=f"{cfg.name} x{cfg.n_layers} layers, 256 vision rows sharing a temporal "
+                     f"id (full width), 1 x {seq} tokens a step", check=got, check_rel_err=rel,
+               check_s=check_s, step=row, launches=launches,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    _say(f"[blocks train-positions-qwen2vl] {out['model']}: loss {row['loss']:.6f} grad_norm "
+         f"{row['grad_norm']:.4f} step_ok {bool(row['step_ok'])}; {row['step_ms']:.1f} ms, MFU "
+         f"{100 * row['mfu']:.2f}%; launches {launches} (expected {expect}); "
+         f"max_memory_allocated {out['max_memory_allocated_gb']:.2f} GB")
+    if launches != expect or not (row["loss"] == row["loss"] and row["step_ok"]):
+        failures.append(f"qwen2-vl positions step: launches {launches} (expected {expect}), "
+                        f"loss {row['loss']}, step_ok {row['step_ok']}")
+    del params, opt, step, step_batch
+    torch.cuda.empty_cache()
+    return out, failures
+
+
 def _whisper_decode(torch) -> tuple:
     """(c) Whisper's ``decode_step`` at full depth, bf16, one row: a prompt
     chunk, then greedy decode steps, counters set to 0 just before and read
@@ -2785,7 +3112,9 @@ def _blocks_kernels(torch) -> dict:
     """Phase 15's kernel rows, held and timed as in phase 3: flash at Gemma's
     heads of 256 (causal 4096 in the training step's partial mode, the
     serving decode against 1024 keys, a 512-query prefill chunk), at
-    Qwen2-VL's (28/4 of 128: causal 4096, its decode), and at Whisper's 12
+    Qwen2-VL's (28/4 of 128: causal 4096, its decode, and (d)'s causal 4096
+    at the positions of 256 vision rows that share a temporal id, ``q_pos``
+    and ``kv_pos``), and at Whisper's 12
     of 64, not causal, over 1500 frames (the encoder; cross-attention of
     4096 queries)."""
     from repro_torch.launch.train import train_config
@@ -2807,6 +3136,10 @@ def _blocks_kernels(torch) -> dict:
         for case, modes, causal in rows:
             cases += _flash_cases(torch, arch, [case], heads=(cfg.n_heads, cfg.n_kv_heads),
                                   modes=modes, hd=cfg.resolved_head_dim, causal=causal)
+        if arch == QWEN2VL:             # (d)'s launch: the temporal stream as q_pos and kv_pos
+            cases += _flash_qpos_cases(torch, [(
+                POSITIONS_ROW, _shared_positions(cfg, 1, 4096)[..., 0], 4096, "self")],
+                (cfg.n_heads, cfg.n_kv_heads), cfg.resolved_head_dim, modes=(True,))
         res[arch] = {"flash_attention": cases}
         _check_cases(arch, res[arch])
     return res
@@ -2824,6 +3157,9 @@ def phase_blocks(torch) -> dict:
         out[arch]["train"], f = _blocks_train(torch, arch)
         failures += f
         _free(torch, f"{arch} training done")
+    out[QWEN2VL]["train_positions"], f = _blocks_train_positions(torch)
+    failures += f
+    _free(torch, "qwen2-vl positions done")
     out[WHISPER] = {}
     out[WHISPER]["train"], f = _blocks_train(torch, WHISPER)
     failures += f
@@ -2858,6 +3194,10 @@ def _blocks_line(blocks: dict, sources: dict) -> list:
         line.append(_entry("flash_attention", "blocks-train" + SHORT[arch], arch,
                            case(arch, "causal self-attention 4096, partial"),
                            blocks[arch]["train"]["launches"]["flash_attention"], sources))
+    line.append(_entry("flash_attention", "blocks-train-positions" + SHORT[QWEN2VL], QWEN2VL,
+                       case(QWEN2VL, POSITIONS_ROW + ", partial"),
+                       blocks[QWEN2VL]["train_positions"]["launches"]["flash_attention"],
+                       sources))
     line.append(_entry("flash_attention", "blocks-train" + SHORT[WHISPER], WHISPER,
                        case(WHISPER, "cross-attention 4096 x 1500, partial"),
                        blocks[WHISPER]["train"]["launches"]["flash_attention"], sources))
@@ -2875,8 +3215,9 @@ RECUR_LAYERS = {XLSTM: None, ZAMBA2: 12}
 RECUR_CACHES = {XLSTM: ("paged", "dense"), ZAMBA2: ("dense",)}
 # xLSTM trains one cycle (4 layers: mLSTM x3 + sLSTM): at its 12 layers a
 # step took 23.6-25.8 s on an H100 (3 sLSTM layers of 4096 sequential
-# cells, 88% of it), so its four steps would take 100 s alone.
-RECUR_TRAIN = dict(seq=4096, batch=1, steps=2, layers={XLSTM: 4, ZAMBA2: 12})
+# cells, 88% of it), so its four steps would take 100 s alone; at one cycle
+# a step still takes 8-15 s, so it runs one step a run (Zamba2 two).
+RECUR_TRAIN = dict(seq=4096, batch=1, steps={XLSTM: 1, ZAMBA2: 2}, layers={XLSTM: 4, ZAMBA2: 12})
 
 
 def _recurrent_serve(torch, arch: str) -> tuple:
@@ -2921,7 +3262,8 @@ def _recurrent_serve(torch, arch: str) -> tuple:
                    prefill_tok_per_s=sum(s.prefill_tokens for s in eng.stats) /
                    sum(t[0] for t in eng.timings),
                    max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
-                   tokens=[res[r].tokens.tolist() for r in rids])
+                   tokens=[res[r].tokens.tolist() for r in rids],
+                   logits=[res[r].last_prefill_logits for r in rids])
         _say(f"[recurrent {tag}] {out['model']}: {len(rids)} requests, {n_fwd} forwards, wall "
              f"{wall:.3f} s, launches {launches} (expected {expect}); prefill "
              f"{run['prefill_tok_per_s']:.1f} tok/s, decode step median "
@@ -3021,7 +3363,7 @@ def _recurrent_train(torch, arch: str) -> tuple:
     from repro_torch.models.transformer import param_shapes
     from repro_torch.serve.cache import n_kv_layers
     cfg = train_config(arch, layers=RECUR_TRAIN["layers"][arch])
-    seq, steps = RECUR_TRAIN["seq"], RECUR_TRAIN["steps"]
+    seq, steps = RECUR_TRAIN["seq"], RECUR_TRAIN["steps"][arch]
     data = SyntheticTokens(DataConfig(seq_len=seq, global_batch=RECUR_TRAIN["batch"],
                                       vocab_size=cfg.vocab_size, seed=0))
     batches = [{k: torch.from_numpy(v).to("cuda") for k, v in next(data).items()}
@@ -3236,6 +3578,7 @@ def main() -> int:
     mark("phase 15")
     memory_recurrent = _free(torch, "phase 15 done, before phase 16")
     recurrent = phase_recurrent(torch)
+    serve_world["recurrent_against_one_card"] = _recurrent_world_check(serve_world, recurrent)
     mark("phase 16")
     seconds = time.perf_counter() - t_start
 

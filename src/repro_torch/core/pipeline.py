@@ -517,8 +517,8 @@ def make_pipeline_grads(cfg: ModelConfig, groups, part: StagePartition, n_micro:
             raise ValueError(f"batch {B} not divisible by {n_micro} microbatches")
         mb = B // n_micro
         mbs = [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()} for i in range(n_micro)]
-        # None (the layout's), or M-RoPE's streams of the rank's CP chunk
-        pos = [decoder_positions(m, cfg, groups) for m in mbs]
+        # None (the layout's), or the microbatch's positions of the rank's CP chunk
+        pos = [decoder_positions(m) for m in mbs]
         if "moe" in cfg.blocks():
             check_sp_moe_handoff(groups)
         named = dict(cparams.named_parameters())

@@ -1,7 +1,8 @@
 """Deterministic synthetic LM data: the port's copy of
 ``repro.data.pipeline`` (``DataConfig``, ``SyntheticTokens``,
-``make_batch_specs``, ``materialize_batch``), and each rank's share of a
-batch across the folded groups (``shard_batch``).
+``make_batch_specs``, ``materialize_batch``), the host's reading of a
+batch's positions (``mark_runs``), and each rank's share of a batch across
+the folded groups (``shard_batch``).
 
 Structured pseudo-text (a Zipf unigram mixture with short-range copies), so
 the LM loss falls as the model learns; the batches are built on the host
@@ -109,6 +110,34 @@ def materialize_batch(cfg, np_batch: Mapping[str, np.ndarray], seed: int = 0
 
 # Batch entries that every rank of a DP rank holds whole along dim 1.
 WHOLE_SEQUENCE = ("vision_embeds", "audio_embeds")
+# The key under which ``mark_runs`` puts positions whose mask stream is a
+# run on every row (``models.transformer.decoder_positions``).
+RUN_POSITIONS = "run_positions"
+
+
+def mark_runs(batch: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The batch with its ``positions`` under ``RUN_POSITIONS`` where the
+    stream the mask reads (the ids, or M-RoPE's temporal stream) is
+    ``offset + arange(S)`` on every row of the whole sequence, as it is by
+    default (``materialize_batch``); else the batch as it is.
+
+    The mask reads only differences of positions, so a run on each row,
+    at any offsets, masks as the default layout does: the layers then
+    rotate at the positions and mask at scalar offsets (the flash kernel's
+    tile skips, no position array), where ``positions`` would be masked
+    element by element. Decided here, on the host, where the whole
+    sequence is seen: call it before a batch is cut (``shard_batch`` does)
+    or moved to the device."""
+    pos = batch.get("positions")
+    if pos is None:
+        return dict(batch)
+    t = np.asarray(pos)
+    t = t if t.ndim == 2 else t[..., 0]
+    if not np.array_equal(t, t[:, :1] + np.arange(t.shape[1])):
+        return dict(batch)
+    out = {k: v for k, v in batch.items() if k != "positions"}
+    out[RUN_POSITIONS] = pos
+    return out
 
 
 def shard_batch(batch: Mapping[str, np.ndarray], groups, *, microbatch: int = 0
@@ -127,10 +156,12 @@ def shard_batch(batch: Mapping[str, np.ndarray], groups, *, microbatch: int = 0
     ``batch_shardings`` put them (the first stage reads the tokens, the
     last the labels).
 
-    M-RoPE's ``positions`` (B, S, 3) are cut like the tokens; their
-    temporal stream must be a run on each row of the whole sequence (what
-    the flash kernel's mask takes, checked here where the whole sequence is
-    seen). ``vision_embeds`` and ``audio_embeds`` (B, n, D) are cut over DP
+    ``positions``, (B, S) ids or M-RoPE's (B, S, 3) streams, any at all
+    (packed rows, per-row offsets, an image's patches that share one
+    temporal id), are cut like the tokens, first marked by ``mark_runs``
+    on the whole sequence: runs mask at the layout's offsets, other
+    positions go with the K/V (all-gathered over CP, or around the ring).
+    ``vision_embeds`` and ``audio_embeds`` (B, n, D) are cut over DP
     only, as ``batch_shardings`` leaves them: the ranks whose rows hold the
     vision positions splice them in, and every rank runs the encoder on its
     rows of the whole audio.
@@ -138,7 +169,7 @@ def shard_batch(batch: Mapping[str, np.ndarray], groups, *, microbatch: int = 0
     a = groups.attn
     dp, cp = a["dp"], a["cp"]
     out = {}
-    for k, v in batch.items():
+    for k, v in mark_runs(batch).items():
         v = np.asarray(v)
         B, S = v.shape[:2]
         n = max(microbatch, 1)
@@ -146,13 +177,6 @@ def shard_batch(batch: Mapping[str, np.ndarray], groups, *, microbatch: int = 0
         if B % (n * dp.size) or (S % cp.size and not whole):
             raise ValueError(f"batch {k} {v.shape}: rows do not split over {n} microbatches "
                              f"x DP {dp.size}, or the sequence over CP {cp.size}")
-        if k == "positions":
-            t = v[..., 0]
-            if not np.array_equal(t, t[:, :1] + np.arange(S)):
-                raise NotImplementedError(
-                    "positions whose temporal stream is not offset + arange(S) on each row "
-                    "are not ported (ROADMAP.md queue 1, 'Temporal positions that are not "
-                    "a run')")
         rows = v.reshape(n, dp.size, B // (n * dp.size), *v.shape[1:])[:, dp.index]
         rows = rows.reshape(-1, *v.shape[1:])
         c = S // cp.size

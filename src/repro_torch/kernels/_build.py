@@ -22,7 +22,7 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES: Tuple[str, ...] = ("gmm.cu", "flash.cu")
+SOURCES: Tuple[str, ...] = ("gmm.cu", "flash.cu", "flash_qpos.cu")
 HEADERS: Tuple[str, ...] = ("hopper.cuh",)      # included by the sources
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -35,10 +35,10 @@ _I = ctypes.c_int
 SIGNATURES: Dict[str, Tuple[tuple, type]] = {
     # x, w, block_expert, y, M, K, N, bm, E, block_m, block_n, trans_w, stream
     "repro_gmm_bf16": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),
-    # q, k, v, q_offset, kv_pos, out, acc, m, l, ws, counters, B, H, Hkv, Sq, Skv,
-    # hd, kv_offset, causal, window, scale, path, splits, stream
-    "repro_flash_fwd_bf16": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P), _I),
+    # q, k, v, q_offset, q_pos, kv_pos, out, acc, m, l, ws, counters, B, H, Hkv, Sq,
+    # Skv, hd, kv_offset, causal, window, scale, path, splits, stream
+    "repro_flash_fwd_bf16": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P), _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None

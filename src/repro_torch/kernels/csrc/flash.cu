@@ -108,9 +108,23 @@
 // skipped by position), each masked tile reads its keys' positions (int32,
 // L1-cached) and the prefill path evaluates the mask on every tile.
 //
+// Query positions (q_pos, the reference's (B, Sq) q_pos array: packed rows
+// whose positions restart, per-row offsets, an image's patches that share
+// one temporal id) do the same in a template flag of their own (QPOS), so
+// a launch without them, with or without kv_pos, runs the code it ran
+// before: each thread reads its rows' positions once (the decode path's
+// two packed rows, the prefill path's two rows), q_offset is not read,
+// every key is in the visible range (no split, and no prefill tile, is
+// skipped by position: the per-tile causal skip is off under the flag)
+// and every tile is masked element by element. A row that sees no key
+// keeps m = -1e30, l = 0, acc = 0 and writes 0, as the reference's scan.
+// Their instantiations compile in flash_qpos.cu, beside this file's (the
+// build's nvcc for flash.cu took ~50 s with all 32 kernels in one unit).
+//
 // Requires 16-byte aligned, contiguous tensors; the wrapper checks them and
 // this entry point again.
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -169,12 +183,13 @@ __device__ __forceinline__ bool visible(int q_pos, int kidx, int Skv, const KeyP
 }
 
 // Keys [lo, hi) that some query at positions [q_first, q_last] can see;
-// hi <= lo when none. With key positions every key may be seen.
-template <bool POS>
+// hi <= lo when none. With key or query positions (QPOS: the caller's
+// q_pos, no run either) every key may be seen.
+template <bool POS, bool QPOS>
 __device__ __forceinline__ void visible_range(int q_first, int q_last, int Skv,
                                               const KeyPos<POS>& kp, int causal, int window,
                                               int& lo, int& hi) {
-  if constexpr (POS) {
+  if constexpr (POS || QPOS) {
     lo = 0;
     hi = Skv;
   } else {
@@ -241,10 +256,11 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
 // one, which writes the empty result when no key is visible).
 struct SplitPlan {
   int lo, hi, t_lo, t_hi, chunk, n_active;
-  template <bool POS>
+  template <bool POS, bool QPOS>
   __device__ __forceinline__ SplitPlan(int q_first, int q_last, int Skv, const KeyPos<POS>& kp,
-                                       int causal, int window, int splits) {
-    visible_range(q_first, q_last, Skv, kp, causal, window, lo, hi);
+                                       int causal, int window, int splits,
+                                       std::integral_constant<bool, QPOS>) {
+    visible_range<POS, QPOS>(q_first, q_last, Skv, kp, causal, window, lo, hi);
     t_lo = lo / S_BKV;
     t_hi = hi > lo ? (hi + S_BKV - 1) / S_BKV : t_lo;
     const int n_t = t_hi - t_lo;
@@ -313,10 +329,11 @@ __device__ __forceinline__ void store_row(const float (&a)[N], float m, float l,
   }
 }
 
-template <int HD, bool POS>
+template <int HD, bool POS, bool QPOS>
 __global__ void __launch_bounds__(S_THREADS)
 flash_fwd_kernel_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_offset,
+                       const int* __restrict__ q_pos_in,
                        const int* __restrict__ kv_pos, __nv_bfloat16* __restrict__ out,
                        float* __restrict__ acc_out, float* __restrict__ m_out,
                        float* __restrict__ l_out, float* __restrict__ ws,
@@ -334,10 +351,11 @@ flash_fwd_kernel_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const int rep = H / Hkv, R = rep * Sq;
   const int n_rt = (R + S_ROWS - 1) / S_ROWS;
   const int r0 = rt * S_ROWS;
-  const int q_off = q_offset[b];
+  const int q_off = QPOS ? 0 : q_offset[b];
+  const int* const qp = QPOS ? q_pos_in + static_cast<size_t>(b) * Sq : nullptr;
   const KeyPos<POS> kp{POS ? kv_pos + static_cast<size_t>(b) * Skv : nullptr, kv_offset};
   const SplitPlan plan(q_off + r0 / rep, q_off + min(R - 1, r0 + S_ROWS - 1) / rep, Skv, kp,
-                       causal, window, splits);
+                       causal, window, splits, std::integral_constant<bool, QPOS>{});
   if (s >= plan.n_active) return;            // no key of this split is visible
   const int ts = plan.t_lo + s * plan.chunk;
   const int n_tiles = max(0, min(plan.t_hi, ts + plan.chunk) - ts);
@@ -402,7 +420,8 @@ flash_fwd_kernel_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   for (int h = 0; h < 2; ++h) {
     const int rr = r0 + g + 8 * h;
     row_ok[h] = rr < R;
-    q_pos[h] = q_off + rr / rep;
+    if constexpr (QPOS) q_pos[h] = row_ok[h] ? __ldg(qp + rr / rep) : 0;
+    else q_pos[h] = q_off + rr / rep;
   }
   float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
   float acc[HD / 8][4];
@@ -712,12 +731,13 @@ struct WgmmaRS<64> {
 };
 
 
-template <int HD, bool POS>
+template <int HD, bool POS, bool QPOS>
 __global__ void __launch_bounds__(W_THREADS, 1)
 flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
-                       const int* __restrict__ q_offset, const int* __restrict__ kv_pos,
+                       const int* __restrict__ q_offset, const int* __restrict__ q_pos_in,
+                       const int* __restrict__ kv_pos,
                        __nv_bfloat16* __restrict__ out, float* __restrict__ acc_out,
                        float* __restrict__ m_out, float* __restrict__ l_out, int H, int Hkv,
                        int Sq, int Skv, int kv_offset, int causal, int window, float scale) {
@@ -739,10 +759,11 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int qt = gridDim.z - 1 - blockIdx.z;
   const int h = blockIdx.x, b = blockIdx.y, hk = h / (H / Hkv);
   const int q0 = qt * W_BM;
-  const int q_off = q_offset[b];
+  const int q_off = QPOS ? 0 : q_offset[b];
   const KeyPos<POS> kp{POS ? kv_pos + static_cast<size_t>(b) * Skv : nullptr, kv_offset};
   int lo, hi;
-  visible_range(q_off + q0, q_off + min(q0 + W_BM, Sq) - 1, Skv, kp, causal, window, lo, hi);
+  visible_range<POS, QPOS>(q_off + q0, q_off + min(q0 + W_BM, Sq) - 1, Skv, kp, causal, window,
+                           lo, hi);
   const int t_begin = lo / BN;
   const int t_end = hi > lo ? (hi + BN - 1) / BN : t_begin;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -807,7 +828,15 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   };
   const int g = lane / 4, c = lane % 4;
   const int row0 = q0 + wg * 64 + wq * 16 + g;               // this thread's rows: row0, row0 + 8
-  const int q_pos[2] = {q_off + row0, q_off + row0 + 8};
+  int q_pos[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if constexpr (QPOS)
+      q_pos[r] = row < Sq ? __ldg(q_pos_in + static_cast<size_t>(b) * Sq + row) : 0;
+    else
+      q_pos[r] = q_off + row;
+  }
   const int wq_first = q0 + wg * 64, wq_last = min(q0 + wg * 64 + 63, Sq - 1);
   constexpr int TD = C::TD;
   float o[TD / 2];
@@ -858,7 +887,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
       if (tid_wg < BN) pos_s[tid_wg] = my_pos;
       named_bar_sync(3 + wg, 128);
     }
-    const bool edge = POS || k0 + BN > Skv ||
+    const bool edge = POS || QPOS || k0 + BN > Skv ||
                       (causal && kv_offset + k0 + BN - 1 > q_off + wq_first) ||
                       (window && q_off + wq_last - (kv_offset + k0) >= window);
     // Off the mask edges with a positive scale, s stays unscaled (the max
@@ -1092,9 +1121,14 @@ cudaError_t set_smem_once(K kernel, int bytes, bool (&done)[MAX_DEVICES]) {
   return cudaSuccess;
 }
 
-struct Args {
+}  // namespace
+
+// One launch's arguments; outside the anonymous namespace, as the launches
+// with query positions take them in the other translation unit.
+struct FlashArgs {
   const void *q, *k, *v;
   const int* q_offset;
+  const int* q_pos;
   const int* kv_pos;
   __nv_bfloat16* out;
   float *acc, *m, *l, *ws;
@@ -1104,27 +1138,29 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int HD, bool POS>
-int launch_split(const Args& a) {
+namespace {
+
+template <int HD, bool POS, bool QPOS>
+int launch_split(const FlashArgs& a) {
   static bool done[MAX_DEVICES];
-  const cudaError_t err = set_smem_once(flash_fwd_kernel_split<HD, POS>, SplitCfg<HD>::SMEM,
-                                        done);
+  const cudaError_t err =
+      set_smem_once(flash_fwd_kernel_split<HD, POS, QPOS>, SplitCfg<HD>::SMEM, done);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = (a.H / a.Hkv) * a.Sq;
   const int n_rt = (rows + S_ROWS - 1) / S_ROWS;
   const dim3 grid(n_rt * a.splits, a.Hkv, a.B);
-  flash_fwd_kernel_split<HD, POS><<<grid, S_THREADS, SplitCfg<HD>::SMEM, a.stream>>>(
+  flash_fwd_kernel_split<HD, POS, QPOS><<<grid, S_THREADS, SplitCfg<HD>::SMEM, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), a.q_offset, a.kv_pos, a.out, a.acc, a.m, a.l, a.ws,
-      a.counters, a.H, a.Hkv, a.Sq, a.Skv, a.kv_offset, a.causal, a.window, a.scale, a.splits);
+      static_cast<const __nv_bfloat16*>(a.v), a.q_offset, a.q_pos, a.kv_pos, a.out, a.acc, a.m,
+      a.l, a.ws, a.counters, a.H, a.Hkv, a.Sq, a.Skv, a.kv_offset, a.causal, a.window, a.scale, a.splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD, bool POS>
-int launch_wgmma(const Args& a) {
+template <int HD, bool POS, bool QPOS>
+int launch_wgmma(const FlashArgs& a) {
   static bool done[MAX_DEVICES];
   constexpr int smem = WgCfg<HD>::SMEM + (POS ? WgCfg<HD>::POS_BYTES : 0);
-  const cudaError_t err = set_smem_once(flash_fwd_kernel_wgmma<HD, POS>, smem, done);
+  const cudaError_t err = set_smem_once(flash_fwd_kernel_wgmma<HD, POS, QPOS>, smem, done);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap q_map, k_map, v_map;
   if (!encode_3d(&q_map, a.q, HD, a.Sq, a.B * a.H, W_BM) ||
@@ -1132,33 +1168,48 @@ int launch_wgmma(const Args& a) {
       !encode_3d(&v_map, a.v, HD, a.Skv, a.B * a.Hkv, WgCfg<HD>::BN))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(a.H, a.B, (a.Sq + W_BM - 1) / W_BM);
-  flash_fwd_kernel_wgmma<HD, POS><<<grid, W_THREADS, smem, a.stream>>>(
-      q_map, k_map, v_map, a.q_offset, a.kv_pos, a.out, a.acc, a.m, a.l, a.H, a.Hkv, a.Sq, a.Skv,
-      a.kv_offset, a.causal, a.window, a.scale);
+  flash_fwd_kernel_wgmma<HD, POS, QPOS><<<grid, W_THREADS, smem, a.stream>>>(
+      q_map, k_map, v_map, a.q_offset, a.q_pos, a.kv_pos, a.out, a.acc, a.m, a.l, a.H, a.Hkv,
+      a.Sq, a.Skv, a.kv_offset, a.causal, a.window, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool POS>
-int launch(const Args& a, int path, int hd) {
+template <bool POS, bool QPOS>
+int launch(const FlashArgs& a, int path, int hd) {
   if (path == 0)
-    return hd == 256 ? launch_split<256, POS>(a)
-           : hd == 128 ? launch_split<128, POS>(a)
-           : hd == 80 ? launch_split<80, POS>(a) : launch_split<64, POS>(a);
-  return hd == 256 ? launch_wgmma<256, POS>(a)
-         : hd == 128 ? launch_wgmma<128, POS>(a)
-         : hd == 80 ? launch_wgmma<80, POS>(a) : launch_wgmma<64, POS>(a);
+    return hd == 256 ? launch_split<256, POS, QPOS>(a)
+           : hd == 128 ? launch_split<128, POS, QPOS>(a)
+           : hd == 80 ? launch_split<80, POS, QPOS>(a) : launch_split<64, POS, QPOS>(a);
+  return hd == 256 ? launch_wgmma<256, POS, QPOS>(a)
+         : hd == 128 ? launch_wgmma<128, POS, QPOS>(a)
+         : hd == 80 ? launch_wgmma<80, POS, QPOS>(a) : launch_wgmma<64, POS, QPOS>(a);
 }
 
 }  // namespace
 
+// The launches with query positions (QPOS) are instantiated in a
+// translation unit of their own, flash_qpos.cu, which includes this file
+// with FLASH_QPOS_UNIT defined: nvcc compiles the two halves of the
+// kernels side by side.
+extern "C" int repro_flash_fwd_bf16_qpos(const FlashArgs* a, int path, int hd, int key_positions);
+
+#ifdef FLASH_QPOS_UNIT
+extern "C" int repro_flash_fwd_bf16_qpos(const FlashArgs* a, int path, int hd,
+                                         int key_positions) {
+  return key_positions ? launch<true, true>(*a, path, hd) : launch<false, true>(*a, path, hd);
+}
+#else
 // path 0: the decode (split) path over `splits` KV splits; with splits > 1
 // `ws` holds their partials and `counters` one zeroed int per (batch row,
 // KV head, 16-row tile). path 1: the prefill (wgmma) path. out != nullptr:
 // normalized bf16 output; otherwise acc/m/l receive the fp32 partial
-// triple. kv_pos: nullptr (key j at kv_offset + j) or (B, Skv) int32 key
+// triple. q_pos: nullptr (query i of row b at q_offset[b] + i) or (B, Sq)
+// int32 query positions (q_offset is then not read and may be nullptr).
+// kv_pos: nullptr (key j at kv_offset + j) or (B, Skv) int32 key
 // positions. One kernel launch per call.
 extern "C" int repro_flash_fwd_bf16(const void* q, const void* k, const void* v,
-                                    const void* q_offset, const void* kv_pos, void* out,
+                                    const void* q_offset, const void* q_pos, const void* kv_pos,
+                                    void* out,
                                     void* acc, void* m,
                                     void* l, void* ws, void* counters, int B, int H, int Hkv,
                                     int Sq, int Skv, int hd, int kv_offset, int causal,
@@ -1169,14 +1220,18 @@ extern "C" int repro_flash_fwd_bf16(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   if (out == nullptr && (acc == nullptr || m == nullptr || l == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (q_offset == nullptr && q_pos == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if ((path != 0 && path != 1) || (path == 1 && (Sq + W_BM - 1) / W_BM > 65535))
     return static_cast<int>(cudaErrorInvalidValue);
   if (path == 0 && (splits < 1 || (splits > 1 && (ws == nullptr || counters == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, static_cast<const int*>(q_offset), static_cast<const int*>(kv_pos),
-               static_cast<__nv_bfloat16*>(out),
-               static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
-               static_cast<float*>(ws), static_cast<int*>(counters), B, H, Hkv, Sq, Skv,
-               kv_offset, causal, window, splits, scale, static_cast<cudaStream_t>(stream)};
-  return kv_pos != nullptr ? launch<true>(a, path, hd) : launch<false>(a, path, hd);
+  const FlashArgs a{q, k, v, static_cast<const int*>(q_offset), static_cast<const int*>(q_pos),
+                    static_cast<const int*>(kv_pos), static_cast<__nv_bfloat16*>(out),
+                    static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
+                    static_cast<float*>(ws), static_cast<int*>(counters), B, H, Hkv, Sq, Skv,
+                    kv_offset, causal, window, splits, scale,
+                    static_cast<cudaStream_t>(stream)};
+  if (q_pos != nullptr) return repro_flash_fwd_bf16_qpos(&a, path, hd, kv_pos != nullptr);
+  return kv_pos != nullptr ? launch<true, false>(a, path, hd) : launch<false, false>(a, path, hd);
 }
+#endif

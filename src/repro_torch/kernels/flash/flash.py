@@ -5,9 +5,11 @@ The contract of the JAX package's Pallas kernel
 ``q_offset`` is a ``(B,)`` int32 tensor, one base position per batch row
 (a uniform vector is exactly the TPU kernel's scalar), so the batched
 decode step can use it; and the keys' positions may be given as a ``(B,
-Skv)`` int32 ``kv_pos`` in place of the run ``kv_offset + j`` (the
-reference's ``blockwise_attention(q, k, v, q_pos, kv_pos)`` contract: a
-sliding-window ring cache's slots wrap). For a CUDA tensor it launches the
+Skv)`` int32 ``kv_pos`` in place of the run ``kv_offset + j``, and the
+queries' as a ``(B, Sq)`` int32 ``q_pos`` in place of ``q_offset[b] + i``
+(the reference's ``blockwise_attention(q, k, v, q_pos, kv_pos)`` contract:
+a sliding-window ring cache's slots wrap; packed rows restart their
+positions; an image's patches share one temporal id). For a CUDA tensor it launches the
 kernel or raises; only a CPU tensor takes the plain version
 (``ref.flash_ref``).
 
@@ -77,8 +79,8 @@ def split_ranges(q_first: int, q_last: int, Skv: int, *, kv_offset: int = 0,
     and row tile, whose queries sit at positions ``q_first..q_last``) that
     has any: the keys the group can see, cut into runs of whole 64-key
     tiles, clipped to the visible range. With ``key_positions`` (a launch
-    given ``kv_pos``) the keys are no contiguous run and every key is in the
-    range. A group that sees no key keeps one empty split (it writes m =
+    given ``kv_pos`` or ``q_pos``) the keys or queries are no contiguous run
+    and every key is in the range. A group that sees no key keeps one empty split (it writes m =
     -1e30, l = 0). The kernel's ``SplitPlan`` computes the same from
     ``q_offset`` on the device."""
     if key_positions:
@@ -110,11 +112,13 @@ def _split_counters(device: torch.device, n: int) -> torch.Tensor:
 
 
 def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              q_offset: torch.Tensor, kv_pos: Optional[torch.Tensor]) -> None:
+              q_offset: Optional[torch.Tensor], q_pos: Optional[torch.Tensor],
+              kv_pos: Optional[torch.Tensor]) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"flash kernel needs CUDA tensors, got {q.device}")
-    named = (("k", k), ("v", v), ("q_offset", q_offset)) + \
-        ((("kv_pos", kv_pos),) if kv_pos is not None else ())
+    named = tuple((name, t) for name, t in (("k", k), ("v", v), ("q_offset", q_offset),
+                                            ("q_pos", q_pos), ("kv_pos", kv_pos))
+                  if t is not None)
     for name, t in named:
         if t.device != q.device:
             raise ValueError(f"flash: q on {q.device}, {name} on {t.device}")
@@ -136,13 +140,11 @@ def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash: empty query or key sequence")
     if max(B, H) > 65535:
         raise ValueError(f"flash: B = {B} and H = {H} must be <= 65535 (grid limits)")
-    if q_offset.dtype != torch.int32 or tuple(q_offset.shape) != (B,):
-        raise ValueError(f"flash: q_offset must be ({B},) int32, got "
-                         f"{tuple(q_offset.shape)} {q_offset.dtype}")
-    if kv_pos is not None and (kv_pos.dtype != torch.int32 or
-                               tuple(kv_pos.shape) != (B, Skv)):
-        raise ValueError(f"flash: kv_pos must be ({B}, {Skv}) int32, got "
-                         f"{tuple(kv_pos.shape)} {kv_pos.dtype}")
+    want = {"q_offset": (B,), "q_pos": (B, Sq), "kv_pos": (B, Skv)}
+    for name, t in named:
+        if name in want and (t.dtype != torch.int32 or tuple(t.shape) != want[name]):
+            raise ValueError(f"flash: {name} must be {want[name]} int32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
     for name, t in (("q", q),) + named:
         if not t.is_contiguous():
             raise ValueError(f"flash: {name} must be contiguous")
@@ -151,14 +153,17 @@ def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    q_offset: torch.Tensor, *, kv_offset: int = 0,
+                    q_offset: Optional[torch.Tensor], *, kv_offset: int = 0,
+                    q_pos: Optional[torch.Tensor] = None,
                     kv_pos: Optional[torch.Tensor] = None,
                     causal: bool = True, window: int = 0,
                     sm_scale: float | None = None, return_partial: bool = False,
                     path: Optional[str] = None, splits: Optional[int] = None):
     """q: (B, H, Sq, hd); k/v: (B, Hkv, Skv, hd); q_offset: (B,) int32;
-    ``kv_pos``: optional (B, Skv) int32 key positions (``kv_offset`` is then
-    unused).
+    ``q_pos``: optional (B, Sq) int32 query positions (``q_offset`` is then
+    unused and may be ``None``); ``kv_pos``: optional (B, Skv) int32 key
+    positions (``kv_offset`` is then unused). A query row that sees no key
+    gives 0, or the partials m = -1e30, l = 0, acc = 0.
 
     Returns the normalized output in ``q.dtype`` (``l`` floored at 1e-30),
     or with ``return_partial`` the fp32 ``(acc, m, l)`` triple, acc
@@ -166,10 +171,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel's plan (see ``plan``; for measurement and tests).
     """
     if q.device.type == "cpu":
-        return flash_ref(q, k, v, q_offset, kv_offset=kv_offset, kv_pos=kv_pos,
+        return flash_ref(q, k, v, q_offset, kv_offset=kv_offset, q_pos=q_pos, kv_pos=kv_pos,
                          causal=causal, window=window, sm_scale=sm_scale,
                          return_partial=return_partial)
-    _validate(q, k, v, q_offset, kv_pos)
+    if q_offset is None and q_pos is None:
+        raise ValueError("flash: give q_offset or q_pos")
+    _validate(q, k, v, None if q_pos is not None else q_offset, q_pos, kv_pos)
     if window < 0:
         raise ValueError(f"flash: window must be >= 0, got {window}")
     B, H, Sq, hd = q.shape
@@ -192,14 +199,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ws_ptr, cnt_ptr = ws.data_ptr(), _split_counters(q.device, groups).data_ptr()
     with torch.cuda.device(q.device):
         rc = load_library().repro_flash_fwd_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offset.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if q_pos is not None else q_offset.data_ptr(),
+            None if q_pos is None else q_pos.data_ptr(),
             None if kv_pos is None else kv_pos.data_ptr(), out_ptr,
             *ptrs, ws_ptr, cnt_ptr, B, H, Hkv, Sq, Skv, hd, int(kv_offset),
             int(bool(causal)), int(window), float(scale), PATHS.index(path), splits,
             torch.cuda.current_stream(q.device).cuda_stream)
     check(rc, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.qpos_launches += q_pos is not None
     return result
 
 
 flash_attention.launches = 0   # kernel launches since the count was last set to 0
+flash_attention.qpos_launches = 0   # of which with q_pos (the QPOS instantiations)

@@ -15,17 +15,20 @@ from repro_torch.models.attn_core import NEG_INF, _pick_block
 
 
 def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              q_offset: torch.Tensor, *, kv_offset: int = 0,
+              q_offset: Optional[torch.Tensor], *, kv_offset: int = 0,
+              q_pos: Optional[torch.Tensor] = None,
               kv_pos: Optional[torch.Tensor] = None, causal: bool = True,
               window: int = 0, sm_scale: float | None = None,
               return_partial: bool = False, block_kv: int = 1024):
     """q: (B, H, Sq, hd); k/v: (B, Hkv, Skv, hd); q_offset: (B,) int —
-    query row i of batch row b sits at ``q_offset[b] + i``, key j at
+    query row i of batch row b sits at ``q_offset[b] + i``, or at
+    ``q_pos[b, i]`` when the (B, Sq) query positions are given; key j at
     ``kv_offset + j``, or at ``kv_pos[b, j]`` when the (B, Skv) key
     positions are given.
 
     Returns the normalized output in ``q.dtype``, or with ``return_partial``
-    the fp32 ``(acc, m, l)`` triple.
+    the fp32 ``(acc, m, l)`` triple; a row that sees no key gives 0, or m =
+    -1e30, l = 0, acc = 0.
     """
     B, H, Sq, hd = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -35,7 +38,9 @@ def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v = v.repeat_interleave(rep, dim=1)
     scale = sm_scale if sm_scale is not None else hd ** -0.5
     dev = q.device
-    q_pos = q_offset.to(dev).long()[:, None] + torch.arange(Sq, device=dev)   # (B, Sq)
+    if q_pos is None:
+        q_pos = q_offset.to(dev).long()[:, None] + torch.arange(Sq, device=dev)
+    q_pos = q_pos.to(dev).long()                                             # (B, Sq)
     if kv_pos is None:
         kv_pos = (kv_offset + torch.arange(Skv, device=dev)).expand(B, Skv)
     kv_pos = kv_pos.to(dev).long()                                           # (B, Skv)

@@ -97,7 +97,8 @@ def main() -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, materialize_batch
+    from repro_torch.data.pipeline import (DataConfig, SyntheticTokens, mark_runs,
+                                           materialize_batch)
     from repro_torch.device import resolve_device
     from repro_torch.launch.train import PEAK_BF16_FLOPS, step_flops, train_config
     from repro_torch.models.transformer import init_lm
@@ -117,7 +118,7 @@ def main() -> None:
     def run():
         nonlocal params, opt
         batch = {k: torch.from_numpy(v).to(device)
-                 for k, v in materialize_batch(cfg, next(data)).items()}
+                 for k, v in mark_runs(materialize_batch(cfg, next(data))).items()}
         params, opt, m = step(params, opt, batch)
         return m
 

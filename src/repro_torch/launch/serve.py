@@ -12,6 +12,8 @@
         --shape long_500k --attn 1 2 2 --pods 2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --layers 12
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m --reduced --device cpu \
+        --attn 2 1 2
 
 The first two serve a full-width model cut to 4 layers on the CUDA card (the
 port's serving slice); the third a smoke-sized model on the CPU; the last
@@ -25,7 +27,8 @@ that row (a ring of ``min(window, s_max)`` cache slots a request);
 ``--pods 2`` runs the fold on two pods with ``pod_role="cp"`` (the pods
 extend CP, as ``launch.mappings.pcfg_for`` maps the ``long_500k`` rows at
 ``multi_pod``). The recurrent architectures (``xlstm-125m``,
-``zamba2-2.7b``) serve at one device; Zamba2 from a dense cache, as the
+``zamba2-2.7b``) serve at one device or at a fold (their layers on whole
+leaves, a slot's state on its DP rank); Zamba2 from a dense cache, as the
 reference launcher serves it (its shared block's cache is per cycle
 repeat, which the paged engine does not take).
 ``--reduced`` runs the reference launcher's ``--reduced`` workload: 4 slots, 64 slots of

@@ -216,7 +216,8 @@ def main() -> None:
 
     import torch
 
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, materialize_batch
+    from repro_torch.data.pipeline import (DataConfig, SyntheticTokens, mark_runs,
+                                           materialize_batch)
     from repro_torch.device import resolve_device
     from repro_torch.models.transformer import init_lm
     from repro_torch.optim.adamw import AdamWConfig
@@ -238,7 +239,7 @@ def main() -> None:
           f"{flops / 1e12:.2f} model TFLOP a step")
     for i, nb in zip(range(args.steps), data):
         batch = {k: torch.from_numpy(v).to(device)
-                 for k, v in materialize_batch(cfg, nb).items()}
+                 for k, v in mark_runs(materialize_batch(cfg, nb)).items()}
         if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -378,8 +379,8 @@ def _checkpointed_loop(spec, cfg, opt_cfg, groups, dev, out, on_restore) -> None
     """:func:`resilient_run` without ``supervise``."""
     import torch
     from repro_torch.checkpoint import store
-    from repro_torch.data.pipeline import (DataConfig, SyntheticTokens, materialize_batch,
-                                           shard_batch)
+    from repro_torch.data.pipeline import (DataConfig, SyntheticTokens, mark_runs,
+                                           materialize_batch, shard_batch)
     from repro_torch.resilience.driver import init_params
     from repro_torch.train import loop
     ckpt, every, keep = spec["ckpt_dir"], max(spec["ckpt_every"], 1), spec["keep"]
@@ -414,7 +415,7 @@ def _checkpointed_loop(spec, cfg, opt_cfg, groups, dev, out, on_restore) -> None
                               bytes=p.bytes, **p.timings))
 
     for i in range(start, spec["steps"]):
-        nb = materialize_batch(cfg, next(data))
+        nb = mark_runs(materialize_batch(cfg, next(data)))
         if groups is not None:
             nb = shard_batch(nb, groups, microbatch=micro)
         t0 = time.perf_counter()

@@ -548,14 +548,19 @@ def fold_config(cfg, ep: int):
 
 
 def _launches() -> Dict[str, int]:
+    """The launches by kernel mode; flash's with ``q_pos`` under a key of
+    their own, present only where there were some."""
     from repro_torch.kernels.flash.flash import flash_attention
-    return dict(_counters(), flash_attention=flash_attention.launches)
+    out = dict(_counters(), flash_attention=flash_attention.launches)
+    if flash_attention.qpos_launches:
+        out["flash_attention_qpos"] = flash_attention.qpos_launches
+    return out
 
 
 def _zero_launches() -> None:
     from repro_torch.kernels.flash.flash import flash_attention
     _zero_counters()
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention.qpos_launches = 0
 
 
 def _host_ranges(prof) -> Dict[str, float]:
@@ -1006,7 +1011,10 @@ def _serve_run(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, Any]:
     if dev.type == "cuda":
         out["peak_init_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         torch.cuda.reset_peak_memory_stats(dev)
-    eng = Engine(cfg, params, EngineConfig(**spec["engine"]), groups=fg)
+    engine = dict(spec["engine"])
+    if cfg.shared_attention_every:      # Zamba2: its shared block's cache is per repeat
+        engine["cache"] = "dense"
+    eng = Engine(cfg, params, EngineConfig(**engine), groups=fg)
     out["cache_bytes"] = pool_bytes(eng.state)
     rids = submit_random(eng, cfg, spec["prompt_lens"], spec["new_tokens"], seed=spec["seed"])
     _sync(dev)
@@ -1052,7 +1060,8 @@ def serve_world(*runs: Dict[str, Any], device: str = "cuda",
     that extend CP, ``pod_role="cp"``), ``engine`` (EngineConfig fields;
     default the launcher's ``ENGINE``), ``prompt_lens`` (default
     ``PROMPT_LENS``), ``new_tokens`` (16), ``seed`` (0), ``keep_logits`` and
-    ``profile``. Each rank builds the full model from ``seed`` in its turn
+    ``profile``. A model with a shared block (Zamba2) serves from the dense
+    cache, as the one-device launcher serves it. Each rank builds the full model from ``seed`` in its turn
     (one rank at a time), keeps its compute slices and frees the rest, then
     every rank serves the same random prompts (``launch.serve.submit_random``)
     to the end. Per run, each rank's record in rank order: its coordinates,

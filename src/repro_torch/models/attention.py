@@ -18,7 +18,7 @@ backward in ``attn_core``).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -72,20 +72,30 @@ def _apply_positional(x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig) -> t
     return x
 
 
-def check_temporal_run(pos: torch.Tensor) -> None:
-    """Training masks by the temporal stream ``pos[..., 0]`` of M-RoPE
-    positions (B, S, 3); the flash kernel takes a run of positions per
-    launch, so each row's temporal stream must be ``offset + arange(S)``
-    (any offset per row: the mask reads only differences). The height and
-    width streams may be anything. Synchronises with the device."""
-    t = pos[..., 0]
-    run = t[:, :1] + torch.arange(t.shape[1], dtype=t.dtype, device=t.device)
-    if not torch.equal(t, run):
-        raise NotImplementedError(
-            "M-RoPE positions whose temporal stream is not offset + arange(S) on each row "
-            "(an image's patches that share one temporal id) are not ported: the flash "
-            "kernel takes key runs (ROADMAP.md queue 1, 'Temporal positions that are not "
-            "a run')")
+def mask_positions(pos: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The positions the mask reads: M-RoPE's temporal stream ``pos[..., 0]``
+    of (B, S, 3) streams (``repro.models.attention``: "the temporal stream
+    for M-RoPE, the ids otherwise"), the (B, S) ids as they are."""
+    if pos is None or pos.dim() == 2:
+        return pos
+    return pos[..., 0]
+
+
+class RunPositions(NamedTuple):
+    """Positions whose mask stream is a run on every row, as the host found
+    them (``data.pipeline.mark_runs``): the layers rotate at ``pos`` and
+    mask as the default layout does, at scalar offsets."""
+    pos: torch.Tensor
+
+
+def split_positions(pos: Union[None, torch.Tensor, RunPositions]
+                    ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(rotary positions, mask positions) of the layers' ``pos``: ``None``
+    for both by default, a tensor's own mask stream, none for
+    :class:`RunPositions`."""
+    if isinstance(pos, RunPositions):
+        return pos.pos, None
+    return pos, mask_positions(pos)
 
 
 def _project_qkv(p: AttentionParams, x: torch.Tensor, x_kv: torch.Tensor,
@@ -109,50 +119,55 @@ def _project_qkv(p: AttentionParams, x: torch.Tensor, x_kv: torch.Tensor,
     return _apply_positional(q, pos, cfg), _apply_positional(k, kv_pos, cfg), v
 
 
-def attention(p: AttentionParams, x: torch.Tensor, pos: Optional[torch.Tensor],
+def attention(p: AttentionParams, x: torch.Tensor,
+              pos: Union[None, torch.Tensor, RunPositions],
               cfg: ModelConfig, *, causal: bool = True, window: int = 0,
               block_kv: int = 1024, groups: Optional[FoldedGroups] = None,
               cross_x: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self- or cross-attention over whole sequences: x (B, S, D) → (B, S, D).
 
-    ``pos`` are the tokens' RoPE positions: (B, S) ids, which must be the
-    default ``arange(S)`` on every row (``transformer.lm_positions``), or
-    for M-RoPE (B, S, 3) streams whose temporal stream is a run on each row
-    (:func:`check_temporal_run`, which the caller makes): the mask is the
-    flash kernel's at offset 0 (``attn_core.blockwise_attention``).
-    ``causal=False`` is the encoder's. ``cross_x`` (B, T, D): the keys and
-    values come from it (the encoder's output, whole), not causal, with no
-    ring, as the reference runs cross-attention; the keys sit at positions
-    ``arange(T)``.
+    ``pos`` are the tokens' positions: ``None`` for the default ``arange(S)``
+    on every row (the flash kernel at offset 0, no position tensor), or any
+    (B, S) ids, or for M-RoPE (B, S, 3) streams, as the reference's
+    ``attention`` takes them: RoPE at them, and the mask by them
+    (:func:`mask_positions`: M-RoPE's temporal stream), so packed rows whose
+    positions restart, per-row offsets and an image's patches that share one
+    temporal id attend as the reference's do; :class:`RunPositions` rotate
+    and mask at the layout's offsets. ``causal=False`` is the
+    encoder's. ``cross_x`` (B, T, D): the keys and values come from it (the
+    encoder's output, whole), not causal, with no ring, as the reference
+    runs cross-attention; the keys sit at positions ``arange(T)``.
 
     With ``groups``, ``x`` is this rank's sequence-parallel rows (B, S /
-    (cp·tp), D), ``p`` its TP slice (``models.sharding``), ``pos`` must be
-    ``None`` (the positions are the default ones, placed by the layout) or
-    for M-RoPE the rank's CP chunk of the streams (B, S / cp, 3), and the
+    (cp·tp), D), ``p`` its TP slice (``models.sharding``), ``pos`` ``None``
+    (the positions are the default ones, placed by the layout) or the
+    rank's CP chunk of the positions (B, S / cp) or (B, S / cp, 3), and the
     result is in the same layout: see :func:`_folded_attention`.
     """
     window = window or cfg.sliding_window
     if cross_x is not None:
         causal = False
     if groups is not None:
-        if pos is not None and pos.dim() != 3:
-            raise ValueError("attention(groups=...): positions come from the layout; "
-                             "pass pos=None (or the M-RoPE streams of the rank's chunk)")
         return _folded_attention(p, x, cfg, groups, causal=causal, window=window,
-                                 block_kv=block_kv, pos3=pos, cross_x=cross_x)
+                                 block_kv=block_kv, pos=pos, cross_x=cross_x)
     x_kv = x if cross_x is None else cross_x
+    pos, mask = split_positions(pos)
+    if cross_x is not None:
+        mask = None
+    if pos is None:
+        pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[0], -1)
     kv_pos = pos
     if cross_x is not None:
         kv_pos = torch.arange(x_kv.shape[1], device=x.device).expand(x.shape[0], -1)
     q, k, v = _project_qkv(p, x, x_kv, pos, kv_pos, cfg)
     out = blockwise_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                              causal=causal, window=window, block_kv=block_kv)
+                              mask, mask, causal=causal, window=window, block_kv=block_kv)
     return _attn_output(out, p, cfg)
 
 
 def _folded_attention(p: AttentionParams, x: torch.Tensor, cfg: ModelConfig,
                       groups: FoldedGroups, *, causal: bool, window: int,
-                      block_kv: int, pos3: Optional[torch.Tensor] = None,
+                      block_kv: int, pos: Union[None, torch.Tensor, RunPositions] = None,
                       cross_x: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention across the TP and CP ranks of ``groups`` (the reference's
     all-gather path and ``_ring_self_attention``).
@@ -160,13 +175,16 @@ def _folded_attention(p: AttentionParams, x: torch.Tensor, cfg: ModelConfig,
     1. SP all-gather over TP: the rank's CP chunk of the sequence, in
        natural order (chunk ``cp_index`` of cp).
     2. ``"ring"`` (cp > 1, self-attention): the chunk goes to the zigzag
-       layout over CP (chunks i and 2·cp − 1 − i of 2·cp), and the M-RoPE
-       streams ``pos3`` with it.
+       layout over CP (chunks i and 2·cp − 1 − i of 2·cp), and the given
+       positions ``pos`` (the chunk's) with it.
     3. Column-parallel ``wq/wk/wv`` (+ biases) over this rank's heads, RoPE
-       at the tokens' positions (M-RoPE at ``pos3``'s streams).
+       at the tokens' positions (``pos``, or the layout's).
     4. ``"allgather"``: K/V all-gathered over CP, one flash launch with the
-       queries at the chunk's offset. ``"ring"``: :func:`ring_attention`,
-       then the output back to natural order — the zigzag order lives only
+       queries at the chunk's offset, or with given positions (not
+       :class:`RunPositions`) the mask's (:func:`mask_positions`) gathered
+       over CP with the K/V.
+       ``"ring"``: :func:`ring_attention` (given positions travel the ring
+       with the K/V), then the output back to natural order — the zigzag order lives only
        inside attention, so the MoE router sees the same tokens per shard.
        Cross-attention (``cross_x``, the encoder's whole output): K/V
        projected from it at the rank's heads, one flash launch, not causal
@@ -187,17 +205,22 @@ def _folded_attention(p: AttentionParams, x: torch.Tensor, cfg: ModelConfig,
     S = S_cp * cp
     dev = x.device
     ring = cp > 1 and groups.pcfg.cp_mode == "ring" and cross_x is None
+    pos, mask = split_positions(pos)
+    given, masked = pos is not None, mask is not None and cross_x is None
     xg = comm.sp_gather(x, tp_ax.group)                   # (B, S/cp, D)
     if ring:
         runs = zigzag_runs(S, cp)
         xg = comm.to_zigzag(xg, cp_ax, dim=1)
-        half = torch.arange(S_cp // 2, dtype=torch.int32, device=dev)
-        pos = torch.cat([half + o for o in runs[cp_ax.index]])
-        if pos3 is not None:
-            pos3 = comm.to_zigzag(pos3, cp_ax, dim=1)
-    else:
+        if given:
+            pos = comm.to_zigzag(pos, cp_ax, dim=1)
+        else:
+            half = torch.arange(S_cp // 2, dtype=torch.int32, device=dev)
+            pos = torch.cat([half + o for o in runs[cp_ax.index]])
+    elif not given:
         pos = cp_ax.index * S_cp + torch.arange(S_cp, dtype=torch.int32, device=dev)
-    pos = pos.expand(B, S_cp) if pos3 is None else pos3
+    if not given:
+        pos = pos.expand(B, S_cp)
+    mask = mask_positions(pos) if masked else None
     if cross_x is not None:
         T = cross_x.shape[1]
         q, k, v = _project_qkv(p, xg, cross_x, pos,
@@ -207,7 +230,7 @@ def _folded_attention(p: AttentionParams, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)   # (B, heads, S/cp, hd)
     if ring:
         out = ring_attention(q, k, v, runs, ring=cp_ax, index=cp_ax.index, causal=causal,
-                             window=window, block_kv=block_kv)
+                             window=window, block_kv=block_kv, pos=mask)
         out = comm.from_zigzag(out.transpose(1, 2).reshape(B, S_cp, -1), cp_ax, dim=1)
     elif cross_x is not None:
         out = blockwise_attention(q, k, v, causal=False, window=window, block_kv=block_kv)
@@ -215,8 +238,13 @@ def _folded_attention(p: AttentionParams, x: torch.Tensor, cfg: ModelConfig,
     else:
         k = comm.all_gather(k, cp_ax.group, 2)            # (B, Hkv/tp, S, hd)
         v = comm.all_gather(v, cp_ax.group, 2)
-        out = blockwise_attention(q, k, v, causal=causal, window=window, block_kv=block_kv,
-                                  q_offset=cp_ax.index * S_cp, kv_offset=0)
+        if mask is None:
+            out = blockwise_attention(q, k, v, causal=causal, window=window,
+                                      block_kv=block_kv, q_offset=cp_ax.index * S_cp,
+                                      kv_offset=0)
+        else:
+            out = blockwise_attention(q, k, v, mask, comm.all_gather(mask, cp_ax.group, 1),
+                                      causal=causal, window=window, block_kv=block_kv)
         out = out.transpose(1, 2).reshape(B, S_cp, -1)
     return comm.sp_scatter(out @ p.wo.to(out.dtype), tp_ax.group)
 
@@ -238,7 +266,7 @@ def check_decode_heads(cfg: ModelConfig, groups: Optional[FoldedGroups]) -> None
     if cfg.n_heads % tp or cfg.n_kv_heads % tp:
         raise NotImplementedError(
             f"decode at attention TP {tp} over {cfg.n_heads} query / {cfg.n_kv_heads} KV "
-            "heads: K/V replicated over TP is not ported (ROADMAP.md queue 1 item 2, "
+            "heads: K/V replicated over TP is not ported (ROADMAP.md queue 1, "
             "'K/V replicated over TP when n_kv_heads % tp')")
 
 

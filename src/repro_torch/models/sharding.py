@@ -205,14 +205,18 @@ def gather_for_compute(name: str, t: torch.Tensor, groups: Optional[FoldedGroups
     return comm.all_gather(t, dp.group, sym.index("fsdp"))
 
 
-def gather_whole(name: str, t: torch.Tensor, groups: Optional[FoldedGroups]) -> torch.Tensor:
-    """The whole leaf from its store slice ``t``: :func:`gather_for_compute`'s
-    FSDP gather, then an all-gather over the attention TP ranks along its
-    ``tp`` dim. A recurrent block computes on whole leaves, because the
-    reference's TP cut of ``w_in`` runs across its concatenated z | x | B |
-    C | dt columns, not along heads; each gather's backward reduce-scatters,
-    so the gradient of the rank's slice arrives summed over TP (and DP)."""
-    t = gather_for_compute(name, t, groups)
+def gather_whole(name: str, t: torch.Tensor, groups: Optional[FoldedGroups],
+                 kind: str = "store") -> torch.Tensor:
+    """The whole leaf from its ``kind`` slice ``t`` (``store``, or the
+    ``compute`` slice that serving holds): :func:`gather_for_compute`'s
+    FSDP gather (store slices only), then an all-gather over the attention
+    TP ranks along its ``tp`` dim. A recurrent block computes on whole
+    leaves, because the reference's TP cut of ``w_in`` runs across its
+    concatenated z | x | B | C | dt columns, not along heads; each gather's
+    backward reduce-scatters, so the gradient of the rank's slice arrives
+    summed over TP (and DP)."""
+    if kind == "store":
+        t = gather_for_compute(name, t, groups)
     if groups is None or groups.tp == 1:
         return t
     sym = _symbols(name, t.dim())

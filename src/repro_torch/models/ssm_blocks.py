@@ -29,6 +29,7 @@ stage as for the other leaves.
 """
 from __future__ import annotations
 
+import copy
 import math
 import types
 from typing import Dict, Optional, Tuple
@@ -356,6 +357,17 @@ def whole_leaves(p: nn.Module, groups: Optional[FoldedGroups]):
                                     for k, t in p._parameters.items()})
 
 
+def whole_block(p: nn.Module, groups: FoldedGroups) -> nn.Module:
+    """A copy of the block whose leaves are gathered whole from its compute
+    slices, as :func:`decode_block` takes them at a fold: serving gathers
+    them once (``transformer.whole_recurrent``), not at every step."""
+    new = copy.copy(p)
+    new._parameters = {k: nn.Parameter(gather_whole(k, t.detach(), groups, "compute"),
+                                       requires_grad=False)
+                       for k, t in p._parameters.items()}
+    return new
+
+
 def apply_block(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
                 groups: Optional[FoldedGroups] = None) -> torch.Tensor:
     """One recurrent block over whole sequences: x (B, S, D) (at a fold the
@@ -403,7 +415,15 @@ def decode_block(p: nn.Module, x: torch.Tensor, state: Dict[str, torch.Tensor],
                  cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """A decode step or prefill chunk x (B, C, D) from ``state`` → (x +
     block(norm(x)), the new state): the scans run from the carried state,
-    with one C-long chunk (the reference's ``chunk=x.shape[1]``)."""
+    with one C-long chunk (the reference's ``chunk=x.shape[1]``). ``p``
+    holds whole leaves, at a fold too (:func:`whole_block`), and the rows
+    are those the rank computes, which are whole on every rank: no
+    sequence gather. A leaf that is a rank's slice raises."""
+    for k, shape in leaf_shapes(p.kind, cfg).items():
+        if tuple(getattr(p, k).shape) != shape:
+            raise ValueError(f"decode_block: {p.kind} leaf {k} {tuple(getattr(p, k).shape)} is "
+                             f"not whole {shape}: at a fold decode on "
+                             "transformer.whole_recurrent(params, groups)")
     h = norm_apply(cfg.norm, x, p.norm1)
     if p.kind == "mamba2":
         y, tail, hf = mamba2_core(p, h, cfg, conv_state=state["conv"], h0=state["h"],

@@ -20,6 +20,7 @@ the vocabulary over TP.
 """
 from __future__ import annotations
 
+import copy
 import math
 import types
 from typing import Dict, List, Optional, Tuple, Union
@@ -33,12 +34,14 @@ from repro_torch.core import comm
 from repro_torch.core.folding import FoldedGroups, check_sp_moe_handoff
 from repro_torch.core.moe_layer import MoEParams, init_moe, moe_block, moe_block_decode
 from repro_torch.core.router import _top_k, deterministic_top_k
+from repro_torch.data.pipeline import RUN_POSITIONS
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (AttentionParams, _positions_for, attention,
                                           attention_decode, attention_decode_cross,
                                           attention_decode_paged,
-                                          check_decode_heads, check_temporal_run,
-                                          init_attention, ring_kv_positions)
+                                          RunPositions, check_decode_heads,
+                                          init_attention, mask_positions,
+                                          ring_kv_positions, split_positions)
 from repro_torch.models.common import (norm_apply, softmax_cross_entropy,
                                        vocab_parallel_cross_entropy)
 from repro_torch.models import ssm_blocks
@@ -559,7 +562,9 @@ def _decode_recurrent(p: nn.Module, x: torch.Tensor, state: Dict[str, torch.Tens
                       groups: Optional[FoldedGroups] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One recurrent layer (``models.ssm_blocks``) from its per-row state,
-    written in place; rows whose ``ctx["token_mask"]`` is 0 keep theirs."""
+    written in place; rows whose ``ctx["token_mask"]`` is 0 keep theirs. At
+    a fold on whole leaves (:func:`whole_recurrent`), on the rows the rank
+    computes (:func:`decode_rows`), whose state it holds."""
     x, new = ssm_blocks.decode_block(p, x, state, cfg)
     ssm_blocks.write_state(state, new, ctx.get("token_mask"))
     return x, state
@@ -574,15 +579,6 @@ def _decode_recurrent_paged(p: nn.Module, x: torch.Tensor, state: Dict[str, torc
     return _decode_recurrent(p, x, state, step, cfg, ctx, groups) + (None,)
 
 
-def check_decode_supported(cfg: ModelConfig, groups: Optional[FoldedGroups]) -> None:
-    """Decoding the recurrent kinds runs at one rank: serving them across
-    ranks is not ported."""
-    if groups is not None and set(model_cycle(cfg)[0]) & set(ssm_blocks.KINDS):
-        raise NotImplementedError(
-            f"{cfg.name}: decoding the recurrent block kinds across ranks is not ported "
-            "(ROADMAP.md queue 1, 'Serving the recurrent kinds across ranks')")
-
-
 def init_decode_state(cfg: ModelConfig, B: int, s_max: int, *, dtype=torch.bfloat16,
                       device: DeviceLike = None, groups: Optional[FoldedGroups] = None
                       ) -> Dict:
@@ -594,9 +590,12 @@ def init_decode_state(cfg: ModelConfig, B: int, s_max: int, *, dtype=torch.bfloa
     block, ``"shared"``: its K/V once per cycle repeat. With ``groups``,
     this rank's piece of the reference's ``(dp, tp, cp)`` layout: its rows
     of B when DP divides B (else all), its TP heads and its ``s_max / cp``
-    slots."""
+    slots. A recurrent layer's state holds the same rows, whole: the
+    reference's ``state_shardings`` also cut its heads or channels over TP,
+    a layout, not a result; here every TP and CP rank of a DP rank keeps
+    the whole state of its rows, as a recurrent block decodes on whole
+    leaves (``ssm_blocks.decode_block``)."""
     check_supported(cfg)
-    check_decode_supported(cfg, groups)
     _, b = decode_rows(B, groups)
     tp, cp = (1, 1) if groups is None else (groups.tp, groups.cp)
     check_decode_heads(cfg, groups)
@@ -628,6 +627,22 @@ def _as_positions(base, B: int, device) -> torch.Tensor:
     return base.expand(B) if base.dim() == 0 else base
 
 
+def whole_recurrent(params: LMParams, groups: Optional[FoldedGroups]) -> LMParams:
+    """A copy of the compute slices ``params`` whose recurrent layers hold
+    their leaves whole (``ssm_blocks.whole_block``), as decoding takes them
+    at a fold; ``params`` itself at one rank or without recurrent layers.
+    The leaves are gathered here, once, where each decode step would gather
+    them again."""
+    if groups is None or not any(layer.kind in ssm_blocks.KINDS for layer in params.layers):
+        return params
+    layers = {int(i): ssm_blocks.whole_block(layer, groups)
+              if layer.kind in ssm_blocks.KINDS else layer
+              for i, layer in params.layers._modules.items()}
+    new = copy.copy(params)
+    new._modules = dict(params._modules, layers=LayerStack(layers))
+    return new
+
+
 def decode_step(params: LMParams, state: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                 positions=None, token_mask: Optional[torch.Tensor] = None,
                 groups: Optional[FoldedGroups] = None, last_only: bool = False
@@ -644,11 +659,11 @@ def decode_step(params: LMParams, state: Dict, tokens: torch.Tensor, cfg: ModelC
     (``state["shared"]``). The caches and states are written in place;
     returns ``(logits (B, C', V), state)`` with ``state["step"]`` advanced
     by C. With ``groups``: ``params`` are the
-    rank's compute slices, ``state`` its piece (:func:`init_decode_state`),
+    rank's compute slices, a recurrent layer's leaves gathered whole
+    (:func:`whole_recurrent`), ``state`` its piece (:func:`init_decode_state`),
     ``tokens`` and ``positions`` the global batch; every rank gets the whole
     batch's logits."""
     check_supported(cfg)
-    check_decode_supported(cfg, groups)
     B, C = tokens.shape
     base = _as_positions(state["step"] if positions is None else positions, B, tokens.device)
     lo, b = decode_rows(B, groups)
@@ -689,7 +704,6 @@ def paged_forward(params: LMParams, state: List[Dict[str, torch.Tensor]],
     the reference does)."""
     if params.shared is not None:
         raise ValueError("paged_forward: the shared block's cache is per repeat, not paged")
-    check_decode_supported(cfg, groups)
     B, C = tokens.shape
     lo, b = decode_rows(B, groups)
     x = decode_embed(params, tokens[lo:lo + b], cfg, groups,
@@ -871,26 +885,6 @@ def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def lm_positions(batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
-    """Token positions of a batch: the default ``arange`` (B, S), or for
-    M-RoPE the batch's own (B, S, 3) streams (``data.pipeline.
-    materialize_batch``), whose temporal stream must be a run on each row
-    (``attention.check_temporal_run``). Any other explicit ``positions``
-    raise: the train path's attention takes runs (flash offsets)."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    pos = batch.get("positions")
-    if pos is not None:
-        if cfg.rope_kind != "mrope" or pos.dim() != 3:
-            raise NotImplementedError(
-                "apply_lm: batch['positions'] is ported for M-RoPE's (B, S, 3) streams "
-                "only; other explicit positions (packed sequences) are not, only the "
-                "default arange(S) (ROADMAP.md queue 1, 'Attention, rest')")
-        check_temporal_run(pos)
-        return pos
-    return torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-
-
 def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
@@ -909,6 +903,39 @@ def _sp_rows(groups: FoldedGroups, S_cp: int) -> Tuple[int, int]:
     tp = groups.attn["tp"]
     n = S_cp // tp.size
     return groups.attn["cp"].index * S_cp + tp.index * n, n
+
+
+def decoder_positions(batch: Dict[str, torch.Tensor]
+                      ) -> Union[None, torch.Tensor, RunPositions]:
+    """The positions the layers take from a batch, as the reference's
+    ``lm_positions`` takes any: ``batch["positions"]``, (B, S) ids or
+    M-RoPE's (B, S, 3) streams, which the mask reads too; the
+    ``data.pipeline.RUN_POSITIONS`` entry that ``mark_runs`` made of runs,
+    as :class:`RunPositions` (the mask at the layout's offsets); or
+    ``None``, the default ``arange(S)`` at scalar offsets. No position
+    tensor is built and nothing is read on the host."""
+    pos = batch.get("positions")
+    if pos is not None:
+        return pos
+    run = batch.get(RUN_POSITIONS)
+    return None if run is None else RunPositions(run)
+
+
+def _row_positions(pos: Union[None, torch.Tensor, RunPositions], B: int, S: int,
+                   groups: Optional[FoldedGroups], device) -> torch.Tensor:
+    """The positions (B, n) of the rows this rank embeds, from the layers'
+    positions ``pos`` (:func:`decoder_positions`; M-RoPE's temporal stream,
+    as the reference's sinusoid takes it) of a sequence whose rank's chunk
+    is ``S`` long: all S at one rank, its sequence-parallel rows at a fold."""
+    if groups is None:
+        lo, n = 0, S
+    else:
+        lo, n = _sp_rows(groups, S)
+    pos = split_positions(pos)[0]
+    if pos is None:
+        return (lo + torch.arange(n, device=device)).expand(B, n)
+    off = 0 if groups is None else lo - groups.attn["cp"].index * S
+    return mask_positions(pos)[:, off:off + n]
 
 
 def lm_embed(params: LMParams, batch: Dict[str, torch.Tensor], pos: Optional[torch.Tensor],
@@ -931,7 +958,6 @@ def lm_embed(params: LMParams, batch: Dict[str, torch.Tensor], pos: Optional[tor
     dt = _compute_dtype(cfg)
     if groups is None:
         x, lo = params.embed[tokens].to(dt), 0
-        rows_pos = pos if pos is None or pos.dim() == 2 else pos[..., 0]
     else:
         embed = gather_for_compute("embed", params.embed, groups)
         lo, n = _sp_rows(groups, tokens.shape[1])
@@ -943,7 +969,9 @@ def lm_embed(params: LMParams, batch: Dict[str, torch.Tensor], pos: Optional[tor
             x = comm.sp_scatter(x.to(dt), groups.attn["tp"].group)
         else:
             x = embed[tokens[:, off:off + n]].to(dt)
-        rows_pos = lo + torch.arange(n, device=x.device).expand(x.shape[0], n)
+    rows_pos = None
+    if cfg.rope_kind == "none" and not cfg.is_encoder_decoder:
+        rows_pos = _row_positions(pos, *tokens.shape, groups, x.device)
     x = _embed_extras(x, rows_pos, cfg)
     if cfg.n_vision_tokens and "vision_embeds" in batch:
         n_vis = min(batch["vision_embeds"].shape[1], lo + x.shape[1]) - lo
@@ -1002,20 +1030,17 @@ def _encode(params: LMParams, batch: Dict[str, torch.Tensor], cfg: ModelConfig, 
     backward reduce-scatters each rank's share of its gradient."""
     dt = _compute_dtype(cfg)
     ae = batch["audio_embeds"].to(dt)
-    B, T, _ = ae.shape
+    T = ae.shape[1]
     epos = torch.arange(T, device=ae.device)
     xe = ae + _sinusoid(epos, cfg.d_model).to(dt)
-    pos = None
-    if groups is None:
-        pos = epos.expand(B, T)
-    else:
+    if groups is not None:
         cp = groups.attn["cp"]
         if T % (cp.size * groups.tp):
             raise ValueError(f"{T} encoder frames do not split over cp·tp = "
                              f"{cp.size * groups.tp}")
         lo, n = _sp_rows(groups, T // cp.size)
         xe = xe[:, lo:lo + n]
-    xe, _ = _run_stack(params.encoder.layers, xe, pos, cfg, remat=remat, groups=groups,
+    xe, _ = _run_stack(params.encoder.layers, xe, None, cfg, remat=remat, groups=groups,
                        causal=False)
     xe = norm_apply(cfg.norm, xe, params.encoder.final_norm)
     if groups is not None:
@@ -1024,27 +1049,17 @@ def _encode(params: LMParams, batch: Dict[str, torch.Tensor], cfg: ModelConfig, 
     return xe
 
 
-def decoder_positions(batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-                      groups: Optional[FoldedGroups]) -> Optional[torch.Tensor]:
-    """The positions the layers take: :func:`lm_positions` at one rank; at
-    a fold ``None`` (the layout gives them), or M-RoPE's streams of the
-    rank's CP chunk, whose temporal stream ``data.pipeline.shard_batch``
-    has checked to be a run over the whole sequence."""
-    if groups is None:
-        return lm_positions(batch, cfg)
-    pos = batch.get("positions")
-    if pos is not None and (cfg.rope_kind != "mrope" or pos.dim() != 3):
-        lm_positions(batch, cfg)            # raises
-    return pos
-
-
 def apply_lm(params: LMParams, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
              remat: bool = True, groups: Optional[FoldedGroups] = None
              ) -> Tuple[torch.Tensor, AuxDict]:
     """Forward pass → (logits, aux), aux averaged over the MoE layers.
 
     ``batch``: ``tokens`` (B, S) integer tokens on the parameters' device;
-    for M-RoPE optionally ``positions`` (B, S, 3); for a VLM optionally
+    optionally ``positions``, (B, S) ids (packed rows that restart them,
+    per-row offsets) or for M-RoPE (B, S, 3) streams (an image's patches
+    that share one temporal id), or as ``run_positions`` those that
+    ``data.pipeline.mark_runs`` found to be runs (:func:`decoder_positions`),
+    default ``arange(S)``; for a VLM optionally
     ``vision_embeds`` (B, n_vision, D); for an encoder–decoder
     ``audio_embeds`` (B, T, D). With ``groups``: ``params`` are this rank's
     store slices (``models.sharding.shard_lm_params``), ``batch`` its share
@@ -1058,18 +1073,14 @@ def apply_lm(params: LMParams, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     if pipelined(groups):
         raise ValueError("apply_lm runs the whole model: at pp > 1 a rank holds one stage, "
                          "which core.pipeline.make_pipeline_grads runs")
-    pos = decoder_positions(batch, cfg, groups)
+    pos = decoder_positions(batch)
     if groups is not None and "moe" in cfg.blocks():
         check_sp_moe_handoff(groups)
     x = lm_embed(params, batch, pos, cfg, groups)
     enc = None
     if cfg.is_encoder_decoder:
         enc = _encode(params, batch, cfg, remat=remat, groups=groups)
-        if groups is None:
-            rows = pos
-        else:
-            lo, n = _sp_rows(groups, batch["tokens"].shape[1])
-            rows = lo + torch.arange(n, device=x.device)
+        rows = _row_positions(pos, *batch["tokens"].shape, groups, x.device)
         x = x + _sinusoid(rows, cfg.d_model).to(x.dtype)
     x, aux = _run_stack(params.layers, x, pos, cfg, remat=remat, groups=groups, enc=enc,
                         shared=params.shared)

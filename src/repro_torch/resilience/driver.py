@@ -47,8 +47,8 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.folding import FoldedGroups
-from repro_torch.data.pipeline import (DataConfig, SyntheticTokens, materialize_batch,
-                                       shard_batch)
+from repro_torch.data.pipeline import (DataConfig, SyntheticTokens, mark_runs,
+                                       materialize_batch, shard_batch)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.optim import adamw
 from repro_torch.resilience.faults import FaultInjector
@@ -174,7 +174,7 @@ def run_training(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig],
         stream = SyntheticTokens(data_cfg).seek(start)
         for step in range(start, run.steps):
             injector.maybe_data_error(step)           # fetch-time fault
-            np_batch = materialize_batch(cfg, next(stream))
+            np_batch = mark_runs(materialize_batch(cfg, next(stream)))
             if step in run.skip_steps:                # reference-run skip
                 skipped.append(step)
                 continue

@@ -101,18 +101,21 @@ def init_paged_state(cfg, *, n_pages: int, page_size: int, dtype=torch.bfloat16,
     every page: whole over DP and CP, as the reference shards them. Each
     rank writes the new tokens of the rows it computes, and pages of
     different rows are disjoint, so every rank reads what the reference
-    reads."""
+    reads. A recurrent layer's state holds the rank's DP rows
+    (``transformer.decode_rows``), whole on each of its TP and CP ranks
+    (the reference's ``state_shardings`` also cut heads or channels over
+    TP: a layout, not a result)."""
     from repro_torch.models import ssm_blocks
     from repro_torch.models.attention import check_decode_heads
-    from repro_torch.models.transformer import check_decode_supported, model_cycle
+    from repro_torch.models.transformer import decode_rows, model_cycle
     check_decode_heads(cfg, groups)
-    check_decode_supported(cfg, groups)
+    rows = decode_rows(max_batch, groups)[1]
     tp = 1 if groups is None else groups.tp
     shape = (n_pages, cfg.n_kv_heads // tp, page_size, cfg.resolved_head_dim)
 
     def layer(kind):
         if kind in ssm_blocks.KINDS:
-            return ssm_blocks.init_state(kind, cfg, max_batch, dtype=dtype, device=device)
+            return ssm_blocks.init_state(kind, cfg, rows, dtype=dtype, device=device)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
     return [layer(kind) for kind in model_cycle(cfg)[0]]

@@ -18,7 +18,10 @@ The recurrent kinds (xLSTM, Zamba2's Mamba2 layers) keep O(1) state a slot
 beside the KV pools, in either mode: zeroed when a request starts (its
 first prefill chunk, the reference's ``_reset_fresh_request``), advanced by
 its chunks and decode steps, frozen on the padded rows of a decode batch.
-Zamba2's shared block keeps a dense K/V cache per cycle repeat, so a paged
+At a fold a slot's state lives on the DP rank that computes its decode row
+(whole there, on every TP and CP rank); a prefill chunk, which every rank
+computes, gathers it from that owner and writes it back there. Zamba2's
+shared block keeps a dense K/V cache per cycle repeat, so a paged
 engine refuses it, as the reference's does.
 
 Across ranks (``groups``, a ``FoldedGroups`` at pp = 1) every rank runs the
@@ -44,10 +47,10 @@ from repro_torch.core import comm
 from repro_torch.core.folding import FoldedGroups
 from repro_torch.models import ssm_blocks
 from repro_torch.models.sharding import map_params, shard_lm_params
-from repro_torch.models.transformer import (LMParams, apply_lm, check_decode_supported,
-                                            check_supported, decode_rows, decode_step,
-                                            init_decode_state, init_lm, leaf_rank, model_cycle,
-                                            paged_forward)
+from repro_torch.models.transformer import (LMParams, apply_lm, check_supported,
+                                            decode_rows, decode_step, init_decode_state,
+                                            init_lm, leaf_rank, model_cycle, paged_forward,
+                                            whole_recurrent)
 from repro_torch.serve.cache import (init_paged_state, kv_bytes_dense,
                                      kv_bytes_paged)
 from repro_torch.serve.scheduler import (QueueFull, Request, Scheduler, StepStats,
@@ -123,15 +126,17 @@ def make_serve_step(cfg: ModelConfig, groups: Optional[FoldedGroups] = None):
     """``serve(params, state, tokens)`` → (fp32 logits (B, C, V), state):
     :func:`decode_step` over the dense cache of :func:`init_decode_state`
     with the parameters cast to bf16 as the reference casts them. With
-    ``groups``: the rank's compute slices and cache piece; every rank gets
-    the whole batch's logits."""
+    ``groups``: the rank's compute slices and cache piece (a recurrent
+    layer's leaves gathered whole at each call, ``transformer.
+    whole_recurrent``); every rank gets the whole batch's logits."""
     if groups is not None:
         reject_pipelined_mapping(groups.pcfg, "make_serve_step")
 
     @torch.inference_mode()
     def serve(params: LMParams, state: Dict, tokens: torch.Tensor):
-        logits, state = decode_step(_compute_cast(params, torch.bfloat16), state, tokens, cfg,
-                                    groups=groups)
+        logits, state = decode_step(whole_recurrent(_compute_cast(params, torch.bfloat16),
+                                                    groups),
+                                    state, tokens, cfg, groups=groups)
         return logits.float(), state
     return serve
 
@@ -198,8 +203,10 @@ class Engine:
     (``models.sharding.shard_lm_params(full, groups, "compute")``), the
     paged pools hold its TP heads of every page
     (``serve.cache.init_paged_state``) and the dense cache its
-    ``(dp, tp, cp)`` piece (``transformer.init_decode_state``). Every rank
-    of the fold runs the same requests in the same order.
+    ``(dp, tp, cp)`` piece (``transformer.init_decode_state``); the
+    recurrent layers' state is per slot on the slot's DP rank, and they
+    compute on leaves gathered whole once, at construction. Every rank of
+    the fold runs the same requests in the same order.
     """
 
     def __init__(self, cfg: ModelConfig, params: LMParams,
@@ -223,7 +230,6 @@ class Engine:
                 "paged KV does not support shared_attention_every (zamba2): "
                 "the shared block's cache is per-repeat, not per-layer — "
                 "use EngineConfig(cache='dense')")
-        check_decode_supported(cfg, groups)
         if groups is not None:
             vocab = cfg.vocab_size // groups.tp if cfg.vocab_size % groups.tp == 0 \
                 else cfg.vocab_size
@@ -247,6 +253,7 @@ class Engine:
                 f"{self.cache_len} slots (sliding_window {cfg.sliding_window}, s_max "
                 f"{ecfg.s_max}): a chunk would overwrite its own slots")
         cast_params(params, dt)
+        self.params = whole_recurrent(params, groups)
         page_size = ecfg.page_size if self.paged else 0
         n_slot_pages = self.cache_len // page_size if self.paged else 0
         n_pages = (ecfg.n_pages if ecfg.n_pages is not None
@@ -309,9 +316,10 @@ class Engine:
         return torch.from_numpy(a).to(self.device)
 
     def _reset_slot(self, layers: List[Dict[str, torch.Tensor]], kinds, fresh: bool) -> None:
-        """Zero the recurrent state of a slot's views ``layers`` when its
-        request starts (``fresh``: the chunk at position 0); K/V are
-        overwritten position by position before they are read."""
+        """Zero the recurrent state of a slot's rows ``layers`` (views, or
+        the row gathered from its owner, which the chunk writes back there)
+        when its request starts (``fresh``: the chunk at position 0); K/V
+        are overwritten position by position before they are read."""
         if not fresh:
             return
         for kind, st in zip(kinds, layers):
@@ -320,34 +328,45 @@ class Engine:
                 for k, t in st.items():          # copy_ casts to the state's dtype
                     t.copy_(init[k])
 
+    def _slot_rows(self, layers: List[Dict[str, torch.Tensor]], slot: int):
+        """A slot's row of each per-row state in ``layers`` → (rows, owner).
+        Views where this rank holds every row (``owner`` None: written
+        through in place); where the rows are cut over DP the owner's row,
+        gathered over DP (the reference slices the slot out of the
+        DP-sharded state), which :meth:`_write_back` returns to the owner."""
+        B = self.ecfg.max_batch
+        _, b = decode_rows(B, self.groups)
+        if b == B:
+            return [{k: t[slot:slot + 1] for k, t in st.items()} for st in layers], None
+        owner, local = divmod(slot, b)
+        dp = self.groups.attn["dp"]
+        return [{k: comm.gather_rows(t[local:local + 1], dp.group, "slot_gather")
+                 [owner:owner + 1].clone() for k, t in st.items()} for st in layers], \
+            (owner, local)
+
+    def _write_back(self, layers: List[Dict[str, torch.Tensor]], rows, owner) -> None:
+        """The owner's copy of :meth:`_slot_rows`' gathered rows, after the chunk."""
+        if owner is None or self.groups.attn["dp"].index != owner[0]:
+            return
+        for st, row in zip(layers, rows):
+            for k, t in st.items():
+                t[owner[1]:owner[1] + 1].copy_(row[k])
+
     def _dense_prefill(self, toks: torch.Tensor, base: torch.Tensor, slot: int, fresh: bool
                        ) -> torch.Tensor:
         """One slot's prefill chunk over the dense cache → fp32 last logits
-        (1, V). The slot's rows of the cache are views where this rank holds
-        every row (written through in place); where the cache is cut over DP
-        the owner's row is gathered over DP first (the reference slices the
-        slot out of the DP-sharded state) and written back on the owner."""
-        B = self.ecfg.max_batch
-        lo, b = decode_rows(B, self.groups)
+        (1, V), on the slot's rows of every layer's K/V or recurrent state
+        (:meth:`_slot_rows`)."""
         layers = self.state["layers"] + self.state.get("shared", [])
-        if b == B:
-            rows = [{k: t[slot:slot + 1] for k, t in st.items()} for st in layers]
-            self._reset_slot(rows, model_cycle(self.cfg)[0], fresh)
-        else:          # no recurrent layer here: check_decode_supported refused them
-            dp = self.groups.attn["dp"]
-            owner, local = divmod(slot, b)
-            rows = [{k: comm.gather_rows(t[local:local + 1], dp.group, "slot_gather")
-                     [owner:owner + 1].clone() for k, t in st.items()} for st in layers]
+        rows, owner = self._slot_rows(layers, slot)
+        self._reset_slot(rows, model_cycle(self.cfg)[0], fresh)
         n = len(self.state["layers"])
         sliced = {"layers": rows[:n], "step": 0}
         if "shared" in self.state:
             sliced["shared"] = rows[n:]
         logits, _ = decode_step(self.params, sliced, toks, self.cfg, positions=base,
                                 groups=self.groups, last_only=True)
-        if b != B and self.groups.attn["dp"].index == owner:
-            for st, row in zip(layers, rows):
-                for k, t in st.items():
-                    t[local:local + 1].copy_(row[k])
+        self._write_back(layers, rows, owner)
         return logits[:, 0].float()
 
     @torch.inference_mode()
@@ -382,14 +401,19 @@ class Engine:
             if self.paged:
                 row = self._tensor(s.block_row(run)[None])
                 kinds = model_cycle(self.cfg)[0]
-                state = [{k: t[run.slot:run.slot + 1] for k, t in st.items()}
-                         if kind in ssm_blocks.KINDS else st
+                recurrent = [st for kind, st in zip(kinds, self.state)
+                             if kind in ssm_blocks.KINDS]
+                rows, owner = self._slot_rows(recurrent, run.slot)
+                self._reset_slot(rows, [k for k in kinds if k in ssm_blocks.KINDS],
+                                 run.pos == 0)
+                it = iter(rows)
+                state = [next(it) if kind in ssm_blocks.KINDS else st
                          for kind, st in zip(kinds, self.state)]
-                self._reset_slot(state, kinds, run.pos == 0)
                 last, counts = paged_forward(
                     self.params, state, toks, base, row,
                     torch.ones(1, dtype=torch.int32, device=self.device), self.cfg,
                     self.groups)
+                self._write_back(recurrent, rows, owner)
             else:
                 last = self._dense_prefill(toks, base, run.slot, run.pos == 0)
             lg = last[0].cpu().numpy()

@@ -9,6 +9,11 @@ set to random values: JAX initialises them to constants).
   embedding, GeGLU, tied head), ``qwen2-vl-7b`` (M-RoPE streams, stub vision
   rows) and ``whisper-small`` (LayerNorm, sinusoids, the bidirectional
   encoder, cross-attention).
+* ``data.pipeline.mark_runs``: positions whose mask stream is a run on
+  every row (per-row offsets, M-RoPE's temporal stream beside any height
+  and width) reach the flash kernel as scalar offsets, others (a packed
+  row) as ``q_pos`` / ``kv_pos``; ``apply_lm`` within 1e-4 of JAX's on
+  both.
 * Whisper's ``decode_step`` against JAX's (a prefill chunk, then decode
   steps; both attend to zero cross K/V, as the reference leaves them).
 * The Engine serves Gemma and Qwen2-VL, paged and dense: tokens equal to
@@ -197,30 +202,35 @@ def test_apply_lm_matches_jax(arch):
         assert not torch.allclose(other[:, :tcfg.n_vision_tokens], got[:, :tcfg.n_vision_tokens])
 
 
-def test_mrope_positions_that_are_not_a_run_raise():
+@pytest.mark.parametrize("arch, kind", [("qwen2-vl-7b", "runs"), ("gemma-7b", "runs"),
+                                        ("gemma-7b", "packed")])
+def test_mark_runs_masks_runs_at_offsets(arch, kind, monkeypatch):
+    from repro.models.transformer import apply_lm as jax_apply_lm
     from repro_torch.convert import params_from_jax
+    from repro_torch.data.pipeline import RUN_POSITIONS, mark_runs
+    from repro_torch.kernels.flash import flash
     from repro_torch.models.transformer import apply_lm
-    jcfg, tcfg = _cfg("repro", "qwen2-vl-7b"), _cfg("repro_torch", "qwen2-vl-7b")
-    params = params_from_jax(jax_params(jcfg), tcfg, device="cpu")
+    jcfg, tcfg = _cfg("repro", arch), _cfg("repro_torch", arch)
+    jp = jax_params(jcfg)
     batch = batch_of(jcfg)
-    batch["positions"][0, 3:6, 0] = 3            # an image's patches share one temporal id
-    with pytest.raises(NotImplementedError, match="not a run"):
-        apply_lm(params, _t(batch), tcfg)
+    if kind == "runs" and "positions" not in batch:     # per-row offsets
+        batch["positions"] = (np.arange(SEQ)[None] + np.array([[0], [9]])).astype(np.int32)
+    elif kind == "packed":                              # row 1's second sequence restarts
+        batch["positions"] = np.stack([np.arange(SEQ), np.concatenate(
+            [np.arange(10), np.arange(SEQ - 10)])]).astype(np.int32)
+    want, _ = jax_apply_lm(jp, batch, jcfg, _fm1())
+    marked = mark_runs(batch)
+    assert (RUN_POSITIONS in marked) == (kind == "runs")
+    assert ("positions" in marked) == (kind != "runs")
+    launches, real = [], flash.flash_attention
 
-
-def test_mrope_positions_that_are_not_a_run_raise_at_a_fold():
-    """At a fold the data boundary checks the whole sequence: the layers
-    then take the rank's chunk of the streams as they are."""
-    from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
-    from repro_torch.core.folding import folded_layout
-    from repro_torch.data.pipeline import shard_batch
-    jcfg = _cfg("repro", "qwen2-vl-7b")
-    fg = folded_layout(ParallelConfig(attn=PM(1, 2, 2), moe=PM(1, 2, 2)), rank=1, world=4)
-    batch = batch_of(jcfg)
-    assert shard_batch(batch, fg)["positions"].shape == (2, SEQ // 2, 3)
-    batch["positions"][0, 3:6, 0] = 3
-    with pytest.raises(NotImplementedError, match="not a run"):
-        shard_batch(batch, fg)
+    def spy(*args, **kw):
+        launches.append((kw.get("q_pos") is not None, kw.get("kv_pos") is not None))
+        return real(*args, **kw)
+    monkeypatch.setattr(flash, "flash_attention", spy)
+    got, _ = apply_lm(params_from_jax(jp, tcfg, device="cpu"), _t(marked), tcfg)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    assert launches and set(launches) == {(kind != "runs",) * 2}, launches
 
 
 @pytest.mark.parametrize("name, shape, whole", [

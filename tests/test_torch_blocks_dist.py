@@ -21,10 +21,19 @@ parameters after the last step within 1e-4 relative L2 of its slices of
 JAX's. Serving: Gemma's paged and Qwen2-VL's dense Engine at DP2 × TP2
 against JAX's Engine at the same fold, tokens equal, every rank alike.
 
+Positions that are no run, in the Qwen2-VL world: ``apply_lm``'s loss and
+every leaf's gradient (``loss_and_grads``) at one rank and at CP2 × TP2 on
+all-gather and on the ring, against JAX's at one rank (``use_pallas``
+off, the reference's default; both models are mapping-independent), within
+1e-4: reduced ``llama3.2-1b`` with a row at its own offset and a packed row
+whose second sequence restarts at 0, and ``qwen2-vl-7b`` whose 24 vision
+rows share one temporal id (height and width the patch grid).
+
 JAX is imported inside the test functions only: the world's processes
 import this module to find their worker.
 """
 import concurrent.futures
+import dataclasses
 
 import numpy as np
 import pytest
@@ -55,6 +64,12 @@ CASES = {
 WORLDS = {"gemma-7b": ["gemma-dp2-tp2"], "qwen2-vl-7b": ["qwen2vl-cp2-tp2-ring", "qwen2vl-pp2"],
           "whisper-small": ["whisper-dp2-tp2-v1021", "whisper-cp2-tp2"],
           "whisper-small-ring": ["whisper-cp2-tp2-ring"]}
+# Positions that are no run: (arch, kind of positions); each at one rank
+# and at POSITION_FOLD on both CP modes, in the Qwen2-VL world.
+POSITIONS = {"llama-packed": ("llama3.2-1b", "packed"),
+             "qwen2vl-shared": ("qwen2-vl-7b", "shared")}
+POSITION_FOLD = (1, 2, 2)
+GRAD_REL = 1e-4
 # Serving at DP2 x TP2: (arch, cache)
 SERVE = {"gemma-paged": ("gemma-7b", "paged"), "qwen2vl-dense": ("qwen2-vl-7b", "dense")}
 SERVE_FOLD = (2, 1, 2)
@@ -95,13 +110,77 @@ def _inputs(case):
     return jax_params(cfg), batches
 
 
-def _train_world(rank, world, inputs):
+def _positions(cfg, kind, B, S):
+    """(B, S) ids, or M-RoPE's (B, S, 3) streams, that are no run:
+    ``packed``, row 0 a run at offset 5 and row 1 two sequences whose
+    second restarts at 0; ``shared``, the vision rows share one temporal id
+    (the row's offset), height and width their patch grid, and the text
+    after them continues past the grid on all three streams."""
+    if kind == "packed":
+        return np.stack([5 + np.arange(S),
+                         np.concatenate([np.arange(40), np.arange(S - 40)])]).astype(np.int32)
+    n = cfg.n_vision_tokens
+    side = int(np.ceil(np.sqrt(n)))
+    rows = []
+    for b in range(B):
+        t0 = 3 * b
+        text = t0 + side + np.arange(S - n)
+        rows.append(np.stack([np.concatenate([np.full(n, t0), text]),
+                              np.concatenate([t0 + np.arange(n) // side, text]),
+                              np.concatenate([t0 + np.arange(n) % side, text])], -1))
+    return np.stack(rows).astype(np.int32)
+
+
+def _pos_cfg(pkg, arch):
+    from test_torch_blocks import _cfg as cfg_of
+    return cfg_of(pkg, arch, **OVERRIDES.get(arch, {}))
+
+
+def _pos_inputs(case):
+    from repro.data.pipeline import DataConfig, SyntheticTokens
+    from test_torch_blocks import batch_of, jax_params
+    arch, kind = POSITIONS[case]
+    cfg = _pos_cfg("repro", arch)
+    data = SyntheticTokens(DataConfig(seq_len=SEQ, global_batch=2, vocab_size=cfg.vocab_size,
+                                      seed=4))
+    batch = dict(batch_of(cfg, B=2, S=SEQ, seed=20), **next(data))
+    batch["positions"] = _positions(cfg, kind, 2, SEQ)
+    return jax_params(cfg), batch
+
+
+def _pos_grads(jparams, batch, cfg, fg=None):
+    """The port's loss and gradients (each rank's ZeRO-1 shard at a fold)."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.train.loop import loss_and_grads
+    if fg is not None:
+        batch = shard_batch(batch, fg)
+    grads, metrics = loss_and_grads(params_from_jax(jparams, cfg, device="cpu", groups=fg),
+                                    {k: torch.from_numpy(v) for k, v in batch.items()}, cfg,
+                                    groups=fg)
+    return {"loss": float(metrics["loss"]), "grads": {n: g.numpy().copy()
+                                                      for n, g in grads.items()}}
+
+
+def _pos_pcfg(mode):
+    return ParallelConfig(attn=PM(*POSITION_FOLD), moe=PM(*POSITION_FOLD), fsdp=True,
+                          cp_mode=mode)
+
+
+def _train_world(rank, world, inputs, pos_inputs=None):
     from repro_torch.convert import params_from_jax
     from repro_torch.data.pipeline import shard_batch
     from repro_torch.optim import adamw
     from repro_torch.train.loop import init_train_state, make_train_step
     torch.set_num_threads(1)
     out = {}
+    if pos_inputs:
+        fg = folding.build_folded_groups(_pos_pcfg("allgather"), rank=rank, world=world)
+        for case, (jparams, batch) in pos_inputs.items():
+            cfg = _pos_cfg("repro_torch", POSITIONS[case][0])
+            for mode in ("allgather", "ring"):
+                out[case, mode] = _pos_grads(jparams, batch, cfg,
+                                             dataclasses.replace(fg, pcfg=_pos_pcfg(mode)))
     for case, (jparams, batches) in inputs.items():
         cfg = _cfg("repro_torch", case)
         fg = folding.build_folded_groups(_pcfg(case), rank=rank, world=world)
@@ -141,17 +220,58 @@ def _jax_case(case, jparams, batches):
     return {"metrics": metrics, "params": jax.tree.map(np.asarray, p)}
 
 
+def _jax_pos_grads(case, jparams, batch):
+    """JAX's loss and gradients at one rank, by the port's leaf names."""
+    import jax
+    from repro.train.loop import loss_fn
+    from repro_torch.convert import named_from_jax
+    from test_torch_blocks import _fm1
+    cfg = _pos_cfg("repro", POSITIONS[case][0])
+    (loss, _), g = jax.value_and_grad(lambda p: loss_fn(p, batch, cfg, _fm1()),
+                                      has_aux=True)(jparams)
+    return {"loss": float(loss), "grads": named_from_jax(jax.tree.map(np.asarray, g),
+                                                         _pos_cfg("repro_torch",
+                                                                  POSITIONS[case][0]))}
+
+
+def _check_pos_grads(what, got, want, fg=None):
+    from repro_torch.models.sharding import shard_tensor
+    assert _rel(got["loss"], want["loss"]) <= REL, (what, got["loss"], want["loss"])
+    assert got["grads"].keys() <= want["grads"].keys(), what
+    for name, g in got["grads"].items():
+        w = want["grads"][name]
+        if fg is not None:
+            w = shard_tensor(name, torch.from_numpy(w), fg, "state").numpy()
+        err = _rel_l2(g, w)
+        assert err <= GRAD_REL, (what, name, err)
+
+
 @pytest.mark.parametrize("world", list(WORLDS))
 def test_blocks_train_at_folds_matches_jax(world, tmp_path):
     from repro_torch.convert import tensors_from_jax
     from repro_torch.launch.world import spawn
     cases = WORLDS[world]
     inputs = {case: _inputs(case) for case in cases}
+    pos_inputs = {c: _pos_inputs(c) for c in POSITIONS} if world == "qwen2-vl-7b" else {}
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         world = pool.submit(spawn, _train_world, 4, backend="gloo", device="cpu",
-                            args=(inputs,), timeout_s=300, init_dir=str(tmp_path))
+                            args=(inputs, pos_inputs), timeout_s=300, init_dir=str(tmp_path))
         ref = {case: _jax_case(case, *inputs[case]) for case in cases}
+        pos_ref = {c: _jax_pos_grads(c, *pos_inputs[c]) for c in pos_inputs}
+        pos_one = {c: _pos_grads(*pos_inputs[c], _pos_cfg("repro_torch", POSITIONS[c][0]))
+                   for c in pos_inputs}
         per_rank = world.result()
+    for case in pos_inputs:
+        _check_pos_grads(f"{case} one rank", pos_one[case], pos_ref[case])
+        jparams, batch = pos_inputs[case]
+        default = _pos_grads(jparams, {k: v for k, v in batch.items() if k != "positions"},
+                             _pos_cfg("repro_torch", POSITIONS[case][0]))
+        assert _rel(default["loss"], pos_one[case]["loss"]) > 1e-3, case   # they matter
+        for rank, res in enumerate(per_rank):
+            for mode in ("allgather", "ring"):
+                fg = folding.folded_layout(_pos_pcfg(mode), rank=rank, world=4)
+                _check_pos_grads(f"{case} {mode} rank {rank}", res[case, mode],
+                                 pos_ref[case], fg)
     for case in cases:
         cfg = _cfg("repro_torch", case)
         j = ref[case]

@@ -16,7 +16,10 @@ weights carried over from JAX's ``init_lm`` (``convert.params_from_jax``).
   does, where pp = 1 adds each microbatch's lookup + head: the same terms
   in another order). PP4 × (1, 1, 1), tied, 4 layers and 4 microbatches, is
   held to pp = 1 the same way: its middle stages hold no embedding and take
-  no part in the two ends' exchange of its gradient. Loss terms and ``grad_norm`` within 1e-4 relative of
+  no part in the two ends' exchange of its gradient. PP2 × (1, 1, 2) with
+  two microbatches whose rows carry explicit positions (one at its own
+  offset, one packed: two sequences, the second restarting at 0), 1 step,
+  is held to pp = 1 the same way: the positions reach every stage. Loss terms and ``grad_norm`` within 1e-4 relative of
   JAX's, every rank's parameters after the last step within 1e-4 relative
   L2 of its slices of JAX's.
 * ``launch.world.train_world(pods=2)`` (pods that extend CP) trains as
@@ -51,7 +54,12 @@ CASES = {
     "pp2-tied": ((1, 1, 2), 2, 2, 2, 2),
     "pp2-tied-one": ((1, 1, 2), 2, 1, 2, 2),
     "pp4-tied": ((1, 1, 1), 4, 4, 2, 4),
+    "pp2-packed": ((1, 1, 2), 2, 2, 1, 2),
 }
+# Cases whose batches carry explicit positions: a row at its own offset and
+# a packed row whose second sequence restarts at 0 (they must reach every
+# stage: held to pp = 1, which takes them in every layer).
+PACKED = ("pp2-packed",)
 LAYERS = {"pp4-tied": 4}           # one layer a stage; the other cases keep reduced's 2
 AGAINST_JAX = ("fsdp-212", "cp2-tp2", "pp2-tied")
 
@@ -177,7 +185,11 @@ def _inputs(case):
     *_, steps, batch = CASES[case]
     data = SyntheticTokens(DataConfig(seq_len=SEQ, global_batch=batch,
                                       vocab_size=cfg.vocab_size, seed=3))
-    return _jax_params(cfg), [next(data) for _ in range(steps)]
+    batches = [next(data) for _ in range(steps)]
+    if case in PACKED:
+        pos = np.stack([7 + np.arange(SEQ), np.concatenate([np.arange(40), np.arange(SEQ - 40)])])
+        batches = [dict(b, positions=pos.astype(np.int32)) for b in batches]
+    return _jax_params(cfg), batches
 
 
 def _jax_case(case, jparams, batches):

@@ -399,13 +399,74 @@ def test_flash_function_grads_match_autograd_of_plain():
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=1e-4)
 
 
-def test_blockwise_attention_refuses_other_positions():
-    """Offsets are ported (``offset + arange``, tests/test_torch_attention_cp.py);
-    position arrays that are not one contiguous run on every row raise."""
+# Query positions that are no run (``query_positions``), beside keys at the
+# same positions ("self") or at kv_offset + j ("run", offset 40: queries
+# below it see no key): (B, H, Hkv, Sq, Skv, hd, kind, keys, causal, window).
+QPOS_CASES = [
+    (2, 4, 2, 48, 48, 64, "packed", "self", True, 0),
+    (2, 4, 2, 48, 48, 80, "shared", "self", True, 16),
+    (2, 4, 4, 48, 48, 128, "packed", "self", False, 12),
+    (2, 4, 1, 40, 96, 256, "offsets", "run", True, 20),
+    (2, 2, 2, 40, 96, 64, "packed", "run", True, 0),
+    (1, 2, 2, 40, 96, 128, "shared", "run", False, 30),
+]
+QPOS_IDS = ["-".join(str(x) for x in (c[5], c[6], c[7], c[8], f"w{c[9]}")) for c in QPOS_CASES]
+
+
+def _qpos_case(B, H, Hkv, Sq, Skv, hd, kind, keys, seed=12):
+    from test_torch_kernels_cuda import query_positions
+    q, k, v = _qkv(B, H, Hkv, Sq, Skv, hd, seed=seed)
+    q_pos = query_positions(kind, B, Sq, seed)
+    kv_pos = q_pos if keys == "self" else \
+        np.broadcast_to(40 + np.arange(Skv, dtype=np.int32), (B, Skv)).copy()
+    return q, k, v, q_pos, kv_pos
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,hd,kind,keys,causal,window", QPOS_CASES, ids=QPOS_IDS)
+@pytest.mark.parametrize("partial", [False, True])
+def test_flash_query_positions_match_blockwise(B, H, Hkv, Sq, Skv, hd, kind, keys, causal,
+                                              window, partial):
+    """The plain flash at (B, Sq) query positions, with key positions or a
+    key offset, against the jnp blockwise core at the same position arrays:
+    causal, window and both, every head size; rows that see no key give 0
+    (m = -1e30, l = 0 in the partials), as the reference's scan does."""
+    q, k, v, q_pos, kv_pos = _qpos_case(B, H, Hkv, Sq, Skv, hd, kind, keys)
+    yj = blockwise_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(q_pos),
+                             jnp.asarray(kv_pos), causal=causal, window=window,
+                             return_partial=partial)
+    kv = dict(kv_pos=torch.from_numpy(kv_pos)) if keys == "self" else dict(kv_offset=40)
+    yt = flash_attention(_t(q), _t(k), _t(v), None, q_pos=torch.from_numpy(q_pos),
+                         causal=causal, window=window, return_partial=partial, **kv)
+    pairs = zip(yt, yj) if partial else [(yt, yj)]
+    for a, b in pairs:
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, rtol=1e-5)
+    if keys == "run" and causal:            # queries below key 40 see none
+        hidden = q_pos < 40
+        assert hidden.any()
+        out = yt[0] if partial else yt
+        assert out.numpy()[np.broadcast_to(hidden[:, None], out.shape[:3])].max(initial=0) == 0
+        if partial:
+            assert (yt[1].numpy()[np.broadcast_to(hidden[:, None], yt[1].shape)] == -1e30).all()
+
+
+@pytest.mark.parametrize("c", [0, 1, 3], ids=[QPOS_IDS[i] for i in (0, 1, 3)])
+def test_blockwise_attention_at_positions_matches_jax_vjp(c):
+    """``blockwise_attention`` with position arrays (the kernel's q_pos /
+    kv_pos forward, ``_bwd_scan`` masked by the arrays) against the JAX
+    package's flash VJP at the same positions."""
+    import jax
     from repro_torch.models.attn_core import blockwise_attention as port_blockwise
-    q, k, v = (_t(a) for a in _qkv(2, 2, 2, 8, 8, 64))
-    packed = torch.tensor([0, 1, 2, 3, 0, 1, 2, 3]).expand(2, 8)   # two packed sequences
-    rows = torch.arange(8)[None] + torch.tensor([[0], [3]])          # one offset a row
-    for pos in (packed, rows):
-        with pytest.raises(NotImplementedError, match="positions"):
-            port_blockwise(q, k, v, pos, pos)
+    B, H, Hkv, Sq, Skv, hd, kind, keys, causal, window = QPOS_CASES[c]
+    q, k, v, q_pos, kv_pos = _qpos_case(B, H, Hkv, Sq, Skv, hd, kind, keys)
+    dout = np.random.default_rng(13).standard_normal(q.shape).astype(np.float32)
+    kw = dict(causal=causal, window=window, block_kv=16)
+    yj, vjp = jax.vjp(lambda q, k, v: blockwise_attention(q, k, v, jnp.asarray(q_pos),
+                                                          jnp.asarray(kv_pos), **kw),
+                      jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    args = [_t(a).requires_grad_() for a in (q, k, v)]
+    yt = port_blockwise(*args, torch.from_numpy(q_pos), torch.from_numpy(kv_pos), **kw)
+    got = torch.autograd.grad(yt, args, _t(dout))
+    np.testing.assert_allclose(yt.detach().numpy(), np.asarray(yj), atol=1e-5, rtol=1e-5)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=1e-4)

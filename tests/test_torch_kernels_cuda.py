@@ -238,6 +238,180 @@ def test_flash_paths_rows_that_see_nothing(cuda, path):
     assert _rel_err(out[1], flash_ref(q, k, k, offs, window=40)[1]) <= REL_TOL
 
 
+def query_positions(kind: str, B: int, S: int, seed: int = 0) -> np.ndarray:
+    """(B, S) int32 query positions that are no run: ``packed``, two
+    sequences a row whose positions restart (the second at 0, the first at
+    a row's own offset); ``shared``, an image's patches that share one
+    temporal id (the first third of a row), then its text; ``offsets``, a
+    run a row at the row's own offset."""
+    rng = np.random.default_rng(seed)
+    out = np.empty((B, S), np.int64)
+    for b in range(B):
+        off = int(rng.integers(0, 40))
+        if kind == "packed":
+            cut = int(rng.integers(1, S)) if S > 1 else 1
+            out[b] = np.concatenate([off + np.arange(cut), np.arange(S - cut)])
+        elif kind == "shared":
+            n = max(S // 3, 1)
+            out[b] = off + np.concatenate([np.zeros(n), 1 + np.arange(S - n)])
+        else:
+            out[b] = 37 * b + off + np.arange(S)
+    return out.astype(np.int32)
+
+
+# Query positions (q_pos): (B, H, Hkv, Sq, Skv, hd, kind of query_positions,
+# keys: "self" (kv_pos = q_pos), "ring" (a sliding-window ring's slots past
+# the row's newest query), "run" (kv_offset + j, no kv_pos), causal, window,
+# path, splits). Every head size on both paths, causal, window and both.
+QPOS_CASES = [
+    (1, 4, 2, 300, 300, 64, "packed", "self", True, 0, "prefill", None),
+    (1, 4, 2, 300, 300, 80, "shared", "self", True, 0, "prefill", None),
+    (1, 4, 2, 300, 300, 128, "packed", "self", True, 64, "prefill", None),
+    (1, 4, 4, 300, 300, 256, "shared", "self", True, 0, "prefill", None),
+    (2, 4, 2, 200, 200, 128, "offsets", "self", False, 50, "prefill", None),
+    (2, 8, 2, 130, 333, 64, "packed", "run", False, 0, "prefill", None),
+    (2, 8, 2, 130, 333, 80, "shared", "run", True, 100, "prefill", None),
+    (2, 8, 2, 130, 333, 128, "packed", "run", True, 0, "prefill", None),
+    (2, 8, 2, 130, 333, 256, "offsets", "run", True, 0, "prefill", None),
+    (1, 4, 2, 70, 190, 80, "packed", "ring", True, 64, "prefill", None),
+    (2, 8, 2, 2, 333, 64, "packed", "run", True, 0, "decode", 3),
+    (3, 8, 2, 2, 333, 80, "offsets", "run", True, 100, "decode", 3),
+    (1, 4, 1, 40, 257, 128, "packed", "run", True, 0, "decode", 3),       # 10 row tiles
+    (2, 12, 4, 3, 300, 128, "shared", "ring", True, 100, "decode", 2),
+    (2, 16, 16, 1, 1024, 256, "offsets", "ring", True, 1024, None, None),
+    (2, 4, 4, 16, 16, 64, "packed", "self", True, 0, "decode", None),
+    (2, 4, 4, 12, 12, 256, "shared", "self", False, 6, "decode", 2),
+]
+QPOS_IDS = ["-".join(str(x) for x in (c[10] or "auto", c[5], c[6], c[7], c[8], f"w{c[9]}"))
+            for c in QPOS_CASES]
+
+
+def _qpos_inputs(cuda, B, H, Hkv, Sq, Skv, hd, kind, keys, seed=9):
+    """q, k, v, q_pos and the key side's keyword (kv_pos or kv_offset)."""
+    from repro_torch.models.attention import _cache_kv_positions
+    rng = np.random.default_rng(seed)
+    q = _bf16(rng, (B, H, Sq, hd))
+    k, v = (_bf16(rng, (B, Hkv, Skv, hd)) for _ in range(2))
+    q_pos = torch.from_numpy(query_positions(kind, B, Sq, seed)).to(cuda)
+    if keys == "self":
+        kv = dict(kv_pos=q_pos)
+    elif keys == "ring":
+        newest = q_pos.long().max(dim=1, keepdim=True).values
+        kv = dict(kv_pos=_cache_kv_positions(newest, Skv).to(torch.int32).contiguous())
+    else:
+        kv = dict(kv_offset=0)
+    return q, k, v, q_pos, kv
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,hd,kind,keys,causal,window,path,splits", QPOS_CASES,
+                         ids=QPOS_IDS)
+@pytest.mark.parametrize("partial", [False, True])
+def test_flash_query_positions_match_plain(cuda, B, H, Hkv, Sq, Skv, hd, kind, keys, causal,
+                                           window, path, splits, partial):
+    q, k, v, q_pos, kv = _qpos_inputs(cuda, B, H, Hkv, Sq, Skv, hd, kind, keys)
+    kw = dict(q_pos=q_pos, causal=causal, window=window, return_partial=partial, **kv)
+    n0 = flash_attention.launches
+    for _ in range(2):                  # the split counters must be back at 0 for the 2nd call
+        got = flash_attention(q, k, v, None, path=path, splits=splits, **kw)
+    assert flash_attention.launches == n0 + 2
+    ref = flash_ref(q, k, v, None, **kw)
+    for a, b in (zip(got, ref) if partial else [(got, ref)]):
+        assert _rel_err(a, b) <= REL_TOL
+
+
+@pytest.mark.parametrize("path", ["decode", "prefill"])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+def test_flash_query_positions_rows_that_see_nothing(cuda, path, hd):
+    """Query rows placed before every key (keys from kv_offset 100): output
+    0, m = -1e30, l = 0 on each path, at every head size; the other rows as
+    the plain version."""
+    rng = np.random.default_rng(11)
+    Sq = 6 if path == "decode" else 150
+    q, k = _bf16(rng, (2, 4, Sq, hd)), _bf16(rng, (2, 2, 300, hd))
+    pos = np.tile(np.arange(Sq, dtype=np.int32) * 3 + 120, (2, 1))
+    pos[0, ::2] = np.arange(0, Sq, 2) % 100            # row 0's even queries see no key
+    q_pos = torch.from_numpy(pos).to(cuda)
+    kw = dict(q_pos=q_pos, kv_offset=100, path=path, splits=None if path == "prefill" else 3)
+    out = flash_attention(q, k, k, None, **kw)
+    acc, m, l = flash_attention(q, k, k, None, return_partial=True, **kw)
+    torch.cuda.synchronize()
+    hidden = torch.zeros((2, Sq), dtype=torch.bool, device=cuda)
+    hidden[0, ::2] = True
+    assert out[:, :, :][hidden[:, None].expand(-1, 4, -1)].abs().max().item() == 0.0
+    assert acc[hidden[:, None].expand(-1, 4, -1)].abs().max().item() == 0.0
+    assert (m[hidden[:, None].expand(-1, 4, -1)] == -1e30).all()
+    assert (l[hidden[:, None].expand(-1, 4, -1)] == 0).all()
+    ref = flash_ref(q, k, k, None, q_pos=q_pos, kv_offset=100)
+    assert _rel_err(out[1], ref[1]) <= REL_TOL
+    assert _rel_err(out[0, :, 1::2], ref[0, :, 1::2]) <= REL_TOL
+
+
+# Launches without q_pos on both paths at every head size, with and without
+# kv_pos, in both modes: (B, H, Hkv, Sq, Skv, hd, q_offset per row, keys
+# "run" or "ring", window, path, splits). FLAG_OFF_DIGESTS holds the sha256
+# of each one's output bytes as the kernel gave them before q_pos was added
+# (that build, on an H100 80GB HBM3): the flag-off instantiations must stay
+# what they were, bit for bit. The inputs come from numpy.
+FLAG_OFF = [
+    (4, 48, 8, 1, 512, 128, [0, 37, 300, 511], "run", 0, None, None),
+    (2, 32, 2, 3, 1000, 128, [997, 400], "run", 100, "decode", 7),
+    (2, 16, 16, 1, 1024, 256, [1023, 300], "run", 0, None, None),
+    (2, 32, 32, 1, 1024, 80, [1023, 300], "run", 0, None, None),
+    (3, 12, 4, 2, 333, 64, [5, 100, 331], "run", 0, "decode", None),
+    (1, 4, 2, 200, 333, 128, [133], "run", 0, None, None),
+    (1, 4, 4, 300, 300, 256, [0], "run", 0, "prefill", None),
+    (1, 32, 32, 512, 1024, 80, [512], "run", 0, None, None),
+    (2, 8, 2, 300, 300, 64, [0, 0], "run", 0, "prefill", None),
+    (2, 32, 8, 1, 8192, 64, [12319, 1055], "ring", 8192, None, None),
+    (1, 32, 8, 512, 8192, 64, [12287], "ring", 8192, None, None),
+    (1, 4, 2, 130, 304, 256, [700], "ring", 256, "prefill", None),
+    (3, 12, 4, 2, 333, 128, [5, 400, 1000], "ring", 100, "decode", 3),
+]
+FLAG_OFF_DIGESTS = {
+    0: "395955df2548aea87a94eba245d2bdf71bece29e4461d3e073aa786f99da339b",
+    1: "de246b47d3262d4d269176b6375bea63476c27926105eb99af7e16be31f43014",
+    2: "db4eb7c45bb455f4fa253544aaed54c6c54a430983ba28835b69d3c54a3ec73d",
+    3: "607689d20b7103f8b9dbd555d767523d2b3a5929ec3e7e3c4055298d1945d60e",
+    4: "fb16c7dfd3cc8aa1599abf2585d691ef5e1adc52d91e90aa75904fb004345737",
+    5: "475d2b40e62071e83be17df0fb11f0dfa5847b30e06c42f2087094755fc00e6c",
+    6: "a600f14dc0f3df6fc8dfd161afc34048e122ad105b512c1d429ecbb5e1509c8e",
+    7: "856f16691c8441851450e75cef88bdf8586614ae3e4cccca11f54e88ab8a2114",
+    8: "5ac5fe815abfc6963f901be1efe9027250d2def6d7b2d5761b2336225903c36a",
+    9: "29ba25a28448b9339fae3b54302f6dce0c99c813e31b76d2751e1a0e5b9e3d87",
+    10: "422b225e7825d2b84e7230e9333da11b216dd34b37759ff5eb4172be1ab98ad7",
+    11: "96402da2b21216e85d6b682c2d8abf28e4f2279b4c062990d566fd51776a9cdc",
+    12: "e0581eba677b76fdb80b8441bdbed41fda6143a814ab0d834736084b0796b4b9",
+}
+
+
+def flag_off_digests() -> dict:
+    """sha256 of every FLAG_OFF launch's output bytes (normalized, then the
+    partial triple), by case index."""
+    import hashlib
+    from repro_torch.models.attention import _cache_kv_positions
+    out = {}
+    for i, (B, H, Hkv, Sq, Skv, hd, offs, keys, window, path, splits) in enumerate(FLAG_OFF):
+        rng = np.random.default_rng(100 + i)
+        q = _bf16(rng, (B, H, Sq, hd))
+        k, v = (_bf16(rng, (B, Hkv, Skv, hd)) for _ in range(2))
+        q_off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+        kw = dict(window=window, path=path, splits=splits)
+        if keys == "ring":
+            pos = q_off[:, None].long() + torch.arange(Sq, device="cuda")
+            kw["kv_pos"] = _cache_kv_positions(pos, Skv).to(torch.int32).contiguous()
+        h = hashlib.sha256()
+        for t in (flash_attention(q, k, v, q_off, **kw),
+                  *flash_attention(q, k, v, q_off, return_partial=True, **kw)):
+            t = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+            h.update(t.cpu().numpy().tobytes())
+        out[i] = h.hexdigest()
+    return out
+
+
+def test_flash_without_query_positions_is_bitwise_unchanged(cuda):
+    assert flag_off_digests() == FLAG_OFF_DIGESTS
+
+
 def test_kernels_reject_shapes_they_do_not_take(cuda):
     x = torch.zeros((200, 128), dtype=torch.bfloat16, device=cuda)
     w = torch.zeros((2, 128, 128), dtype=torch.bfloat16, device=cuda)

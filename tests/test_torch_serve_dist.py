@@ -407,5 +407,5 @@ def test_pipelined_mappings_are_refused():
                                 world=4)
     sliced = shard_lm_params(params, fg4, "compute")
     for cache in ("paged", "dense"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        with pytest.raises(NotImplementedError, match="'K/V replicated over TP"):
             Engine(cfg, sliced, EngineConfig(cache=cache), groups=fg4)

@@ -20,7 +20,7 @@ constants).
   moments) crosses between the packages both ways bit for bit; ZeRO-1
   state bytes at the published widths equal JAX's at DP2 × CP2 × TP2.
 * What stays refused: a pipeline with Zamba2's shared block (as in the
-  reference), decoding the recurrent kinds across ranks (not ported).
+  reference); the decode state across ranks (the rank's DP rows).
 """
 import numpy as np
 import pytest
@@ -279,22 +279,54 @@ def test_engine_refuses_paged_zamba2():
 
 def test_refusals_of_the_reference_and_of_the_port():
     """A pipeline refuses Zamba2's shared block, as the reference's does;
-    serving the recurrent kinds across ranks is not ported (it raises,
-    naming the roadmap item); xLSTM pipelines."""
+    xLSTM pipelines. Serving the recurrent kinds across ranks is no longer
+    refused: the decode state at a fold holds the rank's DP rows, whole
+    (``init_decode_state``, ``init_paged_state``); Zamba2's shared K/V its
+    TP heads and CP slots, as a dense layer's."""
     from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
     from repro_torch.core.folding import folded_layout
     from repro_torch.core.pipeline import stage_partition_for
-    from repro_torch.models.transformer import init_decode_state, init_lm
-    from repro_torch.serve import Engine, EngineConfig
+    from repro_torch.models.transformer import init_decode_state
+    from repro_torch.serve.cache import init_paged_state
     with pytest.raises(ValueError, match="shared-attention"):
         stage_partition_for(cfg_of("repro_torch", "zamba2-2.7b"), 2, 1)
     xl = cfg_of("repro_torch", "xlstm-125m", n_layers=8)
     assert stage_partition_for(xl, 2, 1).n_chunks == 2
-    fg = folded_layout(ParallelConfig(attn=PM(1, 1, 2), moe=PM(1, 1, 2)), rank=0, world=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        init_decode_state(xl, 2, 16, device="cpu", groups=fg)
-    with pytest.raises(NotImplementedError, match="across ranks"):
-        Engine(xl, init_lm(xl, device="cpu"), EngineConfig(**ENGINE), groups=fg)
+    fg = folded_layout(ParallelConfig(attn=PM(2, 1, 2), moe=PM(2, 1, 2)), rank=3, world=4)
+    whole = init_decode_state(xl, 4, 16, device="cpu")["layers"]
+    for layers in (init_decode_state(xl, 4, 16, device="cpu", groups=fg)["layers"],
+                   init_paged_state(xl, n_pages=3, page_size=8, device="cpu", groups=fg,
+                                    max_batch=4)):
+        for st, full in zip(layers, whole):
+            assert {k: tuple(t.shape) for k, t in st.items()} == \
+                {k: (2,) + tuple(t.shape[1:]) for k, t in full.items()}
+    zb = cfg_of("repro_torch", "zamba2-2.7b")
+    fg = folded_layout(ParallelConfig(attn=PM(1, 2, 2), moe=PM(1, 2, 2)), rank=0, world=4)
+    st = init_decode_state(zb, 2, 16, device="cpu", groups=fg)
+    assert st["shared"][0]["k"].shape == (2, zb.n_kv_heads // 2, 8, zb.resolved_head_dim)
+    assert st["layers"][0]["h"].shape[0] == 2
+
+
+def test_decode_block_takes_whole_leaves():
+    """A recurrent layer decodes on whole leaves: a TP rank's compute slice
+    raises, ``transformer.whole_recurrent``'s copy is what a fold decodes
+    on (at one rank the parameters as they are)."""
+    from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
+    from repro_torch.core.folding import folded_layout
+    from repro_torch.models import ssm_blocks
+    from repro_torch.models.sharding import shard_lm_params
+    from repro_torch.models.transformer import init_lm, whole_recurrent
+    cfg = cfg_of("repro_torch", "xlstm-125m")
+    params = init_lm(cfg, seed=0, device="cpu")
+    assert whole_recurrent(params, None) is params
+    fg = folded_layout(ParallelConfig(attn=PM(1, 1, 2), moe=PM(1, 1, 2)), rank=1, world=2)
+    sliced = shard_lm_params(params, fg, "compute")
+    x = torch.randn(2, 1, cfg.d_model)
+    for whole, cut in zip(params.layers, sliced.layers):
+        state = ssm_blocks.init_state(whole.kind, cfg, 2, dtype=torch.float32)
+        ssm_blocks.decode_block(whole, x, state, cfg)
+        with pytest.raises(ValueError, match="not whole"):
+            ssm_blocks.decode_block(cut, x, state, cfg)
 
 
 def test_recurrent_state_bytes_and_kv_layers():

@@ -30,6 +30,19 @@ another summation order (4.6e-4 seen), the other leaves by under 1e-4).
   another order, so grad_norm parts by 2e-6 from the second step, which
   Adam carries to 1.3e-5 in the embedding's rows by the third).
 
+Serving in the same worlds, on the same weights (the rank's compute
+slices), ``test_torch_blocks.ENGINE``'s engine (2 slots, one a DP rank at
+DP2; fp32), four requests through the two slots, so that the last two
+take slots that finished requests left on both DP ranks, whose recurrent
+state must start from zero there:
+
+* ``xlstm-125m``, paged and dense, at DP2 × TP2 and at CP2 × TP2: greedy
+  tokens equal to JAX's ``Engine`` at the same fold, prefill logits within
+  1e-4, every rank alike;
+* ``zamba2-2.7b``, dense (its shared block's cache is per repeat), at both
+  folds: held against the port's own one-rank Engine (tokens equal, logits
+  within 1e-4), for the reason above.
+
 JAX is imported inside the test functions only: the world's processes
 import this module to find their worker.
 """
@@ -58,6 +71,10 @@ CASES = {
     "zamba2-cp2-tp2": ("zamba2-2.7b", 4, (1, 2, 2), 1, 0),
     "xlstm-pp2": ("xlstm-125m", 8, (1, 1, 1), 2, 2),
 }
+# Serving at a training case's fold: its caches. SERVE_LENS: the prompts.
+SERVE = {"xlstm-dp2-tp2": ("paged", "dense"), "xlstm-cp2-tp2": ("paged", "dense"),
+         "zamba2-dp2-tp2": ("dense",), "zamba2-cp2-tp2": ("dense",)}
+SERVE_LENS = (5, 13, 3, 9)
 # One gloo world each: its cases, size and oracle, "fold" (JAX at the same
 # fold and the port at one rank), "one" (JAX and the port at one rank) or
 # "pp1" (the port at one rank).
@@ -115,8 +132,42 @@ def _port_run(cfg, params, batches, groups=None, micro=0):
             "params": {n: p.detach().numpy().copy() for n, p in params.named_parameters()}}
 
 
+def _prompts(vocab):
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, (n,)).astype(np.int32) for n in SERVE_LENS]
+
+
+def _serve(cfg, params, cache, groups=None):
+    """The prompts through an Engine to the end → (tokens, prefill logits,
+    the slot each request took)."""
+    from repro_torch.serve import Engine, EngineConfig, Request
+    from test_torch_blocks import ENGINE, NEW
+    eng = Engine(cfg, params, EngineConfig(**dict(ENGINE, cache=cache)), groups=groups)
+    rids = [eng.submit(Request(prompt=p, max_new_tokens=NEW)) for p in _prompts(cfg.vocab_size)]
+    slots = {}
+    while not eng.scheduler.idle:
+        eng.step()
+        slots.update({r.rid: r.slot for r in eng.scheduler.slots if r is not None})
+    res = eng.drain()
+    return ([res[r].tokens for r in rids], [res[r].last_prefill_logits for r in rids],
+            [slots[r] for r in rids])
+
+
+def _serve_jax(case, jparams, cache, fold):
+    from repro.configs.base import ParallelConfig as JPC, ParallelMappingSpec as JPM
+    from repro.core.folding import build_folded_mesh
+    from repro.serve import Engine, EngineConfig, Request
+    from test_torch_blocks import ENGINE, NEW
+    cfg = _cfg("repro", case)
+    eng = Engine(cfg, build_folded_mesh(JPC(attn=JPM(*fold), moe=JPM(*fold))), jparams,
+                 EngineConfig(**dict(ENGINE, cache=cache)))
+    rids = [eng.submit(Request(prompt=p, max_new_tokens=NEW)) for p in _prompts(cfg.vocab_size)]
+    res = eng.drain()
+    return [res[r].tokens for r in rids], [res[r].last_prefill_logits for r in rids]
+
+
 def _train_world(rank, world, inputs):
-    from repro_torch.convert import params_from_jax
+    from repro_torch.convert import lm_params, params_from_jax, tensors_from_jax
     from repro_torch.data.pipeline import shard_batch
     torch.set_num_threads(1)
     out = {}
@@ -126,6 +177,10 @@ def _train_world(rank, world, inputs):
         local = [shard_batch(b, fg, microbatch=fg.pcfg.microbatch) for b in batches]
         out[case] = _port_run(cfg, params_from_jax(jparams, cfg, device="cpu", groups=fg),
                               local, fg, fg.pcfg.microbatch)
+        compute = lm_params(tensors_from_jax(jparams, cfg, device="cpu", groups=fg,
+                                             kind="compute"), cfg)
+        out[case]["serve"] = {cache: _serve(cfg, compute, cache, fg)
+                              for cache in SERVE.get(case, ())}
     return out
 
 
@@ -177,6 +232,15 @@ def test_recurrent_kinds_train_at_folds(world, tmp_path):
         ranks = pool.submit(spawn, _train_world, size, backend="gloo", device="cpu",
                             args=(inputs,), timeout_s=300, init_dir=str(tmp_path))
         refs, runs = {}, {}        # runs: the one-rank runs, shared by an arch's cases
+        served = {}                # each serving case's oracle: JAX at the fold, or one rank
+        for case in cases:
+            for cache in SERVE.get(case, ()):
+                jp = inputs[case][0]
+                served[case, cache] = (
+                    _serve_jax(case, jp, cache, CASES[case][2]) if oracle == "fold" else
+                    _serve(_cfg("repro_torch", case),
+                           params_from_jax(jp, _cfg("repro_torch", case), device="cpu"),
+                           cache)[:2])
         for case in cases:
             jp, batches = inputs[case]
             cfg = _cfg("repro_torch", case)
@@ -192,9 +256,14 @@ def test_recurrent_kinds_train_at_folds(world, tmp_path):
                 j = runs[key]
                 refs[case].append((j, named_from_jax(j["params"], cfg)))
         per_rank = ranks.result()
+    from test_torch_blocks import check_served
     for case in cases:
         one = refs[case][0][0]["metrics"]
         assert one[-1]["loss"] < one[0]["loss"], case
         for rank, res in enumerate(per_rank):
             for ref, full in refs[case]:
                 _check(case, rank, size, res[case], ref, full)
+            for cache, (tokens, logits, slots) in res[case]["serve"].items():
+                check_served(f"{case} {cache} rank {rank}", (tokens, logits),
+                             served[case, cache])
+                assert set(slots[2:]) == {0, 1}, (case, cache, slots)   # both reused

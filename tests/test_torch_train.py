@@ -307,10 +307,12 @@ def test_unported_training_options_raise():
     params = params_from_jax(_np(jparams), tcfg, device="cpu")
     with pytest.raises(ValueError, match="remat"):
         make_train_step(tcfg, remat="selective")
-    with pytest.raises(NotImplementedError, match="positions"):
-        transformer.apply_lm(params, {**_tbatch(batches[0]),
-                                      "positions": torch.zeros((BATCH, SEQ), dtype=torch.int32)},
-                             tcfg)
+    # explicit positions are ported: the default arange given as an array
+    # takes the kernel's position-array path, and gives the same logits
+    pos = torch.arange(SEQ, dtype=torch.int32).expand(BATCH, SEQ)
+    got, _ = transformer.apply_lm(params, {**_tbatch(batches[0]), "positions": pos}, tcfg)
+    want, _ = transformer.apply_lm(params, _tbatch(batches[0]), tcfg)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     # master_weights is ported; it casts the params, so it needs the config
     with pytest.raises(ValueError, match="needs cfg"):
         init_train_state(params, adamw.AdamWConfig(master_weights=True))
