@@ -305,6 +305,22 @@ train-configs — phase 5's one-card training (2 steps, launches 3 + 3 + 3
    80 against its plain version: causal 4096 (partial), the decode against
    1024 keys and a 512-query prefill chunk, ``library_ms`` from SDPA.
 
+17. dryrun — the dry run (``python -m repro_torch.launch.dryrun``) in a
+   subprocess, tracing the port's real step on fake CUDA tensors, held
+   against what phases 5 and 9 measured. Phase 5's step (Mixtral at full
+   width cut to 1 layer, 4096 tokens, one rank): the trace's stored-state
+   bytes (``arg_bytes``) equal the bytes of that run's parameters and
+   optimizer state exactly; its peak of live bytes is within
+   ``DRYRUN_MEM_TOL`` of phase 5's ``max_memory_allocated`` (read after
+   resetting the peak with the state live); the measured median step is
+   at least ``max(compute_s, memory_s)`` at ``roofline.analysis.H100_SXM``
+   (a bound the card beat would be a fault of the count), printed as a
+   ratio beside ``mfu_bound`` and the measured MFU. Phase 9's fold (run
+   (a), rank 0, which phase 9 records under a ``trace_cost.Recorder``):
+   the trace's collectives (kind, range, result bytes, global ranks) and
+   kernel calls equal the real step's in order, its ``arg_bytes`` equal
+   the real state's, and its peak is within ``DRYRUN_MEM_TOL`` of rank 0's.
+
 Phase 9 runs first, right after the build: its 4 ranks need about 70 GB
 of the card (Qwen2: 18.02 GB peak a rank on an H100), and what the other
 phases leave in this process (3.9 GB reserved before phase 7) left Qwen2's
@@ -314,7 +330,7 @@ printed. Then Mixtral runs phases 3, 4, 5, 6; every Mixtral tensor is
 freed and Qwen2
 runs 4, 5, 3, 6; then the added configs' phase 3 rows and train-configs;
 then Mixtral and Qwen2 run 7 and 8, then phase 13 with phase 4's requests,
-then phases 14, 15 and 16. Every phase across ranks runs on one set of 4 processes
+then phases 14, 15, 16 and 17. Every phase across ranks runs on one set of 4 processes
 (``launch.world.pool``), started after the build: each rank pays its
 interpreter, CUDA context, kernel library and first launches once, not
 once a world; ``[time]`` lines give each phase's wall. Then it prints the
@@ -338,9 +354,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12
 REL_TOL = 2e-2          # kernel vs plain version, bf16 inputs and outputs
 CHECK_TOL = 5e-2        # reduced slices, card vs CPU plain path, bf16 both
 SERVE_LAYERS, SERVE_NEW_TOKENS = 4, 16
@@ -366,6 +379,9 @@ ZERO_TOL = 5e-3
 # fold, weights, batches and microbatches; the stage hand-off is an exact
 # copy, so only nondeterministic device sums part them).
 PP_TOL = 5e-3
+# Phase 17: the dry run's peak of live bytes against the card's
+# max_memory_allocated (the allocator rounds blocks and keeps workspaces).
+DRYRUN_MEM_TOL = 0.10
 TIMING = {"ms": "graph_ms", "library_ms": "graph_ms", "plain_ms": "profiled_ms"}
 
 
@@ -380,8 +396,16 @@ def _smi() -> str:
     return out.strip().splitlines()[0]
 
 
+def _peaks() -> tuple:
+    """The card's data-sheet peaks, bytes/s and bf16 FLOP/s
+    (``roofline.analysis.H100_SXM``: NVIDIA data sheet, dense, 700 W)."""
+    from repro_torch.roofline.analysis import H100_SXM
+    return H100_SXM.hbm_bw, H100_SXM.peak_flops
+
+
 def _bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    bw, peak = _peaks()
+    t_bytes, t_ops = nbytes / bw, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -799,6 +823,7 @@ def phase_train(torch, arch: str, steps: int = TRAIN_STEPS, tag: str = "") -> di
     TRAIN_SEQ-token sequence through ``make_train_step`` (the port's entry
     point), launch counters set to 0 just before and read just after."""
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.dryrun import state_bytes
     from repro_torch.launch.train import PEAK_BF16_FLOPS, step_flops, train_config
     from repro_torch.models.transformer import init_lm
     from repro_torch.models.transformer import leaf_rank
@@ -825,6 +850,7 @@ def phase_train(torch, arch: str, steps: int = TRAIN_STEPS, tag: str = "") -> di
                     for n, p in named.items())
     compute_bound_ms, _ = _bound(0, flops)
     opt_bound_ms, _ = _bound(opt_bytes, 0)
+    stored = state_bytes(params, opt)            # the dry run's arg_bytes (phase 17)
     del named
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -842,7 +868,8 @@ def phase_train(torch, arch: str, steps: int = TRAIN_STEPS, tag: str = "") -> di
                    mfu=flops / dt / PEAK_BF16_FLOPS)
         rows.append(row)
     launches = _read_counters()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak_gb = peak_bytes / 1e9
 
     expect = {"gmm": 6 * cfg.n_layers * steps,            # forward + remat
               "gmm_trans_w": 3 * cfg.n_layers * steps,    # dgrad
@@ -867,13 +894,14 @@ def phase_train(torch, arch: str, steps: int = TRAIN_STEPS, tag: str = "") -> di
                mfu_warm=flops / (statistics.median(warm) / 1e3) / PEAK_BF16_FLOPS,
                model_tflop_per_step=flops / 1e12, compute_bound_ms=compute_bound_ms,
                optimizer_bytes=opt_bytes, optimizer_bound_ms=opt_bound_ms,
-               max_memory_allocated_gb=peak_gb)
+               max_memory_allocated_gb=peak_gb, max_memory_allocated_bytes=peak_bytes,
+               state_bytes=stored)
     _say(f"[{tag}] {out['model']}: launches {launches}; warm step (median of steps 1-"
          f"{steps - 1}) {out['step_ms_warm_median']:.3f} ms, {out['tok_per_s_warm']:.1f} "
          f"tok/s, MFU {100 * out['mfu_warm']:.2f}%; max_memory_allocated {peak_gb:.2f} GB")
     _say(f"[{tag}] bounds: compute {compute_bound_ms:.3f} ms ({flops / 1e12:.3f} model TFLOP "
          f"at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s), optimizer {opt_bound_ms:.3f} ms "
-         f"({opt_bytes / 1e9:.2f} GB at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
+         f"({opt_bytes / 1e9:.2f} GB at {_peaks()[0] / 1e12:.2f} TB/s)")
     del params, opt, step, batches
     torch.cuda.empty_cache()
     return out
@@ -1315,7 +1343,7 @@ def phase_train_zero(torch) -> dict:
         base = runs[0].key
         t0 = time.perf_counter()
         ranks = train_world(arch, attn=ZERO_ATTN, moe=moe, runs=runs, device="cuda", layers=1,
-                            seq=TRAIN_SEQ, batch=ZERO_BATCH, seed=0)
+                            seq=TRAIN_SEQ, batch=ZERO_BATCH, seed=0, record=True)
         wall = time.perf_counter() - t0
         res = dict(attn=ZERO_ATTN, moe=moe, runs=[r._asdict() for r in runs], base=base,
                    wall_s=wall, ranks=ranks, errors={})
@@ -3487,6 +3515,108 @@ def _recurrent_line(rec: dict, sources: dict) -> list:
                    rec[ZAMBA2]["train"]["launches"]["flash_attention"], sources)]
 
 
+DRYRUN_TRAIN = ("--arch", MIXTRAL, "--shape", "train_4k", "--layers", "1")
+
+
+def _dryrun(*traces: tuple) -> list:
+    """Traces of ``python -m repro_torch.launch.dryrun`` on fake CUDA tensors,
+    each given by its extra arguments, in one subprocess (one interpreter
+    and CUDA start); their records."""
+    import os
+    results = ROOT / "results"
+    results.mkdir(exist_ok=True)
+    outs = [results / f"dryrun_{i}.jsonl" for i in range(len(traces))]
+    argvs = [[*DRYRUN_TRAIN, *args, "--rank", "0", "--device", "cuda", "--lists", "--out", str(out)]
+             for args, out in zip(traces, outs)]
+    for out in outs:
+        out.unlink(missing_ok=True)
+    code = ("from repro_torch.launch.dryrun import main\n"
+            f"for argv in {argvs!r}:\n    main(argv)\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
+                   stdout=subprocess.DEVNULL, env=dict(os.environ, PYTHONPATH=str(SRC)))
+    return [json.loads(out.read_text().splitlines()[-1]) for out in outs]
+
+
+def _plain(x):
+    """Lists and tuples alike, as JSON reads them back."""
+    return json.loads(json.dumps(x))
+
+
+def phase_dryrun(one_card: dict, train_zero: dict) -> dict:
+    """Phase 17: see the module docstring. Every check is printed before
+    the phase fails on any of them."""
+    smi = _smi()
+    failures, out = [], {}
+    moe = train_zero["moe"]
+    t0 = time.perf_counter()
+    t5, t9 = _dryrun(("--seq", str(TRAIN_SEQ), "--batch", "1", "--attn", "1,1,1"),
+                     ("--seq", str(TRAIN_SEQ), "--batch", str(ZERO_BATCH),
+                      "--attn", ",".join(map(str, ZERO_ATTN)), "--moe", ",".join(map(str, moe))))
+    real5 = one_card
+    step_s = real5["step_ms_warm_median"] / 1e3
+    bound_s = max(t5["compute_s"], t5["memory_s"])
+    mem5 = t5["bytes_per_device"] / real5["max_memory_allocated_bytes"] - 1
+    out["phase5"] = dict(arg_bytes=t5["arg_bytes"], state_bytes=real5["state_bytes"],
+                         bytes_per_device=t5["bytes_per_device"],
+                         max_memory_allocated_bytes=real5["max_memory_allocated_bytes"],
+                         memory_rel=mem5, compute_s=t5["compute_s"], memory_s=t5["memory_s"],
+                         dominant=t5["dominant"], step_s=step_s, step_over_bound=step_s / bound_s,
+                         mfu_bound=t5["mfu_bound"], mfu_measured=real5["mfu_warm"],
+                         t_trace_s=t5["t_trace_s"], n_kernel_calls=t5["n_kernel_calls"],
+                         assumptions=t5["assumptions"])
+    _say(f"[dryrun] phase 5's step traced ({t5['t_trace_s']:.1f} s): arg_bytes "
+         f"{t5['arg_bytes']} B against the run's params + optimizer state {real5['state_bytes']} "
+         f"B; peak live {t5['bytes_per_device'] / 1e9:.3f} GB against max_memory_allocated "
+         f"{real5['max_memory_allocated_bytes'] / 1e9:.3f} GB ({100 * mem5:+.2f}%, limit "
+         f"{100 * DRYRUN_MEM_TOL:.0f}%); compute {t5['compute_s'] * 1e3:.3f} ms, memory "
+         f"{t5['memory_s'] * 1e3:.3f} ms ({t5['dominant']}-bound) at H100_SXM; measured median "
+         f"step {step_s * 1e3:.3f} ms = {step_s / bound_s:.3f} x the bound; MFU bound "
+         f"{100 * t5['mfu_bound']:.2f}% against measured {100 * real5['mfu_warm']:.2f}% ({smi})")
+    if t5["arg_bytes"] != real5["state_bytes"]:
+        failures.append(f"phase 5 arg_bytes {t5['arg_bytes']} != {real5['state_bytes']}")
+    if not abs(mem5) <= DRYRUN_MEM_TOL:
+        failures.append(f"phase 5 peak {t5['bytes_per_device']} B vs "
+                        f"{real5['max_memory_allocated_bytes']} B: {100 * mem5:+.2f}%")
+    if not step_s >= bound_s:
+        failures.append(f"phase 5 measured step {step_s * 1e3:.3f} ms beats the bound "
+                        f"{bound_s * 1e3:.3f} ms: the count is wrong")
+
+    run0 = next(r for r in train_zero[MIXTRAL]["ranks"] if r["rank"] == 0)["runs"]["fsdp"]
+    mem9 = t9["bytes_per_device"] / run0["peak_bytes"] - 1
+    same_coll = _plain(t9["collectives"]) == _plain(run0["collectives"])
+    same_kern = _plain([k[:2] for k in t9["kernels"]]) == _plain(run0["kernel_calls"])
+    out["phase9"] = dict(arg_bytes=t9["arg_bytes"], state_bytes=run0["arg_bytes"],
+                         bytes_per_device=t9["bytes_per_device"], peak_bytes=run0["peak_bytes"],
+                         memory_rel=mem9, n_collectives=len(t9["collectives"]),
+                         n_collectives_real=len(run0["collectives"]), collectives_equal=same_coll,
+                         kernel_calls_equal=same_kern, collective_s=t9["collective_s"],
+                         collective_per_kind=t9["collective_per_kind"],
+                         compute_s=t9["compute_s"], memory_s=t9["memory_s"],
+                         t_trace_s=t9["t_trace_s"], step_s=run0["step_s"][0])
+    _say(f"[dryrun] phase 9's fold, rank 0 (attention {ZERO_ATTN}, MoE {moe}, FSDP, ZeRO-1) "
+         f"traced ({t9['t_trace_s']:.1f} s): {len(t9['collectives'])} collectives "
+         f"{'equal to' if same_coll else 'DIFFERENT FROM'} the real step's "
+         f"{len(run0['collectives'])} (kind, range, bytes, ranks, in order); kernel calls "
+         f"{'equal' if same_kern else 'DIFFERENT'}; arg_bytes {t9['arg_bytes']} B against "
+         f"{run0['arg_bytes']} B; peak live {t9['bytes_per_device'] / 1e9:.3f} GB against rank "
+         f"0's {run0['peak_bytes'] / 1e9:.3f} GB ({100 * mem9:+.2f}%); collective "
+         f"{t9['collective_s'] * 1e3:.3f} ms at NVLink's 450 GB/s (not this card's gloo)")
+    if not same_coll:
+        failures.append(f"phase 9 collectives differ: trace {_plain(t9['collectives'])[:3]}... "
+                        f"real {_plain(run0['collectives'])[:3]}...")
+    if not same_kern:
+        failures.append("phase 9 kernel calls differ")
+    if t9["arg_bytes"] != run0["arg_bytes"]:
+        failures.append(f"phase 9 arg_bytes {t9['arg_bytes']} != {run0['arg_bytes']}")
+    if not abs(mem9) <= DRYRUN_MEM_TOL:
+        failures.append(f"phase 9 peak {t9['bytes_per_device']} B vs {run0['peak_bytes']} B: "
+                        f"{100 * mem9:+.2f}%")
+    out["wall_s"] = time.perf_counter() - t0
+    if failures:
+        raise AssertionError("phase 17:\n" + "\n".join(failures))
+    return out
+
+
 def _free(torch, label: str) -> dict:
     """Release every cached block; the reserved memory before and after."""
     before = torch.cuda.memory_reserved() / 1e9
@@ -3580,6 +3710,8 @@ def main() -> int:
     recurrent = phase_recurrent(torch)
     serve_world["recurrent_against_one_card"] = _recurrent_world_check(serve_world, recurrent)
     mark("phase 16")
+    dryrun = phase_dryrun(results[MIXTRAL]["train"], train_zero)
+    mark("phase 17")
     seconds = time.perf_counter() - t_start
 
     gmm_src = ("src/repro_torch/kernels/csrc/gmm.cu", "src/repro/kernels/gmm/gmm.py:73")
@@ -3618,7 +3750,7 @@ def main() -> int:
         train_resume=train_resume, train_handoff=train_handoff, serve_world=serve_world,
         window_dense=window, memory_before_window_dense=memory_window,
         blocks=blocks, memory_before_blocks=memory_blocks,
-        recurrent=recurrent, memory_before_recurrent=memory_recurrent,
+        recurrent=recurrent, memory_before_recurrent=memory_recurrent, dryrun=dryrun,
         config_kernels=config_kernels,
         train_configs=train_configs, memory_after_train_zero=memory_zero,
         memory_after_train_handoff=memory_handoff,

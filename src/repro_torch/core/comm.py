@@ -57,6 +57,8 @@ import torch
 import torch.distributed as dist
 from torch.autograd import Function
 
+from repro_torch.roofline import trace_cost
+
 Group = Optional[dist.ProcessGroup]
 
 
@@ -77,7 +79,15 @@ def _rows(splits: Optional[List[int]], n: int) -> int:
 # Every collective issued here runs inside a ``record_function`` range named
 # ``comm <collective>``: a profile of a step reads the host time spent in
 # the collectives (with gloo, their staging through the host) from them.
+# Each also reports itself to an active ``roofline.trace_cost.Recorder``
+# (``_noted``: one ``None`` check when none is active), under the
+# reference's op kind and its range's name.
 _range = torch.profiler.record_function
+
+
+def _noted(kind: str, name: str, out: torch.Tensor, group: Group) -> None:
+    if trace_cost.RECORDER is not None:
+        trace_cost.note_collective(kind, name, out, group)
 
 
 def _a2a(x: torch.Tensor, group: Group, in_splits, out_splits, async_op=False,
@@ -85,6 +95,8 @@ def _a2a(x: torch.Tensor, group: Group, in_splits, out_splits, async_op=False,
     x = x.contiguous()
     out = x.new_empty((_rows(out_splits, x.shape[0]),) + tuple(x.shape[1:]))
     with _range(f"comm {name}"):
+        _noted("collective-permute" if name == "ring_shift" else "all-to-all", name, out,
+               group)
         work = dist.all_to_all_single(out, x, output_split_sizes=out_splits,
                                       input_split_sizes=in_splits, group=group,
                                       async_op=async_op)
@@ -95,6 +107,7 @@ def _gather0(x: torch.Tensor, group: Group, name: str = "all_gather") -> torch.T
     x = x.contiguous()
     out = x.new_empty((size(group) * x.shape[0],) + tuple(x.shape[1:]))
     with _range(f"comm {name}"):
+        _noted("all-gather", name, out, group)
         dist.all_gather_into_tensor(out, x, group=group)
     return out
 
@@ -106,17 +119,27 @@ def _scatter0(x: torch.Tensor, group: Group) -> torch.Tensor:
         raise ValueError(f"reduce_scatter: {x.shape[0]} rows not divisible by {n} ranks")
     out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
     with _range("comm reduce_scatter"):
+        _noted("reduce-scatter", "reduce_scatter", out, group)
         dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
     return out
+
+
+def all_reduce_(x: torch.Tensor, group: Group, op=dist.ReduceOp.SUM,
+                name: str = "all_reduce") -> torch.Tensor:
+    """``x`` (contiguous) summed (or max) over the group in place, in the
+    ``comm <name>`` range, with no gradient; ``x`` as it is with no group."""
+    if group is None:
+        return x
+    with _range(f"comm {name}"):
+        _noted("all-reduce", name, x, group)
+        dist.all_reduce(x, op=op, group=group)
+    return x
 
 
 def _all_reduce(x: torch.Tensor, group: Group, op=dist.ReduceOp.SUM,
                 name: str = "all_reduce") -> torch.Tensor:
     """A summed (or max) copy of ``x`` over the group."""
-    out = x.detach().clone().contiguous()
-    with _range(f"comm {name}"):
-        dist.all_reduce(out, op=op, group=group)
-    return out
+    return all_reduce_(x.detach().clone().contiguous(), group, op, name)
 
 
 def _along(fn, x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
@@ -518,6 +541,7 @@ class StageLink:
         """Post ``x`` (no gradient) to ``stage`` under ``tag``."""
         buf = x.detach()
         with _range("comm send"):
+            _noted("send", "send", buf, self.ax.group)
             if self.host and buf.device.type != "cpu":
                 buf = buf.cpu()
             buf = buf.contiguous()
@@ -531,6 +555,7 @@ class StageLink:
         with _range("comm recv"):
             buf = torch.empty(tuple(shape), dtype=dtype,
                               device="cpu" if self.host else device)
+            _noted("collective-permute", "recv", buf, self.ax.group)
             dist.irecv(buf, src=self.ax.ranks[stage], group=self.ax.group, tag=tag).wait()
             return buf.to(device)
 

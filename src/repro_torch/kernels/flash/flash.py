@@ -11,7 +11,10 @@ queries' as a ``(B, Sq)`` int32 ``q_pos`` in place of ``q_offset[b] + i``
 a sliding-window ring cache's slots wrap; packed rows restart their
 positions; an image's patches share one temporal id). For a CUDA tensor it launches the
 kernel or raises; only a CPU tensor takes the plain version
-(``ref.flash_ref``).
+(``ref.flash_ref``). A fake tensor (a dry run, ``launch/dryrun.py``) takes
+neither: the call returns empty outputs of the right shapes and reports its
+work (:func:`flash_work`) to the active ``roofline.trace_cost.Recorder``,
+as every call does while one is.
 
 One launch per call, on one of two device paths that ``plan`` picks from
 the shapes: the **decode** path packs the ``H / Hkv`` query heads that
@@ -24,10 +27,12 @@ from __future__ import annotations
 import functools
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels._build import check, load_library
 from repro_torch.kernels.flash.ref import flash_ref
+from repro_torch.roofline import trace_cost
 
 HEAD_DIMS = (64, 80, 128, 256)   # head sizes the kernel is instantiated for
 PATHS = ("decode", "prefill")
@@ -96,6 +101,77 @@ def split_ranges(q_first: int, q_last: int, Skv: int, *, kv_offset: int = 0,
     chunk = -(-n_t // splits)
     return [(max(lo, t * KV_TILE), min(hi, min(t_hi, t + chunk) * KV_TILE))
             for t in range(t_lo, t_hi, chunk)]
+
+
+def flash_work(B: int, H: int, Hkv: int, Sq: int, Skv: int, hd: int, *,
+               q_offsets: Optional[List[int]] = None, kv_offset: int = 0,
+               q_pos=None, kv_pos=None, causal: bool = True, window: int = 0,
+               partial: bool = False, itemsize: int = 2) -> Tuple[float, float]:
+    """``(flops, bytes)`` of one call: 4·hd FLOPs (Q·K and P·V) for every
+    (query head, key) pair the mask lets through, and q, the output and the
+    K/V rows the queries can see, each once.
+
+    Queries sit at ``q_offsets[b] + i`` (or the (B, Sq) array ``q_pos``),
+    keys at ``kv_offset + j`` (or the (B, Skv) array ``kv_pos``; with
+    either array every key is read). ``q_offsets=None`` with no ``q_pos``:
+    the queries are the last Sq positions of the keys (a full cache), the
+    dry run's assumption where a fake tensor hides them. ``partial``: the
+    fp32 ``(acc, m, l)`` outputs in place of the normalized one."""
+    if q_offsets is None:
+        q_offsets = [kv_offset + Skv - Sq] * B
+    if q_pos is not None or kv_pos is not None:
+        qp = np.asarray(q_pos, np.int64) if q_pos is not None else \
+            np.asarray(q_offsets, np.int64)[:, None] + np.arange(Sq)
+        kp = np.asarray(kv_pos, np.int64) if kv_pos is not None else \
+            np.broadcast_to(kv_offset + np.arange(Skv), (B, Skv))
+        vis = np.ones((B, Sq, Skv), bool)
+        if causal:
+            vis &= kp[:, None, :] <= qp[:, :, None]
+        if window:
+            vis &= kp[:, None, :] > qp[:, :, None] - window
+        pairs, keys = int(vis.sum()), B * Skv
+    else:
+        pairs = keys = 0
+        for o in q_offsets:
+            q = o + np.arange(Sq, dtype=np.int64)
+            hi = np.minimum(Skv, q - kv_offset + 1) if causal else np.full(Sq, Skv)
+            lo = np.maximum(0, q - window + 1 - kv_offset) if window else np.zeros(Sq, np.int64)
+            pairs += int(np.maximum(0, hi - lo).sum())
+            keys += max(0, int(hi[-1]) - int(lo[0]))
+    out = B * H * Sq * (4 * (hd + 2) if partial else itemsize * hd)
+    pos = 4 * B * ((Sq if q_pos is not None else 0) + (Skv if kv_pos is not None else 0))
+    return (4.0 * hd * H * pairs,
+            float(itemsize * B * H * Sq * hd + out + itemsize * 2 * Hkv * hd * keys + pos))
+
+
+def _report(rec, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            q_offset: Optional[torch.Tensor], q_pos: Optional[torch.Tensor],
+            kv_pos: Optional[torch.Tensor], kv_offset: int, causal: bool, window: int,
+            partial: bool) -> None:
+    """The call's work to the recorder ``rec``; positions a fake tensor
+    hides are taken as a full cache, and the recorder notes it."""
+    def values(t):
+        if t is None:
+            return None, False
+        if trace_cost.is_fake(t):
+            c = rec.constant(t)
+            return (None, True) if c is None else ([int(c)] * t.shape[0], False)
+        return rec.hidden(lambda: np.asarray(t.cpu()).tolist()), False
+    B, H, Sq, hd = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    q_offsets, hidden_q = values(None if q_pos is not None else q_offset)
+    qp, hidden_qp = values(q_pos)
+    kp, hidden_kp = values(kv_pos)
+    if hidden_q or hidden_qp or hidden_kp:
+        rec.assume("flash: the queries at the end of a full cache")
+    if hidden_qp:                       # positions unknown: a run at the cache's end
+        qp = None
+    flops, nbytes = flash_work(B, H, Hkv, Sq, Skv, hd, q_offsets=q_offsets,
+                               kv_offset=kv_offset, q_pos=qp, kv_pos=None if hidden_kp else kp,
+                               causal=causal, window=window, partial=partial,
+                               itemsize=q.element_size())
+    rec.kernel("flash_attention", (tuple(q.shape), tuple(k.shape), tuple(v.shape)), flops,
+               nbytes)
 
 
 _counters: dict = {}    # per device: the decode path's split counters
@@ -170,10 +246,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, H, Sq, hd) and m, l (B, H, Sq). ``path``/``splits`` force the
     kernel's plan (see ``plan``; for measurement and tests).
     """
+    rec = trace_cost.RECORDER
+    if trace_cost.is_fake(q):
+        if rec is not None:
+            _report(rec, q, k, v, q_offset, q_pos, kv_pos, kv_offset, causal, window,
+                    return_partial)
+        if return_partial:
+            B, H, Sq, hd = q.shape
+            return (q.new_empty((B, H, Sq, hd), dtype=torch.float32),
+                    q.new_empty((B, H, Sq), dtype=torch.float32),
+                    q.new_empty((B, H, Sq), dtype=torch.float32))
+        return torch.empty_like(q)
     if q.device.type == "cpu":
-        return flash_ref(q, k, v, q_offset, kv_offset=kv_offset, q_pos=q_pos, kv_pos=kv_pos,
-                         causal=causal, window=window, sm_scale=sm_scale,
-                         return_partial=return_partial)
+        kw = dict(kv_offset=kv_offset, q_pos=q_pos, kv_pos=kv_pos, causal=causal,
+                  window=window, sm_scale=sm_scale, return_partial=return_partial)
+        if rec is not None:
+            _report(rec, q, k, v, q_offset, q_pos, kv_pos, kv_offset, causal, window,
+                    return_partial)
+            return rec.hidden(flash_ref, q, k, v, q_offset, **kw)
+        return flash_ref(q, k, v, q_offset, **kw)
     if q_offset is None and q_pos is None:
         raise ValueError("flash: give q_offset or q_pos")
     _validate(q, k, v, None if q_pos is not None else q_offset, q_pos, kv_pos)
@@ -207,6 +298,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(bool(causal)), int(window), float(scale), PATHS.index(path), splits,
             torch.cuda.current_stream(q.device).cuda_stream)
     check(rc, "flash_attention")
+    if rec is not None:
+        _report(rec, q, k, v, q_offset, q_pos, kv_pos, kv_offset, causal, window,
+                return_partial)
     flash_attention.launches += 1
     flash_attention.qpos_launches += q_pos is not None
     return result

@@ -5,7 +5,10 @@
 ``repro.kernels.gmm.gmm.gmm``. With ``trans_w=True`` it computes ``x @
 w[e]^T`` instead, the data gradient of that product, from the same weights
 (no transposed copy). For a CUDA tensor it launches the kernel or raises;
-only a CPU tensor takes the plain version (``ref.gmm_ref``).
+only a CPU tensor takes the plain version (``ref.gmm_ref``). A fake tensor
+(a dry run, ``launch/dryrun.py``) takes neither: the call returns an empty
+output of the right shape and reports its work (:func:`gmm_work`) to the
+active ``roofline.trace_cost.Recorder``, as every call does while one is.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from repro_torch.kernels._build import check, load_library
 from repro_torch.kernels.gmm.ref import gmm_ref
+from repro_torch.roofline import trace_cost
 
 BLOCK_K = 64                # the kernel's K step (128 B of bf16, the swizzle span)
 BLOCKS_M = (128, 64)        # row tiles; bm must be a multiple of one of them
@@ -45,6 +49,25 @@ def tile_shape(M: int, N: int, bm: int, n_sms: int) -> tuple:
     if N % 256 or _wave_fill(rows * (N // 128), n_sms) > 1.1 * _wave_fill(rows * (N // 256), n_sms):
         return block_m, 128
     return block_m, 256
+
+
+def gmm_work(M: int, K: int, N: int, experts_used: int, itemsize: int = 2) -> tuple:
+    """``(flops, bytes)`` of one launch: 2·M·K·N products (``trans_w`` alike),
+    and x and y once and each used expert's (K, N) weight once."""
+    return 2.0 * M * K * N, float(itemsize * (M * K + M * N + experts_used * K * N))
+
+
+def _report(rec, x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
+            trans_w: bool) -> None:
+    """The call's work to the recorder ``rec``: every expert of ``w`` taken
+    as used on a fake ``block_expert`` (as the MoE layer's spans use them)."""
+    M, K = x.shape
+    N = w.shape[1 if trans_w else 2]
+    used = w.shape[0] if trace_cost.is_fake(block_expert) else \
+        rec.hidden(lambda: int(torch.unique(block_expert).numel()))
+    rec.kernel("gmm_trans_w" if trans_w else "gmm",
+               (tuple(x.shape), tuple(w.shape), tuple(block_expert.shape)),
+               *gmm_work(M, K, N, used, x.element_size()))
 
 
 def _validate(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
@@ -91,7 +114,15 @@ def gmm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor, *,
     Returns (M, N) in ``x.dtype`` with fp32 accumulation. ``block_m``/
     ``block_n`` force the kernel's tile (for measurement); by default
     ``tile_shape`` picks it."""
+    rec = trace_cost.RECORDER
+    if trace_cost.is_fake(x):
+        if rec is not None:
+            _report(rec, x, w, block_expert, trans_w)
+        return x.new_empty((x.shape[0], w.shape[1 if trans_w else 2]))
     if x.device.type == "cpu":
+        if rec is not None:
+            _report(rec, x, w, block_expert, trans_w)
+            return rec.hidden(gmm_ref, x, w, block_expert, bm=bm, trans_w=trans_w)
         return gmm_ref(x, w, block_expert, bm=bm, trans_w=trans_w)
     M, N = x.shape[0], w.shape[1 if trans_w else 2]
     if (block_m is None or block_n is None) and x.device.type == "cuda":
@@ -106,6 +137,8 @@ def gmm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor, *,
             M, K, N, bm, E, block_m, block_n, int(trans_w),
             torch.cuda.current_stream(x.device).cuda_stream)
     check(rc, "gmm")
+    if rec is not None:
+        _report(rec, x, w, block_expert, trans_w)
     gmm.launches += 1
     gmm.trans_w_launches += int(trans_w)
     return y

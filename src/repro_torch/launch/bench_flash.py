@@ -26,8 +26,10 @@ import statistics
 import subprocess
 from pathlib import Path
 
-PEAK_BYTES_PER_S = 3.35e12      # H100 SXM data sheet, at the 700 W limit
-PEAK_BF16_FLOPS = 989e12
+from repro_torch.roofline.analysis import H100_SXM
+
+PEAK_BYTES_PER_S = H100_SXM.hbm_bw        # H100 SXM data sheet, at the 700 W limit
+PEAK_BF16_FLOPS = H100_SXM.peak_flops
 H, HKV, HD = 48, 8, 128
 CASES = (                       # (label, Sq, Skv, q_offset per batch row)
     ("decode (serving)", 1, 512, [0, 37, 300, 511]),
@@ -49,7 +51,7 @@ def main() -> None:
     import torch.nn.functional as F
 
     from repro_torch.device import resolve_device
-    from repro_torch.kernels.flash.flash import _n_sms, flash_attention, plan
+    from repro_torch.kernels.flash.flash import _n_sms, flash_attention, flash_work, plan
     from repro_torch.kernels.flash.ref import flash_ref
     from repro_torch.launch.devtime import graph_ms
 
@@ -73,10 +75,7 @@ def main() -> None:
         q_off = torch.tensor(offsets, dtype=torch.int32, device=device)
         q_pos = q_off[:, None].long() + torch.arange(Sq, device=device)
         vis = torch.arange(L, device=device)[None, None, :] <= q_pos[:, :, None]
-        n_vis = vis.sum().item()
-        n_keys = sum(min(L, o + Sq) for o in offsets)
-        nbytes = 2 * B * H * Sq * HD * 2 + 2 * 2 * HKV * HD * n_keys
-        flops = 4.0 * HD * H * n_vis
+        flops, nbytes = flash_work(B, H, HKV, Sq, L, HD, q_offsets=offsets)
         bound_ms = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3
         bound_by = "bytes" if nbytes / PEAK_BYTES_PER_S >= flops / PEAK_BF16_FLOPS else "operations"
         ref = flash_ref(q, k, v, q_off).float()

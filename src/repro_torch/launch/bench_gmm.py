@@ -20,8 +20,10 @@ import statistics
 import subprocess
 from pathlib import Path
 
-PEAK_BYTES_PER_S = 3.35e12      # H100 SXM data sheet, at the 700 W limit
-PEAK_BF16_FLOPS = 989e12
+from repro_torch.roofline.analysis import H100_SXM
+
+PEAK_BYTES_PER_S = H100_SXM.hbm_bw        # H100 SXM data sheet, at the 700 W limit
+PEAK_BF16_FLOPS = H100_SXM.peak_flops
 TILES = ((128, 256), (128, 128), (64, 256), (64, 128))
 SHAPES = (                      # (label, rows per expert, K, N); 8 experts
     ("gate/up, decode", 128, 6144, 16384),

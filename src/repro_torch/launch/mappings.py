@@ -24,8 +24,8 @@ SWA_WINDOW = 8192  # sliding window used to run long_500k on full-attention arch
 
 
 # (arch, shape) -> (attn (dp,cp,tp), moe (edp,ep,etp), microbatch)
-# The reference's rows, which its cost-model search (``launch/autotune.py``
-# there; not ported) reproduces. Every row satisfies each divisibility rule
+# The reference's rows, which its cost-model search (``launch/autotune.py``,
+# at the reference's constants) reproduces. Every row satisfies each divisibility rule
 # (``mapping_problems``, checked at import).
 _TABLE: Dict[Tuple[str, str], Tuple[Tuple[int, int, int], Tuple[int, int, int], int]] = {
     # ---- train_4k: B=256, S=4096 --------------------------------------
@@ -203,13 +203,13 @@ def pcfg_for(arch: str, shape_name: str, *, multi_pod: bool = False,
              attn_override: Optional[Tuple[int, int, int]] = None,
              microbatch: Optional[int] = None,
              pp: int = 1, vpp: int = 1,
-             tuned: bool = False) -> ParallelConfig:
+             tuned: bool = False, hardware=None) -> ParallelConfig:
     """Production ParallelConfig for one (arch, shape): the ``_TABLE`` row
     (or the overrides), adapted to two pods (``multi_pod``) and with ``pp``
     stages carved out of DP on both sides, then checked by
-    :func:`validate_pipeline`. ``tuned=True`` (the reference's cost-model
-    search) raises: the autotuner is not ported (ROADMAP.md queue 1, item
-    5).
+    :func:`validate_pipeline`. ``tuned=True`` takes the row from the
+    cost-model search instead (``launch.autotune.tuned_mapping`` over the
+    row's world at ``hardware``, default ``roofline.analysis.H100_SXM``).
     """
     key = (arch, shape_name)
     if key not in _TABLE:
@@ -222,10 +222,14 @@ def pcfg_for(arch: str, shape_name: str, *, multi_pod: bool = False,
             f"no mapping for ({arch!r}, {shape_name!r}); known shapes for "
             f"{arch!r}: {known}")
     if tuned:
-        raise NotImplementedError(
-            "pcfg_for(tuned=True): the cost-model autotuner (launch/autotune.py) is not "
-            "ported (ROADMAP.md queue 1, item 5); use the committed _TABLE row")
-    (adp, acp, atp), (edp, ep, etp), nmicro = _TABLE[key]
+        from repro_torch.launch.autotune import tuned_mapping
+        from repro_torch.roofline.analysis import H100_SXM
+        attn, _, _ = _TABLE[key]
+        row = tuned_mapping(arch, shape_name, attn[0] * attn[1] * attn[2], pp=pp, vpp=vpp,
+                            hardware=hardware or H100_SXM)
+    else:
+        row = _TABLE[key]
+    (adp, acp, atp), (edp, ep, etp), nmicro = row
     if attn_override:
         adp, acp, atp = attn_override
     if ep_override:

@@ -72,8 +72,9 @@ import time
 from typing import Any, Dict, Optional
 
 from repro_torch.configs import ModelConfig, get_config, reduced
+from repro_torch.roofline.analysis import H100_SXM
 
-PEAK_BF16_FLOPS = 989e12      # H100 SXM data sheet, dense bf16
+PEAK_BF16_FLOPS = H100_SXM.peak_flops      # H100 SXM data sheet, dense bf16
 
 
 def train_config(arch: str, *, layers: Optional[int] = None,

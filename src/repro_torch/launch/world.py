@@ -602,13 +602,17 @@ def _in_turns(world: int, rank: int, make: Callable[[], Any], *, mine: bool = Tr
 
 
 def _one_run(r: "Run", fgm, cfg, params, batches, spec, dev, *, timed: bool,
-             profile: bool, on_host: bool = True, keep: bool = True
+             profile: bool, on_host: bool = True, keep: bool = True, record: bool = False
              ) -> Tuple[Dict[str, Any], Optional[Dict[str, torch.Tensor]]]:
     """One run from ``params`` (store slices on ``dev``) over the ranks of
     ``fgm``: its record and, with ``keep`` (else None), its result by leaf
     in fp32, on the host or kept on ``dev`` (``steps = 0``: the gradients of
     the timed pass; else the parameters after the last step). ``timed``: an
-    untimed warm-up pass first, the launches counted over the timed part."""
+    untimed warm-up pass first, the launches counted over the timed part.
+    ``record``: rank 0's first optimizer step runs under a
+    ``roofline.trace_cost.Recorder`` (collectives and kernel calls only),
+    whose lists go into the record (``collectives``, ``kernel_calls``)."""
+    from repro_torch.launch.dryrun import state_bytes
     from repro_torch.models.transformer import param_shapes
     from repro_torch.optim import adamw
     from repro_torch.train.loop import (_cast, grad_norm, init_train_state, loss_and_grads,
@@ -655,16 +659,26 @@ def _one_run(r: "Run", fgm, cfg, params, batches, spec, dev, *, timed: bool,
     else:
         opt = init_train_state(params, opt_cfg, cfg=cfg, groups=fgm)
         run["state_bytes"] = adamw.state_bytes(opt)
+        run["arg_bytes"] = state_bytes(params, opt)       # what the dry run calls arg_bytes
         run["state_bytes_expected"] = adamw.zero1_state_bytes(
             param_shapes(cfg, fgm), fgm, master_weights=opt_cfg.master_weights)["per_device"]
         step = make_train_step(cfg, opt_cfg, microbatch=micro, guard=True, groups=fgm)
         _sync(dev)
         _zero_launches()
-        for b in batches[:r.steps]:
+        for i, b in enumerate(batches[:r.steps]):
             _sync(dev)
             barrier()
+            rec = None
+            if record and i == 0 and dist.get_rank() == 0:
+                from repro_torch.roofline.trace_cost import Recorder
+                rec = Recorder(count=False)
             t0 = time.perf_counter()
-            params, opt, m = step(params, opt, b)
+            with rec or contextlib.nullcontext():
+                params, opt, m = step(params, opt, b)
+            if rec is not None:
+                run["collectives"] = [list(c.key()) for c in rec.collectives]
+                run["kernel_calls"] = [[k.kernel, [list(x) for x in k.shapes]]
+                                       for k in rec.kernels]
             _sync(dev)
             run["step_s"].append(time.perf_counter() - t0)
             run["metrics"].append({k: float(v) for k, v in m.items()})
@@ -678,7 +692,8 @@ def _one_run(r: "Run", fgm, cfg, params, batches, spec, dev, *, timed: bool,
                                             fgm.attn["stage"].index == 0)
         del opt, step
     if dev.type == "cuda":
-        run["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        run["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        run["peak_gb"] = run["peak_bytes"] / 1e9
         run["peak_reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
         free, total = torch.cuda.mem_get_info(dev)   # every process's, caches still held
         run["card_used_gb"], run["card_gb"] = (total - free) / 1e9, total / 1e9
@@ -816,7 +831,8 @@ def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, 
         if not on_host:
             del start
         run, result = _one_run(r, fgm, cfg, params, batches, spec, dev, timed=True,
-                               profile=spec["profile"] and i == 0, keep=spec["against_pp1"])
+                               profile=spec["profile"] and i == 0, keep=spec["against_pp1"],
+                               record=spec.get("record", False) and i == 0)
         del params
         if i == len(runs) - 1 and on_host:
             del start
@@ -860,7 +876,8 @@ def train_world(arch: str, *, attn: Sequence[int], moe: Sequence[int],
                 layers: Optional[int] = None, seq: int = 4096, batch: int = 1, seed: int = 0,
                 lr: float = 3e-4, fsdp: bool = True, master_weights: bool = False,
                 profile: bool = False, against_pp1: bool = False, dtype: Optional[str] = None,
-                pods: int = 1, timeout_s: float = 900.0) -> List[Dict[str, Any]]:
+                pods: int = 1, record: bool = False, timeout_s: float = 900.0
+                ) -> List[Dict[str, Any]]:
     """The folded training step of ``arch`` (cut to ``layers``) on
     attention (dp, cp, tp) ``attn`` and MoE (edp, ep, etp) ``moe``, with
     ``pp`` pipeline stages (``vpp`` virtual ones each) and ``microbatch``
@@ -891,12 +908,13 @@ def train_world(arch: str, *, attn: Sequence[int], moe: Sequence[int],
     extend CP (``pod_role="cp"``, as ``launch.mappings.pcfg_for`` maps the
     ``long_500k`` rows at ``multi_pod``; MoE layers refuse it,
     ``folding.check_sp_moe_handoff``); the world is ``pods · pp · dp · cp ·
-    tp`` ranks."""
+    tp`` ranks. ``record``: rank 0's first step of the first run records its
+    collectives and kernel calls (``_one_run``)."""
     spec = dict(arch=arch, attn=tuple(attn), moe=tuple(moe), runs=[tuple(r) for r in runs],
                 pp=pp, vpp=vpp, microbatch=microbatch, device=device, reduce=reduce,
                 layers=layers, seq=seq, batch=batch, seed=seed, lr=lr, fsdp=fsdp,
                 master_weights=master_weights, profile=profile, against_pp1=against_pp1,
-                dtype=dtype, pods=pods)
+                dtype=dtype, pods=pods, record=record)
     return spawn(_train_world_rank, pods * pp * math.prod(attn), backend="gloo", device=device,
                  args=(spec,), timeout_s=timeout_s)
 

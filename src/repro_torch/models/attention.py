@@ -18,7 +18,7 @@ backward in ``attn_core``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -29,6 +29,7 @@ from repro_torch.core.folding import FoldedGroups, zigzag_runs
 from repro_torch.kernels.flash.ops import flash
 from repro_torch.models.attn_core import _merge_partials, blockwise_attention, ring_attention
 from repro_torch.models.common import apply_mrope, apply_rope, dense_init, mrope_sections
+from repro_torch.roofline import trace_cost
 
 
 class AttentionParams(nn.Module):
@@ -247,6 +248,31 @@ def _folded_attention(p: AttentionParams, x: torch.Tensor, cfg: ModelConfig,
                                       causal=causal, window=window, block_kv=block_kv)
         out = out.transpose(1, 2).reshape(B, S_cp, -1)
     return comm.sp_scatter(out @ p.wo.to(out.dtype), tp_ax.group)
+
+
+def cp_kv_stats(cfg: ModelConfig, seq_len: int, batch_per_rank: int, cp: int,
+                *, dtype_bytes: int = 2) -> Dict[str, float]:
+    """Per-rank K/V residency and ring payload of one attention layer's
+    forward (``repro.models.attention.cp_kv_stats``; the context-scaling
+    figure reads it).
+
+    * ``kv_bytes_allgather`` — K+V resident per rank after the CP all-gather
+      (the full sequence, independent of ``cp``).
+    * ``kv_bytes_ring`` — K+V resident per rank under ring CP (one S/cp
+      shard; the visiting shard is the same size again at peak).
+    * ``ring_payload_bytes`` — bytes each rank sends over the ``cp − 1``
+      forward rotations (K + V + the keys' positions).
+    """
+    hd = cfg.resolved_head_dim
+    kv_row = 2 * cfg.n_kv_heads * hd * dtype_bytes          # K+V per token
+    full = float(batch_per_rank * seq_len * kv_row)
+    shard = full / cp
+    pos_bytes = batch_per_rank * (seq_len / cp) * 4
+    return {
+        "kv_bytes_allgather": full,
+        "kv_bytes_ring": shard,
+        "ring_payload_bytes": (cp - 1) * (shard + pos_bytes),
+    }
 
 
 def _positions_for(step: Union[int, torch.Tensor], B: int, C: int,
@@ -483,7 +509,13 @@ def attention_decode(p: AttentionParams, x: torch.Tensor, cache_k: torch.Tensor,
 
     slots = pos % (S_loc * cp) if window else torch.clamp(pos, max=S_loc * cp - 1)   # (B, C)
     rows = torch.arange(B, device=x.device)[:, None].expand(B, C)
-    if cp > 1:                                           # the tokens of my slots
+    if cp > 1 and trace_cost.is_fake(slots):
+        # A dry run cannot read which tokens land in its slots: it writes
+        # them all (B·C rows, the most a rank writes).
+        trace_cost.RECORDER.assume("every new token's K/V written on each CP rank")
+        rows, slots = rows.reshape(-1), torch.clamp(slots - lo, 0, S_loc - 1).reshape(-1)
+        k_new, v_new = (t.reshape(B * C, *t.shape[2:]) for t in (k_new, v_new))
+    elif cp > 1:                                         # the tokens of my slots
         mine = (slots >= lo) & (slots < lo + S_loc)
         rows, slots, k_new, v_new = rows[mine], slots[mine] - lo, k_new[mine], v_new[mine]
     cache_k[rows, :, slots, :] = k_new.to(cache_k.dtype)

@@ -54,7 +54,6 @@ import re
 from typing import Callable, Dict, Iterable, Mapping, Optional, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 from torch import nn
 
 from repro_torch.core import comm
@@ -330,9 +329,7 @@ def reduce_grads(grads: Dict[str, torch.Tensor], groups: FoldedGroups,
             if axis is not None and (lay.zero_dim is not None or lay.fsdp):
                 axis = _WITHOUT_DP[axis]
         group = None if axis is None else groups.attn[axis].group
-        if group is not None:
-            with torch.profiler.record_function("comm all_reduce"):
-                dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+        comm.all_reduce_(g, group)
         out[name] = g
     return out
 

@@ -1037,7 +1037,8 @@ def _encode(params: LMParams, batch: Dict[str, torch.Tensor], cfg: ModelConfig, 
         cp = groups.attn["cp"]
         if T % (cp.size * groups.tp):
             raise ValueError(f"{T} encoder frames do not split over cp·tp = "
-                             f"{cp.size * groups.tp}")
+                             f"{cp.size * groups.tp} (ROADMAP.md queue 1, "
+                             "'Encoder frames at any CP x TP')")
         lo, n = _sp_rows(groups, T // cp.size)
         xe = xe[:, lo:lo + n]
     xe, _ = _run_stack(params.encoder.layers, xe, None, cfg, remat=remat, groups=groups,

@@ -39,6 +39,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import comm
 from repro_torch.core.folding import as_layout
 
 Tensors = Dict[str, torch.Tensor]
@@ -131,15 +132,13 @@ def global_norm(grads: Tensors, *, counted: Optional[Dict[str, bool]] = None,
     if stages is not None:
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         vec = torch.stack([zero if s is None else s for s in sums])
-        if stages[0] is not None:
-            dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=stages[0])
+        comm.all_reduce_(vec, stages[0], name="norm")
         sums = list(vec)
     total = torch.zeros((), dtype=torch.float32, device=dev)
     for s in sums:
         if s is not None:
             total = total + s
-    if group is not None:
-        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    comm.all_reduce_(total, group, name="norm")
     return torch.sqrt(total)
 
 

@@ -106,8 +106,16 @@ def test_pcfg_for_options_and_errors_match_jax(args, kw):
 
 
 def test_tuned_mapping_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        mp.pcfg_for("mixtral-8x22b", "train_4k", tuned=True)
+    """The name is from before the autotuner was ported (it raised then):
+    ``tuned=True`` now takes the search's winner over the row's world, in
+    the ``_TABLE`` row convention (the reference's comparison is in
+    ``test_torch_autotune.py``), and the lookup still comes first."""
+    from repro_torch.launch.autotune import tuned_mapping
+    attn, moe, nm = tuned_mapping("mixtral-8x22b", "train_4k", 256)
+    p = mp.pcfg_for("mixtral-8x22b", "train_4k", tuned=True)
+    assert ((p.attn.dp, p.attn.inner, p.attn.tp), (p.moe.dp, p.moe.inner, p.moe.tp),
+            p.microbatch) == (attn, moe, nm)
+    assert p.world_size == 256
     with pytest.raises(ValueError, match="no mapping"):      # the lookup comes first
         mp.pcfg_for("nope", "train_4k", tuned=True)
 

@@ -73,6 +73,9 @@ CASES = {
 }
 # The port takes RESUMED's step 2 from JAX's parameters and state after step 1.
 RESUMED = "mixtral-zero-master"
+# One step of RECORDED's fold is recorded on the ranks TRACED and held
+# against the dry run's trace of those ranks (launch/dryrun.py).
+RECORDED, TRACED = "mixtral-ep8-allgather", (0, 5)
 HANDOFF = "qwen2-handoff"
 STATE = ("mu", "nu", "master")
 
@@ -152,7 +155,33 @@ def _train_world(rank, world, cases, resumed):
             res["skip_equal"] = all(np.array_equal(p.detach().numpy(), res["params"][n])
                                     for n, p in params.named_parameters())
         out[case] = res
+    out["recorded"] = _recorded_step(rank, world, *cases[RECORDED])
     return out
+
+
+def _recorded_step(rank, world, jparams, batches):
+    """One more step of RECORDED's fold from its start with a trace_cost
+    recorder on: the collectives (kind, range, result bytes, global ranks)
+    and kernel calls this rank issued, in order, and the bytes of its
+    stored state before the step (ranks in TRACED; None elsewhere)."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch.dryrun import state_bytes
+    from repro_torch.roofline.trace_cost import Recorder
+    from repro_torch.train.loop import init_train_state, make_train_step
+    cfg = _port_cfg(RECORDED)
+    fg = folding.build_folded_groups(_pcfg(RECORDED), rank=rank, world=world)
+    params = params_from_jax(jparams, cfg, device="cpu", groups=fg)
+    opt = init_train_state(params, _opt(RECORDED), cfg=cfg, groups=fg)
+    batch = {k: torch.from_numpy(v) for k, v in shard_batch(batches[0], fg).items()}
+    arg_bytes = state_bytes(params, opt)
+    rec = Recorder(count=False)
+    with rec:
+        make_train_step(cfg, _opt(RECORDED), groups=fg)(params, opt, batch)
+    if rank not in TRACED:
+        return None
+    return dict(arg_bytes=arg_bytes, collectives=[c.key() for c in rec.collectives],
+                kernels=[(k.kernel, k.shapes) for k in rec.kernels])
 
 
 def _jax_cfg(case):
@@ -302,6 +331,28 @@ def test_folded_train_step_matches_jax(tmp_path):
                 _port_cfg(RESUMED))
     assert ref["mixtral-ep8-allgather"]["metrics"][-1]["loss"] < \
         ref["mixtral-ep8-allgather"]["metrics"][0]["loss"]
+    _check_trace(per_rank)
+
+
+def _check_trace(per_rank):
+    """The dry run's trace of RECORDED's fold for each rank of TRACED, on
+    fake tensors over a fake world of 8, against that rank's real gloo
+    step: the same collectives in the same order, the same kernel calls at
+    the same shapes, and the stored state's bytes exactly."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.dryrun import trace_pair
+    arch, _, _, _, _, batch, *_ = CASES[RECORDED]
+    for rank in TRACED:
+        real = per_rank[rank]["recorded"]
+        rec, meta = trace_pair(arch, "train_4k", pcfg=_pcfg(RECORDED), cfg=_port_cfg(RECORDED),
+                               shape=InputShape("train", SEQ, batch, "train"), rank=rank,
+                               opt_cfg=_opt(RECORDED))
+        assert [c.key() for c in rec.collectives] == real["collectives"], rank
+        assert [(k.kernel, k.shapes) for k in rec.kernels] == real["kernels"], rank
+        assert meta["arg_bytes"] == real["arg_bytes"], rank
+        # 2 layers: 3 GMM launches a chunk (2 overlap chunks at a fold) in the
+        # forward, remat's recompute and the dgrad, and 2 flash launches.
+        assert len(real["collectives"]) > 50 and len(real["kernels"]) == 2 * (3 * 2 * 3 + 2)
 
 
 @pytest.mark.parametrize("fold", ["fm222", "fm_folded", "fm_ep8", "cp4", "tp_only"])
