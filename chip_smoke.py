@@ -291,7 +291,7 @@ train-configs — phase 5's one-card training (2 steps, launches 3 + 3 + 3
    paged and a dense engine (paged tokens equal dense; no kernel on the
    path: every launch counter stays 0) and prints the recurrent state a
    request; then, cut to one cycle (4 layers: ``RECUR_TRAIN``), 1 AdamW
-   step of one 4096-token sequence, and the same again (losses finite,
+   step of one 1024-token sequence, and the same again (losses finite,
    losses and grad_norm bitwise equal across the runs), step ms and MFU
    (``launch.train.recurrent_flops``), and the sLSTM layer's share of the
    step from one sLSTM layer timed alone. (b)
@@ -320,6 +320,17 @@ train-configs — phase 5's one-card training (2 steps, launches 3 + 3 + 3
    the trace's collectives (kind, range, result bytes, global ranks) and
    kernel calls equal the real step's in order, its ``arg_bytes`` equal
    the real state's, and its peak is within ``DRYRUN_MEM_TOL`` of rank 0's.
+   Then the static analysis (``repro_torch.analysis``), each line printed
+   before the phase fails on any: (a) the collective audit of phase 9's
+   real rank-0 records at phase 9's fold, config and shape: no finding, and
+   its rows (kind, atoms, labels, count, wire bytes) equal the trace's;
+   (b) init purity on the card: full-width Mixtral through the production
+   init path for every rank of phase 9's fold (1 layer) and of a pp = 2
+   fold (``PURITY_PP``, 2 layers), reassembled on the card, bitwise the
+   one-card init (the pp = 2 fold stage by stage), with its time and peak
+   bytes; (c) Whisper ``prefill_32k``'s production row (rank -1 of 256,
+   1500 encoder frames padded to split over cp·tp) traced on fake CUDA
+   tensors in the same subprocess, with its roofline line.
 
 Phase 9 runs first, right after the build: its 4 ranks need about 70 GB
 of the card (Qwen2: 18.02 GB peak a rank on an H100), and what the other
@@ -3244,8 +3255,11 @@ RECUR_CACHES = {XLSTM: ("paged", "dense"), ZAMBA2: ("dense",)}
 # xLSTM trains one cycle (4 layers: mLSTM x3 + sLSTM): at its 12 layers a
 # step took 23.6-25.8 s on an H100 (3 sLSTM layers of 4096 sequential
 # cells, 88% of it), so its four steps would take 100 s alone; at one cycle
-# a step still takes 8-15 s, so it runs one step a run (Zamba2 two).
-RECUR_TRAIN = dict(seq=4096, batch=1, steps={XLSTM: 1, ZAMBA2: 2}, layers={XLSTM: 4, ZAMBA2: 12})
+# a 4096-token step still took 15-32 s, so it runs one step a run (Zamba2
+# two) of 1024 tokens (its sLSTM cells are sequential: a quarter of the
+# time; ``launch/profile_train.py`` splits it at the same length).
+RECUR_TRAIN = dict(seq={XLSTM: 1024, ZAMBA2: 4096}, batch=1, steps={XLSTM: 1, ZAMBA2: 2},
+                   layers={XLSTM: 4, ZAMBA2: 12})
 
 
 def _recurrent_serve(torch, arch: str) -> tuple:
@@ -3348,7 +3362,7 @@ def _recurrent_train_run(torch, cfg, batches) -> dict:
 
 
 def _slstm_ms(torch, cfg) -> dict:
-    """One sLSTM block at ``cfg``'s width over RECUR_TRAIN's sequence, bf16,
+    """One sLSTM block at ``cfg``'s width over xLSTM's RECUR_TRAIN sequence, bf16,
     timed alone by the host clock (each synchronised; the training runs
     before warmed its ops): its forward without autograd (the step's first
     forward under the reentrant remat) and its forward with the backward
@@ -3360,8 +3374,8 @@ def _slstm_ms(torch, cfg) -> dict:
     g = torch.Generator(device="cuda").manual_seed(5)
     p = ssm_blocks.init_block("slstm", cfg, _init_norm(cfg, "cuda"), generator=g,
                               dtype=torch.bfloat16, device="cuda")
-    x = torch.randn((RECUR_TRAIN["batch"], RECUR_TRAIN["seq"], cfg.d_model), generator=g,
-                    device="cuda").to(torch.bfloat16).requires_grad_()
+    x = torch.randn((RECUR_TRAIN["batch"], RECUR_TRAIN["seq"][XLSTM], cfg.d_model),
+                    generator=g, device="cuda").to(torch.bfloat16).requires_grad_()
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -3380,7 +3394,7 @@ def _slstm_ms(torch, cfg) -> dict:
 
 
 def _recurrent_train(torch, arch: str) -> tuple:
-    """(a)/(b) training: RECUR_TRAIN's steps of one 4096-token sequence
+    """(a)/(b) training: RECUR_TRAIN's steps of one sequence
     (``SyntheticTokens(seed=0)``), then the same again: losses finite and
     ``step_ok``, losses and ``grad_norm`` bitwise equal across the two
     runs, flash launches 2 a step per KV-bearing layer (forward and remat's
@@ -3391,7 +3405,7 @@ def _recurrent_train(torch, arch: str) -> tuple:
     from repro_torch.models.transformer import param_shapes
     from repro_torch.serve.cache import n_kv_layers
     cfg = train_config(arch, layers=RECUR_TRAIN["layers"][arch])
-    seq, steps = RECUR_TRAIN["seq"], RECUR_TRAIN["steps"][arch]
+    seq, steps = RECUR_TRAIN["seq"][arch], RECUR_TRAIN["steps"][arch]
     data = SyntheticTokens(DataConfig(seq_len=seq, global_batch=RECUR_TRAIN["batch"],
                                       vocab_size=cfg.vocab_size, seed=0))
     batches = [{k: torch.from_numpy(v).to("cuda") for k, v in next(data).items()}
@@ -3516,18 +3530,22 @@ def _recurrent_line(rec: dict, sources: dict) -> list:
 
 
 DRYRUN_TRAIN = ("--arch", MIXTRAL, "--shape", "train_4k", "--layers", "1")
+# Phase 17 (c): a production row that pads its encoder frames (1500 over
+# cp·tp = 8), traced at its world (rank -1 of 256).
+DRYRUN_WHISPER = ("--arch", WHISPER, "--shape", "prefill_32k")
+# Phase 17 (b): the pp = 2 fold of the purity check (2 layers, one a stage).
+PURITY_PP = dict(attn=(1, 1, 2), moe=(1, 1, 2), pp=2, layers=2)
 
 
-def _dryrun(*traces: tuple) -> list:
+def _dryrun(*argvs: tuple) -> list:
     """Traces of ``python -m repro_torch.launch.dryrun`` on fake CUDA tensors,
-    each given by its extra arguments, in one subprocess (one interpreter
-    and CUDA start); their records."""
+    each given by its arguments, in one subprocess (one interpreter and CUDA
+    start); their records."""
     import os
     results = ROOT / "results"
     results.mkdir(exist_ok=True)
-    outs = [results / f"dryrun_{i}.jsonl" for i in range(len(traces))]
-    argvs = [[*DRYRUN_TRAIN, *args, "--rank", "0", "--device", "cuda", "--lists", "--out", str(out)]
-             for args, out in zip(traces, outs)]
+    outs = [results / f"dryrun_{i}.jsonl" for i in range(len(argvs))]
+    argvs = [[*args, "--device", "cuda", "--out", str(out)] for args, out in zip(argvs, outs)]
     for out in outs:
         out.unlink(missing_ok=True)
     code = ("from repro_torch.launch.dryrun import main\n"
@@ -3542,16 +3560,130 @@ def _plain(x):
     return json.loads(json.dumps(x))
 
 
-def phase_dryrun(one_card: dict, train_zero: dict) -> dict:
+def _records(lists) -> list:
+    """``trace_cost.CollectiveRecord``s from a record's collective lists
+    (``key()``: kind, range, result bytes, global ranks)."""
+    from repro_torch.roofline.trace_cost import CollectiveRecord
+    return [CollectiveRecord(kind, name, int(nbytes), len(ranks), tuple(ranks))
+            for kind, name, nbytes, ranks in lists]
+
+
+def _dryrun_audit(run0: dict, t9: dict, moe: tuple, smi: str, failures: list) -> dict:
+    """Phase 17 (a): phase 9's real rank-0 records classified and budgeted
+    at phase 9's fold, config and shape (``analysis.audit.audit_step``):
+    no finding, and the rows equal the trace's."""
+    import dataclasses
+    from repro_torch.analysis.audit import audit_step
+    from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
+    from repro_torch.configs.shapes import get_shape
+    from repro_torch.launch.dryrun import step_config
+    from repro_torch.launch.train import train_config
+    t0 = time.perf_counter()
+    pcfg = ParallelConfig(attn=PM(*ZERO_ATTN), moe=PM(*moe))
+    cfg = step_config(train_config(MIXTRAL, layers=1), "train")
+    shape = dataclasses.replace(get_shape("train_4k"), seq_len=TRAIN_SEQ, global_batch=ZERO_BATCH)
+    real, found = audit_step({0: _records(run0["collectives"])}, cfg, shape, pcfg,
+                             where="phase 9 rank 0")
+    traced, _ = audit_step({0: _records(t9["collectives"])}, cfg, shape, pcfg,
+                           where="phase 9 trace")
+    rows = [r.row() for r in real]
+    same = rows == [r.row() for r in traced]
+    out = dict(rows=rows, findings=[str(f) for f in found], rows_equal_trace=same,
+               seconds=time.perf_counter() - t0)
+    for r in rows:
+        _say(f"[dryrun-audit]   {r['kind']:15s} atoms={','.join(r['atoms']):6s} "
+             f"fold={r['fold']:9s} x{r['count']:<3g} {r['wire_bytes'] / 2 ** 20:10.2f} MiB "
+             f"[{' '.join(r['labels'])}]")
+    _say(f"[dryrun-audit] (a) phase 9's real rank-0 records at attention {ZERO_ATTN} / MoE {moe}"
+         f": {len(rows)} rows, {len(found)} findings, rows "
+         f"{'equal to' if same else 'DIFFERENT FROM'} the trace's ({out['seconds']:.2f} s; {smi})")
+    failures += [f"audit: {f}" for f in found]
+    if not same:
+        failures.append("audit: phase 9's real rows differ from the trace's")
+    return out
+
+
+def _dryrun_purity(torch, moe: tuple, smi: str, failures: list) -> dict:
+    """Phase 17 (b): full-width Mixtral built on the card through the
+    production init path (``init_lm(groups=)`` then ``shard_lm_params``)
+    for every rank of phase 9's fold (1 layer) and of ``PURITY_PP``'s pp = 2
+    fold (2 layers), reassembled on the card: bitwise the one-card init of
+    the same depth (the pp = 2 fold stage by stage)."""
+    from repro_torch.analysis.purity import fold_label, stored_whole, tree_bitwise_diffs
+    from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
+    from repro_torch.core.folding import folded_layout
+    from repro_torch.launch.train import train_config
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    zero = ParallelConfig(attn=PM(*ZERO_ATTN), moe=PM(*moe))
+    pp = ParallelConfig(attn=PM(*PURITY_PP["attn"]), moe=PM(*PURITY_PP["moe"]),
+                        pp=PURITY_PP["pp"])
+    out, diffs = {}, {}
+    for pcfg, layers in ((zero, 1), (pp, PURITY_PP["layers"])):
+        cfg = train_config(MIXTRAL, layers=layers)
+        one = stored_whole(cfg, None, device="cuda")
+        stages = {}
+        for r in range(pcfg.world_size):
+            stages.setdefault(folded_layout(pcfg, rank=r, world=pcfg.world_size).pp_stage,
+                              []).append(r)
+        found, names = [], set()
+        for _, ranks in sorted(stages.items()):
+            whole = stored_whole(cfg, pcfg, device="cuda", ranks=ranks)
+            names |= set(whole)
+            found += tree_bitwise_diffs({n: one[n] for n in whole}, whole)
+            del whole
+        found += [(n, 0, float("inf")) for n in sorted(set(one) - names)]
+        del one
+        torch.cuda.empty_cache()
+        label = f"{fold_label(pcfg)} x {layers} layer(s)"
+        diffs[label] = found
+        _say(f"[dryrun-purity] (b) {label}: {pcfg.world_size} ranks' stored leaves reassembled "
+             f"on the card ({len(stages)} stage(s)), {len(found)} leaves differing bitwise from "
+             "the one-card init")
+    torch.cuda.synchronize()
+    out = dict(diffs={k: [list(d) for d in v] for k, v in diffs.items()},
+               seconds=time.perf_counter() - t0,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    _say(f"[dryrun-purity] (b) {out['seconds']:.2f} s, peak allocated "
+         f"{out['peak_bytes'] / 1e9:.2f} GB ({smi})")
+    failures += [f"purity: {k}: {v[:4]}" for k, v in diffs.items() if v]
+    return out
+
+
+def _dryrun_whisper(tw: dict, smi: str, failures: list) -> dict:
+    """Phase 17 (c): Whisper ``prefill_32k``'s production row, whose 1500
+    encoder frames the port pads to split over cp·tp, traced on fake CUDA
+    tensors at its world."""
+    keys = ("ok", "chips", "rank", "t_trace_s", "bytes_per_device", "compute_s", "memory_s",
+            "collective_s", "dominant", "mfu_bound", "n_collectives", "n_kernel_calls",
+            "assumptions", "pcfg")
+    out = {k: tw.get(k) for k in keys}
+    _say(f"[dryrun-whisper] (c) {WHISPER} x prefill_32k x {tw['chips']} ranks, rank {tw['rank']}"
+         f" ({tw['pcfg']['attn']}): ok={tw['ok']} traced in {tw['t_trace_s']:.1f} s; "
+         f"mem/dev {tw['bytes_per_device'] / 2 ** 30:.2f} GiB, compute "
+         f"{tw['compute_s'] * 1e3:.2f} ms, memory {tw['memory_s'] * 1e3:.2f} ms, collective "
+         f"{tw['collective_s'] * 1e3:.2f} ms -> {tw['dominant']}-bound, MFU <= "
+         f"{100 * tw['mfu_bound']:.1f}% at H100_SXM ({smi})")
+    if not tw["ok"]:
+        failures.append(f"whisper prefill_32k trace: {tw}")
+    return out
+
+
+def phase_dryrun(torch, one_card: dict, train_zero: dict) -> dict:
     """Phase 17: see the module docstring. Every check is printed before
     the phase fails on any of them."""
     smi = _smi()
     failures, out = [], {}
     moe = train_zero["moe"]
     t0 = time.perf_counter()
-    t5, t9 = _dryrun(("--seq", str(TRAIN_SEQ), "--batch", "1", "--attn", "1,1,1"),
-                     ("--seq", str(TRAIN_SEQ), "--batch", str(ZERO_BATCH),
-                      "--attn", ",".join(map(str, ZERO_ATTN)), "--moe", ",".join(map(str, moe))))
+    one = ("--rank", "0", "--lists")
+    t5, t9, tw = _dryrun((*DRYRUN_TRAIN, "--seq", str(TRAIN_SEQ), "--batch", "1", "--attn",
+                          "1,1,1", *one),
+                         (*DRYRUN_TRAIN, "--seq", str(TRAIN_SEQ), "--batch", str(ZERO_BATCH),
+                          "--attn", ",".join(map(str, ZERO_ATTN)),
+                          "--moe", ",".join(map(str, moe)), *one),
+                         DRYRUN_WHISPER)
+    out["t_subprocess_s"] = time.perf_counter() - t0
     real5 = one_card
     step_s = real5["step_ms_warm_median"] / 1e3
     bound_s = max(t5["compute_s"], t5["memory_s"])
@@ -3611,6 +3743,9 @@ def phase_dryrun(one_card: dict, train_zero: dict) -> dict:
     if not abs(mem9) <= DRYRUN_MEM_TOL:
         failures.append(f"phase 9 peak {t9['bytes_per_device']} B vs {run0['peak_bytes']} B: "
                         f"{100 * mem9:+.2f}%")
+    out["audit"] = _dryrun_audit(run0, t9, moe, smi, failures)
+    out["purity"] = _dryrun_purity(torch, moe, smi, failures)
+    out["whisper_prefill_32k"] = _dryrun_whisper(tw, smi, failures)
     out["wall_s"] = time.perf_counter() - t0
     if failures:
         raise AssertionError("phase 17:\n" + "\n".join(failures))
@@ -3710,7 +3845,8 @@ def main() -> int:
     recurrent = phase_recurrent(torch)
     serve_world["recurrent_against_one_card"] = _recurrent_world_check(serve_world, recurrent)
     mark("phase 16")
-    dryrun = phase_dryrun(results[MIXTRAL]["train"], train_zero)
+    memory_dryrun = _free(torch, "phase 16 done, before phase 17")
+    dryrun = phase_dryrun(torch, results[MIXTRAL]["train"], train_zero)
     mark("phase 17")
     seconds = time.perf_counter() - t_start
 
@@ -3751,6 +3887,7 @@ def main() -> int:
         window_dense=window, memory_before_window_dense=memory_window,
         blocks=blocks, memory_before_blocks=memory_blocks,
         recurrent=recurrent, memory_before_recurrent=memory_recurrent, dryrun=dryrun,
+        memory_before_dryrun=memory_dryrun,
         config_kernels=config_kernels,
         train_configs=train_configs, memory_after_train_zero=memory_zero,
         memory_after_train_handoff=memory_handoff,

@@ -85,18 +85,19 @@ def _rows(splits: Optional[List[int]], n: int) -> int:
 _range = torch.profiler.record_function
 
 
-def _noted(kind: str, name: str, out: torch.Tensor, group: Group) -> None:
+def _noted(kind: str, name: str, out: torch.Tensor, group: Group,
+           pairs: Sequence[Tuple[int, int]] = ()) -> None:
     if trace_cost.RECORDER is not None:
-        trace_cost.note_collective(kind, name, out, group)
+        trace_cost.note_collective(kind, name, out, group, pairs)
 
 
 def _a2a(x: torch.Tensor, group: Group, in_splits, out_splits, async_op=False,
-         name: str = "all_to_all"):
+         name: str = "all_to_all", pairs: Sequence[Tuple[int, int]] = ()):
     x = x.contiguous()
     out = x.new_empty((_rows(out_splits, x.shape[0]),) + tuple(x.shape[1:]))
     with _range(f"comm {name}"):
         _noted("collective-permute" if name == "ring_shift" else "all-to-all", name, out,
-               group)
+               group, pairs)
         work = dist.all_to_all_single(out, x, output_split_sizes=out_splits,
                                       input_split_sizes=in_splits, group=group,
                                       async_op=async_op)
@@ -313,7 +314,8 @@ def ring_shift_(x: torch.Tensor, ax, step: int = 1) -> torch.Tensor:
     ins, outs = [0] * n, [0] * n
     ins[_group_rank(ax, (ax.index + step) % n)] = rows
     outs[_group_rank(ax, (ax.index - step) % n)] = rows
-    return _a2a(x, ax.group, ins, outs, name="ring_shift")[0]
+    pairs = [(ax.ranks[i], ax.ranks[(i + step) % n]) for i in range(n)]
+    return _a2a(x, ax.group, ins, outs, name="ring_shift", pairs=pairs)[0]
 
 
 class _RingShift(Function):
@@ -422,9 +424,10 @@ def _handoff(x: torch.Tensor, ax, seqs: int, to_moe: bool) -> torch.Tensor:
             y, _ = _a2a(x, ax.group, [c * rows for c in sp], [c * rows for c in moe],
                         name="handoff")
             arrived = sorted(range(seqs), key=order.__getitem__)
-            y = y.reshape(blocks.shape).index_select(0, torch.tensor(arrived, device=x.device))
+            y = y.reshape(blocks.shape).index_select(
+                0, torch.tensor(arrived, dtype=torch.long, device=x.device))
         else:
-            sent = blocks.index_select(0, torch.tensor(order, device=x.device))
+            sent = blocks.index_select(0, torch.tensor(order, dtype=torch.long, device=x.device))
             y, _ = _a2a(sent.reshape(x.shape), ax.group, [c * rows for c in moe],
                         [c * rows for c in sp], name="handoff")
     return y.reshape(x.shape)
@@ -541,7 +544,8 @@ class StageLink:
         """Post ``x`` (no gradient) to ``stage`` under ``tag``."""
         buf = x.detach()
         with _range("comm send"):
-            _noted("send", "send", buf, self.ax.group)
+            _noted("send", "send", buf, self.ax.group,
+                   [(self.ax.ranks[self.ax.index], self.ax.ranks[stage])])
             if self.host and buf.device.type != "cpu":
                 buf = buf.cpu()
             buf = buf.contiguous()
@@ -555,7 +559,8 @@ class StageLink:
         with _range("comm recv"):
             buf = torch.empty(tuple(shape), dtype=dtype,
                               device="cpu" if self.host else device)
-            _noted("collective-permute", "recv", buf, self.ax.group)
+            _noted("collective-permute", "recv", buf, self.ax.group,
+                   [(self.ax.ranks[stage], self.ax.ranks[self.ax.index])])
             dist.irecv(buf, src=self.ax.ranks[stage], group=self.ax.group, tag=tag).wait()
             return buf.to(device)
 

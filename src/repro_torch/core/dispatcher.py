@@ -21,9 +21,10 @@ the one-rank layer the serving and training paths call.
 Two permutation layouts build the step-1 buffer:
 
 * ``permute_mode="sort"`` (MegaBlocks-style): a stable argsort by expert id
-  groups the kept assignments; each expert owns a span of ``cap_pad =
-  round_up(capacity, gmm_block_m)`` rows, gathered (row ``e*cap_pad + p``
-  holds the p-th kept assignment of expert e in token order). Every
+  groups the kept assignments; each expert owns ``capacity`` rows of the
+  exchanged buffer (row ``e*capacity + p`` holds the p-th kept assignment
+  of expert e in token order), and after the exchange a span of ``cap_pad
+  = round_up(capacity, gmm_block_m)`` rows (zero rows appended). Every
   ``bm``-row block belongs to one expert, so the expert FFN is three GMM
   kernel launches (:func:`repro_torch.kernels.gmm.ops.expert_ffn_gmm`),
   or the reference's einsum where ``D`` or the ETP-local ``F`` is not a
@@ -133,7 +134,7 @@ def token_shard(x: torch.Tensor, groups: FoldedGroups
     if not pad:
         return x[lo:lo + t_l], None
     x = F.pad(x, (0, 0, 0, pad))
-    mask = torch.arange(lo, lo + t_l, device=x.device) < T
+    mask = torch.arange(lo, lo + t_l, dtype=torch.long, device=x.device) < T
     return x[lo:lo + t_l], mask
 
 
@@ -174,7 +175,7 @@ def _route_sweep(x: torch.Tensor, wg: torch.Tensor, mcfg: MoEConfig, n_shards: i
     pad = (-T) % n_shards
     t_l = (T + pad) // n_shards
     xp = F.pad(x, (0, 0, 0, pad))
-    valid = torch.arange(T + pad, device=x.device) < T
+    valid = torch.arange(T + pad, dtype=torch.long, device=x.device) < T
     out = []
     with torch.no_grad():
         for i in range(n_shards):
@@ -325,8 +326,8 @@ def moe_ffn(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor, w2: torch.Tenso
         if token_mask is not None:
             gmask = comm.all_gather(token_mask.to(torch.int32), seq.group, 0).bool()
         capacity = capacity_per_expert(logits.shape[0], mcfg)
-        r_full = route(logits, torch.eye(E, device=x.device), mcfg, capacity=capacity,
-                       token_mask=gmask)
+        r_full = route(logits, torch.eye(E, dtype=torch.float32, device=x.device), mcfg,
+                       capacity=capacity, token_mask=gmask)
         mine = slice(seq.index * t_l, (seq.index + 1) * t_l)
         r = dataclasses.replace(r_full, expert_idx=r_full.expert_idx[mine],
                                 combine_w=r_full.combine_w[mine],
@@ -341,8 +342,8 @@ def moe_ffn(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor, w2: torch.Tenso
     # experts are distinct) and never more than the whole stream's capacity.
     C = resolve_chunks(t_l, n_chunks)
     spans = chunk_spans(t_l, C)
-    cap_pads = tuple(_round_up(capacity if C == 1 else min(capacity, s), span_block)
-                     for _, s in spans)
+    caps = tuple(capacity if C == 1 else min(capacity, s) for _, s in spans)
+    cap_pads = tuple(_round_up(cc, span_block) for cc in caps)
     sds = chunked_sorted_dispatch(r.expert_idx, r.keep, E, spans, ep=ep) if use_sort else None
     rebase = (chunk_expert_offsets(r.expert_idx, E, spans, token_mask)
               if (not use_sort and C > 1) else None)
@@ -361,23 +362,26 @@ def moe_ffn(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor, w2: torch.Tenso
         x_c = x[off:off + n_c]
         flat_e = r.expert_idx[off:off + n_c].reshape(-1)
         keep_c = r.keep[off:off + n_c].reshape(-1)
-        cap_pad = cap_pads[c]
-        n_rows = E * cap_pad
+        # The exchange ships each expert's ``cap`` rows; the GMM's span
+        # padding to ``cap_pad`` is added after the ETP gather, so no tile
+        # padding crosses the wire.
+        cap = caps[c]
+        n_rows = E * cap
         if use_sort:
             sd = sds[c]
-            row = torch.arange(n_rows, device=x.device)
-            e_of, p_of = row // cap_pad, row % cap_pad
+            row = torch.arange(n_rows, dtype=torch.long, device=x.device)
+            e_of, p_of = row // cap, row % cap
             valid = p_of < sd.group_sizes[e_of]
             src_sorted = torch.clamp(sd.group_offsets[e_of] + p_of, max=n_c * K - 1)
             buf = torch.where(valid[:, None], x_c[sd.perm[src_sorted] // K], 0).to(x.dtype)
             # Each kept assignment's span position is its sorted-stream
             # position minus its expert's group offset.
-            idx = flat_e * cap_pad + (sd.inv_perm - sd.group_offsets[flat_e])
+            idx = flat_e * cap + (sd.inv_perm - sd.group_offsets[flat_e])
         else:
             pos = r.pos_in_expert[off:off + n_c].reshape(-1)
             if rebase is not None:
                 pos = pos - rebase[c][flat_e]
-            idx = flat_e * cap_pad + pos
+            idx = flat_e * cap + pos
         idx = torch.where(keep_c, idx, n_rows)                           # OOB = drop
         if not use_sort:
             # The drops land in the extra last row, which is cut off.
@@ -385,23 +389,26 @@ def moe_ffn(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor, w2: torch.Tenso
                 0, idx, x_c.repeat_interleave(K, dim=0))[:n_rows]
         # -------------------------------------------- 2. All-to-All (EP)
         pending: list = []
-        buf = comm.all_to_all(buf, ep_g, pending=pending)    # (ep_src, e_local, cap_pad, D)
-        return dict(buf=buf, idx=idx, pending=pending, cap_pad=cap_pad)
+        buf = comm.all_to_all(buf, ep_g, pending=pending)    # (ep_src, e_local, cap, D)
+        return dict(buf=buf, idx=idx, pending=pending, cap=cap, cap_pad=cap_pads[c])
 
     def padded_gather(st: dict) -> torch.Tensor:
         comm.wait(st["pending"])
         # -------------------------------------------- 3. AllGather (ETP)
-        buf = comm.all_gather(st["buf"], etp_g, 0)       # (etp, ep_src, e_local, cap_pad, D)
-        cap_pad = st["cap_pad"]
-        return buf.reshape(n_src, e_local, cap_pad, D).transpose(0, 1).reshape(
-            e_local, n_src * cap_pad, D)
+        buf = comm.all_gather(st["buf"], etp_g, 0)       # (etp, ep_src, e_local, cap, D)
+        cap, cap_pad = st["cap"], st["cap_pad"]
+        buf = buf.reshape(n_src, e_local, cap, D)
+        if cap_pad != cap:
+            buf = F.pad(buf, (0, 0, 0, cap_pad - cap))    # zero rows to the GMM's block
+        return buf.transpose(0, 1).reshape(e_local, n_src * cap_pad, D)
 
     def padded_combine(c: int, st: dict, ye: torch.Tensor) -> torch.Tensor:
-        cap_pad = st["cap_pad"]
-        yb = ye.reshape(e_local, n_src, cap_pad, D).transpose(0, 1).reshape(-1, D)
+        cap, cap_pad = st["cap"], st["cap_pad"]
+        yb = ye.reshape(e_local, n_src, cap_pad, D)[:, :, :cap]
+        yb = yb.transpose(0, 1).reshape(-1, D)
         yb = comm.reduce_scatter(yb, etp_g, 0)              # 5. ReduceScatter (ETP)
         yb = comm.all_to_all(yb, ep_g)                      # 6. All-to-All back (EP)
-        return yb[torch.clamp(st["idx"], max=E * cap_pad - 1)]        # 7a. (t_c·K, D)
+        return yb[torch.clamp(st["idx"], max=E * cap - 1)]            # 7a. (t_c·K, D)
 
     def ragged_dispatch(c: int) -> dict:
         off, n_c = spans[c]
@@ -445,9 +452,10 @@ def moe_ffn(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor, w2: torch.Tenso
         span = n_src * st["cap_pad"]
         counts = per_se.reshape(-1)
         src_start = torch.cumsum(counts, 0) - counts
-        dst_start = (torch.arange(e_local) * span)[None, :] + torch.cumsum(per_se, 0) - per_se
+        dst_start = ((torch.arange(e_local, dtype=torch.long) * span)[None, :]
+                     + torch.cumsum(per_se, 0) - per_se)
         dest = (torch.repeat_interleave(dst_start.reshape(-1) - src_start, counts)
-                + torch.arange(int(counts.sum())))
+                + torch.arange(int(counts.sum()), dtype=torch.long))
         st["dest"] = dest = dest.to(x.device)
         xe = torch.zeros((e_local * span, D), dtype=recv.dtype, device=x.device)
         return xe.index_copy(0, dest, recv).reshape(e_local, span, D)

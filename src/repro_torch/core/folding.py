@@ -38,6 +38,40 @@ ATTN_AXES = ("dp", "cp", "tp", "pp", "dp_cp", "cp_tp", "stage")
 # ``token_axes`` and ``seq_axes`` (``repro.core.dispatcher``).
 MOE_AXES = ("edp", "ep", "etp", "pp", "tokens", "seq")
 
+# The names of the rank grid's dimensions, the reference mesh's: the pod and
+# pipeline dimensions, then the refinement atoms ``f0, f1, ...``. Code that
+# names an atom or a logical axis by a string literal must use a registered
+# name: the port's lint (``analysis.lint``, rule ``unregistered-axis-name``)
+# holds every such literal to :func:`is_registered_axis_name` and
+# :func:`is_logical_axis_name`.
+PODS_AXIS = "pod"
+PP_AXIS = "pp"
+ATOM_AXIS_PREFIX = "f"
+
+
+def is_registered_axis_name(name: str) -> bool:
+    """True for the grid dimension names a fold can ever define: the pod and
+    pipeline dimensions and the atoms ``f0, f1, ...``.
+
+    >>> [is_registered_axis_name(n) for n in ("pod", "pp", "f0", "f12")]
+    [True, True, True, True]
+    >>> [is_registered_axis_name(n) for n in ("tp", "pods", "f", "fx")]
+    [False, False, False, False]
+    """
+    if name in (PODS_AXIS, PP_AXIS):
+        return True
+    return name.startswith(ATOM_AXIS_PREFIX) and name[len(ATOM_AXIS_PREFIX):].isdigit()
+
+
+def is_logical_axis_name(side: str, name: str) -> bool:
+    """True for the logical axes :class:`FoldedGroups` defines on ``side``
+    (``attn``: :data:`ATTN_AXES`, ``moe``: :data:`MOE_AXES`).
+
+    >>> is_logical_axis_name("attn", "cp_tp"), is_logical_axis_name("moe", "tp")
+    (True, False)
+    """
+    return name in {"attn": ATTN_AXES, "moe": MOE_AXES}.get(side, ())
+
 
 def common_refinement(fa: Sequence[int], fb: Sequence[int]
                       ) -> Tuple[List[int], List[List[int]], List[List[int]]]:
@@ -189,8 +223,9 @@ class FoldedGroups:
     @property
     def atom_names(self) -> Tuple[str, ...]:
         """The name of each grid dimension: the reference mesh's axis names
-        (``pods``, ``pp``, then ``f0``, ``f1``, ... for the atoms)."""
-        return ("pods", "pp") + tuple(f"f{i}" for i in range(len(self.shape) - 2))
+        (``pod``, ``pp``, then ``f0``, ``f1``, ... for the atoms)."""
+        return (PODS_AXIS, PP_AXIS) + tuple(f"{ATOM_AXIS_PREFIX}{i}"
+                                            for i in range(len(self.shape) - 2))
 
     def atoms(self, side: str, logical: str) -> Tuple[str, ...]:
         """A logical axis as the names of its atoms, in axis order (the

@@ -177,7 +177,7 @@ def sorted_dispatch(expert_idx: torch.Tensor, keep: torch.Tensor,
     key = torch.where(kept, flat_e, n_experts)
     perm = torch.argsort(key, stable=True)
     inv_perm = torch.empty_like(perm).scatter_(
-        0, perm, torch.arange(perm.numel(), device=perm.device))
+        0, perm, torch.arange(perm.numel(), dtype=torch.long, device=perm.device))
     group_sizes = torch.zeros(n_experts, dtype=torch.long,
                               device=flat_e.device).index_add_(0, flat_e, kept.long())
     group_offsets = torch.cumsum(group_sizes, 0) - group_sizes
@@ -228,6 +228,6 @@ def block_expert_from_group_sizes(group_sizes: torch.Tensor, bm: int,
     expert (their rows are padding)."""
     padded, _ = padded_group_spans(group_sizes, bm)
     ends = torch.cumsum(padded, 0)
-    starts = torch.arange(num_blocks, device=group_sizes.device) * bm
+    starts = torch.arange(num_blocks, dtype=torch.long, device=group_sizes.device) * bm
     be = torch.searchsorted(ends, starts, right=True)
     return torch.clamp(be, 0, group_sizes.shape[0] - 1).to(torch.int32)

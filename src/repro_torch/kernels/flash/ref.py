@@ -39,10 +39,10 @@ def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = sm_scale if sm_scale is not None else hd ** -0.5
     dev = q.device
     if q_pos is None:
-        q_pos = q_offset.to(dev).long()[:, None] + torch.arange(Sq, device=dev)
+        q_pos = q_offset.to(dev).long()[:, None] + torch.arange(Sq, dtype=torch.long, device=dev)
     q_pos = q_pos.to(dev).long()                                             # (B, Sq)
     if kv_pos is None:
-        kv_pos = (kv_offset + torch.arange(Skv, device=dev)).expand(B, Skv)
+        kv_pos = (kv_offset + torch.arange(Skv, dtype=torch.long, device=dev)).expand(B, Skv)
     kv_pos = kv_pos.to(dev).long()                                           # (B, Skv)
     block = _pick_block(Skv, block_kv)
 

@@ -389,11 +389,12 @@ def collective_byte_budget(cfg: ModelConfig, shape: InputShape,
     """Analytic per-device wire-byte budget, one entry per collective family.
 
     The byte side of :func:`score`'s collective terms (which turn these
-    same derivations into α-β times), exposed for the collective audit (not ported yet:
-    ROADMAP.md queue 1, item 6): each entry names the logical axes a
-    family is *allowed* to communicate over, the HLO op kinds it may use,
-    and the analytic per-step per-device wire bytes. A compiled collective
-    that matches no entry is unbudgeted — the GSPMD-resharding bug class.
+    same derivations into α-β times), exposed for the collective audit
+    (``analysis.audit``): each entry names the logical axes a family is
+    *allowed* to communicate over, the collective kinds it may use, and the
+    analytic per-step per-device wire bytes. A collective of the traced
+    step that matches no entry is unbudgeted — the stray-collective bug
+    class.
 
     Entries (``side``/``logical`` resolve to mesh atoms via ``FoldedMesh``):
 

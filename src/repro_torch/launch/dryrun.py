@@ -26,6 +26,7 @@ counted for a full cache, and the record says so (``assumptions``).
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] [--out results/dryrun.jsonl]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --autotune mixtral-8x22b train_4k \\
         --world 256 --top 10 --trace-top 3
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --audit [--arch A] [--shape S]
 
 ``--device`` is where the fake tensors say they live: ``cpu`` by default,
 ``cuda`` on a machine with a card (on a CPU-only build of torch a backward
@@ -143,7 +144,7 @@ def fake_world(world: int, rank: int):
 def trace_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
                pcfg: Optional[ParallelConfig] = None, cfg: Optional[ModelConfig] = None,
                shape: Optional[InputShape] = None, rank: int = -1, device: str = "cpu",
-               opt_cfg=None) -> Tuple[Recorder, Dict]:
+               opt_cfg=None, count: bool = True) -> Tuple[Recorder, Dict]:
     """Trace one step of (arch, shape) for ``rank`` of ``pcfg``'s world.
 
     ``cfg`` / ``shape`` override the registry's (a cut depth, a reduced
@@ -155,8 +156,10 @@ def trace_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
     ``data.pipeline.shard_batch``, all on fake tensors on ``device``. The
     recorder's counts start after the set-up. ``rank`` -1 (the default) is
     the world's last rank: it holds the last CP chunk of the sequence,
-    whose causal attention is the most work of any rank's. Returns the recorder and the
-    record's identity fields, ``arg_bytes`` (the stored state) among them."""
+    whose causal attention is the most work of any rank's. ``count=False``
+    records the collectives and kernel calls only (the collective audit's
+    trace, ``analysis.audit``). Returns the recorder and the record's
+    identity fields, ``arg_bytes`` (the stored state) among them."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.core.folding import build_folded_groups
     from repro_torch.data.pipeline import shard_batch
@@ -176,7 +179,7 @@ def trace_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     train = shape.kind == "train"
     pods = pcfg.pods if pcfg.pod_role in ("dp", "cp") else 1
-    rec = Recorder(chips_per_pod=world // pods if pods > 1 else None)
+    rec = Recorder(count=count, chips_per_pod=world // pods if pods > 1 else None)
     t0 = time.perf_counter()
     with fake_world(world, rank):
         fg = None if world == 1 else build_folded_groups(pcfg, rank=rank, world=world)
@@ -357,6 +360,32 @@ def run_autotune(arch: str, shape_name: str, world: int, top: int, trace_top: in
     print("all top candidates trace cleanly")
 
 
+def run_audit(arch: Optional[str], shape_name: Optional[str], device: str = "cpu") -> None:
+    """``--audit``: the collective audit (``analysis.audit``) of the
+    selected ``_TABLE`` rows: each row's structure-preserving probe traced
+    for every rank, its classified collective rows printed with the budget's
+    verdict. Exits non-zero on findings (an unbudgeted or over-budget
+    collective family)."""
+    from repro_torch.analysis import format_findings
+    from repro_torch.analysis.audit import audit_mapping
+    from repro_torch.launch.mappings import _TABLE
+    pairs = [(a, s) for a, s in sorted(_TABLE)
+             if (arch is None or a == arch) and (shape_name is None or s == shape_name)]
+    if not pairs:
+        raise SystemExit(f"no _TABLE rows match arch={arch} shape={shape_name}")
+    findings = []
+    for a, s in pairs:
+        audit = audit_mapping(a, s, device=device)
+        findings.extend(audit.findings)
+        print(f"{audit.spec.key}  probe {audit.spec.label()} (world {audit.spec.world})")
+        for r in audit.rows:
+            print(f"  {r.kind:20s} atoms={','.join(r.atoms):12s} fold={r.fold:9s} "
+                  f"{r.wire_bytes / 2 ** 20:8.2f} MiB x{r.count:.0f}  [{' '.join(r.labels)}]")
+    print(f"\naudited {len(pairs)} mappings: {format_findings(findings)}")
+    if findings:
+        raise SystemExit(1)
+
+
 def _failed(arch: str, shape_name: str, multi_pod: bool, e: BaseException) -> Dict:
     return dict(arch=arch, shape=shape_name, multi_pod=multi_pod, ok=False,
                 error=f"{type(e).__name__}: {e}")
@@ -416,7 +445,8 @@ def main(argv=None) -> None:
     ap.add_argument("--trace-top", type=int, default=3,
                     help="candidates to validate by tracing (0 = skip)")
     ap.add_argument("--audit", action="store_true",
-                    help="the collective audit (not ported: ROADMAP.md queue 1, item 6)")
+                    help="the collective audit of the selected _TABLE rows' probes "
+                         "(every row, or those of --arch / --shape)")
     one = ap.add_argument_group("one trace of --arch and --shape, cut or refolded")
     one.add_argument("--layers", type=int, default=None, help="depth cut to this many layers")
     one.add_argument("--seq", type=int, default=None, help="tokens a sequence")
@@ -431,8 +461,8 @@ def main(argv=None) -> None:
         run_autotune(args.autotune[0], args.autotune[1], args.world, args.top, args.trace_top)
         return
     if args.audit:
-        raise SystemExit("dryrun --audit: the collective audit over the trace's records "
-                         "(analysis/) is not ported yet (ROADMAP.md queue 1, item 6)")
+        run_audit(args.arch, args.shape, args.device)
+        return
 
     if any(v is not None for v in (args.layers, args.seq, args.batch, args.attn)) or args.lists:
         _one(args)

@@ -125,7 +125,8 @@ def _launch_cost(torch, device, n: int = 2000) -> dict:
     it still busy on a long matmul issued just before: does the host pay
     more per launch when the device has caught up with it?"""
     t = torch.zeros(1024, device=device)
-    a = torch.randn((8192, 8192), device=device, dtype=torch.bfloat16)
+    g = torch.Generator(device=device).manual_seed(0)
+    a = torch.randn((8192, 8192), generator=g, device=device, dtype=torch.bfloat16)
     out = {}
     for state in ("idle", "busy", "idle", "busy"):
         torch.cuda.synchronize()

@@ -89,6 +89,18 @@ class RunPositions(NamedTuple):
     pos: torch.Tensor
 
 
+class PaddedKeys(NamedTuple):
+    """The positions of a sequence padded at its end to split over the
+    ranks (the encoder's frames at a fold, :func:`_folded_attention`): the
+    default layout's, with the rows at and after ``n`` pads that no query
+    sees as keys. The attention is not causal over the real rows; the pads
+    are masked by the causal mask at a stream of 0 for each real row and 1
+    for each pad, which the K/V carry on the all-gather path and around the
+    ring alike: a real query (0) sees the real keys only, a pad query sees
+    every key (its row is dropped)."""
+    n: int
+
+
 def split_positions(pos: Union[None, torch.Tensor, RunPositions]
                     ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """(rotary positions, mask positions) of the layers' ``pos``: ``None``
@@ -156,10 +168,12 @@ def attention(p: AttentionParams, x: torch.Tensor,
     if cross_x is not None:
         mask = None
     if pos is None:
-        pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[0], -1)
+        pos = torch.arange(x.shape[1], dtype=torch.long,
+                           device=x.device).expand(x.shape[0], -1)
     kv_pos = pos
     if cross_x is not None:
-        kv_pos = torch.arange(x_kv.shape[1], device=x.device).expand(x.shape[0], -1)
+        kv_pos = torch.arange(x_kv.shape[1], dtype=torch.long,
+                              device=x.device).expand(x.shape[0], -1)
     q, k, v = _project_qkv(p, x, x_kv, pos, kv_pos, cfg)
     out = blockwise_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                               mask, mask, causal=causal, window=window, block_kv=block_kv)
@@ -206,7 +220,10 @@ def _folded_attention(p: AttentionParams, x: torch.Tensor, cfg: ModelConfig,
     S = S_cp * cp
     dev = x.device
     ring = cp > 1 and groups.pcfg.cp_mode == "ring" and cross_x is None
-    pos, mask = split_positions(pos)
+    pad = pos.n if isinstance(pos, PaddedKeys) else None
+    if pad is not None and (causal or window or cross_x is not None):
+        raise ValueError("PaddedKeys: a non-causal self-attention without a window")
+    pos, mask = split_positions(None if pad is not None else pos)
     given, masked = pos is not None, mask is not None and cross_x is None
     xg = comm.sp_gather(x, tp_ax.group)                   # (B, S/cp, D)
     if ring:
@@ -222,10 +239,12 @@ def _folded_attention(p: AttentionParams, x: torch.Tensor, cfg: ModelConfig,
     if not given:
         pos = pos.expand(B, S_cp)
     mask = mask_positions(pos) if masked else None
+    if pad is not None:
+        mask, causal = (pos >= pad).to(torch.int32), True
     if cross_x is not None:
         T = cross_x.shape[1]
         q, k, v = _project_qkv(p, xg, cross_x, pos,
-                               torch.arange(T, device=dev).expand(B, T), cfg)
+                               torch.arange(T, dtype=torch.long, device=dev).expand(B, T), cfg)
     else:
         q, k, v = _project_qkv(p, xg, xg, pos, pos, cfg)
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)   # (B, heads, S/cp, hd)
@@ -303,7 +322,7 @@ def _cache_kv_positions(pos: torch.Tensor, L: int) -> torch.Tensor:
     are already written. A slot holds the most recent position congruent to
     it mod ``L`` up to the row's newest one, ``pos[:, -1]``; a slot not yet
     written gets ``newest + 1``, which the causal mask hides."""
-    slots = torch.arange(L, device=pos.device)
+    slots = torch.arange(L, dtype=torch.long, device=pos.device)
     last = pos[:, -1:]                                   # (B, 1): each row wraps at its own
     cand = last - (last - slots[None, :]) % L
     return torch.where(cand >= 0, cand, last + 1)
@@ -508,7 +527,7 @@ def attention_decode(p: AttentionParams, x: torch.Tensor, cache_k: torch.Tensor,
     q = q.transpose(1, 2).contiguous()                   # (B, H, C, hd)
 
     slots = pos % (S_loc * cp) if window else torch.clamp(pos, max=S_loc * cp - 1)   # (B, C)
-    rows = torch.arange(B, device=x.device)[:, None].expand(B, C)
+    rows = torch.arange(B, dtype=torch.long, device=x.device)[:, None].expand(B, C)
     if cp > 1 and trace_cost.is_fake(slots):
         # A dry run cannot read which tokens land in its slots: it writes
         # them all (B·C rows, the most a rank writes).

@@ -101,9 +101,9 @@ def _bwd_scan(q, k, v, lse, dout, delta, *, causal: bool, window: int, block_kv:
         r1 = min(max(s1 - 1 + shift + window, 0), Sq) if window and not arrays else Sq
         if r0 >= r1:
             continue
-        qp = (q_offset + torch.arange(r0, r1, device=dev)[None] if q_pos is None
+        qp = (q_offset + torch.arange(r0, r1, dtype=torch.long, device=dev)[None] if q_pos is None
               else q_pos[:, r0:r1])
-        kp = (kv_offset + torch.arange(s0, s1, device=dev)[None] if kv_pos is None
+        kp = (kv_offset + torch.arange(s0, s1, dtype=torch.long, device=dev)[None] if kv_pos is None
               else kv_pos[:, s0:s1])
         kb, vb = k[:, :, s0:s1].float(), v[:, :, s0:s1].float()
         qs, dos = qf[:, :, r0:r1], do[:, :, r0:r1]

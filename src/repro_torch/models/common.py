@@ -95,8 +95,8 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
     if sum(sections) != hd // 2:
         raise ValueError(f"M-RoPE sections {sections} do not cover {hd // 2} channels")
     freqs = rope_freqs(hd, theta, device=x.device)              # (hd/2,)
-    sec_id = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                     torch.tensor(sections, device=x.device),
+    sec_id = torch.repeat_interleave(torch.arange(3, dtype=torch.long, device=x.device),
+                                     torch.tensor(sections, dtype=torch.long, device=x.device),
                                      output_size=hd // 2)
     pos = positions_3d.float()[..., sec_id]                     # (..., S, hd/2)
     ang = pos * freqs

@@ -73,7 +73,7 @@ def chunked_decay_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qc, kc = (t.float().reshape(B, H, nc, chunk, dk) for t in (q, k))
     vc = v.float().reshape(B, H, nc, chunk, dv)
     gc = log_decay.float().reshape(B, H, nc, chunk)
-    idx = torch.arange(chunk, device=q.device)
+    idx = torch.arange(chunk, dtype=torch.long, device=q.device)
     tri = idx[:, None] >= idx[None, :]
     h = h0.float()
     ys = []
@@ -206,11 +206,12 @@ def init_block(kind: str, cfg: ModelConfig, norm1, *, generator: torch.Generator
         _, nh, _, _ = mamba_dims(cfg)
         w_in = w(*shapes["w_in"])
         conv_w = normal(shapes["conv_w"], 0.2)
-        f32 = dict(dtype=torch.float32, device=device)
+        f32 = torch.float32
         return Mamba2BlockParams(
             norm1=norm1, w_in=w_in, conv_w=conv_w,
-            a_log=torch.log(torch.linspace(1.0, 16.0, nh, **f32)),
-            dt_bias=torch.zeros(nh, **f32), d_skip=torch.ones(nh, **f32),
+            a_log=torch.log(torch.linspace(1.0, 16.0, nh, dtype=f32, device=device)),
+            dt_bias=torch.zeros(nh, dtype=f32, device=device),
+            d_skip=torch.ones(nh, dtype=f32, device=device),
             w_out_ssm=w(*shapes["w_out_ssm"]))
     if kind == "mlstm":
         return MLSTMBlockParams(norm1=norm1, **{k: w(*shapes[k]) for k in (
@@ -396,16 +397,16 @@ def init_state(kind: str, cfg: ModelConfig, B: int, *, dtype=torch.bfloat16,
     Mamba2 ``conv`` (B, W − 1, d_in + 2n) in ``dtype`` and ``h`` (B, nh, n,
     hp) fp32; mLSTM ``h`` (B, nh, hp, hp + 1) fp32; sLSTM ``c``, ``n``,
     ``h``, ``m`` (B, D) fp32, ``m`` at −30."""
-    f32 = dict(dtype=torch.float32, device=device)
+    f32 = torch.float32
     if kind == "mamba2":
         d_in, nh, hp, n = mamba_dims(cfg)
         return {"conv": torch.zeros((B, CONV_WIDTH - 1, d_in + 2 * n), dtype=dtype,
                                     device=device),
-                "h": torch.zeros((B, nh, n, hp), **f32)}
+                "h": torch.zeros((B, nh, n, hp), dtype=f32, device=device)}
     if kind == "mlstm":
         _, nh, hp = mlstm_dims(cfg)
-        return {"h": torch.zeros((B, nh, hp, hp + 1), **f32)}
-    z = dict(c=torch.zeros((B, cfg.d_model), **f32))
+        return {"h": torch.zeros((B, nh, hp, hp + 1), dtype=f32, device=device)}
+    z = dict(c=torch.zeros((B, cfg.d_model), dtype=f32, device=device))
     z.update(n=torch.zeros_like(z["c"]), h=torch.zeros_like(z["c"]),
              m=torch.full_like(z["c"], SLSTM_M0))
     return z

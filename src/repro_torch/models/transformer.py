@@ -36,8 +36,8 @@ from repro_torch.core.moe_layer import MoEParams, init_moe, moe_block, moe_block
 from repro_torch.core.router import _top_k, deterministic_top_k
 from repro_torch.data.pipeline import RUN_POSITIONS
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.attention import (AttentionParams, _positions_for, attention,
-                                          attention_decode, attention_decode_cross,
+from repro_torch.models.attention import (AttentionParams, PaddedKeys, _positions_for,
+                                          attention, attention_decode, attention_decode_cross,
                                           attention_decode_paged,
                                           RunPositions, check_decode_heads,
                                           init_attention, mask_positions,
@@ -78,8 +78,9 @@ def _init_norm(cfg: ModelConfig, device) -> Norm:
     """The reference's ``norm_init``: RMSNorm zeros, LayerNorm ones and zeros."""
     D = cfg.d_model
     if cfg.norm == "layernorm":
-        return LayerNormParams(torch.ones(D, device=device), torch.zeros(D, device=device))
-    return torch.zeros(D, device=device)
+        return LayerNormParams(torch.ones(D, dtype=torch.float32, device=device),
+                               torch.zeros(D, dtype=torch.float32, device=device))
+    return torch.zeros(D, dtype=torch.float32, device=device)
 
 
 def _norm_names(cfg: ModelConfig, name: str) -> Tuple[str, ...]:
@@ -933,7 +934,7 @@ def _row_positions(pos: Union[None, torch.Tensor, RunPositions], B: int, S: int,
         lo, n = _sp_rows(groups, S)
     pos = split_positions(pos)[0]
     if pos is None:
-        return (lo + torch.arange(n, device=device)).expand(B, n)
+        return (lo + torch.arange(n, dtype=torch.long, device=device)).expand(B, n)
     off = 0 if groups is None else lo - groups.attn["cp"].index * S
     return mask_positions(pos)[:, off:off + n]
 
@@ -1027,26 +1028,35 @@ def _encode(params: LMParams, batch: Dict[str, torch.Tensor], cfg: ModelConfig, 
     sequence-parallel rows, the layers run across TP and CP (all-gather or
     ring CP, not causal), and the output is gathered whole (over TP, then
     CP), as the reference's cross-attention takes it: the gathers'
-    backward reduce-scatters each rank's share of its gradient."""
+    backward reduce-scatters each rank's share of its gradient. Frames that
+    do not split over cp·tp (or, on the ring, over 2·cp) are padded at the
+    end with zero rows, which no query sees as keys
+    (``attention.PaddedKeys``) and which are dropped after the gather: the
+    output and the gradients are those of the T frames, as the reference's
+    sharding constraint pads its uneven shard."""
     dt = _compute_dtype(cfg)
     ae = batch["audio_embeds"].to(dt)
     T = ae.shape[1]
-    epos = torch.arange(T, device=ae.device)
+    epos = torch.arange(T, dtype=torch.long, device=ae.device)
     xe = ae + _sinusoid(epos, cfg.d_model).to(dt)
+    pos = None
     if groups is not None:
         cp = groups.attn["cp"]
-        if T % (cp.size * groups.tp):
-            raise ValueError(f"{T} encoder frames do not split over cp·tp = "
-                             f"{cp.size * groups.tp} (ROADMAP.md queue 1, "
-                             "'Encoder frames at any CP x TP')")
-        lo, n = _sp_rows(groups, T // cp.size)
+        unit = cp.size * groups.tp
+        if cp.size > 1 and groups.pcfg.cp_mode == "ring":
+            unit = math.lcm(unit, 2 * cp.size)          # the zigzag halves each chunk
+        T_pad = -(-T // unit) * unit
+        if T_pad != T:
+            xe = torch.nn.functional.pad(xe, (0, 0, 0, T_pad - T))
+            pos = PaddedKeys(T)
+        lo, n = _sp_rows(groups, T_pad // cp.size)
         xe = xe[:, lo:lo + n]
-    xe, _ = _run_stack(params.encoder.layers, xe, None, cfg, remat=remat, groups=groups,
+    xe, _ = _run_stack(params.encoder.layers, xe, pos, cfg, remat=remat, groups=groups,
                        causal=False)
     xe = norm_apply(cfg.norm, xe, params.encoder.final_norm)
     if groups is not None:
         xe = comm.sp_gather(xe, groups.attn["tp"].group)
-        xe = comm.all_gather(xe, groups.attn["cp"].group, 1)
+        xe = comm.all_gather(xe, groups.attn["cp"].group, 1)[:, :T]
     return xe
 
 

@@ -86,6 +86,10 @@ class CollectiveRecord:
     group: int                  # ranks in the group
     ranks: Tuple[int, ...]      # their global ranks
     dci: bool = False           # the group spans two pods
+    # (source, target) global ranks of a point-to-point transfer (the ring
+    # shift: the whole rotation; a stage send or receive: its one pair);
+    # empty for the other kinds
+    pairs: Tuple[Tuple[int, int], ...] = ()
 
     def key(self) -> Tuple:
         """What two runs of one step on one rank must agree on."""
@@ -203,12 +207,14 @@ class Recorder:
         self.live -= n
 
     def collective(self, kind: str, name: str, result_bytes: int,
-                   group: Optional[dist.ProcessGroup]) -> None:
+                   group: Optional[dist.ProcessGroup],
+                   pairs: Sequence[Tuple[int, int]] = ()) -> None:
         ranks = tuple(dist.get_process_group_ranks(group))
         dci = (self.chips_per_pod is not None
                and len({r // self.chips_per_pod for r in ranks}) > 1)
-        self.collectives.append(CollectiveRecord(kind, name, int(result_bytes), len(ranks),
-                                                 ranks, dci))
+        self.collectives.append(CollectiveRecord(
+            kind, name, int(result_bytes), len(ranks), ranks, dci,
+            tuple((int(s), int(t)) for s, t in pairs)))
 
     def kernel(self, kernel: str, shapes: Sequence[Sequence[int]], flops: float,
                nbytes_: float) -> None:
@@ -283,7 +289,9 @@ class Recorder:
 
 
 def note_collective(kind: str, name: str, out: torch.Tensor,
-                    group: Optional[dist.ProcessGroup]) -> None:
-    """``core.comm``'s hook: one collective whose result is ``out``."""
+                    group: Optional[dist.ProcessGroup],
+                    pairs: Sequence[Tuple[int, int]] = ()) -> None:
+    """``core.comm``'s hook: one collective whose result is ``out``
+    (``pairs``: a point-to-point transfer's source and target ranks)."""
     if RECORDER is not None:
-        RECORDER.collective(kind, name, nbytes(out), group)
+        RECORDER.collective(kind, name, nbytes(out), group, pairs)

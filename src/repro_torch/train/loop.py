@@ -264,7 +264,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] = Non
             _, opt_state, opt_m = adamw.update(opt_cfg, grads, opt_state, shards,
                                                step_ok=step_ok, decay=decay, **norm)
         metrics.update(opt_m)
-        if groups is not None and (step_ok is None or bool(opt_m["step_ok"])):
+        # The guard's verdict, read once a step and only with a guard (the
+        # dry run and the audit trace the step without one).
+        no_guard = step_ok is None
+        if groups is not None and (no_guard or bool(opt_m["step_ok"])):  # lint-ok: host-sync-branch
             sharding.gather_state(named, shards, layouts, groups)
         return params, opt_state, metrics
 

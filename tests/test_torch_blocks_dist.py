@@ -21,6 +21,13 @@ parameters after the last step within 1e-4 relative L2 of its slices of
 JAX's. Serving: Gemma's paged and Qwen2-VL's dense Engine at DP2 × TP2
 against JAX's Engine at the same fold, tokens equal, every rank alike.
 
+Encoder frames that cp·tp does not divide, in the Whisper worlds: reduced
+``whisper-small`` with 30 frames at CP2 × TP2 (the port pads them to 32),
+on all-gather and on the ring, ``loss_and_grads``' loss and every leaf's
+gradient against JAX's ``value_and_grad`` at the same fold, within 1e-4.
+JAX's ring refuses 30 frames (its zigzag needs 2·cp to divide them), so
+both cases are held against JAX's all-gather at the fold.
+
 Positions that are no run, in the Qwen2-VL world: ``apply_lm``'s loss and
 every leaf's gradient (``loss_and_grads``) at one rank and at CP2 × TP2 on
 all-gather and on the ring, against JAX's at one rank (``use_pallas``
@@ -70,6 +77,12 @@ POSITIONS = {"llama-packed": ("llama3.2-1b", "packed"),
              "qwen2vl-shared": ("qwen2-vl-7b", "shared")}
 POSITION_FOLD = (1, 2, 2)
 GRAD_REL = 1e-4
+# Encoder frames that cp·tp = 4 does not divide: case -> cp_mode, each in
+# its mode's Whisper world.
+PAD_FRAMES = 30
+PADDED = {"whisper-pad-cp2-tp2": "allgather", "whisper-pad-cp2-tp2-ring": "ring"}
+PAD_WORLDS = {"whisper-small": ["whisper-pad-cp2-tp2"],
+              "whisper-small-ring": ["whisper-pad-cp2-tp2-ring"]}
 # Serving at DP2 x TP2: (arch, cache)
 SERVE = {"gemma-paged": ("gemma-7b", "paged"), "qwen2vl-dense": ("qwen2-vl-7b", "dense")}
 SERVE_FOLD = (2, 1, 2)
@@ -167,13 +180,50 @@ def _pos_pcfg(mode):
                           cp_mode=mode)
 
 
-def _train_world(rank, world, inputs, pos_inputs=None):
+def _pad_cfg(pkg):
+    from test_torch_blocks import _cfg as cfg_of
+    return cfg_of(pkg, "whisper-small", max_source_positions=PAD_FRAMES)
+
+
+def _pad_pcfg(case):
+    return ParallelConfig(attn=PM(1, 2, 2), moe=PM(1, 2, 2), fsdp=True, cp_mode=PADDED[case])
+
+
+def _pad_inputs():
+    from repro.data.pipeline import DataConfig, SyntheticTokens
+    from test_torch_blocks import batch_of, jax_params
+    cfg = _pad_cfg("repro")
+    data = SyntheticTokens(DataConfig(seq_len=SEQ, global_batch=2, vocab_size=cfg.vocab_size,
+                                      seed=5))
+    return jax_params(cfg), dict(batch_of(cfg, B=2, S=SEQ, seed=30), **next(data))
+
+
+def _jax_pad_grads(jparams, batch):
+    """JAX's loss and gradients at the cases' fold on all-gather, by the
+    port's names."""
+    import jax
+    from repro.configs.base import ParallelConfig as JPC, ParallelMappingSpec as JPM
+    from repro.core.folding import build_folded_mesh
+    from repro.train.loop import loss_fn
+    from repro_torch.convert import named_from_jax
+    cfg = _pad_cfg("repro")
+    fm = build_folded_mesh(JPC(attn=JPM(1, 2, 2), moe=JPM(1, 2, 2), fsdp=True))
+    (loss, _), g = jax.jit(jax.value_and_grad(lambda p: loss_fn(p, batch, cfg, fm),
+                                              has_aux=True))(jparams)
+    return {"loss": float(loss), "grads": named_from_jax(jax.tree.map(np.asarray, g),
+                                                         _pad_cfg("repro_torch"))}
+
+
+def _train_world(rank, world, inputs, pos_inputs=None, pad_inputs=None):
     from repro_torch.convert import params_from_jax
     from repro_torch.data.pipeline import shard_batch
     from repro_torch.optim import adamw
     from repro_torch.train.loop import init_train_state, make_train_step
     torch.set_num_threads(1)
     out = {}
+    for case, (jparams, batch) in (pad_inputs or {}).items():
+        fg = folding.build_folded_groups(_pad_pcfg(case), rank=rank, world=world)
+        out[case] = _pos_grads(jparams, batch, _pad_cfg("repro_torch"), fg)
     if pos_inputs:
         fg = folding.build_folded_groups(_pos_pcfg("allgather"), rank=rank, world=world)
         for case, (jparams, batch) in pos_inputs.items():
@@ -253,14 +303,21 @@ def test_blocks_train_at_folds_matches_jax(world, tmp_path):
     cases = WORLDS[world]
     inputs = {case: _inputs(case) for case in cases}
     pos_inputs = {c: _pos_inputs(c) for c in POSITIONS} if world == "qwen2-vl-7b" else {}
+    pad_inputs = {c: _pad_inputs() for c in PAD_WORLDS.get(world, [])}
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         world = pool.submit(spawn, _train_world, 4, backend="gloo", device="cpu",
-                            args=(inputs, pos_inputs), timeout_s=300, init_dir=str(tmp_path))
+                            args=(inputs, pos_inputs, pad_inputs), timeout_s=300,
+                            init_dir=str(tmp_path))
         ref = {case: _jax_case(case, *inputs[case]) for case in cases}
+        pad_ref = {c: _jax_pad_grads(*pad_inputs[c]) for c in pad_inputs}
         pos_ref = {c: _jax_pos_grads(c, *pos_inputs[c]) for c in pos_inputs}
         pos_one = {c: _pos_grads(*pos_inputs[c], _pos_cfg("repro_torch", POSITIONS[c][0]))
                    for c in pos_inputs}
         per_rank = world.result()
+    for case in pad_inputs:
+        for rank, res in enumerate(per_rank):
+            fg = folding.folded_layout(_pad_pcfg(case), rank=rank, world=4)
+            _check_pos_grads(f"{case} rank {rank}", res[case], pad_ref[case], fg)
     for case in pos_inputs:
         _check_pos_grads(f"{case} one rank", pos_one[case], pos_ref[case])
         jparams, batch = pos_inputs[case]

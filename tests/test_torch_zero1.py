@@ -5,7 +5,7 @@ JAX package's, on the CPU, with no world.
   of ``tests/conftest.py``'s ``fm222``, ``fm_folded`` and ``fm_ep8``, for
   reduced Mixtral-8x22B and Qwen2-57B-A14B, ``fsdp`` on and off, master on
   and off. JAX's ``PartitionSpec`` entries name the mesh's atoms
-  (``pods``, ``pp``, ``f0``, ...), which are the port's atom names. The
+  (``pod``, ``pp``, ``f0``, ...), which are the port's atom names. The
   port's leaves are per layer where JAX stacks them: equal on every leaf
   and dim except the leaves listed in :func:`_stacked`, whose state the
   reference cuts on the stacked layer axis and the port on the first
