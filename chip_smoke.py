@@ -29,7 +29,9 @@ nothing is caught):
    (``profiled_ms``). GMM: the serving decode step's gate/up and down
    launches (every expert owning one 128-row block), the training step's
    gate/up and down launches and the ``trans_w`` mode (the training step's
-   dgrad) at its two shapes; for Mixtral also 6-of-8 experts and bm=64.
+   dgrad) at its two shapes; for Mixtral also 6-of-8 experts, bm=64, and
+   the decode gate/up at row blocks of 8, 16 and 32 rows (one an expert:
+   x (8·bm, 6144), the mma.sync kernel) with one ``trans_w`` row at 16.
    Flash: the serving decode and prefill chunk and causal self-attention at
    4096 tokens, each in both output modes (Mixtral: a 32768-key decode too;
    Qwen2: a decode step of 3 queries, whose 21 packed rows split a GQA group
@@ -55,12 +57,14 @@ nothing is caught):
    the first training step's gradients leaf by leaf, and two training
    steps' loss and gradient norm (bf16 both sides). For Qwen2 also the MoE
    layer with its shared expert: the dropless ``capacity_hint`` pre-pass
-   (equal on both), the sort layout with that hint and the scatter layout.
+   (equal on both), the sort layout with that hint and the scatter layout;
+   once more at ``gmm_block_m=16`` (the GMM's mma.sync kernel), its sort
+   launches counted.
 
 7. world   — the folded MoE layer across ranks (``repro_torch.launch.world``):
    4 processes share the card over gloo, each loads the kernel library
    phase 2 built, makes the full-width weights from the seed and keeps its
-   shard, and runs 4096 tokens of its own forward and backward (a seeded
+   shard, and runs ``WORLD_TOKENS`` (2048) tokens of its own forward and backward (a seeded
    cotangent) through ``moe_ffn`` with the model's own MoEConfig (bf16,
    ``overlap_chunks=2``). Mixtral at MoE EDP1×EP4×ETP1, padded and ragged
    exchange; Qwen2 at EDP1×EP2×ETP2 with its shared expert. Each rank holds
@@ -79,8 +83,8 @@ nothing is caught):
    train_world``): 4 processes share the card over gloo; each builds the
    model cut to 1 layer from the seed in turn, keeps its slices and frees
    the rest. Mixtral at attention CP2×TP2 (Megatron SP, vocabulary-parallel
-   embedding, head and loss) with MoE EP4: ``TRAIN_STEPS`` steps of phase
-   5's batches with ``cp_mode="allgather"``, then 2 with the zigzag ring
+   embedding, head and loss) with MoE EP4: 2 steps of phase 5's batches
+   (cut from 4 to pay for phases 12 and 18) with ``cp_mode="allgather"``, then 2 with the zigzag ring
    from the same start; Qwen2 at CP2×TP2 with MoE EP2×ETP2: one forward and
    backward (no AdamW state: it would not fit 4 ranks). Per rank: every
    step's loss and global ``grad_norm`` against phase 5's one-card step at
@@ -101,8 +105,9 @@ nothing is caught):
    reference keeps it: attention leaves stored cut over DP (FSDP), AdamW
    moments (and the fp32 master) cut over DP by ZeRO-1. 4 processes share
    the card over gloo at attention DP2×TP2 beside the first MoE fold of
-   ``ZERO_MOE_FOLDS`` that passes the SP ↔ MoE hand-off (EDP2×EP2), a
-   global batch of 2 × 4096 tokens (one sequence a DP rank), each run from
+   ``ZERO_MOE_FOLDS`` whose MoE token shards are its SP shards (EDP2×EP2),
+   a global batch of 2 × 2048 tokens (``ZERO_SEQ``, cut from 4096 to pay
+   for phases 12 and 18; one sequence a DP rank), each run from
    the same weights. Mixtral: (a) ``fsdp=True`` 1 step, (b) ``fsdp=False``
    1 step, (c) ``fsdp=True`` with ``master_weights`` 1 step; Qwen2's (a)
    and (c) (the step phase 8 could not fit) run in phase 12's hand-off
@@ -111,7 +116,7 @@ nothing is caught):
    ``grad_norm`` within ``ZERO_TOL``, its optimizer-state bytes counted
    from its tensors against ``zero1_state_bytes`` for that fold, launches
    against the count from the code, parameters stored, peak memory and
-   step wall time (phase 12 profiles a step at this fold). Then the flash
+   step wall time. Then the flash
    kernel at a TP
    rank's heads over the whole sequence and the GMM at the EP shard's
    shape, held and timed as in phase 3.
@@ -122,7 +127,7 @@ nothing is caught):
    running its stage's ops of the schedule and sending activations and
    their gradients point to point (host-staged under gloo). (a) Mixtral at
    full width cut to 2 layers at PP2 × attention TP2 / MoE EP2
-   (``PIPE_FULL``), 1F1B over 4 microbatches of one 4096-token sequence
+   (``PIPE_FULL``), 1F1B over 4 microbatches of one 2048-token sequence
    (``SyntheticTokens(seed=0)``): one forward and backward and the global
    ``grad_norm``, the parameters held as their bf16 compute casts (AdamW
    state for 1.353 B parameters a rank does not fit 4 ranks), held against
@@ -192,8 +197,19 @@ train-configs — phase 5's one-card training (2 steps, launches 3 + 3 + 3
    which moves near-tie top-k choices); optimizer-state bytes equal to
    ``zero1_state_bytes``; launches equal to the count from the code. It
    prints peak memory, step walls and rank 0's host ms in ``comm handoff``
-   beside the other ``comm`` ranges, then the flash and GMM kernels at its
-   shapes, held and timed as in phase 3.
+   beside the other ``comm`` ranges (``core.comm.HOST_S`` over the step:
+   no profiled step, which cost ~15 s), then the flash and GMM kernels at
+   its shapes, held and timed as in phase 3. A third world moves tokens across
+   DP ranks (``HANDOFF_CROSS``): 2 pods extending attention CP and MoE EDP
+   (``pod_role="cp"``), attention (2, 1, 1), MoE (1, 2, 1), the same batch
+   and seed, one forward and backward with the global gradient norm (its
+   optimizer state does not fit beside the other ranks' on the card: see
+   ``HANDOFF_CROSS``); its SP shard is (dp, pod), its MoE shard (pod, ep), and
+   the hand-off is one All-to-All-V over the attention stage. Checks: each
+   rank's MoE token ids equal those of the oracle's rank at the same MoE
+   token index, id for id; loss, ``grad_norm`` and the drop fraction within
+   ``FOLD_TOL`` of the oracle's; launches; each rank's host ms in ``comm
+   handoff`` (``core.comm.HOST_S``).
 
 13. serve-world — phase 4's serving workload (the model cut to 4 layers,
    bf16, seed 0, ``ENGINE``, ``PROMPT_LENS``, 16 new tokens) across 4
@@ -332,6 +348,22 @@ train-configs — phase 5's one-card training (2 steps, launches 3 + 3 + 3
    1500 encoder frames padded to split over cp·tp) traced on fake CUDA
    tensors in the same subprocess, with its roofline line.
 
+18. replicated-kv — K/V replicated over TP: Qwen2-VL-7B's 28 query and 4
+   K/V heads at attention (1, 1, 8), which does not divide the K/V heads,
+   so every TP rank projects, caches and attends at all heads
+   (``models.attention.kv_replicated``). No registry model reaches that at
+   TP <= 4, so this runs one world of 8 processes sharing the card over
+   gloo (``launch.world.pool(8)``), opened after the pool of 4 is closed.
+   (a) Phase 15's paged Engine (4 layers, bf16, seed 0, its two requests,
+   ``serve_world``): greedy tokens equal to phase 15's one-card Engine,
+   prefill logits within ``CHECK_TOL`` (relative), 1 flash launch a layer
+   a forward, and per rank its peak memory, KV pool and a request's K/V
+   bytes, equal to one card's (``serve.cache.kv_bytes_dense(groups=)``).
+   (b) One training step of phase 15's (2 layers, its 4096-token batch and
+   seed, given to ``train_world(batches=)``): loss and ``grad_norm``
+   within ``FOLD_TOL`` of phase 15's one-card step 0, 2 flash launches a
+   layer, peak memory a rank.
+
 Phase 9 runs first, right after the build: its 4 ranks need about 70 GB
 of the card (Qwen2: 18.02 GB peak a rank on an H100), and what the other
 phases leave in this process (3.9 GB reserved before phase 7) left Qwen2's
@@ -341,7 +373,8 @@ printed. Then Mixtral runs phases 3, 4, 5, 6; every Mixtral tensor is
 freed and Qwen2
 runs 4, 5, 3, 6; then the added configs' phase 3 rows and train-configs;
 then Mixtral and Qwen2 run 7 and 8, then phase 13 with phase 4's requests,
-then phases 14, 15, 16 and 17. Every phase across ranks runs on one set of 4 processes
+then phases 14, 15, 16 and 17, and last phase 18 on its own 8 processes. Every other phase
+across ranks runs on one set of 4 processes
 (``launch.world.pool``), started after the build: each rank pays its
 interpreter, CUDA context, kernel library and first launches once, not
 once a world; ``[time]`` lines give each phase's wall. Then it prints the
@@ -369,7 +402,7 @@ REL_TOL = 2e-2          # kernel vs plain version, bf16 inputs and outputs
 CHECK_TOL = 5e-2        # reduced slices, card vs CPU plain path, bf16 both
 SERVE_LAYERS, SERVE_NEW_TOKENS = 4, 16
 TRAIN_STEPS, TRAIN_SEQ = 4, 4096
-WORLD_TOKENS, WORLD_PASSES = 4096, 1
+WORLD_TOKENS, WORLD_PASSES = 2048, 1     # cut from 4096 to pay for phases 12 and 18
 # Phase 8, the folded step against the one-card step (phase 5), bf16 both.
 # Step 0 runs both on the same weights and batch: its loss and grad_norm
 # differ by bf16 sums in other orders and by the MoE capacity, which the fold
@@ -461,7 +494,7 @@ SHORT = {MIXTRAL: "", QWEN2: "-qwen2", G8T8: "-g8t8", QWEN3: "-qwen3moe",   # pa
 # MoE (edp, ep, etp), and its runs (cp_mode, steps; 0 = one forward and
 # backward, no optimizer), each from the same start.
 TRAIN_WORLD = {MIXTRAL: dict(attn=(1, 2, 2), moe=(1, 4, 1),
-                             runs=(("allgather", TRAIN_STEPS), ("ring", 2))),
+                             runs=(("allgather", 2), ("ring", 2))),
                QWEN2: dict(attn=(1, 2, 2), moe=(1, 2, 2), runs=(("allgather", 0),))}
 
 
@@ -470,7 +503,7 @@ TRAIN_WORLD = {MIXTRAL: dict(attn=(1, 2, 2), moe=(1, 4, 1),
 # per model its runs (cp_mode, steps, fsdp, master_weights, label).
 ZERO_ATTN = (2, 1, 2)
 ZERO_MOE_FOLDS = ((2, 2, 1), (1, 4, 1))
-ZERO_BATCH = 2
+ZERO_BATCH, ZERO_SEQ = 2, 2048
 ZERO_RUNS = {MIXTRAL: (("allgather", 1, True, False, "fsdp"),
                        ("allgather", 1, False, False, "no-fsdp"),
                        ("allgather", 1, True, True, "master"))}
@@ -481,7 +514,7 @@ ZERO_RUNS = {MIXTRAL: (("allgather", 1, True, False, "fsdp"),
 # of one sequence; (b) reduced width in bf16, interleaved PP2 x vpp 2 over 4
 # layers, ZeRO-1 over attention DP 2, AdamW steps.
 PIPE_FULL = dict(attn=(1, 1, 2), moe=(1, 2, 1), pp=2, vpp=1, microbatch=4, layers=2,
-                 seq=TRAIN_SEQ, steps=0)
+                 seq=2048, steps=0)
 PIPE_SMALL = dict(attn=(2, 1, 1), moe=(1, 2, 1), pp=2, vpp=2, microbatch=4, layers=4, seq=256,
                   steps=2)
 
@@ -511,8 +544,22 @@ HANDOFF = dict(attn=ZERO_ATTN, moe=(2, 2, 1), seq=2048, batch=4,
                runs=(("allgather", 1, True, False, "fsdp"),
                      ("allgather", 1, True, True, "master")))
 HANDOFF_ORACLE = (4, 1, 1)
+# The hand-off across DP ranks: pods that extend attention CP and MoE EDP
+# (pod_role="cp"). The SP shard is (dp, pod), the MoE shard (pod, ep): MoE
+# shard (pod p, ep e) is sequence 2p + e whole, as the oracle's (edp, ep)
+# shard is, so token shards cross DP ranks and equal the oracle's.
+# Its step is one forward and backward with the global gradient norm (a
+# steps = 0 run, no warm-up): the loss, gradient norm and drop fraction
+# that the oracle's step 0 reports before its update. An optimizer step
+# does not fit: FSDP and ZeRO-1 over DP 2 (not the oracle's 4) leave each
+# rank ~20 GB and the card's 79 GiB went out of memory for 4 of them.
+HANDOFF_CROSS = dict(attn=(2, 1, 1), moe=(1, 2, 1), pods=2,
+                     run=("allgather", 0, True, False, "fsdp"))
 # "train-configs": the new configs that fit one card train this many steps.
 CONFIG_STEPS = 2
+
+
+SMALL_BM = (8, 16, 32)      # GMM row blocks of the mma.sync kernel (bm % 64 != 0)
 
 
 def _gmm_specs(arch: str) -> tuple:
@@ -526,7 +573,9 @@ def _gmm_specs(arch: str) -> tuple:
     ``trans_w`` mode at the training step's two dgrad shapes — dy @ w1[e]^T
     (w1 (E, D, F)) and dy @ w2[e]^T (w2 (E, F, D)) — against ``torch.bmm``
     on the same transposed operands (no copies). Mixtral adds 6 of 8
-    experts with two owning no block, and 64-row blocks."""
+    experts with two owning no block, 64-row blocks, and the decode
+    gate/up at row blocks of ``SMALL_BM`` rows (one block an expert) with
+    one ``trans_w`` row."""
     if arch == MIXTRAL:
         E, D, F, rows = 8, 6144, 16384, 1024
     else:
@@ -539,6 +588,12 @@ def _gmm_specs(arch: str) -> tuple:
     if arch == MIXTRAL:
         specs += [("gate/up, 6 of 8 experts", 1024, D, F, 128, [0, 1, 1, 3, 4, 5, 7, 7], False),
                   ("gate/up, bm=64", 1024, D, F, 64, [e for e in serving for _ in (0, 1)], False)]
+        # Row blocks that 64 does not divide (the mma.sync kernel): the 8
+        # routed decode rows in one block of bm rows an expert, not 128.
+        specs += [(f"gate/up, decode bm={bm}", E * bm, D, F, bm, serving, False)
+                  for bm in SMALL_BM]
+        specs += [(f"dgrad trans_w, decode bm={SMALL_BM[1]}", E * SMALL_BM[1], F, D,
+                   SMALL_BM[1], serving, True)]
     specs += [(f"gate/up, M={M}", M, D, F, 128, training, False),
               (f"down, M={M}", M, F, D, 128, training, False),
               (f"dgrad trans_w, M={M}", M, F, D, 128, training, True),
@@ -1040,6 +1095,20 @@ def phase_train_check(torch, arch: str, cfg=None, dtype: str = "bfloat16") -> di
 
 
 def phase_moe_check(torch, arch: str) -> dict:
+    """:func:`_moe_check` at the config's GMM row block (128) and again at
+    ``gmm_block_m=16``, whose sort layout runs the GMM's mma.sync kernel
+    (16-row tiles): its launches counted from 0 over that check's card
+    run."""
+    import dataclasses
+    from repro_torch.launch.serve import slice_config
+    cfg = slice_config(arch, reduce=True)
+    out = _moe_check(torch, arch, cfg)
+    small = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, gmm_block_m=SMALL_BM[1]))
+    out["block_m_16"] = _moe_check(torch, arch, small)
+    return out
+
+
+def _moe_check(torch, arch: str, cfg) -> dict:
     """The reduced MoE layer with its shared expert, bf16, on the card
     against the CPU's plain path on the same weights and tokens: the
     dropless ``capacity_hint`` pre-pass (an int, equal on both), the sort
@@ -1048,10 +1117,8 @@ def phase_moe_check(torch, arch: str) -> dict:
 
     from repro_torch.core.dispatcher import routed_capacity_hint
     from repro_torch.core.moe_layer import moe_block
-    from repro_torch.launch.serve import slice_config
     from repro_torch.models.transformer import init_lm
 
-    cfg = slice_config(arch, reduce=True)
     cpu = init_lm(cfg, seed=4, dtype=torch.bfloat16, device="cpu").layers[0].moe
     runs = {"card": ("cuda", copy.deepcopy(cpu).to("cuda")), "cpu": ("cpu", cpu)}
     g = torch.Generator().manual_seed(4)
@@ -1061,7 +1128,13 @@ def phase_moe_check(torch, arch: str) -> dict:
         xd = x.to(dev)
         with torch.no_grad():
             hints[run] = routed_capacity_hint(xd.reshape(-1, cfg.d_model), p.router, cfg.moe)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                _zero_counters()
             y_sort, aux = moe_block(p, xd, cfg, capacity_hint=hints[run])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = _read_counters()
             y_scatter, aux_s = moe_block(p, xd, cfg, permute_mode="scatter")
         if float(aux["moe_drop_fraction"]) or float(aux_s["moe_drop_fraction"]):
             raise AssertionError(f"{arch} reduced MoE layer ({run}): a dropless run dropped")
@@ -1074,14 +1147,18 @@ def phase_moe_check(torch, arch: str) -> dict:
     errs = {f"{mode} card vs CPU": rel(ys["card"][mode], ys["cpu"][mode])
             for mode in ("sort", "scatter")}
     errs["card sort vs card scatter"] = rel(ys["card"]["sort"], ys["card"]["scatter"])
-    _say(f"[check] {arch} reduced MoE layer (shared expert, gate {cfg.moe.shared_expert_gate}), "
-         f"{x.shape[0] * x.shape[1]} tokens: capacity_hint {hints['card']} on both (worst "
-         f"case {x.shape[0] * x.shape[1]}); rel err " + ", ".join(
-             f"{k} {v:.3e}" for k, v in errs.items()) + f" (limit {CHECK_TOL})")
+    _say(f"[check] {arch} reduced MoE layer (shared expert, gate {cfg.moe.shared_expert_gate}, "
+         f"gmm_block_m {cfg.moe.gmm_block_m}), {x.shape[0] * x.shape[1]} tokens: capacity_hint "
+         f"{hints['card']} on both (worst case {x.shape[0] * x.shape[1]}); sort launches "
+         f"{launches}; rel err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+         + f" (limit {CHECK_TOL})")
     if not max(errs.values()) <= CHECK_TOL:
         raise AssertionError(f"{arch} reduced MoE layer: {errs}")
+    if not (launches["gmm"] >= 3 and launches["gmm"] % 3 == 0):
+        raise AssertionError(f"{arch} reduced MoE layer, gmm_block_m {cfg.moe.gmm_block_m}: "
+                             f"sort launches {launches}, not 3 GMM a dispatcher chunk")
     return {"capacity_hint": hints["card"], "tokens": x.shape[0] * x.shape[1],
-            "rel_err": errs}
+            "gmm_block_m": cfg.moe.gmm_block_m, "launches": launches, "rel_err": errs}
 
 
 def _world_gmm(torch, arch: str) -> dict:
@@ -1299,18 +1376,21 @@ def phase_train_world(torch, one_card: dict) -> dict:
     return out
 
 def _zero_fold() -> tuple:
-    """The first of ``ZERO_MOE_FOLDS`` whose MoE token atoms are the
-    attention (dp, cp, tp) atoms in order beside attention ``ZERO_ATTN``
-    (``folding.check_sp_moe_handoff``), so that the SP → MoE hand-off stays
-    within each DP rank; at one sequence a DP rank it is a reshape."""
+    """The first of ``ZERO_MOE_FOLDS`` whose MoE token index is the
+    attention (dp, cp, tp) index on every rank beside attention
+    ``ZERO_ATTN`` (``folding.moe_token_index``), so that the SP → MoE
+    hand-off stays within each DP rank; at one sequence a DP rank it is a
+    reshape."""
     from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
-    from repro_torch.core.folding import check_sp_moe_handoff, folded_layout
+    from repro_torch.core.folding import folded_layout, moe_token_index, sp_token_index
     for moe in ZERO_MOE_FOLDS:
         pcfg = ParallelConfig(attn=PM(*ZERO_ATTN), moe=PM(*moe))
-        try:
-            check_sp_moe_handoff(folded_layout(pcfg, rank=0, world=pcfg.world_size))
-        except NotImplementedError as e:
-            _say(f"[train-zero] MoE fold {moe} beside attention {ZERO_ATTN}: {e}")
+        fg = folded_layout(pcfg, rank=0, world=pcfg.world_size)
+        cross = [r for r in range(pcfg.world_size)
+                 if sp_token_index(fg, r) != moe_token_index(fg, r)]
+        if cross:
+            _say(f"[train-zero] MoE fold {moe} beside attention {ZERO_ATTN}: ranks {cross} "
+                 "hold other DP ranks' tokens")
             continue
         _say(f"[train-zero] MoE fold {moe} beside attention {ZERO_ATTN}: the MoE token atoms "
              "are the attention (dp, cp, tp) atoms in order")
@@ -1320,15 +1400,15 @@ def _zero_fold() -> tuple:
 
 def _train_zero_kernels(torch, arch: str, moe: tuple) -> dict:
     """The kernels at phase 9's launch shapes, timed as in phase 3: flash in
-    partial mode at a TP rank's heads over the whole 4096-token sequence
-    (cp = 1, the queries at offset 0), and the GMM forward and ``trans_w`` at
+    partial mode at a TP rank's heads over the whole ``ZERO_SEQ``-token
+    sequence (cp = 1, the queries at offset 0), and the GMM forward and ``trans_w`` at
     the EP shard's shape (the experts' D gathered over EDP)."""
     from repro_torch.launch.world import gmm_shape
     _, cp, tp = ZERO_ATTN
     H, Hkv = (h // tp for h in FLASH_HEADS[arch])
-    flash = _flash_cases(torch, arch, [("TP rank's heads, causal 4096", TRAIN_SEQ, TRAIN_SEQ,
+    flash = _flash_cases(torch, arch, [(f"TP rank's heads, causal {ZERO_SEQ}", ZERO_SEQ, ZERO_SEQ,
                                         [0])], heads=(H, Hkv), modes=(True,))
-    s = gmm_shape(arch, TRAIN_SEQ // (cp * tp), fold=moe)
+    s = gmm_shape(arch, ZERO_SEQ // (cp * tp), fold=moe)
     E, rows, D, F, bm = s["experts"], s["rows_per_expert"], s["d_model"], s["d_expert"], s["bm"]
     M = E * rows
     blocks = [e for e in range(E) for _ in range(rows // bm)]
@@ -1354,7 +1434,7 @@ def phase_train_zero(torch) -> dict:
         base = runs[0].key
         t0 = time.perf_counter()
         ranks = train_world(arch, attn=ZERO_ATTN, moe=moe, runs=runs, device="cuda", layers=1,
-                            seq=TRAIN_SEQ, batch=ZERO_BATCH, seed=0, record=True)
+                            seq=ZERO_SEQ, batch=ZERO_BATCH, seed=0, record=True)
         wall = time.perf_counter() - t0
         res = dict(attn=ZERO_ATTN, moe=moe, runs=[r._asdict() for r in runs], base=base,
                    wall_s=wall, ranks=ranks, errors={})
@@ -1365,7 +1445,7 @@ def phase_train_zero(torch) -> dict:
             for run_spec in runs:
                 run = r["runs"][run_spec.key]
                 expect = _expected_world_launches(arch, run_spec.cp_mode, run_spec.steps,
-                                                  ZERO_ATTN)
+                                                  ZERO_ATTN, tokens=ZERO_SEQ)
                 if run["launches"] != expect:
                     failures.append(f"{tag} rank {r['rank']} {run_spec.key}: launches "
                                     f"{run['launches']} != expected {expect}")
@@ -1405,14 +1485,14 @@ def phase_train_zero(torch) -> dict:
                      f"{x['runs'][run_spec.key]['state_bytes'] / 1e9:.3f}" for x in ranks)
                  + f" GB (zero1_state_bytes {run['state_bytes_expected'] / 1e9:.3f} GB); "
                  f"launches a rank {run['launches']} (expected "
-                 f"{_expected_world_launches(arch, run_spec.cp_mode, run_spec.steps, ZERO_ATTN)});"
+                 f"{_expected_world_launches(arch, run_spec.cp_mode, run_spec.steps, ZERO_ATTN, tokens=ZERO_SEQ)});"
                  " peak memory a rank " + ", ".join(
                      f"{x['runs'][run_spec.key]['peak_gb']:.2f}" for x in ranks) + " GB (reserved "
                  + ", ".join(f"{x['runs'][run_spec.key]['peak_reserved_gb']:.2f}" for x in ranks)
                  + f" GB); card in use at the run's end {run['card_used_gb']:.2f} of "
                  f"{run['card_gb']:.2f} GB")
         _say(f"[{tag}] {arch} x1 layer at attention (dp, cp, tp) {ZERO_ATTN}, MoE (edp, ep, "
-             f"etp) {moe}, {ZERO_BATCH} x {TRAIN_SEQ} tokens a step: {len(ranks)} ranks over "
+             f"etp) {moe}, {ZERO_BATCH} x {ZERO_SEQ} tokens a step: {len(ranks)} ranks over "
              f"gloo through the host on one card ({smi}); {r0['params'] / 1e6:.1f} M "
              f"parameters a rank to compute with; weights built in turns in "
              f"{r0['init_s']:.1f} s; phase wall {wall:.1f} s; worst rel err "
@@ -1456,8 +1536,8 @@ def _train_pipe_kernels(torch) -> dict:
     w = PIPE_FULL
     _, cp, tp = w["attn"]
     H, Hkv = (h // tp for h in FLASH_HEADS[MIXTRAL])
-    flash = _flash_cases(torch, MIXTRAL, [("stage rank's heads, causal 4096", w["seq"], w["seq"],
-                                           [0])], heads=(H, Hkv), modes=(True,))
+    flash = _flash_cases(torch, MIXTRAL, [(f"stage rank's heads, causal {w['seq']}", w["seq"],
+                                           w["seq"], [0])], heads=(H, Hkv), modes=(True,))
     s = gmm_shape(MIXTRAL, w["seq"] // (cp * tp), fold=w["moe"])
     E, rows, D, F, bm = s["experts"], s["rows_per_expert"], s["d_model"], s["d_expert"], s["bm"]
     M = E * rows
@@ -1637,7 +1717,7 @@ def _resume_full(torch, train_zero: dict, failures: list) -> dict:
                 f"{RESUME_RAM_MARGIN / 1e9:.0f} GB of RAM for the processes)")
         t0 = time.perf_counter()
         ranks, = resilient_world(dict(
-            attn=ZERO_ATTN, moe=moe, arch=MIXTRAL, layers=1, seq=TRAIN_SEQ, batch=ZERO_BATCH,
+            attn=ZERO_ATTN, moe=moe, arch=MIXTRAL, layers=1, seq=ZERO_SEQ, batch=ZERO_BATCH,
             seed=0, lr=3e-4, steps=RESUME_STEPS, ckpt_dir=directory, ckpt_every=RESUME_EVERY,
             keep=1, supervise=True, faults=[RESUME_FAULT + ({},)], max_restarts=1))
         wall = time.perf_counter() - t0
@@ -1645,7 +1725,8 @@ def _resume_full(torch, train_zero: dict, failures: list) -> dict:
     finally:
         shutil.rmtree(directory, ignore_errors=True)
     anchor = RESUME_FAULT[1] // RESUME_EVERY * RESUME_EVERY      # the last save before it
-    expect = _expected_world_launches(MIXTRAL, "allgather", RESUME_STEPS - anchor, ZERO_ATTN)
+    expect = _expected_world_launches(MIXTRAL, "allgather", RESUME_STEPS - anchor, ZERO_ATTN,
+                                      tokens=ZERO_SEQ)
     zero = train_zero[MIXTRAL]
     for r in ranks:
         rid = f"{tag} rank {r['rank']}"
@@ -1681,7 +1762,7 @@ def _resume_full(torch, train_zero: dict, failures: list) -> dict:
              f"steps: {expect}), "
              f"peak memory {r['peak_gb']:.2f} GB; {_io_line(r)}")
     _say(f"[{tag}] {MIXTRAL} x1 layer at attention (dp, cp, tp) {ZERO_ATTN}, MoE (edp, ep, "
-         f"etp) {moe}, FSDP, ZeRO-1, {ZERO_BATCH} x {TRAIN_SEQ} tokens a step: "
+         f"etp) {moe}, FSDP, ZeRO-1, {ZERO_BATCH} x {ZERO_SEQ} tokens a step: "
          f"{RESUME_STEPS} steps, a save every {RESUME_EVERY} (keep 1), fault "
          f"{RESUME_FAULT[0]} at step {RESUME_FAULT[1]}; incidents "
          + ", ".join(x["incident"] for x in r0["incidents"]) + f"; phase wall {wall:.1f} s")
@@ -1822,13 +1903,19 @@ def _handoff_kernels(torch) -> dict:
     """The kernels at phase 12's launch shapes, timed as in phase 3: flash
     in partial mode at a TP rank's heads over the DP rank's two 2048-token
     sequences, and the GMM forward and ``trans_w`` at the EP shard's shape
-    (a rank's 2048 tokens)."""
+    (a rank's 2048 tokens), which the world across DP ranks shares; flash
+    also at that world's shape: all heads, the second CP chunk of 1024
+    queries of the DP rank's two sequences against their whole 2048 keys."""
     from repro_torch.launch.world import gmm_shape
     _, cp, tp = HANDOFF["attn"]
     seqs, S = HANDOFF["batch"] // HANDOFF["attn"][0], HANDOFF["seq"]
     H, Hkv = (h // tp for h in FLASH_HEADS[QWEN2])
     flash = _flash_cases(torch, QWEN2, [(f"TP rank's heads, {seqs} sequences causal {S}", S, S,
                                          [0] * seqs)], heads=(H, Hkv), modes=(True,))
+    cross = _flash_cases(torch, QWEN2, [(f"all heads, {seqs} sequences, CP chunk 2 of 2 "
+                                         f"(queries {S // 2}-{S - 1} of {S})", S // 2, S,
+                                         [S // 2] * seqs)], heads=FLASH_HEADS[QWEN2],
+                         modes=(True,))
     s = gmm_shape(QWEN2, seqs * S // (cp * tp), fold=HANDOFF["moe"])
     E, rows, D, F, bm = s["experts"], s["rows_per_expert"], s["d_model"], s["d_expert"], s["bm"]
     M = E * rows
@@ -1836,42 +1923,51 @@ def _handoff_kernels(torch) -> dict:
     cases = _gmm_cases(torch, E, [(f"train-handoff gate/up, M={M}", M, D, F, bm, blocks, False),
                                   (f"train-handoff dgrad trans_w, M={M}", M, F, D, bm, blocks,
                                    True)])
-    out = {"gmm": cases[:1], "gmm_trans_w": cases[1:], "flash_attention": flash}
+    out = {"gmm": cases[:1], "gmm_trans_w": cases[1:], "flash_attention": flash + cross}
     _check_cases(QWEN2, out)
     out["gmm_shape"] = s
     return out
 
 
-def _handoff_world(name: str, attn: tuple, runs: list, smi: str, failures: list) -> dict:
-    """One world of phase 12 (``name``: "handoff" or "oracle") at attention
-    fold ``attn``, each of ``runs`` from the same weights: its ranks'
-    results, checked (the hand-off flag, launches against the count from
-    the code, optimizer-state bytes, finite steps, each later run's loss and
-    ``grad_norm`` within ``ZERO_TOL`` of the first's) and printed as soon
-    as it ends."""
+# The axis each world of phase 12 exchanges its SP rows over
+# (``comm.handoff_axis``): within each DP rank, none, across DP ranks.
+HANDOFF_AXIS = {"handoff": "cp_tp", "oracle": None, "cross-dp": "stage"}
+
+
+def _handoff_world(name: str, attn: tuple, runs: list, smi: str, failures: list, *,
+                   moe: tuple = HANDOFF["moe"], pods: int = 1, warmup: bool = True) -> dict:
+    """One world of phase 12 (``name``: "handoff", "oracle" or "cross-dp")
+    at attention fold ``attn`` and MoE fold ``moe`` (``pods`` > 1: pods
+    that extend attention CP and MoE EDP), each of ``runs`` from the same
+    weights: its ranks' results, checked (the hand-off's axis, launches
+    against the count from the code, optimizer-state bytes, finite steps,
+    each later run's loss and ``grad_norm`` within ``ZERO_TOL`` of the
+    first's) and printed as soon as it ends."""
     from repro_torch.launch.world import train_world
     t0 = time.perf_counter()
-    ranks = train_world(QWEN2, attn=attn, moe=HANDOFF["moe"], runs=runs, device="cuda",
-                        layers=1, seq=HANDOFF["seq"], batch=HANDOFF["batch"], seed=0,
-                        profile=name == "handoff")
+    ranks = train_world(QWEN2, attn=attn, moe=moe, runs=runs, device="cuda", layers=1,
+                        seq=HANDOFF["seq"], batch=HANDOFF["batch"], seed=0, pods=pods,
+                        warmup=warmup)
     wall = time.perf_counter() - t0
     base = runs[0].key
+    cp_all = (attn[0], attn[1] * pods, attn[2])      # the pods extend CP
     for r in ranks:
         rid = f"train-handoff {name} rank {r['rank']}"
-        if r["handoff"] != (name == "handoff"):
-            failures.append(f"{rid}: {r['seqs']} sequences a DP rank, hand-off {r['handoff']}")
+        if r["handoff"] != HANDOFF_AXIS[name]:
+            failures.append(f"{rid}: {r['seqs']} sequences a DP rank, hand-off over "
+                            f"{r['handoff']}, not {HANDOFF_AXIS[name]}")
         for run in runs:
             got = r["runs"][run.key]
-            expect = _expected_world_launches(QWEN2, run.cp_mode, run.steps, attn,
+            expect = _expected_world_launches(QWEN2, run.cp_mode, run.steps, cp_all,
                                               tokens=r["seqs"] * HANDOFF["seq"])
             if got["launches"] != expect:
                 failures.append(f"{rid} {run.key}: launches {got['launches']} != expected "
                                 f"{expect}")
-            if got["state_bytes"] != got["state_bytes_expected"]:
+            if run.steps and got["state_bytes"] != got["state_bytes_expected"]:
                 failures.append(f"{rid} {run.key}: optimizer state {got['state_bytes']} B != "
                                 f"zero1_state_bytes {got['state_bytes_expected']} B")
             for i, m in enumerate(got["metrics"]):
-                if not (m["step_ok"] and all(x == x and abs(x) != float("inf")
+                if not (m.get("step_ok", 1.0) and all(x == x and abs(x) != float("inf")
                                              for x in (m["loss"], m["grad_norm"]))):
                     failures.append(f"{rid} {run.key} step {i}: {m}")
                     continue
@@ -1889,7 +1985,8 @@ def _handoff_world(name: str, attn: tuple, runs: list, smi: str, failures: list)
         got = per_rank[0]
         _say(f"[train-handoff] {name} {run.key} (fsdp {got['fsdp']}, master_weights "
              f"{got['master_weights']}): {QWEN2} x1 layer at attention (dp, cp, tp) {attn}, MoE "
-             f"(edp, ep, etp) {HANDOFF['moe']}, {HANDOFF['batch']} x {HANDOFF['seq']} tokens a "
+             f"(edp, ep, etp) {moe}" + (f", {pods} pods extending CP and EDP" if pods > 1
+                                        else "") + f", {HANDOFF['batch']} x {HANDOFF['seq']} tokens a "
              f"step, {r0['seqs']} sequences a DP rank (hand-off {r0['handoff']}): {len(ranks)} "
              f"ranks over gloo through the host on one card ({smi}); loss " + ", ".join(
                  f"{m['loss']:.6f}" for m in got["metrics"]) + ", grad_norm " + ", ".join(
@@ -1898,19 +1995,19 @@ def _handoff_world(name: str, attn: tuple, runs: list, smi: str, failures: list)
              + " ms; peak memory a rank " + ", ".join(f"{x['peak_gb']:.2f}" for x in per_rank)
              + " GB (reserved " + ", ".join(f"{x['peak_reserved_gb']:.2f}" for x in per_rank)
              + f" GB; card in use at the run's end {got['card_used_gb']:.2f} of "
-             f"{got['card_gb']:.2f} GB); optimizer state a rank " + ", ".join(
+             f"{got['card_gb']:.2f} GB); " + ("optimizer state a rank " + ", ".join(
                  f"{x['state_bytes'] / 1e9:.3f}" for x in per_rank)
-             + f" GB (zero1_state_bytes {got['state_bytes_expected'] / 1e9:.3f} GB); launches a "
-             f"rank {got['launches']}")
+                 + f" GB (zero1_state_bytes {got['state_bytes_expected'] / 1e9:.3f} GB)"
+                 if run.steps else "a forward and backward, no optimizer state") + "; launches a "
+             f"rank {got['launches']}; host ms in comm handoff a rank " + ", ".join(
+                 f"{1e3 * x['comm_host_s'].get('comm handoff', 0.0):.1f}" for x in per_rank))
     _say(f"[train-handoff] {name}: runs {[run.key for run in runs]} from the same weights; "
          f"weights built in turns in {r0['init_s']:.1f} s; world wall {wall:.1f} s")
-    prof = r0["runs"][base].get("profile")
-    if prof:
-        _say(f"[train-handoff] {name}: profiled step on rank 0: wall {prof['wall_ms']:.1f} ms, "
-             f"device {prof['device_ms']:.1f} ms (" + ", ".join(
-                 f"{k} {v:.1f}" for k, v in prof["parts_ms"].items()) + "); host ms in "
-             + ", ".join(f"{k} {v:.1f}" for k, v in prof["comm_host_ms"].items()))
-    return dict(attn=attn, runs=[run._asdict() for run in runs], ranks=ranks, wall_s=wall)
+    host = r0["runs"][base]["comm_host_s"]
+    _say(f"[train-handoff] {name}: host ms in the comm ranges of rank 0's {base} step: "
+         + ", ".join(f"{k} {1e3 * v:.1f}" for k, v in sorted(host.items(), key=lambda x: -x[1])))
+    return dict(attn=attn, moe=moe, pods=pods, runs=[run._asdict() for run in runs],
+                ranks=ranks, wall_s=wall)
 
 
 def phase_train_handoff(torch) -> dict:
@@ -1929,6 +2026,13 @@ def phase_train_handoff(torch) -> dict:
                                  ("oracle", HANDOFF_ORACLE, runs[:1])):
         worlds[name] = _handoff_world(name, attn, its_runs, smi, failures)
         torch.cuda.empty_cache()
+    t_cross = time.perf_counter()
+    worlds["cross-dp"] = _handoff_world("cross-dp", HANDOFF_CROSS["attn"],
+                                        [Run(*HANDOFF_CROSS["run"])], smi, failures,
+                                        moe=HANDOFF_CROSS["moe"], pods=HANDOFF_CROSS["pods"],
+                                        warmup=False)
+    worlds["cross-dp"]["phase_s"] = time.perf_counter() - t_cross
+    torch.cuda.empty_cache()
     hand, oracle = worlds["handoff"]["ranks"], worlds["oracle"]["ranks"]
     same_tokens = [a["moe_tokens"] == b["moe_tokens"] for a, b in zip(hand, oracle)]
     _say(f"[train-handoff] each rank's MoE token shard equal to the oracle rank's, id for id: "
@@ -1952,10 +2056,39 @@ def phase_train_handoff(torch) -> dict:
              f"rel err loss {errors[f'step {i} loss']:.3e}, grad_norm "
              f"{errors[f'step {i} grad_norm']:.3e}, drop "
              f"{errors[f'step {i} moe_drop_fraction']:.3e} (limit {tol}; ZERO_TOL {ZERO_TOL})")
+    cross = _cross_dp_check(worlds["cross-dp"]["ranks"], oracle, run.key, failures)
     if failures:
         raise AssertionError("phase 12:\n" + "\n".join(failures))
-    return dict(worlds=worlds, errors=errors, same_tokens=same_tokens,
+    return dict(worlds=worlds, errors=errors, same_tokens=same_tokens, cross_dp=cross,
                 kernels=_handoff_kernels(torch))
+
+
+def _cross_dp_check(cross: list, oracle: list, key: str, failures: list) -> dict:
+    """The world across DP ranks against the oracle: each rank's MoE token
+    ids against those of the oracle's rank at the same MoE token index, id
+    for id; loss, ``grad_norm`` and the drop fraction of the step within
+    ``FOLD_TOL`` of the oracle's."""
+    by_index = {r["tokens_index"]: r["moe_tokens"] for r in oracle}
+    same = [r["moe_tokens"] == by_index[r["tokens_index"]] for r in cross]
+    _say(f"[train-handoff] cross-dp: each rank's MoE token shard (index "
+         f"{[r['tokens_index'] for r in cross]}, SP index {[r['sp_index'] for r in cross]}) "
+         f"equal to the oracle's of the same index, id for id: {same}")
+    if not all(same):
+        failures.append(f"train-handoff cross-dp: MoE token shards equal to the oracle's by "
+                        f"index {same}")
+    a = cross[0]["runs"][HANDOFF_CROSS["run"][4]]["metrics"][0]
+    b = oracle[0]["runs"][key]["metrics"][0]
+    errors = {}
+    for k in ("loss", "grad_norm", "moe_drop_fraction"):
+        errors[k] = e = abs(a[k] - b[k]) / abs(b[k])
+        if not e <= FOLD_TOL:
+            failures.append(f"train-handoff cross-dp {k}: {a[k]!r} against the oracle's "
+                            f"{b[k]!r}, rel err {e:.3e} > {FOLD_TOL}")
+    _say(f"[train-handoff] cross-dp step 0: loss {a['loss']:.6f} (oracle {b['loss']:.6f}), "
+         f"grad_norm {a['grad_norm']:.6f} (oracle {b['grad_norm']:.6f}), drop "
+         f"{a['moe_drop_fraction']!r} (oracle {b['moe_drop_fraction']!r}); rel err " + ", ".join(
+             f"{k} {v:.3e}" for k, v in errors.items()) + f" (limit {FOLD_TOL})")
+    return dict(same_tokens=same, errors=errors)
 
 
 # Phase 13: phase 4's serving workload across 4 ranks sharing the card. Per
@@ -2717,13 +2850,20 @@ def _train_configs_line(config_kernels: dict, train_configs: dict, sources: dict
 
 
 def _train_handoff_line(train_handoff: dict, sources: dict) -> list:
-    """Phase 12's entries of the kernels line (path ``train-handoff``): each
-    kernel with rank 0's launches in the hand-off world, timed at its shape."""
-    runs = train_handoff["worlds"]["handoff"]["ranks"][0]["runs"]
-    launches = runs[HANDOFF["runs"][0][4]]["launches"]
-    return [_entry(name, "train-handoff", QWEN2, train_handoff["kernels"][name][0],
-                   launches[name], sources)
-            for name in ("gmm", "gmm_trans_w", "flash_attention")]
+    """Phase 12's entries of the kernels line (paths ``train-handoff`` and
+    ``train-handoff-cross-dp``): each kernel with rank 0's launches in the
+    hand-off world and in the world across DP ranks, timed at its shape."""
+    line = []
+    k = train_handoff["kernels"]
+    for world, path, flash in (("handoff", "train-handoff", k["flash_attention"][0]),
+                               ("cross-dp", "train-handoff-cross-dp",
+                                k["flash_attention"][1])):
+        runs = train_handoff["worlds"][world]["ranks"][0]["runs"]
+        launches = runs[HANDOFF["runs"][0][4]]["launches"]     # both runs are keyed "fsdp"
+        line += [_entry(name, path, QWEN2, c, launches[name], sources)
+                 for name, c in (("gmm", k["gmm"][0]), ("gmm_trans_w", k["gmm_trans_w"][0]),
+                                 ("flash_attention", flash))]
+    return line
 
 
 def _train_resume_line(train_resume: dict, train_zero: dict, sources: dict) -> list:
@@ -2850,6 +2990,22 @@ def _blocks_batches(cfg, seq: int, batch: int, steps: int) -> list:
     return out
 
 
+def _record_margins(eng) -> dict:
+    """Each request's top-1 minus top-2 logit at every greedy choice the
+    engine ``eng`` makes, by request id (its sampler wrapped; it chooses as
+    before)."""
+    import numpy as np
+    margins: dict = {}
+    sample = eng._sample
+
+    def recorded(run, row):
+        top = np.partition(row, -2)[-2:]
+        margins.setdefault(run.rid, []).append(float(top[1] - top[0]))
+        return sample(run, row)
+    eng._sample = recorded
+    return margins
+
+
 def _blocks_serve(torch, arch: str) -> tuple:
     """(a)/(b) serving: ``arch`` at full width cut to 4 layers, bf16, the same
     two requests through a paged and a dense engine, each run with the
@@ -2867,6 +3023,8 @@ def _blocks_serve(torch, arch: str) -> tuple:
         torch.cuda.reset_peak_memory_stats()
         eng = Engine(cfg, params, EngineConfig(cache=cache, s_max=BLOCKS_SERVE["s_max"],
                                                **BLOCKS_ENGINE))
+        keep = arch == QWEN2VL and cache == "paged"       # phase 18's reference
+        margins = _record_margins(eng) if keep else None
         rids = submit_random(eng, cfg, BLOCKS_SERVE["prompts"], BLOCKS_SERVE["new"], seed=0)
         torch.cuda.synchronize()
         _zero_counters()
@@ -2885,6 +3043,9 @@ def _blocks_serve(torch, arch: str) -> tuple:
                    sum(t[0] for t in eng.timings),
                    max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
                    tokens=[res[r].tokens.tolist() for r in rids])
+        if keep:                         # phase 18's reference (the logits not in the JSON)
+            run["logits"] = [res[r].last_prefill_logits for r in rids]
+            run["margins"] = [margins[r] for r in rids]
         _say(f"[blocks {tag}] {out['model']}: {len(rids)} requests, {n_fwd} forwards, wall "
              f"{wall:.3f} s, launches {launches} (expected {expect}); prefill "
              f"{run['prefill_tok_per_s']:.1f} tok/s, decode step median "
@@ -3581,7 +3742,7 @@ def _dryrun_audit(run0: dict, t9: dict, moe: tuple, smi: str, failures: list) ->
     t0 = time.perf_counter()
     pcfg = ParallelConfig(attn=PM(*ZERO_ATTN), moe=PM(*moe))
     cfg = step_config(train_config(MIXTRAL, layers=1), "train")
-    shape = dataclasses.replace(get_shape("train_4k"), seq_len=TRAIN_SEQ, global_batch=ZERO_BATCH)
+    shape = dataclasses.replace(get_shape("train_4k"), seq_len=ZERO_SEQ, global_batch=ZERO_BATCH)
     real, found = audit_step({0: _records(run0["collectives"])}, cfg, shape, pcfg,
                              where="phase 9 rank 0")
     traced, _ = audit_step({0: _records(t9["collectives"])}, cfg, shape, pcfg,
@@ -3679,7 +3840,7 @@ def phase_dryrun(torch, one_card: dict, train_zero: dict) -> dict:
     one = ("--rank", "0", "--lists")
     t5, t9, tw = _dryrun((*DRYRUN_TRAIN, "--seq", str(TRAIN_SEQ), "--batch", "1", "--attn",
                           "1,1,1", *one),
-                         (*DRYRUN_TRAIN, "--seq", str(TRAIN_SEQ), "--batch", str(ZERO_BATCH),
+                         (*DRYRUN_TRAIN, "--seq", str(ZERO_SEQ), "--batch", str(ZERO_BATCH),
                           "--attn", ",".join(map(str, ZERO_ATTN)),
                           "--moe", ",".join(map(str, moe)), *one),
                          DRYRUN_WHISPER)
@@ -3750,6 +3911,191 @@ def phase_dryrun(torch, one_card: dict, train_zero: dict) -> dict:
     if failures:
         raise AssertionError("phase 17:\n" + "\n".join(failures))
     return out
+
+
+# Phase 18: K/V replicated over TP. Qwen2-VL-7B's 28 query and 4 K/V heads
+# at attention TP 8, which does not divide the K/V heads: every TP rank
+# holds q and K/V at all heads (``attention.kv_replicated``). No registry
+# model reaches it at TP <= 4 (every K/V head count is a multiple of 4), so
+# it needs a world of 8 processes sharing the card, opened after the pool
+# of 4 is closed. Phase 15's depths, batch, requests and seed.
+REPLICATED = dict(attn=(1, 1, 8), moe=(1, 1, 8))
+
+
+def _replicated_serve(arch: str, blocks: dict, smi: str, failures: list) -> dict:
+    """(a) Phase 15's paged Engine (4 layers, bf16, seed 0, its two requests)
+    at attention TP 8: prefill logits within ``CHECK_TOL`` (relative) of
+    phase 15's one-card Engine; greedy tokens equal to its, up to a step
+    where the one-card choice was a near tie (its top-1/top-2 margin at
+    most twice the largest prefill logit gap between the two runs: bf16
+    sums taken in another order over TP then choose otherwise, and the
+    requests part from there on, as phase 13 allows); launches 1 flash a
+    layer a forward; each rank's KV pool and a request's KV bytes beside one
+    card's: every rank holds all K/V heads."""
+    from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
+    from repro_torch.core.folding import folded_layout
+    from repro_torch.launch.serve import slice_config
+    from repro_torch.launch.world import serve_world
+    from repro_torch.serve.cache import kv_bytes_dense
+    one = blocks[arch]["serve"]["runs"]["paged"]
+    one_logits, margins = one.pop("logits"), one.pop("margins")
+    t0 = time.perf_counter()
+    ranks, = serve_world(dict(arch=arch, **REPLICATED, layers=BLOCKS_SERVE["layers"],
+                              engine=dict(cache="paged", s_max=BLOCKS_SERVE["s_max"],
+                                          **BLOCKS_ENGINE),
+                              prompt_lens=BLOCKS_SERVE["prompts"],
+                              new_tokens=BLOCKS_SERVE["new"], seed=0, keep_logits=True),
+                         device="cuda", timeout_s=900)
+    wall = time.perf_counter() - t0
+    cfg = slice_config(arch, layers=BLOCKS_SERVE["layers"])
+    pcfg = ParallelConfig(attn=PM(*REPLICATED["attn"]), moe=PM(*REPLICATED["moe"]))
+    kv_one = kv_bytes_dense(cfg, 1, BLOCKS_SERVE["s_max"])
+    out = dict(model=f"{cfg.name} x{cfg.n_layers} layers (full width), bf16, heads "
+                     f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim}",
+               attn=REPLICATED["attn"], wall_s=wall, kv_bytes_request_one_card=kv_one,
+               ranks=[])
+    for r in ranks:
+        n_fwd = sum(1 for p, _ in r["forwards"] if p) + sum(1 for _, d in r["forwards"] if d)
+        expect = {"gmm": 0, "gmm_trans_w": 0, "flash_attention": cfg.n_layers * n_fwd}
+        fg = folded_layout(pcfg, rank=r["rank"], world=pcfg.world_size)
+        kv = kv_bytes_dense(cfg, 1, BLOCKS_SERVE["s_max"], groups=fg)
+        errs = [_rel_max(_as_f64(g["logits"]), _as_f64(w))
+                for g, w in zip(r["results"], one_logits)]
+        gap = max(float(abs(_as_f64(g["logits"]) - _as_f64(w)).max())
+                  for g, w in zip(r["results"], one_logits))
+        tokens = [g["tokens"] for g in r["results"]]
+        parted = []                 # (request, first step that differs, its one-card margin)
+        for i, (t, w) in enumerate(zip(tokens, one["tokens"])):
+            j = next((k for k, (a, b) in enumerate(zip(t, w)) if a != b), None)
+            if j is not None:
+                parted.append((i, j, margins[i][j]))
+        rec = dict(rank=r["rank"], launches=r["launches"], expected=expect, forwards=n_fwd,
+                   tokens_equal=tokens == one["tokens"], parted=parted,
+                   prefill_logit_gap=gap, logits_rel_err=errs,
+                   kv_bytes_request=kv, cache_bytes=r["cache_bytes"], peak_gb=r["peak_gb"],
+                   init_s=r["init_s"], wall_s=r["wall_s"])
+        out["ranks"].append(rec)
+        if r["launches"] != expect:
+            failures.append(f"replicated serve rank {r['rank']}: launches {r['launches']} != "
+                            f"{expect}")
+        for i, j, m in parted:
+            if not m <= 2 * gap:
+                failures.append(f"replicated serve rank {r['rank']} request {i}: token {j} "
+                                f"{tokens[i][j]} != one card's {one['tokens'][i][j]}, whose "
+                                f"margin {m:.4f} exceeds twice the prefill logit gap {gap:.4f}")
+        if not max(errs) <= CHECK_TOL:
+            failures.append(f"replicated serve rank {r['rank']}: prefill logits rel err {errs} "
+                            f"> {CHECK_TOL}")
+        if kv != kv_one:
+            failures.append(f"replicated serve rank {r['rank']}: {kv} K/V bytes a request, one "
+                            f"card {kv_one}")
+    r0 = out["ranks"][0]
+    _say(f"[replicated serve] {out['model']} at attention (dp, cp, tp) {REPLICATED['attn']}: "
+         f"{len(ranks)} ranks over gloo through the host on one card ({smi}); every rank holds "
+         f"all {cfg.n_kv_heads} K/V heads and attends at all {cfg.n_heads}; {r0['forwards']} "
+         "forwards; tokens equal to phase 15's one-card Engine on ranks "
+         f"{[x['rank'] for x in out['ranks'] if x['tokens_equal']]}, parted (request, step, "
+         f"one-card margin) {r0['parted']} against twice the prefill logit gap "
+         f"{2 * r0['prefill_logit_gap']:.4f}; one-card margins at each step " + "; ".join(
+             " ".join(f"{m:.3f}" for m in ms) for ms in margins) + "; prefill logits rel err "
+         "(worst a rank) " + ", ".join(f"{max(x['logits_rel_err']):.3e}" for x in out["ranks"])
+         + f" (limit {CHECK_TOL}); launches a rank {r0['launches']} (expected {r0['expected']}); "
+         f"K/V bytes a request a rank {r0['kv_bytes_request'] / 1e6:.2f} MB (one card "
+         f"{kv_one / 1e6:.2f} MB), KV pool a rank " + ", ".join(
+             f"{x['cache_bytes'] / 1e6:.1f}" for x in out["ranks"]) + " MB; peak memory a rank "
+         + ", ".join(f"{x['peak_gb']:.2f}" for x in out["ranks"]) + " GB; serving wall a rank "
+         + ", ".join(f"{x['wall_s']:.2f}" for x in out["ranks"]) + f" s; world wall {wall:.1f} s")
+    return out
+
+
+def _replicated_train(arch: str, blocks: dict, smi: str, failures: list) -> dict:
+    """(b) One training step of phase 15's (2 layers, one 4096-token
+    sequence, its batch and seed) at attention TP 8: loss and ``grad_norm``
+    within ``FOLD_TOL`` of phase 15's one-card step 0, launches 2 flash a
+    layer (forward, remat's recompute)."""
+    from repro_torch.launch.train import train_config
+    from repro_torch.launch.world import Run, train_world
+    cfg = train_config(arch, layers=BLOCKS_TRAIN["layers"][arch])
+    batches = _blocks_batches(cfg, BLOCKS_TRAIN["seq"], BLOCKS_TRAIN["batch"], 1)
+    t0 = time.perf_counter()
+    ranks = train_world(arch, **REPLICATED, runs=[Run("allgather", 1)], device="cuda",
+                        layers=BLOCKS_TRAIN["layers"][arch], seq=BLOCKS_TRAIN["seq"],
+                        batch=BLOCKS_TRAIN["batch"], seed=0, batches=batches, timeout_s=900)
+    wall = time.perf_counter() - t0
+    ref = blocks[arch]["train"]["steps"][0]
+    expect = {"gmm": 0, "gmm_trans_w": 0, "flash_attention": 2 * _flash_layers(cfg)}
+    out = dict(attn=REPLICATED["attn"], wall_s=wall, one_card=dict(loss=ref["loss"],
+                                                                   grad_norm=ref["grad_norm"]),
+               ranks=[])
+    for r in ranks:
+        run = r["runs"]["allgather"]
+        m = run["metrics"][0]
+        errs = {k: abs(m[k] - ref[k]) / abs(ref[k]) for k in ("loss", "grad_norm")}
+        out["ranks"].append(dict(rank=r["rank"], loss=m["loss"], grad_norm=m["grad_norm"],
+                                 rel_err=errs, launches=run["launches"], peak_gb=run["peak_gb"],
+                                 step_s=run["step_s"], init_s=r["init_s"]))
+        if not (m["step_ok"] and max(errs.values()) <= FOLD_TOL):
+            failures.append(f"replicated train rank {r['rank']}: loss {m['loss']!r}, grad_norm "
+                            f"{m['grad_norm']!r} against one card's {ref['loss']!r}, "
+                            f"{ref['grad_norm']!r}: rel err {errs} (limit {FOLD_TOL})")
+        if run["launches"] != expect:
+            failures.append(f"replicated train rank {r['rank']}: launches {run['launches']} != "
+                            f"{expect}")
+    r0 = out["ranks"][0]
+    _say(f"[replicated train] {cfg.name} x{cfg.n_layers} layers (full width), "
+         f"{BLOCKS_TRAIN['batch']} x {BLOCKS_TRAIN['seq']} tokens, at attention (dp, cp, tp) "
+         f"{REPLICATED['attn']} over {cfg.n_kv_heads} K/V heads: {len(ranks)} ranks over gloo "
+         f"through the host on one card ({smi}); step 0 loss {r0['loss']:.6f} (one card "
+         f"{ref['loss']:.6f}), grad_norm {r0['grad_norm']:.6f} (one card {ref['grad_norm']:.6f})"
+         "; worst rel err a rank " + ", ".join(f"{max(x['rel_err'].values()):.3e}"
+                                               for x in out["ranks"])
+         + f" (limit {FOLD_TOL}); launches a rank {r0['launches']} (expected {expect}); peak "
+         "memory a rank " + ", ".join(f"{x['peak_gb']:.2f}" for x in out["ranks"])
+         + " GB; step wall a rank " + ", ".join(f"{1e3 * x['step_s'][0]:.1f}"
+                                               for x in out["ranks"])
+         + f" ms; weights built in turns in {r0['init_s']:.1f} s; world wall {wall:.1f} s")
+    return out
+
+
+def phase_replicated_kv(torch, blocks: dict) -> dict:
+    """Phase 18: see the module docstring. One world of 8 processes for both
+    parts; every check is printed before the phase fails on any of them."""
+    from repro_torch.launch.world import pool
+    smi, failures = _smi(), []
+    with pool(8, backend="gloo", device="cuda", timeout_s=900):
+        serve = _replicated_serve(QWEN2VL, blocks, smi, failures)
+        train = _replicated_train(QWEN2VL, blocks, smi, failures)
+    if failures:
+        raise AssertionError("phase 18:\n" + "\n".join(failures))
+    return dict(serve=serve, train=train)
+
+
+def _replicated_line(replicated: dict, blocks: dict, sources: dict) -> list:
+    """Phase 18's entries of the kernels line: flash on its serving and
+    training paths (``replicated-kv-serve``, ``replicated-kv-train``) with
+    rank 0's launches, timed at phase 15's rows of the same shapes (all
+    heads on every TP rank: the one card's shapes)."""
+    def case(label):
+        return next(c for c in blocks["kernels"][QWEN2VL]["flash_attention"]
+                    if c["case"] == label)
+    return [_entry("flash_attention", "replicated-kv-serve" + SHORT[QWEN2VL], QWEN2VL,
+                   case("decode, 1024 keys, normalized"),
+                   replicated["serve"]["ranks"][0]["launches"]["flash_attention"], sources),
+            _entry("flash_attention", "replicated-kv-train" + SHORT[QWEN2VL], QWEN2VL,
+                   case("causal self-attention 4096, partial"),
+                   replicated["train"]["ranks"][0]["launches"]["flash_attention"], sources)]
+
+
+def _as_f64(x):
+    """A logits row as a float64 numpy array."""
+    import numpy as np
+    return np.asarray(x, dtype=np.float64)
+
+
+def _rel_max(got, ref) -> float:
+    """max |got - ref| over max |ref|."""
+    import numpy as np
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
 
 
 def _free(torch, label: str) -> dict:
@@ -3848,6 +4194,9 @@ def main() -> int:
     memory_dryrun = _free(torch, "phase 16 done, before phase 17")
     dryrun = phase_dryrun(torch, results[MIXTRAL]["train"], train_zero)
     mark("phase 17")
+    memory_replicated = _free(torch, "phase 17 done, before phase 18")
+    replicated = phase_replicated_kv(torch, blocks)
+    mark("phase 18")
     seconds = time.perf_counter() - t_start
 
     gmm_src = ("src/repro_torch/kernels/csrc/gmm.cu", "src/repro/kernels/gmm/gmm.py:73")
@@ -3875,6 +4224,11 @@ def main() -> int:
     line += _window_dense_line(window, sources)
     line += _blocks_line(blocks, sources)
     line += _recurrent_line(recurrent, sources)
+    line += _replicated_line(replicated, blocks, sources)
+    c = next(x for x in results[MIXTRAL]["kernels"]["gmm"]
+             if x["case"] == f"gate/up, decode bm={SMALL_BM[1]}")
+    line.append(_entry("gmm", "moe-check-bm16" + SHORT[QWEN2], QWEN2, c,
+                       results[QWEN2]["check_moe"]["block_m_16"]["launches"]["gmm"], sources))
     smi = _smi()
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -3887,7 +4241,8 @@ def main() -> int:
         window_dense=window, memory_before_window_dense=memory_window,
         blocks=blocks, memory_before_blocks=memory_blocks,
         recurrent=recurrent, memory_before_recurrent=memory_recurrent, dryrun=dryrun,
-        memory_before_dryrun=memory_dryrun,
+        memory_before_dryrun=memory_dryrun, replicated_kv=replicated,
+        memory_before_replicated_kv=memory_replicated,
         config_kernels=config_kernels,
         train_configs=train_configs, memory_after_train_zero=memory_zero,
         memory_after_train_handoff=memory_handoff,

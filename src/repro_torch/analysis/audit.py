@@ -32,7 +32,11 @@ How it differs from the reference's HLO audit:
 
 The budget is the autotuner's (``launch.autotune.collective_byte_budget``,
 held equal to the reference's) resolved onto atom names, with the
-reference's two audit-side entries.
+reference's two audit-side entries, and a third of the port's where MoE
+token shards hold other DP ranks' tokens (``pod_role="cp"``, non-contiguous
+``moe_factors``): ``handoff``, the SP → MoE exchange over the attention
+stage (``core.comm.sp_to_moe``), which the reference leaves to GSPMD's
+resharding and no ``_TABLE`` row reaches.
 The classified rows are pinned in ``tests/torch_collective_audit_golden.json``
 (``python -m repro_torch.analysis audit --write-golden``); the port's
 numbers depend on no compiler, so the golden pins them exactly.
@@ -353,11 +357,35 @@ def budget_entries(cfg, shape, cand, layout, *, slack: float = SLACK) -> List[Bu
                                    kinds=tuple(e["kinds"]),
                                    cap_bytes=e["bytes"] * slack + CAP_FLOOR))
     live = frozenset(n for n, s in zip(layout.atom_names, layout.shape) if s > 1)
+    handoff = _handoff_entry(cfg, shape, cand, layout, slack)
+    if handoff is not None:
+        entries.append(handoff)
     entries.append(BudgetEntry(name="misc-allreduce", atoms=live, kinds=("all-reduce",),
                                cap_bytes=4 * MIN_AUDIT_BYTES))
     entries.append(BudgetEntry(name="reshard-permute", atoms=live,
                                kinds=("collective-permute",), cap_bytes=8 * MIN_AUDIT_BYTES))
     return entries
+
+
+def _handoff_entry(cfg, shape, cand, layout, slack: float) -> Optional[BudgetEntry]:
+    """The SP → MoE exchange across DP ranks, where some rank's MoE token
+    index is not its (dp, cp, tp) index (``core.folding.moe_token_index``):
+    an all-to-all over the attention stage's atoms that moves at most a
+    rank's sequence-parallel rows each way, before and after every MoE
+    layer, in the forward, remat's recompute and the backward."""
+    from repro_torch.core.folding import moe_token_index, sp_token_index
+    if cfg.moe is None or all(sp_token_index(layout, r) == moe_token_index(layout, r)
+                              for r in range(layout.world)):
+        return None
+    stage = layout.atoms("attn", "stage")
+    train = shape.kind == "train"
+    m = max(cand.microbatch, 1) if train else 1
+    tokens = shape.global_batch * (1 if shape.kind == "decode" else shape.seq_len)
+    rows = tokens / m / layout.attn["stage"].size
+    n_moe = sum(1 for b in cfg.blocks() if b == "moe") / layout.pp_degree
+    wire = (3.0 if train else 1.0) * 2 * m * n_moe * rows * cfg.d_model * 2.0
+    return BudgetEntry(name="handoff", atoms=frozenset(stage), kinds=("all-to-all",),
+                       cap_bytes=wire * slack + CAP_FLOOR)
 
 
 def _layout(spec: ProbeSpec):

@@ -80,7 +80,7 @@ def _round_up(n: int, m: int) -> int:
 
 
 def _group(groups: Optional[FoldedGroups], name: str) -> Optional[dist.ProcessGroup]:
-    return None if groups is None else groups.moe[name].group
+    return None if groups is None else groups.moe[name]
 
 
 def _shared_expert_ffn(x: torch.Tensor, shared: Sequence[torch.Tensor], activation: str,
@@ -290,9 +290,6 @@ def moe_ffn(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor, w2: torch.Tenso
     ep_ax = None if groups is None else groups.moe["ep"]
     ep, etp = (1, 1) if groups is None else (groups.ep, groups.etp)
     ep_g, etp_g = _group(groups, "ep"), _group(groups, "etp")
-    for name in ("ep", "etp", "edp", "seq"):
-        if groups is not None and groups.moe[name].size > 1:
-            groups.moe[name].require_rank_order(f"the MoE {name} collectives")
     E, K = mcfg.n_experts, mcfg.top_k
     if E % ep:
         raise ValueError(f"n_experts {E} not divisible by EP {ep}")
@@ -321,10 +318,10 @@ def moe_ffn(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor, w2: torch.Tenso
         # The drop decision sees the whole sequence (paper §3.3 option 1):
         # gather the router logits over EP×ETP, route them all, keep my rows.
         seq = groups.moe["seq"]
-        logits = comm.all_gather(x.float() @ wg.float(), seq.group, 0)
+        logits = comm.all_gather(x.float() @ wg.float(), seq, 0)
         gmask = None
         if token_mask is not None:
-            gmask = comm.all_gather(token_mask.to(torch.int32), seq.group, 0).bool()
+            gmask = comm.all_gather(token_mask.to(torch.int32), seq, 0).bool()
         capacity = capacity_per_expert(logits.shape[0], mcfg)
         r_full = route(logits, torch.eye(E, dtype=torch.float32, device=x.device), mcfg,
                        capacity=capacity, token_mask=gmask)

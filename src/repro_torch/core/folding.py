@@ -30,8 +30,9 @@ ATTN_AXES = ("dp", "cp", "tp", "pp", "dp_cp", "cp_tp", "stage")
 # ``dp_cp`` (dp + cp, Megatron's data-parallel group with CP) sums the
 # gradients of the leaves sharded over TP; ``stage`` (dp + cp + tp) those
 # of the replicated ones (norms) and carries the global gradient norm;
-# ``cp_tp`` is ``stage`` less DP, where ZeRO-1 reduce-scatters over DP, and
-# carries the SP → MoE token hand-off (``comm.sp_to_moe``).
+# ``cp_tp`` is ``stage`` less DP, where ZeRO-1 reduce-scatters over DP; the
+# SP → MoE token hand-off (``comm.sp_to_moe``) runs over ``cp_tp``, or over
+# ``stage`` where tokens cross DP ranks.
 # ``tokens`` (edp + ep + etp) shards the MoE layer's tokens and carries its
 # loss reductions; ``seq`` (ep + etp) gathers the router logits under
 # ``drop_policy="full_sequence"``. Both are the reference's atom tuples
@@ -189,19 +190,14 @@ class AxisGroups:
     ranks: List[int]                         # this rank's group, in axis order
     index: int                               # this rank's position in ``ranks``
     group: Optional[dist.ProcessGroup]       # its ProcessGroup (None at size 1)
+    # A ProcessGroup orders its members by global rank; ``core.comm`` maps
+    # each axis index to its group rank (``comm.axis_order``), so every
+    # collective over the axis follows ``ranks``' order.
 
     @property
     def size(self) -> int:
         return len(self.ranks)
 
-    def require_rank_order(self, what: str) -> None:
-        """A ProcessGroup orders its members by global rank, so a gather or
-        an all-to-all over it follows the axis's order only when that is
-        ascending: raise for the (non-contiguous ``moe_factors``) axes where
-        it is not."""
-        if self.ranks != sorted(self.ranks):
-            raise NotImplementedError(
-                f"{what} over ranks {self.ranks}, which are not in ascending order")
 
 
 @dataclasses.dataclass
@@ -386,24 +382,14 @@ def sp_token_index(fg: FoldedGroups, rank: Optional[int] = None) -> int:
         _index_of(a["tp"], rank)
 
 
-def check_sp_moe_handoff(fg: FoldedGroups) -> None:
-    """Raise ``NotImplementedError`` unless the MoE ``tokens`` index equals
-    the attention (dp, cp, tp) index on every rank ("token atoms on the MoE
-    side == attention side", ``repro.core.moe_layer``). Then a DP rank's MoE
-    token shards are runs of its own tokens, held by its cp·tp ranks, and
-    the hand-off (``comm.sp_to_moe``) is an exchange within them, or a
-    reshape at one sequence a DP rank. Otherwise (``pod_role="cp"``,
-    non-contiguous ``moe_factors``) the tokens would cross DP ranks, an
-    exchange over a wider group that is not ported. Checked for every
-    rank, so all ranks raise alike; pipeline stages do not enter it (the
-    token indices are within a stage)."""
-    bad = [r for r in range(fg.world)
-           if sp_token_index(fg, r) != _index_of(fg.moe["tokens"], r)]
-    if bad:
-        raise NotImplementedError(
-            f"ranks {bad}: the MoE token shard is not the attention (dp, cp, tp) shard "
-            f"(pod_role={fg.pcfg.pod_role!r}, or non-contiguous moe_factors); the hand-off "
-            "across DP ranks is not ported (ROADMAP.md queue 1, 'Serving, rest')")
+def moe_token_index(fg: FoldedGroups, rank: Optional[int] = None) -> int:
+    """``rank``'s MoE token shard: its index on the ``tokens`` axis (edp, ep,
+    etp atoms in order), the reference's ``("edp", "ep", "etp")`` shard of
+    the flattened tokens. It equals :func:`sp_token_index` on every
+    ``_TABLE`` fold; under ``pod_role="cp"`` or non-contiguous
+    ``moe_factors`` it does not, and the hand-off (``comm.sp_to_moe``)
+    moves tokens across DP ranks."""
+    return _index_of(fg.moe["tokens"], fg.rank if rank is None else rank)
 
 
 def megatron_groups(world_size: int, tp: int, cp: int, ep: int, etp: int, pp: int,

@@ -9,13 +9,16 @@ Across ranks each rank holds the shards the reference's ``constrain`` calls
 give it (:func:`shard_moe_params`): experts on EP, ``F`` on ETP and ``D`` on
 EDP (the dispatcher gathers ``D`` back); the shared experts on ETP/EDP; the
 router and the shared gate replicated. The reference's MoE token shard is
-a run of the flattened (B·S) tokens over EDP×EP×ETP, whose atoms are the
-attention side's (DP, CP, TP) in order; the attention side leaves each rank
-its sequence-parallel rows, (B, S / (cp·tp)) of its DP rank's sequences.
-The two coincide when a DP rank holds one sequence or the sequence is not
-cut; otherwise :func:`moe_block` moves the rows between the DP rank's
-cp·tp ranks before the router and back after the combine
-(``comm.sp_to_moe`` / ``comm.moe_to_sp``).
+a run of a pipeline stage's flattened (B·S) tokens over EDP×EP×ETP; the
+attention side leaves each rank its sequence-parallel rows, (B, S /
+(cp·tp)) of its DP rank's sequences. Where the MoE atoms are the attention
+side's (DP, CP, TP) in order, the two coincide when a DP rank holds one
+sequence or the sequence is not cut, and otherwise differ within a DP
+rank; under ``pod_role="cp"`` or non-contiguous ``moe_factors`` a shard
+holds other DP ranks' tokens. :func:`moe_block` moves the rows to the
+shard before the router and back after the combine (``comm.sp_to_moe`` /
+``comm.moe_to_sp``: an exchange over the DP rank's cp·tp ranks, or over
+the stage).
 
 Serving's decode rows are laid out otherwise: replicated over CP and TP,
 cut over DP only when the batch divides (:func:`moe_block_decode`), so the
@@ -137,20 +140,21 @@ def moe_block(p: MoEParams, x: torch.Tensor, cfg: ModelConfig, *,
     config's, as there. With ``groups``, ``x`` is this rank's
     sequence-parallel rows (its DP rank's B sequences, S cut over cp·tp)
     and ``p`` this rank's shards (:func:`shard_moe_params`): the rows go to
-    the reference's MoE token shard (``comm.sp_to_moe`` over the attention
-    ``cp_tp`` axis: an exchange when B > 1 and cp·tp > 1, else a reshape),
+    the reference's MoE token shard (``comm.sp_to_moe``: an exchange over
+    the attention ``cp_tp`` axis, or over the ``stage`` where the shard
+    holds other DP ranks' tokens, or none where the layouts coincide),
     through ``moe_ffn``, and back (``comm.moe_to_sp``)."""
     assert cfg.moe is not None
     B, S, D = x.shape
     xt = x.reshape(B * S, D)
     if groups is not None:
-        xt = comm.sp_to_moe(xt, groups.attn["cp_tp"], B)
+        xt = comm.sp_to_moe(xt, groups, B)
     y, aux = moe_ffn(xt, p.router, p.w1, p.w2, p.w3, cfg.moe,
                      activation=cfg.activation, permute_mode=permute_mode,
                      capacity_hint=capacity_hint, shared_weights=p.shared_weights(),
                      ragged=ragged, overlap_chunks=overlap_chunks, groups=groups)
     if groups is not None:
-        y = comm.moe_to_sp(y, groups.attn["cp_tp"], B)
+        y = comm.moe_to_sp(y, groups, B)
     return y.reshape(B, S, D), aux
 
 
@@ -178,17 +182,14 @@ def moe_block_decode(p: MoEParams, x: torch.Tensor, cfg: ModelConfig, *,
     b, C, D = x.shape
     xt = x.reshape(b * C, D)
     if rows_cut:
-        dp = groups.attn["dp"]
-        dp.require_rank_order("the decode hand-off")
-        xt = comm.gather_rows(xt, dp.group, "decode_handoff")
+        xt = comm.gather_rows(xt, groups.attn["dp"], "decode_handoff")
     tok = groups.moe["tokens"]
-    tok.require_rank_order("the decode hand-off")
     T = xt.shape[0]
     x_loc, mask = token_shard(xt, groups)
     y, _ = moe_ffn(x_loc, p.router, p.w1, p.w2, p.w3, cfg.moe, activation=cfg.activation,
                    shared_weights=p.shared_weights(), groups=groups, token_mask=mask,
                    stats=False)
-    y = comm.gather_rows(y, tok.group, "decode_handoff")[:T]
+    y = comm.gather_rows(y, tok, "decode_handoff")[:T]
     if rows_cut:
         lo = groups.attn["dp"].index * b * C
         y = y[lo:lo + b * C]

@@ -493,7 +493,6 @@ def make_pipeline_grads(cfg: ModelConfig, groups, part: StagePartition, n_micro:
     optimizer steps stay equal.
     """
     from repro_torch.core import comm
-    from repro_torch.core.folding import check_sp_moe_handoff
     from repro_torch.models.transformer import (AUX_KEYS, _compute_dtype, _run_stack,
                                                 decoder_positions, lm_embed, lm_head_logits,
                                                 lm_loss)
@@ -519,8 +518,6 @@ def make_pipeline_grads(cfg: ModelConfig, groups, part: StagePartition, n_micro:
         mbs = [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()} for i in range(n_micro)]
         # None (the layout's), or the microbatch's positions of the rank's CP chunk
         pos = [decoder_positions(m) for m in mbs]
-        if "moe" in cfg.blocks():
-            check_sp_moe_handoff(groups)
         named = dict(cparams.named_parameters())
         dev = next(iter(named.values())).device
         # The residual stream between chunks: sequence-parallel rows.
@@ -595,8 +592,8 @@ def make_pipeline_grads(cfg: ModelConfig, groups, part: StagePartition, n_micro:
             acc["embed"] = acc["embed"] + theirs if stage.first else theirs + acc["embed"]
         link.wait_sends()
 
-        layer_aux = comm.all_reduce(layer_aux, pp_ax.group)
-        ce_tok = comm.all_reduce(ce_tok, pp_ax.group)
+        layer_aux = comm.all_reduce(layer_aux, pp_ax)
+        ce_tok = comm.all_reduce(ce_tok, pp_ax)
         m_sum = None
         for i in range(n_micro):
             s = {k: torch.zeros((), dtype=torch.float32, device=dev) for k in AUX_KEYS}

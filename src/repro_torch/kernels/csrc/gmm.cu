@@ -66,6 +66,14 @@
 // of its columns (K) from the 2-D view (E*N, K), the same 128 B swizzle,
 // SBO = 1024 B, imm-trans-b = 0. No copy of w is made.
 //
+// Row blocks that 64 does not divide (bm any multiple of 8; the TPU kernel
+// takes any bm with M % bm == 0): a wgmma tile is 64 rows, so it would span
+// row blocks of other experts. A second, simple kernel (gmm_small_kernel
+// below) keeps its row tile inside one row block: 16 rows (bm % 16 == 0)
+// or 8, 128 columns, mma.sync m16n8k16 on ldmatrix fragments from a
+// cp.async ring. Such launches are small-M decode shapes, bound by the
+// weight bytes.
+//
 // Requires bm % BM == 0, M % bm == 0, K % 64 == 0, N % BN == 0 and 16-byte
 // aligned pointers; the wrapper checks them and this entry point again.
 #include <cstdint>
@@ -399,9 +407,191 @@ int launch(const void* x, const void* w, const int* be, __nv_bfloat16* y, int M,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Row blocks of any multiple of 8 rows (bm % 64 != 0).
+//
+// A block computes a BM x 128 tile of y inside one row block (one expert):
+// BM = 16, or 8 when bm % 16 != 0, in which case the upper 8 rows of
+// mma.sync's 16-row fragment are neither loaded nor stored (zero A
+// registers, accumulators dropped). Four warps each own 32 columns (four
+// m16n8k16 products a 16-deep K step, bf16 in, fp32 accumulation). x and
+// w stream through a SM_STAGES-deep cp.async ring of 64-deep K steps
+// (16-byte copies, rows padded by 16 bytes so that ldmatrix reads no bank
+// twice). w's tile is read with ldmatrix.trans from its (K, N) rows, or,
+// with trans_w, without the transpose from w[e]'s (N, K) rows. What bounds
+// it: at these row counts each expert's K x N weights are read once per
+// row tile (~BM flop per weight byte), so the weight bytes; the grid runs a
+// column strip's row tiles together (row tile fastest), so the row tiles of
+// one expert read its strip from device memory once and from L2 after.
+// Simple, not tuned: no TMA, no warp specialisation.
+constexpr int SM_BN = 128;                 // columns a block: 4 warps x 32
+constexpr int SM_BK = 64;                  // K step of a stage
+constexpr int SM_STAGES = 4;
+constexpr int SM_THREADS = 128;
+constexpr int SM_A_LD = SM_BK + 8;         // bf16 pitch of an x row: 144 B
+
+template <bool TRANS_W>
+struct SmallCfg {
+  static constexpr int B_ROWS = TRANS_W ? SM_BN : SM_BK;          // w tile rows in smem
+  static constexpr int B_LD = (TRANS_W ? SM_BK : SM_BN) + 8;      // 144 or 272 B pitch
+  static constexpr int A_ELEMS = 16 * SM_A_LD;
+  static constexpr int STAGE_ELEMS = A_ELEMS + B_ROWS * B_LD;
+  static constexpr int SMEM = SM_STAGES * STAGE_ELEMS * 2;
+  static_assert(SMEM <= SMEM_LIMIT, "ring does not fit shared memory");
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1) : "r"(addr));
+}
+// D += A B, m16n8k16, bf16 x bf16 -> fp32.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int BM, bool TRANS_W>
+__global__ void __launch_bounds__(SM_THREADS)
+gmm_small_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                 const int* __restrict__ block_expert, __nv_bfloat16* __restrict__ y, int K,
+                 int N, int bm, int E) {
+  using C = SmallCfg<TRANS_W>;
+  extern __shared__ __align__(16) unsigned char smem_small[];
+  const uint32_t ring = smem_u32(smem_small);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * SM_BN;
+  const int e = block_expert[row0 / bm];
+  if (e < 0 || e >= E) __trap();              // never read another expert's rows
+  const int KT = K / SM_BK;
+
+  // One stage: BM x 64 of x, and 64 x 128 of w[e] (or 128 x 64 of w[e]^T's rows).
+  auto load = [&](int kt, int stage) {
+    const uint32_t a_s = ring + stage * C::STAGE_ELEMS * 2;
+    const uint32_t b_s = a_s + C::A_ELEMS * 2;
+    if (tid < BM * 8) {
+      const int r = tid / 8, c = tid % 8;
+      cp_async16(a_s + (r * SM_A_LD + c * 8) * 2,
+                 x + static_cast<size_t>(row0 + r) * K + kt * SM_BK + c * 8);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int idx = tid + i * SM_THREADS;
+      if (TRANS_W) {          // 128 rows of w[e] (output columns) x 64 of K
+        const int r = idx / 8, c = idx % 8;
+        cp_async16(b_s + (r * C::B_LD + c * 8) * 2,
+                   w + (static_cast<size_t>(e) * N + col0 + r) * K + kt * SM_BK + c * 8);
+      } else {                // 64 rows of w[e] (K) x 128 of its columns
+        const int r = idx / 16, c = idx % 16;
+        cp_async16(b_s + (r * C::B_LD + c * 8) * 2,
+                   w + (static_cast<size_t>(e) * K + kt * SM_BK + r) * N + col0 + c * 8);
+      }
+    }
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[q][i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < SM_STAGES - 1; ++s) {
+    if (s < KT) load(s, s);
+    cp_async_commit();
+  }
+  const int n0 = warp * 32;                   // this warp's columns in the tile
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<SM_STAGES - 2>();           // stage kt has landed
+    __syncthreads();                          // and every warp is done with stage kt - 1
+    if (kt + SM_STAGES - 1 < KT) load(kt + SM_STAGES - 1, (kt + SM_STAGES - 1) % SM_STAGES);
+    cp_async_commit();
+    const uint32_t a_s = ring + (kt % SM_STAGES) * C::STAGE_ELEMS * 2;
+    const uint32_t b_s = a_s + C::A_ELEMS * 2;
+#pragma unroll
+    for (int kk = 0; kk < SM_BK / 16; ++kk) {
+      uint32_t a[4];
+      if (BM == 16) {
+        ldsm_x4(a, a_s + ((lane % 16) * SM_A_LD + kk * 16 + (lane / 16) * 8) * 2);
+      } else {                                // rows 0-7 only: a1 = a3 = 0
+        ldsm_x2(a[0], a[2], a_s + ((lane % 8) * SM_A_LD + kk * 16 + ((lane / 8) % 2) * 8) * 2);
+        a[1] = a[3] = 0u;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {           // n-blocks 2j and 2j + 1 of 8 columns
+        uint32_t b[4];
+        if (TRANS_W)
+          ldsm_x4(b, b_s + ((n0 + j * 16 + lane % 8 + (lane / 16) * 8) * C::B_LD +
+                            kk * 16 + ((lane / 8) % 2) * 8) * 2);
+        else
+          ldsm_x4_t(b, b_s + ((kk * 16 + lane % 16) * C::B_LD + n0 + j * 16 +
+                              (lane / 16) * 8) * 2);
+        mma16816(acc[2 * j], a, b[0], b[1]);
+        mma16816(acc[2 * j + 1], a, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int col = col0 + n0 + q * 8 + 2 * t;
+    *reinterpret_cast<__nv_bfloat162*>(y + static_cast<size_t>(row0 + g) * N + col) =
+        __floats2bfloat162_rn(acc[q][0], acc[q][1]);
+    if (BM == 16)
+      *reinterpret_cast<__nv_bfloat162*>(y + static_cast<size_t>(row0 + g + 8) * N + col) =
+          __floats2bfloat162_rn(acc[q][2], acc[q][3]);
+  }
+}
+
+template <int BM, bool TRANS_W>
+int launch_small(const void* x, const void* w, const int* be, __nv_bfloat16* y, int M, int K,
+                 int N, int bm, int E, cudaStream_t stream) {
+  using C = SmallCfg<TRANS_W>;
+  static bool attr_set[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = current_device(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!attr_set[dev]) {
+    err = cudaFuncSetAttribute(gmm_small_kernel<BM, TRANS_W>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set[dev] = true;
+  }
+  const dim3 grid(M / BM, N / SM_BN);
+  gmm_small_kernel<BM, TRANS_W><<<grid, SM_THREADS, C::SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), be, y, K, N,
+      bm, E);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool TRANS_W>
 int dispatch(const void* x, const void* w, const int* be, __nv_bfloat16* y, int M, int K,
              int N, int bm, int E, int block_m, int block_n, cudaStream_t s) {
+  if (block_m == 16) return launch_small<16, TRANS_W>(x, w, be, y, M, K, N, bm, E, s);
+  if (block_m == 8) return launch_small<8, TRANS_W>(x, w, be, y, M, K, N, bm, E, s);
   if (block_m == 128)
     return block_n == 256 ? launch<128, 256, TRANS_W>(x, w, be, y, M, K, N, bm, E, s)
                           : launch<128, 128, TRANS_W>(x, w, be, y, M, K, N, bm, E, s);
@@ -416,9 +606,11 @@ int dispatch(const void* x, const void* w, const int* be, __nv_bfloat16* y, int 
 extern "C" int repro_gmm_bf16(const void* x, const void* w, const void* block_expert,
                               void* y, int M, int K, int N, int bm, int E, int block_m,
                               int block_n, int trans_w, void* stream) {
-  if (M <= 0 || E <= 0 || bm <= 0 || (block_m != 64 && block_m != 128) ||
-      (block_n != 128 && block_n != 256) || bm % block_m || M % bm || K <= 0 || K % BK ||
-      N % block_n || static_cast<int64_t>(E) * (trans_w ? N : K) > INT32_MAX)
+  const bool small = block_m == 8 || block_m == 16;
+  if (M <= 0 || E <= 0 || bm <= 0 || (!small && block_m != 64 && block_m != 128) ||
+      (block_n != 128 && block_n != 256) || (small && block_n != SM_BN) || bm % block_m ||
+      M % bm || K <= 0 || K % BK || N % block_n ||
+      static_cast<int64_t>(E) * (trans_w ? N : K) > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const int* be = static_cast<const int*>(block_expert);
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(y);

@@ -174,16 +174,19 @@ def _report(rec, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                nbytes)
 
 
-_counters: dict = {}    # per device: the decode path's split counters
+_counters: dict = {}    # per (device, stream): the decode path's split counters
 
 
 def _split_counters(device: torch.device, n: int) -> torch.Tensor:
     """One int32 counter per decode group, zeroed when allocated; the kernel
-    sets each back to 0 after its merge, so calls do not clear them."""
-    buf = _counters.get(device.index)
+    sets each back to 0 after its merge, so calls do not clear them. Each
+    stream of a device has its own buffer: launches in order on one stream
+    take turns with it, launches on two streams may run at once."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _counters.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _counters[device.index] = buf
+        _counters[key] = buf
     return buf
 
 

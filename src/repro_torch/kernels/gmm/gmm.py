@@ -4,11 +4,15 @@
 @ w[block_expert[i]]`` — the contract of the JAX package's Pallas kernel
 ``repro.kernels.gmm.gmm.gmm``. With ``trans_w=True`` it computes ``x @
 w[e]^T`` instead, the data gradient of that product, from the same weights
-(no transposed copy). For a CUDA tensor it launches the kernel or raises;
-only a CPU tensor takes the plain version (``ref.gmm_ref``). A fake tensor
-(a dry run, ``launch/dryrun.py``) takes neither: the call returns an empty
-output of the right shape and reports its work (:func:`gmm_work`) to the
-active ``roofline.trace_cost.Recorder``, as every call does while one is.
+(no transposed copy). ``bm`` is any multiple of 8 that divides M, as the
+reference kernel takes it: row blocks that 64 divides run on the TMA +
+wgmma kernel, others on a mma.sync kernel whose 16- or 8-row tile lies
+inside one row block (:func:`tile_shape`). For a CUDA tensor it launches
+the kernel or raises; only a CPU tensor takes the plain version
+(``ref.gmm_ref``). A fake tensor (a dry run, ``launch/dryrun.py``) takes
+neither: the call returns an empty output of the right shape and reports
+its work (:func:`gmm_work`) to the active ``roofline.trace_cost.Recorder``,
+as every call does while one is.
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ from repro_torch.kernels.gmm.ref import gmm_ref
 from repro_torch.roofline import trace_cost
 
 BLOCK_K = 64                # the kernel's K step (128 B of bf16, the swizzle span)
-BLOCKS_M = (128, 64)        # row tiles; bm must be a multiple of one of them
+BLOCKS_M = (128, 64, 16, 8)  # row tiles; bm must be a multiple of one of them
+SMALL_BLOCKS_M = (16, 8)    # the mma.sync kernel's, for bm % 64 != 0 (columns: 128)
 BLOCKS_N = (256, 128)       # column tiles; N must be a multiple of 128
 
 
@@ -37,13 +42,18 @@ def _wave_fill(tiles: int, n_sms: int) -> float:
 
 
 def tile_shape(M: int, N: int, bm: int, n_sms: int) -> tuple:
-    """The kernel's (BM, BN) for this launch: 128-row tiles when ``bm``
-    allows them, else 64; 256 columns when ``N`` allows them, unless
-    128-column tiles fill the ``n_sms`` SMs' waves over a tenth better. A
-    wide tile reads x half as often and reuses each operand twice as much,
+    """The kernel's (BM, BN) for this launch. A row block that 64 does not
+    divide takes the mma.sync kernel's tile inside it: (16, 128) when 16
+    divides ``bm``, else (8, 128). Otherwise the TMA kernel's: 128-row
+    tiles when ``bm`` allows them, else 64; 256 columns when ``N`` allows
+    them, unless 128-column tiles fill the ``n_sms`` SMs' waves over a
+    tenth better. A wide tile reads x half as often and reuses each operand
+    twice as much,
     which outweighs a few points of fill; a last wave three quarters empty
     it does not (the decode step's down launch: 192 wide tiles on 132 SMs
     measured 3% slower than 384 narrow ones, launch/bench_gmm.py)."""
+    if bm % 64:
+        return (16 if bm % 16 == 0 else 8), 128
     block_m = 128 if bm % 128 == 0 else 64
     rows = M // block_m
     if N % 256 or _wave_fill(rows * (N // 128), n_sms) > 1.1 * _wave_fill(rows * (N // 256), n_sms):
@@ -92,7 +102,8 @@ def _validate(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
         raise ValueError(f"gmm kernel needs bm % {min(BLOCKS_M)} == 0, M % bm == 0, "
                          f"K % {BLOCK_K} == 0, N % {min(BLOCKS_N)} == 0; got M={M}, "
                          f"K={K}, N={N}, bm={bm}")
-    if block_m not in BLOCKS_M or bm % block_m or block_n not in BLOCKS_N or N % block_n:
+    if (block_m not in BLOCKS_M or bm % block_m or block_n not in BLOCKS_N or N % block_n
+            or (block_m in SMALL_BLOCKS_M and block_n != 128)):
         raise ValueError(f"gmm: tile ({block_m}, {block_n}) does not tile bm={bm}, N={N}")
     if E * w.shape[1] >= 2 ** 31:
         raise ValueError(f"gmm: {E * w.shape[1]} rows of w exceed int32 coordinates")

@@ -186,6 +186,8 @@ def enumerate_candidates(cfg: ModelConfig, shape: InputShape, world: int, *,
         ws = world // pp_
         attns = []
         for tp in _divisors(ws):
+            # As the reference's search: TP that does not divide the heads
+            # (K/V replicated over TP) buys attention nothing.
             if tp > MAX_TP or cfg.n_heads % tp or cfg.n_kv_heads % tp:
                 continue
             for cp in _divisors(ws // tp):
@@ -674,9 +676,12 @@ def validate_by_tracing(arch: str, shape_name: str, scored: Sequence[Scored],
                         k: int = 3, *, device: str = "cpu") -> List[Dict]:
     """Trace the top-``k`` candidates' real step on fake tensors
     (``launch.dryrun.trace_pair``, rank 0 of each candidate's world), so a
-    candidate that passed every analytic rule but that the port refuses
-    (K/V heads that TP does not divide, ROADMAP.md queue 1, item 7; a
-    hand-off across DP ranks, item 8) is caught before it is used."""
+    candidate that passed every analytic rule but whose step does not run
+    (a batch that ``data.pipeline.shard_batch`` cannot cut, a pipeline the
+    layers do not split into) is caught before it is used. K/V heads that
+    TP does not divide and hand-offs across DP ranks run since they are
+    ported; the search still leaves the former out, as the reference's
+    does."""
     from repro_torch.launch.dryrun import trace_pair
     out = []
     for s in scored[:k]:

@@ -41,7 +41,7 @@ import json
 import os
 import time
 import traceback
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -144,7 +144,9 @@ def fake_world(world: int, rank: int):
 def trace_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
                pcfg: Optional[ParallelConfig] = None, cfg: Optional[ModelConfig] = None,
                shape: Optional[InputShape] = None, rank: int = -1, device: str = "cpu",
-               opt_cfg=None, count: bool = True) -> Tuple[Recorder, Dict]:
+               opt_cfg=None, count: bool = True,
+               moe_factors: Optional[Sequence[Tuple[str, int]]] = None
+               ) -> Tuple[Recorder, Dict]:
     """Trace one step of (arch, shape) for ``rank`` of ``pcfg``'s world.
 
     ``cfg`` / ``shape`` override the registry's (a cut depth, a reduced
@@ -158,8 +160,11 @@ def trace_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
     the world's last rank: it holds the last CP chunk of the sequence,
     whose causal attention is the most work of any rank's. ``count=False``
     records the collectives and kernel calls only (the collective audit's
-    trace, ``analysis.audit``). Returns the recorder and the record's
-    identity fields, ``arg_bytes`` (the stored state) among them."""
+    trace, ``analysis.audit``). ``moe_factors``: an explicit MoE
+    factorisation (ordered ``(label, size)`` pairs, labels may repeat), as
+    the reference's ``lower_pair`` takes it (``core.folding.folded_axes``).
+    Returns the recorder and the record's identity fields, ``arg_bytes``
+    (the stored state) among them."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.core.folding import build_folded_groups
     from repro_torch.data.pipeline import shard_batch
@@ -182,7 +187,8 @@ def trace_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
     rec = Recorder(count=count, chips_per_pod=world // pods if pods > 1 else None)
     t0 = time.perf_counter()
     with fake_world(world, rank):
-        fg = None if world == 1 else build_folded_groups(pcfg, rank=rank, world=world)
+        fg = None if world == 1 else build_folded_groups(pcfg, rank=rank, world=world,
+                                                         moe_factors=moe_factors)
         np_batch = _stand_in(cfg, shape, train)
         if fg is not None:
             np_batch = shard_batch(np_batch, fg, microbatch=pcfg.microbatch if train else 0)

@@ -98,7 +98,10 @@ def mapping_problems(cfg: ModelConfig, seq: int,
     head/sequence divisibility, MoE expert/hidden divisibility, and
     foldability of the two factorizations over one device block (paper
     §3.2, ``core.folding.common_refinement``). The import-time ``_TABLE``
-    check uses it.
+    check uses it. The head rules are the table's, as the reference's: a
+    fold whose TP does not divide the K/V heads runs (every TP rank keeps
+    them whole, ``models.attention.kv_replicated``), but spends TP on
+    nothing there, so no table row takes it.
     """
     from repro_torch.core.folding import common_refinement
     adp, acp, atp = attn

@@ -611,7 +611,10 @@ def _one_run(r: "Run", fgm, cfg, params, batches, spec, dev, *, timed: bool,
     untimed warm-up pass first, the launches counted over the timed part.
     ``record``: rank 0's first optimizer step runs under a
     ``roofline.trace_cost.Recorder`` (collectives and kernel calls only),
-    whose lists go into the record (``collectives``, ``kernel_calls``)."""
+    whose lists go into the record (``collectives``, ``kernel_calls``).
+    ``comm_host_s``: this rank's host seconds in each ``comm`` range over the
+    timed part (``core.comm.HOST_S``)."""
+    from repro_torch.core import comm
     from repro_torch.launch.dryrun import state_bytes
     from repro_torch.models.transformer import param_shapes
     from repro_torch.optim import adamw
@@ -643,11 +646,13 @@ def _one_run(r: "Run", fgm, cfg, params, batches, spec, dev, *, timed: bool,
         _sync(dev)
         barrier()
         _zero_launches()
+        comm.HOST_S.clear()
         t0 = time.perf_counter()
         grads, m = fwd_bwd()
         _sync(dev)
         run["step_s"].append(time.perf_counter() - t0)
         run["launches"] = _launches()
+        run["comm_host_s"] = dict(comm.HOST_S)
         run["metrics"].append({k: float(v) for k, v in m.items()})
         result = {n: g.detach().float() for n, g in grads.items()} if keep else None
         del grads
@@ -665,6 +670,7 @@ def _one_run(r: "Run", fgm, cfg, params, batches, spec, dev, *, timed: bool,
         step = make_train_step(cfg, opt_cfg, microbatch=micro, guard=True, groups=fgm)
         _sync(dev)
         _zero_launches()
+        comm.HOST_S.clear()
         for i, b in enumerate(batches[:r.steps]):
             _sync(dev)
             barrier()
@@ -683,6 +689,7 @@ def _one_run(r: "Run", fgm, cfg, params, batches, spec, dev, *, timed: bool,
             run["step_s"].append(time.perf_counter() - t0)
             run["metrics"].append({k: float(v) for k, v in m.items()})
         run["launches"] = _launches()
+        run["comm_host_s"] = dict(comm.HOST_S)
         result = ({n: p.detach().float() for n, p in params.named_parameters()} if keep
                   else None)
         if keep and on_host:
@@ -763,12 +770,13 @@ def _moe_token_ids(tokens: torch.Tensor, fg, seqs: int) -> List[int]:
     tp = fg.attn["tp"]
     L = tokens.shape[1] // tp.size
     rows = tokens[:seqs, tp.index * L:(tp.index + 1) * L].reshape(-1, 1).float()
-    return comm.sp_to_moe(rows, fg.attn["cp_tp"], seqs).long().flatten().tolist()
+    return comm.sp_to_moe(rows, fg, seqs).long().flatten().tolist()
 
 
 def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, Any]:
     """One rank of :func:`train_world` (see there)."""
     from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
+    from repro_torch.core import comm
     from repro_torch.core.folding import build_folded_groups, sp_token_index
     from repro_torch.data.pipeline import (DataConfig, SyntheticTokens, materialize_batch,
                                            shard_batch)
@@ -784,11 +792,11 @@ def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, 
     pcfg = ParallelConfig(attn=PM(*spec["attn"]), moe=PM(*spec["moe"]), pp=spec["pp"],
                           vpp=spec["vpp"], microbatch=spec["microbatch"], pods=spec["pods"],
                           pod_role="cp")
-    fg = build_folded_groups(pcfg, rank=rank, world=world)
+    fg = build_folded_groups(pcfg, rank=rank, world=world, moe_factors=spec["moe_factors"])
     seqs = spec["batch"] // (max(spec["microbatch"], 1) * fg.dp)
     out: Dict[str, Any] = {"rank": rank, "stage": fg.pp_stage, "sp_index": sp_token_index(fg),
                            "tokens_index": fg.moe["tokens"].index, "seqs": seqs,
-                           "handoff": seqs > 1 and fg.cp * fg.tp > 1, "runs": {}}
+                           "handoff": comm.handoff_axis(fg, seqs), "runs": {}}
     runs = [Run(*r) for r in spec["runs"]]
     on_host = len(runs) > 1 or spec["against_pp1"]
     # The full weights from the seed, one rank at a time: each keeps the
@@ -808,13 +816,15 @@ def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, 
     start = _in_turns(world, rank, make)
     out["init_s"] = time.perf_counter() - t0
     out["params"] = sum(p.numel() for p in start.parameters())
-    data = SyntheticTokens(DataConfig(seq_len=spec["seq"], global_batch=spec["batch"],
-                                      vocab_size=cfg.vocab_size, seed=spec["seed"]))
     n_steps = max([r.steps for r in runs] + [1])
+    given = spec["batches"]
+    if given is None:
+        data = SyntheticTokens(DataConfig(seq_len=spec["seq"], global_batch=spec["batch"],
+                                          vocab_size=cfg.vocab_size, seed=spec["seed"]))
+        given = [materialize_batch(cfg, next(data)) for _ in range(n_steps)]
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in
-                shard_batch(materialize_batch(cfg, next(data)), fg,
-                            microbatch=spec["microbatch"]).items()}
-               for _ in range(n_steps)]
+                shard_batch(b, fg, microbatch=spec["microbatch"]).items()}
+               for b in given[:n_steps]]
     if "moe" in cfg.blocks():
         out["moe_tokens"] = _moe_token_ids(batches[0]["tokens"], fg, seqs)
 
@@ -830,7 +840,7 @@ def _train_world_rank(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, 
             lambda n, t: t.to(dev))
         if not on_host:
             del start
-        run, result = _one_run(r, fgm, cfg, params, batches, spec, dev, timed=True,
+        run, result = _one_run(r, fgm, cfg, params, batches, spec, dev, timed=spec["warmup"],
                                profile=spec["profile"] and i == 0, keep=spec["against_pp1"],
                                record=spec.get("record", False) and i == 0)
         del params
@@ -876,7 +886,9 @@ def train_world(arch: str, *, attn: Sequence[int], moe: Sequence[int],
                 layers: Optional[int] = None, seq: int = 4096, batch: int = 1, seed: int = 0,
                 lr: float = 3e-4, fsdp: bool = True, master_weights: bool = False,
                 profile: bool = False, against_pp1: bool = False, dtype: Optional[str] = None,
-                pods: int = 1, record: bool = False, timeout_s: float = 900.0
+                pods: int = 1, moe_factors: Optional[Sequence[Tuple[str, int]]] = None,
+                batches: Optional[Sequence[Dict[str, np.ndarray]]] = None,
+                warmup: bool = True, record: bool = False, timeout_s: float = 900.0
                 ) -> List[Dict[str, Any]]:
     """The folded training step of ``arch`` (cut to ``layers``) on
     attention (dp, cp, tp) ``attn`` and MoE (edp, ep, etp) ``moe``, with
@@ -884,17 +896,20 @@ def train_world(arch: str, *, attn: Sequence[int], moe: Sequence[int],
     slices, over gloo (on one card several ranks can share nothing else),
     one process a rank. Each rank builds the weights from ``seed`` in turn
     and keeps the slices of its stage's leaves; the batches are
-    ``SyntheticTokens`` of ``batch`` × ``seq`` (``shard_batch``). ``runs``:
+    ``SyntheticTokens`` of ``batch`` × ``seq`` (``shard_batch``), or the
+    global numpy batches ``batches`` (one a step) as given. ``runs``:
     :class:`Run` tuples (``(cp_mode, steps)`` at least), each from the same
     start, with ``ParallelConfig.fsdp`` and ``AdamWConfig.master_weights``
     from the run or else ``fsdp`` and ``master_weights``; ``steps = 0`` is
     one forward and backward with the global gradient norm and no optimizer
-    state (after one untimed warm-up pass), the parameters held as their
-    compute casts with ``master_weights``. Per rank: the sequences a DP
+    state (after one untimed warm-up pass, unless ``warmup`` is False), the
+    parameters held as their compute casts with ``master_weights``. Per
+    rank: the sequences a DP
     rank holds a (micro)batch (``seqs``: ``batch`` over the microbatches and
-    DP), whether its MoE layers exchange the SP rows (``handoff``: more than
-    one with the sequence cut, ``comm.sp_to_moe``) and the token ids of its
-    MoE token shard in the first (micro)batch (``moe_tokens``). Per rank and
+    DP), over which axis its MoE layers exchange the SP rows (``handoff``:
+    ``"cp_tp"``, ``"stage"`` or ``None``, ``comm.handoff_axis``) and the
+    token ids of its MoE token shard in the first (micro)batch
+    (``moe_tokens``). Per rank and
     run (keyed by :attr:`Run.key`): each step's metrics and wall time (after
     a barrier), the kernel launches of the run, its parameters and
     optimizer-state bytes (counted from the tensors, and as
@@ -906,15 +921,18 @@ def train_world(arch: str, *, attn: Sequence[int], moe: Sequence[int],
     ``dtype``: the compute dtype (default the config's: fp32 at the
     ``reduce`` size). ``pods`` > 1 puts the fold on that many pods, which
     extend CP (``pod_role="cp"``, as ``launch.mappings.pcfg_for`` maps the
-    ``long_500k`` rows at ``multi_pod``; MoE layers refuse it,
-    ``folding.check_sp_moe_handoff``); the world is ``pods · pp · dp · cp ·
-    tp`` ranks. ``record``: rank 0's first step of the first run records its
-    collectives and kernel calls (``_one_run``)."""
+    ``long_500k`` rows at ``multi_pod``: the pod lies in attention CP and MoE
+    EDP, so MoE token shards hold other DP ranks' tokens); the world is
+    ``pods · pp · dp · cp · tp`` ranks. ``moe_factors``: the MoE
+    factorisation as ordered ``(label, size)`` pairs, which may repeat a
+    label (``folding.folded_axes``). ``record``: rank 0's first step of the
+    first run records its collectives and kernel calls (``_one_run``)."""
     spec = dict(arch=arch, attn=tuple(attn), moe=tuple(moe), runs=[tuple(r) for r in runs],
                 pp=pp, vpp=vpp, microbatch=microbatch, device=device, reduce=reduce,
                 layers=layers, seq=seq, batch=batch, seed=seed, lr=lr, fsdp=fsdp,
                 master_weights=master_weights, profile=profile, against_pp1=against_pp1,
-                dtype=dtype, pods=pods, record=record)
+                dtype=dtype, pods=pods, record=record, batches=batches, warmup=warmup,
+                moe_factors=moe_factors)
     return spawn(_train_world_rank, pods * pp * math.prod(attn), backend="gloo", device=device,
                  args=(spec,), timeout_s=timeout_s)
 

@@ -8,7 +8,9 @@ parallelism between layers, and context parallelism by all-gathered K/V or
 the load-balanced ring, ``ParallelConfig.cp_mode``) and
 ``attention_decode_paged`` / ``attention_decode`` → ``_cache_attend`` (at
 a fold: the rank's TP heads, its CP slice of the cache, LSE-merged partials
-or the ring-CP prefill). A sliding-window config keeps a ring of ``L``
+or the ring-CP prefill). Where TP does not divide the K/V heads, every TP
+rank keeps q and K/V at all heads (:func:`kv_replicated`), as the
+reference does. A sliding-window config keeps a ring of ``L``
 slots (position p in slot ``p % L``) whose positions wrap inside the view,
 so its attention gives the flash kernel each slot's position
 (:func:`_cache_kv_positions`). The page scatter and the
@@ -18,6 +20,7 @@ backward in ``attn_core``).
 """
 from __future__ import annotations
 
+import types
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -109,6 +112,47 @@ def split_positions(pos: Union[None, torch.Tensor, RunPositions]
     if isinstance(pos, RunPositions):
         return pos.pos, None
     return pos, mask_positions(pos)
+
+
+def kv_replicated(cfg: ModelConfig, groups: Optional[FoldedGroups]) -> bool:
+    """Whether attention TP does not divide the K/V heads at this fold. The
+    reference then keeps q and K/V whole on every TP rank (``tp_q = None``
+    whenever ``tp_kv`` is ``None``: ``repro.models.attention._decode_axes``
+    and ``_ring_self_attention``), so every TP rank computes the attention
+    of its CP chunk at all heads."""
+    return groups is not None and groups.tp > 1 and cfg.n_kv_heads % groups.tp != 0
+
+
+def kv_heads_per_rank(cfg: ModelConfig, groups: Optional[FoldedGroups]) -> int:
+    """The K/V heads a rank's caches hold: its TP slice, or all of them where
+    they are replicated over TP (:func:`kv_replicated`)."""
+    if groups is None or kv_replicated(cfg, groups):
+        return cfg.n_kv_heads
+    return cfg.n_kv_heads // groups.tp
+
+
+# Each attention leaf's TP-cut dim and its whole size.
+_TP_DIMS = {"wq": (1, "q_dim"), "wk": (1, "kv_dim"), "wv": (1, "kv_dim"),
+            "wo": (0, "q_dim"), "bq": (0, "q_dim"), "bk": (0, "kv_dim"), "bv": (0, "kv_dim")}
+
+
+def whole_heads(name: str, t: torch.Tensor, cfg: ModelConfig,
+                groups: Optional[FoldedGroups]) -> torch.Tensor:
+    """The attention leaf ``name`` (``wq`` ... ``bv``, or a path ending in
+    one) at all heads: its compute slice ``t`` all-gathered over TP where
+    the slice is column-cut (``core.comm.all_gather``, whose backward
+    reduce-scatters the gradient: each TP rank's share of it, summed once),
+    ``t`` itself where it is whole."""
+    dim, size = _TP_DIMS[name.rsplit(".", 1)[-1]]
+    if groups is None or t.shape[dim] == getattr(cfg, size):
+        return t
+    return comm.all_gather(t, groups.attn["tp"], dim)
+
+
+def _all_heads(p, cfg: ModelConfig, groups: FoldedGroups):
+    """``p``'s leaves at all heads (:func:`whole_heads`)."""
+    return types.SimpleNamespace(**{n: whole_heads(n, getattr(p, n), cfg, groups)
+                                    for n in _TP_DIMS if getattr(p, n, None) is not None})
 
 
 def _project_qkv(p: AttentionParams, x: torch.Tensor, x_kv: torch.Tensor,
@@ -206,15 +250,20 @@ def _folded_attention(p: AttentionParams, x: torch.Tensor, cfg: ModelConfig,
        (the reference runs it without the ring whatever ``cp_mode`` says).
     5. Row-parallel ``wo``; its partial sums reduce-scattered over TP back
        to the SP layout.
+
+    Where TP does not divide the K/V heads (:func:`kv_replicated`), step 3
+    projects all heads from the leaves gathered whole over TP
+    (:func:`whole_heads`), step 4 runs at all heads on every TP rank, and
+    step 5 applies the whole ``wo`` and keeps the rank's SP rows: every TP
+    rank computes the same attention, each rank's loss reads only its own
+    rows, and the gathers' backward (reduce-scatters) sums the ranks'
+    shares of each gradient once.
     """
     tp_ax, cp_ax = groups.attn["tp"], groups.attn["cp"]
     tp, cp = tp_ax.size, cp_ax.size
-    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
-        raise NotImplementedError(
-            f"attention TP {tp} over {cfg.n_heads} query / {cfg.n_kv_heads} KV heads: "
-            "heads that do not split over TP (replicated KV) are not ported")
-    tp_ax.require_rank_order("the attention TP collectives")
-    cp_ax.require_rank_order("the attention CP collectives")
+    replicated = kv_replicated(cfg, groups)
+    if replicated:
+        p = _all_heads(p, cfg, groups)
     B, S_sp, _ = x.shape
     S_cp = S_sp * tp
     S = S_cp * cp
@@ -225,7 +274,7 @@ def _folded_attention(p: AttentionParams, x: torch.Tensor, cfg: ModelConfig,
         raise ValueError("PaddedKeys: a non-causal self-attention without a window")
     pos, mask = split_positions(None if pad is not None else pos)
     given, masked = pos is not None, mask is not None and cross_x is None
-    xg = comm.sp_gather(x, tp_ax.group)                   # (B, S/cp, D)
+    xg = comm.sp_gather(x, tp_ax)                         # (B, S/cp, D)
     if ring:
         runs = zigzag_runs(S, cp)
         xg = comm.to_zigzag(xg, cp_ax, dim=1)
@@ -256,17 +305,19 @@ def _folded_attention(p: AttentionParams, x: torch.Tensor, cfg: ModelConfig,
         out = blockwise_attention(q, k, v, causal=False, window=window, block_kv=block_kv)
         out = out.transpose(1, 2).reshape(B, S_cp, -1)
     else:
-        k = comm.all_gather(k, cp_ax.group, 2)            # (B, Hkv/tp, S, hd)
-        v = comm.all_gather(v, cp_ax.group, 2)
+        k = comm.all_gather(k, cp_ax, 2)                  # (B, Hkv/tp, S, hd)
+        v = comm.all_gather(v, cp_ax, 2)
         if mask is None:
             out = blockwise_attention(q, k, v, causal=causal, window=window,
                                       block_kv=block_kv, q_offset=cp_ax.index * S_cp,
                                       kv_offset=0)
         else:
-            out = blockwise_attention(q, k, v, mask, comm.all_gather(mask, cp_ax.group, 1),
+            out = blockwise_attention(q, k, v, mask, comm.all_gather(mask, cp_ax, 1),
                                       causal=causal, window=window, block_kv=block_kv)
         out = out.transpose(1, 2).reshape(B, S_cp, -1)
-    return comm.sp_scatter(out @ p.wo.to(out.dtype), tp_ax.group)
+    if replicated:
+        return (out @ p.wo.to(out.dtype))[:, tp_ax.index * S_sp:(tp_ax.index + 1) * S_sp]
+    return comm.sp_scatter(out @ p.wo.to(out.dtype), tp_ax)
 
 
 def cp_kv_stats(cfg: ModelConfig, seq_len: int, batch_per_rank: int, cp: int,
@@ -301,18 +352,6 @@ def _positions_for(step: Union[int, torch.Tensor], B: int, C: int,
     if base.dim() == 0:
         base = base.expand(B)
     return base[:, None] + torch.arange(C, dtype=torch.long, device=base.device)[None, :]
-
-
-def check_decode_heads(cfg: ModelConfig, groups: Optional[FoldedGroups]) -> None:
-    """Decode at a fold computes attention at the rank's TP heads: refuse
-    heads that do not split over TP (the reference keeps them replicated,
-    ``_decode_axes``)."""
-    tp = 1 if groups is None else groups.tp
-    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
-        raise NotImplementedError(
-            f"decode at attention TP {tp} over {cfg.n_heads} query / {cfg.n_kv_heads} KV "
-            "heads: K/V replicated over TP is not ported (ROADMAP.md queue 1, "
-            "'K/V replicated over TP when n_kv_heads % tp')")
 
 
 def _cache_kv_positions(pos: torch.Tensor, L: int) -> torch.Tensor:
@@ -383,7 +422,6 @@ def _cache_attend(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     cp_ax = None if groups is None else groups.attn["cp"]
     if cp_ax is None or cp_ax.size == 1:
         return flash(q, cache_k, cache_v, q_offset=pos[:, 0], **keys)
-    cp_ax.require_rank_order("the CP decode collectives")
     cp, C = cp_ax.size, q.shape[2]
     if C == 1 or C % cp:
         acc, m, l = flash(q, cache_k, cache_v, q_offset=pos[:, 0], return_partial=True, **keys)
@@ -411,24 +449,26 @@ def _cache_attend(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
         m, l, acc = _merge_partials(m, l, acc, m_s, l_s, acc_s)
     acc, m, l = shift(acc, m[..., None], l[..., None])
     out = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
-    return comm.gather_rows(out.contiguous(), cp_ax.group, "cp_gather", dim=2)
+    return comm.gather_rows(out.contiguous(), cp_ax, "cp_gather", dim=2)
 
 
 def _attn_output(out: torch.Tensor, p: AttentionParams, cfg: ModelConfig,
                  groups: Optional[FoldedGroups] = None) -> torch.Tensor:
     """(B, H, C, hd) attention output → (B, C, D) through the out-proj; at a
     fold ``out`` holds the rank's TP heads and ``wo`` their rows, and the
-    partial sums are all-reduced over TP (row parallel)."""
+    partial sums are all-reduced over TP (row parallel); with K/V
+    replicated over TP, ``out`` and ``wo`` hold all heads and the product
+    is whole on every rank."""
     B, _, C, _ = out.shape
     out = out.transpose(1, 2).reshape(B, C, -1)
-    if groups is None or groups.tp == 1:
+    if groups is None or groups.tp == 1 or kv_replicated(cfg, groups):
         return out @ p.wo.to(out.dtype)
     # The partial sums stay fp32 through the sum over TP and are rounded
     # once, as one rank's product rounds its fp32 accumulation once: a bf16
     # round of each partial would part the residual stream from one rank's
     # by an ulp here and there, enough to flip near-tie expert choices.
     y = out.float() @ p.wo.float()
-    return comm.all_reduce(y, groups.attn["tp"].group, name="tp_reduce").to(out.dtype)
+    return comm.all_reduce(y, groups.attn["tp"], name="tp_reduce").to(out.dtype)
 
 
 def attention_decode_paged(p: AttentionParams, x: torch.Tensor,
@@ -457,7 +497,8 @@ def attention_decode_paged(p: AttentionParams, x: torch.Tensor,
     all-reduced over TP.
     """
     window = window or cfg.sliding_window
-    check_decode_heads(cfg, groups)
+    if kv_replicated(cfg, groups):
+        p = _all_heads(p, cfg, groups)
     B, C, _ = x.shape
     page = pool_k.shape[2]
     n_pg = block_tables.shape[1]
@@ -516,7 +557,8 @@ def attention_decode(p: AttentionParams, x: torch.Tensor, cache_k: torch.Tensor,
     attention is :func:`_cache_attend` over the rank's slots.
     """
     window = window or cfg.sliding_window
-    check_decode_heads(cfg, groups)
+    if kv_replicated(cfg, groups):
+        p = _all_heads(p, cfg, groups)
     B, C, _ = x.shape
     S_loc = cache_k.shape[2]
     cp_ax = None if groups is None else groups.attn["cp"]
@@ -553,7 +595,9 @@ def attention_decode_cross(p: AttentionParams, x: torch.Tensor, cache_xk: torch.
     cache (B, Hkv, T, hd): every key visible, no positional rotation of the
     queries (the reference's ``_decode_dense_x``). With ``groups``, ``p`` and
     the cache hold the rank's TP heads and the output projection is summed
-    over TP."""
+    over TP, or all heads where K/V is replicated over TP."""
+    if kv_replicated(cfg, groups):
+        p = _all_heads(p, cfg, groups)
     B, C, _ = x.shape
     q = x @ p.wq.to(x.dtype)
     if cfg.qkv_bias:

@@ -70,9 +70,8 @@ def ffn(p, x: torch.Tensor, cfg: ModelConfig,
         h = _hidden(p, x, cfg)
         return h @ p.w_down.to(h.dtype)
     tp = groups.attn["tp"]
-    tp.require_rank_order("the FFN TP collectives")
-    h = _hidden(p, comm.sp_gather(x, tp.group), cfg)     # (B, S/cp, F/tp)
-    return comm.sp_scatter(h @ p.w_down.to(h.dtype), tp.group)
+    h = _hidden(p, comm.sp_gather(x, tp), cfg)           # (B, S/cp, F/tp)
+    return comm.sp_scatter(h @ p.w_down.to(h.dtype), tp)
 
 
 def ffn_decode(p, x: torch.Tensor, cfg: ModelConfig,
@@ -85,4 +84,4 @@ def ffn_decode(p, x: torch.Tensor, cfg: ModelConfig,
     if groups is None or groups.tp == 1:
         return h @ p.w_down.to(h.dtype)
     y = h.float() @ p.w_down.float()
-    return comm.all_reduce(y, groups.attn["tp"].group, name="tp_reduce").to(x.dtype)
+    return comm.all_reduce(y, groups.attn["tp"], name="tp_reduce").to(x.dtype)

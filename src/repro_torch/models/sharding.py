@@ -200,8 +200,7 @@ def gather_for_compute(name: str, t: torch.Tensor, groups: Optional[FoldedGroups
     if "fsdp" not in sym:
         return t
     dp = groups.attn["dp"]
-    dp.require_rank_order("the FSDP gather")
-    return comm.all_gather(t, dp.group, sym.index("fsdp"))
+    return comm.all_gather(t, dp, sym.index("fsdp"))
 
 
 def gather_whole(name: str, t: torch.Tensor, groups: Optional[FoldedGroups],
@@ -222,8 +221,7 @@ def gather_whole(name: str, t: torch.Tensor, groups: Optional[FoldedGroups],
     if "tp" not in sym:
         return t
     tp = groups.attn["tp"]
-    tp.require_rank_order("the recurrent block's weight gather")
-    return comm.all_gather(t, tp.group, sym.index("tp"))
+    return comm.all_gather(t, tp, sym.index("tp"))
 
 
 def reduce_axis(name: str) -> Optional[str]:
@@ -293,8 +291,7 @@ def gather_state(params: Mapping[str, torch.Tensor], shards: Mapping[str, torch.
         lay = layouts[name]
         if lay.zero_dim is not None:
             ax = groups.axis(*lay.dp)
-            ax.require_rank_order("the ZeRO-1 parameter gather")
-            p.copy_(comm.all_gather(shards[name], ax.group, lay.zero_dim))
+            p.copy_(comm.all_gather(shards[name], ax, lay.zero_dim))
 
 
 @torch.no_grad()
@@ -324,11 +321,10 @@ def reduce_grads(grads: Dict[str, torch.Tensor], groups: FoldedGroups,
             if lay.zero_dim is not None and axis is None:
                 g = _cut(g, lay.zero_dim, groups.atoms(*lay.dp), groups).contiguous()
             elif lay.zero_dim is not None:
-                groups.attn["dp"].require_rank_order("the ZeRO-1 reduce-scatter")
-                g = comm.reduce_scatter(g, groups.attn["dp"].group, lay.zero_dim)
+                g = comm.reduce_scatter(g, groups.attn["dp"], lay.zero_dim)
             if axis is not None and (lay.zero_dim is not None or lay.fsdp):
                 axis = _WITHOUT_DP[axis]
-        group = None if axis is None else groups.attn[axis].group
+        group = None if axis is None else groups.attn[axis]
         comm.all_reduce_(g, group)
         out[name] = g
     return out

@@ -336,8 +336,7 @@ def whole_sequences(h: torch.Tensor, groups: Optional[FoldedGroups]) -> torch.Te
     ax = _seq_axis(groups)
     if ax is None:
         return h
-    ax.require_rank_order("the recurrent block's sequence gather")
-    return comm.all_gather(h, ax.group, 1)
+    return comm.all_gather(h, ax, 1)
 
 
 def own_rows(y: torch.Tensor, groups: Optional[FoldedGroups]) -> torch.Tensor:

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import copy
 import math
+import re
 import types
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -31,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import comm
-from repro_torch.core.folding import FoldedGroups, check_sp_moe_handoff
+from repro_torch.core.folding import FoldedGroups
 from repro_torch.core.moe_layer import MoEParams, init_moe, moe_block, moe_block_decode
 from repro_torch.core.router import _top_k, deterministic_top_k
 from repro_torch.data.pipeline import RUN_POSITIONS
@@ -39,14 +40,14 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (AttentionParams, PaddedKeys, _positions_for,
                                           attention, attention_decode, attention_decode_cross,
                                           attention_decode_paged,
-                                          RunPositions, check_decode_heads,
-                                          init_attention, mask_positions,
+                                          RunPositions, init_attention, kv_heads_per_rank,
+                                          kv_replicated, mask_positions, whole_heads,
                                           ring_kv_positions, split_positions)
 from repro_torch.models.common import (norm_apply, softmax_cross_entropy,
                                        vocab_parallel_cross_entropy)
 from repro_torch.models import ssm_blocks
 from repro_torch.models.ffn import FFNParams, ffn, ffn_decode, init_ffn
-from repro_torch.models.sharding import gather_for_compute
+from repro_torch.models.sharding import gather_for_compute, map_params
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -433,11 +434,10 @@ def decode_embed(params: LMParams, tokens: torch.Tensor, cfg: ModelConfig,
         x = params.embed[tokens].to(_compute_dtype(cfg))
     else:
         tp = groups.attn["tp"]
-        tp.require_rank_order("the vocabulary-parallel lookup")
         local = tokens - vocab_start(params, groups)
         mine = (local >= 0) & (local < params.embed.shape[0])
         x = params.embed[torch.where(mine, local, 0)] * mine[..., None].to(params.embed.dtype)
-        x = comm.all_reduce(x.to(_compute_dtype(cfg)), tp.group, name="vocab_lookup")
+        x = comm.all_reduce(x.to(_compute_dtype(cfg)), tp, name="vocab_lookup")
     return _embed_extras(x, positions, cfg)
 
 
@@ -452,13 +452,9 @@ def decode_head(params: LMParams, x: torch.Tensor, cfg: ModelConfig,
     logits = x @ head.to(x.dtype)
     if groups is not None:
         if vocab_cut(params, cfg, groups):
-            tp = groups.attn["tp"]
-            tp.require_rank_order("the logits gather")
-            logits = comm.gather_rows(logits, tp.group, "logits_gather", dim=-1)
+            logits = comm.gather_rows(logits, groups.attn["tp"], "logits_gather", dim=-1)
         if rows_cut:
-            dp = groups.attn["dp"]
-            dp.require_rank_order("the logits gather")
-            logits = comm.gather_rows(logits, dp.group, "logits_gather", dim=0)
+            logits = comm.gather_rows(logits, groups.attn["dp"], "logits_gather", dim=0)
     return logits
 
 
@@ -590,7 +586,8 @@ def init_decode_state(cfg: ModelConfig, B: int, s_max: int, *, dtype=torch.bfloa
     layer's per-row state (``ssm_blocks.init_state``); with Zamba2's shared
     block, ``"shared"``: its K/V once per cycle repeat. With ``groups``,
     this rank's piece of the reference's ``(dp, tp, cp)`` layout: its rows
-    of B when DP divides B (else all), its TP heads and its ``s_max / cp``
+    of B when DP divides B (else all), its TP heads (all of them where TP
+    does not divide them, ``attention.kv_replicated``) and its ``s_max / cp``
     slots. A recurrent layer's state holds the same rows, whole: the
     reference's ``state_shardings`` also cut its heads or channels over TP,
     a layout, not a result; here every TP and CP rank of a DP rank keeps
@@ -598,11 +595,11 @@ def init_decode_state(cfg: ModelConfig, B: int, s_max: int, *, dtype=torch.bfloa
     leaves (``ssm_blocks.decode_block``)."""
     check_supported(cfg)
     _, b = decode_rows(B, groups)
-    tp, cp = (1, 1) if groups is None else (groups.tp, groups.cp)
-    check_decode_heads(cfg, groups)
+    cp = 1 if groups is None else groups.cp
     if s_max % cp:
         raise ValueError(f"s_max {s_max} does not split over CP {cp}")
-    shape = (b, cfg.n_kv_heads // tp, s_max // cp, cfg.resolved_head_dim)
+    hkv = kv_heads_per_rank(cfg, groups)
+    shape = (b, hkv, s_max // cp, cfg.resolved_head_dim)
     device = resolve_device(device)
 
     def zeros(shape):
@@ -613,7 +610,7 @@ def init_decode_state(cfg: ModelConfig, B: int, s_max: int, *, dtype=torch.bfloa
             return ssm_blocks.init_state(kind, cfg, b, dtype=dtype, device=device)
         st = {"k": zeros(shape), "v": zeros(shape)}        # every other kind holds K/V
         if kind == "dense_x":       # the cross K/V: the encoder's whole length, not cut
-            xs = (b, cfg.n_kv_heads // tp, cfg.max_source_positions, cfg.resolved_head_dim)
+            xs = (b, hkv, cfg.max_source_positions, cfg.resolved_head_dim)
             st["xk"], st["xv"] = zeros(xs), zeros(xs)
         return st
     blocks, cycle = model_cycle(cfg)
@@ -642,6 +639,22 @@ def whole_recurrent(params: LMParams, groups: Optional[FoldedGroups]) -> LMParam
     new = copy.copy(params)
     new._modules = dict(params._modules, layers=LayerStack(layers))
     return new
+
+
+def whole_attention(params: LMParams, cfg: ModelConfig, groups: Optional[FoldedGroups]
+                    ) -> LMParams:
+    """A copy of the compute slices ``params`` whose attention leaves hold all
+    heads where K/V is replicated over TP (``attention.kv_replicated``): each
+    TP slice gathered once here, where each decode step would gather it
+    again (``attention.whole_heads``); ``params`` itself elsewhere."""
+    if not kv_replicated(cfg, groups):
+        return params
+
+    def whole(name: str, t: torch.Tensor) -> torch.Tensor:
+        if re.search(r"(^|\.)x?attn\.(w[qkvo]|b[qkv])$", name):
+            return whole_heads(name, t, cfg, groups)
+        return t
+    return map_params(params, whole)
 
 
 def decode_step(params: LMParams, state: Dict, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -725,7 +738,7 @@ def paged_forward(params: LMParams, state: List[Dict[str, torch.Tensor]],
     # Only the last position's logits are read, so only it goes through the head.
     logits = decode_head(params, x[:, -1:], cfg, groups, rows_cut=b != B)[:, 0].float()
     if b != B and counts is not None:
-        counts = comm.all_reduce(counts, groups.attn["dp"].group, name="expert_load")
+        counts = comm.all_reduce(counts, groups.attn["dp"], name="expert_load")
     return logits, counts
 
 
@@ -967,7 +980,7 @@ def lm_embed(params: LMParams, batch: Dict[str, torch.Tensor], pos: Optional[tor
             local = tokens - vocab_start(params, groups)
             mine = (local >= 0) & (local < embed.shape[0])
             x = embed[torch.where(mine, local, 0)] * mine[..., None].to(embed.dtype)
-            x = comm.sp_scatter(x.to(dt), groups.attn["tp"].group)
+            x = comm.sp_scatter(x.to(dt), groups.attn["tp"])
         else:
             x = embed[tokens[:, off:off + n]].to(dt)
     rows_pos = None
@@ -992,7 +1005,7 @@ def lm_head_logits(params: LMParams, x: torch.Tensor, cfg: ModelConfig,
     x = norm_apply(cfg.norm, x, params.final_norm)
     cut = vocab_cut(params, cfg, groups)
     if cut:
-        x = comm.sp_gather(x, groups.attn["tp"].group)
+        x = comm.sp_gather(x, groups.attn["tp"])
     if params.lm_head is not None:
         head = gather_for_compute("lm_head", params.lm_head, groups)
     else:
@@ -1012,11 +1025,11 @@ def lm_loss(params: LMParams, logits: torch.Tensor, labels: torch.Tensor, cfg: M
     if vocab_cut(params, cfg, groups):
         return vocab_parallel_cross_entropy(
             logits, labels, vocab_start=vocab_start(params, groups),
-            vocab_group=a["tp"].group, token_group=a["dp_cp"].group)
+            vocab_group=a["tp"], token_group=a["dp_cp"])
     lo, n = _sp_rows(groups, labels.shape[1])
     off = lo - a["cp"].index * labels.shape[1]
     return vocab_parallel_cross_entropy(logits, labels[:, off:off + n], vocab_start=0,
-                                        vocab_group=None, token_group=a["stage"].group)
+                                        vocab_group=None, token_group=a["stage"])
 
 
 def _encode(params: LMParams, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
@@ -1055,8 +1068,8 @@ def _encode(params: LMParams, batch: Dict[str, torch.Tensor], cfg: ModelConfig, 
                        causal=False)
     xe = norm_apply(cfg.norm, xe, params.encoder.final_norm)
     if groups is not None:
-        xe = comm.sp_gather(xe, groups.attn["tp"].group)
-        xe = comm.all_gather(xe, groups.attn["cp"].group, 1)[:, :T]
+        xe = comm.sp_gather(xe, groups.attn["tp"])
+        xe = comm.all_gather(xe, groups.attn["cp"], 1)[:, :T]
     return xe
 
 
@@ -1085,8 +1098,6 @@ def apply_lm(params: LMParams, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         raise ValueError("apply_lm runs the whole model: at pp > 1 a rank holds one stage, "
                          "which core.pipeline.make_pipeline_grads runs")
     pos = decoder_positions(batch)
-    if groups is not None and "moe" in cfg.blocks():
-        check_sp_moe_handoff(groups)
     x = lm_embed(params, batch, pos, cfg, groups)
     enc = None
     if cfg.is_encoder_decoder:

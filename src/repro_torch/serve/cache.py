@@ -75,18 +75,28 @@ def n_kv_layers(cfg) -> int:
 
 
 def kv_bytes_dense(cfg, batch: int, cache_len: int, *,
-                   dtype_bytes: int = 2) -> int:
-    """Bytes a dense decode cache reserves: every slot holds ``cache_len``."""
+                   dtype_bytes: int = 2, groups=None) -> int:
+    """Bytes a dense decode cache reserves: every slot holds ``cache_len``.
+    With ``groups``, the bytes one rank holds (``transformer.init_decode_state``):
+    its rows of ``batch`` (all where DP does not divide it), its K/V heads
+    (all where they are replicated over TP) and ``cache_len / cp`` slots."""
+    from repro_torch.models.attention import kv_heads_per_rank
+    from repro_torch.models.transformer import decode_rows
     hd = cfg.resolved_head_dim
-    return n_kv_layers(cfg) * 2 * cfg.n_kv_heads * hd * dtype_bytes \
+    if groups is not None:
+        batch, cache_len = decode_rows(batch, groups)[1], cache_len // groups.cp
+    return n_kv_layers(cfg) * 2 * kv_heads_per_rank(cfg, groups) * hd * dtype_bytes \
         * batch * cache_len
 
 
 def kv_bytes_paged(cfg, n_pages: int, page_size: int, *,
-                   dtype_bytes: int = 2) -> int:
-    """Bytes the paged pools reserve (scratch page included)."""
+                   dtype_bytes: int = 2, groups=None) -> int:
+    """Bytes the paged pools reserve (scratch page included); with
+    ``groups``, one rank's pools (every page at its K/V heads,
+    :func:`init_paged_state`)."""
+    from repro_torch.models.attention import kv_heads_per_rank
     hd = cfg.resolved_head_dim
-    return n_kv_layers(cfg) * 2 * cfg.n_kv_heads * hd * dtype_bytes \
+    return n_kv_layers(cfg) * 2 * kv_heads_per_rank(cfg, groups) * hd * dtype_bytes \
         * n_pages * page_size
 
 
@@ -98,7 +108,9 @@ def init_paged_state(cfg, *, n_pages: int, page_size: int, dtype=torch.bfloat16,
     state instead (``ssm_blocks.init_state`` of ``max_batch`` rows), as the
     reference's paged state does. With ``groups`` (a fold's
     ``FoldedGroups``) a rank's pools hold its TP heads, ``Hkv / tp``, of
-    every page: whole over DP and CP, as the reference shards them. Each
+    every page (all ``Hkv`` where TP does not divide them,
+    ``attention.kv_replicated``): whole over DP and CP, as the reference
+    shards them. Each
     rank writes the new tokens of the rows it computes, and pages of
     different rows are disjoint, so every rank reads what the reference
     reads. A recurrent layer's state holds the rank's DP rows
@@ -106,12 +118,10 @@ def init_paged_state(cfg, *, n_pages: int, page_size: int, dtype=torch.bfloat16,
     (the reference's ``state_shardings`` also cut heads or channels over
     TP: a layout, not a result)."""
     from repro_torch.models import ssm_blocks
-    from repro_torch.models.attention import check_decode_heads
+    from repro_torch.models.attention import kv_heads_per_rank
     from repro_torch.models.transformer import decode_rows, model_cycle
-    check_decode_heads(cfg, groups)
     rows = decode_rows(max_batch, groups)[1]
-    tp = 1 if groups is None else groups.tp
-    shape = (n_pages, cfg.n_kv_heads // tp, page_size, cfg.resolved_head_dim)
+    shape = (n_pages, kv_heads_per_rank(cfg, groups), page_size, cfg.resolved_head_dim)
 
     def layer(kind):
         if kind in ssm_blocks.KINDS:

@@ -50,7 +50,7 @@ from repro_torch.models.sharding import map_params, shard_lm_params
 from repro_torch.models.transformer import (LMParams, apply_lm, check_supported,
                                             decode_rows, decode_step, init_decode_state,
                                             init_lm, leaf_rank, model_cycle, paged_forward,
-                                            whole_recurrent)
+                                            whole_attention, whole_recurrent)
 from repro_torch.serve.cache import (init_paged_state, kv_bytes_dense,
                                      kv_bytes_paged)
 from repro_torch.serve.scheduler import (QueueFull, Request, Scheduler, StepStats,
@@ -113,11 +113,9 @@ def make_prefill_step(cfg: ModelConfig, groups: Optional[FoldedGroups] = None):
         last = logits[:, -1].float()
         if groups is not None:
             a = groups.attn
-            for ax in ("tp", "cp", "dp"):
-                a[ax].require_rank_order("the prefill logits gather")
-            last = comm.gather_rows(last, a["tp"].group, "logits_gather", dim=1)
-            last = comm.gather_rows(last[None], a["cp"].group, "logits_gather")[-1]
-            last = comm.gather_rows(last, a["dp"].group, "logits_gather")
+            last = comm.gather_rows(last, a["tp"], "logits_gather", dim=1)
+            last = comm.gather_rows(last[None], a["cp"], "logits_gather")[-1]
+            last = comm.gather_rows(last, a["dp"], "logits_gather")
         return last
     return prefill
 
@@ -127,16 +125,17 @@ def make_serve_step(cfg: ModelConfig, groups: Optional[FoldedGroups] = None):
     :func:`decode_step` over the dense cache of :func:`init_decode_state`
     with the parameters cast to bf16 as the reference casts them. With
     ``groups``: the rank's compute slices and cache piece (a recurrent
-    layer's leaves gathered whole at each call, ``transformer.
-    whole_recurrent``); every rank gets the whole batch's logits."""
+    layer's leaves, and attention's where K/V is replicated over TP,
+    gathered whole at each call: ``transformer.whole_recurrent``,
+    ``whole_attention``); every rank gets the whole batch's logits."""
     if groups is not None:
         reject_pipelined_mapping(groups.pcfg, "make_serve_step")
 
     @torch.inference_mode()
     def serve(params: LMParams, state: Dict, tokens: torch.Tensor):
-        logits, state = decode_step(whole_recurrent(_compute_cast(params, torch.bfloat16),
-                                                    groups),
-                                    state, tokens, cfg, groups=groups)
+        whole = whole_recurrent(_compute_cast(params, torch.bfloat16), groups)
+        logits, state = decode_step(whole_attention(whole, cfg, groups), state, tokens, cfg,
+                                    groups=groups)
         return logits.float(), state
     return serve
 
@@ -253,7 +252,7 @@ class Engine:
                 f"{self.cache_len} slots (sliding_window {cfg.sliding_window}, s_max "
                 f"{ecfg.s_max}): a chunk would overwrite its own slots")
         cast_params(params, dt)
-        self.params = whole_recurrent(params, groups)
+        self.params = whole_attention(whole_recurrent(params, groups), cfg, groups)
         page_size = ecfg.page_size if self.paged else 0
         n_slot_pages = self.cache_len // page_size if self.paged else 0
         n_pages = (ecfg.n_pages if ecfg.n_pages is not None
@@ -340,7 +339,7 @@ class Engine:
             return [{k: t[slot:slot + 1] for k, t in st.items()} for st in layers], None
         owner, local = divmod(slot, b)
         dp = self.groups.attn["dp"]
-        return [{k: comm.gather_rows(t[local:local + 1], dp.group, "slot_gather")
+        return [{k: comm.gather_rows(t[local:local + 1], dp, "slot_gather")
                  [owner:owner + 1].clone() for k, t in st.items()} for st in layers], \
             (owner, local)
 

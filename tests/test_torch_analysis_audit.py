@@ -335,3 +335,29 @@ def test_goldens_cross_check():
     assert set(found) == set(DIFFERENCES), (sorted(set(found) - set(DIFFERENCES)),
                                             sorted(set(DIFFERENCES) - set(found)))
     assert set(DIFFERENCES.values()) <= set(REASONS)
+
+
+def test_exchange_across_dp_ranks_is_budgeted():
+    """A fold whose MoE token shards hold other DP ranks' tokens (2 pods
+    extending attention CP and MoE EDP, attention (2, 1, 2), MoE (1, 2, 2)):
+    every rank of the reduced Mixtral step traced, the hand-off's
+    all-to-all over the attention stage's atoms is classified and charged
+    to the port's ``handoff`` family, and the step has no finding. A fold
+    of the table gets no such family."""
+    from repro_torch.configs import reduced
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.dryrun import trace_pair
+    from repro_torch.launch.mappings import model_for
+    pcfg = ParallelConfig(attn=PM(2, 1, 2), moe=PM(1, 2, 2), pods=2, pod_role="cp")
+    cfg, shape = reduced(model_for("mixtral-8x22b", "train_4k")), InputShape("t", 64, 4, "train")
+    per_rank = {r: list(trace_pair("mixtral-8x22b", "train_4k", pcfg=pcfg, cfg=cfg,
+                                   shape=shape, rank=r, count=False)[0].collectives)
+                for r in range(pcfg.world_size)}
+    assert any(c.name == "handoff" for c in per_rank[0])
+    rows, findings = audit.audit_step(per_rank, cfg, shape, pcfg, where="cross-dp")
+    layout = folded_layout(pcfg, rank=0, world=8)
+    stage = set(layout.atoms("attn", "stage"))
+    assert any(r.kind == "all-to-all" and set(r.atoms) == stage for r in rows)
+    assert findings == []
+    spec = audit.probe_spec("mixtral-8x22b", "train_4k")
+    assert "handoff" not in {e.name for e in audit.budget_for(spec)}

@@ -70,7 +70,10 @@ def test_gmm_plain_matches_jax_kernel(M, K, N, E, bm, layout, dtype):
     (8192, 16384, 128, (128, 256)), (8192, 6144, 128, (128, 256)),
     (1024, 16384, 64, (64, 256)),
     (256, 6144, 128, (128, 128)),       # 48 wide tiles on 132 SMs
-    (512, 384, 64, (64, 128)), (512, 512, 256, (128, 128))])
+    (512, 384, 64, (64, 128)), (512, 512, 256, (128, 128)),
+    # Row blocks that 64 does not divide: the mma.sync kernel's tile inside one.
+    (64, 16384, 8, (8, 128)), (128, 16384, 16, (16, 128)), (256, 16384, 32, (16, 128)),
+    (768, 6144, 96, (16, 128)), (192, 256, 24, (8, 128))])
 def test_gmm_tile_shape(M, N, bm, tile):
     """The kernel's tile: 64-row tiles only where bm needs them, 256 columns
     only where N allows and narrow tiles would not fill the SMs' waves

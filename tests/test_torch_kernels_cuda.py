@@ -56,6 +56,13 @@ GMM_CASES = [
     (512, 192, 512, 4, 128, "random", (64, 256)),
     (512, 192, 512, 4, 128, "random", (64, 128)),
     (512, 320, 512, 8, 64, "random", (64, 256)),
+    # Row blocks that 64 does not divide: the mma.sync kernel, 16- or 8-row tiles.
+    (256, 256, 384, 4, 32, "random", None),
+    (128, 448, 256, 8, 16, "random", None),
+    (64, 128, 6144, 8, 8, "serving", None),
+    (384, 192, 512, 4, 96, "random", None),             # 96: 16-row tiles, 6 a block
+    (1024, 128, 512, 8, 128, [3, 0, 3, 5, 1, 1, 7, 0], (16, 128)),   # forced on bm 128
+    (256, 256, 384, 4, 64, "random", (8, 128)),
 ]
 
 
@@ -418,7 +425,9 @@ def test_kernels_reject_shapes_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="bm"):
         gmm(x, w, torch.zeros(2, dtype=torch.int32, device=cuda), bm=100)
     with pytest.raises(ValueError, match="bm"):
-        gmm(x[:128], w, torch.zeros(4, dtype=torch.int32, device=cuda), bm=32)
+        gmm(x[:128], w, torch.zeros(32, dtype=torch.int32, device=cuda), bm=4)
+    with pytest.raises(ValueError, match="tile"):
+        gmm(x[:128], w, torch.zeros(4, dtype=torch.int32, device=cuda), bm=32, block_m=64)
     with pytest.raises(ValueError, match="K % 64"):
         gmm(x[:128, :96].contiguous(), w[:, :96].contiguous(),
             torch.zeros(1, dtype=torch.int32, device=cuda))
@@ -445,7 +454,8 @@ def test_kernels_reject_shapes_they_do_not_take(cuda):
 TRANS_CASES = [(kw, nw, bm, tile)
                for kw, nw in ((6144, 16384), (16384, 6144))
                for bm, tiles in ((128, ((128, 256), (128, 128), (64, 256), (64, 128))),
-                                 (64, ((64, 256), (64, 128))))
+                                 (64, ((64, 256), (64, 128))),
+                                 (32, ((16, 128),)), (8, ((8, 128),)))
                for tile in tiles]
 
 
@@ -455,7 +465,7 @@ def test_gmm_trans_w_matches_plain(cuda, K_w, N_w, bm, tile):
     rng = np.random.default_rng(8)
     E, M = 3, 512
     x, w = _bf16(rng, (M, N_w)), _bf16(rng, (E, K_w, N_w), N_w ** -0.5)
-    be = torch.from_numpy(np.array([2, 0, 2, 1, 0, 0, 1, 2][:M // bm], np.int32)).to(cuda)
+    be = torch.from_numpy(np.resize(np.array([2, 0, 2, 1, 0, 0, 1, 2], np.int32), M // bm)).to(cuda)
     n0, t0 = gmm.launches, gmm.trans_w_launches
     y = gmm(x, w, be, bm=bm, trans_w=True, block_m=tile[0], block_n=tile[1])
     assert (gmm.launches, gmm.trans_w_launches) == (n0 + 1, t0 + 1) and y.shape == (M, K_w)

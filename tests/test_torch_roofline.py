@@ -336,3 +336,30 @@ def test_production_world_trace_and_the_default_group(tmp_path):
             dryrun.trace_pair("mixtral-8x22b", "train_4k", cfg=cfg)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("case", ["moe-factors", "kv-replicated-cli"])
+def test_dryrun_traces_every_fold_the_reference_lowers(case, tmp_path):
+    """The dry run traces folds that the mapping table does not reach: a
+    non-contiguous MoE factorisation (``trace_pair(moe_factors=)``, as the
+    reference's ``lower_pair`` takes it), whose hand-off moves tokens
+    across DP ranks over the stage axis, and ``--attn 1,1,8`` for
+    Qwen2-57B-A14B ``train_4k`` (4 K/V heads replicated over TP 8) through
+    the command line, at probe sizes on fake tensors."""
+    from repro_torch.configs.base import ParallelConfig, ParallelMappingSpec as PM
+    if case == "moe-factors":
+        pcfg = ParallelConfig(attn=PM(2, 2, 2), moe=PM(2, 4, 1))
+        rec, meta = dryrun.trace_pair("mixtral-8x22b", "train_4k", pcfg=pcfg,
+                                      cfg=_reduced_mixtral(),
+                                      shape=InputShape("train", 64, 4, "train"), rank=5,
+                                      moe_factors=[("ep", 2), ("edp", 2), ("ep", 2)])
+        handoff = [c for c in rec.collectives if c.name == "handoff"]
+        assert meta["chips"] == 8 and handoff
+        assert {len(c.ranks) for c in handoff} == {8}            # the whole stage
+        return
+    out = tmp_path / "dryrun.jsonl"
+    dryrun.main(["--arch", "qwen2-57b-a14b", "--shape", "train_4k", "--layers", "1",
+                 "--seq", "64", "--batch", "1", "--attn", "1,1,8", "--out", str(out)])
+    rec = json.loads(out.read_text().splitlines()[-1])
+    assert rec["ok"] and rec["chips"] == 8
+    assert rec["n_kernel_calls"] > 0 and rec["collective_per_kind"].get("all-gather")

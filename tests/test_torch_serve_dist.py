@@ -383,7 +383,8 @@ def test_serve_session_matches_jax_and_warns():
 def test_pipelined_mappings_are_refused():
     """Serving is pp = 1 / vpp = 1 only, as in the reference: the Engine,
     the step builders and the session refuse a pipelined fold, naming pp
-    and vpp; K/V heads that do not split over TP are refused too."""
+    and vpp. K/V heads that do not split over TP are held whole on every
+    TP rank."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models.transformer import init_lm
     from repro_torch.serve import (Engine, EngineConfig, ServeSession, make_prefill_step,
@@ -400,12 +401,14 @@ def test_pipelined_mappings_are_refused():
         ServeSession(cfg=cfg, params=params, s_max=32, batch=2, groups=fg)
     with pytest.raises(ValueError, match="'paged' or 'dense'"):
         Engine(cfg, params, EngineConfig(cache="mmap"))
-    # K/V heads that do not split over TP (2 over 4) are refused, naming
-    # the roadmap's entry, in both cache layouts.
-    from repro_torch.models.sharding import shard_lm_params
+    # K/V heads that do not split over TP (2 over 4) are replicated, as the
+    # reference keeps them: every rank's caches hold all of them, in both
+    # layouts.
+    from repro_torch.models.transformer import init_decode_state
+    from repro_torch.serve.cache import init_paged_state
     fg4 = folding.folded_layout(ParallelConfig(attn=PM(1, 1, 4), moe=PM(1, 4, 1)), rank=0,
                                 world=4)
-    sliced = shard_lm_params(params, fg4, "compute")
-    for cache in ("paged", "dense"):
-        with pytest.raises(NotImplementedError, match="'K/V replicated over TP"):
-            Engine(cfg, sliced, EngineConfig(cache=cache), groups=fg4)
+    dense = init_decode_state(cfg, 2, 32, dtype=torch.float32, device="cpu", groups=fg4)
+    paged = init_paged_state(cfg, n_pages=3, page_size=8, dtype=torch.float32, device="cpu",
+                             groups=fg4)
+    assert dense["layers"][0]["k"].shape[1] == paged[0]["k"].shape[1] == cfg.n_kv_heads == 2
