@@ -30,8 +30,8 @@ nothing is caught):
    launches (every expert owning one 128-row block), the training step's
    gate/up and down launches and the ``trans_w`` mode (the training step's
    dgrad) at its two shapes; for Mixtral also 6-of-8 experts, bm=64, and
-   the decode gate/up at row blocks of 8, 16 and 32 rows (one an expert:
-   x (8·bm, 6144), the mma.sync kernel) with one ``trans_w`` row at 16.
+   the decode gate/up and its ``trans_w`` dgrad at row blocks of 8, 16, 24
+   and 32 rows (one an expert: x (8·bm, 6144), the swap-AB kernel).
    Flash: the serving decode and prefill chunk and causal self-attention at
    4096 tokens, each in both output modes (Mixtral: a 32768-key decode too;
    Qwen2: a decode step of 3 queries, whose 21 packed rows split a GQA group
@@ -58,7 +58,7 @@ nothing is caught):
    steps' loss and gradient norm (bf16 both sides). For Qwen2 also the MoE
    layer with its shared expert: the dropless ``capacity_hint`` pre-pass
    (equal on both), the sort layout with that hint and the scatter layout;
-   once more at ``gmm_block_m=16`` (the GMM's mma.sync kernel), its sort
+   once more at ``gmm_block_m=16`` (the GMM's swap-AB kernel), its sort
    launches counted.
 
 7. world   — the folded MoE layer across ranks (``repro_torch.launch.world``):
@@ -268,7 +268,9 @@ train-configs — phase 5's one-card training (2 steps, launches 3 + 3 + 3
    (``kv_pos``) at (a)'s ring decode and prefill chunk and at (c)'s prefill
    chunk against the plain version (``library_ms``: SDPA with an
    ``attn_mask`` from the positions), flash without them at (b)'s causal
-   4096 and at phase 3's Mixtral decode again, and the GMM at (c)'s decode;
+   4096 and at phase 3's Mixtral decode again, and the GMM at (c)'s decode
+   (and its gate/up and down at row blocks of 8 and 16 rows, the swap-AB
+   kernel's decode, one block an expert);
    beside them flash with query positions (``q_pos``) at (a)'s heads: (b)'s
    causal 2 × 4096 with two packed sequences a row (``kv_pos`` = ``q_pos``)
    and a decode of 4 rows at their own positions, ``library_ms`` from SDPA
@@ -559,7 +561,7 @@ HANDOFF_CROSS = dict(attn=(2, 1, 1), moe=(1, 2, 1), pods=2,
 CONFIG_STEPS = 2
 
 
-SMALL_BM = (8, 16, 32)      # GMM row blocks of the mma.sync kernel (bm % 64 != 0)
+SMALL_BM = (8, 16, 24, 32)  # GMM row blocks of the swap-AB kernel (bm % 64 != 0)
 
 
 def _gmm_specs(arch: str) -> tuple:
@@ -574,8 +576,8 @@ def _gmm_specs(arch: str) -> tuple:
     (w1 (E, D, F)) and dy @ w2[e]^T (w2 (E, F, D)) — against ``torch.bmm``
     on the same transposed operands (no copies). Mixtral adds 6 of 8
     experts with two owning no block, 64-row blocks, and the decode
-    gate/up at row blocks of ``SMALL_BM`` rows (one block an expert) with
-    one ``trans_w`` row."""
+    gate/up and its ``trans_w`` dgrad at row blocks of ``SMALL_BM`` rows
+    (one block an expert)."""
     if arch == MIXTRAL:
         E, D, F, rows = 8, 6144, 16384, 1024
     else:
@@ -588,12 +590,12 @@ def _gmm_specs(arch: str) -> tuple:
     if arch == MIXTRAL:
         specs += [("gate/up, 6 of 8 experts", 1024, D, F, 128, [0, 1, 1, 3, 4, 5, 7, 7], False),
                   ("gate/up, bm=64", 1024, D, F, 64, [e for e in serving for _ in (0, 1)], False)]
-        # Row blocks that 64 does not divide (the mma.sync kernel): the 8
+        # Row blocks that 64 does not divide (the swap-AB kernel): the 8
         # routed decode rows in one block of bm rows an expert, not 128.
         specs += [(f"gate/up, decode bm={bm}", E * bm, D, F, bm, serving, False)
                   for bm in SMALL_BM]
-        specs += [(f"dgrad trans_w, decode bm={SMALL_BM[1]}", E * SMALL_BM[1], F, D,
-                   SMALL_BM[1], serving, True)]
+        specs += [(f"dgrad trans_w, decode bm={bm}", E * bm, F, D, bm, serving, True)
+                  for bm in SMALL_BM]
     specs += [(f"gate/up, M={M}", M, D, F, 128, training, False),
               (f"down, M={M}", M, F, D, 128, training, False),
               (f"dgrad trans_w, M={M}", M, F, D, 128, training, True),
@@ -1096,9 +1098,9 @@ def phase_train_check(torch, arch: str, cfg=None, dtype: str = "bfloat16") -> di
 
 def phase_moe_check(torch, arch: str) -> dict:
     """:func:`_moe_check` at the config's GMM row block (128) and again at
-    ``gmm_block_m=16``, whose sort layout runs the GMM's mma.sync kernel
-    (16-row tiles): its launches counted from 0 over that check's card
-    run."""
+    ``gmm_block_m=16``, whose sort layout runs the GMM's swap-AB kernel
+    (passes of 16 rows or more): its launches counted from 0 over that
+    check's card run."""
     import dataclasses
     from repro_torch.launch.serve import slice_config
     cfg = slice_config(arch, reduce=True)
@@ -2723,11 +2725,23 @@ def _flash_qpos_cases(torch, cases, heads, hd: int, modes=(False, True)) -> list
     return out
 
 
+def _qwen3_decode_specs(cfg) -> list:
+    """(c)'s GMM decode launch at its 128-row blocks, then gate/up and down
+    at row blocks of 8 and 16 rows (the swap-AB kernel), one block an
+    expert: what a smaller ``gmm_block_m`` would stream at decode."""
+    E, D, F = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_expert
+    serving = list(range(E))
+    return ([("gate/up, decode (serving)", E * 128, D, F, 128, serving, False)]
+            + [(f"{name}, decode bm={bm}", E * bm, K, N, bm, serving, False)
+               for bm in SMALL_BM[:2] for name, K, N in (("gate/up", D, F), ("down", F, D))])
+
+
 def _window_kernels(torch) -> dict:
     """Phase 14's kernel rows, held and timed as in phase 3: flash with key
     positions at (a)'s ring decode and prefill chunk and at (c)'s prefill
     chunk, flash without them at (b)'s causal 4096 (2 sequences, 32/8 heads
-    of 64) and phase 3's Mixtral decode again, and the GMM at (c)'s decode;
+    of 64) and phase 3's Mixtral decode again, and the GMM at (c)'s decode
+    (:func:`_qwen3_decode_specs`);
     beside them flash with query positions at (a)'s heads (``qpos``): (b)'s
     shape with two packed sequences a row, and a decode of 4 rows."""
     import numpy as np
@@ -2751,9 +2765,7 @@ def _window_kernels(torch) -> dict:
            QWEN3: {"flash_attention": _flash_ring_cases(torch, [
                ("ring prefill chunk", 512, W, [W + 511], W)], (qwen3.n_heads, qwen3.n_kv_heads),
                qwen3.resolved_head_dim, modes=(False,)),
-               "gmm": _gmm_cases(torch, qwen3.moe.n_experts, [(
-                   "gate/up, decode (serving)", qwen3.moe.n_experts * 128, qwen3.d_model,
-                   qwen3.moe.d_expert, 128, list(range(qwen3.moe.n_experts)), False)])}}
+               "gmm": _gmm_cases(torch, qwen3.moe.n_experts, _qwen3_decode_specs(qwen3))}}
     for arch, r in res.items():
         _check_cases(arch, r)
     return res

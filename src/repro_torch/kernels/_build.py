@@ -33,8 +33,8 @@ _I = ctypes.c_int
 # C signature of every exported function: (argtypes, restype). Each returns
 # the launch's cudaGetLastError() as an int.
 SIGNATURES: Dict[str, Tuple[tuple, type]] = {
-    # x, w, block_expert, y, M, K, N, bm, E, block_m, block_n, trans_w, stream
-    "repro_gmm_bf16": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),
+    # x, w, block_expert, y, M, K, N, bm, E, block_m, block_n, run, trans_w, stream
+    "repro_gmm_bf16": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),
     # q, k, v, q_offset, q_pos, kv_pos, out, acc, m, l, ws, counters, B, H, Hkv, Sq,
     # Skv, hd, kv_offset, causal, window, scale, path, splits, stream
     "repro_flash_fwd_bf16": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

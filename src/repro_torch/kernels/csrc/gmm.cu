@@ -67,14 +67,16 @@
 // SBO = 1024 B, imm-trans-b = 0. No copy of w is made.
 //
 // Row blocks that 64 does not divide (bm any multiple of 8; the TPU kernel
-// takes any bm with M % bm == 0): a wgmma tile is 64 rows, so it would span
-// row blocks of other experts. A second, simple kernel (gmm_small_kernel
-// below) keeps its row tile inside one row block: 16 rows (bm % 16 == 0)
-// or 8, 128 columns, mma.sync m16n8k16 on ldmatrix fragments from a
-// cp.async ring. Such launches are small-M decode shapes, bound by the
-// weight bytes.
+// takes any bm with M % bm == 0): a wgmma tile is 64 rows, so with the
+// tokens on its M side it would span row blocks of other experts. A second
+// kernel (gmm_swap_kernel below) swaps the operands: the weight's output
+// columns take wgmma's 64-row side and the tokens of a run of one expert's
+// row blocks its N side (8 to 128), so each weight strip is read once a run
+// whatever bm; the same TMA ring, producer and consumer warpgroups. Such
+// launches are small-M decode shapes, bound by the weight bytes.
 //
-// Requires bm % BM == 0, M % bm == 0, K % 64 == 0, N % BN == 0 and 16-byte
+// Requires M % bm == 0, K % 64 == 0, N % BN == 0 (BN = 128 for the swap-AB
+// kernel), bm % BM == 0 for the TMA kernel, bm % 8 == 0, and 16-byte
 // aligned pointers; the wrapper checks them and this entry point again.
 #include <cstdint>
 
@@ -129,15 +131,60 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// wgmma.mma_async m64nNk16, bf16 x bf16 -> fp32: A K-major; B MN-major
+// wgmma.mma_async m64nNk16, bf16 x bf16 -> fp32, both operands from shared
+// memory: A K-major (TA = imm-trans-a = 0) or MN-major (TA = 1); B MN-major
 // (TB = imm-trans-b = 1) or K-major (TB = 0); the accumulators are
 // overwritten when scale_d == 0.
 template <int N>
 struct Wgmma;
 
 template <>
+struct Wgmma<8> {
+  template <int TB, int TA = 0>
+  __device__ static __forceinline__ void mma(float (&d)[4], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, "
+        "p, 1, 1, %8, %7;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
+  }
+};
+
+template <>
+struct Wgmma<16> {
+  template <int TB, int TA = 0>
+  __device__ static __forceinline__ void mma(float (&d)[8], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %12, %11;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  template <int TB, int TA = 0>
+  __device__ static __forceinline__ void mma(float (&d)[16], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %20, %19;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
+  }
+};
+
+template <>
 struct Wgmma<64> {
-  template <int TB>
+  template <int TB, int TA = 0>
   __device__ static __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b,
                                              int scale_d) {
     asm volatile(
@@ -145,18 +192,18 @@ struct Wgmma<64> {
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
 };
 
 template <>
 struct Wgmma<128> {
-  template <int TB>
+  template <int TB, int TA = 0>
   __device__ static __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b,
                                              int scale_d) {
     asm volatile(
@@ -166,7 +213,7 @@ struct Wgmma<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -175,13 +222,13 @@ struct Wgmma<128> {
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
 };
 
 template <>
 struct Wgmma<256> {
-  template <int TB>
+  template <int TB, int TA = 0>
   __device__ static __forceinline__ void mma(float (&d)[128], uint64_t a, uint64_t b,
                                              int scale_d) {
     asm volatile(
@@ -195,7 +242,7 @@ struct Wgmma<256> {
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+        "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -212,7 +259,7 @@ struct Wgmma<256> {
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
 };
 
@@ -408,190 +455,282 @@ int launch(const void* x, const void* w, const int* be, __nv_bfloat16* y, int M,
 }
 
 // ---------------------------------------------------------------------------
-// Row blocks of any multiple of 8 rows (bm % 64 != 0).
+// Row blocks that 64 does not divide (bm any multiple of 8): swap-AB.
 //
-// A block computes a BM x 128 tile of y inside one row block (one expert):
-// BM = 16, or 8 when bm % 16 != 0, in which case the upper 8 rows of
-// mma.sync's 16-row fragment are neither loaded nor stored (zero A
-// registers, accumulators dropped). Four warps each own 32 columns (four
-// m16n8k16 products a 16-deep K step, bf16 in, fp32 accumulation). x and
-// w stream through a SM_STAGES-deep cp.async ring of 64-deep K steps
-// (16-byte copies, rows padded by 16 bytes so that ldmatrix reads no bank
-// twice). w's tile is read with ldmatrix.trans from its (K, N) rows, or,
-// with trans_w, without the transpose from w[e]'s (N, K) rows. What bounds
-// it: at these row counts each expert's K x N weights are read once per
-// row tile (~BM flop per weight byte), so the weight bytes; the grid runs a
-// column strip's row tiles together (row tile fastest), so the row tiles of
-// one expert read its strip from device memory once and from L2 after.
-// Simple, not tuned: no TMA, no warp specialisation.
-constexpr int SM_BN = 128;                 // columns a block: 4 warps x 32
-constexpr int SM_BK = 64;                  // K step of a stage
-constexpr int SM_STAGES = 4;
-constexpr int SM_THREADS = 128;
-constexpr int SM_A_LD = SM_BK + 8;         // bf16 pitch of an x row: 144 B
+// A wgmma tile is 64 rows deep, deeper than such a row block. So the
+// weight's output columns take wgmma's M side and the tokens its N side
+// (any multiple of 8): the accumulators hold y^T. A tile is 128 output
+// columns (64 a consumer warpgroup) of a window of G row blocks; the window
+// is cut into runs of one expert (neighbouring blocks of another expert end
+// a run, found from block_expert on the device), each run into passes of
+// at most P rows, P = the wgmma's N. A pass streams its expert's weight
+// strip over K once and multiplies each K tile with the pass's x tile, so
+// a run of up to P rows reads each weight strip once, whatever bm.
+// - Operands: forward, the (K, N) weight box (64 K rows x 64 columns, N
+//   innermost, from the 2-D view (E*K, N)) is an MN-major A (imm-trans-a
+//   1, the layout of the TMA kernel's B); trans_w, w[e]'s (N, K) rows are a
+//   K-major A, like the TMA kernel's x. The x box (P rows x 64 of K) is a
+//   K-major B. All through TMA with 128-byte swizzle.
+// - Ring, producer, consumers as in the TMA kernel: one producer thread
+//   fills a STAGES-deep ring (full / empty mbarriers; no __syncthreads in the
+//   K loop) and runs ahead into the next pass and tile; two consumer
+//   warpgroups keep one wgmma group in flight and release the stage before.
+//   Persistent grid over (window, column strip) tiles, strips of one window
+//   fastest; windows of one expert's run together when runs span several.
+// - Epilogue: each warp turns its 16 columns x P tokens of y^T into y's rows
+//   through a strip of shared memory, 32 tokens at a time, and stores 16
+//   bytes a lane; rows past the pass's end (the x box reaches into the next
+//   run, or past M, where TMA fills zeros) are computed but never stored.
+// - P and G: the wrapper estimates one expert's run as run blocks, the
+//   experts owning equal spans (kernels/gmm/gmm.py::run_blocks), and passes
+//   it in. P (tile_shape) is the smallest of 8, 16, 32, 64, 128 that holds
+//   such a run (at decode one block: bm rounded up to a power of two), else
+//   128; G = run when the run fits in P, else P / bm. Any block_expert is
+//   right: a shorter run only computes rows it does not store.
+//
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 3; the rows
+// of PERF.md section 6), Mixtral's decode gate/up, x (8*bm, 6144), w (8,
+// 6144, 16384), one block an expert, at bm 8 / 16 / 24 / 32: 0.5093 /
+// 0.5087 / 0.5141 / 0.5215 ms, 93-94% of the byte bound (0.4816-0.4842),
+// against torch.bmm's 0.5111 / 0.5134 / 0.5155 / 0.5161 in the same run;
+// the trans_w dgrad 0.5105-0.5237 against 0.5333-0.5398. The mma.sync
+// kernel it replaced (16- or 8-row tiles from a cp.async ring, one column
+// strip's row tiles each reading its weights) took 0.5450 / 0.5498 / - /
+// 0.7635 in an earlier run of the same script: at bm 32 two row tiles read
+// each weight strip.
+constexpr int SW_BN = 128;                      // output columns a tile
+constexpr int SW_W_BYTES = 2 * W_BOX_BYTES;     // its weight tile a K step: 16 KB
+constexpr int SW_TOK = 32;                      // tokens an epilogue chunk
+constexpr int SW_LD = 24;                       // bf16 pitch of a chunk row: 16 columns + pad
+constexpr int SW_EPI_BYTES = CONSUMER_WARPS * SW_TOK * SW_LD * 2;
 
-template <bool TRANS_W>
-struct SmallCfg {
-  static constexpr int B_ROWS = TRANS_W ? SM_BN : SM_BK;          // w tile rows in smem
-  static constexpr int B_LD = (TRANS_W ? SM_BK : SM_BN) + 8;      // 144 or 272 B pitch
-  static constexpr int A_ELEMS = 16 * SM_A_LD;
-  static constexpr int STAGE_ELEMS = A_ELEMS + B_ROWS * B_LD;
-  static constexpr int SMEM = SM_STAGES * STAGE_ELEMS * 2;
+template <int P>
+struct SwapCfg {
+  static constexpr int X_BYTES = P * BK * 2;    // P token rows x 64 of K
+  static constexpr int STAGE_BYTES = SW_W_BYTES + X_BYTES;
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - SW_EPI_BYTES - 256) / STAGE_BYTES;
+  static constexpr int STAGES = FIT > 12 ? 12 : FIT;
+  static constexpr int TOK = P < SW_TOK ? P : SW_TOK;
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + SW_EPI_BYTES + 16 * STAGES;
   static_assert(SMEM <= SMEM_LIMIT, "ring does not fit shared memory");
 };
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1) : "r"(addr));
-}
-// D += A B, m16n8k16, bf16 x bf16 -> fp32.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int BM, bool TRANS_W>
-__global__ void __launch_bounds__(SM_THREADS)
-gmm_small_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                 const int* __restrict__ block_expert, __nv_bfloat16* __restrict__ y, int K,
-                 int N, int bm, int E) {
-  using C = SmallCfg<TRANS_W>;
-  extern __shared__ __align__(16) unsigned char smem_small[];
-  const uint32_t ring = smem_u32(smem_small);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * SM_BN;
-  const int e = block_expert[row0 / bm];
-  if (e < 0 || e >= E) __trap();              // never read another expert's rows
-  const int KT = K / SM_BK;
-
-  // One stage: BM x 64 of x, and 64 x 128 of w[e] (or 128 x 64 of w[e]^T's rows).
-  auto load = [&](int kt, int stage) {
-    const uint32_t a_s = ring + stage * C::STAGE_ELEMS * 2;
-    const uint32_t b_s = a_s + C::A_ELEMS * 2;
-    if (tid < BM * 8) {
-      const int r = tid / 8, c = tid % 8;
-      cp_async16(a_s + (r * SM_A_LD + c * 8) * 2,
-                 x + static_cast<size_t>(row0 + r) * K + kt * SM_BK + c * 8);
+// The passes of one tile's window of row blocks [win*G, min(win*G + G, n_blocks)):
+// runs of one expert, each cut into passes of at most P rows.
+template <int P>
+struct Passes {
+  const int* be;
+  int b, b_end, bm, expert, row, run_end;
+  __device__ Passes(const int* be_, int win, int G, int n_blocks, int bm_)
+      : be(be_), b(win * G), b_end(min(win * G + G, n_blocks)), bm(bm_), expert(0),
+        row(0), run_end(0) {}
+  // The next pass (its expert, first row and rows); false past the window.
+  __device__ __forceinline__ bool next(int& e, int& row0, int& rows) {
+    if (row >= run_end) {
+      if (b >= b_end) return false;
+      expert = be[b];
+      int b2 = b + 1;
+      while (b2 < b_end && be[b2] == expert) ++b2;
+      row = b * bm;
+      run_end = b2 * bm;
+      b = b2;
     }
+    e = expert;
+    row0 = row;
+    rows = min(P, run_end - row);
+    row += P;
+    return true;
+  }
+};
+
+template <int P, bool TRANS_W>
+__global__ void __launch_bounds__(THREADS, 1)
+gmm_swap_kernel(const __grid_constant__ CUtensorMap x_map,
+                const __grid_constant__ CUtensorMap w_map,
+                const int* __restrict__ block_expert, __nv_bfloat16* __restrict__ y,
+                int M, int K, int N, int bm, int E, int G, int group) {
+  using C = SwapCfg<P>;
+  constexpr int STAGES = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t w_ring = base;                          // STAGES x 2 x (64 x 64)
+  const uint32_t x_ring = base + STAGES * SW_W_BYTES;    // STAGES x (P x 64)
+  __nv_bfloat16* epi = reinterpret_cast<__nv_bfloat16*>(
+      smem_raw + (base - raw) + STAGES * C::STAGE_BYTES);
+  const uint32_t full = base + STAGES * C::STAGE_BYTES + SW_EPI_BYTES;
+  const uint32_t empty = full + 8 * STAGES;
+
+  const int n_blocks = M / bm, n_win = (n_blocks + G - 1) / G, n_strips = N / SW_BN;
+  const int n_tiles = n_win * n_strips, KT = K / BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMER_WARPS) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == CONSUMER_WARPS && lane == 0) {
+      const uint64_t keep = l2_policy<false>(), stream = l2_policy<true>();
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        int win, strip;
+        tile_coords(t, n_win, n_strips, group, win, strip);
+        const int col0 = strip * SW_BN;
+        Passes<P> passes(block_expert, win, G, n_blocks, bm);
+        int e, row0, rows;
+        while (passes.next(e, row0, rows)) {
+          if (e < 0 || e >= E) __trap();        // never read another expert's rows
+          for (int kt = 0; kt < KT; ++kt) {
+            mbar_wait(empty + 8 * stage, phase ^ 1);
+            const uint32_t bar = full + 8 * stage;
+            mbar_expect_tx(bar, C::STAGE_BYTES);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int idx = tid + i * SM_THREADS;
-      if (TRANS_W) {          // 128 rows of w[e] (output columns) x 64 of K
-        const int r = idx / 8, c = idx % 8;
-        cp_async16(b_s + (r * C::B_LD + c * 8) * 2,
-                   w + (static_cast<size_t>(e) * N + col0 + r) * K + kt * SM_BK + c * 8);
-      } else {                // 64 rows of w[e] (K) x 128 of its columns
-        const int r = idx / 16, c = idx % 16;
-        cp_async16(b_s + (r * C::B_LD + c * 8) * 2,
-                   w + (static_cast<size_t>(e) * K + kt * SM_BK + r) * N + col0 + c * 8);
+            for (int j = 0; j < 2; ++j) {
+              const uint32_t dst = w_ring + stage * SW_W_BYTES + j * W_BOX_BYTES;
+              if (TRANS_W)   // 64 rows of w[e] (output columns) x 64 of its columns (K)
+                tma_load(dst, &w_map, bar, kt * BK, e * N + col0 + j * 64, stream);
+              else           // 64 rows of w[e] (K) x 64 of its columns (output columns)
+                tma_load(dst, &w_map, bar, col0 + j * 64, e * K + kt * BK, stream);
+            }
+            tma_load(x_ring + stage * C::X_BYTES, &x_map, bar, kt * BK, row0, keep);
+            if (++stage == STAGES) { stage = 0; phase ^= 1; }
+          }
+        }
       }
     }
-  };
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    constexpr int TOK = C::TOK;
+    const int wg = warp / 4;
+    __nv_bfloat16* strip_s = epi + warp * SW_TOK * SW_LD;
+    float acc[P / 2];
+#pragma unroll
+    for (int i = 0; i < P / 2; ++i) acc[i] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      int win, strip;
+      tile_coords(t, n_win, n_strips, group, win, strip);
+      const int col = strip * SW_BN + wg * 64 + (warp % 4) * 16;   // this warp's 16 columns
+      Passes<P> passes(block_expert, win, G, n_blocks, bm);
+      int e, row0, rows;
+      while (passes.next(e, row0, rows)) {
+        int prev = -1;
+        for (int kt = 0; kt < KT; ++kt) {
+          mbar_wait(full + 8 * stage, phase);
+          const uint32_t a = w_ring + stage * SW_W_BYTES + wg * W_BOX_BYTES;
+          const uint32_t b = x_ring + stage * C::X_BYTES;
+          fence_regs(acc);
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            const uint64_t bd = sw128_desc(b + kk * 32, 16, 1024);   // 16 K values = 32 B a row
+            if (TRANS_W)   // K-major A: w[e]'s rows, 16 K values along each 128 B row
+              Wgmma<P>::template mma<0, 0>(acc, sw128_desc(a + kk * 32, 16, 1024), bd, kt | kk);
+            else           // MN-major A: 16 K rows of 128 B, one 64-column atom
+              Wgmma<P>::template mma<0, 1>(acc, sw128_desc(a + kk * 16 * 128, W_BOX_BYTES, 1024),
+                                           bd, kt | kk);
+          }
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+          fence_regs(acc);
+          if (prev >= 0 && lane == 0) mbar_arrive(empty + 8 * prev);   // its wgmma are done
+          prev = stage;
+          if (++stage == STAGES) { stage = 0; phase ^= 1; }
+        }
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_regs(acc);
+        if (lane == 0) mbar_arrive(empty + 8 * prev);
 
-  float acc[4][4];
+        // Epilogue: acc[4j + {0,1}] = y^T[lane/4][8j + 2(lane%4) + {0,1}], acc[4j + {2,3}]
+        // the same tokens of column lane/4 + 8; TOK tokens at a time through the strip.
 #pragma unroll
-  for (int q = 0; q < 4; ++q)
+        for (int c = 0; c < P / TOK; ++c) {
+          if (c * TOK >= rows) break;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[q][i] = 0.f;
-
+          for (int jj = 0; jj < TOK / 8; ++jj) {
+            const int j = c * (TOK / 8) + jj;
+            __nv_bfloat16* p = strip_s + (jj * 8 + 2 * (lane % 4)) * SW_LD + lane / 4;
+            p[0] = __float2bfloat16_rn(acc[4 * j]);
+            p[SW_LD] = __float2bfloat16_rn(acc[4 * j + 1]);
+            p[8] = __float2bfloat16_rn(acc[4 * j + 2]);
+            p[SW_LD + 8] = __float2bfloat16_rn(acc[4 * j + 3]);
+          }
+          __syncwarp();
 #pragma unroll
-  for (int s = 0; s < SM_STAGES - 1; ++s) {
-    if (s < KT) load(s, s);
-    cp_async_commit();
-  }
-  const int n0 = warp * 32;                   // this warp's columns in the tile
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<SM_STAGES - 2>();           // stage kt has landed
-    __syncthreads();                          // and every warp is done with stage kt - 1
-    if (kt + SM_STAGES - 1 < KT) load(kt + SM_STAGES - 1, (kt + SM_STAGES - 1) % SM_STAGES);
-    cp_async_commit();
-    const uint32_t a_s = ring + (kt % SM_STAGES) * C::STAGE_ELEMS * 2;
-    const uint32_t b_s = a_s + C::A_ELEMS * 2;
-#pragma unroll
-    for (int kk = 0; kk < SM_BK / 16; ++kk) {
-      uint32_t a[4];
-      if (BM == 16) {
-        ldsm_x4(a, a_s + ((lane % 16) * SM_A_LD + kk * 16 + (lane / 16) * 8) * 2);
-      } else {                                // rows 0-7 only: a1 = a3 = 0
-        ldsm_x2(a[0], a[2], a_s + ((lane % 8) * SM_A_LD + kk * 16 + ((lane / 8) % 2) * 8) * 2);
-        a[1] = a[3] = 0u;
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {           // n-blocks 2j and 2j + 1 of 8 columns
-        uint32_t b[4];
-        if (TRANS_W)
-          ldsm_x4(b, b_s + ((n0 + j * 16 + lane % 8 + (lane / 16) * 8) * C::B_LD +
-                            kk * 16 + ((lane / 8) % 2) * 8) * 2);
-        else
-          ldsm_x4_t(b, b_s + ((kk * 16 + lane % 16) * C::B_LD + n0 + j * 16 +
-                              (lane / 16) * 8) * 2);
-        mma16816(acc[2 * j], a, b[0], b[1]);
-        mma16816(acc[2 * j + 1], a, b[2], b[3]);
+          for (int i = lane; i < 2 * TOK; i += 32) {   // a token row's 16 columns: two 16 B halves
+            const int r = c * TOK + i / 2;
+            if (r < rows)
+              *reinterpret_cast<uint4*>(y + static_cast<size_t>(row0 + r) * N + col + (i % 2) * 8) =
+                  *reinterpret_cast<const uint4*>(strip_s + (i / 2) * SW_LD + (i % 2) * 8);
+          }
+          __syncwarp();
+        }
       }
     }
   }
-  cp_async_wait<0>();
-
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int col = col0 + n0 + q * 8 + 2 * t;
-    *reinterpret_cast<__nv_bfloat162*>(y + static_cast<size_t>(row0 + g) * N + col) =
-        __floats2bfloat162_rn(acc[q][0], acc[q][1]);
-    if (BM == 16)
-      *reinterpret_cast<__nv_bfloat162*>(y + static_cast<size_t>(row0 + g + 8) * N + col) =
-          __floats2bfloat162_rn(acc[q][2], acc[q][3]);
-  }
 }
 
-template <int BM, bool TRANS_W>
-int launch_small(const void* x, const void* w, const int* be, __nv_bfloat16* y, int M, int K,
-                 int N, int bm, int E, cudaStream_t stream) {
-  using C = SmallCfg<TRANS_W>;
+template <int P, bool TRANS_W>
+int launch_swap(const void* x, const void* w, const int* be, __nv_bfloat16* y, int M, int K,
+                int N, int bm, int E, int run, cudaStream_t stream) {
+  using C = SwapCfg<P>;
   static bool attr_set[MAX_DEVICES];
+  static int n_sms[MAX_DEVICES];
   int dev = 0;
   cudaError_t err = current_device(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!attr_set[dev]) {
-    err = cudaFuncSetAttribute(gmm_small_kernel<BM, TRANS_W>,
+    err = cudaFuncSetAttribute(gmm_swap_kernel<P, TRANS_W>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&n_sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set[dev] = true;
   }
-  const dim3 grid(M / BM, N / SM_BN);
-  gmm_small_kernel<BM, TRANS_W><<<grid, SM_THREADS, C::SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), be, y, K, N,
-      bm, E);
+  CUtensorMap x_map, w_map;
+  if (!encode(&x_map, x, M, K, P) ||
+      !encode(&w_map, w, static_cast<uint64_t>(E) * (TRANS_W ? N : K), TRANS_W ? K : N, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // A window is one expert's run (run blocks, the wrapper's estimate, from
+  // which it also chose P) when it fits a pass, else P rows' worth of
+  // blocks; the windows of one run go together.
+  const int blocks = M / bm;
+  const int G = run * bm <= P ? run : (P > bm ? P / bm : 1);
+  const int n_win = (blocks + G - 1) / G, group = (run + G - 1) / G;
+  const int n_tiles = n_win * (N / SW_BN);
+  const int grid = n_tiles < n_sms[dev] ? n_tiles : n_sms[dev];
+  gmm_swap_kernel<P, TRANS_W><<<grid, THREADS, C::SMEM, stream>>>(x_map, w_map, be, y, M, K,
+                                                                   N, bm, E, G, group);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The swap-AB kernel for bm % 64 != 0 or a forced pass of fewer than 64 rows
+// (block_m = P); else the TMA kernel's (block_m, block_n) tile.
+bool swap_ab(int bm, int block_m) { return bm % 64 != 0 || block_m < 64; }
+
 template <bool TRANS_W>
 int dispatch(const void* x, const void* w, const int* be, __nv_bfloat16* y, int M, int K,
-             int N, int bm, int E, int block_m, int block_n, cudaStream_t s) {
-  if (block_m == 16) return launch_small<16, TRANS_W>(x, w, be, y, M, K, N, bm, E, s);
-  if (block_m == 8) return launch_small<8, TRANS_W>(x, w, be, y, M, K, N, bm, E, s);
+             int N, int bm, int E, int block_m, int block_n, int run, cudaStream_t s) {
+  if (swap_ab(bm, block_m)) {
+    switch (block_m) {
+      case 8: return launch_swap<8, TRANS_W>(x, w, be, y, M, K, N, bm, E, run, s);
+      case 16: return launch_swap<16, TRANS_W>(x, w, be, y, M, K, N, bm, E, run, s);
+      case 32: return launch_swap<32, TRANS_W>(x, w, be, y, M, K, N, bm, E, run, s);
+      case 64: return launch_swap<64, TRANS_W>(x, w, be, y, M, K, N, bm, E, run, s);
+      default: return launch_swap<128, TRANS_W>(x, w, be, y, M, K, N, bm, E, run, s);
+    }
+  }
   if (block_m == 128)
     return block_n == 256 ? launch<128, 256, TRANS_W>(x, w, be, y, M, K, N, bm, E, s)
                           : launch<128, 128, TRANS_W>(x, w, be, y, M, K, N, bm, E, s);
@@ -602,19 +741,24 @@ int dispatch(const void* x, const void* w, const int* be, __nv_bfloat16* y, int 
 }  // namespace
 
 // y (M, N) = x (M, K) @ w[e], w (E, K, N); with trans_w, y = x @ w[e]^T for
-// w (E, N, K) (the dgrad of the forward product).
+// w (E, N, K) (the dgrad of the forward product). run: the row blocks of one
+// expert's run when the experts own equal spans (kernels/gmm/gmm.py::
+// run_blocks), the swap-AB kernel's window; the TMA kernel ignores it.
 extern "C" int repro_gmm_bf16(const void* x, const void* w, const void* block_expert,
                               void* y, int M, int K, int N, int bm, int E, int block_m,
-                              int block_n, int trans_w, void* stream) {
-  const bool small = block_m == 8 || block_m == 16;
-  if (M <= 0 || E <= 0 || bm <= 0 || (!small && block_m != 64 && block_m != 128) ||
-      (block_n != 128 && block_n != 256) || (small && block_n != SM_BN) || bm % block_m ||
-      M % bm || K <= 0 || K % BK || N % block_n ||
-      static_cast<int64_t>(E) * (trans_w ? N : K) > INT32_MAX)
+                              int block_n, int run, int trans_w, void* stream) {
+  const bool tile_ok =
+      swap_ab(bm, block_m)
+          ? (block_m == 8 || block_m == 16 || block_m == 32 || block_m == 64 ||
+             block_m == 128) && block_n == SW_BN
+          : (block_m == 64 || block_m == 128) && (block_n == 128 || block_n == 256) &&
+                bm % block_m == 0;
+  if (M <= 0 || E <= 0 || bm <= 0 || bm % 8 || !tile_ok || M % bm || run <= 0 || K <= 0 ||
+      K % BK || N % block_n || static_cast<int64_t>(E) * (trans_w ? N : K) > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const int* be = static_cast<const int*>(block_expert);
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return trans_w ? dispatch<true>(x, w, be, out, M, K, N, bm, E, block_m, block_n, s)
-                 : dispatch<false>(x, w, be, out, M, K, N, bm, E, block_m, block_n, s);
+  return trans_w ? dispatch<true>(x, w, be, out, M, K, N, bm, E, block_m, block_n, run, s)
+                 : dispatch<false>(x, w, be, out, M, K, N, bm, E, block_m, block_n, run, s);
 }

@@ -6,13 +6,14 @@
 w[e]^T`` instead, the data gradient of that product, from the same weights
 (no transposed copy). ``bm`` is any multiple of 8 that divides M, as the
 reference kernel takes it: row blocks that 64 divides run on the TMA +
-wgmma kernel, others on a mma.sync kernel whose 16- or 8-row tile lies
-inside one row block (:func:`tile_shape`). For a CUDA tensor it launches
-the kernel or raises; only a CPU tensor takes the plain version
-(``ref.gmm_ref``). A fake tensor (a dry run, ``launch/dryrun.py``) takes
-neither: the call returns an empty output of the right shape and reports
-its work (:func:`gmm_work`) to the active ``roofline.trace_cost.Recorder``,
-as every call does while one is.
+wgmma kernel with the tokens on wgmma's 64-row side, others on its
+swap-AB form, the weight's output columns on that side and a pass of up
+to 128 token rows of one expert's run on the other (:func:`tile_shape`).
+For a CUDA tensor it launches the kernel or raises; only a CPU tensor
+takes the plain version (``ref.gmm_ref``). A fake tensor (a dry run,
+``launch/dryrun.py``) takes neither: the call returns an empty output of
+the right shape and reports its work (:func:`gmm_work`) to the active
+``roofline.trace_cost.Recorder``, as every call does while one is.
 """
 from __future__ import annotations
 
@@ -26,9 +27,10 @@ from repro_torch.kernels.gmm.ref import gmm_ref
 from repro_torch.roofline import trace_cost
 
 BLOCK_K = 64                # the kernel's K step (128 B of bf16, the swizzle span)
-BLOCKS_M = (128, 64, 16, 8)  # row tiles; bm must be a multiple of one of them
-SMALL_BLOCKS_M = (16, 8)    # the mma.sync kernel's, for bm % 64 != 0 (columns: 128)
+BLOCKS_M = (128, 64)        # the TMA kernel's row tiles, for bm % 64 == 0
+SMALL_BLOCKS_M = (8, 16, 32, 64, 128)   # the swap-AB kernel's rows a pass (its wgmma N)
 BLOCKS_N = (256, 128)       # column tiles; N must be a multiple of 128
+SMALL_BLOCK_N = 128         # the swap-AB kernel's columns a tile
 
 
 @functools.lru_cache(maxsize=None)
@@ -41,19 +43,29 @@ def _wave_fill(tiles: int, n_sms: int) -> float:
     return tiles / (-(-tiles // n_sms) * n_sms)
 
 
-def tile_shape(M: int, N: int, bm: int, n_sms: int) -> tuple:
+def run_blocks(M: int, bm: int, experts: int) -> int:
+    """Row blocks of one expert's run when the ``experts`` own equal spans:
+    the swap-AB kernel's pass (:func:`tile_shape`) and its window of row
+    blocks (``gmm.cu::launch_swap``) both follow from it."""
+    return -(-(M // bm) // experts)
+
+
+def tile_shape(M: int, N: int, bm: int, n_sms: int, experts: int) -> tuple:
     """The kernel's (BM, BN) for this launch. A row block that 64 does not
-    divide takes the mma.sync kernel's tile inside it: (16, 128) when 16
-    divides ``bm``, else (8, 128). Otherwise the TMA kernel's: 128-row
-    tiles when ``bm`` allows them, else 64; 256 columns when ``N`` allows
-    them, unless 128-column tiles fill the ``n_sms`` SMs' waves over a
-    tenth better. A wide tile reads x half as often and reuses each operand
-    twice as much,
-    which outweighs a few points of fill; a last wave three quarters empty
-    it does not (the decode step's down launch: 192 wide tiles on 132 SMs
-    measured 3% slower than 384 narrow ones, launch/bench_gmm.py)."""
+    divide takes the swap-AB kernel: (P, 128), P its rows a pass, the
+    smallest of ``SMALL_BLOCKS_M`` that holds one expert's run of row blocks
+    (:func:`run_blocks`), else 128 (a run then takes several passes). At
+    decode, one block an expert, that is bm rounded up to a power of two.
+    Otherwise the TMA kernel's: 128-row tiles when ``bm`` allows them, else
+    64; 256 columns when ``N`` allows them, unless 128-column tiles fill the
+    ``n_sms`` SMs' waves over a tenth better. A wide tile reads x half as
+    often and reuses each operand twice as much, which outweighs a few
+    points of fill; a last wave three quarters empty it does not (the decode
+    step's down launch: 192 wide tiles on 132 SMs measured 3% slower than
+    384 narrow ones, launch/bench_gmm.py)."""
     if bm % 64:
-        return (16 if bm % 16 == 0 else 8), 128
+        rows = bm * run_blocks(M, bm, experts)
+        return next((p for p in SMALL_BLOCKS_M if p >= rows), SMALL_BLOCKS_M[-1]), SMALL_BLOCK_N
     block_m = 128 if bm % 128 == 0 else 64
     rows = M // block_m
     if N % 256 or _wave_fill(rows * (N // 128), n_sms) > 1.1 * _wave_fill(rows * (N // 256), n_sms):
@@ -97,13 +109,17 @@ def _validate(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
                          f"(M, K) and {'(E, N, K)' if trans_w else '(E, K, N)'}")
     M, K = x.shape
     E, N = w.shape[0], w.shape[3 - k_dim]
-    if (M == 0 or bm <= 0 or bm % min(BLOCKS_M) or M % bm or K == 0 or K % BLOCK_K
+    if (M == 0 or bm <= 0 or bm % min(SMALL_BLOCKS_M) or M % bm or K == 0 or K % BLOCK_K
             or N % min(BLOCKS_N)):
-        raise ValueError(f"gmm kernel needs bm % {min(BLOCKS_M)} == 0, M % bm == 0, "
+        raise ValueError(f"gmm kernel needs bm % {min(SMALL_BLOCKS_M)} == 0, M % bm == 0, "
                          f"K % {BLOCK_K} == 0, N % {min(BLOCKS_N)} == 0; got M={M}, "
                          f"K={K}, N={N}, bm={bm}")
-    if (block_m not in BLOCKS_M or bm % block_m or block_n not in BLOCKS_N or N % block_n
-            or (block_m in SMALL_BLOCKS_M and block_n != 128)):
+    if (bm % 64 or block_m < 64) and block_m in SMALL_BLOCKS_M:
+        ok = block_n == SMALL_BLOCK_N            # the swap-AB kernel: any run, any bm
+    else:
+        ok = (block_m in BLOCKS_M and bm % block_m == 0 and block_n in BLOCKS_N
+              and N % block_n == 0)
+    if not ok:
         raise ValueError(f"gmm: tile ({block_m}, {block_n}) does not tile bm={bm}, N={N}")
     if E * w.shape[1] >= 2 ** 31:
         raise ValueError(f"gmm: {E * w.shape[1]} rows of w exceed int32 coordinates")
@@ -137,7 +153,7 @@ def gmm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor, *,
         return gmm_ref(x, w, block_expert, bm=bm, trans_w=trans_w)
     M, N = x.shape[0], w.shape[1 if trans_w else 2]
     if (block_m is None or block_n is None) and x.device.type == "cuda":
-        auto_m, auto_n = tile_shape(M, N, bm, _n_sms(x.device.index))
+        auto_m, auto_n = tile_shape(M, N, bm, _n_sms(x.device.index), experts=w.shape[0])
         block_m, block_n = block_m or auto_m, block_n or auto_n
     _validate(x, w, block_expert, bm, block_m, block_n, trans_w)
     K, E = x.shape[1], w.shape[0]
@@ -145,7 +161,7 @@ def gmm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor, *,
     with torch.cuda.device(x.device):
         rc = load_library().repro_gmm_bf16(
             x.data_ptr(), w.data_ptr(), block_expert.data_ptr(), y.data_ptr(),
-            M, K, N, bm, E, block_m, block_n, int(trans_w),
+            M, K, N, bm, E, block_m, block_n, run_blocks(M, bm, E), int(trans_w),
             torch.cuda.current_stream(x.device).cuda_stream)
     check(rc, "gmm")
     if rec is not None:

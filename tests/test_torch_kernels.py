@@ -28,7 +28,8 @@ torch.set_num_threads(1)
 # random block_expert, and the serving layout (one row block per expert,
 # block_expert = arange(E)) that the decode step hands the kernel.
 GMM_SHAPES = [(256, 128, 128, 4, 128, "random"), (512, 256, 384, 8, 64, "random"),
-              (512, 128, 256, 4, 128, "serving")]
+              (512, 128, 256, 4, 128, "serving"), (64, 128, 128, 8, 8, "serving"),
+              (192, 128, 256, 4, 24, "random")]
 GMM_IDS = ["-".join(map(str, s[:5])) + ("" if s[5] == "random" else f"-{s[5]}")
            for s in GMM_SHAPES]
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -64,21 +65,26 @@ def test_gmm_plain_matches_jax_kernel(M, K, N, E, bm, layout, dtype):
                                atol=GMM_TOL[dtype], rtol=GMM_TOL[dtype])
 
 
-@pytest.mark.parametrize("M,N,bm,tile", [
-    (1024, 16384, 128, (128, 256)),     # decode gate/up: 512 wide tiles fill 4 waves 97%
-    (1024, 6144, 128, (128, 128)),      # decode down: 192 wide tiles fill 2 waves 73%
-    (8192, 16384, 128, (128, 256)), (8192, 6144, 128, (128, 256)),
-    (1024, 16384, 64, (64, 256)),
-    (256, 6144, 128, (128, 128)),       # 48 wide tiles on 132 SMs
-    (512, 384, 64, (64, 128)), (512, 512, 256, (128, 128)),
-    # Row blocks that 64 does not divide: the mma.sync kernel's tile inside one.
-    (64, 16384, 8, (8, 128)), (128, 16384, 16, (16, 128)), (256, 16384, 32, (16, 128)),
-    (768, 6144, 96, (16, 128)), (192, 256, 24, (8, 128))])
-def test_gmm_tile_shape(M, N, bm, tile):
+@pytest.mark.parametrize("M,N,bm,E,tile", [
+    (1024, 16384, 128, 8, (128, 256)),  # decode gate/up: 512 wide tiles fill 4 waves 97%
+    (1024, 6144, 128, 8, (128, 128)),   # decode down: 192 wide tiles fill 2 waves 73%
+    (8192, 16384, 128, 8, (128, 256)), (8192, 6144, 128, 8, (128, 256)),
+    (1024, 16384, 64, 8, (64, 256)),
+    (256, 6144, 128, 8, (128, 128)),    # 48 wide tiles on 132 SMs
+    (512, 384, 64, 8, (64, 128)), (512, 512, 256, 8, (128, 128)),
+    # Row blocks that 64 does not divide: the swap-AB kernel, (rows a pass, 128),
+    # a pass holding one expert's run (at decode one block: bm to a power of two).
+    (64, 16384, 8, 8, (8, 128)), (128, 16384, 16, 8, (16, 128)), (256, 16384, 32, 8, (32, 128)),
+    (192, 16384, 24, 8, (32, 128)), (768, 6144, 96, 8, (128, 128)),
+    (192, 256, 24, 16, (32, 128)),      # fewer blocks than experts: one block a run
+    (256, 16384, 8, 8, (32, 128)),      # 4 blocks an expert: one pass a run
+    (8192, 16384, 8, 8, (128, 128)),    # 1024 rows an expert: 8 passes a run
+    (1280, 2048, 160, 8, (128, 128))])  # a block longer than the widest pass
+def test_gmm_tile_shape(M, N, bm, E, tile):
     """The kernel's tile: 64-row tiles only where bm needs them, 256 columns
     only where N allows and narrow tiles would not fill the SMs' waves
-    better by over a tenth."""
-    assert tile_shape(M, N, bm, n_sms=132) == tile
+    better by over a tenth; for bm % 64 != 0 the swap-AB kernel's pass."""
+    assert tile_shape(M, N, bm, n_sms=132, experts=E) == tile
 
 
 def test_expert_ffn_gmm_matches_jax():

@@ -56,13 +56,20 @@ GMM_CASES = [
     (512, 192, 512, 4, 128, "random", (64, 256)),
     (512, 192, 512, 4, 128, "random", (64, 128)),
     (512, 320, 512, 8, 64, "random", (64, 256)),
-    # Row blocks that 64 does not divide: the mma.sync kernel, 16- or 8-row tiles.
+    # Row blocks that 64 does not divide: the swap-AB kernel, passes of 8 to 128 rows.
     (256, 256, 384, 4, 32, "random", None),
     (128, 448, 256, 8, 16, "random", None),
     (64, 128, 6144, 8, 8, "serving", None),
-    (384, 192, 512, 4, 96, "random", None),             # 96: 16-row tiles, 6 a block
+    (192, 448, 384, 8, 24, "serving", None),            # passes of 32: 8 rows not stored
+    (320, 256, 384, 8, 40, "serving", None),            # passes of 64
+    (384, 192, 512, 4, 96, "random", None),             # passes of 128
+    (1280, 128, 256, 8, 160, "random", None),           # 160 = a pass of 128 and one of 32
+    (64, 448, 384, 8, 8, [3, 0, 3, 5, 1, 1, 7, 0], None),   # unsorted; 2, 4, 6 own nothing
+    (192, 256, 384, 4, 24, [1, 1, 1, 3, 0, 0, 2, 3], None),  # a run of 3 across windows of 2
+    (128, 256, 384, 2, 16, [0, 0, 0, 1, 1, 0, 1, 1], None),  # runs of 3, 1, 1, 2 in windows of 4
     (1024, 128, 512, 8, 128, [3, 0, 3, 5, 1, 1, 7, 0], (16, 128)),   # forced on bm 128
     (256, 256, 384, 4, 64, "random", (8, 128)),
+    (256, 256, 384, 4, 32, [0, 0, 0, 1, 2, 2, 3, 1], (8, 128)),     # forced: 4 passes a block
 ]
 
 
@@ -426,8 +433,10 @@ def test_kernels_reject_shapes_they_do_not_take(cuda):
         gmm(x, w, torch.zeros(2, dtype=torch.int32, device=cuda), bm=100)
     with pytest.raises(ValueError, match="bm"):
         gmm(x[:128], w, torch.zeros(32, dtype=torch.int32, device=cuda), bm=4)
-    with pytest.raises(ValueError, match="tile"):
-        gmm(x[:128], w, torch.zeros(4, dtype=torch.int32, device=cuda), bm=32, block_m=64)
+    with pytest.raises(ValueError, match="tile"):      # the TMA kernel: a tile that bm cuts
+        gmm(x[:128], w, torch.zeros(2, dtype=torch.int32, device=cuda), bm=64, block_m=128)
+    with pytest.raises(ValueError, match="tile"):      # the swap-AB kernel: 128 columns only
+        gmm(x[:128], w, torch.zeros(4, dtype=torch.int32, device=cuda), bm=32, block_n=256)
     with pytest.raises(ValueError, match="K % 64"):
         gmm(x[:128, :96].contiguous(), w[:, :96].contiguous(),
             torch.zeros(1, dtype=torch.int32, device=cuda))
@@ -450,24 +459,29 @@ def test_kernels_reject_shapes_they_do_not_take(cuda):
 
 
 # The dgrad mode at the training slice's widths: w (E, 6144, 16384) or
-# (E, 16384, 6144) read transposed, every forced tile, unsorted block_expert.
+# (E, 16384, 6144) read transposed, every forced tile, unsorted block_expert;
+# and the swap-AB kernel's row blocks (tile None: the wrapper's pass), also at
+# w (E, 384, 448): 7 K steps, 3 column strips.
 TRANS_CASES = [(kw, nw, bm, tile)
                for kw, nw in ((6144, 16384), (16384, 6144))
                for bm, tiles in ((128, ((128, 256), (128, 128), (64, 256), (64, 128))),
                                  (64, ((64, 256), (64, 128))),
-                                 (32, ((16, 128),)), (8, ((8, 128),)))
-               for tile in tiles]
+                                 (32, ((16, 128), None)), (8, ((8, 128), None)),
+                                 (16, (None,)), (24, (None,)), (40, (None,)), (96, (None,)),
+                                 (160, (None,)))
+               for tile in tiles] + [(384, 448, bm, None) for bm in (8, 24, 96)]
 
 
 @pytest.mark.parametrize("K_w,N_w,bm,tile", TRANS_CASES)
 def test_gmm_trans_w_matches_plain(cuda, K_w, N_w, bm, tile):
     """y = x @ w[e]^T: x (M, N_w), w (E, K_w, N_w) → (M, K_w)."""
     rng = np.random.default_rng(8)
-    E, M = 3, 512
+    E, M = 3, 512 // bm * bm
     x, w = _bf16(rng, (M, N_w)), _bf16(rng, (E, K_w, N_w), N_w ** -0.5)
     be = torch.from_numpy(np.resize(np.array([2, 0, 2, 1, 0, 0, 1, 2], np.int32), M // bm)).to(cuda)
+    block_m, block_n = tile or (None, None)
     n0, t0 = gmm.launches, gmm.trans_w_launches
-    y = gmm(x, w, be, bm=bm, trans_w=True, block_m=tile[0], block_n=tile[1])
+    y = gmm(x, w, be, bm=bm, trans_w=True, block_m=block_m, block_n=block_n)
     assert (gmm.launches, gmm.trans_w_launches) == (n0 + 1, t0 + 1) and y.shape == (M, K_w)
     assert _rel_err(y, gmm_ref(x, w, be, bm=bm, trans_w=True)) <= REL_TOL
 
