@@ -301,7 +301,10 @@ train-configs — phase 5's one-card training (2 steps, launches 3 + 3 + 3
    keys and prefill chunk at heads of 256, Qwen2-VL's causal 4096 and
    decode, Whisper's encoder (1500 × 1500) and cross-attention (4096 ×
    1500, and its decode) not causal, and (d)'s causal 4096 at its
-   positions, with ``library_ms`` from SDPA.
+   positions, with ``library_ms`` from SDPA; beside them a kernel row with
+   no main path, CodeQwen1.5-7B's multi-head decode (4 rows, 32/32 heads of
+   128, against 1024 keys), on the stream path as Gemma's and Whisper's
+   decodes are.
 
 16. recurrent — the recurrent block kinds, one card, random weights from
    the seed, bf16. (a) xLSTM-125M at full width and depth (12 layers: mLSTM
@@ -666,8 +669,9 @@ def _flash_cases(torch, arch: str, cases=None, heads=None, modes=(False, True),
     the output ``modes`` (partial or not). ``library_ms`` is the fastest of
     the ``scaled_dot_product_attention`` forms that compute the same
     function on the same (GQA) inputs: an explicit mask (offsets differ per
-    row), and ``is_causal`` where the queries start at key 0; not
-    ``causal``, SDPA with no mask (every key visible). Keys sit at
+    row), ``is_causal`` where the queries start at key 0, and no mask where
+    every key is visible (not ``causal``, or a decode row at the last key:
+    then the mask form is not timed). Keys sit at
     ``kv_offset + j``; a query row that sees none (a ring pair wholly in its
     future) must agree with the plain version's ``m = -1e30, l = 0, acc = 0``."""
     import torch.nn.functional as F
@@ -695,7 +699,7 @@ def _flash_cases(torch, arch: str, cases=None, heads=None, modes=(False, True),
         mask = vis[:, None]
         forms = {"SDPA attn_mask, enable_gqa": lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True)}
-        if not causal:
+        if vis.all():
             forms = {"SDPA no mask, enable_gqa": lambda: F.scaled_dot_product_attention(
                 q, k, v, enable_gqa=True)}
         elif all(o == 0 for o in offsets) and Sq == L and kv_off == 0:
@@ -2590,7 +2594,8 @@ def _flash_ring_cases(torch, cases, heads, hd: int, modes=(False, True)) -> list
     the L keys are the slots of a sliding-window ring
     (``attention._cache_kv_positions``: wrapped, or not yet written).
     Held against the plain version at the same positions; ``library_ms``:
-    SDPA with an ``attn_mask`` built from the positions. Bytes: q, the key
+    SDPA with an ``attn_mask`` built from the positions (no mask where every
+    key is visible). Bytes: q, the key
     and value slots some query of the row sees, ``kv_pos`` and the output;
     operations: the visible (query, key) pairs."""
     import torch.nn.functional as F
@@ -2613,7 +2618,7 @@ def _flash_ring_cases(torch, cases, heads, hd: int, modes=(False, True)) -> list
         d = q_pos[:, :, None] - kv_pos[:, None, :].long()
         vis = (d >= 0) & (d < window)
         n_vis, n_keys = vis.sum().item(), vis.any(dim=1).sum().item()
-        mask = vis[:, None]
+        mask = None if vis.all() else vis[:, None]     # every key visible: SDPA with no mask
         library_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True))
         for partial in modes:
@@ -2638,7 +2643,9 @@ def _flash_ring_cases(torch, cases, heads, hd: int, modes=(False, True)) -> list
                                   f"ring, newest {last}, window {window}",
                             max_abs_err=max(e[0] for e in errs), rel_err=max(e[1] for e in errs),
                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                            library_ms=library_ms, library_form="SDPA attn_mask from kv_pos",
+                            library_ms=library_ms,
+                            library_form="SDPA no mask" if mask is None else
+                            "SDPA attn_mask from kv_pos",
                             visible_pairs=n_vis))
         del q, k, v, mask, vis, d
         torch.cuda.empty_cache()
@@ -2673,7 +2680,8 @@ def _flash_qpos_cases(torch, cases, heads, hd: int, modes=(False, True)) -> list
     numpy, Skv, keys)``, keys ``"self"`` (``kv_pos`` = ``q_pos``, causal
     self-attention) or an int ``kv_offset`` (keys a run from it, causal).
     Held against the plain version at the same positions; ``library_ms``:
-    SDPA with an ``attn_mask`` built from the positions. Bytes: q, the key
+    SDPA with an ``attn_mask`` built from the positions (no mask where every
+    key is visible). Bytes: q, the key
     and value rows some query of the row sees, the positions and the
     output; operations: the visible (query, key) pairs."""
     import torch.nn.functional as F
@@ -2694,7 +2702,7 @@ def _flash_qpos_cases(torch, cases, heads, hd: int, modes=(False, True)) -> list
             keys + torch.arange(L, dtype=torch.int32, device="cuda").expand(B, L)
         vis = kv_pos[:, None, :].long() <= q_pos[:, :, None].long()
         n_vis, n_keys = vis.sum().item(), vis.any(dim=1).sum().item()
-        mask = vis[:, None]
+        mask = None if vis.all() else vis[:, None]     # every key visible: SDPA with no mask
         library_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True))
         for partial in modes:
@@ -2718,7 +2726,9 @@ def _flash_qpos_cases(torch, cases, heads, hd: int, modes=(False, True)) -> list
                                   + ("and kv_pos" if keys == "self" else f"kv_offset={keys}"),
                             max_abs_err=max(e[0] for e in errs), rel_err=max(e[1] for e in errs),
                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                            library_ms=library_ms, library_form="SDPA attn_mask from q_pos",
+                            library_ms=library_ms,
+                            library_form="SDPA no mask" if mask is None else
+                            "SDPA attn_mask from q_pos",
                             visible_pairs=n_vis))
         del q, k, v, mask, vis
         torch.cuda.empty_cache()
@@ -2932,6 +2942,7 @@ def _train_world_line(train_world: dict, sources: dict) -> list:
 # ----------------------------------------------------------- phase 15: block kinds
 
 GEMMA, QWEN2VL, WHISPER = "gemma-7b", "qwen2-vl-7b", "whisper-small"
+CODEQWEN = "codeqwen1.5-7b"             # a kernel row only: multi-head decode at heads of 128
 BLOCKS_SERVE = dict(layers=4, prompts=(1000, 700), new=16, s_max=1024)
 BLOCKS_ENGINE = dict(max_batch=2, page_size=128, prefill_chunk=512)
 # Training depth (None: the published depth) and steps of one 4096-token sequence.
@@ -3328,7 +3339,8 @@ def _blocks_kernels(torch) -> dict:
     at the positions of 256 vision rows that share a temporal id, ``q_pos``
     and ``kv_pos``), and at Whisper's 12
     of 64, not causal, over 1500 frames (the encoder; cross-attention of
-    4096 queries)."""
+    4096 queries); and CodeQwen1.5-7B's multi-head decode (32/32 heads of
+    128, 4 rows against 1024 keys), a kernel row with no main path."""
     from repro_torch.launch.train import train_config
     res = {}
     for arch, rows in ((GEMMA, [
@@ -3342,7 +3354,8 @@ def _blocks_kernels(torch) -> dict:
                 (("encoder 1500 x 1500", 1500, 1500, [0]), (True,), False),
                 (("cross-attention 4096 x 1500", 4096, 1500, [0]), (True,), False),
                 (("decode cross-attention, 1500 frames", 1, 1500, [0]), (False,), False),
-                (("causal self-attention 4096", 4096, 4096, [0]), (True,), True)])):
+                (("causal self-attention 4096", 4096, 4096, [0]), (True,), True)]),
+            (CODEQWEN, [(("MHA decode, 1024 keys", 1, 1024, [1023] * 4), (False,), True)])):
         cfg = train_config(arch)
         cases = []
         for case, modes, causal in rows:

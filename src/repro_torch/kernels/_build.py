@@ -39,6 +39,8 @@ SIGNATURES: Dict[str, Tuple[tuple, type]] = {
     # Skv, hd, kv_offset, causal, window, scale, path, splits, stream
     "repro_flash_fwd_bf16": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P), _I),
+    # hd, *blocks: blocks of the flash "stream" kernel an SM holds
+    "repro_flash_stream_blocks": ((_I, ctypes.POINTER(_I)), _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,6 +1,6 @@
 // Blockwise (flash) attention forward, bf16 in, fp32 online softmax, for
-// sm_90a (Hopper: mma.sync + cp.async on the decode path, TMA + mbarrier +
-// wgmma on the prefill path).
+// sm_90a (Hopper: mma.sync + cp.async on the decode path, mma.sync + TMA +
+// mbarrier on the stream path, TMA + mbarrier + wgmma on the prefill path).
 //
 // Replaces the Pallas TPU kernel `flash_attention` / `_flash_kernel` in
 // src/repro/kernels/flash/flash.py, and with it the jnp scan `_fwd_scan`
@@ -19,7 +19,7 @@
 // row, so the batched decode step, whose rows sit at different positions,
 // uses the same kernel.
 //
-// One C entry point, one kernel launch per call, two device paths chosen
+// One C entry point, one kernel launch per call, three device paths chosen
 // on the host from the shapes (kernels/flash/flash.py::plan):
 //
 // 1. Decode / short query (`flash_fwd_kernel_split`): (H/Hkv) x Sq <= 64
@@ -43,6 +43,52 @@
 //      m = -1e30, l = 0) and sets the counter back to 0. The counters are
 //      allocated and zeroed once per device by the wrapper; one launch at a
 //      time may use them (one stream).
+// 1b. Few rows a KV head (`flash_fwd_kernel_split` with STREAM, path 2):
+//    (H/Hkv) x Sq x hd <= 512, as multi-head attention's decode (one row a
+//    KV head: Gemma, Whisper, CodeQwen1.5, Qwen1.5, Zamba2) and Llama's 4
+//    rows of 64. One row fills 1/16 of the m16 tile, but decode is bound by
+//    bytes, so the packing and the per-warp arithmetic stay as in 1.; what
+//    bound the decode design there (launch/bench_flash.py, PERF.md) was a
+//    split's tiles loaded one after another (the 2-stage ring issues the
+//    next tile only after the wait on the current one), one block an SM at
+//    heads of 256 (143 KB), and a planner aiming at 4 blocks an SM (Gemma's
+//    step ran in 2 waves, 8 splits of 2 tiles). The stream design:
+//    - K/V tiles by TMA from 3-D tensor maps (64-key boxes of 64 columns,
+//      128 B swizzle; fragments read at the swizzled addresses; the TMA
+//      zero-fills rows past Skv) onto one mbarrier a stage of a 3-stage
+//      ring; thread 0 issues the first 3 tiles before the first wait and
+//      each next one as soon as the block leaves the stage it reuses.
+//    - The planner asks the kernel how many blocks an SM holds
+//      (repro_flash_stream_blocks: the occupancy API on this shared memory;
+//      4 at heads of 64, 2 at 80 and 128, 1 at 256 on an H100) and gives
+//      the (batch row, KV head) groups as many splits as fill them in one
+//      wave, one 64-key tile each at least.
+//    - Only the valid rows' partials go to the workspace, and the last split
+//      merges them in one round trip: each thread owns a float4 of the
+//      group's rows and loads its splits' acc while the m and l of every
+//      (row, split) go to shared memory; a warp a row makes the weights.
+//    - Without a causal or window mask the loads do not wait for q_offset.
+//    Tried and dropped: TMA bulk copies of one key row a thread into padded
+//    rows (each copy issued at ~28 cycles: 2x slower than cp.async at heads
+//    of 64); the splits of a group as one thread block cluster merging
+//    through distributed shared memory, with no workspace, counter or fence
+//    (3% faster for Whisper, but clusters of 4 blocks of 206 KB do not all
+//    fit the GPCs at once: Gemma's one wave became two, 1.7x slower);
+//    prefetching the tensor maps (no change); this TMA ring on the decode
+//    path too, at 2 stages with its plan unchanged, so that both paths
+//    load alike: the GQA rows got 1-9% slower in a paired run (parent,
+//    change, change, parent; launch/bench_flash.py, H100 80GB HBM3 at
+//    700 W): the serving decode 0.0098 -> 0.0104 ms, the long decode
+//    0.1346 -> 0.1407, Qwen2-VL's 0.0102 -> 0.0111, Qwen2's 0.0093 ->
+//    0.0095. So the decode path keeps its cp.async ring and the two rings
+//    stay, chosen by rows x hd in the planner. Not built: 32-key tiles at
+//    heads of 256 for two blocks an SM. One block with its 3 stages keeps
+//    192 KB of K/V in flight an SM, ~25 MB over the card, far above what
+//    HBM's rate times its latency asks (~3.4 MB at ~1 us), and Gemma's
+//    step is 128 blocks, under one wave; a 32-key tile would also leave
+//    two of the block's four 16-key warps without keys. What Gemma's row
+//    still loses to its byte bound is the chain a split ends with (the
+//    counter's fence and atomic, the last split's merge loads).
 // 2. Prefill / long query (`flash_fwd_kernel_wgmma`): bound by the tensor
 //    cores at training lengths (4096 causal: ~206 GFLOP for ~60 MB).
 //    - One block per (128 query rows, head, batch row), heads not packed;
@@ -83,7 +129,14 @@
 // decode against 8192 slots 0.021 ms (SDPA 0.018), a 512-query ring prefill
 // chunk 0.118 ms (SDPA 0.147). The prefill path stages a tile's positions
 // in shared memory: read per mask test they took 0.528 ms, and held in
-// registers (32 a thread) they spilled (0.201 ms).
+// registers (32 a thread) they spilled (0.201 ms). The stream path against
+// the decode path's plan before it, same call: Gemma's decode (2 rows, 16
+// heads of 256, 1024 keys) 0.0391 -> 0.0164 ms (SDPA 0.0176), Whisper's
+// cross-attention decode (12 heads of 64, 1500 frames) 0.0089 -> 0.0081
+// (SDPA 0.0070: a 1-tile split's launch, load, fence, counter and merge
+// round trips), CodeQwen1.5's (4 rows, 32 heads of 128) 0.0383 -> 0.0311
+// (SDPA 0.0263), Zamba2's 0.0151 -> 0.0131, the ring decode 0.0198 ->
+// 0.0189 (SDPA 0.0176); the GQA rows on the decode path within 2%.
 //
 // Heads of 256 (Gemma): the prefill path takes 64-key tiles (WgCfg::BN; a
 // 128-key K or V tile is 64 KB, so only one stage would fit beside the
@@ -204,6 +257,8 @@ constexpr int S_ROWS = 16;                   // packed rows per tile: one m16 ti
 constexpr int S_BKV = 64;                    // keys per KV tile: 16 per warp
 constexpr int S_STAGES = 2;                  // cp.async ring depth (3 blocks per SM at hd 128)
 constexpr int S_THREADS = 128;
+constexpr int T_STAGES = 3;                  // TMA ring depth of the few-rows (STREAM) instantiations
+constexpr int T_MAX_ELEMS = 512;             // STREAM: rows x HD of a group, one float4 a thread in the merge
 
 template <int HD>
 struct SplitCfg {
@@ -216,6 +271,17 @@ struct SplitCfg {
   static constexpr int SMEM = Q_BYTES + RING;
   static constexpr int PART = S_ROWS * (HD + 2);             // floats of one split's partial
   static_assert(MERGE <= RING, "merge area must fit the ring");
+  // STREAM: K and V tiles as the TMA boxes land them, 64-column atoms of
+  // 64 rows x 128 B, 128 B swizzle (heads of 80 in two atoms, columns 80..127
+  // zero), 1024-aligned: 1024 B of slack, T_STAGES (K, V) tiles, Q as above,
+  // one mbarrier a stage. Blocks an SM holds (228 KB, 1 KB reserved a
+  // block, 128 B of static shared memory): 4 at heads of 64, 2 at 80 and
+  // 128, 1 at 256 (on an H100); repro_flash_stream_blocks reports it.
+  static constexpr int ATOMS = (HD == 80 ? 128 : HD) / 64;
+  static constexpr int T_TILE = ATOMS * S_BKV * 128;
+  static constexpr int T_RING = T_STAGES * 2 * T_TILE;
+  static constexpr int T_SMEM = 1024 + T_RING + Q_BYTES + 8 * T_STAGES;
+  static_assert(T_SMEM <= SMEM_LIMIT && MERGE <= T_RING, "the TMA ring must fit shared memory");
 };
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
@@ -228,6 +294,22 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One (64 columns, rows, 1) box of a 3-D (hd, S, B x heads) tensor map.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Byte offset of (row, col) (col a multiple of 8) in a tile of S_BKV-row,
+// 64-column atoms with 128 B swizzle: the 16-byte chunk XOR row % 8.
+__device__ __forceinline__ uint32_t sw128_off(int row, int col) {
+  return (col / 64) * (S_BKV * 128) + row * 128 + ((((col % 64) / 8) ^ (row & 7)) * 16);
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -329,7 +411,14 @@ __device__ __forceinline__ void store_row(const float (&a)[N], float m, float l,
   }
 }
 
-template <int HD, bool POS, bool QPOS>
+// STREAM (the few-rows instantiations, path 2): the K/V tiles arrive by
+// TMA from tensor maps (k_map, v_map; unused otherwise), one box a 64-column
+// atom, onto one mbarrier a stage of a T_STAGES ring (the first T_STAGES
+// tiles issued before the first wait) and are read at their swizzled
+// addresses; only the valid rows' partials are published, and the last
+// split merges them in one round trip, every thread on one float4 of the
+// group's rows.
+template <int HD, bool POS, bool QPOS, bool STREAM>
 __global__ void __launch_bounds__(S_THREADS)
 flash_fwd_kernel_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_offset,
@@ -339,19 +428,26 @@ flash_fwd_kernel_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
                        float* __restrict__ l_out, float* __restrict__ ws,
                        int* __restrict__ counters, int H, int Hkv,
                        int Sq, int Skv, int kv_offset, int causal, int window, float scale,
-                       int splits) {
+                       int splits, const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map) {
   using C = SplitCfg<HD>;
   constexpr int CH = HD / 8;                 // 16-byte chunks per row
+  constexpr int STAGES = STREAM ? T_STAGES : S_STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  unsigned char* ring = smem + C::Q_BYTES;
+  // STREAM: the ring first, at a 1024-byte boundary (the swizzle's period).
+  unsigned char* const base =
+      STREAM ? smem + (((smem_u32(smem) + 1023u) & ~1023u) - smem_u32(smem)) : smem;
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(STREAM ? base + C::T_RING : smem);
+  unsigned char* ring = STREAM ? base : smem + C::Q_BYTES;
 
   const int rt = blockIdx.x / splits, s = blockIdx.x % splits;
   const int hk = blockIdx.y, b = blockIdx.z;
   const int rep = H / Hkv, R = rep * Sq;
   const int n_rt = (R + S_ROWS - 1) / S_ROWS;
   const int r0 = rt * S_ROWS;
-  const int q_off = QPOS ? 0 : q_offset[b];
+  // STREAM: without a causal or window mask no position is read, so the
+  // tile loads need not wait for q_offset.
+  const int q_off = QPOS || (STREAM && !causal && !window) ? 0 : q_offset[b];
   const int* const qp = QPOS ? q_pos_in + static_cast<size_t>(b) * Sq : nullptr;
   const KeyPos<POS> kp{POS ? kv_pos + static_cast<size_t>(b) * Skv : nullptr, kv_offset};
   const SplitPlan plan(q_off + r0 / rep, q_off + min(R - 1, r0 + S_ROWS - 1) / rep, Skv, kp,
@@ -387,11 +483,35 @@ flash_fwd_kernel_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     }
   };
 
-  // Start the ring, then stage the packed Q rows (zero past R).
+  // STREAM: thread 0 loads tile t's K and V boxes into `stage`; the TMA
+  // fills rows past Skv (and heads of 80's columns past 80) with zeros.
+  const uint32_t bars = smem_u32(Qs) + C::Q_BYTES;
+  auto issue_tile = [&](int t, int stage) {
+    const uint32_t bar = bars + 8 * stage, dst = smem_u32(ring) + stage * 2 * C::T_TILE;
+    mbar_expect_tx(bar, 2 * C::T_TILE);
 #pragma unroll
-  for (int p = 0; p < S_STAGES - 1; ++p) {
-    if (p < n_tiles) load_tile(ts + p, p);
-    cp_async_commit();
+    for (int j = 0; j < C::ATOMS; ++j) {
+      tma_load_3d(dst + j * S_BKV * 128, &k_map, bar, j * 64, t * S_BKV, b * Hkv + hk);
+      tma_load_3d(dst + C::T_TILE + j * S_BKV * 128, &v_map, bar, j * 64, t * S_BKV, b * Hkv + hk);
+    }
+  };
+
+  // Start the ring, then stage the packed Q rows (zero past R). STREAM:
+  // thread 0 starts the ring before the block's barrier that makes the
+  // mbarriers' initialisation visible to the other threads.
+  if constexpr (STREAM) {
+    if (tid == 0) {
+      for (int i = 0; i < T_STAGES; ++i) mbar_init(bars + 8 * i, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int p = 0; p < T_STAGES && p < n_tiles; ++p) issue_tile(ts + p, p);
+    }
+    __syncthreads();
+  } else {
+#pragma unroll
+    for (int p = 0; p < S_STAGES - 1; ++p) {
+      if (p < n_tiles) load_tile(ts + p, p);
+      cp_async_commit();
+    }
   }
   for (int idx = tid; idx < S_ROWS * CH; idx += S_THREADS) {
     const int r = idx / CH, ch = idx % CH;
@@ -429,22 +549,41 @@ flash_fwd_kernel_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   for (int j = 0; j < HD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    cp_async_wait<S_STAGES - 2>();
-    __syncthreads();                         // tile it landed; tile it-1's stage is free
-    if (it + S_STAGES - 1 < n_tiles) load_tile(ts + it + S_STAGES - 1, (it + S_STAGES - 1) % S_STAGES);
-    cp_async_commit();
+    if constexpr (STREAM) {
+      mbar_wait(bars + 8 * (it % T_STAGES), (it / T_STAGES) & 1);
+      __syncthreads();                       // tile it landed; tile it-1's stage is free
+      if (tid == 0 && it > 0 && it + T_STAGES - 1 < n_tiles)
+        issue_tile(ts + it + T_STAGES - 1, (it - 1) % T_STAGES);
+    } else {
+      cp_async_wait<S_STAGES - 2>();
+      __syncthreads();                       // tile it landed; tile it-1's stage is free
+      if (it + S_STAGES - 1 < n_tiles) load_tile(ts + it + S_STAGES - 1, (it + S_STAGES - 1) % S_STAGES);
+      cp_async_commit();
+    }
 
     const int key0 = (ts + it) * S_BKV + warp * 16;   // this warp's 16 keys
     if (key0 >= plan.hi || key0 + 16 <= plan.lo) continue;   // hidden from every row
-    const unsigned char* st = ring + (it % S_STAGES) * 2 * C::TILE;
-    const uint32_t ks = smem_u32(st) + warp * 16 * C::LD * 2;
+    // Fragment addresses: this warp's rows warp * 16 + r of the stage's
+    // K or V tile, padded rows, or (STREAM) swizzled atoms.
+    const uint32_t kst = smem_u32(ring) + (it % STAGES) * 2 * (STREAM ? C::T_TILE : C::TILE);
+    const uint32_t ks = kst + warp * 16 * C::LD * 2;
     const uint32_t vs = ks + C::TILE;
+    auto k_at = [&](int kk) -> uint32_t {
+      const int r = (lane / 16) * 8 + lane % 8, col = kk * 16 + ((lane / 8) & 1) * 8;
+      if constexpr (STREAM) return kst + sw128_off(warp * 16 + r, col);
+      else return ks + (r * C::LD + col) * 2;
+    };
+    auto v_at = [&](int n) -> uint32_t {
+      const int r = ((lane / 8) & 1) * 8 + lane % 8, col = n * 16 + (lane / 16) * 8;
+      if constexpr (STREAM) return kst + C::T_TILE + sw128_off(warp * 16 + r, col);
+      else return vs + (r * C::LD + col) * 2;
+    };
 
     float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       uint32_t kf[4];
-      ldsm_x4(kf, ks + (((lane / 16) * 8 + lane % 8) * C::LD + kk * 16 + ((lane / 8) & 1) * 8) * 2);
+      ldsm_x4(kf, k_at(kk));
       if constexpr (Q_REGS) {
         mma16816(sc[0], qf[kk], kf[0], kf[1]);
         mma16816(sc[1], qf[kk], kf[2], kf[3]);
@@ -495,12 +634,12 @@ flash_fwd_kernel_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 #pragma unroll
     for (int n = 0; n < HD / 16; ++n) {
       uint32_t vf[4];
-      ldsm_x4_t(vf, vs + ((((lane / 8) & 1) * 8 + lane % 8) * C::LD + n * 16 + (lane / 16) * 8) * 2);
+      ldsm_x4_t(vf, v_at(n));
       mma16816(acc[2 * n], pa, vf[0], vf[1]);
       mma16816(acc[2 * n + 1], pa, vf[2], vf[3]);
     }
   }
-  cp_async_wait<0>();
+  if constexpr (!STREAM) cp_async_wait<0>();           // STREAM: every tile was waited on
   __syncthreads();                           // the ring is free for the merge
 
   // Merge the 4 warps' partials through shared memory.
@@ -547,14 +686,94 @@ flash_fwd_kernel_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     return;
   }
 
+  // STREAM: the merge of the P split partials in the workspace (PART
+  // layout: m [S_ROWS], l [S_ROWS], acc [S_ROWS][HD]) of the group's nv rows
+  // (R x HD <= T_MAX_ELEMS: one row tile) in one round trip: G thread groups
+  // of one float4 a thread each load every G-th split's acc (up to T_PRE
+  // of them ahead) while (1) every (row, split) pair's m and l go to shared
+  // memory; (2) each row's m, l and its splits' weights, a warp a row over
+  // the splits; (3) each thread's weighted sum; (4) the groups' sums added
+  // and stored.
+  auto merge = [&](const float* parts, int P) {
+    constexpr int CPR = HD / 4;              // float4s a row
+    constexpr int T_PRE = 4;
+    const int nv = R - r0, chunks = nv * CPR, G = S_THREADS / chunks;
+    float* Ms = reinterpret_cast<float*>(ring);              // [nv][P]: m, then its weight
+    float* Ls = Ms + nv * P;                                 // [nv][P]
+    float* Rm = Ls + nv * P;                                 // [nv]: the merged m, then l
+    float* Rl = Rm + nv;
+    float4* Red = reinterpret_cast<float4*>(ring + (((2 * nv * P + 2 * nv) * 4 + 15) & ~15));
+    const bool mine = tid < G * chunks;
+    const int q4 = tid % chunks, p0 = tid / chunks;         // this thread's float4, first split
+    const float* src = parts + 2 * S_ROWS + (q4 / CPR) * HD + (q4 % CPR) * 4;
+    float4 pre[T_PRE];
+#pragma unroll
+    for (int j = 0; j < T_PRE; ++j)
+      pre[j] = mine && p0 + j * G < P
+                   ? __ldcg(reinterpret_cast<const float4*>(src + (p0 + j * G) * C::PART))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = tid; i < nv * P; i += S_THREADS) {
+      Ms[i] = __ldcg(parts + (i % P) * C::PART + i / P);
+      Ls[i] = __ldcg(parts + (i % P) * C::PART + S_ROWS + i / P);
+    }
+    __syncthreads();
+    for (int rw = warp; rw < nv; rw += S_THREADS / 32) {
+      float mx = NEG_INF, sum = 0.f;
+      for (int p = lane; p < P; p += 32) mx = fmaxf(mx, Ms[rw * P + p]);
+#pragma unroll
+      for (int o = 16; o > 0; o /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      for (int p = lane; p < P; p += 32) {
+        const float f = exp2f((Ms[rw * P + p] - mx) * LOG2E);
+        Ms[rw * P + p] = f;
+        sum += f * Ls[rw * P + p];
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane == 0) {
+        Rm[rw] = mx;
+        Rl[rw] = sum;
+      }
+    }
+    __syncthreads();
+    if (mine) {
+      const float* f = Ms + (q4 / CPR) * P;
+      float4 s4 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < T_PRE; ++j) {
+        const float w = p0 + j * G < P ? f[p0 + j * G] : 0.f;
+        s4.x += w * pre[j].x; s4.y += w * pre[j].y; s4.z += w * pre[j].z; s4.w += w * pre[j].w;
+      }
+#pragma unroll 4
+      for (int p = p0 + T_PRE * G; p < P; p += G) {
+        const float4 x = __ldcg(reinterpret_cast<const float4*>(src + p * C::PART));
+        const float w = f[p];
+        s4.x += w * x.x; s4.y += w * x.y; s4.z += w * x.z; s4.w += w * x.w;
+      }
+      Red[tid] = s4;
+    }
+    __syncthreads();
+    if (tid < chunks) {
+      float4 s4 = Red[tid];
+      for (int g = 1; g < G; ++g) {
+        const float4 x = Red[g * chunks + tid];
+        s4.x += x.x; s4.y += x.y; s4.z += x.z; s4.w += x.w;
+      }
+      const int rw = tid / CPR, c4 = (tid % CPR) * 4;
+      const float a4[4] = {s4.x, s4.y, s4.z, s4.w};
+      store_row<4>(a4, Rm[rw], Rl[rw], c4 == 0, out_row(rw), c4, HD, out, acc_out, m_out, l_out);
+    }
+  };
+
   // Several splits: publish this split's partial, count in; the last merges.
   const int grp = (b * Hkv + hk) * n_rt + rt;
   float* part = ws + (static_cast<size_t>(grp) * splits + s) * C::PART;
-  if (lead) {
-    part[row] = m;
-    part[S_ROWS + row] = l;
+  if (!STREAM || row_valid) {
+    if (lead) {
+      part[row] = m;
+      part[S_ROWS + row] = l;
+    }
+    store_f32<SEG>(part + 2 * S_ROWS + row * HD + col, a);
   }
-  store_f32<SEG>(part + 2 * S_ROWS + row * HD + col, a);
   __threadfence();
   __syncthreads();
   __shared__ int is_last;
@@ -564,6 +783,11 @@ flash_fwd_kernel_split(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   __threadfence();
 
   const float* parts = ws + static_cast<size_t>(grp) * splits * C::PART;
+  if constexpr (STREAM) {
+    merge(parts, plan.n_active);
+    if (tid == 0) counters[grp] = 0;         // ready for the next launch
+    return;
+  }
   m = NEG_INF;
   for (int p = 0; p < plan.n_active; ++p) m = fmaxf(m, __ldcg(parts + p * C::PART + row));
   l = 0.f;
@@ -610,16 +834,6 @@ struct WgCfg {
   static constexpr int POS_BYTES = 2 * BN * 4;
   static_assert(STAGES >= 2 && SMEM + POS_BYTES <= SMEM_LIMIT, "tiles do not fit shared memory");
 };
-
-// One (64 columns, rows, 1) box of a 3-D (hd, S, B x heads) tensor map.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
 
 // hopper.cuh's fence_regs for the registers an asynchronous wgmma reads
 // (its A operand): keeps them live, unchanged, until after the wait.
@@ -1140,19 +1354,30 @@ struct FlashArgs {
 
 namespace {
 
-template <int HD, bool POS, bool QPOS>
+template <int HD, bool POS, bool QPOS, bool STREAM>
 int launch_split(const FlashArgs& a) {
   static bool done[MAX_DEVICES];
-  const cudaError_t err =
-      set_smem_once(flash_fwd_kernel_split<HD, POS, QPOS>, SplitCfg<HD>::SMEM, done);
+  constexpr int smem = STREAM ? SplitCfg<HD>::T_SMEM : SplitCfg<HD>::SMEM;
+  const cudaError_t err = set_smem_once(flash_fwd_kernel_split<HD, POS, QPOS, STREAM>, smem, done);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = (a.H / a.Hkv) * a.Sq;
   const int n_rt = (rows + S_ROWS - 1) / S_ROWS;
+  // STREAM: one row tile whose rows take one float4 a thread in the merge,
+  // and the merge's m, l and weights of every (row, split) and its thread
+  // groups' sums fit the ring (the wrapper raises a ValueError).
+  if (STREAM && (rows * HD > T_MAX_ELEMS ||
+                 (2 * rows * a.splits + 2 * rows) * 4 + 16 + S_THREADS * 16 > SplitCfg<HD>::T_RING))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap k_map{}, v_map{};                // STREAM only: 64-key boxes of K and V
+  if (STREAM && (!encode_3d(&k_map, a.k, HD, a.Skv, a.B * a.Hkv, S_BKV) ||
+                 !encode_3d(&v_map, a.v, HD, a.Skv, a.B * a.Hkv, S_BKV)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(n_rt * a.splits, a.Hkv, a.B);
-  flash_fwd_kernel_split<HD, POS, QPOS><<<grid, S_THREADS, SplitCfg<HD>::SMEM, a.stream>>>(
+  flash_fwd_kernel_split<HD, POS, QPOS, STREAM><<<grid, S_THREADS, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), a.q_offset, a.q_pos, a.kv_pos, a.out, a.acc, a.m,
-      a.l, a.ws, a.counters, a.H, a.Hkv, a.Sq, a.Skv, a.kv_offset, a.causal, a.window, a.scale, a.splits);
+      a.l, a.ws, a.counters, a.H, a.Hkv, a.Sq, a.Skv, a.kv_offset, a.causal, a.window, a.scale, a.splits,
+      k_map, v_map);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1174,12 +1399,28 @@ int launch_wgmma(const FlashArgs& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool POS, bool QPOS, bool STREAM>
+int launch_split_hd(const FlashArgs& a, int hd) {
+  return hd == 256 ? launch_split<256, POS, QPOS, STREAM>(a)
+         : hd == 128 ? launch_split<128, POS, QPOS, STREAM>(a)
+         : hd == 80 ? launch_split<80, POS, QPOS, STREAM>(a) : launch_split<64, POS, QPOS, STREAM>(a);
+}
+
+// Blocks of a STREAM instantiation an SM holds, by the occupancy API.
+template <int HD>
+int stream_blocks(int* blocks) {
+  static bool done[MAX_DEVICES];
+  const auto kernel = flash_fwd_kernel_split<HD, false, false, true>;
+  const cudaError_t err = set_smem_once(kernel, SplitCfg<HD>::T_SMEM, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, S_THREADS, SplitCfg<HD>::T_SMEM));
+}
+
 template <bool POS, bool QPOS>
 int launch(const FlashArgs& a, int path, int hd) {
-  if (path == 0)
-    return hd == 256 ? launch_split<256, POS, QPOS>(a)
-           : hd == 128 ? launch_split<128, POS, QPOS>(a)
-           : hd == 80 ? launch_split<80, POS, QPOS>(a) : launch_split<64, POS, QPOS>(a);
+  if (path == 0) return launch_split_hd<POS, QPOS, false>(a, hd);
+  if (path == 2) return launch_split_hd<POS, QPOS, true>(a, hd);
   return hd == 256 ? launch_wgmma<256, POS, QPOS>(a)
          : hd == 128 ? launch_wgmma<128, POS, QPOS>(a)
          : hd == 80 ? launch_wgmma<80, POS, QPOS>(a) : launch_wgmma<64, POS, QPOS>(a);
@@ -1201,7 +1442,8 @@ extern "C" int repro_flash_fwd_bf16_qpos(const FlashArgs* a, int path, int hd,
 #else
 // path 0: the decode (split) path over `splits` KV splits; with splits > 1
 // `ws` holds their partials and `counters` one zeroed int per (batch row,
-// KV head, 16-row tile). path 1: the prefill (wgmma) path. out != nullptr:
+// KV head, 16-row tile). path 2: the same over the TMA ring (STREAM), for
+// (H / Hkv) x Sq x hd <= 512. path 1: the prefill (wgmma) path. out != nullptr:
 // normalized bf16 output; otherwise acc/m/l receive the fp32 partial
 // triple. q_pos: nullptr (query i of row b at q_offset[b] + i) or (B, Sq)
 // int32 query positions (q_offset is then not read and may be nullptr).
@@ -1221,9 +1463,9 @@ extern "C" int repro_flash_fwd_bf16(const void* q, const void* k, const void* v,
   if (out == nullptr && (acc == nullptr || m == nullptr || l == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (q_offset == nullptr && q_pos == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if ((path != 0 && path != 1) || (path == 1 && (Sq + W_BM - 1) / W_BM > 65535))
+  if (path < 0 || path > 2 || (path == 1 && (Sq + W_BM - 1) / W_BM > 65535))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (path == 0 && (splits < 1 || (splits > 1 && (ws == nullptr || counters == nullptr))))
+  if (path != 1 && (splits < 1 || (splits > 1 && (ws == nullptr || counters == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   const FlashArgs a{q, k, v, static_cast<const int*>(q_offset), static_cast<const int*>(q_pos),
                     static_cast<const int*>(kv_pos), static_cast<__nv_bfloat16*>(out),
@@ -1233,5 +1475,19 @@ extern "C" int repro_flash_fwd_bf16(const void* q, const void* k, const void* v,
                     static_cast<cudaStream_t>(stream)};
   if (q_pos != nullptr) return repro_flash_fwd_bf16_qpos(&a, path, hd, kv_pos != nullptr);
   return kv_pos != nullptr ? launch<true, false>(a, path, hd) : launch<false, false>(a, path, hd);
+}
+
+// The number of blocks of the path-2 (STREAM) kernel at head size hd that
+// one SM of the current device holds, into *blocks: the planner's
+// (kernels/flash/flash.py::plan) count of the blocks that fill one wave.
+extern "C" int repro_flash_stream_blocks(int hd, int* blocks) {
+  if (blocks == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 64: return stream_blocks<64>(blocks);
+    case 80: return stream_blocks<80>(blocks);
+    case 128: return stream_blocks<128>(blocks);
+    case 256: return stream_blocks<256>(blocks);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 #endif

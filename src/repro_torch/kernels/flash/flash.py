@@ -16,14 +16,18 @@ neither: the call returns empty outputs of the right shapes and reports its
 work (:func:`flash_work`) to the active ``roofline.trace_cost.Recorder``,
 as every call does while one is.
 
-One launch per call, on one of two device paths that ``plan`` picks from
-the shapes: the **decode** path packs the ``H / Hkv`` query heads that
+One launch per call, on one of three device paths that ``plan`` picks
+from the shapes: the **decode** path packs the ``H / Hkv`` query heads that
 share a KV head (times ``Sq``) as the rows of 16-row tiles and splits the
 keys across blocks (``split_ranges``: which keys each split covers); the
-**prefill** path runs 128-row query tiles per head on wgmma.
+**stream** path is the decode path for groups of few rows (multi-head
+attention's one row a KV head), its key tiles streamed through a deeper
+ring and its splits sized to the blocks an SM holds; the **prefill**
+path runs 128-row query tiles per head on wgmma.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import List, Optional, Tuple
 
@@ -35,12 +39,16 @@ from repro_torch.kernels.flash.ref import flash_ref
 from repro_torch.roofline import trace_cost
 
 HEAD_DIMS = (64, 80, 128, 256)   # head sizes the kernel is instantiated for
-PATHS = ("decode", "prefill")
+PATHS = ("decode", "prefill", "stream")   # in the C entry's order
 DECODE_MAX_ROWS = 64    # (H / Hkv) * Sq at or below this take the decode path
 ROW_TILE = 16           # packed rows per decode block (one mma.sync m16 tile)
 KV_TILE = 64            # keys per decode KV tile; splits cut the keys in whole tiles
 BLOCKS_PER_SM = 4       # the decode path aims at this many blocks per SM
 MIN_SPLIT_TILES = 2     # and gives each split at least this many KV tiles
+# The stream path (flash.cu's STREAM instantiations) takes the groups whose
+# rows x hd is at most this: one float4 a thread of its merge.
+STREAM_MAX_ELEMS = 512
+CUDA_ERROR_INVALID_VALUE = 1   # the C entry's refusal of shapes or a plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -48,30 +56,65 @@ def _n_sms(index: Optional[int]) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def plan(B: int, H: int, Hkv: int, Sq: int, Skv: int, n_sms: int, *,
-         path: Optional[str] = None, splits: Optional[int] = None) -> Tuple[str, int]:
+@functools.lru_cache(maxsize=None)
+def _stream_blocks(index: Optional[int], hd: int) -> int:
+    """Blocks of the stream kernel at head size ``hd`` that one SM of the
+    device holds (flash.cu's ``repro_flash_stream_blocks``: the occupancy
+    API on the kernel's own shared memory)."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        check(load_library().repro_flash_stream_blocks(hd, ctypes.byref(n)), "flash stream blocks")
+    return n.value
+
+
+def device_plan(B: int, H: int, Hkv: int, Sq: int, Skv: int, hd: int, device: torch.device, *,
+                path: Optional[str] = None, splits: Optional[int] = None) -> Tuple[str, int]:
+    """``plan`` for a launch on the CUDA ``device``: its SM count and the
+    stream blocks its SMs hold at ``hd``."""
+    return plan(B, H, Hkv, Sq, Skv, hd, _n_sms(device.index), _stream_blocks(device.index, hd),
+                path=path, splits=splits)
+
+
+def plan(B: int, H: int, Hkv: int, Sq: int, Skv: int, hd: int, n_sms: int, stream_blocks: int,
+         *, path: Optional[str] = None, splits: Optional[int] = None) -> Tuple[str, int]:
     """The device path and the number of KV splits of one launch.
 
-    The decode path takes ``(H / Hkv) * Sq <= DECODE_MAX_ROWS`` packed rows
-    per KV head; it splits the keys into as many splits as give
-    ``BLOCKS_PER_SM`` blocks per SM over all (batch row, KV head, row tile)
-    groups, but no more than leave ``MIN_SPLIT_TILES`` 64-key tiles to each
-    (launch/bench_flash.py: 4 splits of 2 tiles beat 8 of 1 at the serving
-    step's 512 keys; 16-17 splits are best at 32768). The prefill path does
-    not split. ``path`` and ``splits`` force either (for measurement and
-    tests)."""
+    ``(H / Hkv) * Sq <= DECODE_MAX_ROWS`` packed rows per KV head take a
+    split path: the stream path when those rows times ``hd`` are at most
+    ``STREAM_MAX_ELEMS`` (one row a KV head at every head size, up to 8 at
+    64), else the decode path. The stream path splits the keys into as many
+    splits as fill the ``stream_blocks`` blocks each of the ``n_sms`` SMs
+    holds (4 at heads of 64, 2 at 80 and 128, 1 at 256 on an H100) over all
+    (batch row, KV head) groups in one wave, at least one 64-key tile a
+    split; each block streams its tiles through its ring. The decode path
+    splits them into as many as give ``BLOCKS_PER_SM`` blocks per SM over
+    all (batch row, KV head, row tile) groups, but no more than leave
+    ``MIN_SPLIT_TILES`` tiles to each (launch/bench_flash.py: 4 splits of 2
+    tiles beat 8 of 1 at the serving step's 512 keys; 16-17 splits are best
+    at 32768). The prefill path does not split. ``path`` and ``splits``
+    force either (for measurement and tests); the kernel refuses a forced
+    stream split count whose merge does not fit its shared memory (a
+    ``ValueError`` from the wrapper)."""
     rows = (H // Hkv) * Sq
-    path = path or ("decode" if rows <= DECODE_MAX_ROWS else "prefill")
+    if path is None:
+        path = "prefill" if rows > DECODE_MAX_ROWS else \
+            "stream" if rows * hd <= STREAM_MAX_ELEMS else "decode"
     if path not in PATHS:
         raise ValueError(f"flash: path must be one of {PATHS}, got {path!r}")
     if path == "prefill":
         if splits not in (None, 1):
             raise ValueError("flash: the prefill path does not split the keys")
         return path, 1
+    if path == "stream" and rows * hd > STREAM_MAX_ELEMS:
+        raise ValueError(f"flash: the stream path takes rows x hd <= {STREAM_MAX_ELEMS}, "
+                         f"got {rows} x {hd}")
     if splits is None:
         groups = B * Hkv * -(-rows // ROW_TILE)
-        splits = max(1, min(-(-Skv // (KV_TILE * MIN_SPLIT_TILES)),
-                            -(-BLOCKS_PER_SM * n_sms // groups)))
+        if path == "stream":
+            splits = max(1, min(-(-Skv // KV_TILE), stream_blocks * n_sms // groups))
+        else:
+            splits = max(1, min(-(-Skv // (KV_TILE * MIN_SPLIT_TILES)),
+                                -(-BLOCKS_PER_SM * n_sms // groups)))
     if splits < 1:
         raise ValueError(f"flash: splits must be >= 1, got {splits}")
     return path, splits
@@ -275,7 +318,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash: window must be >= 0, got {window}")
     B, H, Sq, hd = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
-    path, splits = plan(B, H, Hkv, Sq, Skv, _n_sms(q.device.index), path=path, splits=splits)
+    path, splits = device_plan(B, H, Hkv, Sq, Skv, hd, q.device, path=path, splits=splits)
     scale = sm_scale if sm_scale is not None else hd ** -0.5
     if return_partial:
         acc = torch.empty((B, H, Sq, hd), dtype=torch.float32, device=q.device)
@@ -300,6 +343,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *ptrs, ws_ptr, cnt_ptr, B, H, Hkv, Sq, Skv, hd, int(kv_offset),
             int(bool(causal)), int(window), float(scale), PATHS.index(path), splits,
             torch.cuda.current_stream(q.device).cuda_stream)
+    if rc == CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"flash: the kernel refused the {path} path x {splits} splits at "
+                         f"q {tuple(q.shape)}, k {tuple(k.shape)}")
     check(rc, "flash_attention")
     if rec is not None:
         _report(rec, q, k, v, q_offset, q_pos, kv_pos, kv_offset, causal, window,

@@ -251,6 +251,7 @@ def _train_world(rank, world, inputs, pos_inputs=None, pad_inputs=None):
 
 
 def _jax_case(case, jparams, batches):
+    from test_torch_train import placed_jax_state
     import jax
     from repro.configs.base import ParallelConfig as JPC, ParallelMappingSpec as JPM
     from repro.core.folding import build_folded_mesh
@@ -262,7 +263,7 @@ def _jax_case(case, jparams, batches):
                                **({"remat": "none"} if pp > 1 else {})))
     step = loop.make_train_step(_cfg("repro", case), fm, adamw.AdamWConfig(**OPT),
                                 donate=False)
-    p, o = jparams, adamw.init(jparams)
+    p, o = placed_jax_state(_cfg("repro", case), fm, adamw.AdamWConfig(**OPT), jparams)
     metrics = []
     for b in batches:
         p, o, m = step(p, o, b)

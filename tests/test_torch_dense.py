@@ -193,6 +193,7 @@ def _inputs(case):
 
 
 def _jax_case(case, jparams, batches):
+    from test_torch_train import placed_jax_state
     import jax
     from repro.configs.base import ParallelConfig as JPC, ParallelMappingSpec as JPM
     from repro.core.folding import build_folded_mesh
@@ -204,7 +205,7 @@ def _jax_case(case, jparams, batches):
                                fsdp=True, **({"remat": "none"} if pp > 1 else {})))
     step = loop.make_train_step(_case_cfg("repro", case), fm, adamw.AdamWConfig(**OPT),
                                 donate=False)
-    p, o = jparams, adamw.init(jparams)
+    p, o = placed_jax_state(_case_cfg("repro", case), fm, adamw.AdamWConfig(**OPT), jparams)
     metrics = []
     for b in batches:
         p, o, m = step(p, o, b)

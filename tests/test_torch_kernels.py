@@ -170,29 +170,60 @@ def test_partials_over_kv_halves_merge_to_full_attention():
     np.testing.assert_allclose(ref.numpy(), np.asarray(refj), atol=1e-5, rtol=1e-5)
 
 
+# Stream blocks an H100 SM holds by head size (flash.cu's
+# repro_flash_stream_blocks there: the occupancy API on SplitCfg's shared memory).
+H100_STREAM_BLOCKS = {64: 4, 80: 2, 128: 2, 256: 1}
+
+
 @pytest.mark.parametrize("shape,path,splits", [
-    ((4, 48, 8, 1, 512), "decode", 4),          # serving decode: 32 groups, 2 tiles a split
-    ((4, 48, 8, 1, 32768), "decode", 17),       # long decode: 17 x 32 blocks on 132 SMs
-    ((1, 48, 8, 200, 512), "prefill", 1),       # serving prefill chunk: 1200 packed rows
-    ((1, 48, 8, 4096, 4096), "prefill", 1),
-    ((2, 48, 8, 10, 512), "decode", 4),         # 60 packed rows: 4 row tiles
-    ((2, 48, 8, 11, 512), "prefill", 1),        # 66 packed rows
-    ((1, 4, 1, 1, 40), "decode", 1),            # one tile: one split
+    ((4, 48, 8, 1, 512, 128), "decode", 4),     # serving decode: 32 groups, 2 tiles a split
+    ((4, 48, 8, 1, 32768, 128), "decode", 17),  # long decode: 17 x 32 blocks on 132 SMs
+    ((1, 48, 8, 200, 512, 128), "prefill", 1),  # serving prefill chunk: 1200 packed rows
+    ((1, 48, 8, 4096, 4096, 128), "prefill", 1),
+    ((2, 48, 8, 10, 512, 128), "decode", 4),    # 60 packed rows: 4 row tiles
+    ((2, 48, 8, 11, 512, 128), "prefill", 1),   # 66 packed rows
+    ((1, 4, 1, 1, 40, 256), "decode", 1),       # one tile: one split
+    # One row a KV head (multi-head decode) streams: as many splits as fill
+    # the blocks an SM holds (1 at heads of 256, 2 at 128 and 80, 4 at 64)
+    # over the groups in one wave, at least one 64-key tile each.
+    ((2, 16, 16, 1, 1024, 256), "stream", 4),   # Gemma: 32 groups on 132 blocks
+    ((1, 12, 12, 1, 1500, 64), "stream", 24),   # Whisper's cross-attention: one tile a split
+    ((4, 32, 32, 1, 1024, 128), "stream", 2),   # CodeQwen1.5: 128 groups on 264 blocks
+    ((2, 32, 32, 1, 1024, 80), "stream", 4),    # Zamba2
+    ((16, 32, 32, 1, 4096, 64), "stream", 1),   # as many groups as blocks: no split
+    ((1, 4, 4, 1, 40, 64), "stream", 1),        # one tile: one split
+    ((2, 32, 8, 1, 8192, 64), "stream", 33),    # 4 rows of 64 (the ring decode): 256 <= 512
+    ((1, 8, 1, 1, 512, 64), "stream", 8),       # 8 rows of 64: the most that stream
+    ((1, 9, 1, 1, 512, 64), "decode", 4),       # 9 rows of 64
+    ((2, 8, 4, 1, 512, 256), "stream", 8),      # 2 rows of 256: the most that stream there
+    ((1, 3, 1, 1, 512, 256), "decode", 4),      # 3 rows of 256
 ])
 def test_flash_plan(shape, path, splits):
-    """The host's choice of device path and KV split count (132 SMs)."""
-    assert plan(*shape, n_sms=132) == (path, splits)
+    """The host's choice of device path and KV split count (an H100: 132
+    SMs and the stream blocks each holds)."""
+    assert plan(*shape, n_sms=132, stream_blocks=H100_STREAM_BLOCKS[shape[5]]) == (path, splits)
+
+
+@pytest.mark.parametrize("blocks,splits", [(1, 4), (2, 8), (3, 12), (8, 16)])
+def test_flash_plan_follows_stream_blocks(blocks, splits):
+    """Gemma's decode (32 groups, 16 tiles) splits to fill the stream blocks
+    the card's SMs hold, one tile a split at most."""
+    assert plan(2, 16, 16, 1, 1024, 256, 132, blocks) == ("stream", splits)
 
 
 def test_flash_plan_forced_and_rejected():
-    assert plan(4, 48, 8, 1, 512, 132, path="prefill") == ("prefill", 1)
-    assert plan(1, 48, 8, 200, 512, 132, path="decode", splits=3) == ("decode", 3)
+    assert plan(4, 48, 8, 1, 512, 128, 132, 2, path="prefill") == ("prefill", 1)
+    assert plan(1, 48, 8, 200, 512, 128, 132, 2, path="decode", splits=3) == ("decode", 3)
+    assert plan(2, 16, 16, 1, 1024, 256, 132, 1, path="decode") == ("decode", 8)
+    assert plan(2, 16, 16, 1, 1024, 256, 132, 1, splits=16) == ("stream", 16)
     with pytest.raises(ValueError, match="does not split"):
-        plan(1, 48, 8, 200, 512, 132, path="prefill", splits=2)
+        plan(1, 48, 8, 200, 512, 128, 132, 2, path="prefill", splits=2)
     with pytest.raises(ValueError, match="path"):
-        plan(1, 48, 8, 200, 512, 132, path="ring")
+        plan(1, 48, 8, 200, 512, 128, 132, 2, path="ring")
     with pytest.raises(ValueError, match="splits"):
-        plan(1, 48, 8, 1, 512, 132, splits=0)
+        plan(1, 48, 8, 1, 512, 128, 132, 2, splits=0)
+    with pytest.raises(ValueError, match="rows x hd"):
+        plan(4, 48, 8, 1, 512, 128, 132, 2, path="stream")
 
 
 @pytest.mark.parametrize("q_first,q_last,Skv,kw,ranges", [
@@ -205,6 +236,16 @@ def test_flash_plan_forced_and_rejected():
     (250, 253, 1024, dict(splits=8, window=100), [(151, 192), (192, 254)]),
     (10, 10, 256, dict(splits=2, window=5, kv_offset=200), [(0, 0)]),     # sees nothing: one empty split
     (0, 2, 100, dict(splits=2, causal=False), [(0, 64), (64, 100)]),
+    # One row a KV head (the stream path's plans): Gemma's decode row at
+    # 1023 and one at 300 against 1024 keys (heads of 256, 4 splits), and
+    # Whisper's cross-attention over 1500 frames (heads of 64, 24 splits of
+    # one tile, the last ragged).
+    (1023, 1023, 1024, dict(splits=4), [(0, 256), (256, 512), (512, 768), (768, 1024)]),
+    (300, 300, 1024, dict(splits=4), [(0, 128), (128, 256), (256, 301)]),
+    (0, 0, 1500, dict(splits=24, causal=False),
+     [(64 * t, min(1500, 64 * t + 64)) for t in range(24)]),
+    (1040, 1040, 8192, dict(splits=24, window=1024), [(17, 64)] +
+     [(64 * t, 64 * t + 64) for t in range(1, 16)] + [(1024, 1041)]),
 ])
 def test_flash_split_ranges(q_first, q_last, Skv, kw, ranges):
     """Which keys each KV split of a decode group covers: runs of whole
@@ -261,6 +302,10 @@ SPLIT_CASES = [
     (1, 4, 2, 3, 128, 64, [0], 0, False, 0, 2),               # not causal
     (2, 2, 1, 2, 256, 64, [1000, 20], 0, True, 30, 2),        # row 0 sees nothing
     (2, 32, 32, 1, 256, 80, [255, 100], 0, True, 0, 3),       # hd 80 (Zamba2's decode)
+    (2, 4, 4, 1, 256, 64, [255, 100], 0, True, 0, 4),         # one row a KV head, 1-tile splits
+    (1, 3, 3, 1, 128, 64, [0], 0, False, 0, 2),               # not causal (cross-attention)
+    (1, 2, 2, 1, 256, 256, [255], 0, True, 0, 4),             # hd 256 (Gemma's decode)
+    (2, 2, 2, 1, 256, 256, [255, 40], 0, True, 100, 2),       # hd 256, window
 ]
 
 

@@ -171,6 +171,14 @@ PATH_CASES = [
     (1, 12, 12, 1500, 1500, 64, [0], 0, False, 0, None, None),             # the encoder
     (1, 12, 12, 300, 1500, 64, [0], 0, False, 0, "prefill", None),         # cross-attention
     (2, 12, 12, 1, 1500, 64, [0, 0], 0, False, 0, "decode", None),
+    # the stream path: one row a KV head (and up to rows x hd = 512)
+    (1, 12, 12, 1, 1500, 64, [0], 0, False, 0, None, None),               # Whisper's cross decode
+    (4, 32, 32, 1, 1024, 128, [1023, 1000, 517, 64], 0, True, 0, None, None),  # CodeQwen1.5
+    (2, 6, 6, 1, 777, 128, [900, 700], 120, True, 0, "stream", 13),       # kv_offset; empty splits
+    (2, 32, 8, 1, 700, 64, [699, 10], 0, True, 256, None, None),           # 4 rows of 64, window
+    (1, 8, 1, 1, 333, 64, [332], 0, True, 0, "stream", 2),                 # 8 rows of 64
+    (2, 8, 4, 1, 333, 256, [332, 190], 0, True, 0, None, None),            # 2 rows of 256
+    (3, 8, 8, 2, 130, 80, [128, 3, 60], 0, True, 0, "stream", None),       # 2 queries a head
 ]
 PATH_IDS = ["-".join(str(x) for x in (c[10] or "auto", c[5], c[3], c[4], f"w{c[9]}", f"s{c[11]}"))
             for c in PATH_CASES]
@@ -195,6 +203,43 @@ def test_flash_paths_match_plain(cuda, B, H, Hkv, Sq, Skv, hd, offs, kv_off, cau
         assert _rel_err(a, b) <= REL_TOL
 
 
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 5, 6])
+def test_flash_stream_every_split_count(cuda, hd, splits):
+    """Multi-head decode (one row a KV head) on the stream path at every
+    head size, from one split to one 64-key tile a split, over 333 keys
+    (no multiple of the tile) with rows at their own positions; both
+    output modes, each called twice (the split counters back at 0)."""
+    rng = np.random.default_rng(12)
+    q = _bf16(rng, (3, 4, 1, hd))
+    k, v = (_bf16(rng, (3, 4, 333, hd)) for _ in range(2))
+    q_off = torch.tensor([332, 200, 63], dtype=torch.int32, device=cuda)
+    for partial in (False, True):
+        n0 = flash_attention.launches
+        for _ in range(2):
+            got = flash_attention(q, k, v, q_off, path="stream", splits=splits,
+                                  return_partial=partial)
+        assert flash_attention.launches == n0 + 2
+        ref = flash_ref(q, k, v, q_off, return_partial=partial)
+        for a, b in (zip(got, ref) if partial else [(got, ref)]):
+            assert _rel_err(a, b) <= REL_TOL
+
+
+def test_flash_stream_blocks_fill_a_wave(cuda):
+    """The stream blocks an SM holds, as the planner reads them from the
+    kernel (the occupancy API): at least one at every head size, and on an
+    H100 what its 228 KB of shared memory holds (test_torch_kernels.py's
+    H100_STREAM_BLOCKS, which the CPU plan tests take)."""
+    from repro_torch.kernels.flash.flash import HEAD_DIMS, _stream_blocks, device_plan
+    got = {hd: _stream_blocks(cuda.index, hd) for hd in HEAD_DIMS}
+    assert min(got.values()) >= 1, got
+    if "H100" in torch.cuda.get_device_name(cuda):
+        assert got == {64: 4, 80: 2, 128: 2, 256: 1}
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert device_plan(2, 16, 16, 1, 1024, 256, cuda) == \
+        ("stream", min(16, got[256] * n_sms // 32))
+
+
 # Ring caches, keys at given positions (kv_pos): (B, H, Hkv, Sq, L, hd,
 # newest query position a row, window, path, splits). L slots hold the
 # positions of a sliding-window ring (attention._cache_kv_positions): rows
@@ -208,6 +253,8 @@ RING_CASES = [
     (1, 4, 2, 130, 304, 256, [700], 256, "prefill", None),
     (2, 32, 32, 1, 1024, 80, [2000, 300], 1024, None, None),        # heads of 80
     (1, 4, 2, 130, 304, 80, [700], 256, "prefill", None),
+    (3, 8, 8, 1, 333, 128, [5, 400, 1000], 100, "stream", 3),      # one row a KV head
+    (2, 12, 12, 1, 700, 64, [699, 2000], 512, "stream", 11),       # one tile a split
 ]
 
 
@@ -236,12 +283,14 @@ def test_flash_key_positions_match_plain(cuda, B, H, Hkv, Sq, L, hd, last, windo
             assert _rel_err(a, b) <= REL_TOL
 
 
-@pytest.mark.parametrize("path", ["decode", "prefill"])
+@pytest.mark.parametrize("path", ["decode", "prefill", "stream"])
 def test_flash_paths_rows_that_see_nothing(cuda, path):
     """Rows whose window hides every key, on each path: output 0,
-    m = -1e30, l = 0; the other rows as the plain version."""
+    m = -1e30, l = 0; the other rows as the plain version. The stream path
+    at one head a KV head (3 rows of 128)."""
     rng = np.random.default_rng(7)
-    q, k = _bf16(rng, (2, 4, 3, 128)), _bf16(rng, (2, 2, 300, 128))
+    Hkv = 4 if path == "stream" else 2
+    q, k = _bf16(rng, (2, 4, 3, 128)), _bf16(rng, (2, Hkv, 300, 128))
     offs = torch.tensor([1000, 150], dtype=torch.int32, device=cuda)
     kw = dict(window=40, path=path, splits=None if path == "prefill" else 4)
     out = flash_attention(q, k, k, offs, **kw)
@@ -295,6 +344,10 @@ QPOS_CASES = [
     (2, 16, 16, 1, 1024, 256, "offsets", "ring", True, 1024, None, None),
     (2, 4, 4, 16, 16, 64, "packed", "self", True, 0, "decode", None),
     (2, 4, 4, 12, 12, 256, "shared", "self", False, 6, "decode", 2),
+    (2, 8, 8, 1, 333, 64, "offsets", "run", True, 100, "stream", 4),
+    (3, 8, 8, 1, 333, 80, "offsets", "ring", True, 200, "stream", 6),
+    (2, 8, 8, 2, 200, 128, "packed", "run", True, 0, "stream", 2),
+    (2, 16, 16, 1, 700, 256, "offsets", "run", False, 0, "stream", None),
 ]
 QPOS_IDS = ["-".join(str(x) for x in (c[10] or "auto", c[5], c[6], c[7], c[8], f"w{c[9]}"))
             for c in QPOS_CASES]
@@ -333,15 +386,16 @@ def test_flash_query_positions_match_plain(cuda, B, H, Hkv, Sq, Skv, hd, kind, k
         assert _rel_err(a, b) <= REL_TOL
 
 
-@pytest.mark.parametrize("path", ["decode", "prefill"])
+@pytest.mark.parametrize("path", ["decode", "prefill", "stream"])
 @pytest.mark.parametrize("hd", [64, 80, 128, 256])
 def test_flash_query_positions_rows_that_see_nothing(cuda, path, hd):
     """Query rows placed before every key (keys from kv_offset 100): output
     0, m = -1e30, l = 0 on each path, at every head size; the other rows as
-    the plain version."""
+    the plain version. The stream path at one head a KV head (2 rows)."""
     rng = np.random.default_rng(11)
-    Sq = 6 if path == "decode" else 150
-    q, k = _bf16(rng, (2, 4, Sq, hd)), _bf16(rng, (2, 2, 300, hd))
+    Sq = {"decode": 6, "prefill": 150, "stream": 2}[path]
+    Hkv = 4 if path == "stream" else 2
+    q, k = _bf16(rng, (2, 4, Sq, hd)), _bf16(rng, (2, Hkv, 300, hd))
     pos = np.tile(np.arange(Sq, dtype=np.int32) * 3 + 120, (2, 1))
     pos[0, ::2] = np.arange(0, Sq, 2) % 100            # row 0's even queries see no key
     q_pos = torch.from_numpy(pos).to(cuda)
@@ -365,18 +419,20 @@ def test_flash_query_positions_rows_that_see_nothing(cuda, path, hd):
 # "run" or "ring", window, path, splits). FLAG_OFF_DIGESTS holds the sha256
 # of each one's output bytes as the kernel gave them before q_pos was added
 # (that build, on an H100 80GB HBM3): the flag-off instantiations must stay
-# what they were, bit for bit. The inputs come from numpy.
+# what they were, bit for bit. The inputs come from numpy. The rows of one
+# or four heads a KV head (2, 3, 9), which the plan now sends to the stream
+# path, force the decode path at the split counts it planned for them then.
 FLAG_OFF = [
     (4, 48, 8, 1, 512, 128, [0, 37, 300, 511], "run", 0, None, None),
     (2, 32, 2, 3, 1000, 128, [997, 400], "run", 100, "decode", 7),
-    (2, 16, 16, 1, 1024, 256, [1023, 300], "run", 0, None, None),
-    (2, 32, 32, 1, 1024, 80, [1023, 300], "run", 0, None, None),
+    (2, 16, 16, 1, 1024, 256, [1023, 300], "run", 0, "decode", 8),
+    (2, 32, 32, 1, 1024, 80, [1023, 300], "run", 0, "decode", 8),
     (3, 12, 4, 2, 333, 64, [5, 100, 331], "run", 0, "decode", None),
     (1, 4, 2, 200, 333, 128, [133], "run", 0, None, None),
     (1, 4, 4, 300, 300, 256, [0], "run", 0, "prefill", None),
     (1, 32, 32, 512, 1024, 80, [512], "run", 0, None, None),
     (2, 8, 2, 300, 300, 64, [0, 0], "run", 0, "prefill", None),
-    (2, 32, 8, 1, 8192, 64, [12319, 1055], "ring", 8192, None, None),
+    (2, 32, 8, 1, 8192, 64, [12319, 1055], "ring", 8192, "decode", 33),
     (1, 32, 8, 512, 8192, 64, [12287], "ring", 8192, None, None),
     (1, 4, 2, 130, 304, 256, [700], "ring", 256, "prefill", None),
     (3, 12, 4, 2, 333, 128, [5, 400, 1000], "ring", 100, "decode", 3),
@@ -453,6 +509,13 @@ def test_kernels_reject_shapes_they_do_not_take(cuda):
         flash_attention(q, q, q, offs, path="prefill", splits=2)
     with pytest.raises(ValueError, match="path"):
         flash_attention(q, q, q, offs, path="ring")
+    q9 = torch.zeros((1, 2, 9, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="rows x hd"):
+        flash_attention(q9, q9, q9, offs, path="stream")
+    q8 = torch.zeros((1, 8, 1, 64), dtype=torch.bfloat16, device=cuda)
+    k1 = torch.zeros((1, 1, 65536, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="refused"):      # the merge's splits do not fit
+        flash_attention(q8, k1, k1, offs, path="stream", splits=1024)
     with pytest.raises(ValueError, match="kv_pos must be"):
         flash_attention(q, q, q, offs, kv_pos=torch.zeros((1, 3), dtype=torch.int32,
                                                           device=cuda))

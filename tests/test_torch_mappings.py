@@ -43,6 +43,7 @@ from repro_torch.launch.train import train_config
 from repro_torch.models import transformer
 from repro_torch.optim import adamw
 from repro_torch.train.loop import init_train_state, make_train_step
+from test_torch_train import placed_jax_state
 
 torch.set_num_threads(1)
 
@@ -233,7 +234,7 @@ def test_reduced_trajectory_at_full_fanout_matches_jax(arch, monkeypatch):
                                      guard=True)
     opt_cfg = adamw.AdamWConfig(**OPT)
     step = make_train_step(tcfg, opt_cfg, guard=True)
-    jp, jo = jparams, jax_adamw.init(jparams)
+    jp, jo = placed_jax_state(jcfg, fm, jax_adamw.AdamWConfig(**OPT), jparams)
     opt = init_train_state(params, opt_cfg)
     losses = []
     for i, b in enumerate(batches):

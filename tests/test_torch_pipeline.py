@@ -11,7 +11,7 @@ JAX package's, on the CPU.
   first stage, the final norm and head on the last), and
   ``zero1_state_bytes`` a stage against JAX's at a PP2 fold, where JAX
   replicates the embedding and head leaves over ``pp``.
-* One gloo world of 8 CPU processes trains every case with
+* A gloo world of 8 CPU processes a case trains it with
   ``make_train_step(..., groups=)`` on each rank's stage of JAX ``init_lm``
   weights, and again at pp = 1 on stage 0's ranks (the same inner fold,
   weights, batches and microbatches): reduced Mixtral-8x22B in fp32 at
@@ -34,6 +34,7 @@ JAX package's, on the CPU.
 JAX is imported inside the test functions only: the world's processes
 import this module to find their worker.
 """
+import concurrent.futures
 import dataclasses
 
 import numpy as np
@@ -340,6 +341,7 @@ def _inputs(case):
 def _jax_pipelined(case, jparams, batches):
     """JAX's own pipelined step (its SPMD executor) on 8 fake CPU devices,
     in its configs' ``permute_mode="scatter"``."""
+    from test_torch_train import placed_jax_state
     import jax
     from repro.configs.base import ParallelConfig as JPC, ParallelMappingSpec as JPM
     from repro.core.folding import build_folded_mesh
@@ -350,10 +352,9 @@ def _jax_pipelined(case, jparams, batches):
     # forward exactly), and half the compile time of the unrolled schedule.
     fm = build_folded_mesh(JPC(attn=JPM(*attn), moe=JPM(*moe), pp=pp, vpp=vpp, pods=pods,
                                pod_role="pp", microbatch=micro, remat="none"))
-    step = loop.make_train_step(_jax_cfg(case), fm, adamw.AdamWConfig(**OPT,
-                                                                       master_weights=master),
-                                donate=False)
-    p, o = jparams, adamw.init(jparams, master_weights=master)
+    opt_cfg = adamw.AdamWConfig(**OPT, master_weights=master)
+    step = loop.make_train_step(_jax_cfg(case), fm, opt_cfg, donate=False)
+    p, o = placed_jax_state(_jax_cfg(case), fm, opt_cfg, jparams)
     metrics = []
     for b in batches:
         p, o, m = step(p, o, b)
@@ -361,56 +362,56 @@ def _jax_pipelined(case, jparams, batches):
     return {"metrics": metrics, "params": jax.tree.map(np.asarray, p)}
 
 
-def test_pipelined_train_step_matches_pp1_and_jax(tmp_path):
+@pytest.mark.parametrize("case", list(CASES))
+def test_pipelined_train_step_matches_pp1_and_jax(case, tmp_path):
+    """One case a gloo world of 8 (so that xdist spreads the cases), JAX's
+    pipelined step in a thread meanwhile where the case is held to it."""
     from repro_torch.convert import tensors_from_jax
     from repro_torch.launch.world import spawn
-    inputs = {case: _inputs(case) for case in CASES}
-    # One after the other, not at once: JAX's 8 CPU devices and the world's
-    # 8 processes together oversubscribe a small host's cores, which other
-    # tests share under xdist.
-    ref = {case: _jax_pipelined(case, *inputs[case]) for case in AGAINST_JAX}
-    per_rank = spawn(_pp_world, 8, backend="gloo", device="cpu", args=(inputs,),
-                     timeout_s=600, init_dir=str(tmp_path))
+    inputs = _inputs(case)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        world = pool.submit(spawn, _pp_world, 8, backend="gloo", device="cpu",
+                            args=({case: inputs},), timeout_s=600, init_dir=str(tmp_path))
+        j = _jax_pipelined(case, *inputs) if case in AGAINST_JAX else None
+        per_rank = world.result()
 
-    for case in CASES:
-        cfg = _port_cfg(case)
-        pcfg = _pcfg(case)
-        n = pcfg.attn.size
-        steps = CASES[case][8]
-        for rank, res in enumerate(per_rank):
-            got = res[case]
-            fg = folding.folded_layout(pcfg, rank=rank, world=8)
-            stage = pl.stage_of(cfg, fg)
-            assert (got["stage"], got["inner"]) == (fg.pp_stage, rank % n)
-            # The rank holds its stage's leaves and nothing else.
-            assert set(got["params"]) == {n_ for n_ in got["params"] if stage.holds(n_)}
-            assert ("embed" in got["params"]) == stage.first
-            assert ("lm_head" in got["params"]) == stage.last
-            assert len(got["metrics"]) == steps
-            # Against the port's pp = 1 step on stage 0's rank of the same
-            # inner index: metrics, and every leaf this rank holds.
-            base = per_rank[rank % n][case]["pp1"]
-            for i, (mt, mb) in enumerate(zip(got["metrics"], base["metrics"])):
-                assert mt["step_ok"] == 1.0, (case, rank, i)
+    cfg = _port_cfg(case)
+    pcfg = _pcfg(case)
+    n = pcfg.attn.size
+    steps = CASES[case][8]
+    for rank, res in enumerate(per_rank):
+        got = res[case]
+        fg = folding.folded_layout(pcfg, rank=rank, world=8)
+        stage = pl.stage_of(cfg, fg)
+        assert (got["stage"], got["inner"]) == (fg.pp_stage, rank % n)
+        # The rank holds its stage's leaves and nothing else.
+        assert set(got["params"]) == {n_ for n_ in got["params"] if stage.holds(n_)}
+        assert ("embed" in got["params"]) == stage.first
+        assert ("lm_head" in got["params"]) == stage.last
+        assert len(got["metrics"]) == steps
+        # Against the port's pp = 1 step on stage 0's rank of the same
+        # inner index: metrics, and every leaf this rank holds.
+        base = per_rank[rank % n][case]["pp1"]
+        for i, (mt, mb) in enumerate(zip(got["metrics"], base["metrics"])):
+            assert mt["step_ok"] == 1.0, (case, rank, i)
+            for k in METRICS:
+                assert _rel(mt[k], mb[k]) <= REL_PP1, (case, rank, i, k, mt[k], mb[k])
+        for name, p in got["params"].items():
+            err = _rel_l2(p, base["params"][name])
+            assert err <= REL_PP1, (case, rank, name, err)
+        if case == GUARDED:
+            assert not got["skip_ok"] and got["skip_equal"], (case, rank)
+        if j is not None:
+            assert j["metrics"][0]["grad_norm"] > 1.0        # the clip is active
+            for i, (mt, mj) in enumerate(zip(got["metrics"], j["metrics"])):
                 for k in METRICS:
-                    assert _rel(mt[k], mb[k]) <= REL_PP1, (case, rank, i, k, mt[k], mb[k])
-            for name, p in got["params"].items():
-                err = _rel_l2(p, base["params"][name])
-                assert err <= REL_PP1, (case, rank, name, err)
-            if case == GUARDED:
-                assert not got["skip_ok"] and got["skip_equal"], (case, rank)
-            if case in AGAINST_JAX:
-                j = ref[case]
-                assert j["metrics"][0]["grad_norm"] > 1.0        # the clip is active
-                for i, (mt, mj) in enumerate(zip(got["metrics"], j["metrics"])):
-                    for k in METRICS:
-                        assert _rel(mt[k], mj[k]) <= REL_JAX, (case, rank, i, k, mt[k], mj[k])
-                    assert mt["moe_drop_fraction"] == mj["moe_drop_fraction"], (case, rank, i)
-                want = tensors_from_jax(j["params"], cfg, device="cpu", groups=fg)
-                assert want.keys() == got["params"].keys()
-                for name, t in want.items():
-                    err = _rel_l2(got["params"][name], t.numpy())
-                    assert err <= REL_JAX, (case, rank, name, err)
+                    assert _rel(mt[k], mj[k]) <= REL_JAX, (case, rank, i, k, mt[k], mj[k])
+                assert mt["moe_drop_fraction"] == mj["moe_drop_fraction"], (case, rank, i)
+            want = tensors_from_jax(j["params"], cfg, device="cpu", groups=fg)
+            assert want.keys() == got["params"].keys()
+            for name, t in want.items():
+                err = _rel_l2(got["params"][name], t.numpy())
+                assert err <= REL_JAX, (case, rank, name, err)
 
 
 # ---------------------------------------------------------------------------

@@ -45,6 +45,7 @@ from repro_torch.optim import adamw
 from repro_torch.serve import Engine, EngineConfig, Request
 from repro_torch.train.loop import (cast_params, init_train_state, leaf_rank, loss_fn,
                                     make_train_step)
+from test_torch_train import placed_jax_state
 
 torch.set_num_threads(1)
 
@@ -238,7 +239,7 @@ def test_trajectory_matches_jax(monkeypatch):
     params = params_from_jax(_np(jparams), tcfg, device="cpu")
     opt = init_train_state(params, opt_cfg)
     step = make_train_step(tcfg, opt_cfg)
-    jp, jo = jparams, jax_adamw.init(jparams)
+    jp, jo = placed_jax_state(jcfg, _fm(), jax_adamw.AdamWConfig(**OPT), jparams)
     losses = []
     for i, b in enumerate(batches):
         jp, jo, mj = jstep(jp, jo, b)

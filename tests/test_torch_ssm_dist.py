@@ -186,6 +186,7 @@ def _train_world(rank, world, inputs):
 
 def _jax_run(case, jparams, batches, fold: bool):
     """JAX's steps at the case's fold (``fold``) or at one rank."""
+    from test_torch_train import placed_jax_state
     import jax
     from repro.configs.base import ParallelConfig as JPC, ParallelMappingSpec as JPM
     from repro.core.folding import build_folded_mesh
@@ -195,7 +196,7 @@ def _jax_run(case, jparams, batches, fold: bool):
     fm = build_folded_mesh(JPC(attn=JPM(*attn), moe=JPM(*attn), fsdp=True))
     step = loop.make_train_step(_cfg("repro", case), fm, adamw.AdamWConfig(**OPT),
                                 donate=False)
-    p, o = jparams, adamw.init(jparams)
+    p, o = placed_jax_state(_cfg("repro", case), fm, adamw.AdamWConfig(**OPT), jparams)
     metrics = []
     for b in batches:
         p, o, m = step(p, o, b)

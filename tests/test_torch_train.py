@@ -75,6 +75,18 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+def placed_jax_state(cfg, fm, opt_cfg, jparams):
+    """JAX's parameters and fresh AdamW state put where its train step keeps
+    them (``loop.train_state_shardings``), so that the step's second call
+    reuses the first call's compile: from host arrays it compiles twice.
+    The values are the same; the JAX references of the fold tests start
+    from here."""
+    pshard, oshard = jax_loop.train_state_shardings(cfg, fm, opt_cfg)
+    return (jax.device_put(jparams, pshard),
+            jax.device_put(jax_adamw.init(jparams, master_weights=opt_cfg.master_weights),
+                           oshard))
+
+
 def _tbatch(b):
     return {k: torch.from_numpy(np.asarray(v)) for k, v in b.items()}
 
@@ -86,7 +98,7 @@ def _jax_trajectory():
     opt_cfg = jax_adamw.AdamWConfig(**OPT)
     step = jax_loop.make_train_step(jcfg, fm, opt_cfg, donate=False, guard=True,
                                     with_loss_scale=True)
-    params, opt = jparams, jax_adamw.init(jparams)
+    params, opt = placed_jax_state(jcfg, fm, opt_cfg, jparams)
     metrics = []
     for b in batches:
         params, opt, m = step(params, opt, {**b, "loss_scale": np.float32(1.0)})
@@ -220,7 +232,7 @@ def test_microbatch_and_remat_match_jax(microbatch, remat):
     params = params_from_jax(_np(jparams), tcfg, device="cpu")
     opt = init_train_state(params, opt_cfg)
     step = make_train_step(tcfg, opt_cfg, remat=remat, microbatch=microbatch)
-    jp, jo = jparams, jax_adamw.init(jparams)
+    jp, jo = placed_jax_state(jcfg, fm, jax_adamw.AdamWConfig(**OPT), jparams)
     for i, b in enumerate(batches[:2]):
         jp, jo, mj = jstep(jp, jo, b)
         params, opt, m = step(params, opt, _tbatch(b))

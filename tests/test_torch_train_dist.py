@@ -1,8 +1,9 @@
 """The port's folded training step against the JAX package's, on the CPU.
 
-One gloo world of 8 CPU processes runs ``make_train_step(..., groups=)``
-on each rank's slices of JAX ``init_lm`` weights (``convert.params_from_jax``
-with ``groups``) and its share of ``SyntheticTokens`` batches
+A gloo world of 8 CPU processes (one a group of cases, ``WORLDS``) runs
+``make_train_step(..., groups=)`` on each rank's slices of JAX ``init_lm``
+weights (``convert.params_from_jax`` with ``groups``) and its share of
+``SyntheticTokens`` batches
 (``data.pipeline.shard_batch``); JAX runs ``make_train_step(cfg, fm)`` on
 the 8 fake CPU devices of the same fold, in its configs' own
 ``permute_mode="scatter"`` (its sort path reaches the Pallas GMM, which has
@@ -77,6 +78,12 @@ RESUMED = "mixtral-zero-master"
 # against the dry run's trace of those ranks (launch/dryrun.py).
 RECORDED, TRACED = "mixtral-ep8-allgather", (0, 5)
 HANDOFF = "qwen2-handoff"
+# Three gloo worlds of 8, so that xdist spreads them: EP8, EP4 x ETP2 with
+# the hand-off, and the ZeRO cases (RESUMED's world waits for JAX's step 1;
+# RECORDED's records a step).
+WORLDS = {"ep8": ["mixtral-ep8-allgather", "mixtral-ep8-ring"],
+          "ep4-etp2-handoff": ["mixtral-folded-micro", "qwen2-folded", "qwen2-handoff"],
+          "zero": ["mixtral-zero-master", "mixtral-zero-nofsdp", "qwen2-zero-master"]}
 STATE = ("mu", "nu", "master")
 
 
@@ -155,7 +162,8 @@ def _train_world(rank, world, cases, resumed):
             res["skip_equal"] = all(np.array_equal(p.detach().numpy(), res["params"][n])
                                     for n, p in params.named_parameters())
         out[case] = res
-    out["recorded"] = _recorded_step(rank, world, *cases[RECORDED])
+    if RECORDED in cases:
+        out["recorded"] = _recorded_step(rank, world, *cases[RECORDED])
     return out
 
 
@@ -206,6 +214,7 @@ def _inputs(case):
 
 
 def _jax_case(case, jparams, batches):
+    from test_torch_train import placed_jax_state
     import jax
     from repro.configs.base import ParallelConfig as JPC, ParallelMappingSpec as JPM
     from repro.core.folding import build_folded_mesh
@@ -220,9 +229,10 @@ def _jax_case(case, jparams, batches):
         (_, _), g = jax.jit(jax.value_and_grad(lambda p: loop.loss_fn(p, batches[0], cfg, fm),
                                                has_aux=True))(jparams)
         out["grads"] = jax.tree.map(np.asarray, g)
-    step = loop.make_train_step(cfg, fm, adamw.AdamWConfig(**OPT, master_weights=master),
-                                donate=False, guard=bool(micro), with_loss_scale=bool(micro))
-    p, o = jparams, adamw.init(jparams, master_weights=master)
+    opt_cfg = adamw.AdamWConfig(**OPT, master_weights=master)
+    step = loop.make_train_step(cfg, fm, opt_cfg, donate=False, guard=bool(micro),
+                                with_loss_scale=bool(micro))
+    p, o = placed_jax_state(cfg, fm, opt_cfg, jparams)
     for b in batches:
         p, o, m = step(p, o, dict(b, loss_scale=np.float32(1.0)) if micro else b)
         out["metrics"].append({k: float(v) for k, v in m.items()})
@@ -268,70 +278,83 @@ def _check_full(case, got_by_rank, want, cfg, skip=()):
             assert err <= REL, (case, what, n, err)
 
 
-def test_folded_train_step_matches_jax(tmp_path):
-    from repro_torch.convert import tensors_from_jax
+@pytest.mark.parametrize("world", list(WORLDS))
+def test_folded_train_step_matches_jax(world, tmp_path):
+    """A group of cases in one gloo world of 8, JAX on the same folds in a
+    thread meanwhile; RESUMED's world takes its step 2 from JAX's state
+    after step 1, so JAX runs that case first."""
     from repro_torch.launch.world import spawn
     from repro_torch.optim.adamw import AdamWState
-    inputs = {case: _inputs(case) for case in CASES}
-    ref = {RESUMED: _jax_case(RESUMED, *inputs[RESUMED])}      # its step 1 seeds the resume
-    p1, o1 = ref[RESUMED]["states"][0]
-    resumed = (p1, AdamWState(o1.step, o1.mu, o1.nu, o1.master))   # no JAX type in the world
+    cases = WORLDS[world]
+    inputs = {case: _inputs(case) for case in cases}
+    ref, resumed = {}, None
+    if RESUMED in cases:
+        ref[RESUMED] = _jax_case(RESUMED, *inputs[RESUMED])   # its step 1 seeds the resume
+        p1, o1 = ref[RESUMED]["states"][0]
+        resumed = (p1, AdamWState(o1.step, o1.mu, o1.nu, o1.master))   # no JAX type in the world
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        world = pool.submit(spawn, _train_world, 8, backend="gloo", device="cpu",
+        ranks = pool.submit(spawn, _train_world, 8, backend="gloo", device="cpu",
                             args=(inputs, resumed), timeout_s=600, init_dir=str(tmp_path))
-        ref.update({case: _jax_case(case, *inputs[case]) for case in CASES if case != RESUMED})
-        per_rank = world.result()
+        ref.update({case: _jax_case(case, *inputs[case]) for case in cases if case not in ref})
+        per_rank = ranks.result()
+    for case in cases:
+        _check_case(case, ref[case], per_rank)
+    if RECORDED in cases:
+        _check_trace(per_rank)
 
-    for case in CASES:
-        j, cfg = ref[case], _port_cfg(case)
-        assert j["metrics"][0]["grad_norm"] > 1.0, case      # the clip is active
-        # The K bias's parameters are not held: its gradient is ~0 (under
-        # RoPE), and Adam lifts that gradient's fp32 noise to a full step.
-        skip = ("attn.bk",) if cfg.qkv_bias else ()
-        _check_full(case, [r[case] for r in per_rank], j, cfg, skip=skip)
-        for rank, res in enumerate(per_rank):
-            got = res[case]
-            fg = folding.folded_layout(_pcfg(case), rank=rank, world=8)
 
-            def slices(tree, kind):
-                return {n: t.numpy() for n, t in
-                        tensors_from_jax(tree, cfg, device="cpu", groups=fg, kind=kind).items()}
-            for i, (mt, mj) in enumerate(zip(got["metrics"], j["metrics"])):
-                for k in METRICS:
-                    assert _rel(mt[k], mj[k]) <= REL, (case, rank, i, k, mt[k], mj[k])
-                if case == HANDOFF:             # the reference's token groups drop alike
-                    assert mt["moe_drop_fraction"] == mj["moe_drop_fraction"], (rank, i)
-            for what in ("grads", "mu") + (("params",) if len(j["metrics"]) > 1 else ()):
-                if what not in j:
+def _check_case(case, j, per_rank):
+    """One case's metrics, gradients, moments and parameters on every rank
+    against JAX's ``j``."""
+    from repro_torch.convert import tensors_from_jax
+    cfg = _port_cfg(case)
+    assert j["metrics"][0]["grad_norm"] > 1.0, case      # the clip is active
+    # The K bias's parameters are not held: its gradient is ~0 (under
+    # RoPE), and Adam lifts that gradient's fp32 noise to a full step.
+    skip = ("attn.bk",) if cfg.qkv_bias else ()
+    _check_full(case, [r[case] for r in per_rank], j, cfg, skip=skip)
+    for rank, res in enumerate(per_rank):
+        got = res[case]
+        fg = folding.folded_layout(_pcfg(case), rank=rank, world=8)
+
+        def slices(tree, kind):
+            return {n: t.numpy() for n, t in
+                    tensors_from_jax(tree, cfg, device="cpu", groups=fg, kind=kind).items()}
+        for i, (mt, mj) in enumerate(zip(got["metrics"], j["metrics"])):
+            for k in METRICS:
+                assert _rel(mt[k], mj[k]) <= REL, (case, rank, i, k, mt[k], mj[k])
+            if case == HANDOFF:             # the reference's token groups drop alike
+                assert mt["moe_drop_fraction"] == mj["moe_drop_fraction"], (rank, i)
+        for what in ("grads", "mu") + (("params",) if len(j["metrics"]) > 1 else ()):
+            if what not in j:
+                continue
+            want = slices(j[what], "store" if what == "params" else "state")
+            assert got[what].keys() == want.keys(), (case, what)
+            for n in want:
+                assert got[what][n].shape == want[n].shape, (case, what, n)
+                if what == "params" and n.endswith(skip):
                     continue
-                want = slices(j[what], "store" if what == "params" else "state")
-                assert got[what].keys() == want.keys(), (case, what)
-                for n in want:
-                    assert got[what][n].shape == want[n].shape, (case, what, n)
-                    if what == "params" and n.endswith(skip):
-                        continue
-                    err = _rel_l2(got[what][n], want[n])
-                    if case == HANDOFF and n.endswith(skip):
-                        # The K bias's gradient is what remains of a sum
-                        # that cancels (softmax gradients over the keys sum
-                        # to 0; RoPE leaves ~2% of the K weight's gradient):
-                        # held on the scale of the K weight's.
-                        k_w = want[n.replace("attn.bk", "attn.wk")]
-                        err *= np.linalg.norm(want[n]) / np.linalg.norm(k_w)
-                    assert err <= REL, (case, rank, what, n, err)
-            if "skip_ok" in got:
-                assert not got["skip_ok"] and got["skip_equal"], (case, rank)
-            if case == RESUMED:                 # step 2 from JAX's step-1 state
-                for k in METRICS:
-                    mt, mj = got["resumed"]["metrics"][0][k], j["metrics"][1][k]
-                    assert _rel(mt, mj) <= REL, (case, "resumed", rank, k, mt, mj)
-    p2, o2 = ref[RESUMED]["states"][1]
-    _check_full(RESUMED, [r[RESUMED]["resumed"] for r in per_rank],
-                {"params": p2, "mu": o2.mu, "nu": o2.nu, "master": o2.master},
-                _port_cfg(RESUMED))
-    assert ref["mixtral-ep8-allgather"]["metrics"][-1]["loss"] < \
-        ref["mixtral-ep8-allgather"]["metrics"][0]["loss"]
-    _check_trace(per_rank)
+                err = _rel_l2(got[what][n], want[n])
+                if case == HANDOFF and n.endswith(skip):
+                    # The K bias's gradient is what remains of a sum
+                    # that cancels (softmax gradients over the keys sum
+                    # to 0; RoPE leaves ~2% of the K weight's gradient):
+                    # held on the scale of the K weight's.
+                    k_w = want[n.replace("attn.bk", "attn.wk")]
+                    err *= np.linalg.norm(want[n]) / np.linalg.norm(k_w)
+                assert err <= REL, (case, rank, what, n, err)
+        if "skip_ok" in got:
+            assert not got["skip_ok"] and got["skip_equal"], (case, rank)
+        if case == RESUMED:                 # step 2 from JAX's step-1 state
+            for k in METRICS:
+                mt, mj = got["resumed"]["metrics"][0][k], j["metrics"][1][k]
+                assert _rel(mt, mj) <= REL, (case, "resumed", rank, k, mt, mj)
+    if case == RESUMED:
+        p2, o2 = j["states"][1]
+        _check_full(RESUMED, [r[RESUMED]["resumed"] for r in per_rank],
+                    {"params": p2, "mu": o2.mu, "nu": o2.nu, "master": o2.master}, cfg)
+    if case == "mixtral-ep8-allgather":
+        assert j["metrics"][-1]["loss"] < j["metrics"][0]["loss"]
 
 
 def _check_trace(per_rank):
